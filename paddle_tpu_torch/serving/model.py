@@ -1,0 +1,200 @@
+"""Decode-model adapter: the GPT core over a paged KV cache
+(counterpart of ``paddle_tpu/serving/model.py``).
+
+  prefill(params, cache, tokens [T], true_len, page_row [M])
+      -> (cache, logits [V])
+    Dense causal forward over one padded prompt bucket; per-layer K/V of
+    every bucket position is written into the request's pages (padding
+    positions land in the pool's trash page) and the logits of the LAST
+    REAL position (true_len - 1) come back.
+
+  prefill_tail(params, cache, tokens [T], start, true_len, page_row)
+      -> (cache, logits [V])
+    Prefill of the unmatched tail of a prompt whose first `start` tokens
+    were found in the prefix cache: each tail position is computed like
+    a decode step, through the paged-attention kernel.
+
+  decode(params, cache, tokens [S], positions [S], tables [S, M])
+      -> (cache, logits [S, V])
+    One token for every slot of the fixed-shape slot batch.
+
+The cache is a dict of two preallocated pools ``[L, num_pages+1, ps, H,
+d]``; the last page is the trash page that absorbs masked writes. Unlike
+the JAX package (``ck.at[...].set`` returns a new array), every cache
+update here is an in-place ``index_put_`` into the pools, and the same
+dict comes back. A step that fails part-way can therefore leave the
+pools half-written; on a card the engine rebuilds them (engine.py
+``_recover_cache``), as it does after a donated-buffer failure on a TPU.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..models.gpt import (GPTConfig, _causal_attention, _ln, decoder_tail,
+                          disable_tf32, init_gpt_params, params_from_jax,
+                          resolve_device)
+from ..ops.paged_attention import (paged_attention_decode,
+                                   paged_attention_reference)
+
+__all__ = ["GPTDecodeModel"]
+
+
+class GPTDecodeModel:
+    """Serving adapter around the GPT core.
+
+    `params`: None (random weights from `seed`, bit-identical to the JAX
+    package's), a JAX-layout pytree (stacked ``blocks``), or the port's
+    own parameter dict (``blocks`` a list), used as it is. `attn_impl`:
+    None runs the paged-attention kernel (its plain version for CPU
+    tensors); "plain" pins the plain version, the counterpart of the
+    JAX package's "xla". `device` defaults to CUDA and raises without a
+    card unless the caller asks for "cpu"."""
+
+    def __init__(self, cfg: GPTConfig, params=None, seed: int = 0,
+                 attn_impl: str | None = None, device=None):
+        if attn_impl not in (None, "plain"):
+            raise ValueError(f"attn_impl must be None or 'plain', got "
+                             f"{attn_impl!r}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        disable_tf32()
+        if params is None:
+            params = init_gpt_params(cfg, seed)
+        if isinstance(params["blocks"], dict):
+            params = params_from_jax(params, self.device)
+        self.params = params
+        self.head_dim = cfg.hidden_size // cfg.num_heads
+        self.attn_impl = attn_impl
+        self._attend = paged_attention_reference if attn_impl == "plain" \
+            else paged_attention_decode
+        # the engine caps admission at this (a position past wpe would
+        # raise on the embedding lookup)
+        self.max_positions = cfg.max_position_embeddings
+
+    # -- cache ---------------------------------------------------------
+    def init_cache(self, num_pages: int, page_size: int):
+        """[L, num_pages+1, ps, H, d] zero pools (last page = trash)."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.amp_dtype) if cfg.amp_dtype \
+            else torch.float32
+        shape = (cfg.num_layers, num_pages + 1, page_size, cfg.num_heads,
+                 self.head_dim)
+        return {"k": torch.zeros(shape, dtype=dt, device=self.device),
+                "v": torch.zeros(shape, dtype=dt, device=self.device)}
+
+    def apply_defrag(self, cache, mapping: dict[int, int]):
+        """Move live pages per defrag_plan's old->new mapping."""
+        if not mapping:
+            return cache
+        P = cache["k"].shape[1]
+        perm = list(range(P))
+        for old, new in mapping.items():
+            perm[new] = old
+        perm = torch.as_tensor(perm, device=self.device)
+        return {"k": cache["k"][:, perm].contiguous(),
+                "v": cache["v"][:, perm].contiguous()}
+
+    def copy_pages(self, cache, src, dst):
+        """Copy page contents src[i] -> dst[i] across every layer pool
+        (the copy-on-write step of a full-prompt bootstrap admission);
+        in place."""
+        src = torch.as_tensor(src, dtype=torch.long, device=self.device)
+        dst = torch.as_tensor(dst, dtype=torch.long, device=self.device)
+        for key in ("k", "v"):
+            cache[key][:, dst] = cache[key][:, src]
+        return cache
+
+    # -- layer math ----------------------------------------------------
+    def _qkv(self, p, h):
+        q = h @ p["wq"] + p["bq"]
+        k = h @ p["wk"] + p["bk"]
+        v = h @ p["wv"] + p["bv"]
+        return q, k, v
+
+    def _logits(self, params, x):
+        x = _ln(x, params["lnf_s"], params["lnf_b"], self.cfg.layer_norm_eps)
+        return x.float() @ params["wte"].float().T
+
+    # -- prefill -------------------------------------------------------
+    def prefill(self, params, cache, tokens, true_len: int, page_row):
+        """tokens [T] int (padded bucket), true_len int, page_row [M]
+        int (fill = trash). Returns (cache, logits [V])."""
+        cfg = self.cfg
+        H, d = cfg.num_heads, self.head_dim
+        T = tokens.shape[0]
+        ps = cache["k"].shape[2]
+        n_pages = T // ps
+        pages = page_row[:n_pages].long()
+        x = params["wte"][tokens.long()] + params["wpe"][:T]      # [T, D]
+        ck, cv = cache["k"], cache["v"]
+        for l, p in enumerate(params["blocks"]):
+            h = _ln(x, p["ln1_s"], p["ln1_b"], cfg.layer_norm_eps)
+            q, k, v = self._qkv(p, h)
+            # in place (index_put_), where the JAX package builds a new
+            # array with .at[l, pages].set
+            ck[l, pages] = k.reshape(n_pages, ps, H, d).to(ck.dtype)
+            cv[l, pages] = v.reshape(n_pages, ps, H, d).to(cv.dtype)
+            a = _causal_attention(q[None], k[None], v[None], H,
+                                  impl="xla")[0]
+            x = decoder_tail(p, a, x, cfg)
+        return cache, self._logits(params, x[int(true_len) - 1])
+
+    # -- tail prefill (shared-prefix admission) ------------------------
+    def prefill_tail(self, params, cache, tokens, start: int,
+                     true_len: int, page_row):
+        """Prefill ONLY the unmatched tail of a prompt whose first
+        `start` tokens (page-aligned) are cached: tokens [T] (padded
+        tail bucket), page_row [M] (matched + owned pages, fill =
+        trash). Each tail position attends over the request's own
+        history with ctx = position + 1, exactly like a decode step."""
+        cfg = self.cfg
+        H, d = cfg.num_heads, self.head_dim
+        T = tokens.shape[0]
+        ps = cache["k"].shape[2]
+        n_pages = T // ps
+        start = int(start)
+        positions = start + torch.arange(T, dtype=torch.int32,
+                                         device=self.device)
+        x = params["wte"][tokens.long()] + params["wpe"][positions.long()]
+        row = page_row.to(torch.int32)
+        tables = row[None, :].expand(T, row.shape[0]).contiguous()
+        ctx = (positions + 1).to(torch.int32)
+        tail_pages = row[start // ps:start // ps + n_pages].long()
+        ck, cv = cache["k"], cache["v"]
+        for l, p in enumerate(params["blocks"]):
+            h = _ln(x, p["ln1_s"], p["ln1_b"], cfg.layer_norm_eps)
+            q, k, v = self._qkv(p, h)
+            ck[l, tail_pages] = k.reshape(n_pages, ps, H, d).to(ck.dtype)
+            cv[l, tail_pages] = v.reshape(n_pages, ps, H, d).to(cv.dtype)
+            a = self._attend(q.reshape(T, H, d), ck[l], cv[l], tables, ctx,
+                             1.0 / math.sqrt(d))
+            x = decoder_tail(p, a.reshape(T, -1), x, cfg)
+        return cache, self._logits(params, x[int(true_len) - 1])
+
+    # -- decode --------------------------------------------------------
+    def decode(self, params, cache, tokens, positions, tables):
+        """tokens/positions [S] int, tables [S, M] int32 (fill = trash;
+        inactive slots = all-trash rows with position 0). Returns
+        (cache, logits [S, V])."""
+        cfg = self.cfg
+        H, d = cfg.num_heads, self.head_dim
+        S = tokens.shape[0]
+        ps = cache["k"].shape[2]
+        pos = positions.long()
+        x = params["wte"][tokens.long()] + params["wpe"][pos]       # [S, D]
+        tables = tables.to(torch.int32).contiguous()
+        page_of = torch.gather(tables.long(), 1, (pos // ps)[:, None])[:, 0]
+        off = pos % ps
+        ctx = (pos + 1).to(torch.int32)
+        ck, cv = cache["k"], cache["v"]
+        for l, p in enumerate(params["blocks"]):
+            h = _ln(x, p["ln1_s"], p["ln1_b"], cfg.layer_norm_eps)
+            q, k, v = self._qkv(p, h)
+            ck[l, page_of, off] = k.reshape(S, H, d).to(ck.dtype)
+            cv[l, page_of, off] = v.reshape(S, H, d).to(cv.dtype)
+            a = self._attend(q.reshape(S, H, d), ck[l], cv[l], tables, ctx,
+                             1.0 / math.sqrt(d))
+            x = decoder_tail(p, a.reshape(S, -1), x, cfg)
+        return cache, self._logits(params, x)

@@ -1,0 +1,70 @@
+"""The PyTorch port stands alone: no file of paddle_tpu_torch/, and not
+chip_smoke.py, imports jax or paddle_tpu, and the package imports on a
+host with neither nvcc nor triton (kernels build at first use)."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "paddle_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    mods = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.append(node.module or "")
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) \
+                in ("import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            mods.append(str(node.args[0].value))
+    return mods
+
+
+def test_port_file_list_is_not_empty():
+    names = {p.name for p in PORT_FILES}
+    assert {"engine.py", "model.py", "gpt.py", "paged_attention.py",
+            "fused_block.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_import_needs_no_nvcc_triton_or_jax():
+    """A fresh interpreter whose PATH has no nvcc, with triton and jax
+    made unimportable, imports the whole package."""
+    code = (
+        "import sys\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('triton', 'jax', 'jaxlib',"
+        " 'paddle_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        "import paddle_tpu_torch, paddle_tpu_torch.serving,"
+        " paddle_tpu_torch.observability\n"
+        "import paddle_tpu_torch.ops.paged_attention,"
+        " paddle_tpu_torch.ops.fused_block\n"
+        "from paddle_tpu_torch.ops import launch_counts\n"
+        "assert launch_counts() == {}\n"
+        "print('ok')\n")
+    env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
