@@ -3,14 +3,18 @@
 
 Parameters are a plain dictionary of tensors in the JAX package's
 layout — a linear weight ``w`` stays ``(Din, Dout)`` — so both packages
-compute the same function from the same numbers. The stacked ``[L, ...]``
-block leaves of the JAX pytree become a list of per-layer dictionaries
-(each tensor a contiguous view of one stacked tensor) and the
-``lax.scan`` over layers becomes a Python loop.
+compute the same function from the same numbers. ``params["blocks"]`` is
+either a list of per-layer dictionaries (the serving model's form) or
+the JAX pytree's dictionary of stacked ``[L, ...]`` leaves (the train
+step's form, unbound per call with ``torch.unbind``, whose backward is
+one ``stack``); the ``lax.scan`` over layers becomes a Python loop, and
+``cfg.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
 
 The dense pre-LN decoder tail (``decoder_tail``) runs the two fused
-sub-block kernels of ``ops/fused_block.py``; causal prefill attention
-stays plain PyTorch, as the JAX package left it to XLA (impl "xla").
+sub-block kernels of ``ops/fused_block.py``; causal attention is plain
+PyTorch with impl "xla" (the JAX package left it to XLA) and the flash
+kernels of ``ops/flash_attention.py`` with impl "flash".
 """
 from __future__ import annotations
 
@@ -19,12 +23,14 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_ffn_ln, fused_out_ln, gelu_tanh
 
 __all__ = ["GPTConfig", "init_gpt_params", "params_from_jax",
-           "gpt_forward", "gpt_block_fn", "decoder_tail", "resolve_device",
-           "disable_tf32"]
+           "gpt_forward", "gpt_forward_aux", "gpt_loss", "gpt_block_fn",
+           "block_body", "decoder_tail", "resolve_device", "disable_tf32"]
 
 
 @dataclasses.dataclass
@@ -37,8 +43,17 @@ class GPTConfig:
     intermediate_size: int | None = None  # default 4*hidden
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
-    amp_dtype: str | None = None  # "bfloat16": the serving KV cache dtype
-    attn_impl: str = "xla"  # "xla" here; "flash"/"ring" come with training
+    # residual dropout of the train step; the reference draws it from
+    # jax.random, which torch cannot replay, so only 0.0 is ported
+    dropout: float = 0.0
+    # "bfloat16" casts block compute (training) and sets the serving KV
+    # cache dtype
+    amp_dtype: str | None = None
+    attn_impl: str = "xla"  # "xla" | "flash"; "ring" comes with slice 5
+    # Mixture-of-Experts blocks come with the multi-device slice
+    num_experts: int = 0
+    # recompute each block in the backward (torch.utils.checkpoint)
+    remat: bool = True
     # True runs the decoder tail through the fused sub-block kernels
     # (plain versions on CPU); False pins the composed chain, as in the
     # JAX package
@@ -49,6 +64,10 @@ class GPTConfig:
             self.intermediate_size = 4 * self.hidden_size
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must be a multiple of num_heads")
+        if self.num_experts > 0:
+            raise NotImplementedError(
+                "num_experts > 0 (MoE blocks, the ep mesh axis) comes with "
+                "slice 5 of the port (multi-device)")
 
     @classmethod
     def tiny(cls, **kw):
@@ -164,16 +183,21 @@ def _ln(x, scale, bias, eps):
 
 
 def _causal_attention(q, k, v, n_heads, impl="xla"):
-    """q,k,v: [B, T, D] -> [B, T, D] (contiguous); softmax in fp32."""
-    if impl != "xla":
+    """q,k,v: [B, T, D] -> [B, T, D] (contiguous); softmax in fp32.
+    impl "flash" runs the flash kernels (T a multiple of 64)."""
+    if impl not in ("xla", "flash"):
         raise NotImplementedError(
-            f"attn_impl={impl!r}: flash and ring attention come with the "
-            f"training slice of the port")
+            f"attn_impl={impl!r}: ring attention comes with slice 5 of the "
+            f"port (multi-device)")
     B, T, D = q.shape
     hd = D // n_heads
     q = q.reshape(B, T, n_heads, hd)
     k = k.reshape(B, T, n_heads, hd)
     v = v.reshape(B, T, n_heads, hd)
+    if impl == "flash":
+        qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
+        o = flash_attention(qh, kh, vh, causal=True)
+        return o.transpose(1, 2).reshape(B, T, D)
     scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
                                  device=q.device))
@@ -228,17 +252,73 @@ def gpt_block_fn(p: dict, x, cfg: GPTConfig):
                         x.reshape(B * T, D), cfg).reshape(B, T, D)
 
 
-def gpt_forward(params: dict, ids, cfg: GPTConfig):
-    """ids [B, T] int -> logits [B, T, V] (float32)."""
+def _embed(params, ids, cfg: GPTConfig):
     T = ids.shape[-1]
     if T > params["wpe"].shape[0]:
         raise ValueError(
             f"sequence length {T} exceeds max_position_embeddings="
             f"{params['wpe'].shape[0]}")
-    x = params["wte"][ids.long()] + params["wpe"][:T]
+    ids = torch.as_tensor(ids, device=params["wte"].device).long()
+    x = params["wte"][ids] + params["wpe"][:T]
     if cfg.amp_dtype:
         x = x.to(getattr(torch, cfg.amp_dtype))
-    for blk in params["blocks"]:
-        x = gpt_block_fn(blk, x, cfg)
+    return x
+
+
+def _head(params, x, cfg: GPTConfig):
     x = _ln(x, params["lnf_s"], params["lnf_b"], cfg.layer_norm_eps)
+    # logits in fp32 for a stable softmax-xent
     return x.float() @ params["wte"].float().T
+
+
+def _layers(blocks) -> list[dict]:
+    """Per-layer parameter dictionaries from a list of them or from a
+    dictionary of stacked [L, ...] leaves (one unbind per leaf: its
+    backward is a single stack, where indexing layer by layer would
+    build a full [L, ...] zero gradient per layer)."""
+    if not isinstance(blocks, dict):
+        return blocks
+    per = {k: torch.unbind(v) for k, v in blocks.items()}
+    n = len(next(iter(per.values())))
+    return [{k: v[l] for k, v in per.items()} for l in range(n)]
+
+
+def block_body(cfg: GPTConfig):
+    """(h, blk) -> h for one layer, recomputed in the backward when
+    cfg.remat and autograd is recording (the reference's jax.checkpoint
+    per layer)."""
+    def body(h, blk):
+        if cfg.remat and torch.is_grad_enabled():
+            return checkpoint(gpt_block_fn, blk, h, cfg, use_reentrant=False)
+        return gpt_block_fn(blk, h, cfg)
+    return body
+
+
+def gpt_forward_aux(params: dict, ids, cfg: GPTConfig):
+    """(logits [B, T, V] float32, aux): aux is the MoE load-balance loss
+    of the reference, 0.0 for the dense blocks the port has."""
+    x = _embed(params, ids, cfg)
+    body = block_body(cfg)
+    for blk in _layers(params["blocks"]):
+        x = body(x, blk)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), aux
+
+
+def gpt_forward(params: dict, ids, cfg: GPTConfig):
+    """ids [B, T] int -> logits [B, T, V] (float32)."""
+    return gpt_forward_aux(params, ids, cfg)[0]
+
+
+def gpt_loss(params: dict, ids, cfg: GPTConfig, logits=None):
+    """Mean next-token cross entropy, as the reference computes it:
+    logsumexp(logits) - gold logit, predicting ids[:, 1:] from
+    ids[:, :-1]."""
+    if logits is None:
+        logits = gpt_forward_aux(params, ids, cfg)[0]
+    ids = torch.as_tensor(ids, device=logits.device).long()
+    logits = logits[:, :-1]
+    labels = ids[:, 1:]
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.mean(logz - gold)

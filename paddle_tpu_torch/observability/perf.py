@@ -30,7 +30,8 @@ from . import registry as _obs
 __all__ = [
     "SNAPSHOT_SCHEMA", "StepSampler", "analytic_gpt_flops",
     "breakdowns", "chip_peak_bytes_per_s", "chip_peak_flops", "costs",
-    "device_kind", "drop_instance", "kv_cache_gauge", "mfu", "mfu_gauge",
+    "device_kind", "drop_instance", "gpt_train_flops_per_step",
+    "kv_cache_gauge", "mfu", "mfu_gauge",
     "note_compile_seconds", "record_breakdown", "register_cost",
     "register_provider", "sampling_every", "set_every", "snapshot",
     "weak_provider",
@@ -106,6 +107,13 @@ def analytic_gpt_flops(cfg, tokens: int, ctx: int) -> float:
         + 2 * H * F + 2 * F * H  # mlp
     )
     return float(tokens) * (L * per_layer + 2 * H * V)
+
+
+def gpt_train_flops_per_step(cfg, batch: int, seq: int) -> float:
+    """Matmul-only analytic FLOPs of one train step, forward + 2x
+    backward (bench.py's gpt_train_flops_per_step, the MFU convention):
+    every token attends over the full sequence length."""
+    return 3 * analytic_gpt_flops(cfg, batch * seq, seq)
 
 
 # ---------------------------------------------------------------------------

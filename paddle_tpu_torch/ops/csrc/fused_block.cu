@@ -1,4 +1,5 @@
-// Epilogue-fused decoder sub-blocks for Hopper (sm_90a), f32.
+// Epilogue-fused decoder sub-blocks for Hopper (sm_90a), f32 or bf16
+// inputs with f32 accumulation.
 //
 // fused_out_ln replaces paddle_tpu/ops/pallas_block.py:_out_ln_kernel
 // (launched by _out_ln_pallas):
@@ -30,17 +31,44 @@
 // Every sum runs in a fixed order (no float atomics), so results are the
 // same from run to run.
 //
+// Types: a/W/b/res (and x/W1/b1/W2/b2/res) share one input type T, float
+// or bfloat16 (the training path's bf16 amp_dtype); ln_s/ln_b are f32.
+// Values are widened to f32 on load, shared tiles, partial sums and LN
+// statistics stay f32, and the outputs are rounded once at the store: z
+// and out in T, h in T. With bf16, z is also kept in an f32 scratch
+// (zf) so that the LN runs on the unrounded z, as the reference does;
+// with f32 the caller passes z itself as zf.
+//
 // Bound on this card (f32, CUDA cores, 67 TFLOP/s; HBM 3.35 TB/s):
 //   fused_out_ln  M=8,   D=2048: bytes, the 16.8 MB of W: ~5 us.
 //                 M=256, D=2048: flops, 2.1 GFLOP: ~32 us.
 //   fused_ffn_ln  M=8,   H=2048, I=8192: bytes, 134 MB of W1+W2: ~40 us.
 //                 M=256: flops, 17.2 GFLOP: ~257 us.
+// At the training shape (bf16, M = 1024 tokens, tensor-core rate 989
+// TFLOP/s): fused_out_ln 8.6 GFLOP, ~8.7 us; fused_ffn_ln 68.7 GFLOP,
+// ~69 us, and its f32 partials (I/128, M, H) are 537 MB a call.
 // This first version is a register-tiled SIMT GEMM (no tensor cores, no
 // TMA); at decode it is latency bound per block, so its time sits above
 // the bound by the factor recorded in PERF.md.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace {
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
 constexpr int kThreads = 256;
 constexpr int BM = 32;  // rows per tile
@@ -49,10 +77,10 @@ constexpr int BK = 32;  // k depth per shared-memory stage
 // acc[TM][TN] += A[row0:row0+BM, k0:k1] @ B[k0:k1, col0:col0+BN], both
 // row-major in global memory, out-of-range entries read as 0. The next
 // k stage is prefetched into registers while the current one computes.
-template <int BN, int TM, int TN>
+template <int BN, int TM, int TN, typename TA, typename TB>
 __device__ __forceinline__ void gemm_tile(
-    const float* __restrict__ A, int lda, int M, int row0,
-    const float* __restrict__ B, int ldb, int N, int col0, int k0, int k1,
+    const TA* __restrict__ A, int lda, int M, int row0,
+    const TB* __restrict__ B, int ldb, int N, int col0, int k0, int k1,
     float (&acc)[TM][TN], float (*As)[BM], float (*Bs)[BN]) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "thread layout");
   constexpr int A_PER = BM * BK / kThreads;
@@ -67,14 +95,14 @@ __device__ __forceinline__ void gemm_tile(
       const int e = tid + i * kThreads;
       const int r = e / BK, kk = e % BK;
       const int row = row0 + r, k = kb + kk;
-      ar[i] = (row < M && k < k1) ? A[(size_t)row * lda + k] : 0.f;
+      ar[i] = (row < M && k < k1) ? to_f(A[(size_t)row * lda + k]) : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
       const int e = tid + i * kThreads;
       const int kk = e / BN, c = e % BN;
       const int k = kb + kk, col = col0 + c;
-      br[i] = (k < k1 && col < N) ? B[(size_t)k * ldb + col] : 0.f;
+      br[i] = (k < k1 && col < N) ? to_f(B[(size_t)k * ldb + col]) : 0.f;
     }
   };
 
@@ -140,11 +168,12 @@ __device__ __forceinline__ float gelu_tanh(float f) {
 // ---------------------------------------------------------------------------
 constexpr int OL_BN = 64, OL_TM = 2, OL_TN = 4;
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    out_ln_kernel(const float* __restrict__ a, const float* __restrict__ w,
-                  const float* __restrict__ b, const float* __restrict__ res,
+    out_ln_kernel(const T* __restrict__ a, const T* __restrict__ w,
+                  const T* __restrict__ b, const T* __restrict__ res,
                   const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, float* z, float* h,
+                  const float* __restrict__ ln_b, T* z, float* zf, T* h,
                   float* part, int* tickets, int M, int K, int N, int kc,
                   float eps) {
   __shared__ float As[BK][BM];
@@ -194,9 +223,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < OL_TN; ++j) {
       const int col = col0 + tx * OL_TN + j;
-      if (col < N)
-        z[(size_t)row * N + col] =
-            (acc[i][j] + b[col]) + res[(size_t)row * N + col];
+      if (col < N) {
+        const size_t e = (size_t)row * N + col;
+        const float zv = (acc[i][j] + to_f(b[col])) + to_f(res[e]);
+        zf[e] = zv;
+        if constexpr (!std::is_same<T, float>::value) z[e] = from_f<T>(zv);
+      }
     }
   }
 
@@ -206,7 +238,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int r = warp; r < BM; r += kThreads / 32) {
     const int row = row0 + r;
     if (row >= M) break;
-    const float* zr = z + (size_t)row * N;
+    const float* zr = zf + (size_t)row * N;
     float s = 0.f;
     for (int c = lane; c < N; c += 32) s += __ldcg(zr + c);
     const float mean = warp_sum(s) / N;
@@ -217,8 +249,8 @@ __global__ void __launch_bounds__(kThreads)
     }
     const float rstd = 1.0f / sqrtf(warp_sum(sq) / N + eps);
     for (int c = lane; c < N; c += 32)
-      h[(size_t)row * N + c] = (__ldcg(zr + c) - mean) * rstd * ln_s[c]
-                               + ln_b[c];
+      h[(size_t)row * N + c] =
+          from_f<T>((__ldcg(zr + c) - mean) * rstd * ln_s[c] + ln_b[c]);
   }
 }
 
@@ -228,12 +260,12 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int FF_BN = 128;  // output columns per chunk of the 2nd GEMM
 constexpr int FF_TM = 4, FF_TN = 4;
 
-template <int BI>
+template <typename T, int BI>
 __global__ void __launch_bounds__(kThreads)
-    ffn_kernel(const float* __restrict__ x, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, const float* __restrict__ res,
-               float* out, float* part, int* tickets, int M, int H, int I) {
+    ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+               const T* __restrict__ b1, const T* __restrict__ w2,
+               const T* __restrict__ b2, const T* __restrict__ res,
+               T* out, float* part, int* tickets, int M, int H, int I) {
   constexpr int TM1 = BI == 64 ? 2 : 4, TN1 = 4;
   constexpr int WCOLS = BI > FF_BN ? BI : FF_BN;
   __shared__ float As[BK][BM];
@@ -257,7 +289,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < TN1; ++j) {
         const int c = tx * TN1 + j;
         hid[ty * TM1 + i][c] =
-            i0 + c < I ? gelu_tanh(acc[i][j] + b1[i0 + c]) : 0.f;
+            i0 + c < I ? gelu_tanh(acc[i][j] + to_f(b1[i0 + c])) : 0.f;
       }
   }
 
@@ -274,7 +306,7 @@ __global__ void __launch_bounds__(kThreads)
         const int kk = e / FF_BN, c = e % FF_BN;
         const int k = kb + kk, col = col0 + c;
         Bs[kk][c] = (k < k1 && col < H)
-                        ? w2[(size_t)(i0 + k) * H + col] : 0.f;
+                        ? to_f(w2[(size_t)(i0 + k) * H + col]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -312,45 +344,79 @@ __global__ void __launch_bounds__(kThreads)
         float s = 0.f;
         for (int q = 0; q < nI; ++q)
           s += __ldcg(&part[((size_t)q * M + row) * H + col]);
-        out[(size_t)row * H + col] =
-            (s + b2[col]) + res[(size_t)row * H + col];
+        out[(size_t)row * H + col] = from_f<T>(
+            (s + to_f(b2[col])) + to_f(res[(size_t)row * H + col]));
       }
     }
   }
 }
 
-}  // namespace
-
-extern "C" int fused_out_ln_launch(const float* a, const float* w,
-                                   const float* b, const float* res,
-                                   const float* ln_s, const float* ln_b,
-                                   float* z, float* h, float* part,
-                                   int* tickets, int M, int K, int N, int kc,
-                                   float eps, void* stream) {
-  if (kc <= 0) return (int)cudaErrorInvalidValue;
+template <typename T>
+int out_ln_run(const void* a, const void* w, const void* b, const void* res,
+               const float* ln_s, const float* ln_b, void* z, float* zf,
+               void* h, float* part, int* tickets, int M, int K, int N,
+               int kc, float eps, cudaStream_t st) {
   const dim3 grid((N + OL_BN - 1) / OL_BN, (M + BM - 1) / BM,
                   (K + kc - 1) / kc);
-  out_ln_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, w, b, res, ln_s, ln_b, z, h, part, tickets, M, K, N, kc, eps);
+  out_ln_kernel<T><<<grid, kThreads, 0, st>>>(
+      (const T*)a, (const T*)w, (const T*)b, (const T*)res, ln_s, ln_b,
+      (T*)z, zf, (T*)h, part, tickets, M, K, N, kc, eps);
   return (int)cudaGetLastError();
 }
 
-extern "C" int fused_ffn_ln_launch(const float* x, const float* w1,
-                                   const float* b1, const float* w2,
-                                   const float* b2, const float* res,
-                                   float* out, float* part, int* tickets,
-                                   int M, int H, int I, int bi,
-                                   void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+int ffn_run(const void* x, const void* w1, const void* b1, const void* w2,
+            const void* b2, const void* res, void* out, float* part,
+            int* tickets, int M, int H, int I, int bi, cudaStream_t st) {
   const dim3 grid((I + bi - 1) / bi, (M + BM - 1) / BM);
   if (bi == 64) {
-    ffn_kernel<64><<<grid, kThreads, 0, st>>>(x, w1, b1, w2, b2, res, out,
-                                              part, tickets, M, H, I);
+    ffn_kernel<T, 64><<<grid, kThreads, 0, st>>>(
+        (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+        (const T*)res, (T*)out, part, tickets, M, H, I);
   } else if (bi == 128) {
-    ffn_kernel<128><<<grid, kThreads, 0, st>>>(x, w1, b1, w2, b2, res, out,
-                                               part, tickets, M, H, I);
+    ffn_kernel<T, 128><<<grid, kThreads, 0, st>>>(
+        (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+        (const T*)res, (T*)out, part, tickets, M, H, I);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 bfloat16 (a/w/b/res/z/h); ln_s, ln_b, zf, part f32.
+// With float32, zf is z.
+extern "C" int fused_out_ln_launch(const void* a, const void* w,
+                                   const void* b, const void* res,
+                                   const float* ln_s, const float* ln_b,
+                                   void* z, float* zf, void* h, float* part,
+                                   int* tickets, int M, int K, int N, int kc,
+                                   int dtype, float eps, void* stream) {
+  if (kc <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return out_ln_run<float>(a, w, b, res, ln_s, ln_b, z, zf, h, part,
+                             tickets, M, K, N, kc, eps, st);
+  if (dtype == 1)
+    return out_ln_run<__nv_bfloat16>(a, w, b, res, ln_s, ln_b, z, zf, h,
+                                     part, tickets, M, K, N, kc, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dtype: 0 float32, 1 bfloat16 (every tensor but the f32 part buffer).
+extern "C" int fused_ffn_ln_launch(const void* x, const void* w1,
+                                   const void* b1, const void* w2,
+                                   const void* b2, const void* res,
+                                   void* out, float* part, int* tickets,
+                                   int M, int H, int I, int bi, int dtype,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ffn_run<float>(x, w1, b1, w2, b2, res, out, part, tickets, M, H,
+                          I, bi, st);
+  if (dtype == 1)
+    return ffn_run<__nv_bfloat16>(x, w1, b1, w2, b2, res, out, part,
+                                  tickets, M, H, I, bi, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,10 +13,19 @@
 Each has a plain PyTorch version beside it (``out_ln_reference``,
 ``ffn_ln_reference``: ports of the JAX package's composed references),
 which CPU tensors take. CUDA tensors go to the kernels in
-``csrc/fused_block.cu`` or the call raises. The serving path needs
-p == 0, act "gelu_tanh" and norm "none"; dropout, the other activations
-and the pre/post norms come with the BERT slice and raise
-NotImplementedError until then. Rows are ragged: any M >= 1.
+``csrc/fused_block.cu`` or the call raises. The kernels take float32 or
+bfloat16 for the activations, weights and biases (one type per call)
+with float32 ln_s/ln_b, and accumulate in f32; z and the FFN output come
+out in res2's type, h in a2's. The serving path needs p == 0, act
+"gelu_tanh" and norm "none"; dropout, the other activations and the
+pre/post norms come with the BERT slice and raise NotImplementedError
+until then. Rows are ragged: any M >= 1.
+
+Both are differentiable (``torch.autograd.Function``): the forward is
+the kernel (the plain version on the CPU), and the backward is the
+reference's own, a composed f32 recompute of the chain under autograd
+(``pallas_block.py:_out_ln_bwd`` / ``_ffn_ln_bwd``) with each gradient
+cast to its input's type.
 """
 from __future__ import annotations
 
@@ -107,15 +116,25 @@ def ffn_block_i(m: int) -> int:
     return 64 if m <= 2 * _ROW_TILE else 128
 
 
-def _check_f32(name_tensors, dev):
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(name_tensors, dev, dtype):
     for name, t in name_tensors:
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 for the kernel, got "
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} for the kernel, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _dtype_code(t, what):
+    if t.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what} takes float32 or bfloat16 inputs, got "
+                        f"{t.dtype}")
+    return _KERNEL_DTYPES[t.dtype]
 
 
 def _raise_if(err, what):
@@ -126,8 +145,10 @@ def _raise_if(err, what):
 def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps):
     m, k = a2.shape
     n = w.shape[1]
-    _check_f32([("a2", a2), ("w", w), ("b", b), ("res2", res2),
-                ("ln_s", ln_s), ("ln_b", ln_b)], a2.device)
+    code = _dtype_code(a2, "fused_out_ln")
+    _check([("a2", a2), ("w", w), ("b", b), ("res2", res2)], a2.device,
+           a2.dtype)
+    _check([("ln_s", ln_s), ("ln_b", ln_b)], a2.device, torch.float32)
     if w.shape[0] != k or tuple(res2.shape) != (m, n) \
             or b.shape != (n,) or ln_s.shape != (n,) or ln_b.shape != (n,):
         raise ValueError(f"fused_out_ln shapes: a {tuple(a2.shape)}, w "
@@ -139,18 +160,21 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps):
     col_tiles = math.ceil(n / _OUT_COL_TILE)
     z = torch.empty_like(res2)
     h = torch.empty_like(res2)
+    # the LN reads z back in f32: z itself, or an f32 copy beside a bf16 z
+    zf = z if code == 0 else torch.empty(
+        (m, n), dtype=torch.float32, device=a2.device)
     part = torch.empty((splits, m, n) if splits > 1 else (1,),
                        dtype=torch.float32, device=a2.device)
     tickets = torch.zeros(row_tiles * col_tiles + row_tiles,
                           dtype=torch.int32, device=a2.device)
-    fn = _build.function("fused_block", "fused_out_ln_launch", 10, 4,
+    fn = _build.function("fused_block", "fused_out_ln_launch", 11, 5,
                          (ctypes.c_float, ctypes.c_void_p))
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     with torch.cuda.device(a2.device):
         err = fn(a2.data_ptr(), w.data_ptr(), b.data_ptr(), res2.data_ptr(),
                  ln_s.data_ptr(), ln_b.data_ptr(), z.data_ptr(),
-                 h.data_ptr(), part.data_ptr(), tickets.data_ptr(),
-                 m, k, n, kc, float(eps), stream)
+                 zf.data_ptr(), h.data_ptr(), part.data_ptr(),
+                 tickets.data_ptr(), m, k, n, kc, code, float(eps), stream)
     _raise_if(err, "fused_out_ln")
     _build.note_launch("fused_out_ln")
     return z, h
@@ -159,8 +183,9 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps):
 def _ffn_kernel(x2, w1, b1, w2, b2, res2):
     m, hd = x2.shape
     i = w1.shape[1]
-    _check_f32([("x2", x2), ("w1", w1), ("b1", b1), ("w2", w2),
-                ("b2", b2), ("res2", res2)], x2.device)
+    code = _dtype_code(x2, "fused_ffn_ln")
+    _check([("x2", x2), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2),
+            ("res2", res2)], x2.device, x2.dtype)
     if w1.shape[0] != hd or tuple(w2.shape) != (i, hd) \
             or b1.shape != (i,) or b2.shape != (hd,) \
             or tuple(res2.shape) != (m, hd):
@@ -175,13 +200,14 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2):
     part = torch.empty((n_i, m, hd), dtype=torch.float32, device=x2.device)
     tickets = torch.zeros(row_tiles * chunks, dtype=torch.int32,
                           device=x2.device)
-    fn = _build.function("fused_block", "fused_ffn_ln_launch", 9, 4,
+    fn = _build.function("fused_block", "fused_ffn_ln_launch", 9, 5,
                          (ctypes.c_void_p,))
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
                  b2.data_ptr(), res2.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), tickets.data_ptr(), m, hd, i, bi, stream)
+                 part.data_ptr(), tickets.data_ptr(), m, hd, i, bi, code,
+                 stream)
     _raise_if(err, "fused_ffn_ln")
     _build.note_launch("fused_ffn_ln")
     return out
@@ -195,23 +221,63 @@ def _route(t, what):
     return True
 
 
+def _grads_of(chain, saved, cots):
+    """The reference's composed backward: recompute `chain` in f32 under
+    autograd from the saved inputs and return each input's gradient in
+    that input's dtype."""
+    with torch.enable_grad():
+        ins = [t.detach().float().requires_grad_() for t in saved]
+        outs = chain(*ins)
+        grads = torch.autograd.grad(outs, ins, [c.float() for c in cots])
+    return [g.to(t.dtype) for g, t in zip(grads, saved)]
+
+
+class _OutLn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a2, w, b, res2, ln_s, ln_b, eps):
+        ctx.save_for_backward(a2, w, b, res2, ln_s, ln_b)
+        ctx.eps = eps
+        if _route(a2, "fused_out_ln"):
+            return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps)
+        return out_ln_reference(a2, w, b, res2, ln_s, ln_b, 0.0, eps)
+
+    @staticmethod
+    def backward(ctx, dz, dh):
+        eps = ctx.eps
+        grads = _grads_of(
+            lambda *t: out_ln_reference(*t, 0.0, eps), ctx.saved_tensors,
+            (dz, dh))
+        return (*grads, None)
+
+
+class _FfnLn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, res2):
+        ctx.save_for_backward(x2, w1, b1, w2, b2, res2)
+        if _route(x2, "fused_ffn_ln"):
+            return _ffn_kernel(x2, w1, b1, w2, b2, res2)
+        return ffn_ln_reference(x2, w1, b1, w2, b2, res2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return tuple(_grads_of(ffn_ln_reference, ctx.saved_tensors, (dy,)))
+
+
 def fused_out_ln(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5):
     """a2 (M, Din) @ w (Din, Dout) + b + res2, then layernorm.
 
     Returns (z, h): z (M, Dout) is the new residual stream, h is
-    LN(z) * ln_s + ln_b. CPU tensors take out_ln_reference."""
+    LN(z) * ln_s + ln_b. CPU tensors take out_ln_reference. Differentiable
+    in every tensor input (composed f32 backward)."""
     _unsupported(p)
-    if not _route(a2, "fused_out_ln"):
-        return out_ln_reference(a2, w, b, res2, ln_s, ln_b, p, eps)
-    return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps)
+    return _OutLn.apply(a2, w, b, res2, ln_s, ln_b, eps)
 
 
 def fused_ffn_ln(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
                  act="gelu_tanh", norm="none", p=0.0, eps=1e-5):
     """The FFN sub-block in one launch: res2 + act(x2 @ w1 + b1) @ w2 +
-    b2. CPU tensors take ffn_ln_reference."""
+    b2. CPU tensors take ffn_ln_reference. Differentiable in x2, w1, b1,
+    w2, b2 and res2 (composed f32 backward); ln_s/ln_b are unused with
+    norm "none"."""
     _unsupported(p, act, norm)
-    if not _route(x2, "fused_ffn_ln"):
-        return ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act,
-                                norm, p, eps)
-    return _ffn_kernel(x2, w1, b1, w2, b2, res2)
+    return _FfnLn.apply(x2, w1, b1, w2, b2, res2)

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from paddle_tpu.ops import pallas_block as pb
@@ -145,3 +146,95 @@ def test_out_ln_split_k_covers_k(m, k, n):
 def test_ffn_block_i_by_rows():
     assert port.ffn_block_i(8) == 64 and port.ffn_block_i(64) == 64
     assert port.ffn_block_i(65) == 128 and port.ffn_block_i(256) == 128
+
+
+# -- gradients: the port's autograd Functions against jax.vjp of the JAX
+# custom-VJP functions (interpret mode). Both backward passes are the
+# same composed f32 recompute, so f32 agrees to summation order; in
+# bf16 the inputs and cotangents are the same bf16 numbers and each
+# gradient is rounded once to bf16, so they agree to a bf16 step or two
+# (2**-8 relative) where the f32 sums differ in their last bits.
+GRAD_TOL = {torch.float32: dict(atol=1e-5, rtol=1e-5),
+            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _grad_case(arrs, n_ln, dtype):
+    """Torch leaves (the first len(arrs) - n_ln in `dtype`, the LN
+    vectors f32) and the same values as jax arrays."""
+    n = len(arrs) - n_ln
+    ts = [torch.from_numpy(a).to(dtype if i < n else torch.float32)
+          .requires_grad_() for i, a in enumerate(arrs)]
+    js = [jnp.asarray(t.detach().float().numpy(), _JDT[dtype] if i < n
+                      else jnp.float32) for i, t in enumerate(ts)]
+    return ts, js
+
+
+def _assert_grads(got, want, dtype):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == dtype or g.dtype == torch.float32
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   err_msg=f"input {i}", **GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 20])
+def test_fused_out_ln_grads_match_jax_vjp(m, dtype, interpret):
+    arrs = _out_ln_inputs(m, seed=5)
+    rng = np.random.RandomState(6)
+    dz, dh = (rng.randn(m, D).astype(np.float32) for _ in range(2))
+    ts, js = _grad_case(arrs, 2, dtype)
+    z, h = port.fused_out_ln(*ts)
+    assert z.dtype == dtype and h.dtype == dtype
+    cz, ch = (torch.from_numpy(c).to(dtype) for c in (dz, dh))
+    got = torch.autograd.grad((z, h), ts, (cz, ch))
+    (zj, hj), vjp = jax.vjp(
+        lambda *a: pb.fused_out_ln(*a, SEED, 0.0, 1e-5), *js)
+    want = vjp((jnp.asarray(cz.float().numpy(), _JDT[dtype]),
+                jnp.asarray(ch.float().numpy(), _JDT[dtype])))
+    _assert_grads(got, want, dtype)
+    for t, g in zip(ts, got):
+        assert g.dtype == t.dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [8, 20])
+def test_fused_ffn_ln_grads_match_jax_vjp(m, dtype, interpret):
+    arrs = _ffn_inputs(m, seed=7)
+    dy = np.random.RandomState(8).randn(m, D).astype(np.float32)
+    ts, js = _grad_case(arrs, 0, dtype)
+    out = port.fused_ffn_ln(*ts)
+    assert out.dtype == dtype
+    cy = torch.from_numpy(dy).to(dtype)
+    got = torch.autograd.grad(out, ts, cy)
+    ones, zeros = jnp.ones((D,), jnp.float32), jnp.zeros((D,), jnp.float32)
+    _, vjp = jax.vjp(lambda *a: pb.fused_ffn_ln(
+        *a, ones, zeros, SEED, "gelu_tanh", "none", 0.0, 1e-5), *js)
+    want = vjp(jnp.asarray(cy.float().numpy(), _JDT[dtype]))[:6]
+    _assert_grads(got, want, dtype)
+    for t, g in zip(ts, got):
+        assert g.dtype == t.dtype
+
+
+@pytest.mark.parametrize("m", [8, 20])
+def test_bf16_forward_matches_composed_reference(m):
+    """bf16 activations/weights with f32 LN vectors, the training path's
+    types: z and h in bf16 against the JAX composed chain on the same
+    bf16 numbers (one rounding of each output)."""
+    a = _out_ln_inputs(m, seed=9)
+    ts, js = _grad_case(a, 2, torch.bfloat16)
+    z, h = port.fused_out_ln(*ts)
+    zj, hj = pb.out_ln_reference(*js, SEED, 0.0, 1e-5)
+    for g, w in ((z, zj), (h, hj)):
+        np.testing.assert_allclose(g.detach().float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   atol=1e-2, rtol=1e-2)
+    f = _ffn_inputs(m, seed=10)
+    ts, js = _grad_case(f, 0, torch.bfloat16)
+    ones, zeros = jnp.ones((D,), jnp.float32), jnp.zeros((D,), jnp.float32)
+    want = pb.ffn_ln_reference(*js, ones, zeros, SEED, "gelu_tanh", "none",
+                               0.0, 1e-5)
+    np.testing.assert_allclose(port.fused_ffn_ln(*ts).detach().float()
+                               .numpy(), np.asarray(want, np.float32),
+                               atol=1e-2, rtol=1e-2)

@@ -34,7 +34,8 @@ def _imported_modules(path: Path) -> list[str]:
 def test_port_file_list_is_not_empty():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "model.py", "gpt.py", "paged_attention.py",
-            "fused_block.py", "chip_smoke.py"} <= names
+            "fused_block.py", "flash_attention.py", "hybrid.py",
+            "optimizer_ops.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -59,7 +60,10 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch, paddle_tpu_torch.serving,"
         " paddle_tpu_torch.observability\n"
         "import paddle_tpu_torch.ops.paged_attention,"
-        " paddle_tpu_torch.ops.fused_block\n"
+        " paddle_tpu_torch.ops.fused_block,"
+        " paddle_tpu_torch.ops.flash_attention\n"
+        "import paddle_tpu_torch.parallel,"
+        " paddle_tpu_torch.fluid.ops.optimizer_ops\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
