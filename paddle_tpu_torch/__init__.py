@@ -9,6 +9,12 @@ where the kernels' plain PyTorch versions run.
 
 Ported so far: the GPT serving path (``serving.Engine`` over
 ``serving.GPTDecodeModel``, ``models.gpt``) with its kernels
-``ops.paged_attention`` and ``ops.fused_block``.
+``ops.paged_attention`` and ``ops.fused_block``; the GPT train step
+(``parallel.HybridParallelTrainStep``) with ``ops.flash_attention``; and
+the BERT pretrain step (``jit.make_train_step`` over
+``models.bert.BertForPretraining``, built on ``nn`` and ``amp``) with
+``ops.layer_norm``, ``ops.fused_residual`` and the dropout, padding
+mask, pre/post-norm and gelu/relu variants of the earlier kernels.
 """
-__all__ = ["models", "ops", "serving", "observability"]
+__all__ = ["amp", "jit", "models", "nn", "ops", "parallel", "serving",
+           "observability"]

@@ -1,0 +1,169 @@
+"""One train step of a model built on ``paddle_tpu_torch.nn``
+(counterpart of ``paddle_tpu/jit/functional.py``).
+
+The reference traces the eager model into one jitted computation and
+keeps parameters and optimizer state as device arrays beside the model,
+syncing them back with ``write_back()``. The port keeps that shape
+without a tracer: ``TrainStep`` owns float32 copies of the trainable
+parameters on its device, runs the model on them through
+``torch.func.functional_call`` (so the model's own tensors stay
+untouched until ``write_back()``), differentiates with
+``torch.autograd`` and applies the ported optimizer ops in place.
+
+One call = loss at the parameters BEFORE the update, optional global
+norm clip ``min(1, clip / max(||g||, 1e-12))``, then ``adamw`` or
+``adam`` per parameter, each with its own (beta1_pow, beta2_pow) pair
+and the decay coefficient on every parameter, as the reference applies
+it. A parameter shared under two names (a tied embedding) is one leaf:
+its gradient sums both uses and it is updated once. The step seed is the
+step count unless given; stochastic ops draw their int32 seeds from
+``nn.functional.seed_scope(step seed)``. ``donate`` has no meaning here:
+updates are in place.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ..amp.auto_cast import amp_guard
+from ..fluid.ops.optimizer_ops import adam, adamw
+from ..models.gpt import disable_tf32, resolve_device
+from ..nn import functional as F
+
+__all__ = ["TrainStep", "make_train_step"]
+
+
+class _LossModule(torch.nn.Module):
+    """loss_fn(model, *batch) as a module call, so that functional_call
+    swaps the parameters for its whole body (the model's methods beside
+    forward, such as loss(), included)."""
+
+    def __init__(self, model, loss_fn):
+        super().__init__()
+        self.model = model
+        self._loss_fn = loss_fn
+
+    def forward(self, *batch):
+        return self._loss_fn(self.model, *batch)
+
+
+class TrainStep:
+    """step(*batch, seed=None) -> loss (a 0-d float32 tensor on the
+    device). ``device``: the reference has no such argument; the port
+    defaults to CUDA and raises without a card unless given "cpu"."""
+
+    def __init__(self, model, loss_fn: Callable, optimizer: str = "adamw",
+                 lr=1e-4, weight_decay: float = 0.01, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, grad_clip_norm: float | None = None,
+                 donate: bool = True, mesh=None, batch_spec=None,
+                 remat: bool = False, amp_level: str | None = None,
+                 device=None):
+        if mesh is not None or batch_spec is not None:
+            raise NotImplementedError(
+                "mesh= / batch_spec= (data-parallel sharding) come with "
+                "slice 5 of the port (torch.distributed); the port trains "
+                "on one device")
+        if remat:
+            raise NotImplementedError(
+                "remat=True (per-layer recompute of nn layers) comes with "
+                "slice 5 of the port, beside distributed.recompute")
+        if optimizer not in ("adam", "adamw"):
+            if optimizer in ("sgd", "momentum", "lamb"):
+                raise NotImplementedError(
+                    f"optimizer={optimizer!r} comes with slice 4 of the "
+                    f"port (the op library); adam and adamw are ported")
+            raise ValueError(f"unknown optimizer {optimizer!r}")
+        if amp_level not in (None, "O1", "O2"):
+            raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
+                             f"{amp_level!r}")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            disable_tf32()
+        self.model = model
+        self.loss_fn = loss_fn
+        self._bound = _LossModule(model, loss_fn)
+        self._lr = lr
+        self._update = adamw if optimizer == "adamw" else adam
+        self._clip = grad_clip_norm
+        self._amp_level = amp_level
+        self._hyper = dict(beta1=beta1, beta2=beta2, epsilon=epsilon)
+        if optimizer == "adamw":
+            self._hyper["coeff"] = weight_decay
+        # named_parameters lists a shared parameter once, under its first
+        # name; functional_call ties the other names to the same leaf
+        self.params = {
+            n: p.detach().to(self.device, torch.float32).clone()
+            .requires_grad_()
+            for n, p in model.named_parameters() if p.requires_grad}
+        self.buffers = {n: b.detach().to(self.device).clone()
+                        for n, b in model.named_buffers()}
+        one = torch.ones((1,), dtype=torch.float32, device=self.device)
+        self.opt_state = {
+            n: {"Moment1": torch.zeros_like(p, requires_grad=False),
+                "Moment2": torch.zeros_like(p, requires_grad=False),
+                "Beta1Pow": one.clone(), "Beta2Pow": one.clone()}
+            for n, p in self.params.items()}
+        self._step_count = 0
+
+    def _batch(self, b):
+        if not isinstance(b, torch.Tensor):
+            b = torch.as_tensor(np.asarray(b))
+        return b.to(self.device)
+
+    def loss(self, *batch, seed: int = 0):
+        """loss_fn on the step's parameters under its autocast level and
+        the seed stream of `seed`, with autograd recording."""
+        amp_cm = amp_guard(True, level=self._amp_level) \
+            if self._amp_level else contextlib.nullcontext()
+        state = {f"model.{n}": v for n, v in
+                 (*self.params.items(), *self.buffers.items())}
+        with amp_cm, F.seed_scope(seed):
+            out = functional_call(self._bound, state,
+                                  tuple(self._batch(b) for b in batch))
+        return out.reshape(())
+
+    def __call__(self, *batch, seed: int | None = None):
+        self._step_count += 1
+        seed = self._step_count if seed is None else seed
+        lr = self._lr() if callable(self._lr) else float(self._lr)
+        loss = self.loss(*batch, seed=seed)
+        leaves = list(self.params.values())
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with torch.no_grad():
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves, grads)]
+            self._apply_update(grads, lr)
+        return loss.detach()
+
+    def _apply_update(self, grads, lr):
+        if self._clip:
+            sq = [torch.sum(torch.square(g.float())) for g in grads]
+            gnorm = torch.sqrt(sum(sq[1:], sq[0]))
+            scale = torch.clamp(self._clip / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            grads = [g * scale for g in grads]
+        for (name, p), g in zip(self.params.items(), grads):
+            st = self.opt_state[name]
+            st["Beta1Pow"], st["Beta2Pow"] = self._update(
+                p, g, st["Moment1"], st["Moment2"], st["Beta1Pow"],
+                st["Beta2Pow"], lr, **self._hyper)
+
+    def write_back(self):
+        """Copy the trained values into the model's own parameters and
+        buffers (which the steps leave untouched)."""
+        with torch.no_grad():
+            own = dict(self.model.named_parameters())
+            for n, v in self.params.items():
+                own[n].copy_(v.to(own[n].device))
+            bufs = dict(self.model.named_buffers())
+            for n, v in self.buffers.items():
+                bufs[n].copy_(v.to(bufs[n].device))
+
+
+def make_train_step(model, loss_fn, **kwargs) -> TrainStep:
+    """loss_fn(model, *batch_tensors) -> scalar tensor."""
+    return TrainStep(model, loss_fn, **kwargs)

@@ -1,0 +1,366 @@
+"""Functional ops (counterpart of ``paddle_tpu/nn/functional.py`` and of
+the op kernels behind it in ``paddle_tpu/fluid/ops/nn_ops.py``), as far
+as the BERT pretrain step reaches.
+
+Each function is the reference's op on ``torch.Tensor``s: it consults the
+autocast lists under the op's own type (``amp.autocast_inputs``), keeps
+the op's argument handling (``p = 0`` outside training, missing LN scale
+or bias defaulting to ones or zeros, an unknown activation raising
+``ValueError``), and routes to a kernel wrapper of ``ops/`` where the
+reference routes to a Pallas kernel. The wrappers launch CUDA kernels on
+CUDA tensors and take their plain versions on CPU tensors.
+
+Dropout. The reference derives each stochastic op's seed from the
+tracer's step key and a per-op counter; ``jax.random`` cannot be
+replayed here, so the port keeps the structure with its own numbers:
+``seed_scope(step_seed)`` opens a counter-based stream, and each
+stochastic op that is given no ``seed`` takes ``next_seed()``, an int32
+hashed from (step seed, op index). The int32 goes to the kernel (or its
+plain version), which builds the mask with the reference's counter hash;
+the same step seed therefore gives the same masks on the CPU, on the
+card, through the kernels and through the composed chains.
+
+``composed_ops()`` is the port's counterpart of the reference's
+``PADDLE_TPU_DISABLE_PALLAS``: inside the block every op takes its
+composed chain (the plain version of its kernel, differentiated by
+autograd) instead of its kernel wrapper, on any device. It is how a run
+on the card holds the kernel path against the plain versions.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+
+import torch
+
+from ..amp.auto_cast import autocast_inputs
+from ..ops import flash_attention as _fa
+from ..ops import fused_block as _fb
+from ..ops import fused_residual as _fr
+from ..ops import layer_norm as _ln
+
+__all__ = ["linear", "embedding", "layer_norm", "layer_norm_op",
+           "fused_dropout_add_ln", "fused_out_ln", "fused_ffn_block",
+           "scaled_dot_product_attention", "dropout", "gelu", "relu", "tanh",
+           "softmax_with_cross_entropy", "cross_entropy", "seed_scope",
+           "next_seed", "op_seed", "composed_ops"]
+
+_composed = False
+
+
+@contextlib.contextmanager
+def composed_ops(enable: bool = True):
+    """Inside the block the ops below take their composed chains, not
+    their kernel wrappers."""
+    global _composed
+    prev, _composed = _composed, bool(enable)
+    try:
+        yield
+    finally:
+        _composed = prev
+
+
+# ---------------------------------------------------------------------------
+# per-op dropout seeds
+# ---------------------------------------------------------------------------
+
+def op_seed(step_seed: int, index: int) -> int:
+    """The int32 seed of stochastic op number `index` of a step: murmur3's
+    finaliser over the pair, so neighbouring steps and ops share no
+    mask."""
+    x = (int(step_seed) * 0x9E3779B9 + int(index) * 0x85EBCA6B
+         + 0x165667B1) & 0xFFFFFFFF
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & 0xFFFFFFFF
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & 0xFFFFFFFF
+    x ^= x >> 16
+    return x - (1 << 32) if x >= (1 << 31) else x
+
+
+class _SeedStream:
+    def __init__(self, step_seed: int):
+        self.step_seed, self.index = int(step_seed), 0
+
+    def next(self) -> int:
+        self.index += 1
+        return op_seed(self.step_seed, self.index)
+
+
+_stream = _SeedStream(0)
+
+
+@contextlib.contextmanager
+def seed_scope(step_seed: int):
+    """Stochastic ops inside the block draw their seeds from a fresh
+    stream keyed by `step_seed`: op k of the block gets
+    op_seed(step_seed, k)."""
+    global _stream
+    prev, _stream = _stream, _SeedStream(step_seed)
+    try:
+        yield _stream
+    finally:
+        _stream = prev
+
+
+def next_seed() -> int:
+    """The next op's int32 seed from the current stream."""
+    return _stream.next()
+
+
+def _train_p(p, training):
+    return float(p) if training else 0.0
+
+
+def _seed_for(p, seed):
+    """The seed an op with dropout probability p uses: the caller's, or
+    the stream's next one; ops at p == 0 draw nothing."""
+    if p <= 0.0:
+        return 0
+    return next_seed() if seed is None else int(seed)
+
+
+# ---------------------------------------------------------------------------
+# dense ops
+# ---------------------------------------------------------------------------
+
+def linear(x, weight, bias=None, name=None):
+    """x @ weight (+ bias), weight (in, out): the reference's matmul_v2
+    followed by elementwise_add."""
+    x, weight = autocast_inputs("matmul_v2", x, weight)
+    out = torch.matmul(x, weight)
+    if bias is not None:
+        out, bias = autocast_inputs("elementwise_add", out, bias)
+        out = out + bias
+    return out
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    out = weight[x.long()]
+    if padding_idx is not None and padding_idx != -1:
+        out = torch.where((x == padding_idx)[..., None],
+                          torch.zeros_like(out), out)
+    return out
+
+
+def gelu(x, approximate=False, name=None):
+    (x,) = autocast_inputs("gelu", x)
+    return torch.nn.functional.gelu(
+        x, approximate="tanh" if approximate else "none")
+
+
+def relu(x, name=None):
+    (x,) = autocast_inputs("relu", x)
+    return torch.relu(x)
+
+
+def tanh(x, name=None):
+    (x,) = autocast_inputs("tanh", x)
+    return torch.tanh(x)
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None, generator=None, seed=None):
+    """The reference's dropout op. The mask is the counter hash of
+    ``ops.fused_residual.keep_mask`` over x viewed as (rows, last dim),
+    from `seed`, or from an int32 drawn from the explicit CPU
+    `generator`, or from the current seed stream."""
+    (x,) = autocast_inputs("dropout", x)
+    if axis is not None:
+        raise NotImplementedError(
+            "dropout along an axis comes with slice 4 of the port (the op "
+            "library)")
+    if not training:
+        return x * (1.0 - p) if mode == "downgrade_in_infer" else x
+    if p >= 1.0:
+        return torch.zeros_like(x)
+    if p <= 0.0:
+        return x
+    if seed is None and generator is not None:
+        seed = int(torch.randint(-2 ** 31, 2 ** 31, (1,),
+                                 generator=generator))
+    seed = _seed_for(p, seed)
+    cols = x.shape[-1] if x.dim() else 1
+    keep = _fr.keep_mask(seed, x.numel() // max(cols, 1), cols, p,
+                         x.device).reshape(x.shape)
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x))
+
+
+# ---------------------------------------------------------------------------
+# layer norm
+# ---------------------------------------------------------------------------
+
+def layer_norm_op(x, scale=None, bias=None, epsilon=1e-5, begin_norm_axis=1):
+    """The reference's layer_norm op: (Y, Mean, Variance), the
+    statistics (rows,) float32 and without gradient. With scale and bias
+    present (and at most 16384 columns) it is the fused kernel pair of
+    ``ops/layer_norm.py``; otherwise the composed chain."""
+    x, scale, bias = autocast_inputs("layer_norm", x, scale, bias)
+    ax = begin_norm_axis
+    rows = math.prod(x.shape[:ax]) if x.dim() > ax else 1
+    cols = math.prod(x.shape[ax:])
+    if scale is not None and bias is not None and rows >= 1 \
+            and 1 <= cols <= _ln.MAX_COLS and not _composed:
+        y2, mean, rstd = _ln.fused_layer_norm(
+            x.reshape(rows, cols), scale.reshape(cols), bias.reshape(cols),
+            epsilon)
+        var = 1.0 / torch.square(rstd) - epsilon
+        return y2.reshape(x.shape), mean, var
+    fp = x.float().reshape(rows, cols)
+    mean = fp.mean(-1, keepdim=True)
+    var = torch.square(fp - mean).mean(-1, keepdim=True)
+    y = (fp - mean) * torch.rsqrt(var + epsilon)
+    if scale is not None:
+        y = y * scale.reshape(cols).float()
+    if bias is not None:
+        y = y + bias.reshape(cols).float()
+    return (y.to(x.dtype).reshape(x.shape), mean.detach().reshape(rows),
+            var.detach().reshape(rows))
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    ns = [normalized_shape] if isinstance(normalized_shape, int) \
+        else list(normalized_shape)
+    return layer_norm_op(x, weight, bias, epsilon, x.dim() - len(ns))[0]
+
+
+# ---------------------------------------------------------------------------
+# the block ops
+# ---------------------------------------------------------------------------
+
+def _ln_vectors(scale, bias, n, device):
+    if scale is None:
+        scale = torch.ones((n,), dtype=torch.float32, device=device)
+    if bias is None:
+        bias = torch.zeros((n,), dtype=torch.float32, device=device)
+    return scale.float(), bias.float()
+
+
+def _one_type(*tensors):
+    """The tensors in their common (promoted) type: a kernel takes one
+    input type per launch, and the reference's bodies promote mixed
+    operands inside their products in the same way."""
+    dt = tensors[0].dtype
+    for t in tensors[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt).contiguous() for t in tensors)
+
+
+def fused_dropout_add_ln(x, residual, scale, bias, dropout_p=0.0,
+                         epsilon=1e-5, training=True, seed=None):
+    """LN(residual + dropout(x)) * scale + bias over the last axis, one
+    kernel each way (``ops/fused_residual.py``)."""
+    x, residual, scale, bias = autocast_inputs(
+        "fused_dropout_add_ln", x, residual, scale, bias)
+    p = _train_p(dropout_p, training)
+    c = x.shape[-1]
+    x2, r2 = _one_type(x.reshape(-1, c), residual.reshape(-1, c))
+    fn = _fr.fused_dropout_add_ln if not _composed else \
+        (lambda *a: _fr.dropout_add_ln_reference(*a)[0])
+    y = fn(x2, r2, scale, bias, _seed_for(p, seed), p, float(epsilon))
+    return y.to(residual.dtype).reshape(residual.shape)
+
+
+def fused_out_ln(x, w, b, residual, scale=None, bias=None, dropout_p=0.0,
+                 epsilon=1e-5, training=True, seed=None):
+    """LN(residual + dropout(x @ w + b)) * scale + bias: the
+    attention-out projection with the whole post-LN sub-layer epilogue in
+    one kernel (``ops/fused_block.fused_out_ln``)."""
+    x, w, b, residual, scale, bias = autocast_inputs(
+        "fused_out_ln", x, w, b, residual, scale, bias)
+    p = _train_p(dropout_p, training)
+    din, dout = x.shape[-1], w.shape[1]
+    scale, bias = _ln_vectors(scale, bias, dout, x.device)
+    x2, w_, b_, r2 = _one_type(x.reshape(-1, din), w, b,
+                               residual.reshape(-1, dout))
+    fn = _fb.out_ln_reference if _composed else _fb.fused_out_ln
+    _z, h = fn(x2, w_, b_, r2, scale, bias, p, float(epsilon),
+               _seed_for(p, seed))
+    # the reference's h comes out in x's type and is cast to the
+    # residual's
+    return h.to(x.dtype).to(residual.dtype).reshape(residual.shape)
+
+
+def fused_ffn_block(x, w1, b1, w2, b2, residual, scale=None, bias=None,
+                    activation="gelu", norm="post", dropout_p=0.0,
+                    epsilon=1e-5, training=True, seed=None):
+    """[LN](residual + dropout(act([LN] x @ w1 + b1) @ w2 + b2)): the FFN
+    sub-block in one kernel (``ops/fused_block.fused_ffn_ln``); norm is
+    "pre", "post" or "none"."""
+    x, w1, b1, w2, b2, residual, scale, bias = autocast_inputs(
+        "fused_ffn_block", x, w1, b1, w2, b2, residual, scale, bias)
+    if activation not in ("gelu", "gelu_tanh", "relu"):
+        raise ValueError(
+            f"fused_ffn_block supports gelu/gelu_tanh/relu, got "
+            f"{activation!r} (use the composed linear/activation ops "
+            f"instead)")
+    p = _train_p(dropout_p, training)
+    h = x.shape[-1]
+    scale, bias = _ln_vectors(scale, bias, h, x.device)
+    x2, w1_, b1_, w2_, b2_, r2 = _one_type(
+        x.reshape(-1, h), w1, b1, w2, b2, residual.reshape(-1, h))
+    fn = _fb.ffn_ln_reference if _composed else _fb.fused_ffn_ln
+    y = fn(x2, w1_, b1_, w2_, b2_, r2, scale, bias, activation, norm, p,
+           float(epsilon), _seed_for(p, seed))
+    return y.to(residual.dtype).reshape(residual.shape)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None, seed=None):
+    """The reference's fused_attention op on (B, H, S, D)."""
+    query, key, value = autocast_inputs("fused_attention", query, key, value)
+    p = _train_p(dropout_p, training)
+    seed = _seed_for(p, seed)
+    if _composed:
+        return _fa.sdpa_reference(query, key, value, attn_mask, None,
+                                  is_causal, p, seed)
+    return _fa.scaled_dot_product_attention(
+        query, key, value, attn_mask, p, is_causal, True, seed)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, numeric_stable_mode=True,
+                               return_softmax=False, axis=-1):
+    """Per-row loss, keepdim over `axis` ((N, 1) for (N, V) logits);
+    rows whose label is `ignore_index` give 0."""
+    (logits,) = autocast_inputs("softmax_with_cross_entropy", logits)
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        loss = -(label * logp).sum(axis, keepdim=True)
+    else:
+        lab = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+            else label
+        lab = lab.long()
+        ignored = (lab == ignore_index).unsqueeze(axis)
+        idx = torch.where(ignored, torch.zeros_like(lab.unsqueeze(axis)),
+                          lab.unsqueeze(axis))
+        loss = -torch.gather(logp, axis, idx)
+        loss = torch.where(ignored, torch.zeros_like(loss), loss)
+    if return_softmax:
+        return loss, torch.exp(logp).detach()
+    return loss
+
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, name=None):
+    if weight is not None or not use_softmax:
+        raise NotImplementedError(
+            "cross_entropy with class weights or use_softmax=False comes "
+            "with slice 4 of the port (the op library)")
+    loss = softmax_with_cross_entropy(input, label, soft_label, ignore_index,
+                                      axis=axis)
+    if reduction == "mean":
+        (loss,) = autocast_inputs("mean", loss)
+        return loss.mean()
+    if reduction == "sum":
+        (loss,) = autocast_inputs("reduce_sum", loss)
+        return loss.sum()
+    return loss

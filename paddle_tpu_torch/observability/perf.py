@@ -29,7 +29,7 @@ from . import registry as _obs
 
 __all__ = [
     "SNAPSHOT_SCHEMA", "StepSampler", "analytic_gpt_flops",
-    "breakdowns", "chip_peak_bytes_per_s", "chip_peak_flops", "costs",
+    "bert_train_flops_per_step", "breakdowns", "chip_peak_bytes_per_s", "chip_peak_flops", "costs",
     "device_kind", "drop_instance", "gpt_train_flops_per_step",
     "kv_cache_gauge", "mfu", "mfu_gauge",
     "note_compile_seconds", "record_breakdown", "register_cost",
@@ -114,6 +114,31 @@ def gpt_train_flops_per_step(cfg, batch: int, seq: int) -> float:
     backward (bench.py's gpt_train_flops_per_step, the MFU convention):
     every token attends over the full sequence length."""
     return 3 * analytic_gpt_flops(cfg, batch * seq, seq)
+
+
+def bert_train_flops_per_step(cfg, batch: int, seq: int,
+                              n_pred: int | None = None) -> int:
+    """Matmul-only analytic FLOPs of one BERT pretrain step, forward + 2x
+    backward (bench.py's bert_train_flops_per_step, so an MFU is
+    comparable with the reference's arithmetic): the dense projections,
+    the attention score and context products, the MLM transform and
+    vocab projection over the `n_pred` masked positions a sequence that
+    reach it (None: all `seq` positions) and the NSP head; elementwise
+    and norm FLOPs are ignored."""
+    H, L, V = cfg.hidden_size, cfg.num_hidden_layers, cfg.vocab_size
+    I = cfg.intermediate_size
+    tokens = batch * seq
+    per_layer = (
+        2 * H * (3 * H)          # qkv proj
+        + 2 * H * H              # attention out proj
+        + 2 * 2 * seq * H        # scores QK^T + context PV (per token)
+        + 2 * H * I + 2 * I * H  # ffn up + down
+    )
+    pred_tokens = batch * (n_pred if n_pred is not None else seq)
+    mlm_head = 2 * H * H + 2 * H * V    # transform + vocab proj
+    fwd = tokens * L * per_layer + pred_tokens * mlm_head \
+        + batch * (2 * H * 2)
+    return 3 * fwd
 
 
 # ---------------------------------------------------------------------------

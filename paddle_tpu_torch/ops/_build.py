@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds). All sources are compiled at once, one ``nvcc``
 process each, the first time any kernel is needed; the result lands in
-``ops/build/`` under a name that carries a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is reused.
+``ops/build/`` under a name that carries a hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 
 A failed build raises with the compiler's output. There is no fallback:
 a CUDA tensor either reaches its kernel or the call raises.
@@ -30,7 +31,8 @@ __all__ = ["SOURCES", "build_all", "library", "function", "note_launch",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("paged_attention", "fused_block", "flash_attention")
+SOURCES = ("paged_attention", "fused_block", "flash_attention",
+           "layer_norm", "fused_residual")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +74,8 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

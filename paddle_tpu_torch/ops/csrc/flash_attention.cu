@@ -4,18 +4,26 @@
 //   flash_fwd     <- _fwd_kernel     (launched by _flash_fwd_impl)
 //   flash_bwd_dq  <- _bwd_dq_kernel  (launched by _flash_bwd)
 //   flash_bwd_dkv <- _bwd_dkv_kernel (launched by _flash_bwd)
-// for the no-mask, no-dropout case (causal or not). Padding masks and the
-// in-kernel dropout hash come with the BERT slice of the port.
+// causal or not, with an optional additive padding mask and optional
+// dropout on the probabilities.
 //
 // Layouts (row-major, contiguous): q/do/o/dq (BH, S, D), k/v/dk/dv
 // (BH, T, D) in T_ = float or bfloat16; lse/delta (BH, S) float32
-// (the TPU kernel's (BH, S, 128) lane broadcast is a TPU tiling artefact).
-//   o   = softmax(q k^T * scale [causal: col > row masked]) v
+// (the TPU kernel's (BH, S, 128) lane broadcast is a TPU tiling artefact);
+// mask (B, T) float32, added to the scaled scores of the BH / B heads of
+// its batch row (the reference's (B, 1, 1, T) padding mask; its (B, 8, T)
+// sublane broadcast is again TPU tiling).
+//   s   = q k^T * scale + mask [causal: col > row masked]
+//   o   = (keep ? softmax(s) / (1 - p) : 0) v
 //   lse = m + log(l) per row (l == 0 -> 1, as the reference)
-//   p   = exp(q k^T * scale - lse), delta = rowsum(do * o) (computed by the
-//   caller in PyTorch, as the reference computes it in jnp)
-//   ds  = p * (do v^T - delta) * scale
-//   dq  = ds k,   dk = ds^T q,   dv = p^T do
+//   pr  = exp(s - lse), delta = rowsum(do * o) (computed by the caller in
+//   PyTorch, as the reference computes it in jnp)
+//   ds  = pr * ((keep ? do v^T / (1 - p) : 0) - delta) * scale
+//   dq  = ds k,   dk = ds^T q,   dv = (keep ? pr / (1 - p) : 0)^T do
+// Dropout order: the row sum l and lse are of the UNDROPPED
+// probabilities; only the product with V sees the mask, and the backward
+// replays it from the seed (dropout_hash.cuh, salted with bh, counter
+// row * T + col), so no mask tensor exists.
 // All arithmetic is f32 (f32 FMA, no TF32); bf16 inputs are widened on
 // load into shared memory and outputs rounded once at the store.
 //
@@ -56,7 +64,23 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dropout_hash.cuh"
+
 namespace {
+
+// Dropout of the probabilities: keep where the salted hash of (seed, bh,
+// element id) >= thr, kept elements divided by keep_div = 1 - p.
+struct Drop {
+  uint32_t seed, thr;
+  int on;  // p > 0
+  float keep_div;
+  __device__ __forceinline__ float apply(float v, int bh, int row, int col,
+                                         int t) const {
+    if (!on) return v;
+    return dropout_hash::keep_salted(seed, bh, row, col, t, thr)
+               ? v / keep_div : 0.f;
+  }
+};
 
 constexpr int kThreads = 256;  // a 16 x 16 grid of threads per tile
 
@@ -137,8 +161,9 @@ template <typename T, int BR, int DMAX>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int S, int Tk, int D,
-                     float scale, int causal) {
+                     float* __restrict__ lse,
+                     const float* __restrict__ mask, int heads, int S,
+                     int Tk, int D, float scale, int causal, Drop drop) {
   constexpr int BC = BR, RT = BR / 16, CT = BC / 16, DT = DMAX / 16;
   constexpr int SD = DMAX + 1, SP = BC + 1;
   extern __shared__ float smem[];
@@ -151,6 +176,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = iq * BR;
   const T* kb = k + (size_t)bh * Tk * D;
   const T* vb = v + (size_t)bh * Tk * D;
+  const float* mrow = mask ? mask + (size_t)(bh / heads) * Tk : nullptr;
   load_tile<T, BR, DMAX>(q + ((size_t)bh * S + row0) * D, D, Qs);
 
   float acc[RT][DT], m[RT], l[RT];
@@ -179,7 +205,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < CT; ++c) {
         const int col = col0 + tx + 16 * c;
-        s[i][c] = (causal && col > row) ? -INFINITY : s[i][c] * scale;
+        s[i][c] = (causal && col > row)
+                      ? -INFINITY
+                      : s[i][c] * scale + (mrow ? mrow[col] : 0.f);
         mx = fmaxf(mx, s[i][c]);
       }
       const float m_new = fmaxf(m[i], row_max(mx));
@@ -190,7 +218,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < CT; ++c) {
         const float p = expf(s[i][c] - m_use);
-        Ps[(ty + 16 * i) * SP + tx + 16 * c] = p;
+        // l sums the undropped p; only the product with V is dropped
+        Ps[(ty + 16 * i) * SP + tx + 16 * c] =
+            drop.apply(p, bh, row, col0 + tx + 16 * c, Tk);
         ps += p;
       }
       l[i] = alpha * l[i] + row_sum(ps);
@@ -235,7 +265,8 @@ __global__ void __launch_bounds__(kThreads)
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, T* __restrict__ dq,
-                        int S, int Tk, int D, float scale, int causal) {
+                        const float* __restrict__ mask, int heads, int S,
+                        int Tk, int D, float scale, int causal, Drop drop) {
   constexpr int BC = BR, RT = BR / 16, CT = BC / 16, DT = DMAX / 16;
   constexpr int SD = DMAX + 1, SP = BC + 1;
   extern __shared__ float smem[];
@@ -249,6 +280,7 @@ __global__ void __launch_bounds__(kThreads)
   const int row0 = iq * BR;
   const T* kb = k + (size_t)bh * Tk * D;
   const T* vb = v + (size_t)bh * Tk * D;
+  const float* mrow = mask ? mask + (size_t)(bh / heads) * Tk : nullptr;
   load_tile<T, BR, DMAX>(q + ((size_t)bh * S + row0) * D, D, Qs);
   load_tile<T, BR, DMAX>(dout + ((size_t)bh * S + row0) * D, D, dOs);
   float lr[RT], dr[RT], acc[RT][DT];
@@ -277,8 +309,11 @@ __global__ void __launch_bounds__(kThreads)
       for (int c = 0; c < CT; ++c) {
         const int col = col0 + tx + 16 * c;
         const float p =
-            (causal && col > row) ? 0.f : expf(s[i][c] * scale - lr[i]);
-        DSs[(ty + 16 * i) * SP + tx + 16 * c] = p * (dp[i][c] - dr[i]) * scale;
+            (causal && col > row)
+                ? 0.f
+                : expf(s[i][c] * scale + (mrow ? mrow[col] : 0.f) - lr[i]);
+        const float dpd = drop.apply(dp[i][c], bh, row, col, Tk);
+        DSs[(ty + 16 * i) * SP + tx + 16 * c] = p * (dpd - dr[i]) * scale;
       }
     }
     __syncthreads();
@@ -315,8 +350,9 @@ __global__ void __launch_bounds__(kThreads)
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int S,
-                         int Tk, int D, float scale, int causal) {
+                         T* __restrict__ dk, T* __restrict__ dv,
+                         const float* __restrict__ mask, int heads, int S,
+                         int Tk, int D, float scale, int causal, Drop drop) {
   constexpr int BC = BR, RT = BR / 16, CT = BC / 16, DT = DMAX / 16;
   constexpr int SD = DMAX + 1, SP = BC + 1;
   extern __shared__ float smem[];
@@ -331,6 +367,7 @@ __global__ void __launch_bounds__(kThreads)
   const int jk = blockIdx.x, bh = blockIdx.y;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int col0 = jk * BC;
+  const float* mrow = mask ? mask + (size_t)(bh / heads) * Tk : nullptr;
   load_tile<T, BC, DMAX>(k + ((size_t)bh * Tk + col0) * D, D, Ks);
   load_tile<T, BC, DMAX>(v + ((size_t)bh * Tk + col0) * D, D, Vs);
   // this thread's K/V rows are ty + 16i (RT == CT: square tiles)
@@ -360,11 +397,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < CT; ++c) {
         const int cc = tx + 16 * c;
-        const float p = (causal && col0 + cc > row0 + r)
-                            ? 0.f
-                            : expf(s[i][c] * scale - Ls[r]);
-        Ps[r * SP + cc] = p;
-        DSs[r * SP + cc] = p * (dp[i][c] - Dl[r]) * scale;
+        const int row = row0 + r, col = col0 + cc;
+        const float p =
+            (causal && col > row)
+                ? 0.f
+                : expf(s[i][c] * scale + (mrow ? mrow[col] : 0.f) - Ls[r]);
+        Ps[r * SP + cc] = drop.apply(p, bh, row, col, Tk);
+        const float dpd = drop.apply(dp[i][c], bh, row, col, Tk);
+        DSs[r * SP + cc] = p * (dpd - Dl[r]) * scale;
       }
     }
     __syncthreads();
@@ -409,10 +449,11 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 struct Args {
   const void *q, *k, *v, *dout;
-  const float *lse_in, *delta;
+  const float *lse_in, *delta, *mask;
   void *o, *dq, *dk, *dv;
   float* lse;
-  int BH, S, Tk, D;
+  int BH, heads, S, Tk, D;
+  Drop drop;
   float scale;
   int causal;
   cudaStream_t stream;
@@ -441,15 +482,16 @@ int run(int which, const Args& a) {
     auto kern = flash_fwd_kernel<T, BR, DMAX>;
     if (int e = set_smem(kern, smem)) return e;
     kern<<<dim3(a.S / BR, a.BH), block, smem, a.stream>>>(
-        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse, a.S,
-        a.Tk, a.D, a.scale, a.causal);
+        (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse, a.mask,
+        a.heads, a.S, a.Tk, a.D, a.scale, a.causal, a.drop);
   } else if (which == 1) {
     const size_t smem = 4 * tile_bytes<BR, DMAX>() + score_bytes<BR>();
     auto kern = flash_bwd_dq_kernel<T, BR, DMAX>;
     if (int e = set_smem(kern, smem)) return e;
     kern<<<dim3(a.S / BR, a.BH), block, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-        a.lse_in, a.delta, (T*)a.dq, a.S, a.Tk, a.D, a.scale, a.causal);
+        a.lse_in, a.delta, (T*)a.dq, a.mask, a.heads, a.S, a.Tk, a.D,
+        a.scale, a.causal, a.drop);
   } else {
     const size_t smem = 4 * tile_bytes<BR, DMAX>() + 2 * score_bytes<BR>() +
                         2 * sizeof(float) * BR;
@@ -457,8 +499,8 @@ int run(int which, const Args& a) {
     if (int e = set_smem(kern, smem)) return e;
     kern<<<dim3(a.Tk / BR, a.BH), block, smem, a.stream>>>(
         (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout,
-        a.lse_in, a.delta, (T*)a.dk, (T*)a.dv, a.S, a.Tk, a.D, a.scale,
-        a.causal);
+        a.lse_in, a.delta, (T*)a.dk, (T*)a.dv, a.mask, a.heads, a.S, a.Tk,
+        a.D, a.scale, a.causal, a.drop);
   }
   return (int)cudaGetLastError();
 }
@@ -474,7 +516,8 @@ int dispatch(int which, int dtype, const Args& a) {
   // the domain of can_use_flash: D % 8 == 0, D <= 256, S and T multiples
   // of 64 (which every tile size divides)
   if (a.D < 8 || a.D % 8 || a.D > 256 || a.S <= 0 || a.S % 64 ||
-      a.Tk <= 0 || a.Tk % 64 || a.BH <= 0 || a.BH > 65535)
+      a.Tk <= 0 || a.Tk % 64 || a.BH <= 0 || a.BH > 65535 ||
+      a.heads <= 0 || a.BH % a.heads)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0) return run_by_dim<float>(which, a);
   if (dtype == 1) return run_by_dim<__nv_bfloat16>(which, a);
@@ -483,41 +526,44 @@ int dispatch(int which, int dtype, const Args& a) {
 
 }  // namespace
 
+// Common tail of the three entry points: mask (B, T) float32 or null,
+// heads = BH / B, and the dropout of (seed, thr, keep_div) when drop != 0.
+#define FLASH_TAIL_PARAMS                                                  \
+  const float *mask, int BH, int S, int Tk, int D, int dtype, int causal,  \
+      int heads, int seed, int drop, unsigned int thr, float keep_div,     \
+      float scale, void *stream
+#define FLASH_TAIL_SET(a)                                                  \
+  a.mask = mask, a.BH = BH, a.heads = heads, a.S = S, a.Tk = Tk, a.D = D;  \
+  a.scale = scale, a.causal = causal;                                      \
+  a.drop = Drop{(uint32_t)seed, thr, drop, keep_div};                      \
+  a.stream = static_cast<cudaStream_t>(stream)
+
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, float* lse, int BH, int S, int Tk,
-                                int D, int dtype, int causal, float scale,
-                                void* stream) {
+                                void* o, float* lse, FLASH_TAIL_PARAMS) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.o = o, a.lse = lse;
-  a.BH = BH, a.S = S, a.Tk = Tk, a.D = D, a.scale = scale, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
+  FLASH_TAIL_SET(a);
   return dispatch(0, dtype, a);
 }
 
 extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* delta,
-                                   void* dq, int BH, int S, int Tk, int D,
-                                   int dtype, int causal, float scale,
-                                   void* stream) {
+                                   void* dq, FLASH_TAIL_PARAMS) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta;
   a.dq = dq;
-  a.BH = BH, a.S = S, a.Tk = Tk, a.D = D, a.scale = scale, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
+  FLASH_TAIL_SET(a);
   return dispatch(1, dtype, a);
 }
 
 extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const float* lse, const float* delta,
-                                    void* dk, void* dv, int BH, int S,
-                                    int Tk, int D, int dtype, int causal,
-                                    float scale, void* stream) {
+                                    void* dk, void* dv, FLASH_TAIL_PARAMS) {
   Args a{};
   a.q = q, a.k = k, a.v = v, a.dout = dout, a.lse_in = lse, a.delta = delta;
   a.dk = dk, a.dv = dv;
-  a.BH = BH, a.S = S, a.Tk = Tk, a.D = D, a.scale = scale, a.causal = causal;
-  a.stream = static_cast<cudaStream_t>(stream);
+  FLASH_TAIL_SET(a);
   return dispatch(2, dtype, a);
 }

@@ -3,13 +3,18 @@
 //
 // fused_out_ln replaces paddle_tpu/ops/pallas_block.py:_out_ln_kernel
 // (launched by _out_ln_pallas):
-//     z = res + a @ W + b            a (M, K), W (K, N), res (M, N)
+//     z = res + dropout_p(a @ W + b) a (M, K), W (K, N), res (M, N)
 //     h = LN(z) * ln_s + ln_b        over each whole row of z
 // fused_ffn_ln replaces pallas_block.py:_ffn_ln_kernel (launched by
-// _ffn_ln_pallas) with act gelu_tanh, norm "none", p 0:
-//     out = res + gelu_tanh(x @ W1 + b1) @ W2 + b2
+// _ffn_ln_pallas):
+//     out = [LN](res + dropout_p(act([LN] x @ W1 + b1) @ W2 + b2))
 //     x (M, H), W1 (H, I), W2 (I, H); the (M, I) intermediate lives only
-//     in shared memory.
+//     in shared memory. act: gelu_tanh, gelu (the reference's erf
+//     polynomial) or relu. norm "pre" normalises x on its way into the
+//     first GEMM, norm "post" the summed output; both with ln_s/ln_b.
+// dropout_p is the unsalted counter hash of dropout_hash.cuh over the
+// ids row * N + col of the (M, N) GEMM output, applied before the
+// residual add; no mask tensor exists (the composed backward replays it).
 //
 // The constraint both share: the LN epilogue (and the FFN's sum over I)
 // needs a whole output row, but at decode M is the slot count (8), so a
@@ -28,6 +33,11 @@
 //     (chunks visited in an order rotated by ji, so the chunks' last
 //     arrivals fall on different blocks). The last block to deliver a
 //     chunk sums the I/BI partials in ji order and adds b2 and res.
+//     With norm "post" the last chunk of a row tile then normalises its
+//     rows (a second ticket), as fused_out_ln does. With norm "pre" each
+//     block first takes the statistics of its 32 rows of x (a warp a
+//     row, two passes) and normalises x as it loads it into the first
+//     GEMM's tiles.
 // Every sum runs in a fixed order (no float atomics), so results are the
 // same from run to run.
 //
@@ -37,7 +47,8 @@
 // statistics stay f32, and the outputs are rounded once at the store: z
 // and out in T, h in T. With bf16, z is also kept in an f32 scratch
 // (zf) so that the LN runs on the unrounded z, as the reference does;
-// with f32 the caller passes z itself as zf.
+// with f32 the caller passes z itself as zf. fused_ffn_ln with norm
+// "post" does the same with its output.
 //
 // Bound on this card (f32, CUDA cores, 67 TFLOP/s; HBM 3.35 TB/s):
 //   fused_out_ln  M=8,   D=2048: bytes, the 16.8 MB of W: ~5 us.
@@ -54,6 +65,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "dropout_hash.cuh"
 
 namespace {
 
@@ -74,14 +87,38 @@ constexpr int kThreads = 256;
 constexpr int BM = 32;  // rows per tile
 constexpr int BK = 32;  // k depth per shared-memory stage
 
+// Dropout of a GEMM output: keep where the hash of (seed, element id)
+// >= thr, kept elements divided by keep_div = 1 - p.
+struct Drop {
+  uint32_t seed, thr;
+  int on;  // p > 0
+  float keep_div;
+  __device__ __forceinline__ float apply(float y, int row, int col,
+                                         int ncols) const {
+    if (!on) return y;
+    return dropout_hash::keep(seed, row, col, ncols, thr) ? y / keep_div
+                                                           : 0.f;
+  }
+};
+
+// Layer norm applied to A on its way into gemm_tile<..., true> (norm
+// "pre"): mu/rs per tile row (shared memory), s/b per k (global).
+struct RowNorm {
+  const float *mu, *rs, *s, *b;
+};
+
 // acc[TM][TN] += A[row0:row0+BM, k0:k1] @ B[k0:k1, col0:col0+BN], both
 // row-major in global memory, out-of-range entries read as 0. The next
 // k stage is prefetched into registers while the current one computes.
-template <int BN, int TM, int TN, typename TA, typename TB>
+// NORM_A is a template parameter so that the plain instantiation keeps no
+// pointer of `ln` alive through its k loop.
+template <int BN, int TM, int TN, bool NORM_A = false, typename TA,
+          typename TB>
 __device__ __forceinline__ void gemm_tile(
     const TA* __restrict__ A, int lda, int M, int row0,
     const TB* __restrict__ B, int ldb, int N, int col0, int k0, int k1,
-    float (&acc)[TM][TN], float (*As)[BM], float (*Bs)[BN]) {
+    float (&acc)[TM][TN], float (*As)[BM], float (*Bs)[BN],
+    RowNorm ln = RowNorm{nullptr, nullptr, nullptr, nullptr}) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "thread layout");
   constexpr int A_PER = BM * BK / kThreads;
   constexpr int B_PER = BK * BN / kThreads;
@@ -96,6 +133,10 @@ __device__ __forceinline__ void gemm_tile(
       const int r = e / BK, kk = e % BK;
       const int row = row0 + r, k = kb + kk;
       ar[i] = (row < M && k < k1) ? to_f(A[(size_t)row * lda + k]) : 0.f;
+      // the normalised x is rounded to x's type, as the reference keeps it
+      if (NORM_A && row < M && k < k1)
+        ar[i] = to_f(from_f<TA>((ar[i] - ln.mu[r]) * ln.rs[r] * ln.s[k] +
+                                ln.b[k]));
     }
 #pragma unroll
     for (int i = 0; i < B_PER; ++i) {
@@ -163,6 +204,56 @@ __device__ __forceinline__ float gelu_tanh(float f) {
   return 0.5f * f * (1.0f + tanhf(c * (f + 0.044715f * f * f * f)));
 }
 
+__device__ __forceinline__ float gelu_erf_poly(float f) {
+  // pallas_ffn.py:_gelu_exact over _erf_poly: Abramowitz & Stegun
+  // 7.1.26 with the reference's five constants (|err| < 1.5e-7), not
+  // erff, so that kernel and plain version compute one function
+  const float z = f * 0.7071067811865476f;
+  const float a = fabsf(z);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f +
+           t * (-0.284496736f +
+                t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  const float erf = copysignf(1.0f - poly * expf(-a * a), z);
+  return 0.5f * f * (1.0f + erf);
+}
+
+// act: 0 gelu_tanh, 1 gelu (erf polynomial), 2 relu
+__device__ __forceinline__ float activate(int act, float v) {
+  if (act == 0) return gelu_tanh(v);
+  if (act == 1) return gelu_erf_poly(v);
+  return fmaxf(v, 0.f);
+}
+
+// LN(zf[row]) * ln_s + ln_b -> h[row] for the BM rows from row0, a warp
+// a row, two-pass statistics; zf is read back from L2 (other blocks
+// wrote it). h may alias zf: a lane writes only elements it read itself.
+template <typename T>
+__device__ __forceinline__ void ln_rows(const float* zf, T* h,
+                                        const float* __restrict__ ln_s,
+                                        const float* __restrict__ ln_b,
+                                        int row0, int M, int N, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < BM; r += kThreads / 32) {
+    const int row = row0 + r;
+    if (row >= M) break;
+    const float* zr = zf + (size_t)row * N;
+    float s = 0.f;
+    for (int c = lane; c < N; c += 32) s += __ldcg(zr + c);
+    const float mean = warp_sum(s) / N;
+    float sq = 0.f;
+    for (int c = lane; c < N; c += 32) {
+      const float dv = __ldcg(zr + c) - mean;
+      sq += dv * dv;
+    }
+    const float rstd = 1.0f / sqrtf(warp_sum(sq) / N + eps);
+    for (int c = lane; c < N; c += 32)
+      h[(size_t)row * N + c] =
+          from_f<T>((__ldcg(zr + c) - mean) * rstd * ln_s[c] + ln_b[c]);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // fused_out_ln
 // ---------------------------------------------------------------------------
@@ -175,7 +266,7 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, T* z, float* zf, T* h,
                   float* part, int* tickets, int M, int K, int N, int kc,
-                  float eps) {
+                  float eps, Drop drop) {
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][OL_BN];
   __shared__ int flag;
@@ -225,7 +316,8 @@ __global__ void __launch_bounds__(kThreads)
       const int col = col0 + tx * OL_TN + j;
       if (col < N) {
         const size_t e = (size_t)row * N + col;
-        const float zv = (acc[i][j] + to_f(b[col])) + to_f(res[e]);
+        const float zv =
+            drop.apply(acc[i][j] + to_f(b[col]), row, col, N) + to_f(res[e]);
         zf[e] = zv;
         if constexpr (!std::is_same<T, float>::value) z[e] = from_f<T>(zv);
       }
@@ -234,54 +326,66 @@ __global__ void __launch_bounds__(kThreads)
 
   // the last z tile of this row tile normalises the whole rows
   if (!last_arrival(tickets, n_row * n_col + mt, n_col, &flag)) return;
-  const int lane = tid & 31, warp = tid >> 5;
-  for (int r = warp; r < BM; r += kThreads / 32) {
-    const int row = row0 + r;
-    if (row >= M) break;
-    const float* zr = zf + (size_t)row * N;
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s += __ldcg(zr + c);
-    const float mean = warp_sum(s) / N;
-    float sq = 0.f;
-    for (int c = lane; c < N; c += 32) {
-      const float dv = __ldcg(zr + c) - mean;
-      sq += dv * dv;
-    }
-    const float rstd = 1.0f / sqrtf(warp_sum(sq) / N + eps);
-    for (int c = lane; c < N; c += 32)
-      h[(size_t)row * N + c] =
-          from_f<T>((__ldcg(zr + c) - mean) * rstd * ln_s[c] + ln_b[c]);
-  }
+  ln_rows<T>(zf, h, ln_s, ln_b, row0, M, N, eps);
 }
 
 // ---------------------------------------------------------------------------
-// fused_ffn_ln (gelu_tanh, norm "none", p 0)
+// fused_ffn_ln
 // ---------------------------------------------------------------------------
 constexpr int FF_BN = 128;  // output columns per chunk of the 2nd GEMM
 constexpr int FF_TM = 4, FF_TN = 4;
 
-template <typename T, int BI>
+template <typename T, int BI, bool PRE>
 __global__ void __launch_bounds__(kThreads)
     ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                const T* __restrict__ b1, const T* __restrict__ w2,
                const T* __restrict__ b2, const T* __restrict__ res,
-               T* out, float* part, int* tickets, int M, int H, int I) {
+               const float* __restrict__ ln_s,
+               const float* __restrict__ ln_b, T* out, float* zf,
+               float* part, int* tickets, int M, int H, int I, int act,
+               int norm, float eps, Drop drop) {
   constexpr int TM1 = BI == 64 ? 2 : 4, TN1 = 4;
   constexpr int WCOLS = BI > FF_BN ? BI : FF_BN;
   __shared__ float As[BK][BM];
   __shared__ float Bs[BK][WCOLS];
   __shared__ float hid[BM][BI + 1];
+  __shared__ float mu_s[PRE ? BM : 1], rs_s[PRE ? BM : 1];
   __shared__ int flag;
   const int ji = blockIdx.x, mt = blockIdx.y;
-  const int nI = gridDim.x;
+  const int nI = gridDim.x, n_row = gridDim.y;
   const int row0 = mt * BM, i0 = ji * BI;
   const int tid = threadIdx.x;
 
-  // hid = gelu_tanh(x[rows] @ W1[:, i0:i0+BI] + b1), kept on chip
+  // norm "pre" (1, PRE): the statistics of this tile's rows of x
+  if constexpr (PRE) {
+    const int lane = tid & 31, warp = tid >> 5;
+    for (int r = warp; r < BM; r += kThreads / 32) {
+      const int row = row0 + r;
+      float mean = 0.f, rstd = 0.f;
+      if (row < M) {
+        const T* xr = x + (size_t)row * H;
+        float s = 0.f;
+        for (int c = lane; c < H; c += 32) s += to_f(xr[c]);
+        mean = warp_sum(s) / H;
+        float sq = 0.f;
+        for (int c = lane; c < H; c += 32) {
+          const float dv = to_f(xr[c]) - mean;
+          sq += dv * dv;
+        }
+        rstd = 1.0f / sqrtf(warp_sum(sq) / H + eps);
+      }
+      if (lane == 0) mu_s[r] = mean, rs_s[r] = rstd;
+    }
+    __syncthreads();
+  }
+
+  // hid = act([LN] x[rows] @ W1[:, i0:i0+BI] + b1), kept on chip
   {
     float acc[TM1][TN1] = {};
-    gemm_tile<BI, TM1, TN1>(x, H, M, row0, w1, I, I, i0, 0, H, acc, As,
-                            reinterpret_cast<float(*)[BI]>(&Bs[0][0]));
+    gemm_tile<BI, TM1, TN1, PRE>(
+        x, H, M, row0, w1, I, I, i0, 0, H, acc, As,
+        reinterpret_cast<float(*)[BI]>(&Bs[0][0]),
+        RowNorm{mu_s, rs_s, ln_s, ln_b});
     const int tx = tid % (BI / TN1), ty = tid / (BI / TN1);
 #pragma unroll
     for (int i = 0; i < TM1; ++i)
@@ -289,7 +393,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < TN1; ++j) {
         const int c = tx * TN1 + j;
         hid[ty * TM1 + i][c] =
-            i0 + c < I ? gelu_tanh(acc[i][j] + to_f(b1[i0 + c])) : 0.f;
+            i0 + c < I ? activate(act, acc[i][j] + to_f(b1[i0 + c])) : 0.f;
       }
   }
 
@@ -344,10 +448,19 @@ __global__ void __launch_bounds__(kThreads)
         float s = 0.f;
         for (int q = 0; q < nI; ++q)
           s += __ldcg(&part[((size_t)q * M + row) * H + col]);
-        out[(size_t)row * H + col] = from_f<T>(
-            (s + to_f(b2[col])) + to_f(res[(size_t)row * H + col]));
+        const size_t e = (size_t)row * H + col;
+        const float zv =
+            drop.apply(s + to_f(b2[col]), row, col, H) + to_f(res[e]);
+        if (norm == 2)
+          zf[e] = zv;  // normalised below, by the row tile's last chunk
+        else
+          out[e] = from_f<T>(zv);
       }
     }
+    // norm "post" (2): the last chunk of this row tile normalises it
+    if (norm == 2 &&
+        last_arrival(tickets, n_row * n_chunks + mt, n_chunks, &flag))
+      ln_rows<T>(zf, out, ln_s, ln_b, row0, M, H, eps);
   }
 }
 
@@ -355,68 +468,89 @@ template <typename T>
 int out_ln_run(const void* a, const void* w, const void* b, const void* res,
                const float* ln_s, const float* ln_b, void* z, float* zf,
                void* h, float* part, int* tickets, int M, int K, int N,
-               int kc, float eps, cudaStream_t st) {
+               int kc, float eps, Drop drop, cudaStream_t st) {
   const dim3 grid((N + OL_BN - 1) / OL_BN, (M + BM - 1) / BM,
                   (K + kc - 1) / kc);
   out_ln_kernel<T><<<grid, kThreads, 0, st>>>(
       (const T*)a, (const T*)w, (const T*)b, (const T*)res, ln_s, ln_b,
-      (T*)z, zf, (T*)h, part, tickets, M, K, N, kc, eps);
+      (T*)z, zf, (T*)h, part, tickets, M, K, N, kc, eps, drop);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int BI, bool PRE>
+int ffn_launch(dim3 grid, const void* x, const void* w1, const void* b1,
+               const void* w2, const void* b2, const void* res,
+               const float* ln_s, const float* ln_b, void* out, float* zf,
+               float* part, int* tickets, int M, int H, int I, int act,
+               int norm, float eps, Drop drop, cudaStream_t st) {
+  ffn_kernel<T, BI, PRE><<<grid, kThreads, 0, st>>>(
+      (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
+      (const T*)res, ln_s, ln_b, (T*)out, zf, part, tickets, M, H, I, act,
+      norm, eps, drop);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int ffn_run(const void* x, const void* w1, const void* b1, const void* w2,
-            const void* b2, const void* res, void* out, float* part,
-            int* tickets, int M, int H, int I, int bi, cudaStream_t st) {
+            const void* b2, const void* res, const float* ln_s,
+            const float* ln_b, void* out, float* zf, float* part,
+            int* tickets, int M, int H, int I, int bi, int act, int norm,
+            float eps, Drop drop, cudaStream_t st) {
+  if (bi != 64 && bi != 128) return (int)cudaErrorInvalidValue;
   const dim3 grid((I + bi - 1) / bi, (M + BM - 1) / BM);
-  if (bi == 64) {
-    ffn_kernel<T, 64><<<grid, kThreads, 0, st>>>(
-        (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
-        (const T*)res, (T*)out, part, tickets, M, H, I);
-  } else if (bi == 128) {
-    ffn_kernel<T, 128><<<grid, kThreads, 0, st>>>(
-        (const T*)x, (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,
-        (const T*)res, (T*)out, part, tickets, M, H, I);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  auto launch = bi == 64 ? (norm == 1 ? ffn_launch<T, 64, true>
+                                      : ffn_launch<T, 64, false>)
+                         : (norm == 1 ? ffn_launch<T, 128, true>
+                                      : ffn_launch<T, 128, false>);
+  return launch(grid, x, w1, b1, w2, b2, res, ln_s, ln_b, out, zf, part,
+                tickets, M, H, I, act, norm, eps, drop, st);
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (a/w/b/res/z/h); ln_s, ln_b, zf, part f32.
-// With float32, zf is z.
+// With float32, zf is z. drop != 0 applies the mask of (seed, thr) to
+// a @ W + b and divides the kept elements by keep_div = 1 - p.
 extern "C" int fused_out_ln_launch(const void* a, const void* w,
                                    const void* b, const void* res,
                                    const float* ln_s, const float* ln_b,
                                    void* z, float* zf, void* h, float* part,
                                    int* tickets, int M, int K, int N, int kc,
-                                   int dtype, float eps, void* stream) {
+                                   int dtype, int seed, int drop,
+                                   unsigned int thr, float keep_div,
+                                   float eps, void* stream) {
   if (kc <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop d{(uint32_t)seed, thr, drop, keep_div};
   if (dtype == 0)
     return out_ln_run<float>(a, w, b, res, ln_s, ln_b, z, zf, h, part,
-                             tickets, M, K, N, kc, eps, st);
+                             tickets, M, K, N, kc, eps, d, st);
   if (dtype == 1)
     return out_ln_run<__nv_bfloat16>(a, w, b, res, ln_s, ln_b, z, zf, h,
-                                     part, tickets, M, K, N, kc, eps, st);
+                                     part, tickets, M, K, N, kc, eps, d, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 float32, 1 bfloat16 (every tensor but the f32 part buffer).
-extern "C" int fused_ffn_ln_launch(const void* x, const void* w1,
-                                   const void* b1, const void* w2,
-                                   const void* b2, const void* res,
-                                   void* out, float* part, int* tickets,
-                                   int M, int H, int I, int bi, int dtype,
-                                   void* stream) {
+// dtype: 0 float32, 1 bfloat16 (x/w1/b1/w2/b2/res/out); ln_s, ln_b, zf,
+// part f32. act: 0 gelu_tanh, 1 gelu (erf polynomial), 2 relu. norm: 0
+// none (ln_s, ln_b, zf unused), 1 pre, 2 post (zf: (M, H) f32 scratch,
+// out itself with float32). tickets: (M/32) * (H/128) + (M/32) zeros.
+extern "C" int fused_ffn_ln_launch(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* res, const float* ln_s, const float* ln_b,
+    void* out, float* zf, float* part, int* tickets, int M, int H, int I,
+    int bi, int dtype, int act, int norm, int seed, int drop,
+    unsigned int thr, float keep_div, float eps, void* stream) {
+  if (act < 0 || act > 2 || norm < 0 || norm > 2)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop d{(uint32_t)seed, thr, drop, keep_div};
   if (dtype == 0)
-    return ffn_run<float>(x, w1, b1, w2, b2, res, out, part, tickets, M, H,
-                          I, bi, st);
+    return ffn_run<float>(x, w1, b1, w2, b2, res, ln_s, ln_b, out, zf, part,
+                          tickets, M, H, I, bi, act, norm, eps, d, st);
   if (dtype == 1)
-    return ffn_run<__nv_bfloat16>(x, w1, b1, w2, b2, res, out, part,
-                                  tickets, M, H, I, bi, st);
+    return ffn_run<__nv_bfloat16>(x, w1, b1, w2, b2, res, ln_s, ln_b, out,
+                                  zf, part, tickets, M, H, I, bi, act, norm,
+                                  eps, d, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,0 +1,121 @@
+// Row helpers of the layer-norm kernels (layer_norm.cu,
+// fused_residual.cu): one block owns one row of a row-major (R, C)
+// matrix and stages it in shared memory as f32.
+#pragma once
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace row_norm {
+
+constexpr int kMaxCols = 16384;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// Four consecutive elements at p + c (c % 4 == 0, p + c 16- or 8-byte
+// aligned) as one vector load / store.
+__device__ __forceinline__ void load4(const float* p, int c, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p + c);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, int c,
+                                      float (&v)[4]) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p + c);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&t.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&t.y);
+  v[0] = __low2float(lo), v[1] = __high2float(lo);
+  v[2] = __low2float(hi), v[3] = __high2float(hi);
+}
+__device__ __forceinline__ void store4(float* p, int c, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p + c) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, int c,
+                                       const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p + c) = t;
+}
+
+// Calls f(c, v) for every group of four columns (VEC: one vector load
+// per group) or f1(c, x) for every column of the row at `p`.
+template <bool VEC, typename T, typename F>
+__device__ __forceinline__ void for_row(const T* p, int C, F f) {
+  if (VEC) {
+    for (int c = 4 * threadIdx.x; c < C; c += 4 * blockDim.x) {
+      float v[4];
+      load4(p, c, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f(c + i, v[i]);
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) f(c, to_f(p[c]));
+  }
+}
+
+// Writes g(c) for every column of the row at `p`.
+template <bool VEC, typename T, typename G>
+__device__ __forceinline__ void write_row(T* p, int C, G g) {
+  if (VEC) {
+    for (int c = 4 * threadIdx.x; c < C; c += 4 * blockDim.x) {
+      float v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v[i] = g(c + i);
+      store4(p, c, v);
+    }
+  } else {
+    for (int c = threadIdx.x; c < C; c += blockDim.x) p[c] = from_f<T>(g(c));
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Sum of v over the block, the same bits in every thread: warp
+// shuffles, one shared-memory step, then every warp adds the warps'
+// partial sums in the same order. `red` holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the previous call's partials are no longer read
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  const int nw = blockDim.x >> 5;
+  return warp_sum(lane < nw ? red[lane] : 0.f);
+}
+
+// Threads per row: four columns a thread, between 64 and 512.
+inline int threads_for(int C) {
+  int t = 64;
+  while (t < 512 && 4 * t < C) t *= 2;
+  return t;
+}
+
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename K>
+inline int set_smem(K kernel, size_t bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+}  // namespace row_norm

@@ -7,7 +7,21 @@
     (B, H, S, D). A ``torch.autograd.Function``: the forward saves q, k,
     v, o and the row logsumexp; the backward computes
     ``delta = rowsum(dO * O)`` in PyTorch (the reference does it in jnp)
-    and runs the dQ and dK/dV kernels.
+    and runs the dQ and dK/dV kernels. ``mask`` is the additive padding
+    mask (B, 1, 1, T), added to the scaled scores (no gradient).
+    Dropout acts on the probabilities AFTER the row sum: the logsumexp
+    is dropout-free and only the product with V sees the mask, which
+    the backward replays from ``dropout_seed``.
+  * ``scaled_dot_product_attention(query, key, value, attn_mask,
+    dropout_p, is_causal, training, seed)`` — the entry the layers call
+    (``paddle_tpu/ops/flash_attention.py``): the flash kernels where
+    ``can_use_flash`` admits the call, the composed ``sdpa_reference``
+    otherwise (other mask shapes, unaligned lengths), both with the same
+    dropout mask from the int32 ``seed`` handed in.
+  * ``keep_mask_salted(seed, bh, s, t, p)`` — the reference's salted
+    counter hash (``_keep_mask``): salt ``bh * 0x9e3779b9 + seed``,
+    counter ``row * T + col``, uint32 wrap-around; the same bits in the
+    kernels (``csrc/dropout_hash.cuh``) and in the JAX package.
   * ``flash_fwd_reference``, ``bwd_dq_reference`` and
     ``bwd_dkv_reference`` (both behind ``flash_bwd_reference``) — the
     plain versions of the three kernels, which CPU tensors take; the
@@ -19,8 +33,7 @@ CUDA tensors go to ``csrc/flash_attention.cu`` (float32 or bfloat16,
 f32 arithmetic) or the call raises. The domain is the reference's
 (``can_use_flash``): D % 8 == 0, D <= 256, S and T multiples of 64 (the
 reference's smallest block); outside it the reference itself fails, and
-the port raises ValueError. Padding masks and in-kernel dropout come
-with the BERT slice and raise NotImplementedError until then.
+the port raises ValueError.
 """
 from __future__ import annotations
 
@@ -30,18 +43,43 @@ import math
 import torch
 
 from . import _build
-from .fused_block import _check, _dtype_code, _raise_if, _route
+from .fused_residual import hash_u32
+from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
+                      keep_threshold)
 
-__all__ = ["flash_attention", "can_use_flash", "sdpa_reference",
+__all__ = ["flash_attention", "scaled_dot_product_attention",
+           "keep_mask_salted", "can_use_flash", "sdpa_reference",
            "flash_fwd_reference", "flash_bwd_reference", "bwd_dq_reference",
            "bwd_dkv_reference", "bwd_delta"]
 
 _MIN_BLOCK = 64
 
 
-def sdpa_reference(q, k, v, mask=None, scale=None, causal=False):
+def keep_mask_salted(seed: int, bh: int, s: int, t: int, p: float,
+                     device="cpu"):
+    """(bh, s, t) bool: the probabilities dropout keeps, by the salted
+    hash over the element ids ``row * t + col`` of each (batch, head)."""
+    i = torch.arange(bh, dtype=torch.int64, device=device)[:, None, None]
+    r = torch.arange(s, dtype=torch.int64, device=device)[None, :, None]
+    c = torch.arange(t, dtype=torch.int64, device=device)[None, None, :]
+    salt = i * 0x9E3779B9 + (int(seed) & 0xFFFFFFFF)
+    return hash_u32(salt, r * t + c) >= keep_threshold(p)
+
+
+def _drop_probs(p3, seed, dropout_p):
+    """dropout on (BH, S, T) f32 probabilities under keep_mask_salted."""
+    if dropout_p <= 0.0:
+        return p3
+    keep = keep_mask_salted(seed, *p3.shape, dropout_p, p3.device)
+    return torch.where(keep, p3 / (1.0 - dropout_p), torch.zeros_like(p3))
+
+
+def sdpa_reference(q, k, v, mask=None, scale=None, causal=False,
+                   dropout_p=0.0, seed=0):
     """q, k, v: (B, H, S, D); mask additive, broadcastable to
-    (B, H, S, T). Softmax in f32, output in v's dtype."""
+    (B, H, S, T). Softmax in f32, output in v's dtype. Dropout on the
+    probabilities with the flash kernels' mask (the reference draws this
+    path's mask from jax.random, which cannot be replayed here)."""
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * scale
@@ -52,74 +90,94 @@ def sdpa_reference(q, k, v, mask=None, scale=None, causal=False):
     if mask is not None:
         logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1)
+    b, h, s, t = probs.shape
+    probs = _drop_probs(probs.reshape(b * h, s, t), seed,
+                        dropout_p).reshape(b, h, s, t)
     return torch.einsum("bhst,bhtd->bhsd", probs.to(v.dtype), v)
+
+
+def _is_padding_mask(mask, b, t) -> bool:
+    return mask.dim() == 4 and tuple(mask.shape) == (b, 1, 1, t)
 
 
 def can_use_flash(q, k, v, mask=None, dropout_p=0.0) -> bool:
     """Whether the port's flash kernels take this call: (B, H, S, D)
-    inputs with D % 8 == 0, D <= 256, S and T multiples of 64, no mask
-    and no dropout (those come with the BERT slice)."""
+    inputs with D % 8 == 0, D <= 256, S and T multiples of 64, and no
+    mask or a padding mask (B, 1, 1, T); any dropout_p."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         return False
     s, d = q.shape[2], q.shape[3]
     t = k.shape[2]
     if s % _MIN_BLOCK or t % _MIN_BLOCK or d % 8 or d > 256:
         return False
-    return mask is None and dropout_p == 0.0
+    return mask is None or _is_padding_mask(mask, q.shape[0], t)
 
 
 def _causal_mask(s, t, device):
     return torch.ones((s, t), dtype=torch.bool, device=device).tril()
 
 
-def flash_fwd_reference(q3, k3, v3, scale, causal):
-    """Plain version of the forward kernel on (BH, S, D): (o in q's
-    dtype, lse (BH, S) f32)."""
+def _scores(q3, k3, scale, causal, mask2):
+    """Scaled, masked scores (BH, S, T) in f32; mask2 (B, T) additive."""
     s = torch.matmul(q3.float(), k3.float().transpose(1, 2)) * scale
+    if mask2 is not None:
+        heads = s.shape[0] // mask2.shape[0]
+        s = s + mask2.float().repeat_interleave(heads, 0)[:, None, :]
     if causal:
         s = s.masked_fill(~_causal_mask(s.shape[1], s.shape[2], s.device),
                           float("-inf"))
+    return s
+
+
+def flash_fwd_reference(q3, k3, v3, scale, causal, mask2=None, seed=0,
+                        dropout_p=0.0):
+    """Plain version of the forward kernel on (BH, S, D): (o in q's
+    dtype, lse (BH, S) f32). The row sum and lse are dropout-free."""
+    s = _scores(q3, k3, scale, causal, mask2)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
-    o = torch.matmul(p, v3.float()) / l
+    o = torch.matmul(_drop_probs(p, seed, dropout_p), v3.float()) / l
     return o.to(q3.dtype), (m + torch.log(l)).squeeze(-1)
 
 
-def _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal):
-    """(qf, kf, dof, p, ds) in f32: P recomputed from lse (the
-    reference's _recompute_p), delta = rowsum(dO * O) and
-    ds = P * (dO V^T - delta) * scale."""
+def _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal, mask2=None, seed=0,
+              dropout_p=0.0):
+    """(qf, kf, dof, pd, ds) in f32: P recomputed from lse (the
+    reference's _recompute_p), pd its dropped form, delta =
+    rowsum(dO * O) and ds = P * (dropped(dO V^T) - delta) * scale."""
     qf, kf, vf, dof = q3.float(), k3.float(), v3.float(), do.float()
-    s = torch.matmul(qf, kf.transpose(1, 2)) * scale
-    p = torch.exp(s - lse[..., None])
-    if causal:
-        p = torch.where(_causal_mask(s.shape[1], s.shape[2], s.device), p,
-                        torch.zeros_like(p))
+    p = torch.exp(_scores(q3, k3, scale, causal, mask2) - lse[..., None])
     delta = (dof * o.float()).sum(-1, keepdim=True)
-    ds = p * (torch.matmul(dof, vf.transpose(1, 2)) - delta) * scale
-    return qf, kf, dof, p, ds
+    dp = _drop_probs(torch.matmul(dof, vf.transpose(1, 2)), seed, dropout_p)
+    ds = p * (dp - delta) * scale
+    return qf, kf, dof, _drop_probs(p, seed, dropout_p), ds
 
 
-def bwd_dq_reference(q3, k3, v3, o, lse, do, scale, causal):
+def bwd_dq_reference(q3, k3, v3, o, lse, do, scale, causal, mask2=None,
+                     seed=0, dropout_p=0.0):
     """Plain version of the dQ kernel: dq = ds k, in q's dtype."""
-    _, kf, _, _, ds = _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal)
+    _, kf, _, _, ds = _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal,
+                                mask2, seed, dropout_p)
     return torch.matmul(ds, kf).to(q3.dtype)
 
 
-def bwd_dkv_reference(q3, k3, v3, o, lse, do, scale, causal):
-    """Plain version of the dK/dV kernel: (dk = ds^T q, dv = p^T dO) in
+def bwd_dkv_reference(q3, k3, v3, o, lse, do, scale, causal, mask2=None,
+                      seed=0, dropout_p=0.0):
+    """Plain version of the dK/dV kernel: (dk = ds^T q, dv = pd^T dO) in
     k's and v's dtypes."""
-    qf, _, dof, p, ds = _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal)
+    qf, _, dof, pd, ds = _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal,
+                                   mask2, seed, dropout_p)
     dk = torch.matmul(ds.transpose(1, 2), qf)
-    dv = torch.matmul(p.transpose(1, 2), dof)
+    dv = torch.matmul(pd.transpose(1, 2), dof)
     return dk.to(k3.dtype), dv.to(v3.dtype)
 
 
-def flash_bwd_reference(q3, k3, v3, o, lse, do, scale, causal):
+def flash_bwd_reference(q3, k3, v3, o, lse, do, scale, causal, mask2=None,
+                        seed=0, dropout_p=0.0):
     """Plain version of the two backward kernels: (dq, dk, dv)."""
-    return (bwd_dq_reference(q3, k3, v3, o, lse, do, scale, causal),
-            *bwd_dkv_reference(q3, k3, v3, o, lse, do, scale, causal))
+    a = (q3, k3, v3, o, lse, do, scale, causal, mask2, seed, dropout_p)
+    return (bwd_dq_reference(*a), *bwd_dkv_reference(*a))
 
 
 # ---------------------------------------------------------------------------
@@ -136,17 +194,35 @@ def _dims(q3, k3, v3):
     return bh, s, t, d, _dtype_code(q3, "flash_attention")
 
 
-def _fwd_kernel(q3, k3, v3, scale, causal):
+_TAIL = (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
+
+
+def _tail(q3, t, mask2, seed, dropout_p):
+    """(mask pointer, heads, the dropout arguments) of a launch."""
+    bh = q3.shape[0]
+    if mask2 is None:
+        return 0, 1, _drop_args(seed, dropout_p)
+    _check([("mask", mask2)], q3.device, torch.float32)
+    b = mask2.shape[0]
+    if mask2.dim() != 2 or mask2.shape[1] != t or b < 1 or bh % b:
+        raise ValueError(f"flash mask must be (B, T) with B dividing BH = "
+                         f"{bh} and T = {t}, got {tuple(mask2.shape)}")
+    return mask2.data_ptr(), bh // b, _drop_args(seed, dropout_p)
+
+
+def _fwd_kernel(q3, k3, v3, scale, causal, mask2=None, seed=0,
+                dropout_p=0.0):
     bh, s, t, d, code = _dims(q3, k3, v3)
+    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
+                                                   dropout_p)
     o = torch.empty_like(q3)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q3.device)
-    fn = _build.function("flash_attention", "flash_fwd_launch", 5, 6,
-                         (ctypes.c_float, ctypes.c_void_p))
+    fn = _build.function("flash_attention", "flash_fwd_launch", 6, 9, _TAIL)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     with torch.cuda.device(q3.device):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), bh, s, t, d, code, int(causal),
-                 float(scale), stream)
+                 lse.data_ptr(), mptr, bh, s, t, d, code, int(causal),
+                 heads, seed, on, thr, keep_div, float(scale), stream)
     _raise_if(err, "flash_fwd")
     _build.note_launch("flash_fwd")
     return o, lse
@@ -164,33 +240,40 @@ def _bwd_common(q3, k3, v3, do, lse, delta):
     return bh, s, t, d, code
 
 
-def _dq_kernel(q3, k3, v3, do, lse, delta, scale, causal):
+def _dq_kernel(q3, k3, v3, do, lse, delta, scale, causal, mask2=None,
+               seed=0, dropout_p=0.0):
     bh, s, t, d, code = _bwd_common(q3, k3, v3, do, lse, delta)
+    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
+                                                   dropout_p)
     dq = torch.empty_like(q3)
-    fn = _build.function("flash_attention", "flash_bwd_dq_launch", 7, 6,
-                         (ctypes.c_float, ctypes.c_void_p))
+    fn = _build.function("flash_attention", "flash_bwd_dq_launch", 8, 9,
+                         _TAIL)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     with torch.cuda.device(q3.device):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, t,
-                 d, code, int(causal), float(scale), stream)
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), mptr, bh,
+                 s, t, d, code, int(causal), heads, seed, on, thr, keep_div,
+                 float(scale), stream)
     _raise_if(err, "flash_bwd_dq")
     _build.note_launch("flash_bwd_dq")
     return dq
 
 
-def _dkv_kernel(q3, k3, v3, do, lse, delta, scale, causal):
+def _dkv_kernel(q3, k3, v3, do, lse, delta, scale, causal, mask2=None,
+                seed=0, dropout_p=0.0):
     bh, s, t, d, code = _bwd_common(q3, k3, v3, do, lse, delta)
+    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
+                                                   dropout_p)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    fn = _build.function("flash_attention", "flash_bwd_dkv_launch", 8, 6,
-                         (ctypes.c_float, ctypes.c_void_p))
+    fn = _build.function("flash_attention", "flash_bwd_dkv_launch", 9, 9,
+                         _TAIL)
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     with torch.cuda.device(q3.device):
         err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), bh, s, t, d, code, int(causal),
-                 float(scale), stream)
+                 dv.data_ptr(), mptr, bh, s, t, d, code, int(causal), heads,
+                 seed, on, thr, keep_div, float(scale), stream)
     _raise_if(err, "flash_bwd_dkv")
     _build.note_launch("flash_bwd_dkv")
     return dk, dv
@@ -202,22 +285,25 @@ def bwd_delta(o, do):
     return (do.float() * o.float()).sum(-1)
 
 
-def _bwd_kernels(q3, k3, v3, o, lse, do, scale, causal):
+def _bwd_kernels(q3, k3, v3, o, lse, do, scale, causal, mask2=None, seed=0,
+                 dropout_p=0.0):
     delta = bwd_delta(o, do)
-    dq = _dq_kernel(q3, k3, v3, do, lse, delta, scale, causal)
-    dk, dv = _dkv_kernel(q3, k3, v3, do, lse, delta, scale, causal)
+    a = (q3, k3, v3, do, lse, delta, scale, causal, mask2, seed, dropout_p)
+    dq = _dq_kernel(*a)
+    dk, dv = _dkv_kernel(*a)
     return dq, dk, dv
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q3, k3, v3, scale, causal):
+    def forward(ctx, q3, k3, v3, mask2, scale, causal, seed, dropout_p):
+        args = (scale, causal, mask2, seed, dropout_p)
         if _route(q3, "flash_attention"):
-            o, lse = _fwd_kernel(q3, k3, v3, scale, causal)
+            o, lse = _fwd_kernel(q3, k3, v3, *args)
         else:
-            o, lse = flash_fwd_reference(q3, k3, v3, scale, causal)
+            o, lse = flash_fwd_reference(q3, k3, v3, *args)
         ctx.save_for_backward(q3, k3, v3, o, lse)
-        ctx.scale, ctx.causal = scale, causal
+        ctx.args = args
         return o
 
     @staticmethod
@@ -225,36 +311,46 @@ class _Flash(torch.autograd.Function):
         q3, k3, v3, o, lse = ctx.saved_tensors
         do = do.contiguous()
         if _route(q3, "flash_attention"):
-            grads = _bwd_kernels(q3, k3, v3, o, lse, do, ctx.scale,
-                                 ctx.causal)
+            grads = _bwd_kernels(q3, k3, v3, o, lse, do, *ctx.args)
         else:
-            grads = flash_bwd_reference(q3, k3, v3, o, lse, do, ctx.scale,
-                                        ctx.causal)
-        return (*grads, None, None)
+            grads = flash_bwd_reference(q3, k3, v3, o, lse, do, *ctx.args)
+        return (*grads, None, None, None, None, None)
 
 
 def flash_attention(q, k, v, mask=None, scale=None, causal=False,
                     dropout_p=0.0, dropout_seed=0):
     """q, k, v: (B, H, S|T, D) -> (B, H, S, D), differentiable in q, k,
-    v. CPU tensors take the plain versions; CUDA tensors the kernels."""
-    if mask is not None:
-        raise NotImplementedError(
-            "flash_attention with a padding mask comes with the BERT slice "
-            "of the port")
-    if dropout_p > 0.0:
-        raise NotImplementedError(
-            "flash_attention with dropout (p > 0) comes with the BERT slice "
-            "of the port")
-    if not can_use_flash(q, k, v):
+    v; mask: additive (B, 1, 1, T) or None. CPU tensors take the plain
+    versions; CUDA tensors the kernels."""
+    if not can_use_flash(q, k, v, mask):
         raise ValueError(
-            f"flash_attention takes (B, H, S, D) with D % 8 == 0, D <= 256 "
-            f"and S, T multiples of {_MIN_BLOCK}; got q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}")
+            f"flash_attention takes (B, H, S, D) with D % 8 == 0, D <= 256, "
+            f"S, T multiples of {_MIN_BLOCK} and a (B, 1, 1, T) mask or "
+            f"none; got q {tuple(q.shape)}, k {tuple(k.shape)}, mask "
+            f"{None if mask is None else tuple(mask.shape)}")
     b, h, s, d = q.shape
     t = k.shape[2]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     q3 = q.reshape(b * h, s, d).contiguous()
     k3 = k.reshape(b * h, t, d).contiguous()
     v3 = v.reshape(b * h, t, d).contiguous()
-    o = _Flash.apply(q3, k3, v3, float(scale), bool(causal))
+    mask2 = None
+    if mask is not None:
+        mask2 = mask.detach().reshape(b, t).float().contiguous()
+    o = _Flash.apply(q3, k3, v3, mask2, float(scale), bool(causal),
+                     int(dropout_seed), float(dropout_p))
     return o.reshape(b, h, s, d)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, seed=0):
+    """(B, H, S, D) attention as the layers call it: dropout only in
+    training, from the int32 `seed`; the flash kernels where
+    can_use_flash admits the call, sdpa_reference otherwise."""
+    p = float(dropout_p) if training else 0.0
+    if can_use_flash(query, key, value, attn_mask):
+        return flash_attention(query, key, value, attn_mask, None,
+                               is_causal, p, seed)
+    return sdpa_reference(query, key, value, attn_mask, None, is_causal, p,
+                          seed)

@@ -1,14 +1,18 @@
 """Epilogue-fused decoder sub-blocks (counterpart of
 ``paddle_tpu/ops/pallas_block.py``).
 
-  fused_out_ln    z = res + a @ W + b;  h = LN(z) * ln_s + ln_b
+  fused_out_ln    z = res + dropout_p(a @ W + b);  h = LN(z) * ln_s + ln_b
                   — the attention-out projection whose epilogue carries
-                  bias + residual-add + layernorm, emitting the new
-                  residual stream z and the normalised h.
+                  bias + dropout + residual-add + layernorm, emitting the
+                  new residual stream z and the normalised h.
 
-  fused_ffn_ln    out = res + act(x @ W1 + b1) @ W2 + b2
-                  — the whole FFN sub-block in one launch; the (M, 4H)
-                  intermediate never reaches device memory.
+  fused_ffn_ln    out = [LN](res + dropout_p(act([LN] x @ W1 + b1) @ W2
+                  + b2)) — the whole FFN sub-block in one launch; the
+                  (M, 4H) intermediate never reaches device memory.
+                  norm "pre" normalises x before the first GEMM, norm
+                  "post" the summed output (post-LN encoders), "none"
+                  neither; act is "gelu_tanh", "gelu" (the reference's
+                  erf polynomial, ``gelu_erf_poly``) or "relu".
 
 Each has a plain PyTorch version beside it (``out_ln_reference``,
 ``ffn_ln_reference``: ports of the JAX package's composed references),
@@ -16,16 +20,16 @@ which CPU tensors take. CUDA tensors go to the kernels in
 ``csrc/fused_block.cu`` or the call raises. The kernels take float32 or
 bfloat16 for the activations, weights and biases (one type per call)
 with float32 ln_s/ln_b, and accumulate in f32; z and the FFN output come
-out in res2's type, h in a2's. The serving path needs p == 0, act
-"gelu_tanh" and norm "none"; dropout, the other activations and the
-pre/post norms come with the BERT slice and raise NotImplementedError
-until then. Rows are ragged: any M >= 1.
+out in res2's type, h in a2's. Dropout is the unsalted counter hash of
+``fused_residual.keep_mask`` over the (M, Dout) ids of the GEMM output,
+from an int32 seed the caller hands in; no mask tensor is kept. Rows are
+ragged: any M >= 1.
 
 Both are differentiable (``torch.autograd.Function``): the forward is
 the kernel (the plain version on the CPU), and the backward is the
 reference's own, a composed f32 recompute of the chain under autograd
-(``pallas_block.py:_out_ln_bwd`` / ``_ffn_ln_bwd``) with each gradient
-cast to its input's type.
+(``pallas_block.py:_out_ln_bwd`` / ``_ffn_ln_bwd``) with the dropout
+mask replayed from the seed and each gradient cast to its input's type.
 """
 from __future__ import annotations
 
@@ -35,9 +39,12 @@ import math
 import torch
 
 from . import _build
+from ._launch import _check, _dtype_code, _drop_args, _raise_if, _route
+from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
-           "ffn_ln_reference", "gelu_tanh", "out_ln_split_k", "ffn_block_i"]
+           "ffn_ln_reference", "gelu_tanh", "gelu_erf_poly", "ACTS",
+           "NORMS", "out_ln_split_k", "ffn_block_i"]
 
 _ROW_TILE = 32          # BM in csrc/fused_block.cu
 _OUT_COL_TILE = 64      # OL_BN
@@ -46,23 +53,42 @@ _FFN_COL_CHUNK = 128    # FF_BN
 _SMS = 132              # H100 SXM streaming multiprocessors
 
 
-def _unsupported(p, act="gelu_tanh", norm="none"):
-    if p != 0.0:
-        raise NotImplementedError(
-            "dropout (p > 0) in the fused sub-blocks comes with the BERT "
-            "slice of the port")
-    if act != "gelu_tanh" or norm != "none":
-        raise NotImplementedError(
-            f"act={act!r}, norm={norm!r}: only gelu_tanh with norm 'none' "
-            f"is ported; the others come with the BERT slice")
-
-
 def gelu_tanh(v):
     """tanh-approximated gelu, the formula of pallas_ffn._gelu_tanh."""
     f = v.float()
     c = 0.7978845608028654  # sqrt(2/pi)
     return (0.5 * f * (1.0 + torch.tanh(c * (f + 0.044715 * f * f * f)))
             ).to(v.dtype)
+
+
+def gelu_erf_poly(v):
+    """gelu through the Abramowitz & Stegun 7.1.26 erf polynomial with
+    the reference's constants (pallas_ffn._gelu_exact, |erf error| <
+    1.5e-7): the function the kernel computes, not torch.erf."""
+    f = v.float()
+    z = f * 0.7071067811865476
+    a = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    erf = torch.sign(z) * (1.0 - poly * torch.exp(-a * a))
+    return (0.5 * f * (1.0 + erf)).to(v.dtype)
+
+
+# activation name -> (kernel code, plain function)
+ACTS = {"gelu_tanh": (0, gelu_tanh), "gelu": (1, gelu_erf_poly),
+        "relu": (2, torch.relu)}
+NORMS = {"none": 0, "pre": 1, "post": 2}
+
+
+def _act_norm(act, norm):
+    if act not in ACTS:
+        raise ValueError(f"fused_ffn_ln supports gelu/gelu_tanh/relu, got "
+                         f"{act!r}")
+    if norm not in NORMS:
+        raise ValueError(f"fused_ffn_ln norm is none/pre/post, got "
+                         f"{norm!r}")
+    return ACTS[act][0], NORMS[norm]
 
 
 def _ln_f32(z, scale, bias, eps):
@@ -75,23 +101,31 @@ def _ln_f32(z, scale, bias, eps):
 # plain versions
 # ---------------------------------------------------------------------------
 
-def out_ln_reference(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5):
+def out_ln_reference(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5, seed=0):
     """Composed chain of fused_out_ln: (z in res2.dtype, h in a2.dtype)."""
-    _unsupported(p)
-    y = a2.float() @ w.float() + b.float()
+    y = apply_keep(a2.float() @ w.float() + b.float(), seed, p)
     z = y + res2.float()
     h = _ln_f32(z, ln_s.float(), ln_b.float(), eps)
     return z.to(res2.dtype), h.to(a2.dtype)
 
 
 def ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
-                     act="gelu_tanh", norm="none", p=0.0, eps=1e-5):
+                     act="gelu_tanh", norm="none", p=0.0, eps=1e-5, seed=0):
     """Composed chain of fused_ffn_ln, in res2.dtype (ln_s/ln_b are
-    unused with norm "none")."""
-    _unsupported(p, act, norm)
-    hid = gelu_tanh(x2.float() @ w1.float() + b1.float())
-    y = hid @ w2.float() + b2.float()
-    return (y + res2.float()).to(res2.dtype)
+    unused with norm "none"). With norm "pre" the normalised x is
+    rounded to x2's type before the first product, as the kernel keeps
+    it."""
+    _act_norm(act, norm)
+    src = x2.float()
+    if norm == "pre":
+        src = _ln_f32(src, ln_s.float(), ln_b.float(), eps) \
+            .to(x2.dtype).float()
+    hid = ACTS[act][1](src @ w1.float() + b1.float())
+    y = apply_keep(hid @ w2.float() + b2.float(), seed, p)
+    z = y + res2.float()
+    if norm == "post":
+        z = _ln_f32(z, ln_s.float(), ln_b.float(), eps)
+    return z.to(res2.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -116,33 +150,7 @@ def ffn_block_i(m: int) -> int:
     return 64 if m <= 2 * _ROW_TILE else 128
 
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check(name_tensors, dev, dtype):
-    for name, t in name_tensors:
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype} for the kernel, got "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _dtype_code(t, what):
-    if t.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"{what} takes float32 or bfloat16 inputs, got "
-                        f"{t.dtype}")
-    return _KERNEL_DTYPES[t.dtype]
-
-
-def _raise_if(err, what):
-    if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-
-
-def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps):
+def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
     m, k = a2.shape
     n = w.shape[1]
     code = _dtype_code(a2, "fused_out_ln")
@@ -167,20 +175,24 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps):
                        dtype=torch.float32, device=a2.device)
     tickets = torch.zeros(row_tiles * col_tiles + row_tiles,
                           dtype=torch.int32, device=a2.device)
-    fn = _build.function("fused_block", "fused_out_ln_launch", 11, 5,
-                         (ctypes.c_float, ctypes.c_void_p))
+    seed, on, thr, keep_div = _drop_args(seed, p)
+    fn = _build.function(
+        "fused_block", "fused_out_ln_launch", 11, 7,
+        (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
     stream = torch.cuda.current_stream(a2.device).cuda_stream
     with torch.cuda.device(a2.device):
         err = fn(a2.data_ptr(), w.data_ptr(), b.data_ptr(), res2.data_ptr(),
                  ln_s.data_ptr(), ln_b.data_ptr(), z.data_ptr(),
                  zf.data_ptr(), h.data_ptr(), part.data_ptr(),
-                 tickets.data_ptr(), m, k, n, kc, code, float(eps), stream)
+                 tickets.data_ptr(), m, k, n, kc, code, seed, on, thr,
+                 keep_div, float(eps), stream)
     _raise_if(err, "fused_out_ln")
     _build.note_launch("fused_out_ln")
     return z, h
 
 
-def _ffn_kernel(x2, w1, b1, w2, b2, res2):
+def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
+                act="gelu_tanh", norm="none", p=0.0, eps=1e-5, seed=0):
     m, hd = x2.shape
     i = w1.shape[1]
     code = _dtype_code(x2, "fused_ffn_ln")
@@ -192,33 +204,40 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2):
         raise ValueError(f"fused_ffn_ln shapes: x {tuple(x2.shape)}, w1 "
                          f"{tuple(w1.shape)}, w2 {tuple(w2.shape)}, res "
                          f"{tuple(res2.shape)}")
+    act_code, norm_code = _act_norm(act, norm)
+    ln_ptrs = (0, 0)
+    if norm != "none":
+        _check([("ln_s", ln_s), ("ln_b", ln_b)], x2.device, torch.float32)
+        if ln_s.shape != (hd,) or ln_b.shape != (hd,):
+            raise ValueError(f"fused_ffn_ln: ln_s {tuple(ln_s.shape)}, ln_b "
+                             f"{tuple(ln_b.shape)} for H = {hd}")
+        ln_ptrs = (ln_s.data_ptr(), ln_b.data_ptr())
     bi = ffn_block_i(m)
     n_i = math.ceil(i / bi)
     row_tiles = math.ceil(m / _ROW_TILE)
     chunks = math.ceil(hd / _FFN_COL_CHUNK)
     out = torch.empty_like(res2)
+    # norm "post" reads the summed output back in f32: out itself, or an
+    # f32 scratch beside a bf16 out
+    zf = out if code == 0 or norm != "post" else torch.empty(
+        (m, hd), dtype=torch.float32, device=x2.device)
     part = torch.empty((n_i, m, hd), dtype=torch.float32, device=x2.device)
-    tickets = torch.zeros(row_tiles * chunks, dtype=torch.int32,
+    tickets = torch.zeros(row_tiles * chunks + row_tiles, dtype=torch.int32,
                           device=x2.device)
-    fn = _build.function("fused_block", "fused_ffn_ln_launch", 9, 5,
-                         (ctypes.c_void_p,))
+    seed, on, thr, keep_div = _drop_args(seed, p)
+    fn = _build.function(
+        "fused_block", "fused_ffn_ln_launch", 12, 9,
+        (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     with torch.cuda.device(x2.device):
         err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), res2.data_ptr(), out.data_ptr(),
-                 part.data_ptr(), tickets.data_ptr(), m, hd, i, bi, code,
-                 stream)
+                 b2.data_ptr(), res2.data_ptr(), *ln_ptrs, out.data_ptr(),
+                 zf.data_ptr(), part.data_ptr(), tickets.data_ptr(), m, hd,
+                 i, bi, code, act_code, norm_code, seed, on, thr, keep_div,
+                 float(eps), stream)
     _raise_if(err, "fused_ffn_ln")
     _build.note_launch("fused_ffn_ln")
     return out
-
-
-def _route(t, what):
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for device {t.device}")
-    return True
 
 
 def _grads_of(chain, saved, cots):
@@ -234,50 +253,67 @@ def _grads_of(chain, saved, cots):
 
 class _OutLn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a2, w, b, res2, ln_s, ln_b, eps):
+    def forward(ctx, a2, w, b, res2, ln_s, ln_b, eps, seed, p):
         ctx.save_for_backward(a2, w, b, res2, ln_s, ln_b)
-        ctx.eps = eps
+        ctx.args = (p, eps, seed)
         if _route(a2, "fused_out_ln"):
-            return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps)
-        return out_ln_reference(a2, w, b, res2, ln_s, ln_b, 0.0, eps)
+            return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed, p)
+        return out_ln_reference(a2, w, b, res2, ln_s, ln_b, p, eps, seed)
 
     @staticmethod
     def backward(ctx, dz, dh):
-        eps = ctx.eps
-        grads = _grads_of(
-            lambda *t: out_ln_reference(*t, 0.0, eps), ctx.saved_tensors,
-            (dz, dh))
-        return (*grads, None)
+        args = ctx.args
+        grads = _grads_of(lambda *t: out_ln_reference(*t, *args),
+                          ctx.saved_tensors, (dz, dh))
+        return (*grads, None, None, None)
 
 
 class _FfnLn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, res2):
-        ctx.save_for_backward(x2, w1, b1, w2, b2, res2)
+    def forward(ctx, x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm, p,
+                eps, seed):
+        ctx.args = (act, norm, p, eps, seed)
+        # ln_s/ln_b take no part (and get no gradient) with norm "none"
+        ctx.n_ln = 0 if norm == "none" else 2
+        ctx.save_for_backward(x2, w1, b1, w2, b2, res2,
+                              *(ln_s, ln_b)[:ctx.n_ln])
         if _route(x2, "fused_ffn_ln"):
-            return _ffn_kernel(x2, w1, b1, w2, b2, res2)
-        return ffn_ln_reference(x2, w1, b1, w2, b2, res2)
+            return _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s, ln_b, *ctx.args)
+        return ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s, ln_b,
+                                *ctx.args)
 
     @staticmethod
     def backward(ctx, dy):
-        return tuple(_grads_of(ffn_ln_reference, ctx.saved_tensors, (dy,)))
+        args = ctx.args
+
+        def chain(*t):
+            return ffn_ln_reference(*t, *(None, None)[ctx.n_ln:], *args)
+
+        grads = _grads_of(chain, ctx.saved_tensors, (dy,))
+        return (*grads, *(None, None)[ctx.n_ln:], None, None, None, None,
+                None)
 
 
-def fused_out_ln(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5):
-    """a2 (M, Din) @ w (Din, Dout) + b + res2, then layernorm.
+def fused_out_ln(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5, seed=0):
+    """a2 (M, Din) @ w (Din, Dout) + b, dropout_p, + res2, then layernorm.
 
     Returns (z, h): z (M, Dout) is the new residual stream, h is
-    LN(z) * ln_s + ln_b. CPU tensors take out_ln_reference. Differentiable
-    in every tensor input (composed f32 backward)."""
-    _unsupported(p)
-    return _OutLn.apply(a2, w, b, res2, ln_s, ln_b, eps)
+    LN(z) * ln_s + ln_b. seed: the int32 of the dropout mask (unused at
+    p == 0). CPU tensors take out_ln_reference. Differentiable in every
+    tensor input (composed f32 backward, mask replayed)."""
+    return _OutLn.apply(a2, w, b, res2, ln_s, ln_b, float(eps), int(seed),
+                        float(p))
 
 
 def fused_ffn_ln(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
-                 act="gelu_tanh", norm="none", p=0.0, eps=1e-5):
-    """The FFN sub-block in one launch: res2 + act(x2 @ w1 + b1) @ w2 +
-    b2. CPU tensors take ffn_ln_reference. Differentiable in x2, w1, b1,
-    w2, b2 and res2 (composed f32 backward); ln_s/ln_b are unused with
-    norm "none"."""
-    _unsupported(p, act, norm)
-    return _FfnLn.apply(x2, w1, b1, w2, b2, res2)
+                 act="gelu_tanh", norm="none", p=0.0, eps=1e-5, seed=0):
+    """The FFN sub-block in one launch: [LN](res2 + dropout_p(act([LN] x2
+    @ w1 + b1) @ w2 + b2)). ln_s/ln_b (float32) are needed with norm
+    "pre" and "post" and unused with "none". CPU tensors take
+    ffn_ln_reference. Differentiable in x2, w1, b1, w2, b2, res2 and the
+    LN vectors in use (composed f32 backward, mask replayed)."""
+    _act_norm(act, norm)
+    if norm != "none" and (ln_s is None or ln_b is None):
+        raise ValueError(f"fused_ffn_ln norm={norm!r} needs ln_s and ln_b")
+    return _FfnLn.apply(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm,
+                        float(p), float(eps), int(seed))

@@ -123,15 +123,169 @@ def test_outside_the_domain_raises(shape):
 
 
 def test_mask_and_dropout_raise():
-    q = torch.zeros(1, 2, 64, 64)
-    with pytest.raises(NotImplementedError, match="BERT"):
-        port.flash_attention(q, q, q, mask=torch.zeros(1, 1, 1, 64))
-    with pytest.raises(NotImplementedError, match="BERT"):
-        port.flash_attention(q, q, q, dropout_p=0.1)
-    assert not port.can_use_flash(q, q, q, mask=torch.zeros(1, 1, 1, 64))
+    """A padding mask and dropout raised NotImplementedError until the
+    BERT slice; now both run. What still raises is a mask of another
+    shape than (B, 1, 1, T), which the composed path takes instead."""
+    q = torch.randn(1, 2, 64, 64, generator=torch.Generator().manual_seed(0))
+    pad = torch.zeros(1, 1, 1, 64)
+    pad[..., 48:] = -1e9
+    assert port.can_use_flash(q, q, q, mask=pad)
+    assert port.can_use_flash(q, q, q, dropout_p=0.1)
+    o = port.flash_attention(q, q, q, mask=pad)
+    torch.testing.assert_close(o, port.sdpa_reference(q, q, q, mask=pad),
+                               **TOL)
+    od = port.flash_attention(q, q, q, dropout_p=0.1, dropout_seed=5)
+    torch.testing.assert_close(
+        od, port.sdpa_reference(q, q, q, dropout_p=0.1, seed=5), **TOL)
+    assert not torch.equal(od, port.flash_attention(q, q, q))
+    full = torch.zeros(1, 1, 64, 64)
+    assert not port.can_use_flash(q, q, q, mask=full)
+    with pytest.raises(ValueError, match="mask"):
+        port.flash_attention(q, q, q, mask=full)
+    # the layers' entry takes the composed path for such a mask
+    torch.testing.assert_close(
+        port.scaled_dot_product_attention(q, q, q, attn_mask=full),
+        port.sdpa_reference(q, q, q), **TOL)
 
 
 def test_other_devices_raise():
     q = torch.empty(1, 2, 64, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         port.flash_attention(q, q, q)
+
+
+# -- the BERT variants: an additive padding mask (B, 1, 1, T) and dropout
+# on the probabilities by the salted counter hash, both replayed in the
+# gradients. Same numpy inputs and the same int32 seed through both
+# packages; the JAX side is the Pallas kernels in interpret mode.
+def _pad_mask(t, seed=0):
+    """(B, 1, 1, T) additive mask: each batch row pads its own tail."""
+    m = np.zeros((B, 1, 1, t), np.float32)
+    lens = np.random.RandomState(seed).randint(t // 2, t, (B,))
+    for b, n in enumerate(lens):
+        m[b, ..., n:] = -1e9
+    return m
+
+
+def _port_variant(q, k, v, do, causal, mask, p, seed, dtype=torch.float32):
+    qt, kt, vt = (torch.from_numpy(a).to(dtype).requires_grad_()
+                  for a in (q, k, v))
+    mt = None if mask is None else torch.from_numpy(mask)
+    o = port.flash_attention(qt, kt, vt, mt, None, causal, p, seed)
+    grads = torch.autograd.grad(o, (qt, kt, vt),
+                                torch.from_numpy(do).to(dtype))
+    return [o.detach().float().numpy()] + [g.float().numpy() for g in grads]
+
+
+def _jax_variant(q, k, v, do, causal, mask, p, seed, dtype=jnp.float32):
+    args = [jnp.asarray(a, dtype) for a in (q, k, v)]
+    mj = None if mask is None else jnp.asarray(mask)
+    o, vjp = jax.vjp(lambda a, b, c: j_flash(a, b, c, mj, None, causal, p,
+                                             seed), *args)
+    grads = vjp(jnp.asarray(do, dtype))
+    return [np.asarray(o, np.float32)] + [np.asarray(g, np.float32)
+                                          for g in grads]
+
+
+@pytest.mark.parametrize("seed,p", [(0, 0.1), (-99, 0.5), (2 ** 31 - 1, 0.1)])
+def test_salted_keep_mask_is_bit_equal_to_the_jax_hash(seed, p):
+    from paddle_tpu.ops.pallas_attention import _keep_mask
+    bh, s, t = 5, 64, 128
+    got = port.keep_mask_salted(seed, bh, s, t, p).numpy()
+    rows = jnp.broadcast_to(jnp.arange(s, dtype=jnp.int32)[:, None], (s, t))
+    cols = jnp.broadcast_to(jnp.arange(t, dtype=jnp.int32)[None, :], (s, t))
+    sd = jnp.asarray([seed], jnp.int32)
+    for i in range(bh):
+        np.testing.assert_array_equal(
+            got[i], np.asarray(_keep_mask(sd, i, rows, cols, t, p)))
+    assert abs(got.mean() - (1 - p)) < 0.02
+    assert not np.array_equal(got[0], got[1])      # salted by (b, h)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("with_mask,p", [(True, 0.0), (False, 0.1),
+                                         (True, 0.1)])
+def test_flash_mask_dropout_matches_jax_pallas_interpret(with_mask, p,
+                                                         causal):
+    t = 128
+    q, k, v, do = _inputs(t, seed=5)
+    mask = _pad_mask(t) if with_mask else None
+    got = _port_variant(q, k, v, do, causal, mask, p, 4242)
+    want = _jax_variant(q, k, v, do, causal, mask, p, 4242)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, atol=2e-5, rtol=2e-5)
+    if with_mask:    # padded keys get no gradient
+        for b in range(B):
+            pad = mask[b, 0, 0] < 0
+            assert np.all(got[2][b][:, pad] == 0)
+            assert np.all(got[3][b][:, pad] == 0)
+
+
+def test_flash_mask_dropout_bf16_matches_jax_pallas_interpret():
+    q, k, v, do = _inputs(128, seed=6)
+    mask = _pad_mask(128, seed=1)
+    got = _port_variant(q, k, v, do, False, mask, 0.1, 7, torch.bfloat16)
+    want = _jax_variant(q, k, v, do, False, mask, 0.1, 7, jnp.bfloat16)
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g, w, err_msg=name, **BF16_TOL)
+
+
+def test_dropout_leaves_the_logsumexp_dropout_free():
+    """The row sum is taken before the mask: lse is the same with and
+    without dropout, and the dropped output is the kept probabilities
+    over 1 - p times V (two identity-block V's expose the mask bit for
+    bit)."""
+    t, p, seed = 128, 0.25, 31
+    q, k, _, _ = (torch.from_numpy(a).reshape(B * H, t, D)
+                  for a in _inputs(t, seed=7))
+    scale = 1.0 / math.sqrt(D)
+    keep = port.keep_mask_salted(seed, B * H, t, t, p)
+    _, lse0 = port.flash_fwd_reference(q, k, q, scale, False)
+    for half in (0, 1):
+        v = torch.zeros(B * H, t, D)
+        v[:, half * D:(half + 1) * D] = torch.eye(D)
+        o, lse = port.flash_fwd_reference(q, k, v, scale, False, None, seed,
+                                          p)
+        torch.testing.assert_close(lse, lse0, atol=0, rtol=0)
+        assert torch.equal(o != 0, keep[:, :, half * D:(half + 1) * D])
+
+
+@pytest.mark.parametrize("p", [0.0, 0.2])
+def test_plain_backward_with_mask_and_dropout_matches_autograd(p):
+    """flash_bwd_reference (P recomputed from the dropout-free lse, the
+    mask replayed) equals autograd through the composed sdpa_reference
+    under the same seed."""
+    t = 128
+    q, k, v, do = (torch.from_numpy(a) for a in _inputs(t, seed=8))
+    mask = torch.from_numpy(_pad_mask(t, seed=2))
+    qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
+    ref = port.sdpa_reference(qr, kr, vr, mask, None, False, p, 77)
+    want = torch.autograd.grad(ref, (qr, kr, vr), do)
+    q3, k3, v3, do3 = (a.reshape(B * H, t, D) for a in (q, k, v, do))
+    scale = 1.0 / math.sqrt(D)
+    m2 = mask.reshape(B, t)
+    o, lse = port.flash_fwd_reference(q3, k3, v3, scale, False, m2, 77, p)
+    torch.testing.assert_close(o.reshape(B, H, t, D), ref.detach(), **TOL)
+    got = port.flash_bwd_reference(q3, k3, v3, o, lse, do3, scale, False, m2,
+                                   77, p)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.reshape(B, H, t, D), w, atol=2e-5,
+                                   rtol=2e-5)
+
+
+def test_sdpa_entry_argument_handling():
+    """The layers' entry: dropout only in training, flash where its
+    domain admits the call (the plain versions here), composed
+    otherwise, the same mask from the same seed on both routes."""
+    q, k, v, _ = (torch.from_numpy(a) for a in _inputs(64, seed=9))
+    ev = port.scaled_dot_product_attention(q, k, v, dropout_p=0.5,
+                                           training=False)
+    torch.testing.assert_close(ev, port.sdpa_reference(q, k, v), **TOL)
+    tr = port.scaled_dot_product_attention(q, k, v, dropout_p=0.5, seed=3)
+    torch.testing.assert_close(
+        tr, port.sdpa_reference(q, k, v, dropout_p=0.5, seed=3), **TOL)
+    short = q[:, :, :10]      # outside the flash domain
+    out = port.scaled_dot_product_attention(short, short, short,
+                                            is_causal=True)
+    torch.testing.assert_close(
+        out, port.sdpa_reference(short, short, short, causal=True), **TOL)

@@ -19,6 +19,17 @@ from paddle_tpu_torch.ops import fused_block as port
 # float32 throughout; the sums run in another order than XLA's
 TOL = dict(atol=1e-5, rtol=1e-5)
 D, I = 128, 512
+U32 = 2.0 ** -24     # unit roundoff of float32
+
+
+def _sum_tol(k, terms_abs):
+    """Tolerance of a float32 sum of k products whose absolute values add
+    up to `terms_abs`, when two implementations add them in different
+    orders: each is within about sqrt(k) * u * sum|a_i b_i| of the exact
+    sum (the probabilistic bound of a recursive sum; the worst case is
+    k * u), and 4x that covers both sides and the blocked orders of
+    multi-threaded GEMMs."""
+    return 4.0 * math.sqrt(k) * U32 * terms_abs
 
 
 @pytest.fixture
@@ -78,13 +89,28 @@ def test_fused_out_ln_matches_pallas_interpret(m, interpret):
 
 @pytest.mark.parametrize("m", [8, 20])
 def test_fused_ffn_ln_matches_composed_reference(m):
+    """Both sides are float32 GEMM pairs whose second product sums
+    I = 512 terms per output. How a CPU GEMM blocks that sum depends on
+    the library and on the threads it finds, so the two results are held
+    to the tolerance that the sum length gives (_sum_tol, about 2e-5
+    here, where a fixed 1e-5 failed once in a loaded six-worker run), and
+    each is also held to the float64 result of the same chain."""
     a = _ffn_inputs(m)
     ones, zeros = np.ones(D, np.float32), np.zeros(D, np.float32)
-    got = port.fused_ffn_ln(*_t(a))
-    want = pb.ffn_ln_reference(*_j(a), jnp.asarray(ones),
-                               jnp.asarray(zeros), SEED, "gelu_tanh",
-                               "none", 0.0, 1e-5)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    got = port.fused_ffn_ln(*_t(a)).numpy()
+    want = np.asarray(pb.ffn_ln_reference(
+        *_j(a), jnp.asarray(ones), jnp.asarray(zeros), SEED, "gelu_tanh",
+        "none", 0.0, 1e-5))
+    x, w1, b1, w2, b2, res = (v.astype(np.float64) for v in a)
+    pre = x @ w1 + b1
+    hid = 0.5 * pre * (1 + np.tanh(0.7978845608028654
+                                   * (pre + 0.044715 * pre ** 3)))
+    exact = hid @ w2 + b2 + res
+    atol = _sum_tol(I, float((np.abs(hid) @ np.abs(w2)).max()))
+    assert atol < 5e-5
+    np.testing.assert_allclose(got, exact, atol=atol, rtol=1e-6)
+    np.testing.assert_allclose(want, exact, atol=atol, rtol=1e-6)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=1e-5)
 
 
 @pytest.mark.parametrize("m", [8, 20])
@@ -106,16 +132,45 @@ def test_gelu_tanh_matches_pallas_formula():
                                atol=1e-6, rtol=1e-6)
 
 
+def _ln_vecs(seed=3):
+    rng = np.random.RandomState(seed)
+    return ((rng.rand(D) + 0.5).astype(np.float32),
+            rng.randn(D).astype(np.float32))
+
+
 @pytest.mark.parametrize("kw", [dict(p=0.1), dict(act="gelu"),
                                 dict(act="relu"), dict(norm="pre"),
                                 dict(norm="post")])
 def test_unported_variants_raise(kw):
-    a = _t(_ffn_inputs(4))
-    with pytest.raises(NotImplementedError, match="BERT"):
-        port.fused_ffn_ln(*a, **kw)
+    """The variants that raised NotImplementedError until the BERT slice
+    (dropout, gelu, relu, pre/post norm) now run, and agree with the JAX
+    composed reference under the same int32 seed; what still raises is
+    an unknown activation or norm, and a norm without its LN vectors."""
+    a = _ffn_inputs(4)
+    ln = _ln_vecs()
+    full = dict(act="gelu_tanh", norm="none", p=0.0)
+    full.update(kw)
+    got = port.fused_ffn_ln(*_t(a), *_t(ln), eps=1e-5, seed=21, **full)
+    want = pb.ffn_ln_reference(
+        *_j(a), *_j(ln), jnp.asarray([21], jnp.int32), full["act"],
+        full["norm"], full["p"], 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
     if set(kw) == {"p"}:
-        with pytest.raises(NotImplementedError, match="BERT"):
-            port.fused_out_ln(*_t(_out_ln_inputs(4)), p=0.1)
+        o = _out_ln_inputs(4)
+        z, h = port.fused_out_ln(*_t(o), p=0.1, seed=21)
+        zj, hj = pb.out_ln_reference(*_j(o), jnp.asarray([21], jnp.int32),
+                                     0.1, 1e-5)
+        np.testing.assert_allclose(z.numpy(), np.asarray(zj), atol=2e-5,
+                                   rtol=2e-5)
+        np.testing.assert_allclose(h.numpy(), np.asarray(hj), atol=2e-5,
+                                   rtol=2e-5)
+    with pytest.raises(ValueError, match="gelu/gelu_tanh/relu"):
+        port.fused_ffn_ln(*_t(a), act="swish")
+    with pytest.raises(ValueError, match="none/pre/post"):
+        port.fused_ffn_ln(*_t(a), norm="both")
+    with pytest.raises(ValueError, match="needs ln_s"):
+        port.fused_ffn_ln(*_t(a), norm="post")
 
 
 def test_other_devices_raise():
@@ -238,3 +293,131 @@ def test_bf16_forward_matches_composed_reference(m):
     np.testing.assert_allclose(port.fused_ffn_ln(*ts).detach().float()
                                .numpy(), np.asarray(want, np.float32),
                                atol=1e-2, rtol=1e-2)
+
+
+# -- the BERT variants: dropout (the unsalted counter hash over the
+# unpadded (M, C) ids), pre/post norm, gelu / relu. Same numpy inputs and
+# the same int32 seed through both packages; the JAX side is the Pallas
+# kernel in interpret mode, whose row padding to 128 must not move the
+# mask (ragged M = 20).
+VARIANTS = [("gelu", "post", 0.1), ("gelu", "post", 0.0),
+            ("relu", "post", 0.1), ("gelu", "pre", 0.1),
+            ("gelu_tanh", "pre", 0.0), ("relu", "none", 0.3),
+            ("gelu", "none", 0.0)]
+SEED_I = 20240917
+JSEED = jnp.asarray([SEED_I], jnp.int32)
+# f32 sums in another order, the erf polynomial against lax.erf in the
+# reference's backward (< 1.5e-7), a division by 1 - p on both sides
+VTOL = dict(atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("act,norm,p", VARIANTS)
+@pytest.mark.parametrize("m", [8, 20])
+def test_ffn_ln_variants_match_pallas_interpret(m, act, norm, p, interpret):
+    a, ln = _ffn_inputs(m, seed=11), _ln_vecs(12)
+    assert pb.can_use_fused_ffn_ln(m, D, I, 4, norm == "pre")
+    got = port.fused_ffn_ln(*_t(a), *_t(ln), act, norm, p, 1e-12, SEED_I)
+    want = pb.fused_ffn_ln(*_j(a), *_j(ln), JSEED, act, norm, p, 1e-12)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **VTOL)
+
+
+@pytest.mark.parametrize("p", [0.1, 0.5])
+@pytest.mark.parametrize("m", [8, 20])
+def test_out_ln_dropout_matches_pallas_interpret(m, p, interpret):
+    a = _out_ln_inputs(m, seed=13)
+    z, h = port.fused_out_ln(*_t(a), p=p, eps=1e-12, seed=SEED_I)
+    zj, hj = pb.fused_out_ln(*_j(a), JSEED, p, 1e-12)
+    np.testing.assert_allclose(z.numpy(), np.asarray(zj), **VTOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(hj), **VTOL)
+
+
+@pytest.mark.parametrize("m", [8, 20])
+def test_block_dropout_masks_are_bit_equal(m, interpret):
+    """With a zero residual the (M, C) output is zero exactly where the
+    mask dropped: the same pattern in the port, in the Pallas kernel and
+    in keep_mask."""
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    p = 0.25
+    keep = keep_mask(SEED_I, m, D, p).numpy()
+    a = _out_ln_inputs(m, seed=14)
+    a[3] = np.zeros_like(a[3])
+    z, _ = port.fused_out_ln(*_t(a), p=p, seed=SEED_I)
+    zj, _ = pb.fused_out_ln(*_j(a), JSEED, p, 1e-5)
+    np.testing.assert_array_equal(z.numpy() != 0, keep)
+    np.testing.assert_array_equal(np.asarray(zj) != 0, keep)
+    f = _ffn_inputs(m, seed=15)
+    f[5] = np.zeros_like(f[5])
+    out = port.fused_ffn_ln(*_t(f), act="gelu", p=p, seed=SEED_I)
+    ones, zeros = jnp.ones((D,)), jnp.zeros((D,))
+    outj = pb.fused_ffn_ln(*_j(f), ones, zeros, JSEED, "gelu", "none", p,
+                           1e-5)
+    np.testing.assert_array_equal(out.numpy() != 0, keep)
+    np.testing.assert_array_equal(np.asarray(outj) != 0, keep)
+
+
+def test_gelu_erf_poly_matches_the_reference_polynomial():
+    """The port's gelu is the reference's A&S 7.1.26 polynomial
+    (pallas_ffn._gelu_exact), not erf itself: the two polynomials agree
+    to float32 rounding, and both stay within 1.5e-7 * |x| / 2 + rounding
+    of the exact gelu."""
+    from paddle_tpu.ops.pallas_ffn import _gelu_exact
+    x = np.linspace(-8, 8, 8001).astype(np.float32)
+    got = port.gelu_erf_poly(torch.from_numpy(x)).numpy()
+    want = np.asarray(_gelu_exact(jnp.asarray(x)))
+    np.testing.assert_allclose(got, want, atol=1.5e-7, rtol=1e-6)
+    exact = torch.nn.functional.gelu(torch.from_numpy(x).double()).numpy()
+    assert np.abs(got - exact).max() < 1.5e-7 * 8 / 2 + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act,norm,p", [("gelu", "post", 0.1),
+                                        ("relu", "pre", 0.1),
+                                        ("gelu", "none", 0.2)])
+def test_ffn_ln_variant_grads_match_jax_vjp(act, norm, p, dtype, interpret):
+    """The mask is replayed in the gradients: every input's gradient
+    (the LN vectors' too) against jax.vjp of the Pallas function under
+    the same seed."""
+    m = 20
+    arrs = _ffn_inputs(m, seed=16) + list(_ln_vecs(17))
+    dy = np.random.RandomState(18).randn(m, D).astype(np.float32)
+    ts, js = _grad_case(arrs, 2, dtype)
+    out = port.fused_ffn_ln(*ts, act, norm, p, 1e-5, SEED_I)
+    assert out.dtype == dtype
+    cy = torch.from_numpy(dy).to(dtype)
+    n = 6 if norm == "none" else 8
+    got = torch.autograd.grad(out, ts[:n], cy)
+    _, vjp = jax.vjp(lambda *a: pb.fused_ffn_ln(
+        *a, JSEED, act, norm, p, 1e-5), *js)
+    want = vjp(jnp.asarray(cy.float().numpy(), _JDT[dtype]))[:n]
+    tol = dict(GRAD_TOL[dtype])
+    if dtype == torch.float32:
+        tol = dict(atol=1e-4, rtol=1e-4)   # dW sums over M rows / (1 - p)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   err_msg=f"input {i}", **tol)
+    if norm == "none":      # the unused LN vectors get no gradient
+        assert torch.autograd.grad(
+            port.fused_ffn_ln(*ts, act, norm, p, 1e-5, SEED_I), ts[6:], cy,
+            allow_unused=True) == (None, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_out_ln_dropout_grads_match_jax_vjp(dtype, interpret):
+    m, p = 20, 0.1
+    arrs = _out_ln_inputs(m, seed=19)
+    rng = np.random.RandomState(20)
+    dz, dh = (rng.randn(m, D).astype(np.float32) for _ in range(2))
+    ts, js = _grad_case(arrs, 2, dtype)
+    z, h = port.fused_out_ln(*ts, p, 1e-5, SEED_I)
+    cz, ch = (torch.from_numpy(c).to(dtype) for c in (dz, dh))
+    got = torch.autograd.grad((z, h), ts, (cz, ch))
+    _, vjp = jax.vjp(lambda *a: pb.fused_out_ln(*a, JSEED, p, 1e-5), *js)
+    want = vjp((jnp.asarray(cz.float().numpy(), _JDT[dtype]),
+                jnp.asarray(ch.float().numpy(), _JDT[dtype])))
+    tol = GRAD_TOL[dtype] if dtype == torch.bfloat16 \
+        else dict(atol=1e-4, rtol=1e-4)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, np.float32),
+                                   err_msg=f"input {i}", **tol)

@@ -35,7 +35,10 @@ def test_port_file_list_is_not_empty():
     names = {p.name for p in PORT_FILES}
     assert {"engine.py", "model.py", "gpt.py", "paged_attention.py",
             "fused_block.py", "flash_attention.py", "hybrid.py",
-            "optimizer_ops.py", "chip_smoke.py"} <= names
+            "optimizer_ops.py", "chip_smoke.py", "layer_norm.py",
+            "fused_residual.py", "_launch.py", "auto_cast.py",
+            "functional.py", "layers_common.py", "initializer.py",
+            "transformer.py", "bert.py", "perf.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -64,6 +67,11 @@ def test_import_needs_no_nvcc_triton_or_jax():
         " paddle_tpu_torch.ops.flash_attention\n"
         "import paddle_tpu_torch.parallel,"
         " paddle_tpu_torch.fluid.ops.optimizer_ops\n"
+        "import paddle_tpu_torch.ops.layer_norm,"
+        " paddle_tpu_torch.ops.fused_residual\n"
+        "import paddle_tpu_torch.amp, paddle_tpu_torch.nn,"
+        " paddle_tpu_torch.nn.transformer, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.models.bert\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
