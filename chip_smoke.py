@@ -74,6 +74,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -95,7 +96,8 @@ BLOCK_SRC = "paddle_tpu_torch/ops/csrc/fused_block.cu"
 FLASH_SRC = "paddle_tpu_torch/ops/csrc/flash_attention.cu"
 LN_SRC = "paddle_tpu_torch/ops/csrc/layer_norm.cu"
 DAL_SRC = "paddle_tpu_torch/ops/csrc/fused_residual.cu"
-SOURCE = {"paged_attention": PAGED_SRC, "fused_out_ln": BLOCK_SRC,
+FFN_SRC = "paddle_tpu_torch/ops/csrc/fused_ffn.cu"
+SOURCE = {"fused_ffn": FFN_SRC, "paged_attention": PAGED_SRC, "fused_out_ln": BLOCK_SRC,
           "fused_ffn_ln": BLOCK_SRC, "flash_fwd": FLASH_SRC,
           "flash_bwd_dq": FLASH_SRC, "flash_bwd_dkv": FLASH_SRC,
           "layer_norm_fwd": LN_SRC, "layer_norm_bwd_dx": LN_SRC,
@@ -121,6 +123,8 @@ REPLACES = {
                           "_fwd_kernel (_fwd_impl :133, pallas_call :136)",
     "dropout_add_ln_bwd": "paddle_tpu/ops/pallas_fused_residual.py:91 "
                           "_bwd_kernel (_vjp_bwd :169, pallas_call :175)",
+    "fused_ffn": "paddle_tpu/ops/pallas_ffn.py:124 _ffn_kernel "
+                 "(_ffn_fwd_impl :143, pallas_call :148)",
 }
 SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
@@ -141,6 +145,15 @@ BERT_LAUNCHES_PER_STEP = {
 ENCODER_LAYER_LAUNCHES = {
     "dropout_add_ln_fwd": 1, "dropout_add_ln_bwd": 1, "fused_out_ln": 1,
     "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+# the static FFN program: ops/autobench.py's bert_base_512 preset shape
+FFN_M, FFN_H, FFN_I = 8192, 768, 3072
+FFN_STEPS = 5
+# fused_ffn launches of one static FFN step: the forward op, and the
+# forward re-run inside fused_ffn_grad (the auto grad differentiates the
+# op's compute)
+FFN_LAUNCHES_PER_STEP = 2
+# bench.py's bench_lenet
+LENET_BATCH, LENET_STEPS = 256, 30
 
 
 def fail(msg: str):
@@ -902,18 +915,28 @@ def serving_path(torch, tree):
 def profile_steps(torch, run, steps, what, top_n=12):
     """Device time by kernel over `steps` calls of run(): each kernel's
     ms and launches per step, and the device's busy share of the wall
-    time."""
+    time; beside them, the port's own launch counters over the same calls
+    (a kernel the profiler lists fewer times than its wrapper counted is
+    missing from the busy time). One more call runs first under the
+    profiler's warm-up, traced and dropped: a trace that starts cold
+    loses its first kernels."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     from paddle_tpu_torch.observability import TRACER
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from paddle_tpu_torch.ops import launch_counts
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+        before = launch_counts()
         t0 = time.perf_counter()
         for _ in range(steps):
             run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    counted = {k: (v - before.get(k, 0)) / steps
+               for k, v in launch_counts().items() if v != before.get(k, 0)}
     spans = {sp.name for sp in TRACER.spans()}
     by_name: dict[str, list] = {}
     for e in prof.events():
@@ -936,7 +959,8 @@ def profile_steps(torch, run, steps, what, top_n=12):
         "device_busy_share": round(busy / (wall * 1e3), 4),
         "top_kernels": [{"name": k, "ms_per_step": round(v[0] / steps, 4),
                          "launches_per_step": v[1] / steps}
-                        for k, v in top]}), flush=True)
+                        for k, v in top],
+        "port_launches_per_step": counted}), flush=True)
 
 
 def profile_decode(torch, eng, vocab, steps=10):
@@ -1243,6 +1267,263 @@ def encoder_layer_phase(torch):
     return counts
 
 
+def check_ffn(torch, timer, results):
+    """B row 10, ``ops.fused_ffn``, against its plain version: the
+    bert_base_512 preset (M = 8192, H = 768, I = 3072), BERT-base's
+    16 x 128 tokens (M = 2048) and GPT-3 XL width in bf16 (M = 1024,
+    H = 2048, I = 8192), gelu and relu. Tolerance: f32 sums of 768 and
+    3072 terms in other orders, |err| <= 1e-4 + 1e-4 |ref|; bf16 rounds
+    hid and y once each in both (2**-8 relative), 2e-2 + 2e-2 |ref|. The
+    library yardstick is addmm, the activation, addmm (cuBLAS, TF32 off
+    for f32)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
+    cases = [(FFN_M, FFN_H, FFN_I, torch.float32), (FFN_M, FFN_H, FFN_I,
+                                                    torch.bfloat16),
+             (2048, 768, 3072, torch.float32), (2048, 768, 3072,
+                                                torch.bfloat16),
+             (1024, 2048, 8192, torch.bfloat16)]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for M, H, I, dt in cases:
+        def rn(*shape, sc=1.0):
+            return (torch.randn(*shape, generator=g, device="cuda")
+                    * sc).to(dt)
+        x, w1, b1 = rn(M, H), rn(H, I, sc=0.02), rn(I, sc=0.02)
+        w2, b2 = rn(I, H, sc=0.02), rn(H, sc=0.02)
+        isz = 4 if dt == torch.float32 else 2
+        tol = {"atol": 1e-4, "rtol": 1e-4} if dt == torch.float32 \
+            else {"atol": 2e-2, "rtol": 2e-2}
+        nbytes = isz * (M * H + H * I + I + I * H + H + M * H)
+        bms, by = bound(nbytes, 4 * M * H * I + 10 * M * I,
+                        F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
+        name = "f32" if dt == torch.float32 else "bf16"
+        for act in ("gelu", "relu"):
+            y = fused_ffn(x, w1, b1, w2, b2, act)
+            ref = ffn_reference(x, w1, b1, w2, b2, act)
+            again = fused_ffn(x, w1, b1, w2, b2, act)
+            torch.cuda.synchronize()
+            if not torch.equal(y, again):
+                fail(f"fused_ffn M={M} {name} {act}: two runs differ")
+            lib_act = (lambda u: F.gelu(u)) if act == "gelu" else torch.relu
+
+            def lib():
+                return torch.addmm(b2, lib_act(torch.addmm(b1, x, w1)), w2)
+
+            row = {"kernel": "fused_ffn",
+                   "shape": f"M={M} H={H} I={I} {name} {act}",
+                   "max_abs_err": max_err(y, ref), "tol": tol,
+                   "bit_identical_rerun": True,
+                   "kernel_ms": timer(lambda: fused_ffn(x, w1, b1, w2, b2,
+                                                        act)),
+                   "plain_ms": timer(lambda: ffn_reference(x, w1, b1, w2,
+                                                           b2, act)),
+                   "library_ms": timer(lib), "bound_ms": bms,
+                   "bound_by": by}
+            report(results, row, within(y, ref, **tol))
+
+
+def _lenet_batch(rng, protos, batch):
+    """Class-separable digits, as tests/test_mnist_lenet.py makes them."""
+    lab = rng.randint(0, 10, batch).astype("int64")
+    img = protos[lab] + 0.3 * rng.randn(batch, 1, 28, 28).astype("float32")
+    return {"img": img, "label": lab[:, None]}
+
+
+def static_lenet_phase(torch, with_profile=False):
+    """bench.py's bench_lenet through the port's static graph: the
+    LeNet program of ``models.lenet.build_lenet_program`` with Adam 1e-3
+    minimised, startup, one warm step and LENET_STEPS timed steps of
+    batch 256 on ``Executor(CUDAPlace(0))``, fresh class-separable
+    digits each step (host arrays fed as a user feeds them). The loss
+    must fall and the accuracy rise; prints examples/s and the
+    executor's counters."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fluid import (CUDAPlace, Executor, Scope,
+                                        framework, optimizer, scope_guard,
+                                        unique_name)
+    from paddle_tpu_torch.models.lenet import build_lenet_program
+    pt.enable_static()
+    try:
+        with unique_name.guard():
+            main, startup, feeds, fetches = build_lenet_program()
+            with framework.program_guard(main, startup):
+                optimizer.Adam(learning_rate=1e-3).minimize(fetches["loss"])
+    finally:
+        pt.disable_static()
+    rng = np.random.RandomState(0)
+    protos = rng.randn(10, 1, 28, 28).astype("float32")
+    batches = [_lenet_batch(rng, protos, LENET_BATCH)
+               for _ in range(LENET_STEPS + 1)]
+    fetch = [fetches["loss"], fetches["acc"]]
+    with scope_guard(Scope()):
+        exe = Executor(CUDAPlace(0))
+        exe.run(startup)
+        lv, av = exe.run(main, feed=batches[0], fetch_list=fetch)
+        losses, accs = [float(lv[0])], [float(av[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [exe.run(main, feed=b, fetch_list=fetch, return_numpy=False)
+                for b in batches[1:]]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if with_profile:
+            profile_static(torch, exe, main, fetch, batches[0],
+                           "static_lenet_step")
+    losses += [float(o[0]) for o in outs]
+    accs += [float(o[1]) for o in outs]
+    main_d = {"phase": "static_lenet", "config": f"bench_lenet: batch {LENET_BATCH}, "
+              "Adam 1e-3, separable digits", "ops_per_step":
+              len(main.global_block().ops), "steps": LENET_STEPS,
+              "step_ms": round(dt / LENET_STEPS * 1e3, 3),
+              "examples_per_s": round(LENET_BATCH * LENET_STEPS / dt, 2),
+              "losses": losses[::5] + [losses[-1]],
+              "accs": accs[::5] + [accs[-1]], "executor": exe.stats()}
+    print(json.dumps(main_d), flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < 0.5 * losses[0]:
+        fail(f"static LeNet loss did not fall: {losses}")
+    if not accs[-1] > accs[0]:
+        fail(f"static LeNet accuracy did not rise: {accs}")
+
+
+def build_ffn_program(H, I, act="gelu"):
+    """The static FFN program: x, t data; W1, B1, W2, B2 parameters;
+    y = run_op("fused_ffn"); loss = mean((y - t) * (y - t)); Adam 1e-3
+    minimised. Returns (main, startup, loss)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.common_ops import run_op
+    from paddle_tpu_torch.fluid import (framework, layers, optimizer,
+                                        unique_name)
+    pt.enable_static()
+    try:
+        with unique_name.guard():
+            main, startup = framework.Program(), framework.Program()
+            with framework.program_guard(main, startup):
+                x = layers.data("x", [-1, H], "float32")
+                t = layers.data("t", [-1, H], "float32")
+                w1 = layers.create_parameter([H, I], "float32")
+                b1 = layers.create_parameter([I], "float32", is_bias=True)
+                w2 = layers.create_parameter([I, H], "float32")
+                b2 = layers.create_parameter([H], "float32", is_bias=True)
+                y = run_op("fused_ffn", {"X": x, "W1": w1, "B1": b1,
+                                         "W2": w2, "B2": b2},
+                           {"activation": act})
+                d = y - t
+                loss = layers.mean(d * d)
+                optimizer.Adam(learning_rate=1e-3).minimize(loss)
+    finally:
+        pt.disable_static()
+    return main, startup, loss
+
+
+def static_ffn_phase(torch, with_profile=False):
+    """The static FFN program at the preset shape (M = 8192, H = 768,
+    I = 3072, gelu, f32) on the card: startup, then 1 + 4 Adam steps on
+    one batch whose target is a fixed map of x (t = tanh(x A), A from a
+    seed). The loss must fall; fused_ffn must launch FFN_LAUNCHES_PER_STEP
+    times a step; the same steps from the same start under
+    ``composed_ops()`` (the op's composed fallback, exact gelu) must give
+    losses within 1e-3 relative; and one eager ``run_op("fused_ffn")``
+    must launch the kernel once and agree with the plain version.
+    Returns the kernel run's launch counts."""
+    from paddle_tpu_torch import common_ops
+    from paddle_tpu_torch.fluid import CUDAPlace, Executor, Scope, scope_guard
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference
+    main, startup, loss = build_ffn_program(FFN_H, FFN_I)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(FFN_M, FFN_H, generator=g, device="cuda")
+    A = torch.randn(FFN_H, FFN_H, generator=g, device="cuda") / FFN_H ** 0.5
+    feed = {"x": x, "t": torch.tanh(x @ A)}
+    scope = Scope()
+    with scope_guard(scope):
+        exe = Executor(CUDAPlace(0))
+        exe.run(startup)
+    start = {n: scope.find_var(n).clone() for n in scope.local_var_names()}
+
+    def train():
+        sc = Scope()
+        for n, v in start.items():
+            sc.set(n, v.clone())
+        out, times = [], []
+        with scope_guard(sc):
+            for _ in range(FFN_STEPS):
+                t0 = time.perf_counter()
+                lv = exe.run(main, feed=feed, fetch_list=[loss],
+                             return_numpy=False)[0]
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                out.append(float(lv[0]))
+        return out, times, sc
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, times, sc = train()
+    counts = launch_counts()
+    with F.composed_ops():
+        reset_launch_counts()
+        composed, ctimes, _ = train()
+        composed_counts = launch_counts()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, composed))
+    reset_launch_counts()
+    w = {n: sc.find_var(n) for n in ("create_parameter_0.w_0",
+                                     "create_parameter_1.b_0",
+                                     "create_parameter_2.w_0",
+                                     "create_parameter_3.b_0")}
+    ws = list(w.values())
+    y = common_ops.run_op("fused_ffn", {"X": x, "W1": ws[0], "B1": ws[1],
+                                        "W2": ws[2], "B2": ws[3]},
+                          {"activation": "gelu"})
+    yr = ffn_reference(x, *ws, "gelu")
+    torch.cuda.synchronize()
+    eager = launch_counts().get("fused_ffn", 0)
+    eager_err = max_err(y, yr)
+    step_s = statistics.median(times[1:])
+    flops = 3 * 4 * FFN_M * FFN_H * FFN_I
+    print(json.dumps({
+        "phase": "static_ffn", "config": f"M={FFN_M} H={FFN_H} I={FFN_I} "
+        "gelu f32, Adam 1e-3, loss mean((y - t)^2)",
+        "ops": [op.type for op in main.global_block().ops],
+        "losses": losses, "composed_losses": composed, "max_rel": rel,
+        "step_ms": [round(t * 1e3, 3) for t in times],
+        "step_ms_median": round(step_s * 1e3, 3),
+        "composed_step_ms_median": round(statistics.median(ctimes[1:])
+                                         * 1e3, 3),
+        "tokens_per_s": round(FFN_M / step_s, 2),
+        "tflops_per_s_model": round(flops / step_s / 1e12, 3),
+        "launches": counts, "launches_predicted": {
+            "fused_ffn": FFN_LAUNCHES_PER_STEP * FFN_STEPS},
+        "composed_launches": composed_counts,
+        "eager_run_op": {"launches": eager, "max_abs_err": eager_err},
+        "executor": exe.stats()}), flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"static FFN loss did not fall: {losses}")
+    if counts.get("fused_ffn", 0) != FFN_LAUNCHES_PER_STEP * FFN_STEPS:
+        fail(f"static FFN: fused_ffn launched {counts.get('fused_ffn', 0)} "
+             f"times, predicted {FFN_LAUNCHES_PER_STEP * FFN_STEPS}")
+    if composed_counts.get("fused_ffn", 0) != 0:
+        fail(f"composed_ops() still launched fused_ffn: {composed_counts}")
+    if not rel <= 1e-3:
+        fail(f"static FFN kernel and composed losses differ: {losses} "
+             f"against {composed}")
+    if eager != 1 or not within(y, yr, 1e-4, 1e-4):
+        fail(f"eager run_op fused_ffn: {eager} launches, err {eager_err}")
+    if with_profile:
+        with scope_guard(sc):
+            profile_static(torch, exe, main, [loss], feed, "static_ffn_step")
+    return counts
+
+
+def profile_static(torch, exe, main, fetch, feed, what, steps=3):
+    """Device-time breakdown of `steps` static steps."""
+    profile_steps(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
+                                         return_numpy=False), steps, what,
+                  top_n=12)
+
+
 def kernel_entry(row, launches):
     return {"name": row["kernel"], "route": "cuda",
             "source": SOURCE[row["kernel"]],
@@ -1254,7 +1535,7 @@ def kernel_entry(row, launches):
 
 
 def kernels_line(results, serve_counts, train_counts, bert_counts,
-                 layer_counts):
+                 layer_counts, ffn_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache); the flash kernels and the sub-blocks from the
@@ -1263,7 +1544,9 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     with their BERT-shape numbers and the BERT run's launches nested
     under "bert"; the layer-norm kernels from the BERT run (f32,
     R = 2048); the dropout + residual + layer norm kernels from the
-    encoder-layer phase (f32, R = 2048, p = 0.1)."""
+    encoder-layer phase (f32, R = 2048, p = 0.1); fused_ffn from the
+    static FFN program (f32, gelu, M = 8192), its other shapes nested
+    under "shapes" with launches null."""
     def row(name, *keys):
         return next(r for r in results if r["kernel"] == name
                     and all(k in r["shape"] for k in keys))
@@ -1290,6 +1573,12 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
         kernels.append(kernel_entry(row(name, "R=2048", "f32", "p=0.1"),
                                     layer_counts.get(name, 0)))
+    main = f"M={FFN_M} H={FFN_H} I={FFN_I} f32 gelu"
+    ent = kernel_entry(row("fused_ffn", main), ffn_counts.get("fused_ffn", 0))
+    # no path runs the other shapes: their launches were not counted
+    ent["shapes"] = [kernel_entry(r, None) for r in results
+                     if r["kernel"] == "fused_ffn" and r["shape"] != main]
+    kernels.append(ent)
     return {"kernels": kernels}
 
 
@@ -1329,6 +1618,7 @@ def main(argv):
     check_rows(torch, timer, results)
     check_blocks_bert(torch, timer, results)
     check_flash_bert(torch, timer, results)
+    check_ffn(torch, timer, results)
     del timer
     torch.cuda.empty_cache()
     if kernels_only:
@@ -1368,9 +1658,15 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     layer_counts = encoder_layer_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    static_lenet_phase(torch, with_profile)
+    ffn_counts = static_ffn_phase(torch, with_profile)
 
     print(json.dumps(kernels_line(results, serve_counts, train_counts,
-                                  bert_counts, layer_counts)), flush=True)
+                                  bert_counts, layer_counts, ffn_counts)),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

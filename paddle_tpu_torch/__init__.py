@@ -14,7 +14,32 @@ Ported so far: the GPT serving path (``serving.Engine`` over
 the BERT pretrain step (``jit.make_train_step`` over
 ``models.bert.BertForPretraining``, built on ``nn`` and ``amp``) with
 ``ops.layer_norm``, ``ops.fused_residual`` and the dropout, padding
-mask, pre/post-norm and gelu/relu variants of the earlier kernels.
+mask, pre/post-norm and gelu/relu variants of the earlier kernels; and
+the static graph (``enable_static()``, then ``fluid.layers`` /
+``common_ops.run_op`` into a ``fluid.Program``, ``fluid.optimizer.Adam``
+whose ``minimize`` appends the backward and the updates, and
+``fluid.Executor`` running it op by op) with the ops of
+``models.lenet.build_lenet_program`` and the ``fused_ffn`` op over
+``ops.fused_ffn``, the last of the JAX package's Pallas kernels.
 """
-__all__ = ["amp", "jit", "models", "nn", "ops", "parallel", "serving",
-           "observability"]
+__all__ = ["amp", "common_ops", "fluid", "jit", "models", "nn", "ops",
+           "parallel", "serving", "static", "observability",
+           "enable_static", "disable_static", "in_dynamic_mode"]
+
+
+def enable_static():
+    """Build static Programs from here on (the reference's
+    ``paddle.enable_static``)."""
+    from .fluid import framework
+    framework.disable_dygraph()
+
+
+def disable_static(place=None):
+    """Back to dygraph mode, the default."""
+    from .fluid import framework
+    framework.enable_dygraph()
+
+
+def in_dynamic_mode() -> bool:
+    from .fluid import framework
+    return framework.in_dygraph_mode()

@@ -1,6 +1,6 @@
 """Optimizer updates (counterpart of the ``adam`` and ``adamw`` ops of
 ``paddle_tpu/fluid/ops/optimizer_ops.py``), as plain functions on
-tensors.
+tensors, and the registered ``adam`` op of the static graph over them.
 
 Paddle's Adam is not ``torch.optim.Adam``/``AdamW``; the port keeps
 Paddle's formula:
@@ -16,11 +16,15 @@ Paddle's formula:
 
 Where the reference returns new arrays (and donates the old buffers),
 these update ``param``, ``moment1`` and ``moment2`` IN PLACE and return
-the new beta powers.
+the new beta powers. The ``adam`` op does the same to the scope's
+tensors: its ParamOut/Moment1Out/Moment2Out are its inputs, updated.
 """
 from __future__ import annotations
 
 import torch
+
+from ..registry import register
+from .common import x
 
 __all__ = ["adam", "adamw"]
 
@@ -50,3 +54,23 @@ def adamw(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr,
         param.mul_(1.0 - lr * coeff * lr_ratio)
     return adam(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr,
                 beta1, beta2, epsilon)
+
+
+@register("adam", grad=None,
+          attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+                 "lazy_mode": False, "min_row_size_to_use_multithread": 1000})
+def _adam_op(ctx, ins, attrs):
+    p, g = x(ins, "Param"), x(ins, "Grad")
+    if not isinstance(g, torch.Tensor):
+        raise NotImplementedError(
+            "adam on a SelectedRows gradient comes with the sparse ops "
+            "(ROADMAP.md A, item 11)")
+    m1, m2 = x(ins, "Moment1"), x(ins, "Moment2")
+    b1t, b2t = x(ins, "Beta1Tensor"), x(ins, "Beta2Tensor")
+    b1 = attrs["beta1"] if b1t is None else float(b1t.reshape(()))
+    b2 = attrs["beta2"] if b2t is None else float(b2t.reshape(()))
+    b1pn, b2pn = adam(p, g, m1, m2, x(ins, "Beta1Pow"), x(ins, "Beta2Pow"),
+                      x(ins, "LearningRate").reshape(()), b1, b2,
+                      attrs["epsilon"])
+    return {"ParamOut": [p], "Moment1Out": [m1], "Moment2Out": [m2],
+            "Beta1PowOut": [b1pn], "Beta2PowOut": [b2pn]}

@@ -1,0 +1,33 @@
+"""ParamAttr / WeightNormParamAttr (reference python/paddle/fluid/param_attr.py)."""
+from __future__ import annotations
+
+from .initializer import Initializer
+
+__all__ = ["ParamAttr"]
+
+
+class ParamAttr:
+    def __init__(self, name=None, initializer=None, learning_rate=1.0,
+                 regularizer=None, trainable=True, do_model_average=False,
+                 need_clip=True):
+        self.name = name
+        self.initializer = initializer
+        self.learning_rate = learning_rate
+        self.regularizer = regularizer
+        self.trainable = trainable
+        self.do_model_average = do_model_average
+        self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(arg) -> "ParamAttr | None":
+        if arg is None:
+            return ParamAttr()
+        if arg is False:
+            return None  # no parameter (e.g. bias_attr=False)
+        if isinstance(arg, ParamAttr):
+            return arg
+        if isinstance(arg, str):
+            return ParamAttr(name=arg)
+        if isinstance(arg, Initializer):
+            return ParamAttr(initializer=arg)
+        raise TypeError(f"cannot convert {arg!r} to ParamAttr")

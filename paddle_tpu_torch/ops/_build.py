@@ -32,7 +32,7 @@ __all__ = ["SOURCES", "build_all", "library", "function", "note_launch",
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("paged_attention", "fused_block", "flash_attention",
-           "layer_norm", "fused_residual")
+           "layer_norm", "fused_residual", "fused_ffn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

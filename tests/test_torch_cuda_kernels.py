@@ -481,3 +481,108 @@ def test_flash_dropout_mask_is_bit_equal_on_the_card(dev):
         v[:, half * d:(half + 1) * d] = torch.eye(d, device=dev)
         o, _ = fa._fwd_kernel(q, k, v, d ** -0.5, False, None, seed, p)
         assert torch.equal(o != 0, keep[:, :, half * d:(half + 1) * d])
+
+
+# ---------------------------------------------------------------------------
+# B row 10: fused_ffn (csrc/fused_ffn.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,h,i", [(1, 128, 512), (37, 160, 200),
+                                   (300, 768, 3072), (257, 1032, 640),
+                                   (64, 2048, 512), (33, 4096, 256)])
+def test_fused_ffn_kernel_matches_plain(dev, m, h, i, dt, act):
+    """Ragged rows (odd M, M < the 16/32-row tile), widths that are not
+    multiples of the 128-wide I chunk or the 256-wide output pass, 16-row
+    blocks, H split into column tiles (few row blocks: 257 x 1032 takes
+    five 207-column tiles, 33 x 4096 sixteen of 256); two runs give
+    identical bits."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
+    g = _g(10)
+    args = (torch.randn(m, h, generator=g, device=dev).to(dt),
+            (torch.randn(h, i, generator=g, device=dev) * 0.05).to(dt),
+            (torch.randn(i, generator=g, device=dev) * 0.1).to(dt),
+            (torch.randn(i, h, generator=g, device=dev) * 0.05).to(dt),
+            (torch.randn(h, generator=g, device=dev) * 0.1).to(dt))
+    before = _build.launch_counts().get("fused_ffn", 0)
+    got = fused_ffn(*args, act)
+    again = fused_ffn(*args, act)
+    want = ffn_reference(*args, act)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["fused_ffn"] == before + 2
+    assert torch.equal(got, again)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("m,h,sms,want", [
+    (8192, 768, 132, (32, 768)), (2048, 768, 132, (16, 768)),
+    (1024, 2048, 132, (16, 1024)), (1024, 2048, 114, (16, 2048)),
+    (8192, 4096, 132, (16, 2048)), (8192, 1032, 132, (16, 1032)),
+    (300, 768, 132, (16, 256)), (8, 2048, 132, (16, 256))])
+def test_fused_ffn_tiles(dev, m, h, sms, want):
+    """The launcher's tiles: 32 rows only when every SM still gets a row
+    block and all of H fits the 128 KB accumulator; H split into column
+    tiles beyond the accumulator, and when the row blocks leave more than
+    half the SMs idle (never below one 256-column pass)."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    out = (ctypes.c_int * 2)()
+    fn = _build.function("fused_ffn", "fused_ffn_tiles", 1, 3)
+    assert fn(out, m, h, sms) == 0
+    assert tuple(out) == want
+
+
+def test_fused_ffn_kernel_gradients(dev):
+    """The autograd Function on the card: kernel forward, composed f32
+    backward, against the plain chain's autograd."""
+    from paddle_tpu_torch.ops.fused_ffn import _chain_f32, fused_ffn
+    g = _g(11)
+    ts = [torch.randn(*s, generator=g, device=dev) * sc
+          for s, sc in (((256, 128), 1.0), ((128, 512), 0.05), ((512,), 0.1),
+                        ((512, 128), 0.05), ((128,), 0.1))]
+    a = [t.clone().requires_grad_() for t in ts]
+    b = [t.clone().requires_grad_() for t in ts]
+    ga = torch.autograd.grad((fused_ffn(*a) ** 2).sum(), a)
+    gb = torch.autograd.grad((_chain_f32(*b, "gelu") ** 2).sum(), b)
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, atol=2e-4, rtol=2e-4)
+
+
+def test_static_ffn_program_on_the_card(dev):
+    """The fused_ffn op in a static program on Executor(CUDAPlace(0)):
+    two kernel launches a step (the op and its grad op's re-run)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.common_ops import run_op
+    from paddle_tpu_torch.fluid import (CUDAPlace, Executor, Scope,
+                                        framework, layers, optimizer,
+                                        scope_guard, unique_name)
+    from paddle_tpu_torch.ops import _build
+    pt.enable_static()
+    try:
+        with unique_name.guard():
+            main, startup = framework.Program(), framework.Program()
+            with framework.program_guard(main, startup):
+                x = layers.data("x", [-1, 128], "float32")
+                w1 = layers.create_parameter([128, 512], "float32")
+                b1 = layers.create_parameter([512], "float32", is_bias=True)
+                w2 = layers.create_parameter([512, 128], "float32")
+                b2 = layers.create_parameter([128], "float32", is_bias=True)
+                y = run_op("fused_ffn", {"X": x, "W1": w1, "B1": b1,
+                                         "W2": w2, "B2": b2})
+                loss = layers.mean(y * y)
+                optimizer.Adam(learning_rate=1e-2).minimize(loss)
+    finally:
+        pt.disable_static()
+    feed = {"x": np.random.RandomState(0).randn(256, 128).astype("float32")}
+    with scope_guard(Scope()):
+        exe = Executor(CUDAPlace(0))
+        exe.run(startup)
+        before = _build.launch_counts().get("fused_ffn", 0)
+        losses = [float(exe.run(main, feed=feed, fetch_list=[loss])[0][0])
+                  for _ in range(3)]
+    assert _build.launch_counts()["fused_ffn"] == before + 6
+    assert losses[-1] < losses[0]

@@ -38,7 +38,12 @@ def test_port_file_list_is_not_empty():
             "optimizer_ops.py", "chip_smoke.py", "layer_norm.py",
             "fused_residual.py", "_launch.py", "auto_cast.py",
             "functional.py", "layers_common.py", "initializer.py",
-            "transformer.py", "bert.py", "perf.py"} <= names
+            "transformer.py", "bert.py", "perf.py", "fused_ffn.py",
+            "common_ops.py", "unique_name.py", "core.py", "framework.py",
+            "registry.py", "scope.py", "param_attr.py", "layer_helper.py",
+            "backward.py", "optimizer.py", "executor.py", "math_ops.py",
+            "nn_ops.py", "tensor_ops.py", "random_ops.py", "metric_ops.py",
+            "math_op_patch.py", "lenet.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -72,6 +77,11 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch.amp, paddle_tpu_torch.nn,"
         " paddle_tpu_torch.nn.transformer, paddle_tpu_torch.jit\n"
         "import paddle_tpu_torch.models.bert\n"
+        "import paddle_tpu_torch.ops.fused_ffn, paddle_tpu_torch.common_ops\n"
+        "import paddle_tpu_torch.static, paddle_tpu_torch.fluid.layers\n"
+        "import paddle_tpu_torch.fluid.ops, paddle_tpu_torch.fluid.executor\n"
+        "import paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.fluid.backward\n"
+        "import paddle_tpu_torch.models.lenet\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
