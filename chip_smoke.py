@@ -18,9 +18,13 @@ Phases:
      yardstick, and the least time the card could take (bytes over HBM
      rate or flops over the peak rate of the input type, whichever is
      larger): paged attention and the two sub-blocks at decode (f32),
-     the sub-blocks at the training shape (bf16, M = 1024 tokens), and
-     the three flash kernels at B=1, H=16, T=1024, D=128, causal, in
-     bf16 and f32;
+     the sub-blocks at the training shape (bf16, M = 1024 tokens, the
+     tensor-core route), and the three flash kernels at B=1, H=16,
+     T=1024, D=128, causal, in bf16 and f32; each sub-block row names
+     the route it took (``tc`` or ``simt``), and the bf16 sub-block rows
+     (here and in phase 6) give device time per call (tc_times: calls
+     queued behind a spin kernel, so the wrapper's host time is not
+     counted) beside call_ms, one call timed by events;
   3. the serving path — ``Engine(GPTDecodeModel(GPTConfig.gpt3_1p3b()))``
      serves a request mix (greedy, seeded-sampled, and a shared-prefix
      pair that takes prefill_tail); every request must end "done", every
@@ -35,8 +39,9 @@ Phases:
   5. the training path — the repo's GPT-3 XL train step (bench.py's
      bench_gpt_1p3b: bf16, flash, remat, dp=pp=tp=1, clip 1.0, batch 1 x
      1024), 1 warm-up + 4 timed steps: finite losses, the last below the
-     first, every training kernel launched; step ms, tokens/s, MFU and
-     peak device memory;
+     first, every training kernel launched, and all 48 launches a step
+     of each sub-block on the tensor-core route; step ms, tokens/s, MFU
+     and peak device memory;
   6. BERT: the kernels at the shapes the BERT-base pretrain step gives
      them (phase 2b, run with the other kernel checks): layer norm and
      dropout + residual + layer norm, forward and backward, at R = 2048
@@ -126,6 +131,23 @@ REPLACES = {
     "fused_ffn": "paddle_tpu/ops/pallas_ffn.py:124 _ffn_kernel "
                  "(_ffn_fwd_impl :143, pallas_call :148)",
 }
+# the two routes of the sub-block kernels (ops/fused_block.py tc_route)
+DESIGN = {
+    "tc": "tensor cores: wgmma m64n128k16 bf16 (f32 sums) on a 6-stage "
+          "ring of 128B-swizzled tiles filled by TMA, 1 producer thread + 2 "
+          "consumer warpgroups, 128x128 output tiles, no split over K, one "
+          "persistent block an SM; fused_ffn_ln passes hid through device "
+          "memory in bf16 (two product launches); the LN is a row-kernel "
+          "launch",
+    "simt": "SIMT f32 register-tiled GEMM on the CUDA cores; split-K "
+            "(fused_out_ln) / split-I (fused_ffn_ln) f32 partials summed in "
+            "fixed order by the last-arriving block"}
+# the device functions of ops/csrc, as the profiler names them
+PORT_KERNEL_NAMES = ("paged_attention_kernel", "out_ln_kernel", "ffn_kernel",
+                     "tc_gemm_kernel", "ln_rows_kernel", "flash_fwd_kernel",
+                     "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                     "ln_fwd_kernel", "ln_bwd_dx_kernel", "dal_fwd_kernel",
+                     "dal_bwd_kernel")
 SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                     "fused_out_ln", "fused_ffn_ln")
@@ -193,6 +215,20 @@ def report(results, row, ok: bool):
     if not ok:
         fail(f"{row['kernel']} ({row['shape']}) max abs err "
              f"{row['max_abs_err']} outside tolerance {row['tol']}")
+
+
+def routed(name, fn):
+    """fn()'s result and the route ("tc" or "simt") that its call of the
+    sub-block kernel `name` took, read from the per-route counters."""
+    from paddle_tpu_torch.ops import launch_counts
+    before = launch_counts()
+    out = fn()
+    after = launch_counts()
+    took = [r for r in DESIGN if after.get(f"{name}.{r}", 0)
+            > before.get(f"{name}.{r}", 0)]
+    if len(took) != 1:
+        fail(f"{name}: one call took routes {took}")
+    return out, took[0]
 
 
 class Timer:
@@ -323,7 +359,8 @@ def check_blocks(torch, timer, results):
     for M in (8, 256):
         a = rn(M, D)
         res = rn(M, D)
-        z, h = fused_out_ln(a, w, b, res, ln_s, ln_b)
+        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(
+            a, w, b, res, ln_s, ln_b))
         zr, hr = out_ln_reference(a, w, b, res, ln_s, ln_b)
         torch.cuda.synchronize()
         err = max(float((z - zr).abs().max()), float((h - hr).abs().max()))
@@ -335,7 +372,7 @@ def check_blocks(torch, timer, results):
             return F.layer_norm(zz, (D,), ln_s, ln_b, 1e-5)
 
         row = {"kernel": "fused_out_ln", "shape": f"M={M} D={D} f32",
-               "max_abs_err": err, "tol": tol,
+               "route": route, "max_abs_err": err, "tol": tol,
                "kernel_ms": timer(lambda: fused_out_ln(a, w, b, res, ln_s,
                                                        ln_b)),
                "plain_ms": timer(lambda: out_ln_reference(a, w, b, res, ln_s,
@@ -345,7 +382,8 @@ def check_blocks(torch, timer, results):
         report(results, row, err <= tol)
 
         x = rn(M, D)
-        out = fused_ffn_ln(x, w1, b1, w2, b2, res)
+        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(
+            x, w1, b1, w2, b2, res))
         ref = ffn_ln_reference(x, w1, b1, w2, b2, res)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -357,7 +395,7 @@ def check_blocks(torch, timer, results):
             return torch.addmm(b2, u, w2).add_(res)
 
         row = {"kernel": "fused_ffn_ln", "shape": f"M={M} H={D} I={I} f32",
-               "max_abs_err": err, "tol": tol,
+               "route": route, "max_abs_err": err, "tol": tol,
                "kernel_ms": timer(lambda: fused_ffn_ln(x, w1, b1, w2, b2,
                                                        res)),
                "plain_ms": timer(lambda: ffn_ln_reference(x, w1, b1, w2, b2,
@@ -367,12 +405,36 @@ def check_blocks(torch, timer, results):
         report(results, row, err <= tol)
 
 
+def tc_times(torch, timer, args, kernel, plain, library, n_sets=8):
+    """Times of a bf16 sub-block row: the kernel, its plain version and
+    the library chain, each called on n_sets copies of `args` (weights
+    included, so every call finds its inputs cold) back to back behind
+    Timer.queued's spin kernel: the device time per call. The
+    tensor-core kernels run for less than their wrapper's host time,
+    which an event pair around one call would time instead; that pair
+    is kept as call_ms (host time included)."""
+    sets = [tuple(t.clone() if torch.is_tensor(t) else t for t in args)
+            for _ in range(n_sets)]
+
+    def each(fn):
+        return timer.queued([lambda s=s: fn(*s) for s in sets])
+
+    times = {"kernel_ms": each(kernel), "plain_ms": each(plain),
+             "library_ms": each(library),
+             "call_ms": timer(lambda: kernel(*args))}
+    del sets
+    torch.cuda.empty_cache()
+    return times
+
+
 def check_blocks_bf16(torch, timer, results):
     """The sub-blocks at the training shape: bf16 activations, weights
-    and biases with f32 LN vectors, M = 1024 tokens. Tolerance: both the
-    kernel and the plain version accumulate in f32 from the same bf16
-    numbers and round each output once to bf16 (2**-8 relative), so
-    |err| <= 2e-2 + 2e-2 |ref|."""
+    and biases with f32 LN vectors, M = 1024 tokens; both take the
+    tensor-core route there, and each row says which route it took.
+    Tolerance: both the kernel and the plain version accumulate in f32
+    from the same bf16 numbers (hid rounded to bf16 on both sides) and
+    round each output once to bf16 (2**-8 relative), so |err| <= 2e-2 +
+    2e-2 |ref|. Times: tc_times (device time per call)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_block import (
         ffn_ln_reference, fused_ffn_ln, fused_out_ln, out_ln_reference)
@@ -391,43 +453,42 @@ def check_blocks_bf16(torch, timer, results):
     a, res, x = rn(M, D), rn(M, D), rn(M, D)
     tol = {"atol": 2e-2, "rtol": 2e-2}
 
-    z, h = fused_out_ln(a, w, b, res, ln_s, ln_b)
+    (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(
+        a, w, b, res, ln_s, ln_b))
     zr, hr = out_ln_reference(a, w, b, res, ln_s, ln_b)
     torch.cuda.synchronize()
     nbytes = 2 * (M * D + D * D + D + M * D + 2 * M * D) + 4 * 2 * D
     bms, by = bound(nbytes, 2 * M * D * D + 10 * M * D, BF16_FLOPS)
     ls16, lb16 = ln_s.to(bf), ln_b.to(bf)
 
-    def lib_out():
+    def lib_out(a, w, b, res, *_):
         zz = torch.addmm(b, a, w).add_(res)
         return F.layer_norm(zz, (D,), ls16, lb16, 1e-5)
 
     row = {"kernel": "fused_out_ln", "shape": f"M={M} D={D} bf16",
+           "route": route,
            "max_abs_err": max(max_err(z, zr), max_err(h, hr)), "tol": tol,
-           "kernel_ms": timer(lambda: fused_out_ln(a, w, b, res, ln_s,
-                                                   ln_b)),
-           "plain_ms": timer(lambda: out_ln_reference(a, w, b, res, ln_s,
-                                                      ln_b)),
-           "library_ms": timer(lib_out), "bound_ms": bms, "bound_by": by}
+           **tc_times(torch, timer, (a, w, b, res, ln_s, ln_b),
+                      fused_out_ln, out_ln_reference, lib_out),
+           "bound_ms": bms, "bound_by": by}
     report(results, row, within(z, zr, **tol) and within(h, hr, **tol))
 
-    out = fused_ffn_ln(x, w1, b1, w2, b2, res)
+    out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(
+        x, w1, b1, w2, b2, res))
     ref = ffn_ln_reference(x, w1, b1, w2, b2, res)
     torch.cuda.synchronize()
     nbytes = 2 * (M * D + D * I + I + I * D + D + M * D + M * D)
     bms, by = bound(nbytes, 4 * M * D * I + 10 * M * I, BF16_FLOPS)
 
-    def lib_ffn():
+    def lib_ffn(x, w1, b1, w2, b2, res):
         u = F.gelu(torch.addmm(b1, x, w1), approximate="tanh")
         return torch.addmm(b2, u, w2).add_(res)
 
-    row = {"kernel": "fused_ffn_ln", "shape": f"M={M} H={D} I={I} bf16 "
-           f"(f32 partials {I // 128 * M * D * 4 / 1e6:.0f} MB)",
-           "max_abs_err": max_err(out, ref), "tol": tol,
-           "kernel_ms": timer(lambda: fused_ffn_ln(x, w1, b1, w2, b2, res)),
-           "plain_ms": timer(lambda: ffn_ln_reference(x, w1, b1, w2, b2,
-                                                      res)),
-           "library_ms": timer(lib_ffn), "bound_ms": bms, "bound_by": by}
+    row = {"kernel": "fused_ffn_ln", "shape": f"M={M} H={D} I={I} bf16",
+           "route": route, "max_abs_err": max_err(out, ref), "tol": tol,
+           **tc_times(torch, timer, (x, w1, b1, w2, b2, res), fused_ffn_ln,
+                      ffn_ln_reference, lib_ffn),
+           "bound_ms": bms, "bound_by": by}
     report(results, row, within(out, ref, **tol))
 
 
@@ -671,7 +732,7 @@ def check_blocks_bert(torch, timer, results):
         ls, lb = ln_s.to(dt), ln_b.to(dt)
 
         args = (a, w, b, res, ln_s, ln_b, p, eps, seed)
-        z, h = fused_out_ln(*args)
+        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(*args))
         zr, hr = out_ln_reference(*args)
         z0, _ = fused_out_ln(a, w, b, torch.zeros_like(res), ln_s, ln_b, p,
                              eps, seed)
@@ -681,43 +742,46 @@ def check_blocks_bert(torch, timer, results):
         bms, by = bound(item * (M * D + D * D + D + M * D + 2 * M * D)
                         + 8 * D, 2 * M * D * D + 12 * M * D, peak)
 
-        def lib_out():
+        def lib_out(a, w, b, res, *_):
             zz = F.dropout(torch.addmm(b, a, w), p).add_(res)
             return F.layer_norm(zz, (D,), ls, lb, eps)
 
+        times = tc_times(torch, timer, args, fused_out_ln, out_ln_reference,
+                         lib_out) if dt == torch.bfloat16 else {
+            "kernel_ms": timer(lambda: fused_out_ln(*args)),
+            "plain_ms": timer(lambda: out_ln_reference(*args)),
+            "library_ms": timer(lambda: lib_out(*args))}
         row = {"kernel": "fused_out_ln",
-               "shape": f"M={M} D={D} {name} p={p} (BERT)",
+               "shape": f"M={M} D={D} {name} p={p} (BERT)", "route": route,
                "max_abs_err": max(max_err(z, zr), max_err(h, hr)),
-               "tol": tol, "masks_bit_equal": masks_equal,
-               "kernel_ms": timer(lambda: fused_out_ln(*args)),
-               "plain_ms": timer(lambda: out_ln_reference(*args)),
-               "library_ms": timer(lib_out), "bound_ms": bms,
-               "bound_by": by}
+               "tol": tol, "masks_bit_equal": masks_equal, **times,
+               "bound_ms": bms, "bound_by": by}
         report(results, row, masks_equal and within(z, zr, **tol)
                and within(h, hr, **tol))
 
         fargs = (x, w1, b1, w2, b2, res, ln_s, ln_b, "gelu", "post", p, eps,
                  seed)
-        out = fused_ffn_ln(*fargs)
+        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(*fargs))
         ref = ffn_ln_reference(*fargs)
         torch.cuda.synchronize()
         bms, by = bound(item * (M * D + D * I + I + I * D + D + 2 * M * D)
                         + 8 * D, 4 * M * D * I + 25 * M * I + 12 * M * D,
                         peak)
 
-        def lib_ffn():
+        def lib_ffn(x, w1, b1, w2, b2, res, *_):
             u = F.gelu(torch.addmm(b1, x, w1))
             zz = F.dropout(torch.addmm(b2, u, w2), p).add_(res)
             return F.layer_norm(zz, (D,), ls, lb, eps)
 
+        times = tc_times(torch, timer, fargs, fused_ffn_ln, ffn_ln_reference,
+                         lib_ffn) if dt == torch.bfloat16 else {
+            "kernel_ms": timer(lambda: fused_ffn_ln(*fargs)),
+            "plain_ms": timer(lambda: ffn_ln_reference(*fargs)),
+            "library_ms": timer(lambda: lib_ffn(*fargs))}
         row = {"kernel": "fused_ffn_ln",
-               "shape": f"M={M} H={D} I={I} {name} gelu post p={p} (BERT; "
-               f"partial sums {I // 128 * M * D * 4 / 1e6:.0f} MB)",
-               "max_abs_err": max_err(out, ref), "tol": tol,
-               "kernel_ms": timer(lambda: fused_ffn_ln(*fargs)),
-               "plain_ms": timer(lambda: ffn_ln_reference(*fargs)),
-               "library_ms": timer(lib_ffn), "bound_ms": bms,
-               "bound_by": by}
+               "shape": f"M={M} H={D} I={I} {name} gelu post p={p} (BERT)",
+               "route": route, "max_abs_err": max_err(out, ref), "tol": tol,
+               **times, "bound_ms": bms, "bound_by": by}
         report(results, row, within(out, ref, **tol))
 
 
@@ -915,11 +979,12 @@ def serving_path(torch, tree):
 def profile_steps(torch, run, steps, what, top_n=12):
     """Device time by kernel over `steps` calls of run(): each kernel's
     ms and launches per step, and the device's busy share of the wall
-    time; beside them, the port's own launch counters over the same calls
-    (a kernel the profiler lists fewer times than its wrapper counted is
-    missing from the busy time). One more call runs first under the
-    profiler's warm-up, traced and dropped: a trace that starts cold
-    loses its first kernels."""
+    time; beside them, the device time of each of the port's own kernels
+    (port_kernels, however far down the list) and the port's launch
+    counters over the same calls (a kernel the profiler lists fewer times
+    than its wrapper counted is missing from the busy time). One more
+    call runs first under the profiler's warm-up, traced and dropped: a
+    trace that starts cold loses its first kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     from paddle_tpu_torch.observability import TRACER
@@ -952,6 +1017,9 @@ def profile_steps(torch, run, steps, what, top_n=12):
         ent[1] += 1
     busy = sum(v[0] for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top_n]
+    port = sorted((kv for kv in by_name.items()
+                   if kv[0].startswith(PORT_KERNEL_NAMES)),
+                  key=lambda kv: -kv[1][0])
     print(json.dumps({
         "phase": "profile", "what": what, "steps": steps,
         "wall_ms_per_step": round(wall * 1e3 / steps, 3),
@@ -960,6 +1028,9 @@ def profile_steps(torch, run, steps, what, top_n=12):
         "top_kernels": [{"name": k, "ms_per_step": round(v[0] / steps, 4),
                          "launches_per_step": v[1] / steps}
                         for k, v in top],
+        "port_kernels": [{"name": k, "ms_per_step": round(v[0] / steps, 4),
+                          "launches_per_step": v[1] / steps}
+                         for k, v in port],
         "port_launches_per_step": counted}), flush=True)
 
 
@@ -1066,6 +1137,14 @@ def training_path(torch, tree, steps=5):
     if missing:
         fail(f"kernels never launched on the training path: {missing} "
              f"(counts {counts})")
+    # each layer runs both sub-blocks forward and again in its remat
+    want = 2 * cfg.num_layers * steps
+    off = {k: (counts.get(k, 0), counts.get(f"{k}.tc", 0), want)
+           for k in ("fused_out_ln", "fused_ffn_ln")
+           if not counts.get(k, 0) == counts.get(f"{k}.tc", 0) == want}
+    if off:
+        fail(f"sub-block launches (all, on the tensor cores, expected) off "
+             f"the tensor-core route: {off}")
     return counts, step, ids
 
 
@@ -1525,13 +1604,18 @@ def profile_static(torch, exe, main, fetch, feed, what, steps=3):
 
 
 def kernel_entry(row, launches):
-    return {"name": row["kernel"], "route": "cuda",
-            "source": SOURCE[row["kernel"]],
-            "replaces": REPLACES[row["kernel"]], "launches": launches,
-            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]}
+    ent = {"name": row["kernel"], "route": "cuda",
+           "source": SOURCE[row["kernel"]],
+           "replaces": REPLACES[row["kernel"]], "launches": launches,
+           "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+           "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+           "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+           "shape": row["shape"]}
+    if "call_ms" in row:    # one wrapper call, host time included
+        ent["call_ms"] = row["call_ms"]
+    if "route" in row:      # the sub-blocks: which of their two designs
+        ent["design"] = f"{row['route']}: {DESIGN[row['route']]}"
+    return ent
 
 
 def kernels_line(results, serve_counts, train_counts, bert_counts,
@@ -1606,7 +1690,8 @@ def main(argv):
         time.perf_counter() - t0, 2), "per_source": secs}), flush=True)
     for name, log in _build.build_log().items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("Compiling entry", "registers",
+                                       "spill", "wgmma")):
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
 
     timer = Timer(torch)

@@ -8,20 +8,21 @@
 // fused_ffn_ln replaces pallas_block.py:_ffn_ln_kernel (launched by
 // _ffn_ln_pallas):
 //     out = [LN](res + dropout_p(act([LN] x @ W1 + b1) @ W2 + b2))
-//     x (M, H), W1 (H, I), W2 (I, H); the (M, I) intermediate lives only
-//     in shared memory. act: gelu_tanh, gelu (the reference's erf
+//     x (M, H), W1 (H, I), W2 (I, H); hid = act(...) is rounded to x's
+//     type before the second product, as the reference's is (the
+//     identity in float32). act: gelu_tanh, gelu (the reference's erf
 //     polynomial) or relu. norm "pre" normalises x on its way into the
 //     first GEMM, norm "post" the summed output; both with ln_s/ln_b.
 // dropout_p is the unsalted counter hash of dropout_hash.cuh over the
 // ids row * N + col of the (M, N) GEMM output, applied before the
 // residual add; no mask tensor exists (the composed backward replays it).
 //
-// The constraint both share: the LN epilogue (and the FFN's sum over I)
-// needs a whole output row, but at decode M is the slot count (8), so a
-// block that owned a row tile and all N (or all I) columns would put the
-// whole step on one SM. Instead N, K and I are spread over many blocks
-// and the row is finished in the same launch by the LAST block to
-// arrive, found with an atomic ticket per tile:
+// The SIMT kernels. The constraint both share: the LN epilogue (and the
+// FFN's sum over I) needs a whole output row, but at decode M is the
+// slot count (8), so a block that owned a row tile and all N (or all I)
+// columns would put the whole step on one SM. Instead N, K and I are
+// spread over many blocks and the row is finished in the same launch by
+// the LAST block to arrive, found with an atomic ticket per tile:
 //   * fused_out_ln: grid (N/64, M/32, KS). With KS > 1 (few output
 //     tiles, i.e. decode) each block writes a split-K partial; the last
 //     block of a tile sums the KS partials in split order and writes z.
@@ -57,10 +58,45 @@
 //                 M=256: flops, 17.2 GFLOP: ~257 us.
 // At the training shape (bf16, M = 1024 tokens, tensor-core rate 989
 // TFLOP/s): fused_out_ln 8.6 GFLOP, ~8.7 us; fused_ffn_ln 68.7 GFLOP,
-// ~69 us, and its f32 partials (I/128, M, H) are 537 MB a call.
-// This first version is a register-tiled SIMT GEMM (no tensor cores, no
-// TMA); at decode it is latency bound per block, so its time sits above
-// the bound by the factor recorded in PERF.md.
+// ~69 us, and the SIMT kernel's f32 partials (I/128, M, H) are 537 MB
+// a call.
+//
+// Two routes, chosen by the wrapper from the dtype, the widths and the
+// pointers' alignment before the launch (ops/fused_block.py tc_route):
+//
+// SIMT (float32, and bf16 at widths the tensor-core tiles do not take):
+// the register-tiled f32 GEMMs above, launched by fused_out_ln_launch /
+// fused_ffn_ln_launch. f32 stays full precision on the CUDA cores (the
+// f32 parity checks forbid TF32); at decode it is latency bound per
+// block, so its time sits above the bound by the factor in PERF.md.
+//
+// Tensor cores (bf16, every inner width a multiple of 64, operands
+// 16-byte aligned; fused_out_ln_tc_launch / fused_ffn_ln_tc_launch):
+// the products run on wgmma fed by TMA (wgmma_tile.cuh), 128 x 128
+// output tiles, no split over K, so every output element is summed by
+// one warpgroup in one fixed order; one persistent block an SM walks
+// the tiles, its producer loading the next tile during the epilogue. At
+// the training shape the products are compute bound (68.7 GFLOP for the
+// FFN, 989 TFLOP/s); what the design keeps off device memory is the
+// split-I partial sums of the SIMT route (537 MB a call at M = 1024), at
+// the price of hid's round trip:
+//   fused_ffn_ln: [pre: xn = round(LN(x)), ln_rows_kernel]
+//                 hid = round(act(xn|x @ W1 + b1))        tc_gemm MODE 0
+//                 y = res + dropout_p(hid @ W2 + b2)      tc_gemm MODE 1
+//                 [post: out = LN(y) from its f32 copy, ln_rows_kernel]
+//     hid (M, I) goes through device memory in bf16, 16 MB at M = 1024
+//     (mostly L2), written and read once. The TPU kernel keeps a (bm, H)
+//     f32 sum and walks I; a (64, 2048) f32 sum is 512 KB, beyond an
+//     SM, and recomputing hid per column tile (fused_ffn.cu's design)
+//     multiplies the first product by H / 128. Two launches on one
+//     stream order the phases without flags.
+//   fused_out_ln: z = res + dropout_p(a @ W + b) (z in bf16 and f32)
+//                 h = LN(z) from the f32 copy, ln_rows_kernel
+//     The LN is a second launch, a block a row over every SM, rather
+//     than the last-arriving tile of a row tile: at M = 1024 the ticket
+//     would leave the whole LN (8 MB of f32 rows) to M / 128 = 8 blocks.
+// Dropout takes the element's global (row, col) from the accumulator
+// fragment (wgmma_tile.cuh), so its mask is the SIMT route's bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -68,6 +104,8 @@
 
 #include "dropout_hash.cuh"
 #include "ffn_common.cuh"
+#include "row_norm.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -273,8 +311,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < TN1; ++j) {
         const int c = tx * TN1 + j;
+        // rounded to x's type before the second product, as the
+        // reference's hid is (the identity for float)
         hid[ty * TM1 + i][c] =
-            i0 + c < I ? activate(act, acc[i][j] + to_f(b1[i0 + c])) : 0.f;
+            i0 + c < I ? to_f(from_f<T>(activate(act, acc[i][j] +
+                                                  to_f(b1[i0 + c]))))
+                       : 0.f;
       }
   }
 
@@ -387,7 +429,236 @@ int ffn_run(const void* x, const void* w1, const void* b1, const void* w2,
                 tickets, M, H, I, act, norm, eps, drop, st);
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core route (bf16)
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+namespace wt = wgmma_tile;
+
+// What a tile does with its f32 sums. MODE 0: out = round(act(acc +
+// bias)) (fused_ffn_ln's hid). MODE 1: y = res + dropout(acc + bias),
+// written to zf (f32) and/or out (bf16) where not null.
+struct TcEpi {
+  const bf16* bias;
+  const bf16* res;
+  bf16* out;
+  float* zf;
+  int act;
+  Drop drop;
+};
+
+// Bias, activation or dropout + residual, and the stores of one consumer
+// warpgroup's 64 x 128 sums at (m0, n0). Every load comes first: the
+// outputs may alias the inputs as far as the compiler knows, so a load
+// after a store would wait for it, one global round trip per column.
+template <int MODE>
+__device__ __forceinline__ void tc_epilogue(const float (&acc)[64],
+                                            const TcEpi& ep, int m0, int n0,
+                                            int M, int N) {
+  const int t = threadIdx.x & 127;
+  const int row0 = m0 + (t >> 5) * 16 + ((t & 31) >> 2);
+  const int col0 = n0 + 2 * (t & 3);
+  __nv_bfloat162 bias[16], res[16][2];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col0 + 8 * j;  // N % 64 == 0: col + 1 < N as well
+    if (col < N)
+      bias[j] = *reinterpret_cast<const __nv_bfloat162*>(ep.bias + col);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (MODE == 1 && col < N && row0 + 8 * h < M)
+        res[j][h] = *reinterpret_cast<const __nv_bfloat162*>(
+            ep.res + (size_t)(row0 + 8 * h) * N + col);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = col0 + 8 * j;
+    if (col >= N) continue;
+    const float2 b = __bfloat1622float2(bias[j]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= M) continue;
+      const size_t e = (size_t)row * N + col;
+      float v0 = acc[4 * j + 2 * h] + b.x;
+      float v1 = acc[4 * j + 2 * h + 1] + b.y;
+      if constexpr (MODE == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(ep.out + e) =
+            __floats2bfloat162_rn(activate(ep.act, v0),
+                                  activate(ep.act, v1));
+      } else {
+        const float2 r = __bfloat1622float2(res[j][h]);
+        v0 = ep.drop.apply(v0, row, col, N) + r.x;
+        v1 = ep.drop.apply(v1, row, col + 1, N) + r.y;
+        if (ep.zf) *reinterpret_cast<float2*>(ep.zf + e) = make_float2(v0, v1);
+        if (ep.out)
+          *reinterpret_cast<__nv_bfloat162*>(ep.out + e) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    }
+  }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(wt::kThreads, 1)
+    tc_gemm_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb, int M, int N,
+                   int K, TcEpi ep) {
+  extern __shared__ uint8_t smem_raw[];
+  const wt::Ring ring = wt::make_ring(smem_raw);
+  // tiles in column-major order (row tiles fastest: the blocks running
+  // at once share W's column tiles), dealt round-robin to the blocks
+  const int n_row = (M + wt::BM - 1) / wt::BM;
+  const int tiles = n_row * ((N + wt::BN - 1) / wt::BN);
+  const int nk = K / wt::BK;
+  const int wg = threadIdx.x / 128;
+  wt::Pipe pipe;
+  if (wg == 2) {  // the producer warpgroup: one thread issues every load
+    if (threadIdx.x == 256)
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+        wt::produce(ring, pipe, &ta, &tb, tile % n_row * wt::BM,
+                    tile / n_row * wt::BN, nk);
+    return;
+  }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    float acc[64];
+    wt::consume(ring, pipe, wg, nk, acc);
+    tc_epilogue<MODE>(acc, ep, tile % n_row * wt::BM + wg * 64,
+                      tile / n_row * wt::BN, M, N);
+  }
+}
+
+// out[row] = LN(in[row]) * s + b rounded to TO: a block a row, four
+// columns a thread, two-pass statistics in f32 (the reference's _ln_f32)
+// summed in block_sum's fixed order; the second and third reads of the
+// row hit L1. N % 4 == 0, rows 16-byte aligned.
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(512)
+    ln_rows_kernel(const TI* __restrict__ in, TO* __restrict__ out,
+                   const float* __restrict__ s, const float* __restrict__ b,
+                   int N, float eps) {
+  __shared__ float red[32];
+  const TI* p = in + (size_t)blockIdx.x * N;
+  const int c0 = 4 * threadIdx.x, step = 4 * blockDim.x;
+  float sum = 0.f;
+  for (int c = c0; c < N; c += step) {
+    float v[4];
+    row_norm::load4(p, c, v);
+    sum += (v[0] + v[1]) + (v[2] + v[3]);
+  }
+  const float mean = row_norm::block_sum(sum, red) / N;
+  float sq = 0.f;
+  for (int c = c0; c < N; c += step) {
+    float v[4];
+    row_norm::load4(p, c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sq += (v[i] - mean) * (v[i] - mean);
+  }
+  const float rstd = 1.0f / sqrtf(row_norm::block_sum(sq, red) / N + eps);
+  TO* q = out + (size_t)blockIdx.x * N;
+  for (int c = c0; c < N; c += step) {
+    float v[4];
+    row_norm::load4(p, c, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = (v[i] - mean) * rstd * s[c + i] + b[c + i];
+    row_norm::store4(q, c, v);
+  }
+}
+
+// C (M, N) = A (M, K) @ B (K, N), both bf16 row-major, through the
+// epilogue MODE.
+template <int MODE>
+int tc_gemm(const void* a, const void* b, int M, int N, int K,
+            const TcEpi& ep, cudaStream_t st) {
+  CUtensorMap ta, tb;
+  int err = wt::map_2d(&ta, a, M, K, wt::BM);
+  if (err == 0) err = wt::map_2d(&tb, b, K, N, wt::BK);
+  if (err != 0) return err;
+  auto kern = tc_gemm_kernel<MODE>;
+  err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, wt::SMEM_BYTES);
+  if (err != 0) return err;
+  int dev = 0, sms = 0;
+  err = (int)cudaGetDevice(&dev);
+  if (err == 0)
+    err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev);
+  if (err != 0) return err;
+  const long tiles = (long)((M + wt::BM - 1) / wt::BM) *
+                     ((N + wt::BN - 1) / wt::BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);  // one block an SM
+  kern<<<grid, wt::kThreads, wt::SMEM_BYTES, st>>>(ta, tb, M, N, K, ep);
+  return (int)cudaGetLastError();
+}
+
+template <typename TI>
+int ln_rows_run(const TI* in, bf16* out, const float* s, const float* b,
+                int M, int N, float eps, cudaStream_t st) {
+  ln_rows_kernel<TI, bf16><<<M, row_norm::threads_for(N), 0, st>>>(
+      in, out, s, b, N, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The tensor-core route, bfloat16 only (a/w/b/res/z/h; ln_s, ln_b, zf
+// f32): K and N multiples of 64, a, w, b, res, z, zf, h 16-byte aligned.
+// zf: (M, N) f32 scratch. Launches the product with its epilogue, then the
+// LN. Returns a cudaError_t, or 10001 / 10002 when the TMA descriptor
+// encoder is missing / refuses a matrix.
+extern "C" int fused_out_ln_tc_launch(const void* a, const void* w,
+                                      const void* b, const void* res,
+                                      const float* ln_s, const float* ln_b,
+                                      void* z, float* zf, void* h, int M,
+                                      int K, int N, int seed, int drop,
+                                      unsigned int thr, float keep_div,
+                                      float eps, void* stream) {
+  if (M < 1 || K % 64 || N % 64 || K < 64 || N < 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const TcEpi ep{(const bf16*)b, (const bf16*)res, (bf16*)z, zf, 0,
+                 Drop{(uint32_t)seed, thr, drop, keep_div}};
+  int err = tc_gemm<1>(a, w, M, N, K, ep, st);
+  if (err != 0) return err;
+  return ln_rows_run<float>(zf, (bf16*)h, ln_s, ln_b, M, N, eps, st);
+}
+
+// The tensor-core route of fused_ffn_ln, bfloat16 only: H and I
+// multiples of 64, every pointer 16-byte aligned. Scratch the caller
+// allocates: hid (M, I) bf16; xn (M, H) bf16 with norm "pre"; zf (M, H)
+// f32 with norm "post" (null otherwise). act, norm as fused_ffn_ln_launch.
+extern "C" int fused_ffn_ln_tc_launch(
+    const void* x, const void* w1, const void* b1, const void* w2,
+    const void* b2, const void* res, const float* ln_s, const float* ln_b,
+    void* out, void* xn, void* hid, float* zf, int M, int H, int I, int act,
+    int norm, int seed, int drop, unsigned int thr, float keep_div,
+    float eps, void* stream) {
+  if (act < 0 || act > 2 || norm < 0 || norm > 2 || M < 1 || H % 64 ||
+      I % 64 || H < 64 || I < 64 || (norm == 1 && !xn) ||
+      (norm == 2 && !zf))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  const void* src = x;
+  if (norm == 1) {
+    err = ln_rows_run<bf16>((const bf16*)x, (bf16*)xn, ln_s, ln_b, M, H,
+                            eps, st);
+    if (err != 0) return err;
+    src = xn;
+  }
+  const TcEpi up{(const bf16*)b1, nullptr, (bf16*)hid, nullptr, act,
+                 Drop{0, 0, 0, 1.f}};
+  err = tc_gemm<0>(src, w1, M, I, H, up, st);
+  if (err != 0) return err;
+  const Drop d{(uint32_t)seed, thr, drop, keep_div};
+  const TcEpi down{(const bf16*)b2, (const bf16*)res,
+                   norm == 2 ? nullptr : (bf16*)out, norm == 2 ? zf : nullptr,
+                   0, d};
+  err = tc_gemm<1>(hid, w2, M, H, I, down, st);
+  if (err != 0 || norm != 2) return err;
+  return ln_rows_run<float>(zf, (bf16*)out, ln_s, ln_b, M, H, eps, st);
+}
 
 // dtype: 0 float32, 1 bfloat16 (a/w/b/res/z/h); ln_s, ln_b, zf, part f32.
 // With float32, zf is z. drop != 0 applies the mask of (seed, thr) to

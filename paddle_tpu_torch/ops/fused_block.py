@@ -7,8 +7,9 @@
                   new residual stream z and the normalised h.
 
   fused_ffn_ln    out = [LN](res + dropout_p(act([LN] x @ W1 + b1) @ W2
-                  + b2)) — the whole FFN sub-block in one launch; the
-                  (M, 4H) intermediate never reaches device memory.
+                  + b2)) — the whole FFN sub-block in one call; the
+                  activation is rounded to x's type before the second
+                  product, as the reference rounds it.
                   norm "pre" normalises x before the first GEMM, norm
                   "post" the summed output (post-LN encoders), "none"
                   neither; act is "gelu_tanh", "gelu" (the reference's
@@ -20,7 +21,13 @@ which CPU tensors take. CUDA tensors go to the kernels in
 ``csrc/fused_block.cu`` or the call raises. The kernels take float32 or
 bfloat16 for the activations, weights and biases (one type per call)
 with float32 ln_s/ln_b, and accumulate in f32; z and the FFN output come
-out in res2's type, h in a2's. Dropout is the unsalted counter hash of
+out in res2's type, h in a2's. Two routes (``tc_route`` picks one by
+dtype, widths and alignment, before the launch): bfloat16 calls whose
+inner widths are multiples of 64 run on the tensor cores (wgmma fed by
+TMA; the FFN's hid goes through device memory in bf16); float32 calls,
+and bfloat16 at other widths, run the SIMT kernels. Each call counts
+under its op's name and under ``<name>.tc`` or ``<name>.simt``.
+Dropout is the unsalted counter hash of
 ``fused_residual.keep_mask`` over the (M, Dout) ids of the GEMM output,
 from an int32 seed the caller hands in; no mask tensor is kept. Rows are
 ragged: any M >= 1.
@@ -34,6 +41,7 @@ mask replayed from the seed and each gradient cast to its input's type.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -44,13 +52,13 @@ from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
            "ffn_ln_reference", "gelu_tanh", "gelu_erf_poly", "ACTS",
-           "NORMS", "out_ln_split_k", "ffn_block_i"]
+           "NORMS", "out_ln_split_k", "ffn_block_i", "tc_route"]
 
 _ROW_TILE = 32          # BM in csrc/fused_block.cu
 _OUT_COL_TILE = 64      # OL_BN
 _K_STAGE = 32           # BK
 _FFN_COL_CHUNK = 128    # FF_BN
-_SMS = 132              # H100 SXM streaming multiprocessors
+_TC_WIDTH = 64          # the tensor-core tiles' k step and TMA box width
 
 
 def gelu_tanh(v):
@@ -113,14 +121,18 @@ def ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
                      act="gelu_tanh", norm="none", p=0.0, eps=1e-5, seed=0):
     """Composed chain of fused_ffn_ln, in res2.dtype (ln_s/ln_b are
     unused with norm "none"). With norm "pre" the normalised x is
-    rounded to x2's type before the first product, as the kernel keeps
-    it."""
+    rounded to x2's type before the first product, and the activation
+    before the second (pallas_block.py:_ffn_ln_kernel's xn_ref and
+    ``act(a).astype(x_ref.dtype)``), as the kernels round them. The
+    backward (_grads_of) runs this chain on float32 copies of the
+    inputs, where both roundings are the identity: the reference's
+    unrounded f32 recompute (_ffn_ln_bwd)."""
     _act_norm(act, norm)
     src = x2.float()
     if norm == "pre":
         src = _ln_f32(src, ln_s.float(), ln_b.float(), eps) \
             .to(x2.dtype).float()
-    hid = ACTS[act][1](src @ w1.float() + b1.float())
+    hid = ACTS[act][1](src @ w1.float() + b1.float()).to(x2.dtype).float()
     y = apply_keep(hid @ w2.float() + b2.float(), seed, p)
     z = y + res2.float()
     if norm == "post":
@@ -132,13 +144,14 @@ def ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def out_ln_split_k(m: int, k: int, n: int) -> int:
-    """K depth per split of fused_out_ln (a multiple of the kernel's k
-    stage). When the output tiles alone cannot fill the card (decode:
-    M = slot count) K is split so that about two blocks run per SM; the
-    partial sums are added in split order by the tile's last block."""
+def out_ln_split_k(m: int, k: int, n: int, sms: int) -> int:
+    """K depth per split of fused_out_ln's SIMT kernel (a multiple of its
+    k stage) on a card of `sms` multiprocessors. When the output tiles
+    alone cannot fill the card (decode: M = slot count) K is split so
+    that about two blocks run per SM; the partial sums are added in split
+    order by the tile's last block."""
     tiles = math.ceil(m / _ROW_TILE) * math.ceil(n / _OUT_COL_TILE)
-    splits = 1 if tiles >= _SMS else math.ceil(2 * _SMS / tiles)
+    splits = 1 if tiles >= sms else math.ceil(2 * sms / tiles)
     splits = max(1, min(splits, k // (4 * _K_STAGE)))
     return math.ceil(math.ceil(k / splits) / _K_STAGE) * _K_STAGE
 
@@ -148,6 +161,31 @@ def ffn_block_i(m: int) -> int:
     tiles are few (decode), so I/64 blocks share the weight stream;
     128 otherwise, which halves the partial sums to reduce."""
     return 64 if m <= 2 * _ROW_TILE else 128
+
+
+def tc_route(dtype, widths, ptrs) -> bool:
+    """Whether a call takes the tensor-core kernels: bfloat16, every
+    inner width (K and N of fused_out_ln, H and I of fused_ffn_ln) a
+    positive multiple of 64, and every tensor's address (`ptrs`, from
+    data_ptr(); read only when the rest holds) 16-byte aligned, as TMA
+    and the vector epilogue need. Anything else takes the SIMT kernels;
+    nothing is tried and caught."""
+    return (dtype == torch.bfloat16
+            and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
+            and all(p % 16 == 0 for p in ptrs))
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    """The card's multiprocessor count (one entry per device index)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _run(dev, what, fn, *args):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = fn(*args, stream)
+    _raise_if(err, what)
 
 
 def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
@@ -162,12 +200,25 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
         raise ValueError(f"fused_out_ln shapes: a {tuple(a2.shape)}, w "
                          f"{tuple(w.shape)}, b {tuple(b.shape)}, res "
                          f"{tuple(res2.shape)}")
-    kc = out_ln_split_k(m, k, n)
+    z = torch.empty_like(res2)
+    h = torch.empty_like(res2)
+    seed, on, thr, keep_div = _drop_args(seed, p)
+    if tc_route(a2.dtype, (k, n), (t.data_ptr() for t in (a2, w, b, res2))):
+        zf = torch.empty((m, n), dtype=torch.float32, device=a2.device)
+        fn = _build.function(
+            "fused_block", "fused_out_ln_tc_launch", 9, 5,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
+             b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+             z.data_ptr(), zf.data_ptr(), h.data_ptr(), m, k, n, seed, on,
+             thr, keep_div, float(eps))
+        _build.note_launch("fused_out_ln")
+        _build.note_launch("fused_out_ln.tc")
+        return z, h
+    kc = out_ln_split_k(m, k, n, _sms(a2.device.index))
     splits = math.ceil(k / kc)
     row_tiles = math.ceil(m / _ROW_TILE)
     col_tiles = math.ceil(n / _OUT_COL_TILE)
-    z = torch.empty_like(res2)
-    h = torch.empty_like(res2)
     # the LN reads z back in f32: z itself, or an f32 copy beside a bf16 z
     zf = z if code == 0 else torch.empty(
         (m, n), dtype=torch.float32, device=a2.device)
@@ -175,19 +226,16 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
                        dtype=torch.float32, device=a2.device)
     tickets = torch.zeros(row_tiles * col_tiles + row_tiles,
                           dtype=torch.int32, device=a2.device)
-    seed, on, thr, keep_div = _drop_args(seed, p)
     fn = _build.function(
         "fused_block", "fused_out_ln_launch", 11, 7,
         (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-    stream = torch.cuda.current_stream(a2.device).cuda_stream
-    with torch.cuda.device(a2.device):
-        err = fn(a2.data_ptr(), w.data_ptr(), b.data_ptr(), res2.data_ptr(),
-                 ln_s.data_ptr(), ln_b.data_ptr(), z.data_ptr(),
-                 zf.data_ptr(), h.data_ptr(), part.data_ptr(),
-                 tickets.data_ptr(), m, k, n, kc, code, seed, on, thr,
-                 keep_div, float(eps), stream)
-    _raise_if(err, "fused_out_ln")
+    _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
+         b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+         z.data_ptr(), zf.data_ptr(), h.data_ptr(), part.data_ptr(),
+         tickets.data_ptr(), m, k, n, kc, code, seed, on, thr, keep_div,
+         float(eps))
     _build.note_launch("fused_out_ln")
+    _build.note_launch("fused_out_ln.simt")
     return z, h
 
 
@@ -212,11 +260,29 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
             raise ValueError(f"fused_ffn_ln: ln_s {tuple(ln_s.shape)}, ln_b "
                              f"{tuple(ln_b.shape)} for H = {hd}")
         ln_ptrs = (ln_s.data_ptr(), ln_b.data_ptr())
+    out = torch.empty_like(res2)
+    seed, on, thr, keep_div = _drop_args(seed, p)
+    if tc_route(x2.dtype, (hd, i), (t.data_ptr() for t in
+                                    (x2, w1, b1, w2, b2, res2))):
+        hid = torch.empty((m, i), dtype=x2.dtype, device=x2.device)
+        xn = torch.empty_like(x2) if norm == "pre" else None
+        zf = torch.empty((m, hd), dtype=torch.float32, device=x2.device) \
+            if norm == "post" else None
+        fn = _build.function(
+            "fused_block", "fused_ffn_ln_tc_launch", 12, 7,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(), w1.data_ptr(),
+             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), res2.data_ptr(),
+             *ln_ptrs, out.data_ptr(), 0 if xn is None else xn.data_ptr(),
+             hid.data_ptr(), 0 if zf is None else zf.data_ptr(), m, hd, i,
+             act_code, norm_code, seed, on, thr, keep_div, float(eps))
+        _build.note_launch("fused_ffn_ln")
+        _build.note_launch("fused_ffn_ln.tc")
+        return out
     bi = ffn_block_i(m)
     n_i = math.ceil(i / bi)
     row_tiles = math.ceil(m / _ROW_TILE)
     chunks = math.ceil(hd / _FFN_COL_CHUNK)
-    out = torch.empty_like(res2)
     # norm "post" reads the summed output back in f32: out itself, or an
     # f32 scratch beside a bf16 out
     zf = out if code == 0 or norm != "post" else torch.empty(
@@ -224,19 +290,16 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
     part = torch.empty((n_i, m, hd), dtype=torch.float32, device=x2.device)
     tickets = torch.zeros(row_tiles * chunks + row_tiles, dtype=torch.int32,
                           device=x2.device)
-    seed, on, thr, keep_div = _drop_args(seed, p)
     fn = _build.function(
         "fused_block", "fused_ffn_ln_launch", 12, 9,
         (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), res2.data_ptr(), *ln_ptrs, out.data_ptr(),
-                 zf.data_ptr(), part.data_ptr(), tickets.data_ptr(), m, hd,
-                 i, bi, code, act_code, norm_code, seed, on, thr, keep_div,
-                 float(eps), stream)
-    _raise_if(err, "fused_ffn_ln")
+    _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(), w1.data_ptr(),
+         b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), res2.data_ptr(),
+         *ln_ptrs, out.data_ptr(), zf.data_ptr(), part.data_ptr(),
+         tickets.data_ptr(), m, hd, i, bi, code, act_code, norm_code, seed,
+         on, thr, keep_div, float(eps))
     _build.note_launch("fused_ffn_ln")
+    _build.note_launch("fused_ffn_ln.simt")
     return out
 
 

@@ -9,7 +9,10 @@ the layer-norm and dropout+residual+layer-norm kernels at odd row counts,
 widths that are not multiples of 4 or 128 (the scalar path) and the
 widest row (C = 16384), with bit-equal dropout masks; and the dropout,
 pre/post-norm, gelu/relu and padding-mask variants of the sub-block and
-flash kernels.
+flash kernels; the sub-blocks' tensor-core route (bf16, widths that are
+multiples of 64) at ragged M and the GPT-3 XL training shapes, every
+variant, masks bit-equal, reruns bit-identical, and the route each call
+takes (counted per route; a misaligned view takes the SIMT kernels).
 
 Needs a CUDA card: each test skips without one (the `dev` fixture
 decides, at run time). On the card, run
@@ -239,6 +242,144 @@ def test_fused_blocks_backward_on_the_card(dev):
     want = torch.autograd.grad(ffn_ln_reference(*rs).sum(), rs)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+# -- the tensor-core route of the sub-blocks (bf16, widths % 64 == 0) ------
+
+def _counted(name, fn):
+    """fn()'s result and the per-route launches of `name` it made."""
+    from paddle_tpu_torch.ops import _build
+    before = _build.launch_counts()
+    out = fn()
+    after = _build.launch_counts()
+    return out, {r: after.get(f"{name}.{r}", 0) - before.get(f"{name}.{r}", 0)
+                 for r in ("tc", "simt")}
+
+
+def _bf16_block_args(dev, seed, m, h, i, zero_res=False):
+    g = _g(seed)
+
+    def rn(*shape, sc=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * sc
+                ).to(torch.bfloat16)
+
+    res = torch.zeros(m, h, device=dev, dtype=torch.bfloat16) if zero_res \
+        else rn(m, h)
+    return (rn(m, h), rn(h, i, sc=0.05), rn(i, sc=0.1), rn(i, h, sc=0.05),
+            rn(h, sc=0.1), res,
+            1 + 0.1 * torch.randn(h, generator=g, device=dev),
+            0.1 * torch.randn(h, generator=g, device=dev))
+
+
+TC_FFN_SHAPES = [(1, 128, 512), (37, 192, 320), (1000, 256, 1024),
+                 (1024, 2048, 8192)]
+TC_VARIANTS = [("gelu_tanh", "none", 0.0), ("gelu", "post", 0.1),
+               ("gelu", "post", 0.0), ("relu", "pre", 0.1),
+               ("gelu_tanh", "pre", 0.0), ("relu", "none", 0.3),
+               ("gelu", "none", 0.1)]
+
+
+@pytest.mark.parametrize("act,norm,p", TC_VARIANTS)
+@pytest.mark.parametrize("m,h,i", TC_FFN_SHAPES)
+def test_fused_ffn_ln_tensor_core_route_matches_plain(dev, m, h, i, act,
+                                                      norm, p):
+    """Every act / norm / p in bf16 on the tensor-core route, ragged M
+    (TMA zero-fills the rows past M), widths that are multiples of 64
+    but not of the 128-column tile: one launch of the route, within a
+    bf16 step of the plain version (both round hid to bf16), and the
+    same bits when run again."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln)
+    args = _bf16_block_args(dev, 20, m, h, i)
+    call = (*args, act, norm, p, 1e-5, 31)
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
+    assert routes == {"tc": 1, "simt": 0}
+    want = ffn_ln_reference(*call)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
+                               rtol=3e-2)
+    assert torch.equal(got, fused_ffn_ln(*call))
+
+
+@pytest.mark.parametrize("p", [0.1, 0.3])
+@pytest.mark.parametrize("m,h,i", TC_FFN_SHAPES)
+def test_tensor_core_dropout_masks_are_bit_equal(dev, m, h, i, p):
+    """A zero residual leaves the output zero exactly where keep_mask
+    dropped, in fused_ffn_ln (norm "none") and in fused_out_ln's z: the
+    accumulator fragment maps back to the element's global (row, col)."""
+    from paddle_tpu_torch.ops.fused_block import fused_ffn_ln, fused_out_ln
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    args = _bf16_block_args(dev, 21, m, h, i, zero_res=True)
+    out, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(
+        *args, "gelu", "none", p, 1e-5, 4321))
+    assert routes["tc"] == 1
+    keep = keep_mask(4321, m, h, p, dev)
+    assert torch.equal(out != 0, keep)
+    (z, _), routes = _counted("fused_out_ln", lambda: fused_out_ln(
+        args[0], args[3][:h, :h].contiguous(), args[4], args[5], args[6],
+        args[7], p, 1e-5, 4321))
+    assert routes["tc"] == 1
+    assert torch.equal(z != 0, keep)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("m,k,n", [(1, 128, 64), (37, 192, 320),
+                                   (1000, 512, 256), (1024, 2048, 2048)])
+def test_fused_out_ln_tensor_core_route_matches_plain(dev, m, k, n, p):
+    from paddle_tpu_torch.ops.fused_block import (fused_out_ln,
+                                                  out_ln_reference)
+    g = _g(22)
+    bf = torch.bfloat16
+    args = (torch.randn(m, k, generator=g, device=dev).to(bf),
+            (torch.randn(k, n, generator=g, device=dev) * 0.05).to(bf),
+            (torch.randn(n, generator=g, device=dev) * 0.1).to(bf),
+            torch.randn(m, n, generator=g, device=dev).to(bf),
+            1 + 0.1 * torch.randn(n, generator=g, device=dev),
+            0.1 * torch.randn(n, generator=g, device=dev), p, 1e-5, 5)
+    (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
+    assert routes == {"tc": 1, "simt": 0}
+    zr, hr = out_ln_reference(*args)
+    torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
+    z2, h2 = fused_out_ln(*args)
+    assert torch.equal(z, z2) and torch.equal(h, h2)
+
+
+def test_sub_block_routes_by_dtype_width_and_alignment(dev):
+    """bf16 at widths % 64 == 0 takes the tensor cores; f32, ragged
+    widths and a misaligned view take the SIMT kernels, whose results
+    still match the plain version: a view TMA cannot read is never
+    launched on the tensor-core route."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln, fused_out_ln,
+                                                  out_ln_reference)
+    bf = torch.bfloat16
+    args = _bf16_block_args(dev, 23, 64, 128, 256)
+    _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*args[:6]))
+    assert routes == {"tc": 1, "simt": 0}
+    f32 = [a.float() for a in args]
+    _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*f32[:6]))
+    assert routes == {"tc": 0, "simt": 1}
+    ragged = _bf16_block_args(dev, 24, 64, 160, 200)
+    _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*ragged[:6]))
+    assert routes == {"tc": 0, "simt": 1}
+    # rows 1.. of a (65, 128) buffer: contiguous, 256 bytes past a row
+    # start, but the view of a flat buffer from element 4 is 8 bytes off
+    flat = torch.randn(64 * 128 + 4, device=dev).to(bf)
+    x = flat[4:].view(64, 128)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 8
+    call = (x, *args[1:6])
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
+    assert routes == {"tc": 0, "simt": 1}
+    torch.testing.assert_close(got.float(), ffn_ln_reference(*call).float(),
+                               atol=3e-2, rtol=3e-2)
+    w = (torch.randn(128, 128, device=dev) * 0.05).to(bf)
+    ocall = (x, w, args[4], args[5], args[6], args[7])
+    (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*ocall))
+    assert routes == {"tc": 0, "simt": 1}
+    zr, hr = out_ln_reference(*ocall)
+    torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
 
 
 # -- layer norm, dropout + residual + layer norm (forward and backward) ----

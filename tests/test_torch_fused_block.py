@@ -187,8 +187,9 @@ def test_other_devices_raise():
                                    (3, 96, 64)])
 def test_out_ln_split_k_covers_k(m, k, n):
     """The split depth is a multiple of the kernel's k stage, the
-    splits cover K, and only a card-starving tile count splits."""
-    kc = port.out_ln_split_k(m, k, n)
+    splits cover K, and only a card-starving tile count splits (on a
+    card of 132 SMs, the H100 SXM's count)."""
+    kc = port.out_ln_split_k(m, k, n, 132)
     splits = math.ceil(k / kc)
     assert kc % 32 == 0 and kc * splits >= k and kc * (splits - 1) < k
     tiles = math.ceil(m / 32) * math.ceil(n / 64)
@@ -270,6 +271,55 @@ def test_fused_ffn_ln_grads_match_jax_vjp(m, dtype, interpret):
     _assert_grads(got, want, dtype)
     for t, g in zip(ts, got):
         assert g.dtype == t.dtype
+
+
+def test_out_ln_split_k_follows_the_sm_count():
+    """The SM count is the card's, passed in: fewer SMs, fewer splits."""
+    assert math.ceil(2048 / port.out_ln_split_k(8, 2048, 2048, 132)) == 8
+    assert math.ceil(2048 / port.out_ln_split_k(8, 2048, 2048, 64)) == 4
+
+
+@pytest.mark.parametrize("dtype,widths,ptrs,want", [
+    (torch.bfloat16, (2048, 8192), (0, 4096), True),   # GPT-3 XL FFN
+    (torch.bfloat16, (2048, 2048), (256,), True),      # its out-projection
+    (torch.bfloat16, (768, 3072), (), True),           # BERT-base
+    (torch.bfloat16, (128, 512), (), True),            # the tests' widths
+    (torch.bfloat16, (192, 64), (), True),             # 64, not 128
+    (torch.float32, (2048, 8192), (0,), False),        # f32 stays SIMT
+    (torch.bfloat16, (200, 300), (), False),           # ragged widths
+    (torch.bfloat16, (160, 200), (), False),
+    (torch.bfloat16, (2048, 96), (), False),
+    (torch.bfloat16, (0, 128), (), False),
+    (torch.bfloat16, (2048, 8192), (0, 8), False),     # a misaligned view
+    (torch.bfloat16, (2048, 8192), (2,), False),
+    (torch.float16, (2048, 8192), (), False),
+])
+def test_tc_route_picks_by_dtype_width_and_alignment(dtype, widths, ptrs,
+                                                     want):
+    assert port.tc_route(dtype, widths, ptrs) is want
+
+
+@pytest.mark.parametrize("m", [8, 20])
+def test_bf16_ffn_ln_matches_pallas_interpret(m, interpret):
+    """bf16 through the port and through the Pallas kernel in interpret
+    mode. The reference rounds hid to x's type before the second product
+    (pallas_block.py:_ffn_ln_kernel); so does the port. Both then sum the
+    same bf16 products in f32 and round once, so an element may differ
+    by one bf16 step of |want| (where the two f32 sums straddle a
+    rounding boundary) and at most 1% of the elements may differ at all.
+    Without the rounding of hid, 24% (m=8) and 21% (m=20) differ."""
+    f = _ffn_inputs(m, seed=10)
+    ts, js = _grad_case(f, 0, torch.bfloat16)
+    ones, zeros = jnp.ones((D,), jnp.float32), jnp.zeros((D,), jnp.float32)
+    assert pb.can_use_fused_ffn_ln(m, D, I, 2)
+    got = port.fused_ffn_ln(*ts).detach().float().numpy()
+    want = np.asarray(pb.fused_ffn_ln(*js, ones, zeros, SEED, "gelu_tanh",
+                                      "none", 0.0, 1e-5), np.float32)
+    diff = np.abs(got - want)
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -126)))
+                  - 7)                       # bf16: 8 significant bits
+    assert (diff <= ulp).all(), diff.max()
+    assert (diff > 0).mean() <= 0.01, (diff > 0).mean()
 
 
 @pytest.mark.parametrize("m", [8, 20])
