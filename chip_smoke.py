@@ -20,8 +20,10 @@ Phases:
      larger): paged attention and the two sub-blocks at decode (f32),
      the sub-blocks at the training shape (bf16, M = 1024 tokens, the
      tensor-core route), and the three flash kernels at B=1, H=16,
-     T=1024, D=128, causal, in bf16 and f32; each sub-block row names
-     the route it took (``tc`` or ``simt``), and the bf16 sub-block rows
+     T=1024, D=128, causal, in bf16 (the tensor-core route) and f32
+     (SIMT); each sub-block and flash row names the route it took
+     (``tc`` or ``simt``), each flash row the share of its elements that
+     differ from the plain version (bf16: at most 1%), and the bf16 rows
      (here and in phase 6) give device time per call (tc_times: calls
      queued behind a spin kernel, so the wrapper's host time is not
      counted) beside call_ms, one call timed by events;
@@ -40,7 +42,8 @@ Phases:
      bench_gpt_1p3b: bf16, flash, remat, dp=pp=tp=1, clip 1.0, batch 1 x
      1024), 1 warm-up + 4 timed steps: finite losses, the last below the
      first, every training kernel launched, and all 48 launches a step
-     of each sub-block on the tensor-core route; step ms, tokens/s, MFU
+     of each sub-block and of flash_fwd, and all 24 of flash_bwd_dq and
+     flash_bwd_dkv, on the tensor-core route; step ms, tokens/s, MFU
      and peak device memory;
   6. BERT: the kernels at the shapes the BERT-base pretrain step gives
      them (phase 2b, run with the other kernel checks): layer norm and
@@ -62,7 +65,9 @@ Phases:
      (the next-sentence term, 16 labels under Adam at lr 1e-4 without
      warm-up, overshoots and swings the sum by several nats from step to
      step), every kernel of the path launched as often as the model
-     predicts; step ms, samples/s, tokens/s, MFU and peak device memory;
+     predicts, the 12 launches a step of each flash kernel (bf16) on the
+     tensor-core route; step ms, samples/s, tokens/s, MFU and peak device
+     memory;
   9. the encoder-layer phase — one ``TransformerEncoderLayer(768, 12,
      3072)`` with the constructor's defaults (relu, act_dropout =
      dropout = 0.1, post-LN), forward and backward at (16, 128, 768),
@@ -131,6 +136,21 @@ REPLACES = {
     "fused_ffn": "paddle_tpu/ops/pallas_ffn.py:124 _ffn_kernel "
                  "(_ffn_fwd_impl :143, pallas_call :148)",
 }
+# the two routes of the flash kernels (ops/flash_attention.py
+# flash_tc_route)
+FLASH_DESIGN = {
+    "tc": "tensor cores: wgmma bf16 (f32 sums) fed by TMA through 3-D "
+          "tensor maps, 2 warpgroups of 64 output rows each (256 threads, "
+          "255 registers a thread), thread 0 feeding a 2-4 stage ring; "
+          "fwd: K/V tiles of 128, P rounded to bf16 in registers as the A "
+          "operand of P V (a pre-pass of Q K^T for the row max where the "
+          "reference's key block is wider than the tile); dq: K/V tiles of "
+          "64, dS in registers; dkv: S^T = K Q^T over Q tiles of 64, P^T "
+          "and dS^T in registers as A of dV and dK; mask, lse and delta "
+          "slices ride in the stages by bulk copy",
+    "simt": "SIMT f32 FMA on the CUDA cores, 64 x 64 tiles (32 x 32 at D > "
+            "128) in f32 shared memory, 256 threads as a 16 x 16 grid; bf16 "
+            "rounds P against a pre-pass row max per reference block"}
 # the two routes of the sub-block kernels (ops/fused_block.py tc_route)
 DESIGN = {
     "tc": "tensor cores: wgmma m64n128k16 bf16 (f32 sums) on a 6-stage "
@@ -146,6 +166,8 @@ DESIGN = {
 PORT_KERNEL_NAMES = ("paged_attention_kernel", "out_ln_kernel", "ffn_kernel",
                      "tc_gemm_kernel", "ln_rows_kernel", "flash_fwd_kernel",
                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                     "tc::flash_fwd_tc_kernel", "tc::flash_bwd_dq_tc_kernel",
+                     "tc::flash_bwd_dkv_tc_kernel",
                      "ln_fwd_kernel", "ln_bwd_dx_kernel", "dal_fwd_kernel",
                      "dal_bwd_kernel")
 SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
@@ -219,7 +241,8 @@ def report(results, row, ok: bool):
 
 def routed(name, fn):
     """fn()'s result and the route ("tc" or "simt") that its call of the
-    sub-block kernel `name` took, read from the per-route counters."""
+    kernel `name` (a sub-block or flash) took, read from the per-route
+    counters."""
     from paddle_tpu_torch.ops import launch_counts
     before = launch_counts()
     out = fn()
@@ -260,19 +283,22 @@ class Timer:
         """Median device time per call, in ms, of the calls in `fns` run
         back to back. For kernels of a few microseconds the wrapper's
         host time (allocations, ctypes) is longer than the kernel, and
-        an event pair around one launch times the host. Here a ~2 ms
-        spin kernel holds the stream while the host enqueues every call
+        an event pair around one launch times the host. Here a spin
+        kernel holds the stream while the host enqueues every call
         behind it, then the L2 flush, the start event, the calls and the
-        end event drain at the device's own pace. Each call works on its
-        own buffers, so after the flush every one finds its inputs cold
-        (as far as the sets together exceed what L2 would keep)."""
+        end event drain at the device's own pace. A repetition whose
+        start event the device reached before the host had queued every
+        call (it may have waited on the host) is dropped and the spin
+        doubled. Each call works on its own buffers, so after the flush
+        every one finds its inputs cold (as far as the sets together
+        exceed what L2 would keep)."""
         torch = self.torch
         for fn in fns[:2]:
             fn()
-        times = []
-        for _ in range(reps):
+        times, spin = [], 4_000_000
+        while len(times) < reps:
             torch.cuda.synchronize()
-            torch.cuda._sleep(4_000_000)
+            torch.cuda._sleep(spin)
             self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
@@ -280,7 +306,11 @@ class Timer:
             for fn in fns:
                 fn()
             e.record()
+            starved = s.query()
             e.synchronize()
+            if starved and spin < 1 << 30:
+                spin *= 2
+                continue
             times.append(s.elapsed_time(e) / len(fns))
         return statistics.median(times)
 
@@ -492,86 +522,128 @@ def check_blocks_bf16(torch, timer, results):
     report(results, row, within(out, ref, **tol))
 
 
+def differ(got, ref) -> float:
+    """The share of elements that are not the same number."""
+    return float((got != ref).float().mean())
+
+
+def flash_rows(torch, timer, results, q, k, v, do, tail, shape, peak,
+               n_el, mbytes, lib_fwd, lib_bwd, extra=None):
+    """The three flash kernels on one input set (BH, S|T, D), each
+    against its plain version: a row names the route the call took, the
+    max abs error, the share of elements that differ from the plain
+    version, the times and the bound. Tolerances: f32, |err| <= 1e-4 +
+    1e-4 |ref| (sums of up to T terms in another order); bf16, 2e-2 +
+    2e-2 |ref| with at most 1% of the elements differing, on the
+    tensor-core route (both sides round P, the dropped P and dS to bf16
+    where the reference does and sum in f32, in another order); lse is
+    f32 in both, 1e-4. Times: bf16
+    rows tc_times (device time per call) with one call's event time
+    beside it; f32 rows events a call. lib_fwd(q, k, v) and lib_bwd(q,
+    k, v, do) are the library yardsticks (SDPA forward; forward +
+    backward, the same for both backward rows)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    bh, t, d = k.shape
+    item = q.element_size()
+    bf16 = q.dtype == torch.bfloat16
+    tol = {"atol": 2e-2, "rtol": 2e-2} if bf16 else {"atol": 1e-4,
+                                                      "rtol": 1e-4}
+
+    def times(args, kernel, plain, library):
+        if bf16:
+            return tc_times(torch, timer, args, kernel, plain, library)
+        return {"kernel_ms": timer(lambda: kernel(*args)),
+                "plain_ms": timer(lambda: plain(*args)),
+                "library_ms": timer(lambda: library(*args))}
+
+    def check(name, route, pairs, nbytes, flops, args, kernel, plain,
+              library, ok=True):
+        bms, by = bound(nbytes, flops, peak)
+        share = max(differ(g, r) for g, r in pairs)
+        row = {"kernel": name, "shape": shape, "route": route,
+               "max_abs_err": max(max_err(g, r) for g, r in pairs),
+               "differ": share, "tol": tol,
+               **times(args, kernel, plain, library), "bound_ms": bms,
+               "bound_by": by, **(extra or {})}
+        # every bf16 row here has D = 64 or 128: the tensor-core route
+        report(results, row, ok and all(within(g, r, **tol)
+                                         for g, r in pairs)
+               and (not bf16 or (share <= 0.01 and route == "tc")))
+
+    (o, lse), route = routed("flash_fwd",
+                             lambda: fa._fwd_kernel(q, k, v, *tail))
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
+    torch.cuda.synchronize()
+    check("flash_fwd", route, [(o, o_r)],
+          item * 4 * bh * t * d + 4 * bh * t + mbytes, 4 * d * n_el,
+          (q, k, v), lambda *a: fa._fwd_kernel(*a, *tail),
+          lambda *a: fa.flash_fwd_reference(*a, *tail), lib_fwd,
+          within(lse, lse_r, 1e-4, 1e-4))
+
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    plain_args = (q, k, v, o, lse, do)
+    dq, route = routed("flash_bwd_dq", lambda: fa._dq_kernel(*args, *tail))
+    dq_r = fa.bwd_dq_reference(*plain_args, *tail)
+    torch.cuda.synchronize()
+    check("flash_bwd_dq", route, [(dq, dq_r)],
+          item * 5 * bh * t * d + 8 * bh * t + mbytes, 6 * d * n_el,
+          args, lambda *a: fa._dq_kernel(*a, *tail),
+          lambda q, k, v, do, lse, _: fa.bwd_dq_reference(
+              q, k, v, o, lse, do, *tail),
+          lambda q, k, v, do, *_: lib_bwd(q, k, v, do))
+
+    (dk, dv), route = routed("flash_bwd_dkv",
+                             lambda: fa._dkv_kernel(*args, *tail))
+    dk_r, dv_r = fa.bwd_dkv_reference(*plain_args, *tail)
+    torch.cuda.synchronize()
+    check("flash_bwd_dkv", route, [(dk, dk_r), (dv, dv_r)],
+          item * 6 * bh * t * d + 8 * bh * t + mbytes, 8 * d * n_el,
+          args, lambda *a: fa._dkv_kernel(*a, *tail),
+          lambda q, k, v, do, lse, _: fa.bwd_dkv_reference(
+              q, k, v, o, lse, do, *tail),
+          lambda q, k, v, do, *_: lib_bwd(q, k, v, do))
+
+
+def sdpa_yardsticks(torch, b, h, **kw):
+    """lib_fwd, lib_bwd for flash_rows: one SDPA call on (B, H, T, D)
+    views of the same inputs (forward; forward + backward)."""
+    import torch.nn.functional as F
+
+    def four(x):
+        return x.reshape(b, h, *x.shape[1:])
+
+    def lib_fwd(q, k, v):
+        return F.scaled_dot_product_attention(four(q), four(k), four(v),
+                                              **kw)
+
+    def lib_bwd(q, k, v, do):
+        ql, kl, vl = (four(x).detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, **kw)
+        return torch.autograd.grad(out, (ql, kl, vl), four(do))
+
+    return lib_fwd, lib_bwd
+
+
 def check_flash(torch, timer, results):
     """The three flash kernels at the training shape (B=1, H=16, T=1024,
-    D=128, causal) in bf16 (the training path's type) and f32.
-    Tolerances: f32, |err| <= 1e-4 + 1e-4 |ref| (sums of up to 1024
-    terms in another order); bf16, 2e-2 + 2e-2 |ref| (f32 arithmetic on
-    the same bf16 numbers on both sides, one rounding of each output to
-    bf16); lse is f32 in both, 1e-4."""
-    import torch.nn.functional as F
-    from paddle_tpu_torch.ops import flash_attention as fa
+    D=128, causal) in bf16 (the training path's type: the tensor-core
+    route) and f32 (the SIMT route); flash_rows has the tolerances."""
     B, H, T, D = 1, 16, TRAIN_TOKENS, 128
     BH = B * H
     scale = D ** -0.5
     g = torch.Generator(device="cuda").manual_seed(3)
     # score elements the causal kernels need: T (T + 1) / 2 per head
     n_el = BH * T * (T + 1) // 2
-    for name, dt, peak, t in (("bf16", torch.bfloat16, BF16_FLOPS, 2e-2),
-                              ("f32", torch.float32, F32_FLOPS, 1e-4)):
-        tol = {"atol": t, "rtol": t}
+    lib_fwd, lib_bwd = sdpa_yardsticks(torch, B, H, is_causal=True)
+    for name, dt, peak in (("bf16", torch.bfloat16, BF16_FLOPS),
+                           ("f32", torch.float32, F32_FLOPS)):
         q, k, v, do = (torch.randn(BH, T, D, generator=g, device="cuda")
                        .to(dt) for _ in range(4))
-        item = q.element_size()
-        shape = f"B={B} H={H} T={T} D={D} causal {name}"
-        q4, k4, v4, do4 = (a.reshape(B, H, T, D) for a in (q, k, v, do))
-
-        o, lse = fa._fwd_kernel(q, k, v, scale, True)
-        o_r, lse_r = fa.flash_fwd_reference(q, k, v, scale, True)
-        torch.cuda.synchronize()
-        bms, by = bound(item * 4 * BH * T * D + 4 * BH * T, 4 * D * n_el,
-                        peak)
-        row = {"kernel": "flash_fwd", "shape": shape,
-               "max_abs_err": max(max_err(o, o_r), max_err(lse, lse_r)),
-               "tol": tol,
-               "kernel_ms": timer(lambda: fa._fwd_kernel(q, k, v, scale,
-                                                         True)),
-               "plain_ms": timer(lambda: fa.flash_fwd_reference(
-                   q, k, v, scale, True)),
-               "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                   q4, k4, v4, is_causal=True)),
-               "bound_ms": bms, "bound_by": by}
-        report(results, row, within(o, o_r, **tol)
-               and within(lse, lse_r, 1e-4, 1e-4))
-
-        # library yardstick of the backward kernels: SDPA forward +
-        # backward (the same call for both rows)
-        ql, kl, vl = (a.detach().clone().requires_grad_()
-                      for a in (q4, k4, v4))
-
-        def lib_bwd():
-            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-            return torch.autograd.grad(out, (ql, kl, vl), do4)
-
-        lib_ms = timer(lib_bwd)
-        delta = fa.bwd_delta(o, do)
-        args = (q, k, v, do, lse, delta, scale, True)
-        plain_args = (q, k, v, o, lse, do, scale, True)
-        dq = fa._dq_kernel(*args)
-        dq_r = fa.bwd_dq_reference(*plain_args)
-        torch.cuda.synchronize()
-        bms, by = bound(item * 5 * BH * T * D + 8 * BH * T, 6 * D * n_el,
-                        peak)
-        row = {"kernel": "flash_bwd_dq", "shape": shape,
-               "max_abs_err": max_err(dq, dq_r), "tol": tol,
-               "kernel_ms": timer(lambda: fa._dq_kernel(*args)),
-               "plain_ms": timer(lambda: fa.bwd_dq_reference(*plain_args)),
-               "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-        report(results, row, within(dq, dq_r, **tol))
-
-        dk, dv = fa._dkv_kernel(*args)
-        dk_r, dv_r = fa.bwd_dkv_reference(*plain_args)
-        torch.cuda.synchronize()
-        bms, by = bound(item * 6 * BH * T * D + 8 * BH * T, 8 * D * n_el,
-                        peak)
-        row = {"kernel": "flash_bwd_dkv", "shape": shape,
-               "max_abs_err": max(max_err(dk, dk_r), max_err(dv, dv_r)),
-               "tol": tol,
-               "kernel_ms": timer(lambda: fa._dkv_kernel(*args)),
-               "plain_ms": timer(lambda: fa.bwd_dkv_reference(*plain_args)),
-               "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-        report(results, row, within(dk, dk_r, **tol)
-               and within(dv, dv_r, **tol))
+        flash_rows(torch, timer, results, q, k, v, do,
+                   (scale, True, None, 0, 0.0),
+                   f"B={B} H={H} T={T} D={D} causal {name}", peak, n_el, 0,
+                   lib_fwd, lib_bwd)
 
 
 def check_rows(torch, timer, results):
@@ -788,11 +860,11 @@ def check_blocks_bert(torch, timer, results):
 def check_flash_bert(torch, timer, results):
     """The three flash kernels as the BERT-base step launches them:
     B=16, H=12, S=T=128, D=64, non-causal, dropout 0.1, in bf16 (the
-    path's type: fused_attention is on the O1 white list) and f32, with
-    and without a padding mask (B, 1, 1, T) whose rows pad 0..45 trailing
-    keys. Tolerances as in check_flash. Two identity-block V's expose the
-    dropout mask bit for bit."""
-    import torch.nn.functional as F
+    path's type: fused_attention is on the O1 white list; the
+    tensor-core route) and f32 (SIMT), with and without a padding mask
+    (B, 1, 1, T) whose rows pad 0..45 trailing keys; flash_rows has the
+    tolerances. Two identity-block V's expose the dropout mask bit for
+    bit (masks_bit_equal)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     B, H, T, D, p, seed = BERT_BATCH, 12, BERT_SEQ, 64, 0.1, 4242
     BH = B * H
@@ -802,13 +874,10 @@ def check_flash_bert(torch, timer, results):
     for i in range(B):
         pad[i, T - 3 * i:] = -1e9 if i else 0.0
     n_el = BH * T * T
-    for name, dt, peak, t in (("bf16", torch.bfloat16, BF16_FLOPS, 2e-2),
-                              ("f32", torch.float32, F32_FLOPS, 1e-4)):
-        tol = {"atol": t, "rtol": t}
+    for name, dt, peak in (("bf16", torch.bfloat16, BF16_FLOPS),
+                           ("f32", torch.float32, F32_FLOPS)):
         q, k, v, do = (torch.randn(BH, T, D, generator=g, device="cuda")
                        .to(dt) for _ in range(4))
-        item = q.element_size()
-        q4, k4, v4, do4 = (a.reshape(B, H, T, D) for a in (q, k, v, do))
 
         # the mask bit for bit: o = dropped P when V is an identity block
         keep = fa.keep_mask_salted(seed, BH, T, T, p, "cuda")
@@ -823,68 +892,17 @@ def check_flash_bert(torch, timer, results):
         del keep
 
         for mask2, mname in ((None, "no mask"), (pad, "padding mask")):
-            shape = f"B={B} H={H} S=T={T} D={D} {name} p={p} {mname} (BERT)"
-            tail = (scale, False, mask2, seed, p)
             mask4 = None if mask2 is None else mask2[:, None, None, :].to(dt)
-            o, lse = fa._fwd_kernel(q, k, v, *tail)
-            o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
-            torch.cuda.synchronize()
-            mbytes = 0 if mask2 is None else 4 * B * T
-            bms, by = bound(item * 4 * BH * T * D + 4 * BH * T + mbytes,
-                            4 * D * n_el, peak)
-            row = {"kernel": "flash_fwd", "shape": shape,
-                   "max_abs_err": max(max_err(o, o_r), max_err(lse, lse_r)),
-                   "tol": tol, "masks_bit_equal": masks_equal,
-                   "kernel_ms": timer(lambda: fa._fwd_kernel(q, k, v,
-                                                             *tail)),
-                   "plain_ms": timer(lambda: fa.flash_fwd_reference(
-                       q, k, v, *tail)),
-                   "library_ms": timer(
-                       lambda: F.scaled_dot_product_attention(
-                           q4, k4, v4, attn_mask=mask4, dropout_p=p)),
-                   "bound_ms": bms, "bound_by": by}
-            report(results, row, masks_equal and within(o, o_r, **tol)
-                   and within(lse, lse_r, 1e-4, 1e-4))
-
-            ql, kl, vl = (a.detach().clone().requires_grad_()
-                          for a in (q4, k4, v4))
-
-            def lib_bwd():
-                out = F.scaled_dot_product_attention(
-                    ql, kl, vl, attn_mask=mask4, dropout_p=p)
-                return torch.autograd.grad(out, (ql, kl, vl), do4)
-
-            lib_ms = timer(lib_bwd)
-            delta = fa.bwd_delta(o, do)
-            args = (q, k, v, do, lse, delta, *tail)
-            plain_args = (q, k, v, o, lse, do, *tail)
-            dq = fa._dq_kernel(*args)
-            dq_r = fa.bwd_dq_reference(*plain_args)
-            torch.cuda.synchronize()
-            bms, by = bound(item * 5 * BH * T * D + 8 * BH * T + mbytes,
-                            6 * D * n_el, peak)
-            row = {"kernel": "flash_bwd_dq", "shape": shape,
-                   "max_abs_err": max_err(dq, dq_r), "tol": tol,
-                   "kernel_ms": timer(lambda: fa._dq_kernel(*args)),
-                   "plain_ms": timer(lambda: fa.bwd_dq_reference(
-                       *plain_args)),
-                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-            report(results, row, within(dq, dq_r, **tol))
-
-            dk, dv = fa._dkv_kernel(*args)
-            dk_r, dv_r = fa.bwd_dkv_reference(*plain_args)
-            torch.cuda.synchronize()
-            bms, by = bound(item * 6 * BH * T * D + 8 * BH * T + mbytes,
-                            8 * D * n_el, peak)
-            row = {"kernel": "flash_bwd_dkv", "shape": shape,
-                   "max_abs_err": max(max_err(dk, dk_r), max_err(dv, dv_r)),
-                   "tol": tol,
-                   "kernel_ms": timer(lambda: fa._dkv_kernel(*args)),
-                   "plain_ms": timer(lambda: fa.bwd_dkv_reference(
-                       *plain_args)),
-                   "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
-            report(results, row, within(dk, dk_r, **tol)
-                   and within(dv, dv_r, **tol))
+            lib_fwd, lib_bwd = sdpa_yardsticks(torch, B, H, attn_mask=mask4,
+                                               dropout_p=p)
+            flash_rows(
+                torch, timer, results, q, k, v, do,
+                (scale, False, mask2, seed, p),
+                f"B={B} H={H} S=T={T} D={D} {name} p={p} {mname} (BERT)",
+                peak, n_el, 0 if mask2 is None else 4 * B * T, lib_fwd,
+                lib_bwd, {"masks_bit_equal": masks_equal})
+        if not masks_equal:
+            fail(f"flash dropout masks differ from keep_mask_salted ({name})")
 
 
 def request_mix(vocab: int):
@@ -1137,15 +1155,24 @@ def training_path(torch, tree, steps=5):
     if missing:
         fail(f"kernels never launched on the training path: {missing} "
              f"(counts {counts})")
-    # each layer runs both sub-blocks forward and again in its remat
-    want = 2 * cfg.num_layers * steps
-    off = {k: (counts.get(k, 0), counts.get(f"{k}.tc", 0), want)
-           for k in ("fused_out_ln", "fused_ffn_ln")
-           if not counts.get(k, 0) == counts.get(f"{k}.tc", 0) == want}
-    if off:
-        fail(f"sub-block launches (all, on the tensor cores, expected) off "
-             f"the tensor-core route: {off}")
+    # each layer runs both sub-blocks and flash forward and again in its
+    # remat, and the two flash backward kernels once
+    L = cfg.num_layers * steps
+    off_route(counts, {"fused_out_ln": 2 * L, "fused_ffn_ln": 2 * L,
+                       "flash_fwd": 2 * L, "flash_bwd_dq": L,
+                       "flash_bwd_dkv": L}, "GPT training path")
     return counts, step, ids
+
+
+def off_route(counts, want, what):
+    """Fails unless each kernel in `want` launched exactly that often, all
+    of them on the tensor-core route."""
+    off = {k: (counts.get(k, 0), counts.get(f"{k}.tc", 0), n)
+           for k, n in want.items()
+           if not counts.get(k, 0) == counts.get(f"{k}.tc", 0) == n}
+    if off:
+        fail(f"{what}: launches (all, on the tensor cores, expected) off "
+             f"the tensor-core route: {off}")
 
 
 def bert_batch(vocab: int):
@@ -1182,9 +1209,10 @@ def bert_parity(torch, layers=2, steps=3, rtol=2e-2):
     the card: BERT-base cut to `layers` layers at full width, dropout
     0.1, AMP O1, the same weights, batch and step seeds, so both sides
     drop the same elements. The sub-block ops run in f32 on both sides
-    and attention in bf16, where the kernels keep P in f32 and the
-    composed chain rounds it to bf16: the curves agree to bf16
-    precision, within `rtol` relative."""
+    and attention in bf16, where the kernels round the unnormalised P
+    blockwise as the reference does and the composed chain rounds the
+    softmax: the curves agree to bf16 precision, within `rtol`
+    relative."""
     import math
     from paddle_tpu_torch.jit import make_train_step
     from paddle_tpu_torch.nn import functional as F
@@ -1286,6 +1314,11 @@ def bert_training_path(torch, steps=5):
              if counts.get(k, 0) != v * steps}
     if wrong:
         fail(f"BERT path launches (got, predicted): {wrong}")
+    # attention runs in bf16 under O1: every flash launch on the tensor
+    # cores (the sub-blocks stay f32, SIMT)
+    off_route(counts, {k: BERT_LAUNCHES_PER_STEP[k] * steps for k in
+                       ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
+              "BERT training path")
     return counts, step, batch
 
 
@@ -1613,8 +1646,12 @@ def kernel_entry(row, launches):
            "shape": row["shape"]}
     if "call_ms" in row:    # one wrapper call, host time included
         ent["call_ms"] = row["call_ms"]
-    if "route" in row:      # the sub-blocks: which of their two designs
-        ent["design"] = f"{row['route']}: {DESIGN[row['route']]}"
+    if "route" in row:      # which of the kernel's two designs ran
+        design = FLASH_DESIGN if row["kernel"].startswith("flash") \
+            else DESIGN
+        ent["design"] = f"{row['route']}: {design[row['route']]}"
+    if "differ" in row:     # share of elements != the plain version's
+        ent["differ"] = row["differ"]
     return ent
 
 

@@ -512,7 +512,7 @@ __global__ void __launch_bounds__(wt::kThreads, 1)
   const int tiles = n_row * ((N + wt::BN - 1) / wt::BN);
   const int nk = K / wt::BK;
   const int wg = threadIdx.x / 128;
-  wt::Pipe pipe;
+  wt::Pipe<> pipe;
   if (wg == 2) {  // the producer warpgroup: one thread issues every load
     if (threadIdx.x == 256)
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)

@@ -29,8 +29,18 @@
     do.
   * ``sdpa_reference`` — the composed oracle.
 
-CUDA tensors go to ``csrc/flash_attention.cu`` (float32 or bfloat16,
-f32 arithmetic) or the call raises. The domain is the reference's
+The probabilities, the dropped probabilities and dS are rounded to the
+input type before their products, where the reference's kernels round
+them; P in the forward against the running row max at the reference's
+key blocks (``ref_block``). In float32 the rounding is the identity.
+
+CUDA tensors go to ``csrc/flash_attention.cu`` or the call raises, on
+one of two routes chosen before the launch (``flash_tc_route``): bf16
+at head dim 64 or 128 with 16-byte aligned operands to the tensor-core
+kernels (``wgmma`` fed by TMA), everything else to the SIMT kernels
+(f32 arithmetic on the CUDA cores). Each launch counts under its op
+(``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) and under
+``<op>.tc`` or ``<op>.simt``. The domain is the reference's
 (``can_use_flash``): D % 8 == 0, D <= 256, S and T multiples of 64 (the
 reference's smallest block); outside it the reference itself fails, and
 the port raises ValueError.
@@ -50,7 +60,7 @@ from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
 __all__ = ["flash_attention", "scaled_dot_product_attention",
            "keep_mask_salted", "can_use_flash", "sdpa_reference",
            "flash_fwd_reference", "flash_bwd_reference", "bwd_dq_reference",
-           "bwd_dkv_reference", "bwd_delta"]
+           "bwd_dkv_reference", "bwd_delta", "flash_tc_route", "ref_block"]
 
 _MIN_BLOCK = 64
 
@@ -129,29 +139,59 @@ def _scores(q3, k3, scale, causal, mask2):
     return s
 
 
+def ref_block(t: int) -> int:
+    """The reference's key block for T keys: the largest of 512, 256,
+    128 and 64 dividing T (its ``_auto_block`` default, without the
+    environment override). The forward rounds P against the running row
+    max at these blocks' boundaries."""
+    for b in (512, 256, 128, 64):
+        if t % b == 0:
+            return b
+    raise ValueError(f"flash: T = {t} is not a multiple of {_MIN_BLOCK}")
+
+
 def flash_fwd_reference(q3, k3, v3, scale, causal, mask2=None, seed=0,
                         dropout_p=0.0):
     """Plain version of the forward kernel on (BH, S, D): (o in q's
-    dtype, lse (BH, S) f32). The row sum and lse are dropout-free."""
+    dtype, lse (BH, S) f32). As the reference walks its key blocks, the
+    probabilities of block b are exp(s - m_b), m_b the running row max
+    after block b; the dropped ones are rounded to q's dtype before the
+    product with V, and the accumulator is rescaled by exp(m_b - m) at
+    the end (the reference rescales it block by block). The row sum and
+    lse are of the unrounded, undropped probabilities."""
     s = _scores(q3, k3, scale, causal, mask2)
-    m = s.amax(-1, keepdim=True)
-    p = torch.exp(s - m)
-    l = p.sum(-1, keepdim=True)
-    o = torch.matmul(_drop_probs(p, seed, dropout_p), v3.float()) / l
-    return o.to(q3.dtype), (m + torch.log(l)).squeeze(-1)
+    bh, n, t = s.shape
+    rb = ref_block(t)
+    sb = s.reshape(bh, n, t // rb, rb)
+    mb = torch.cummax(sb.amax(-1), -1).values          # (BH, S, blocks)
+    # a row masked so far keeps m = -inf; exp against 0 keeps it NaN-free
+    mb = torch.where(mb == float("-inf"), torch.zeros_like(mb), mb)
+    m = mb[..., -1:]
+    pb = torch.exp(sb - mb[..., None])
+    carry = torch.exp(mb - m)                          # exp(m_b - m)
+    l = (pb.sum(-1) * carry).sum(-1, keepdim=True)
+    pd = _drop_probs(pb.reshape(bh, n, t), seed, dropout_p)
+    pd = pd.to(q3.dtype).float().reshape(bh, n, t // rb, rb)
+    vb = v3.float().reshape(bh, t // rb, rb, -1)
+    o = (torch.einsum("hsbk,hbkd->hsbd", pd, vb) * carry[..., None]).sum(-2)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (o / l).to(q3.dtype), (m + torch.log(l)).squeeze(-1)
 
 
 def _bwd_p_ds(q3, k3, v3, o, lse, do, scale, causal, mask2=None, seed=0,
               dropout_p=0.0):
     """(qf, kf, dof, pd, ds) in f32: P recomputed from lse (the
-    reference's _recompute_p), pd its dropped form, delta =
-    rowsum(dO * O) and ds = P * (dropped(dO V^T) - delta) * scale."""
+    reference's _recompute_p), pd its dropped form rounded to dO's dtype,
+    delta = rowsum(dO * O) and ds = P * (dropped(dO V^T) - delta) * scale
+    rounded to q's dtype: the values the reference's kernels multiply,
+    widened to f32 as its dots take them."""
     qf, kf, vf, dof = q3.float(), k3.float(), v3.float(), do.float()
     p = torch.exp(_scores(q3, k3, scale, causal, mask2) - lse[..., None])
     delta = (dof * o.float()).sum(-1, keepdim=True)
     dp = _drop_probs(torch.matmul(dof, vf.transpose(1, 2)), seed, dropout_p)
-    ds = p * (dp - delta) * scale
-    return qf, kf, dof, _drop_probs(p, seed, dropout_p), ds
+    ds = (p * (dp - delta) * scale).to(q3.dtype).float()
+    pd = _drop_probs(p, seed, dropout_p).to(do.dtype).float()
+    return qf, kf, dof, pd, ds
 
 
 def bwd_dq_reference(q3, k3, v3, o, lse, do, scale, causal, mask2=None,
@@ -195,6 +235,17 @@ def _dims(q3, k3, v3):
 
 
 _TAIL = (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
+_TC_HEAD_DIMS = (64, 128)
+
+
+def flash_tc_route(dtype, d, ptrs) -> bool:
+    """Whether a call takes the tensor-core kernels: bfloat16, head dim
+    64 or 128, and every tensor TMA and bulk copies read (`ptrs`, from
+    data_ptr(); read only when the rest holds) 16-byte aligned. Anything
+    else (f32, other head dims up to 256, a misaligned view) takes the
+    SIMT kernels; nothing is tried and caught."""
+    return (dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
+            and all(p % 16 == 0 for p in ptrs))
 
 
 def _tail(q3, t, mask2, seed, dropout_p):
@@ -210,21 +261,38 @@ def _tail(q3, t, mask2, seed, dropout_p):
     return mask2.data_ptr(), bh // b, _drop_args(seed, dropout_p)
 
 
+def _launch(op, ins, outs, t, code, scale, causal, mask2, seed, dropout_p):
+    """Launch `op`'s kernel on (*ins, *outs), ins[0] being q, on the route
+    flash_tc_route picks from what the tensor-core kernel would copy in
+    (ins and the mask), and count it under `op` and `op.tc` or
+    `op.simt`."""
+    q3 = ins[0]
+    bh, s, d = q3.shape
+    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
+                                                   dropout_p)
+    copied = ins if mask2 is None else (*ins, mask2)
+    route = "tc" if flash_tc_route(q3.dtype, d, (x.data_ptr()
+                                                 for x in copied)) else "simt"
+    symbol = f"{op}_tc_launch" if route == "tc" else f"{op}_launch"
+    fn = _build.function("flash_attention", symbol,
+                         len(ins) + len(outs) + 1, 10, _TAIL)
+    stream = torch.cuda.current_stream(q3.device).cuda_stream
+    with torch.cuda.device(q3.device):
+        err = fn(*(x.data_ptr() for x in (*ins, *outs)), mptr, bh, s, t, d,
+                 code, int(causal), heads, seed, on, ref_block(t), thr,
+                 keep_div, float(scale), stream)
+    _raise_if(err, op)
+    _build.note_launch(op)
+    _build.note_launch(f"{op}.{route}")
+
+
 def _fwd_kernel(q3, k3, v3, scale, causal, mask2=None, seed=0,
                 dropout_p=0.0):
     bh, s, t, d, code = _dims(q3, k3, v3)
-    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
-                                                   dropout_p)
     o = torch.empty_like(q3)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q3.device)
-    fn = _build.function("flash_attention", "flash_fwd_launch", 6, 9, _TAIL)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    with torch.cuda.device(q3.device):
-        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), mptr, bh, s, t, d, code, int(causal),
-                 heads, seed, on, thr, keep_div, float(scale), stream)
-    _raise_if(err, "flash_fwd")
-    _build.note_launch("flash_fwd")
+    _launch("flash_fwd", (q3, k3, v3), (o, lse), t, code, scale, causal,
+            mask2, seed, dropout_p)
     return o, lse
 
 
@@ -243,39 +311,19 @@ def _bwd_common(q3, k3, v3, do, lse, delta):
 def _dq_kernel(q3, k3, v3, do, lse, delta, scale, causal, mask2=None,
                seed=0, dropout_p=0.0):
     bh, s, t, d, code = _bwd_common(q3, k3, v3, do, lse, delta)
-    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
-                                                   dropout_p)
     dq = torch.empty_like(q3)
-    fn = _build.function("flash_attention", "flash_bwd_dq_launch", 8, 9,
-                         _TAIL)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    with torch.cuda.device(q3.device):
-        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), mptr, bh,
-                 s, t, d, code, int(causal), heads, seed, on, thr, keep_div,
-                 float(scale), stream)
-    _raise_if(err, "flash_bwd_dq")
-    _build.note_launch("flash_bwd_dq")
+    _launch("flash_bwd_dq", (q3, k3, v3, do, lse, delta), (dq,), t, code,
+            scale, causal, mask2, seed, dropout_p)
     return dq
 
 
 def _dkv_kernel(q3, k3, v3, do, lse, delta, scale, causal, mask2=None,
                 seed=0, dropout_p=0.0):
     bh, s, t, d, code = _bwd_common(q3, k3, v3, do, lse, delta)
-    mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
-                                                   dropout_p)
     dk = torch.empty_like(k3)
     dv = torch.empty_like(v3)
-    fn = _build.function("flash_attention", "flash_bwd_dkv_launch", 9, 9,
-                         _TAIL)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    with torch.cuda.device(q3.device):
-        err = fn(q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), mptr, bh, s, t, d, code, int(causal), heads,
-                 seed, on, thr, keep_div, float(scale), stream)
-    _raise_if(err, "flash_bwd_dkv")
-    _build.note_launch("flash_bwd_dkv")
+    _launch("flash_bwd_dkv", (q3, k3, v3, do, lse, delta), (dk, dv), t,
+            code, scale, causal, mask2, seed, dropout_p)
     return dk, dv
 
 

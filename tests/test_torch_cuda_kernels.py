@@ -12,7 +12,12 @@ pre/post-norm, gelu/relu and padding-mask variants of the sub-block and
 flash kernels; the sub-blocks' tensor-core route (bf16, widths that are
 multiples of 64) at ragged M and the GPT-3 XL training shapes, every
 variant, masks bit-equal, reruns bit-identical, and the route each call
-takes (counted per route; a misaligned view takes the SIMT kernels).
+takes (counted per route; a misaligned view takes the SIMT kernels); the
+flash kernels' two routes in bf16 at the GPT-3 XL, BERT-base, T = 192
+and D = 64 causal shapes, against plain versions that round P and dS
+where the reference does (at most 1% of the elements another bf16
+number), dropout masks bit-equal on the tensor cores, reruns
+bit-identical, and the route by dtype, head dim and alignment.
 
 Needs a CUDA card: each test skips without one (the `dev` fixture
 decides, at run time). On the card, run
@@ -727,3 +732,153 @@ def test_static_ffn_program_on_the_card(dev):
                   for _ in range(3)]
     assert _build.launch_counts()["fused_ffn"] == before + 6
     assert losses[-1] < losses[0]
+
+
+# ---------------------------------------------------------------------------
+# B rows 4-5: the flash kernels' two routes (ops/flash_attention.py
+# flash_tc_route): bf16 at D = 64 or 128 with aligned operands on the
+# tensor cores, the rest on the SIMT kernels
+# ---------------------------------------------------------------------------
+
+def _misaligned(x):
+    """A contiguous copy of x 8 bytes past a 16-byte boundary: what TMA
+    cannot read, so the call takes the SIMT route."""
+    flat = torch.empty(x.numel() + 4, dtype=x.dtype, device=x.device)
+    y = flat[4:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 8
+    return y
+
+
+def _flash_case(dev, seed, b, h, s, t, d, with_mask):
+    g = _g(seed)
+    bf = torch.bfloat16
+    q, k, v, do = (torch.randn(b * h, n, d, generator=g, device=dev).to(bf)
+                   for n in (s, t, t, s))
+    mask2 = None
+    if with_mask:   # row i pads its last 3 i keys (row 0 none)
+        mask2 = torch.zeros(b, t, device=dev)
+        for i in range(1, b):
+            mask2[i, t - 3 * i:] = -1e9
+    return q, k, v, do, mask2
+
+
+def _flash_routes(q, k, v, do, tail):
+    """The three kernels on q, k, v, do, with the route each took."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    (o, lse), r_fwd = _counted("flash_fwd",
+                               lambda: fa._fwd_kernel(q, k, v, *tail))
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, *tail)
+    dq, r_dq = _counted("flash_bwd_dq", lambda: fa._dq_kernel(*args))
+    (dk, dv), r_dkv = _counted("flash_bwd_dkv", lambda: fa._dkv_kernel(*args))
+    return (o, lse, dq, dk, dv), (r_fwd, r_dq, r_dkv)
+
+
+def _assert_bf16_close(got, want, name):
+    """2e-2 + 2e-2 |ref| everywhere, and at most 1% of the elements not
+    the same bf16 number (another order of f32 sums; where a rounding of
+    P or dS lands on the other side)."""
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2, msg=name)
+    assert (got != want).float().mean().item() <= 0.01, name
+
+
+FLASH_TC_CASES = [  # b, h, s, t, d, causal, mask, p
+    (1, 16, 1024, 1024, 128, True, False, 0.0),   # GPT-3 XL
+    (16, 12, 128, 128, 64, False, False, 0.1),    # BERT-base
+    (16, 12, 128, 128, 64, False, True, 0.1),     # BERT-base, padded
+    (2, 3, 192, 192, 64, True, False, 0.0),       # S, T % 128 == 64
+    (2, 3, 192, 192, 128, False, True, 0.1),
+    (2, 2, 256, 256, 64, True, False, 0.0),       # D = 64 causal
+    (1, 2, 512, 512, 128, False, False, 0.2),     # one 512-key block
+    (2, 2, 64, 192, 64, True, False, 0.0),        # S < T
+    (2, 2, 192, 128, 128, False, True, 0.1),      # S > T
+]
+
+
+@pytest.mark.parametrize("route", ["tc", "simt"])
+@pytest.mark.parametrize("b,h,s,t,d,causal,with_mask,p", FLASH_TC_CASES)
+def test_flash_bf16_routes_match_plain(dev, route, b, h, s, t, d, causal,
+                                       with_mask, p):
+    """bf16 through the tensor cores (aligned operands) and through the
+    SIMT kernels (the same numbers 8 bytes off a 16-byte boundary), each
+    kernel against its plain version: both round P, the dropped P and dS
+    where the reference does, so the outputs are the same bf16 numbers
+    but for a few; lse within 1e-4; two runs bit-identical."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    q, k, v, do, mask2 = _flash_case(dev, 30, b, h, s, t, d, with_mask)
+    if route == "simt":
+        q, k, v, do = (_misaligned(x) for x in (q, k, v, do))
+    tail = (d ** -0.5, causal, mask2, 77, p)
+    got, routes = _flash_routes(q, k, v, do, tail)
+    for r in routes:
+        assert r == {"tc": int(route == "tc"), "simt": int(route == "simt")}
+    o, lse, dq, dk, dv = got
+    o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
+    torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
+    _assert_bf16_close(o, o_r, "o")
+    plain = (q, k, v, o, lse, do, *tail)
+    _assert_bf16_close(dq, fa.bwd_dq_reference(*plain), "dq")
+    dk_r, dv_r = fa.bwd_dkv_reference(*plain)
+    _assert_bf16_close(dk, dk_r, "dk")
+    _assert_bf16_close(dv, dv_r, "dv")
+    again, _ = _flash_routes(q, k, v, do, tail)
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_tensor_core_dropout_masks_are_bit_equal(dev, d):
+    """Identity blocks expose the dropped probabilities: V = I makes o the
+    dropped P (forward), dO = I makes dv the dropped P^T (dK/dV kernel);
+    their zeros are keep_mask_salted's, so the fragment map and the
+    transposed coordinates of the dK/dV kernel hash (q row, key)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    bf = torch.bfloat16
+    g = _g(31)
+    bh, t, p, seed = 6, 2 * d, 0.1, -5
+    q = (torch.randn(bh, t, d, generator=g, device=dev) * 0.3).to(bf)
+    k = (torch.randn(bh, t, d, generator=g, device=dev) * 0.3).to(bf)
+    keep = fa.keep_mask_salted(seed, bh, t, t, p, dev)
+    eye = torch.eye(d, device=dev, dtype=bf)
+    for half in (0, 1):
+        v = torch.zeros(bh, t, d, device=dev, dtype=bf)
+        v[:, half * d:(half + 1) * d] = eye
+        (o, lse), routes = _counted("flash_fwd", lambda: fa._fwd_kernel(
+            q, k, v, d ** -0.5, False, None, seed, p))
+        assert routes == {"tc": 1, "simt": 0}
+        assert torch.equal(o != 0, keep[:, :, half * d:(half + 1) * d])
+        do = torch.zeros(bh, t, d, device=dev, dtype=bf)
+        do[:, half * d:(half + 1) * d] = eye
+        delta = fa.bwd_delta(o, do)
+        (dk, dv), routes = _counted("flash_bwd_dkv", lambda: fa._dkv_kernel(
+            q, k, v, do, lse, delta, d ** -0.5, False, None, seed, p))
+        assert routes == {"tc": 1, "simt": 0}
+        want = keep[:, half * d:(half + 1) * d, :].transpose(1, 2)
+        assert torch.equal(dv != 0, want)
+
+
+def test_flash_routes_by_dtype_head_dim_and_alignment(dev):
+    """bf16 at D in {64, 128} takes the tensor cores; f32, D = 96 and
+    256 and a misaligned view take the SIMT kernels, which still match
+    the plain version (f32 1e-4; bf16 as above)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    bf, f32 = torch.bfloat16, torch.float32
+    for d, dt, want in ((64, bf, "tc"), (128, bf, "tc"), (64, f32, "simt"),
+                        (128, f32, "simt"), (96, bf, "simt"),
+                        (256, bf, "simt")):
+        q, k, v, do, _ = _flash_case(dev, 32, 1, 2, 128, 128, d, False)
+        q, k, v, do = (x.to(dt) for x in (q, k, v, do))
+        tail = (d ** -0.5, True, None, 0, 0.0)
+        got, routes = _flash_routes(q, k, v, do, tail)
+        for r in routes:
+            assert r[want] == 1 and sum(r.values()) == 1, (d, dt, r)
+        o_r, _ = fa.flash_fwd_reference(q, k, v, *tail)
+        want_b = fa.flash_bwd_reference(q, k, v, got[0], got[1], do, *tail)
+        for x, y, name in zip((got[0], *got[2:]), (o_r, *want_b),
+                              ("o", "dq", "dk", "dv")):
+            if dt == torch.float32:
+                torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
+            else:
+                _assert_bf16_close(x, y, name)

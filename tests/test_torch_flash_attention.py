@@ -21,10 +21,12 @@ from paddle_tpu_torch.ops import flash_attention as port
 
 # float32: the sums run in another order than XLA's
 TOL = dict(atol=1e-5, rtol=1e-5)
-# bfloat16 in, f32 arithmetic in both, one rounding of each output to
-# bf16 (8 bits of mantissa, 2**-8 ~ 4e-3 relative); the Pallas kernel
-# also rounds P and dS to bf16 before its products and the port does
-# not, so outputs and gradients agree to a few bf16 steps
+# bfloat16 in, f32 sums in both, P, the dropped P and dS rounded to
+# bf16 before their products at the reference's points (P against the
+# running max at the reference's key blocks), and each output rounded
+# once to bf16 (8 bits of mantissa, 2**-8 ~ 4e-3 relative); the sums
+# run in another order, so a rounding can land one bf16 step apart
+# (test_flash_bf16_rounds_like_pallas_interpret holds how few do)
 BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 B, H, D = 2, 2, 64
 
@@ -289,3 +291,83 @@ def test_sdpa_entry_argument_handling():
                                             is_causal=True)
     torch.testing.assert_close(
         out, port.sdpa_reference(short, short, short, causal=True), **TOL)
+
+
+# -- the rounding of P and dS (bf16): the port rounds where the Pallas
+# kernel does, so almost every element of o, dq, dk and dv is the same
+# bf16 number. The rest differ by one bf16 step at their row's scale
+# (the largest |want| of the D-vector): the sums run in another order,
+# and where an intermediate P or dS rounds to the other side, the output
+# moves by one step of that term, which can be several steps of an
+# element that cancels to a small value.
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = np.floor(np.log2(np.maximum(np.abs(x), np.finfo(np.float32).tiny)))
+    return np.exp2(e - 7)
+
+
+# An exact zero of the reference can come out as f32 noise: under the
+# causal mask row 0 of dq is p (dP - delta) with p = 1 and dP = delta,
+# which cancels exactly in one order of f32 sums and leaves ~1e-7 in
+# another. Gaps below 2**-20 are that noise, not a rounding.
+F32_NOISE = 2.0 ** -20
+
+
+def _assert_rounds_alike(got, want):
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        gap = np.abs(g - w)
+        step = _bf16_step(np.abs(w).max(-1, keepdims=True))
+        assert np.all(gap <= np.maximum(step, F32_NOISE)), \
+            (name, float(gap.max()))
+        assert (g != w).mean() <= 0.01, (name, float((g != w).mean()))
+
+
+def _small_inputs(t, seed=2):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(1, 2, t, D).astype(np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [128, 192, 1024])
+def test_flash_bf16_rounds_like_pallas_interpret(t, causal):
+    """T = 192: the reference's 64-wide key blocks; T = 1024: two
+    512-wide blocks, where P is rounded against the running max after
+    each; T = 128: one block."""
+    q, k, v, do = _small_inputs(t)
+    got = _port_variant(q, k, v, do, causal, None, 0.0, 0, torch.bfloat16)
+    want = _jax_variant(q, k, v, do, causal, None, 0.0, 0, jnp.bfloat16)
+    _assert_rounds_alike(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_mask_dropout_rounds_like_pallas_interpret(causal):
+    q, k, v, do = _small_inputs(128, seed=3)
+    mask = _pad_mask(128, seed=3)[:1]
+    got = _port_variant(q, k, v, do, causal, mask, 0.1, 99, torch.bfloat16)
+    want = _jax_variant(q, k, v, do, causal, mask, 0.1, 99, jnp.bfloat16)
+    _assert_rounds_alike(got, want)
+
+
+@pytest.mark.parametrize("t,want", [(64, 64), (192, 64), (128, 128),
+                                    (384, 128), (256, 256), (768, 256),
+                                    (1024, 512), (2048, 512)])
+def test_ref_block_is_the_reference_default(t, want):
+    from paddle_tpu.ops.pallas_attention import _auto_block
+    assert port.ref_block(t) == want == _auto_block(t, "UNSET_FLASH_BLOCK")
+
+
+def test_flash_tc_route_by_dtype_width_and_alignment():
+    """bf16 at D in {64, 128} with 16-byte aligned operands takes the
+    tensor-core kernels; f32, other head dims and a misaligned view take
+    the SIMT kernels. Decided before the launch, from the arguments."""
+    bf, f32 = torch.bfloat16, torch.float32
+    aligned = (0, 4096, 1 << 20)
+    for d in (64, 128):
+        assert port.flash_tc_route(bf, d, aligned)
+        assert not port.flash_tc_route(f32, d, aligned)
+    for d in (8, 96, 256):
+        assert not port.flash_tc_route(bf, d, aligned)
+    flat = torch.zeros(64 * 64 + 4, dtype=bf)
+    view = flat[4:].view(1, 64, 64)       # 8 bytes past an aligned start
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    assert not port.flash_tc_route(bf, 64, (0, view.data_ptr(), 4096))
