@@ -17,12 +17,16 @@ Phases:
      version's time, one PyTorch library call chain's time as a
      yardstick, and the least time the card could take (bytes over HBM
      rate or flops over the peak rate of the input type, whichever is
-     larger): paged attention and the two sub-blocks at decode (f32),
-     the sub-blocks at the training shape (bf16, M = 1024 tokens, the
-     tensor-core route), and the three flash kernels at B=1, H=16,
-     T=1024, D=128, causal, in bf16 (the tensor-core route) and f32
-     (SIMT); each sub-block and flash row names the route it took
-     (``tc`` or ``simt``), each flash row the share of its elements that
+     larger): paged attention and the two sub-blocks at decode (f32,
+     M = 8, the SIMT route) and at the 256-row prefill bucket (f32, the
+     FFMA route, with tile_ms: the time on every output tile, beside
+     the tile ffma_tiles picks), the sub-blocks at the training shape
+     (bf16, M = 1024 tokens, the tensor-core route), and the three flash
+     kernels at B=1, H=16, T=1024, D=128, causal, in bf16 (the
+     tensor-core route) and f32 (SIMT); each sub-block and flash row
+     names the route it took (``tc``, ``ffma`` or ``simt``; a sub-block
+     row on another route than its shape's fails), each flash row the
+     share of its elements that
      differ from the plain version (bf16: at most 1%), and the bf16 rows
      (here and in phase 6) give device time per call (tc_times: calls
      queued behind a spin kernel, so the wrapper's host time is not
@@ -30,7 +34,10 @@ Phases:
   3. the serving path — ``Engine(GPTDecodeModel(GPTConfig.gpt3_1p3b()))``
      serves a request mix (greedy, seeded-sampled, and a shared-prefix
      pair that takes prefill_tail); every request must end "done", every
-     kernel of the path must have launched, and one greedy request must
+     kernel of the path must have launched, every decode launch of the
+     sub-blocks must take the SIMT route and every prefill launch at a
+     bucket of 128 rows or more the FFMA route (launches by route and
+     kind of call in sub_block_routes), and one greedy request must
      decode the same tokens when served by the plain versions on the
      card;
   4. train parity — ``HybridParallelTrainStep`` on GPT-3 XL cut to 2
@@ -50,7 +57,8 @@ Phases:
      dropout + residual + layer norm, forward and backward, at R = 2048
      and R = 304 rows of C = 768, f32 and bf16, p = 0 and 0.1, with
      bit-equal dropout masks; the two sub-blocks at M = 2048 with
-     dropout, post-norm and the erf-polynomial gelu; the three flash
+     dropout, post-norm and the erf-polynomial gelu (f32 on the FFMA
+     route, with tile_ms, and bf16 on the tensor cores); the three flash
      kernels at B=16, H=12, S=128, D=64, non-causal, with dropout, with
      and without a padding mask;
   7. BERT train parity — ``make_train_step`` on BERT-base cut to 2
@@ -66,8 +74,8 @@ Phases:
      warm-up, overshoots and swings the sum by several nats from step to
      step), every kernel of the path launched as often as the model
      predicts, the 12 launches a step of each flash kernel (bf16) on the
-     tensor-core route; step ms, samples/s, tokens/s, MFU and peak device
-     memory;
+     tensor-core route and of each sub-block (f32, M = 2048) on the FFMA
+     route; step ms, samples/s, tokens/s, MFU and peak device memory;
   9. the encoder-layer phase — one ``TransformerEncoderLayer(768, 12,
      3072)`` with the constructor's defaults (relu, act_dropout =
      dropout = 0.1, post-LN), forward and backward at (16, 128, 768),
@@ -151,7 +159,8 @@ FLASH_DESIGN = {
     "simt": "SIMT f32 FMA on the CUDA cores, 64 x 64 tiles (32 x 32 at D > "
             "128) in f32 shared memory, 256 threads as a 16 x 16 grid; bf16 "
             "rounds P against a pre-pass row max per reference block"}
-# the two routes of the sub-block kernels (ops/fused_block.py tc_route)
+# the three routes of the sub-block kernels (ops/fused_block.py tc_route,
+# ffma_route)
 DESIGN = {
     "tc": "tensor cores: wgmma m64n128k16 bf16 (f32 sums) on a 6-stage "
           "ring of 128B-swizzled tiles filled by TMA, 1 producer thread + 2 "
@@ -159,12 +168,19 @@ DESIGN = {
           "persistent block an SM; fused_ffn_ln passes hid through device "
           "memory in bf16 (two product launches); the LN is a row-kernel "
           "launch",
+    "ffma": "f32 FFMA on the CUDA cores (f32 at M >= 128): register-tiled "
+            "GEMM of ffma_tile.cuh, 256 threads with 8x8 / 8x4 / 4x4 outputs "
+            "each on 128x128 / 128x64 / 64x64 tiles picked per product, a "
+            "3-stage cp.async ring of k = 32, no split over K, the epilogue "
+            "fused; fused_ffn_ln passes hid through device memory in f32 "
+            "(two product launches); the LN is a row-kernel launch",
     "simt": "SIMT f32 register-tiled GEMM on the CUDA cores; split-K "
             "(fused_out_ln) / split-I (fused_ffn_ln) f32 partials summed in "
             "fixed order by the last-arriving block"}
 # the device functions of ops/csrc, as the profiler names them
 PORT_KERNEL_NAMES = ("paged_attention_kernel", "out_ln_kernel", "ffn_kernel",
-                     "tc_gemm_kernel", "ln_rows_kernel", "flash_fwd_kernel",
+                     "tc_gemm_kernel", "ffma_gemm_kernel", "ln_rows_kernel",
+                     "flash_fwd_kernel",
                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                      "tc::flash_fwd_tc_kernel", "tc::flash_bwd_dq_tc_kernel",
                      "tc::flash_bwd_dkv_tc_kernel",
@@ -239,10 +255,11 @@ def report(results, row, ok: bool):
              f"{row['max_abs_err']} outside tolerance {row['tol']}")
 
 
-def routed(name, fn):
-    """fn()'s result and the route ("tc" or "simt") that its call of the
-    kernel `name` (a sub-block or flash) took, read from the per-route
-    counters."""
+def routed(name, fn, want=None):
+    """fn()'s result and the route ("tc", "ffma" or "simt") that its call
+    of the kernel `name` (a sub-block or flash) took, read from the
+    per-route counters; fails if `want` is given and the route is
+    another."""
     from paddle_tpu_torch.ops import launch_counts
     before = launch_counts()
     out = fn()
@@ -251,6 +268,8 @@ def routed(name, fn):
             > before.get(f"{name}.{r}", 0)]
     if len(took) != 1:
         fail(f"{name}: one call took routes {took}")
+    if want is not None and took[0] != want:
+        fail(f"{name}: took the {took[0]} route, expected {want}")
     return out, took[0]
 
 
@@ -368,9 +387,12 @@ def check_paged(torch, timer, results):
 
 
 def check_blocks(torch, timer, results):
+    """The sub-blocks in f32 at GPT-3 XL width, at decode (M = 8, the
+    SIMT route) and at the 256-row prefill bucket (the FFMA route)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_block import (
-        ffn_ln_reference, fused_ffn_ln, fused_out_ln, out_ln_reference)
+        _FFMA_MIN_ROWS, ffn_ln_reference, fused_ffn_ln, fused_out_ln,
+        out_ln_reference)
     D, I = 2048, 8192
     g = torch.Generator(device="cuda").manual_seed(1)
 
@@ -387,10 +409,11 @@ def check_blocks(torch, timer, results):
     b2 = rn(D, s=0.02)
     tol = 1e-4
     for M in (8, 256):
+        want = "ffma" if M >= _FFMA_MIN_ROWS else "simt"
         a = rn(M, D)
         res = rn(M, D)
         (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(
-            a, w, b, res, ln_s, ln_b))
+            a, w, b, res, ln_s, ln_b), want)
         zr, hr = out_ln_reference(a, w, b, res, ln_s, ln_b)
         torch.cuda.synchronize()
         err = max(float((z - zr).abs().max()), float((h - hr).abs().max()))
@@ -409,11 +432,16 @@ def check_blocks(torch, timer, results):
                                                           ln_b)),
                "library_ms": timer(lib_out), "bound_ms": bms,
                "bound_by": by}
+        if route == "ffma":
+            row["device_ms"] = device_ms(torch, timer, fused_out_ln,
+                                         (a, w, b, res, ln_s, ln_b))
+            row["tile_ms"] = ffma_tile_ms(torch, timer, "fused_out_ln", (
+                a, w, b, res, ln_s, ln_b, 0.0, 1e-5, 0))
         report(results, row, err <= tol)
 
         x = rn(M, D)
         out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(
-            x, w1, b1, w2, b2, res))
+            x, w1, b1, w2, b2, res), want)
         ref = ffn_ln_reference(x, w1, b1, w2, b2, res)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
@@ -432,7 +460,77 @@ def check_blocks(torch, timer, results):
                                                           res)),
                "library_ms": timer(lib_ffn), "bound_ms": bms,
                "bound_by": by}
+        if route == "ffma":
+            row["device_ms"] = device_ms(torch, timer, fused_ffn_ln,
+                                         (x, w1, b1, w2, b2, res))
+            row["tile_ms"] = ffma_tile_ms(torch, timer, "fused_ffn_ln", (
+                x, w1, b1, w2, b2, res, ln_s, ln_b, "gelu_tanh", "none",
+                0.0, 1e-5, 0))
         report(results, row, err <= tol)
+
+
+def ffma_tile_ms(torch, timer, name, args):
+    """The FFMA route's time (timed as the row's kernel_ms) of the call
+    `name`(*args) on each output tile, and for fused_ffn_ln on each pair
+    of tiles of its two products, through the C entry point with the
+    tile given: the evidence for ops/fused_block.py ffma_tiles' rule,
+    whose pick is under "rule". Keys "128x64" or "128x128/64x64"."""
+    import ctypes
+    import itertools
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops._launch import _drop_args
+    from paddle_tpu_torch.ops.fused_block import (
+        _FFMA_TILES, _act_norm, _sms, ffma_tiles)
+    tail = (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
+    stream = torch.cuda.current_stream().cuda_stream
+    label = [f"{r}x{c}" for r, c in _FFMA_TILES]
+    sms = _sms(torch.cuda.current_device())
+
+    def run(fn, *a):
+        err = fn(*a, stream)
+        if err:
+            fail(f"{name} FFMA launch on a forced tile: CUDA error {err}")
+
+    if name == "fused_out_ln":
+        a, w, b, res, ls, lb, p, eps, seed = args
+        m, k, n = a.shape[0], a.shape[1], w.shape[1]
+        z, h = torch.empty_like(res), torch.empty_like(res)
+        fn = _build.function("fused_block", "fused_out_ln_ffma_launch", 8, 6,
+                             tail)
+        ptrs = [t.data_ptr() for t in (a, w, b, res, ls, lb, z, h)]
+        times = {label[t]: timer(lambda t=t: run(
+            fn, *ptrs, m, k, n, t, *_drop_args(seed, p), eps))
+            for t in range(len(label))}
+        times["rule"] = "x".join(map(str, ffma_tiles(m, n, sms)))
+        return times
+    x, w1, b1, w2, b2, res, ls, lb, act, norm, p, eps, seed = args
+    m, hd, i = x.shape[0], x.shape[1], w1.shape[1]
+    out, hid = torch.empty_like(res), torch.empty((m, i), device=x.device)
+    xn, zf = torch.empty_like(x), torch.empty_like(res)
+    fn = _build.function("fused_block", "fused_ffn_ln_ffma_launch", 12, 9,
+                         tail)
+    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, res, ls, lb, out, xn,
+                                   hid, zf)]
+    codes = _act_norm(act, norm)
+    times = {f"{label[t1]}/{label[t2]}": timer(lambda t1=t1, t2=t2: run(
+        fn, *ptrs, m, hd, i, t1, t2, *codes, *_drop_args(seed, p), eps))
+        for t1, t2 in itertools.product(range(len(label)), repeat=2)}
+    times["rule"] = "/".join("x".join(map(str, ffma_tiles(m, c, sms)))
+                             for c in (i, hd))
+    return times
+
+
+def device_ms(torch, timer, fn, args, n_sets=8):
+    """Device time per call of fn(*args) on n_sets copies of the tensors,
+    queued behind Timer.queued's spin kernel: the kernels' time without
+    the wrapper's host time, which kernel_ms (one call between two
+    events, the device idle until the host has launched) includes."""
+    sets = [tuple(t.clone() if torch.is_tensor(t) else t for t in args)
+            for _ in range(n_sets)]
+    ms = timer.queued([lambda s=s: fn(*s) for s in sets])
+    del sets
+    torch.cuda.empty_cache()
+    return ms
 
 
 def tc_times(torch, timer, args, kernel, plain, library, n_sets=8):
@@ -778,7 +876,8 @@ def check_blocks_bert(torch, timer, results):
     and residuals); bf16 beside it. Tolerances as in check_blocks /
     check_blocks_bf16, the f32 one widened to 2e-4 for the division by
     1 - p and the I = 3072 sums. A zero residual exposes the mask: z is
-    zero exactly where keep_mask dropped."""
+    zero exactly where keep_mask dropped. The f32 rows must take the
+    FFMA route, the bf16 rows the tensor cores."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_block import (
         ffn_ln_reference, fused_ffn_ln, fused_out_ln, out_ln_reference)
@@ -803,8 +902,10 @@ def check_blocks_bert(torch, timer, results):
         a, res, x = rn(M, D), rn(M, D), rn(M, D)
         ls, lb = ln_s.to(dt), ln_b.to(dt)
 
+        want = "ffma" if dt == torch.float32 else "tc"
         args = (a, w, b, res, ln_s, ln_b, p, eps, seed)
-        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(*args))
+        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(*args),
+                               want)
         zr, hr = out_ln_reference(*args)
         z0, _ = fused_out_ln(a, w, b, torch.zeros_like(res), ln_s, ln_b, p,
                              eps, seed)
@@ -822,7 +923,9 @@ def check_blocks_bert(torch, timer, results):
                          lib_out) if dt == torch.bfloat16 else {
             "kernel_ms": timer(lambda: fused_out_ln(*args)),
             "plain_ms": timer(lambda: out_ln_reference(*args)),
-            "library_ms": timer(lambda: lib_out(*args))}
+            "library_ms": timer(lambda: lib_out(*args)),
+            "device_ms": device_ms(torch, timer, fused_out_ln, args),
+            "tile_ms": ffma_tile_ms(torch, timer, "fused_out_ln", args)}
         row = {"kernel": "fused_out_ln",
                "shape": f"M={M} D={D} {name} p={p} (BERT)", "route": route,
                "max_abs_err": max(max_err(z, zr), max_err(h, hr)),
@@ -833,7 +936,8 @@ def check_blocks_bert(torch, timer, results):
 
         fargs = (x, w1, b1, w2, b2, res, ln_s, ln_b, "gelu", "post", p, eps,
                  seed)
-        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(*fargs))
+        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(*fargs),
+                            want)
         ref = ffn_ln_reference(*fargs)
         torch.cuda.synchronize()
         bms, by = bound(item * (M * D + D * I + I + I * D + D + 2 * M * D)
@@ -849,7 +953,9 @@ def check_blocks_bert(torch, timer, results):
                          lib_ffn) if dt == torch.bfloat16 else {
             "kernel_ms": timer(lambda: fused_ffn_ln(*fargs)),
             "plain_ms": timer(lambda: ffn_ln_reference(*fargs)),
-            "library_ms": timer(lambda: lib_ffn(*fargs))}
+            "library_ms": timer(lambda: lib_ffn(*fargs)),
+            "device_ms": device_ms(torch, timer, fused_ffn_ln, fargs),
+            "tile_ms": ffma_tile_ms(torch, timer, "fused_ffn_ln", fargs)}
         row = {"kernel": "fused_ffn_ln",
                "shape": f"M={M} H={D} I={I} {name} gelu post p={p} (BERT)",
                "route": route, "max_abs_err": max_err(out, ref), "tol": tol,
@@ -937,6 +1043,7 @@ def serving_path(torch, tree):
     eng = Engine(model, num_slots=8, num_pages=256, page_size=16,
                  prefix_cache_pages=64)
     mix = request_mix(cfg.vocab_size)
+    by_call = tap_sub_block_routes(model)
 
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -960,6 +1067,9 @@ def serving_path(torch, tree):
     if missing:
         fail(f"kernels never launched on the serving path: {missing} "
              f"(counts {counts})")
+    for name in ("prefill", "prefill_tail", "decode"):   # the class's again
+        delattr(model, name)
+    check_serving_routes(by_call)
     st = eng.stats()
     if st["prefix_cache"]["hits"] < 1 \
             or not any(k.startswith("prefill_tail") for k in st["compiles"]):
@@ -973,7 +1083,8 @@ def serving_path(torch, tree):
             "latency_ms_p99": st["latency_ms_p99"],
             "decode_steps": st["steps"],
             "decode_step_ms_mean": round(h.sum / h.count * 1e3, 3),
-            "compiles": st["compiles"], "launches": counts}
+            "compiles": st["compiles"], "launches": counts,
+            "sub_block_routes": by_call}
     print(json.dumps(main), flush=True)
 
     # one greedy request again, served by the plain versions on the card
@@ -992,6 +1103,52 @@ def serving_path(torch, tree):
         fail("greedy tokens differ between the kernels and the plain "
              "versions")
     return counts, eng
+
+
+def tap_sub_block_routes(model):
+    """Wraps the model's prefill, prefill_tail and decode (instance
+    attributes over the class's) to add up the sub-blocks' launches by
+    route for each kind of call: "decode", and prefill at fewer or at
+    least _FFMA_MIN_ROWS rows. Returns that (live) dict."""
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.fused_block import _FFMA_MIN_ROWS
+    by_call = {}
+
+    def tap(fn, kind):
+        def run(params, cache, tokens, *rest):
+            before = launch_counts()
+            out = fn(params, cache, tokens, *rest)
+            after = launch_counts()
+            key = kind if kind == "decode" else (
+                f"prefill_ge_{_FFMA_MIN_ROWS}"
+                if tokens.shape[0] >= _FFMA_MIN_ROWS
+                else f"prefill_lt_{_FFMA_MIN_ROWS}")
+            ent = by_call.setdefault(key, {})
+            for k, v in after.items():
+                if k.startswith(("fused_out_ln.", "fused_ffn_ln.")) \
+                        and v != before.get(k, 0):
+                    ent[k] = ent.get(k, 0) + v - before.get(k, 0)
+            return out
+        return run
+
+    for name, kind in (("prefill", "prefill"), ("prefill_tail", "prefill"),
+                       ("decode", "decode")):
+        setattr(model, name, tap(getattr(model, name), kind))
+    return by_call
+
+
+def check_serving_routes(by_call):
+    """Every decode launch of the sub-blocks on the SIMT route, every
+    prefill launch at _FFMA_MIN_ROWS rows or more on the FFMA route, and
+    at least one launch of each kind."""
+    from paddle_tpu_torch.ops.fused_block import _FFMA_MIN_ROWS
+    for key, route in (("decode", "simt"),
+                       (f"prefill_ge_{_FFMA_MIN_ROWS}", "ffma")):
+        got = by_call.get(key, {})
+        bad = {k: v for k, v in got.items() if not k.endswith(f".{route}")}
+        if bad or not got:
+            fail(f"serving path: {key} launches {got}, all expected on the "
+                 f"{route} route")
 
 
 def profile_steps(torch, run, steps, what, top_n=12):
@@ -1145,6 +1302,11 @@ def training_path(torch, tree, steps=5):
             "flops_per_step": flops, "upload_s": round(upload_s, 2),
             "max_memory_allocated_gb": round(
                 torch.cuda.max_memory_allocated() / 1e9, 3),
+            # the peak of the bytes the tensors asked for: what
+            # max_memory_allocated counts less the caching allocator's
+            # rounding of blocks (up to 1 MiB a large block)
+            "max_memory_requested_gb": round(torch.cuda.memory_stats()[
+                "requested_bytes.all.peak"] / 1e9, 6),
             "launches": counts}
     print(json.dumps(main), flush=True)
     if not all(math.isfinite(x) for x in losses):
@@ -1164,15 +1326,15 @@ def training_path(torch, tree, steps=5):
     return counts, step, ids
 
 
-def off_route(counts, want, what):
+def off_route(counts, want, what, route="tc"):
     """Fails unless each kernel in `want` launched exactly that often, all
-    of them on the tensor-core route."""
-    off = {k: (counts.get(k, 0), counts.get(f"{k}.tc", 0), n)
+    of them on `route` ("tc", "ffma" or "simt")."""
+    off = {k: (counts.get(k, 0), counts.get(f"{k}.{route}", 0), n)
            for k, n in want.items()
-           if not counts.get(k, 0) == counts.get(f"{k}.tc", 0) == n}
+           if not counts.get(k, 0) == counts.get(f"{k}.{route}", 0) == n}
     if off:
-        fail(f"{what}: launches (all, on the tensor cores, expected) off "
-             f"the tensor-core route: {off}")
+        fail(f"{what}: launches (all, on the {route} route, expected) off "
+             f"the {route} route: {off}")
 
 
 def bert_batch(vocab: int):
@@ -1300,6 +1462,11 @@ def bert_training_path(torch, steps=5):
             "flops_per_step": flops, "init_s": round(init_s, 2),
             "max_memory_allocated_gb": round(
                 torch.cuda.max_memory_allocated() / 1e9, 3),
+            # the peak of the bytes the tensors asked for: what
+            # max_memory_allocated counts less the caching allocator's
+            # rounding of blocks (up to 1 MiB a large block)
+            "max_memory_requested_gb": round(torch.cuda.memory_stats()[
+                "requested_bytes.all.peak"] / 1e9, 6),
             "launches": counts,
             "launches_predicted": {k: v * steps for k, v in
                                    BERT_LAUNCHES_PER_STEP.items()}}
@@ -1315,10 +1482,14 @@ def bert_training_path(torch, steps=5):
     if wrong:
         fail(f"BERT path launches (got, predicted): {wrong}")
     # attention runs in bf16 under O1: every flash launch on the tensor
-    # cores (the sub-blocks stay f32, SIMT)
+    # cores; the sub-blocks stay f32 at M = 2048 tokens: every launch on
+    # the FFMA route
     off_route(counts, {k: BERT_LAUNCHES_PER_STEP[k] * steps for k in
                        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")},
               "BERT training path")
+    off_route(counts, {k: BERT_LAUNCHES_PER_STEP[k] * steps for k in
+                       ("fused_out_ln", "fused_ffn_ln")},
+              "BERT training path", "ffma")
     return counts, step, batch
 
 
@@ -1636,6 +1807,12 @@ def profile_static(torch, exe, main, fetch, feed, what, steps=3):
                   top_n=12)
 
 
+def route_counts(counts, name):
+    """The launches of `name` on each of its routes in a path's counts."""
+    design = FLASH_DESIGN if name.startswith("flash") else DESIGN
+    return {r: counts.get(f"{name}.{r}", 0) for r in design}
+
+
 def kernel_entry(row, launches):
     ent = {"name": row["kernel"], "route": "cuda",
            "source": SOURCE[row["kernel"]],
@@ -1646,6 +1823,8 @@ def kernel_entry(row, launches):
            "shape": row["shape"]}
     if "call_ms" in row:    # one wrapper call, host time included
         ent["call_ms"] = row["call_ms"]
+    if "device_ms" in row:  # device time per call, host time excluded
+        ent["device_ms"] = row["device_ms"]
     if "route" in row:      # which of the kernel's two designs ran
         design = FLASH_DESIGN if row["kernel"].startswith("flash") \
             else DESIGN
@@ -1661,9 +1840,11 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     that path's launch count: paged attention from the serving run
     (decode, f32 cache); the flash kernels and the sub-blocks from the
     GPT training run (bf16, M = 1024), the sub-blocks with their serving
-    decode numbers (f32, M = 8) nested under "serving", and all five
-    with their BERT-shape numbers and the BERT run's launches nested
-    under "bert"; the layer-norm kernels from the BERT run (f32,
+    decode numbers (f32, M = 8, the SIMT launches) nested under
+    "serving" and their prefill numbers (f32, M = 256, the FFMA
+    launches) under "serving_prefill", and all five with their
+    BERT-shape numbers and the BERT run's launches nested under "bert";
+    each of these with its launches by route ("routes"); the layer-norm kernels from the BERT run (f32,
     R = 2048); the dropout + residual + layer norm kernels from the
     encoder-layer phase (f32, R = 2048, p = 0.1); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
@@ -1677,16 +1858,25 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         ent = kernel_entry(row(name, "causal bf16"),
                            train_counts.get(name, 0))
+        ent["routes"] = route_counts(train_counts, name)
         ent["bert"] = kernel_entry(row(name, "bf16", "no mask (BERT)"),
                                    bert_counts.get(name, 0))
+        ent["bert"]["routes"] = route_counts(bert_counts, name)
         kernels.append(ent)
     for name in ("fused_out_ln", "fused_ffn_ln"):
         ent = kernel_entry(row(name, f"M={TRAIN_TOKENS} ", "bf16"),
                            train_counts.get(name, 0))
+        ent["routes"] = route_counts(train_counts, name)
+        # the serving run: decode (and the short prefills) on SIMT, the
+        # prefill buckets of 128 rows and more on FFMA
         ent["serving"] = kernel_entry(row(name, "M=8 "),
-                                      serve_counts.get(name, 0))
+                                      serve_counts.get(f"{name}.simt", 0))
+        ent["serving_prefill"] = kernel_entry(
+            row(name, "M=256 "), serve_counts.get(f"{name}.ffma", 0))
+        ent["serving_routes"] = route_counts(serve_counts, name)
         ent["bert"] = kernel_entry(row(name, "f32", "(BERT"),
                                    bert_counts.get(name, 0))
+        ent["bert"]["routes"] = route_counts(bert_counts, name)
         kernels.append(ent)
     for name in ("layer_norm_fwd", "layer_norm_bwd_dx"):
         kernels.append(kernel_entry(row(name, "R=2048", "f32"),

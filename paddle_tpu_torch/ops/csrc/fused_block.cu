@@ -61,14 +61,29 @@
 // ~69 us, and the SIMT kernel's f32 partials (I/128, M, H) are 537 MB
 // a call.
 //
-// Two routes, chosen by the wrapper from the dtype, the widths and the
-// pointers' alignment before the launch (ops/fused_block.py tc_route):
+// Three routes, chosen by the wrapper from the dtype, the row count, the
+// widths and the pointers' alignment before the launch
+// (ops/fused_block.py tc_route, ffma_route):
 //
-// SIMT (float32, and bf16 at widths the tensor-core tiles do not take):
-// the register-tiled f32 GEMMs above, launched by fused_out_ln_launch /
+// SIMT (float32 below 128 rows, i.e. decode and the short prefill
+// buckets, and any call at widths or alignments the other routes do not
+// take): the split kernels above, launched by fused_out_ln_launch /
 // fused_ffn_ln_launch. f32 stays full precision on the CUDA cores (the
 // f32 parity checks forbid TF32); at decode it is latency bound per
 // block, so its time sits above the bound by the factor in PERF.md.
+//
+// FFMA (float32, M >= 128, every inner width a multiple of 64, operands
+// 16-byte aligned; fused_out_ln_ffma_launch / fused_ffn_ln_ffma_launch):
+// the launch sequence of the tensor-core route below in f32, its
+// products on ffma_tile.cuh's register-tiled core (8 x 8 outputs a
+// thread at 128 x 128, cp.async k stages, no split over K) with the
+// epilogue fused into the product kernel. At M = 2048 (BERT) the SIMT
+// kernel's split-I partials are 151 MB a call; here hid (M, I) f32 is
+// written once and read once (25 MB, mostly L2). The tile (128 x 128,
+// 128 x 64 or 64 x 64) is chosen per product by the wrapper
+// (ffma_tiles): the largest whose grid fills its waves of resident
+// blocks: a part-empty last wave leaves SMs idle, which costs more than
+// a smaller tile's lower FMA rate.
 //
 // Tensor cores (bf16, every inner width a multiple of 64, operands
 // 16-byte aligned; fused_out_ln_tc_launch / fused_ffn_ln_tc_launch):
@@ -103,6 +118,7 @@
 #include <type_traits>
 
 #include "dropout_hash.cuh"
+#include "ffma_tile.cuh"
 #include "ffn_common.cuh"
 #include "row_norm.cuh"
 #include "wgmma_tile.cuh"
@@ -592,12 +608,140 @@ int tc_gemm(const void* a, const void* b, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
-template <typename TI>
-int ln_rows_run(const TI* in, bf16* out, const float* s, const float* b,
-                int M, int N, float eps, cudaStream_t st) {
-  ln_rows_kernel<TI, bf16><<<M, row_norm::threads_for(N), 0, st>>>(
+template <typename TI, typename TO>
+int ln_rows_run(const TI* in, TO* out, const float* s, const float* b, int M,
+                int N, float eps, cudaStream_t st) {
+  ln_rows_kernel<TI, TO><<<M, row_norm::threads_for(N), 0, st>>>(
       in, out, s, b, N, eps);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// the FFMA route (float32, M >= 128)
+// ---------------------------------------------------------------------------
+namespace ft = ffma_tile;
+// Blocks an SM each tile shape is compiled for: its register cap is
+// 65536 / (256 * blocks), 128 at the 128-row tiles (the 8 x 8 tile fits
+// without spills) and 85 at 64 x 64. ops/fused_block.py _FFMA_BLOCKS
+// counts with the same numbers; shared memory allows them (2 x 102 KB,
+// 2 x 78 KB, 3 x 51 KB).
+template <int BM, int BN>
+constexpr int ffma_blocks() {
+  return BM == 64 ? 3 : 2;
+}
+
+// What a tile does with its f32 sums, tc_epilogue's modes in f32. MODE
+// 0: out = act(acc + bias) (fused_ffn_ln's hid; rounding it to x's type
+// is the identity). MODE 1: out = res + dropout(acc + bias).
+struct FfmaEpi {
+  const float* bias;
+  const float* res;
+  float* out;
+  int act;
+  Drop drop;
+};
+
+// Bias, activation or dropout + residual, and the float4 stores of one
+// thread's micro-tile (ffma_tile.cuh's layout), ER rows at a time:
+// every load of a group comes before its stores (the outputs may alias
+// the inputs as far as the compiler knows). ER is 2 at 128 x 128, where
+// four rows of residual beside the 64 sums would spill under the
+// 128-register cap. Dropout hashes the element's global (row, col) of
+// the (M, N) output: keep_mask's bits.
+template <int MODE, int RG, int CG>
+__device__ __forceinline__ void ffma_epilogue(
+    const float (&acc)[4 * RG][4 * CG], const FfmaEpi& ep, int row0,
+    int col0, int M, int N) {
+  constexpr int ER = RG * CG == 4 ? 2 : 4;
+  const int ty = ft::thread_y(), tx = ft::thread_x();
+  float4 bias[CG];
+#pragma unroll
+  for (int h = 0; h < CG; ++h) {
+    const int col = col0 + ft::tile_col(h, tx);  // N % 64 == 0: +3 < N
+    bias[h] = col < N ? *reinterpret_cast<const float4*>(ep.bias + col)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+#pragma unroll
+  for (int q = 0; q < 4 * RG; q += ER) {
+    const int g = q / 4;
+    float4 res[ER][CG];
+#pragma unroll
+    for (int u = 0; u < ER; ++u)
+#pragma unroll
+      for (int h = 0; h < CG; ++h) {
+        const int i = q % 4 + u;
+        const int row = row0 + ft::tile_row(g, i, ty);
+        const int col = col0 + ft::tile_col(h, tx);
+        res[u][h] = MODE == 1 && row < M && col < N
+                        ? *reinterpret_cast<const float4*>(
+                              ep.res + (size_t)row * N + col)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+    for (int u = 0; u < ER; ++u)
+#pragma unroll
+      for (int h = 0; h < CG; ++h) {
+        const int i = q % 4 + u;
+        const int row = row0 + ft::tile_row(g, i, ty);
+        const int col = col0 + ft::tile_col(h, tx);
+        if (row >= M || col >= N) continue;
+        float v[4] = {acc[g * 4 + i][h * 4] + bias[h].x,
+                      acc[g * 4 + i][h * 4 + 1] + bias[h].y,
+                      acc[g * 4 + i][h * 4 + 2] + bias[h].z,
+                      acc[g * 4 + i][h * 4 + 3] + bias[h].w};
+        if constexpr (MODE == 0) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = activate(ep.act, v[c]);
+        } else {
+          const float r[4] = {res[u][h].x, res[u][h].y, res[u][h].z,
+                              res[u][h].w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            v[c] = ep.drop.apply(v[c], row, col + c, N) + r[c];
+        }
+        *reinterpret_cast<float4*>(ep.out + (size_t)row * N + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
+      }
+  }
+}
+
+// One BM x BN tile of C = A @ B a block (grid: row tiles fastest, so the
+// blocks resident at once share B's column tiles), then the epilogue.
+template <int MODE, int BM, int BN>
+__global__ void __launch_bounds__(ft::kThreads, ffma_blocks<BM, BN>())
+    ffma_gemm_kernel(const float* __restrict__ a,
+                     const float* __restrict__ b, int M, int N, int K,
+                     FfmaEpi ep) {
+  extern __shared__ __align__(16) float ffma_smem[];
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  float acc[BM / 16][BN / 16] = {};
+  ft::mainloop<BM, BN>(a, b, M, N, K, row0, col0, acc, ffma_smem);
+  ffma_epilogue<MODE, BM / 64, BN / 64>(acc, ep, row0, col0, M, N);
+}
+
+template <int MODE, int BM, int BN>
+int ffma_run(const float* a, const float* b, int M, int N, int K,
+             const FfmaEpi& ep, cudaStream_t st) {
+  auto kern = ffma_gemm_kernel<MODE, BM, BN>;
+  constexpr int smem = ft::smem_bytes<BM, BN>();
+  const int err = (int)cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != 0) return err;
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kern<<<grid, ft::kThreads, smem, st>>>(a, b, M, N, K, ep);
+  return (int)cudaGetLastError();
+}
+
+// C (M, N) = A (M, K) @ B (K, N) through the epilogue MODE, on the tile
+// `tile` picks (ops/fused_block.py ffma_tiles): 0 128 x 128, 1 128 x 64,
+// 2 64 x 64.
+template <int MODE>
+int ffma_gemm(const float* a, const float* b, int M, int N, int K, int tile,
+              const FfmaEpi& ep, cudaStream_t st) {
+  if (tile == 0) return ffma_run<MODE, 128, 128>(a, b, M, N, K, ep, st);
+  if (tile == 1) return ffma_run<MODE, 128, 64>(a, b, M, N, K, ep, st);
+  if (tile == 2) return ffma_run<MODE, 64, 64>(a, b, M, N, K, ep, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -658,6 +802,59 @@ extern "C" int fused_ffn_ln_tc_launch(
   err = tc_gemm<1>(hid, w2, M, H, I, down, st);
   if (err != 0 || norm != 2) return err;
   return ln_rows_run<float>(zf, (bf16*)out, ln_s, ln_b, M, H, eps, st);
+}
+
+// The FFMA route, float32 only: M >= 1 (the wrapper sends M >= 128),
+// K and N multiples of 64, a, w, b, res, z, h 16-byte aligned. The
+// product with its epilogue writes z, then the LN reads z and writes h.
+// tile as ffma_gemm. Returns a cudaError_t.
+extern "C" int fused_out_ln_ffma_launch(const float* a, const float* w,
+                                        const float* b, const float* res,
+                                        const float* ln_s, const float* ln_b,
+                                        float* z, float* h, int M, int K,
+                                        int N, int tile, int seed, int drop,
+                                        unsigned int thr, float keep_div,
+                                        float eps, void* stream) {
+  if (M < 1 || K % 64 || N % 64 || K < 64 || N < 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const FfmaEpi ep{b, res, z, 0, Drop{(uint32_t)seed, thr, drop, keep_div}};
+  const int err = ffma_gemm<1>(a, w, M, N, K, tile, ep, st);
+  if (err != 0) return err;
+  return ln_rows_run<float>(z, h, ln_s, ln_b, M, N, eps, st);
+}
+
+// The FFMA route of fused_ffn_ln, float32 only: H and I multiples of 64,
+// every pointer 16-byte aligned. Scratch the caller allocates: hid
+// (M, I); xn (M, H) with norm "pre"; zf (M, H) with norm "post" (null
+// otherwise). tile1 / tile2: the tiles of the (M, I) and (M, H)
+// products. act, norm as fused_ffn_ln_launch.
+extern "C" int fused_ffn_ln_ffma_launch(
+    const float* x, const float* w1, const float* b1, const float* w2,
+    const float* b2, const float* res, const float* ln_s, const float* ln_b,
+    float* out, float* xn, float* hid, float* zf, int M, int H, int I,
+    int tile1, int tile2, int act, int norm, int seed, int drop,
+    unsigned int thr, float keep_div, float eps, void* stream) {
+  if (act < 0 || act > 2 || norm < 0 || norm > 2 || M < 1 || H % 64 ||
+      I % 64 || H < 64 || I < 64 || (norm == 1 && !xn) ||
+      (norm == 2 && !zf))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  const float* src = x;
+  if (norm == 1) {
+    err = ln_rows_run<float>(x, xn, ln_s, ln_b, M, H, eps, st);
+    if (err != 0) return err;
+    src = xn;
+  }
+  const FfmaEpi up{b1, nullptr, hid, act, Drop{0, 0, 0, 1.f}};
+  err = ffma_gemm<0>(src, w1, M, I, H, tile1, up, st);
+  if (err != 0) return err;
+  const FfmaEpi down{b2, res, norm == 2 ? zf : out, 0,
+                     Drop{(uint32_t)seed, thr, drop, keep_div}};
+  err = ffma_gemm<1>(hid, w2, M, H, I, tile2, down, st);
+  if (err != 0 || norm != 2) return err;
+  return ln_rows_run<float>(zf, out, ln_s, ln_b, M, H, eps, st);
 }
 
 // dtype: 0 float32, 1 bfloat16 (a/w/b/res/z/h); ln_s, ln_b, zf, part f32.

@@ -21,12 +21,17 @@ which CPU tensors take. CUDA tensors go to the kernels in
 ``csrc/fused_block.cu`` or the call raises. The kernels take float32 or
 bfloat16 for the activations, weights and biases (one type per call)
 with float32 ln_s/ln_b, and accumulate in f32; z and the FFN output come
-out in res2's type, h in a2's. Two routes (``tc_route`` picks one by
-dtype, widths and alignment, before the launch): bfloat16 calls whose
-inner widths are multiples of 64 run on the tensor cores (wgmma fed by
-TMA; the FFN's hid goes through device memory in bf16); float32 calls,
-and bfloat16 at other widths, run the SIMT kernels. Each call counts
-under its op's name and under ``<name>.tc`` or ``<name>.simt``.
+out in res2's type, h in a2's. Three routes, picked by dtype, row
+count, widths and alignment before the launch (``tc_route``, then
+``ffma_route``, else SIMT): bfloat16 calls whose inner widths are
+multiples of 64 run on the tensor cores (wgmma fed by TMA; the FFN's
+hid goes through device memory in bf16); float32 calls of at least
+``_FFMA_MIN_ROWS`` rows at such widths run the same launch sequence in
+f32 on a register-tiled FFMA GEMM (``csrc/ffma_tile.cuh``, no split over
+K; the tile per product from ``ffma_tiles``); everything else (decode,
+short prefills, ragged widths, misaligned views) runs the SIMT kernels.
+Each call counts under its op's name and under ``<name>.tc``,
+``<name>.ffma`` or ``<name>.simt``.
 Dropout is the unsalted counter hash of
 ``fused_residual.keep_mask`` over the (M, Dout) ids of the GEMM output,
 from an int32 seed the caller hands in; no mask tensor is kept. Rows are
@@ -52,13 +57,21 @@ from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
            "ffn_ln_reference", "gelu_tanh", "gelu_erf_poly", "ACTS",
-           "NORMS", "out_ln_split_k", "ffn_block_i", "tc_route"]
+           "NORMS", "out_ln_split_k", "ffn_block_i", "tc_route",
+           "ffma_route", "ffma_tiles"]
 
 _ROW_TILE = 32          # BM in csrc/fused_block.cu
 _OUT_COL_TILE = 64      # OL_BN
 _K_STAGE = 32           # BK
 _FFN_COL_CHUNK = 128    # FF_BN
 _TC_WIDTH = 64          # the tensor-core tiles' k step and TMA box width
+_FFMA_MIN_ROWS = 128    # f32 calls from this many rows take the FFMA route
+# the FFMA route's output tiles (rows, columns), by the code the launch
+# takes (csrc/fused_block.cu ffma_gemm), and the blocks of each an SM
+# holds (its register cap there, ffma_blocks)
+_FFMA_TILES = ((128, 128), (128, 64), (64, 64))
+_FFMA_BLOCKS = (2, 2, 3)
+_FFMA_FILL = 0.9        # the share of a wave's resident blocks to fill
 
 
 def gelu_tanh(v):
@@ -167,12 +180,44 @@ def tc_route(dtype, widths, ptrs) -> bool:
     """Whether a call takes the tensor-core kernels: bfloat16, every
     inner width (K and N of fused_out_ln, H and I of fused_ffn_ln) a
     positive multiple of 64, and every tensor's address (`ptrs`, from
-    data_ptr(); read only when the rest holds) 16-byte aligned, as TMA
-    and the vector epilogue need. Anything else takes the SIMT kernels;
+    data_ptr()) 16-byte aligned, as TMA and the vector epilogue need.
+    Anything else is asked ffma_route, then takes the SIMT kernels;
     nothing is tried and caught."""
     return (dtype == torch.bfloat16
             and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
             and all(p % 16 == 0 for p in ptrs))
+
+
+def ffma_route(dtype, m, widths, ptrs) -> bool:
+    """Whether a call takes the FFMA kernels: float32, at least
+    _FFMA_MIN_ROWS rows (below that, decode and the short prefill
+    buckets, the split SIMT kernels spread the weight stream over more
+    blocks), every inner width a positive multiple of 64 and every
+    tensor's address 16-byte aligned (cp.async and the float4
+    epilogue). Asked after tc_route; anything else takes the SIMT
+    kernels."""
+    return (dtype == torch.float32 and m >= _FFMA_MIN_ROWS
+            and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def ffma_tiles(m: int, n: int, sms: int) -> tuple[int, int]:
+    """The FFMA route's output tile of an (m, n) product on a card of
+    `sms` multiprocessors: the largest of _FFMA_TILES whose tiles fill
+    at least _FFMA_FILL of the waves of resident blocks they take (sms
+    times its blocks an SM), else the smallest. A larger tile reads
+    fewer bytes a FMA, but a last wave that leaves SMs idle costs more
+    than that saves. At 132 SMs: BERT's (2048, 3072) takes 128 x 64
+    (768 tiles, 97% of 3 waves of 264; 128 x 128 fills 73% of 2),
+    (2048, 768) 64 x 64 (384 tiles, 97% of one wave of 396), GPT-3 XL
+    prefill's (256, 8192) 128 x 64 (256 tiles, 97%) and (256, 2048) the
+    smallest."""
+    for (bm, bn), per_sm in zip(_FFMA_TILES, _FFMA_BLOCKS):
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        wave = sms * per_sm
+        if tiles >= _FFMA_FILL * wave * math.ceil(tiles / wave):
+            return bm, bn
+    return _FFMA_TILES[-1]
 
 
 @functools.cache
@@ -203,7 +248,8 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
     z = torch.empty_like(res2)
     h = torch.empty_like(res2)
     seed, on, thr, keep_div = _drop_args(seed, p)
-    if tc_route(a2.dtype, (k, n), (t.data_ptr() for t in (a2, w, b, res2))):
+    ptrs = [t.data_ptr() for t in (a2, w, b, res2)]
+    if tc_route(a2.dtype, (k, n), ptrs):
         zf = torch.empty((m, n), dtype=torch.float32, device=a2.device)
         fn = _build.function(
             "fused_block", "fused_out_ln_tc_launch", 9, 5,
@@ -214,6 +260,18 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
              thr, keep_div, float(eps))
         _build.note_launch("fused_out_ln")
         _build.note_launch("fused_out_ln.tc")
+        return z, h
+    if ffma_route(a2.dtype, m, (k, n), ptrs):
+        tile = _FFMA_TILES.index(ffma_tiles(m, n, _sms(a2.device.index)))
+        fn = _build.function(
+            "fused_block", "fused_out_ln_ffma_launch", 8, 6,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
+             b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+             z.data_ptr(), h.data_ptr(), m, k, n, tile, seed, on, thr,
+             keep_div, float(eps))
+        _build.note_launch("fused_out_ln")
+        _build.note_launch("fused_out_ln.ffma")
         return z, h
     kc = out_ln_split_k(m, k, n, _sms(a2.device.index))
     splits = math.ceil(k / kc)
@@ -262,8 +320,8 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
         ln_ptrs = (ln_s.data_ptr(), ln_b.data_ptr())
     out = torch.empty_like(res2)
     seed, on, thr, keep_div = _drop_args(seed, p)
-    if tc_route(x2.dtype, (hd, i), (t.data_ptr() for t in
-                                    (x2, w1, b1, w2, b2, res2))):
+    ptrs = [t.data_ptr() for t in (x2, w1, b1, w2, b2, res2)]
+    if tc_route(x2.dtype, (hd, i), ptrs):
         hid = torch.empty((m, i), dtype=x2.dtype, device=x2.device)
         xn = torch.empty_like(x2) if norm == "pre" else None
         zf = torch.empty((m, hd), dtype=torch.float32, device=x2.device) \
@@ -278,6 +336,24 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
              act_code, norm_code, seed, on, thr, keep_div, float(eps))
         _build.note_launch("fused_ffn_ln")
         _build.note_launch("fused_ffn_ln.tc")
+        return out
+    if ffma_route(x2.dtype, m, (hd, i), ptrs):
+        sms = _sms(x2.device.index)
+        tiles = [_FFMA_TILES.index(ffma_tiles(m, n, sms)) for n in (i, hd)]
+        hid = torch.empty((m, i), dtype=torch.float32, device=x2.device)
+        xn = torch.empty_like(x2) if norm == "pre" else None
+        zf = torch.empty_like(res2) if norm == "post" else None
+        fn = _build.function(
+            "fused_block", "fused_ffn_ln_ffma_launch", 12, 9,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(), w1.data_ptr(),
+             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), res2.data_ptr(),
+             *ln_ptrs, out.data_ptr(), 0 if xn is None else xn.data_ptr(),
+             hid.data_ptr(), 0 if zf is None else zf.data_ptr(), m, hd, i,
+             *tiles, act_code, norm_code, seed, on, thr, keep_div,
+             float(eps))
+        _build.note_launch("fused_ffn_ln")
+        _build.note_launch("fused_ffn_ln.ffma")
         return out
     bi = ffn_block_i(m)
     n_i = math.ceil(i / bi)
@@ -314,14 +390,36 @@ def _grads_of(chain, saved, cots):
     return [g.to(t.dtype) for g, t in zip(grads, saved)]
 
 
+def _needs_grad(*ts):
+    """Whether autograd would record a call on these inputs: grad mode on
+    and some tensor requiring a gradient. When not, the entry points call
+    the forward directly: the autograd.Function's bookkeeping is host time
+    on every call (serving, inference) and records nothing."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
+def _out_ln_forward(a2, w, b, res2, ln_s, ln_b, eps, seed, p):
+    if _route(a2, "fused_out_ln"):
+        return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed, p)
+    return out_ln_reference(a2, w, b, res2, ln_s, ln_b, p, eps, seed)
+
+
+def _ffn_forward(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm, p, eps,
+                 seed):
+    if _route(x2, "fused_ffn_ln"):
+        return _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm,
+                           p, eps, seed)
+    return ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm,
+                            p, eps, seed)
+
+
 class _OutLn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a2, w, b, res2, ln_s, ln_b, eps, seed, p):
         ctx.save_for_backward(a2, w, b, res2, ln_s, ln_b)
         ctx.args = (p, eps, seed)
-        if _route(a2, "fused_out_ln"):
-            return _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed, p)
-        return out_ln_reference(a2, w, b, res2, ln_s, ln_b, p, eps, seed)
+        return _out_ln_forward(a2, w, b, res2, ln_s, ln_b, eps, seed, p)
 
     @staticmethod
     def backward(ctx, dz, dh):
@@ -340,10 +438,7 @@ class _FfnLn(torch.autograd.Function):
         ctx.n_ln = 0 if norm == "none" else 2
         ctx.save_for_backward(x2, w1, b1, w2, b2, res2,
                               *(ln_s, ln_b)[:ctx.n_ln])
-        if _route(x2, "fused_ffn_ln"):
-            return _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s, ln_b, *ctx.args)
-        return ffn_ln_reference(x2, w1, b1, w2, b2, res2, ln_s, ln_b,
-                                *ctx.args)
+        return _ffn_forward(x2, w1, b1, w2, b2, res2, ln_s, ln_b, *ctx.args)
 
     @staticmethod
     def backward(ctx, dy):
@@ -364,8 +459,10 @@ def fused_out_ln(a2, w, b, res2, ln_s, ln_b, p=0.0, eps=1e-5, seed=0):
     LN(z) * ln_s + ln_b. seed: the int32 of the dropout mask (unused at
     p == 0). CPU tensors take out_ln_reference. Differentiable in every
     tensor input (composed f32 backward, mask replayed)."""
-    return _OutLn.apply(a2, w, b, res2, ln_s, ln_b, float(eps), int(seed),
-                        float(p))
+    args = (a2, w, b, res2, ln_s, ln_b, float(eps), int(seed), float(p))
+    if _needs_grad(*args[:6]):
+        return _OutLn.apply(*args)
+    return _out_ln_forward(*args)
 
 
 def fused_ffn_ln(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
@@ -378,5 +475,8 @@ def fused_ffn_ln(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
     _act_norm(act, norm)
     if norm != "none" and (ln_s is None or ln_b is None):
         raise ValueError(f"fused_ffn_ln norm={norm!r} needs ln_s and ln_b")
-    return _FfnLn.apply(x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm,
-                        float(p), float(eps), int(seed))
+    args = (x2, w1, b1, w2, b2, res2, ln_s, ln_b, act, norm, float(p),
+            float(eps), int(seed))
+    if _needs_grad(*args[:8]):
+        return _FfnLn.apply(*args)
+    return _ffn_forward(*args)

@@ -258,7 +258,7 @@ def _counted(name, fn):
     out = fn()
     after = _build.launch_counts()
     return out, {r: after.get(f"{name}.{r}", 0) - before.get(f"{name}.{r}", 0)
-                 for r in ("tc", "simt")}
+                 for r in ("tc", "simt", "ffma")}
 
 
 def _bf16_block_args(dev, seed, m, h, i, zero_res=False):
@@ -298,7 +298,7 @@ def test_fused_ffn_ln_tensor_core_route_matches_plain(dev, m, h, i, act,
     args = _bf16_block_args(dev, 20, m, h, i)
     call = (*args, act, norm, p, 1e-5, 31)
     got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
-    assert routes == {"tc": 1, "simt": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
     want = ffn_ln_reference(*call)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
@@ -342,7 +342,7 @@ def test_fused_out_ln_tensor_core_route_matches_plain(dev, m, k, n, p):
             1 + 0.1 * torch.randn(n, generator=g, device=dev),
             0.1 * torch.randn(n, generator=g, device=dev), p, 1e-5, 5)
     (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
-    assert routes == {"tc": 1, "simt": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
     zr, hr = out_ln_reference(*args)
     torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
@@ -361,13 +361,13 @@ def test_sub_block_routes_by_dtype_width_and_alignment(dev):
     bf = torch.bfloat16
     args = _bf16_block_args(dev, 23, 64, 128, 256)
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*args[:6]))
-    assert routes == {"tc": 1, "simt": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
     f32 = [a.float() for a in args]
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*f32[:6]))
-    assert routes == {"tc": 0, "simt": 1}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
     ragged = _bf16_block_args(dev, 24, 64, 160, 200)
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*ragged[:6]))
-    assert routes == {"tc": 0, "simt": 1}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
     # rows 1.. of a (65, 128) buffer: contiguous, 256 bytes past a row
     # start, but the view of a flat buffer from element 4 is 8 bytes off
     flat = torch.randn(64 * 128 + 4, device=dev).to(bf)
@@ -375,16 +375,121 @@ def test_sub_block_routes_by_dtype_width_and_alignment(dev):
     assert x.is_contiguous() and x.data_ptr() % 16 == 8
     call = (x, *args[1:6])
     got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
-    assert routes == {"tc": 0, "simt": 1}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
     torch.testing.assert_close(got.float(), ffn_ln_reference(*call).float(),
                                atol=3e-2, rtol=3e-2)
     w = (torch.randn(128, 128, device=dev) * 0.05).to(bf)
     ocall = (x, w, args[4], args[5], args[6], args[7])
     (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*ocall))
-    assert routes == {"tc": 0, "simt": 1}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
     zr, hr = out_ln_reference(*ocall)
     torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
+
+
+# -- the FFMA route of the sub-blocks (f32, M >= 128, widths % 64 == 0) ----
+
+def _f32_block_args(dev, seed, m, h, i):
+    g = _g(seed)
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+
+    return (rn(m, h), rn(h, i, sc=0.02), rn(i, sc=0.02), rn(i, h, sc=0.02),
+            rn(h, sc=0.02), rn(m, h), 1 + rn(h, sc=0.1), rn(h, sc=0.1))
+
+
+def _misaligned_f32(x):
+    """The same numbers in a contiguous view 8 bytes off a 16-byte
+    boundary, which the FFMA route does not take."""
+    flat = torch.empty(x.numel() + 2, device=x.device, dtype=x.dtype)
+    y = flat[2:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 8
+    return y
+
+
+def _ffma_tol(m, n, p):
+    """f32 sums of up to 8192 terms in another order than cuBLAS's:
+    1e-4 + 1e-4 |ref|, 2e-4 at BERT's shape with dropout (the division
+    by 1 - p, as chip_smoke.py's BERT rows)."""
+    return 2e-4 if (m, n) == (2048, 768) and p > 0 else 1e-4
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("k,n", [(2048, 2048), (768, 768)])
+@pytest.mark.parametrize("m", [128, 200, 256, 2048])
+def test_fused_out_ln_ffma_route_matches_plain(dev, m, k, n, p):
+    """f32 at the prefill buckets (128, 256), ragged M (200) and BERT's
+    2048 rows, GPT-3 XL and BERT-base widths: one launch of the FFMA
+    route within tolerance of the plain version, the same bits when run
+    again, z zero exactly where keep_mask drops (zero residual), and the
+    same numbers 8 bytes off alignment on the SIMT route, still within
+    tolerance."""
+    from paddle_tpu_torch.ops.fused_block import (fused_out_ln,
+                                                  out_ln_reference)
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    g = _g(40)
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+
+    a, w, b, res = rn(m, k), rn(k, n, sc=0.02), rn(n, sc=0.02), rn(m, n)
+    args = (a, w, b, res, 1 + rn(n, sc=0.1), rn(n, sc=0.1), p, 1e-5, 9)
+    tol = _ffma_tol(m, n, p)
+    (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
+    assert routes == {"tc": 0, "simt": 0, "ffma": 1}
+    zr, hr = out_ln_reference(*args)
+    torch.testing.assert_close(z, zr, atol=tol, rtol=tol)
+    torch.testing.assert_close(h, hr, atol=tol, rtol=tol)
+    z2, h2 = fused_out_ln(*args)
+    assert torch.equal(z, z2) and torch.equal(h, h2)
+    (z0, _), routes = _counted("fused_out_ln", lambda: fused_out_ln(
+        a, w, b, torch.zeros_like(res), *args[4:6], 0.1, 1e-5, 9))
+    assert routes["ffma"] == 1
+    assert torch.equal(z0 != 0, keep_mask(9, m, n, 0.1, dev))
+    off = (_misaligned_f32(a), *args[1:])
+    (zs, hs), routes = _counted("fused_out_ln", lambda: fused_out_ln(*off))
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    torch.testing.assert_close(zs, zr, atol=tol, rtol=tol)
+    torch.testing.assert_close(hs, hr, atol=tol, rtol=tol)
+
+
+FFMA_FFN_CASES = [  # m, h, i, act, norm, p
+    (2048, 768, 3072, "gelu", "post", 0.1),      # BERT-base
+    (256, 2048, 8192, "gelu_tanh", "none", 0.0),  # GPT-3 XL prefill
+    (200, 768, 3072, "relu", "pre", 0.1),         # ragged M, pre-norm
+]
+
+
+@pytest.mark.parametrize("m,h,i,act,norm,p", FFMA_FFN_CASES)
+def test_fused_ffn_ln_ffma_route_matches_plain(dev, m, h, i, act, norm, p):
+    """fused_ffn_ln in f32 on the FFMA route (LN, up product with the
+    activation, down product with dropout + residual, LN): within
+    tolerance of the plain version, the same bits when run again, the
+    output zero exactly where keep_mask drops (zero residual, norm
+    "none", p = 0.1), and a misaligned x on the SIMT route, still within
+    tolerance."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln)
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    args = _f32_block_args(dev, 42, m, h, i)
+    call = (*args, act, norm, p, 1e-5, 13)
+    tol = _ffma_tol(m, h, p)
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
+    assert routes == {"tc": 0, "simt": 0, "ffma": 1}
+    want = ffn_ln_reference(*call)
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    assert torch.equal(got, fused_ffn_ln(*call))
+    zero = (*args[:5], torch.zeros_like(args[5]), *args[6:])
+    out, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(
+        *zero, act, "none", 0.1, 1e-5, 13))
+    assert routes["ffma"] == 1
+    assert torch.equal(out != 0, keep_mask(13, m, h, 0.1, dev))
+    off = (_misaligned_f32(args[0]), *call[1:])
+    got_s, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*off))
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    torch.testing.assert_close(got_s, want, atol=tol, rtol=tol)
 
 
 # -- layer norm, dropout + residual + layer norm (forward and backward) ----
@@ -813,7 +918,8 @@ def test_flash_bf16_routes_match_plain(dev, route, b, h, s, t, d, causal,
     tail = (d ** -0.5, causal, mask2, 77, p)
     got, routes = _flash_routes(q, k, v, do, tail)
     for r in routes:
-        assert r == {"tc": int(route == "tc"), "simt": int(route == "simt")}
+        assert r == {"tc": int(route == "tc"), "simt": int(route == "simt"),
+                     "ffma": 0}
     o, lse, dq, dk, dv = got
     o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
     torch.testing.assert_close(lse, lse_r, atol=1e-4, rtol=1e-4)
@@ -847,14 +953,14 @@ def test_flash_tensor_core_dropout_masks_are_bit_equal(dev, d):
         v[:, half * d:(half + 1) * d] = eye
         (o, lse), routes = _counted("flash_fwd", lambda: fa._fwd_kernel(
             q, k, v, d ** -0.5, False, None, seed, p))
-        assert routes == {"tc": 1, "simt": 0}
+        assert routes == {"tc": 1, "simt": 0, "ffma": 0}
         assert torch.equal(o != 0, keep[:, :, half * d:(half + 1) * d])
         do = torch.zeros(bh, t, d, device=dev, dtype=bf)
         do[:, half * d:(half + 1) * d] = eye
         delta = fa.bwd_delta(o, do)
         (dk, dv), routes = _counted("flash_bwd_dkv", lambda: fa._dkv_kernel(
             q, k, v, do, lse, delta, d ** -0.5, False, None, seed, p))
-        assert routes == {"tc": 1, "simt": 0}
+        assert routes == {"tc": 1, "simt": 0, "ffma": 0}
         want = keep[:, half * d:(half + 1) * d, :].transpose(1, 2)
         assert torch.equal(dv != 0, want)
 

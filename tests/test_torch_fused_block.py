@@ -299,6 +299,61 @@ def test_tc_route_picks_by_dtype_width_and_alignment(dtype, widths, ptrs,
     assert port.tc_route(dtype, widths, ptrs) is want
 
 
+@pytest.mark.parametrize("dtype,m,widths,ptrs,want", [
+    (torch.float32, 128, (2048, 2048), (0, 256), True),   # prefill bucket
+    (torch.float32, 256, (2048, 8192), (4096,), True),    # GPT-3 XL FFN
+    (torch.float32, 256, (8192, 2048), (), True),
+    (torch.float32, 2048, (768, 768), (), True),          # BERT-base
+    (torch.float32, 2048, (768, 3072), (0, 16), True),
+    (torch.float32, 200, (128, 512), (), True),           # ragged M
+    (torch.float32, 8, (2048, 8192), (), False),          # decode
+    (torch.float32, 64, (2048, 2048), (), False),         # short prefill
+    (torch.float32, 127, (768, 3072), (), False),
+    (torch.bfloat16, 2048, (768, 3072), (), False),       # bf16: tc
+    (torch.float16, 2048, (768, 3072), (), False),
+    (torch.float32, 256, (200, 300), (), False),          # ragged widths
+    (torch.float32, 256, (2048, 96), (), False),
+    (torch.float32, 256, (0, 128), (), False),
+    (torch.float32, 256, (2048, 8192), (0, 8), False),    # 8 bytes off
+    (torch.float32, 2048, (768, 3072), (4,), False),
+])
+def test_ffma_route_picks_by_dtype_rows_width_and_alignment(dtype, m, widths,
+                                                            ptrs, want):
+    assert port.ffma_route(dtype, m, widths, ptrs) is want
+
+
+@pytest.mark.parametrize("m,n,sms,want", [
+    (2048, 3072, 132, (128, 64)),    # BERT FFN up: 97% of 3 waves
+    (2048, 768, 132, (64, 64)),      # BERT out-projection, FFN down
+    (256, 8192, 132, (128, 64)),     # GPT-3 XL prefill FFN up
+    (256, 2048, 132, (64, 64)),      # its out-projection, FFN down
+    (128, 2048, 132, (64, 64)),      # the smallest bucket: under-filled
+    (200, 512, 132, (64, 64)),       # ragged M
+    (8192, 768, 132, (128, 64)),
+    (8192, 3072, 132, (128, 128)),   # 1536 tiles: 97% of 6 waves
+    (130, 64, 1, (128, 128)),        # one SM: ragged rows and columns
+    (200, 192, 4, (64, 64)),
+])
+def test_ffma_tiles_cover_the_output(m, n, sms, want):
+    """One of the three tiles: the largest whose tiles fill at least 90%
+    of the waves of resident blocks they take (sms x its blocks an SM),
+    else the smallest; its grid covers every element of m x n."""
+    bm, bn = port.ffma_tiles(m, n, sms)
+    assert (bm, bn) == want and (bm, bn) in port._FFMA_TILES
+    rows, cols = math.ceil(m / bm), math.ceil(n / bn)
+    assert rows * bm >= m > (rows - 1) * bm
+    assert cols * bn >= n > (cols - 1) * bn
+
+    def fill(k):
+        (r, c), per_sm = port._FFMA_TILES[k], port._FFMA_BLOCKS[k]
+        tiles, wave = math.ceil(m / r) * math.ceil(n / c), sms * per_sm
+        return tiles / (wave * math.ceil(tiles / wave))
+
+    k = port._FFMA_TILES.index((bm, bn))
+    assert all(fill(j) < port._FFMA_FILL for j in range(k))
+    assert fill(k) >= port._FFMA_FILL or k == len(port._FFMA_TILES) - 1
+
+
 @pytest.mark.parametrize("m", [8, 20])
 def test_bf16_ffn_ln_matches_pallas_interpret(m, interpret):
     """bf16 through the port and through the Pallas kernel in interpret
