@@ -4,8 +4,9 @@
     python3 chip_smoke.py --kernels  # phases 1-2 only: build + check
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
-                                     # step and of one BERT train step
-                                     # (torch.profiler)
+                                     # step, of one BERT train step and
+                                     # of three steps of each static
+                                     # program (torch.profiler)
 
 Phases:
   1. card and build — the card's name and power limit, then nvcc builds
@@ -17,7 +18,14 @@ Phases:
      version's time, one PyTorch library call chain's time as a
      yardstick, and the least time the card could take (bytes over HBM
      rate or flops over the peak rate of the input type, whichever is
-     larger): paged attention and the two sub-blocks at decode (f32,
+     larger): paged attention (the split-context kernel, f32 and bf16
+     caches, on ctx 1 ... 2048 and on the serving run's short contexts
+     with its table width; each row with its split count, a
+     bit-identical rerun, its error from both plain versions (the split
+     one, P in f32 like the kernel, within 2e-5 for both caches; the
+     gather one, P rounded to the cache's type like the JAX package's
+     paged_attention_xla, within 2e-5 / 2e-2) and device time a call
+     beside the SDPA yardstick's), the two sub-blocks at decode (f32,
      M = 8, the SIMT route) and at the 256-row prefill bucket (f32, the
      FFMA route, with tile_ms: the time on every output tile, beside
      the tile ffma_tiles picks), the sub-blocks at the training shape
@@ -81,7 +89,19 @@ Phases:
      dropout = 0.1, post-LN), forward and backward at (16, 128, 768),
      kernels against composed chains; this is the route that launches
      the dropout + residual + layer norm kernels;
- 10. the kernels line, then the card line, then the result line.
+ 10. B row 10 (phase 2c, run with the other kernel checks): fused_ffn
+     at the bert_base_512 preset (M = 8192, H = 768, I = 3072), at
+     M = 2048 and at GPT-3 XL width in bf16, gelu and relu; f32 must
+     take the FFMA route and bf16 the tensor cores; the preset in f32
+     and bf16 with a misaligned x must take the SIMT kernel; reruns
+     bit-identical,
+     device time a call beside one call by events, the f32 preset's time
+     on every pair of FFMA tiles;
+ 11. the static LeNet program (bench_lenet, batch 256) and the static FFN
+     program at the preset on Executor(CUDAPlace(0)): losses fall, both
+     fused_ffn launches a step on the FFMA route, kernel and composed
+     losses within 1e-3, peak device memory, one eager run_op;
+ 12. the kernels line, then the card line, then the result line.
 
 One numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
 BERT phases draw their weights from the port's seeded initialisers.
@@ -177,8 +197,29 @@ DESIGN = {
     "simt": "SIMT f32 register-tiled GEMM on the CUDA cores; split-K "
             "(fused_out_ln) / split-I (fused_ffn_ln) f32 partials summed in "
             "fixed order by the last-arriving block"}
+# the three routes of fused_ffn (ops/fused_ffn.py ffn_route)
+FFN_DESIGN = {
+    "tc": "tensor cores: the sub-blocks' wgmma core (block_gemm.cuh "
+          "tc_gemm, 128x128 tiles, one persistent block an SM), two "
+          "launches: hid = round(act(x W1 + b1)) in bf16 through device "
+          "memory, then y = round(hid W2 + b2) (bias-only epilogue)",
+    "ffma": "f32 FFMA on the CUDA cores (f32 at M >= 128): the sub-blocks' "
+            "register-tiled core (block_gemm.cuh ffma_gemm), two launches "
+            "with hid in f32 through device memory, each product on the "
+            "tile ffma_tiles picks",
+    "simt": "one launch, hid on chip: a block owns 16 or 32 rows and an H "
+            "column tile with its f32 sum in shared memory, walking I in "
+            "chunks of 128"}
+# paged attention's one design (csrc/paged_attention.cu)
+PAGED_DESIGN = ("split context: grid (S, H, splits), pages a split from "
+                "paged_splits (table shape and SM count, no host sync); K/V "
+                "rows by 16-byte cp.async through a 4-stage ring of 16-token "
+                "chunks, 8 lanes a token score 4 tokens a warp, P in f32, "
+                "(m, l, acc) a split merged in split order by the last "
+                "block of a (slot, head) to take its ticket")
 # the device functions of ops/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("paged_attention_kernel", "out_ln_kernel", "ffn_kernel",
+PORT_KERNEL_NAMES = ("paged_split_kernel",
+                     "out_ln_kernel", "ffn_kernel",
                      "tc_gemm_kernel", "ffma_gemm_kernel", "ln_rows_kernel",
                      "flash_fwd_kernel",
                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -190,6 +231,8 @@ SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                     "fused_out_ln", "fused_ffn_ln")
 TRAIN_TOKENS = 1024
+# the serving run's page pool: pages and their size
+SERVE_PAGES, SERVE_PAGE = 256, 16
 # bench.py's bench_bert: BERT-base, batch 16 x 128, 19 masked positions
 BERT_BATCH, BERT_SEQ = 16, 128
 BERT_PRED = min(BERT_SEQ, max(8, int(round(BERT_SEQ * 0.15))))
@@ -264,7 +307,7 @@ def routed(name, fn, want=None):
     before = launch_counts()
     out = fn()
     after = launch_counts()
-    took = [r for r in DESIGN if after.get(f"{name}.{r}", 0)
+    took = [r for r in design_of(name) if after.get(f"{name}.{r}", 0)
             > before.get(f"{name}.{r}", 0)]
     if len(took) != 1:
         fail(f"{name}: one call took routes {took}")
@@ -335,55 +378,146 @@ class Timer:
 
 
 def check_paged(torch, timer, results):
+    """B row 1, the split-context kernel, against its plain version at
+    S = 8 slots, H = 16 heads of d = 128, pages of 16 (GPT-3 XL decode),
+    f32 and bf16 caches, on two ctx mixes: 1 ... 2048 over a 128-page
+    table (one slot of each length class, the longest setting the time),
+    and the serving run's short contexts (its prompts half-way through
+    their decode) over the serving engine's own table width. Each row
+    gives the split count from the table's shape (paged_splits), checks
+    a bit-identical rerun, and times the kernel, the plain version and
+    SDPA over the gathered, masked context (the gather outside the timed
+    call) as device time a call (tc_times), beside one call by events
+    (call_ms). Each row is held to two plain versions: the split one
+    (paged_attention_split_reference at the kernel's pages a split,
+    which keeps P in f32 as the kernel does) within 2e-5 for both
+    caches (sums in another order), and the gather one (the port of
+    the JAX package's paged_attention_xla) within 2e-5 in f32 and 2e-2
+    with a bf16 cache (it rounds the probabilities to bf16)."""
     import torch.nn.functional as F
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops.fused_block import _sms
     from paddle_tpu_torch.ops.paged_attention import (
-        paged_attention_decode, paged_attention_reference)
-    S, H, d, ps = 8, 16, 128, 16
-    M = 2048 // ps
-    P = S * M
+        paged_attention_decode, paged_attention_reference,
+        paged_attention_split_reference, paged_splits)
+    S, H, d, ps = 8, 16, 128, SERVE_PAGE
+    cfg = GPTConfig.gpt3_1p3b()
+    serve_m = min(SERVE_PAGES, cfg.max_position_embeddings // SERVE_PAGE)
+    mixes = [("ctx<=2048", 2048 // ps,
+              [1, 17, 100, 300, 700, 1200, 1777, 2048]),
+             ("ctx=serving mix", serve_m,
+              [len(p) + n // 2 for p, n, _ in request_mix(cfg.vocab_size)])]
     g = torch.Generator(device="cuda").manual_seed(0)
-    ctx = torch.tensor([1, 17, 100, 300, 700, 1200, 1777, 2048],
-                       dtype=torch.int32, device="cuda")
-    perm = torch.randperm(P, generator=g, device="cuda")
-    pt = perm.reshape(S, M).to(torch.int32).contiguous()
-    # the trash page (index P) is a valid page: point one slot's unused
-    # tail at it, as the engine does
-    pt[0, 1:] = P
-    q = torch.randn(S, H, d, generator=g, device="cuda")
     scale = d ** -0.5
-    n_tok = int(ctx.sum())
-    for name, dt, tol in (("f32", torch.float32, 2e-5),
-                          ("bf16", torch.bfloat16, 2e-2)):
-        k = torch.randn(P + 1, ps, H, d, generator=g, device="cuda").to(dt)
-        v = torch.randn(P + 1, ps, H, d, generator=g, device="cuda").to(dt)
-        args = (q, k, v, pt, ctx, scale)
-        got = paged_attention_decode(*args)
-        ref = paged_attention_reference(*args)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        # library yardstick: SDPA over the gathered, masked context (the
-        # gather itself is outside the timed call)
-        kd = k[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
-        vd = v[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
-        kd, vd = kd.float().contiguous(), vd.float().contiguous()
-        mask = (torch.arange(M * ps, device="cuda")[None, :]
-                < ctx[:, None])[:, None, None, :]
-        qd = q[:, :, None, :]
-        item = k.element_size()
-        nbytes = q.numel() * 4 * 2 + 2 * n_tok * H * d * item \
-            + pt.numel() * 4 + S * 4
-        flops = 4 * n_tok * H * d
-        bms, by = bound(nbytes, flops)
-        row = {"kernel": "paged_attention", "shape": f"S={S} H={H} d={d} "
-               f"ps={ps} ctx<=2048 cache={name}", "max_abs_err": err,
-               "tol": tol, "kernel_ms": timer(lambda: paged_attention_decode(
-                   *args)),
-               "plain_ms": timer(lambda: paged_attention_reference(*args)),
-               "library_ms": timer(lambda: F.scaled_dot_product_attention(
-                   qd, kd, vd, attn_mask=mask, scale=scale)),
-               "bound_ms": bms, "bound_by": by}
-        report(results, row, err <= tol)
-        del k, v, kd, vd
+    sms = _sms(torch.cuda.current_device())
+    for label, M, ctx_list in mixes:
+        P = S * M
+        ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
+        perm = torch.randperm(P, generator=g, device="cuda")
+        pt = perm.reshape(S, M).to(torch.int32).contiguous()
+        # the trash page (index P) is a valid page: point the tables'
+        # unused tails at it, as the engine does
+        for s_, c in enumerate(ctx_list):
+            pt[s_, -(-c // ps):] = P
+        q = torch.randn(S, H, d, generator=g, device="cuda")
+        n_tok = sum(ctx_list)
+        pps = paged_splits(S, H, M, sms)
+        for name, dt, gather_tol in (("f32", torch.float32, 2e-5),
+                                     ("bf16", torch.bfloat16, 2e-2)):
+            k = torch.randn(P + 1, ps, H, d, generator=g,
+                            device="cuda").to(dt)
+            v = torch.randn(P + 1, ps, H, d, generator=g,
+                            device="cuda").to(dt)
+            args = (q, k, v, pt, ctx, scale)
+            got = paged_attention_decode(*args)
+            again = paged_attention_decode(*args)
+            ref = paged_attention_split_reference(q, k, v, pt, ctx, pps,
+                                                  scale)
+            gather = paged_attention_reference(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"paged_attention {label} {name}: two runs differ")
+            err, gather_err = max_err(got, ref), max_err(got, gather)
+            tol = 2e-5
+            kd = k[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
+            vd = v[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
+            kd, vd = kd.float().contiguous(), vd.float().contiguous()
+            mask = (torch.arange(M * ps, device="cuda")[None, :]
+                    < ctx[:, None])[:, None, None, :]
+            qd = q[:, :, None, :]
+            item = k.element_size()
+            nbytes = q.numel() * 4 * 2 + 2 * n_tok * H * d * item \
+                + pt.numel() * 4 + S * 4
+            bms, by = bound(nbytes, 4 * n_tok * H * d)
+
+            def sdpa(qd, kd, vd, mask, scale):
+                return F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, scale=scale)
+
+            extra = {"split_ms": split_ms(torch, timer, args, pps)} \
+                if label == "ctx<=2048" else {}
+            row = {"kernel": "paged_attention",
+                   "shape": f"S={S} H={H} d={d} ps={ps} M={M} {label} "
+                            f"cache={name}",
+                   "pages_per_split": pps, "splits": -(-M // pps),
+                   "max_abs_err": err, "tol": tol,
+                   "gather_err": gather_err, "gather_tol": gather_tol,
+                   "bit_identical_rerun": True,
+                   **tc_times(torch, timer, args, paged_attention_decode,
+                              paged_attention_reference, sdpa,
+                              library_args=(qd, kd, vd, mask, scale)),
+                   "bound_ms": bms, "bound_by": by, **extra}
+            report(results, row, err <= tol)
+            if gather_err > gather_tol:
+                fail(f"paged_attention ({row['shape']}) max abs err "
+                     f"{gather_err} from the gather plain version, outside "
+                     f"{gather_tol}")
+            del k, v, kd, vd
+            torch.cuda.empty_cache()
+
+
+def split_ms(torch, timer, args, rule):
+    """Device time a call (Timer.queued, 8 copies of the pools) of the
+    paged-attention kernel pair at several pages a split, through the C
+    entry point with the split given, beside the pick of
+    ops/paged_attention.py paged_splits ("rule"): on `args` (ctx 1 ...
+    2048: the longest slot sets the time) and, under "full", with every
+    slot's table full (a fresh permutation of the pool, ctx = M * ps):
+    the evidence for the rule. Keys: pages a split."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    q, k, v, pt, ctx, scale = args
+    S, H, d = q.shape
+    ps, M = k.shape[1], pt.shape[1]
+    fn = _build.function("paged_attention", "paged_attention_launch", 8, 6,
+                         (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+    stream = torch.cuda.current_stream().cuda_stream
+    tickets = torch.zeros(S * H, dtype=torch.int32, device="cuda")
+    bf = int(k.dtype == torch.bfloat16)
+    pools = [(k.clone(), v.clone()) for _ in range(8)]
+    full_pt = torch.randperm(S * M, device="cuda").reshape(S, M) \
+        .to(torch.int32).contiguous()
+    full_ctx = torch.full_like(ctx, M * ps)
+
+    def run(k, v, table, lens, out, part, pps):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+                 lens.data_ptr(), out.data_ptr(), part.data_ptr(),
+                 tickets.data_ptr(), S, H, d, ps, M, pps, scale, bf, stream)
+        if err:
+            fail(f"paged_attention at {pps} pages a split: CUDA error {err}")
+
+    times = {"rule": rule, "full": {}}
+    for pps in sorted({2, 4, 8, rule, 16, 32, 43, M}):
+        part = torch.empty(S * H * -(-M // pps) * (d + 2), device="cuda")
+        outs = [torch.empty_like(q) for _ in pools]
+        for table, lens, into in ((pt, ctx, times),
+                                  (full_pt, full_ctx, times["full"])):
+            into[str(pps)] = timer.queued([
+                lambda kv=kv, o=o: run(*kv, table, lens, o, part, pps)
+                for kv, o in zip(pools, outs)])
+    del pools
+    torch.cuda.empty_cache()
+    return times
 
 
 def check_blocks(torch, timer, results):
@@ -470,11 +604,12 @@ def check_blocks(torch, timer, results):
 
 
 def ffma_tile_ms(torch, timer, name, args):
-    """The FFMA route's time (timed as the row's kernel_ms) of the call
-    `name`(*args) on each output tile, and for fused_ffn_ln on each pair
-    of tiles of its two products, through the C entry point with the
-    tile given: the evidence for ops/fused_block.py ffma_tiles' rule,
-    whose pick is under "rule". Keys "128x64" or "128x128/64x64"."""
+    """The FFMA route's time (one launch between events, CUDA events) of
+    the call `name`(*args) on each output tile, and for fused_ffn_ln and
+    fused_ffn on each pair of tiles of their two products, through the C
+    entry point with the tile given: the evidence for
+    ops/fused_block.py ffma_tiles' rule, whose pick is under "rule".
+    Keys "128x64" or "128x128/64x64"."""
     import ctypes
     import itertools
     from paddle_tpu_torch.ops import _build
@@ -491,6 +626,20 @@ def ffma_tile_ms(torch, timer, name, args):
         if err:
             fail(f"{name} FFMA launch on a forced tile: CUDA error {err}")
 
+    if name == "fused_ffn":
+        x, w1, b1, w2, b2, act = args
+        m, hd, i = x.shape[0], x.shape[1], w1.shape[1]
+        y, hid = torch.empty_like(x), torch.empty((m, i), device=x.device)
+        fn = _build.function("fused_ffn", "fused_ffn_ffma_launch", 7, 6,
+                             (ctypes.c_void_p,))
+        ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, y, hid)]
+        code = _act_norm(act, "none")[0]
+        times = {f"{label[t1]}/{label[t2]}": timer(lambda t1=t1, t2=t2: run(
+            fn, *ptrs, m, hd, i, t1, t2, code))
+            for t1, t2 in itertools.product(range(len(label)), repeat=2)}
+        times["rule"] = "/".join("x".join(map(str, ffma_tiles(m, c, sms)))
+                                 for c in (i, hd))
+        return times
     if name == "fused_out_ln":
         a, w, b, res, ls, lb, p, eps, seed = args
         m, k, n = a.shape[0], a.shape[1], w.shape[1]
@@ -533,23 +682,33 @@ def device_ms(torch, timer, fn, args, n_sets=8):
     return ms
 
 
-def tc_times(torch, timer, args, kernel, plain, library, n_sets=8):
-    """Times of a bf16 sub-block row: the kernel, its plain version and
-    the library chain, each called on n_sets copies of `args` (weights
-    included, so every call finds its inputs cold) back to back behind
-    Timer.queued's spin kernel: the device time per call. The
-    tensor-core kernels run for less than their wrapper's host time,
-    which an event pair around one call would time instead; that pair
-    is kept as call_ms (host time included)."""
-    sets = [tuple(t.clone() if torch.is_tensor(t) else t for t in args)
-            for _ in range(n_sets)]
+def tc_times(torch, timer, args, kernel, plain, library, n_sets=8,
+             library_args=None, clone=None):
+    """Times of a kernel row: the kernel, its plain version and the
+    library call or chain (on `library_args` where it takes other
+    inputs), each called on n_sets copies of its arguments (weights
+    included, so every call finds its inputs cold; each tensor copied by
+    `clone`, by default Tensor.clone) back to back behind Timer.queued's
+    spin kernel: the device time per call. Many kernels run for less
+    than their wrapper's host time, which an event pair around one call
+    would time instead; that pair is kept as call_ms (host time
+    included)."""
+    clone = clone or (lambda t: t.clone())
 
-    def each(fn):
+    def copies(a):
+        return [tuple(clone(t) if torch.is_tensor(t) else t for t in a)
+                for _ in range(n_sets)]
+
+    def each(fn, sets):
         return timer.queued([lambda s=s: fn(*s) for s in sets])
 
-    times = {"kernel_ms": each(kernel), "plain_ms": each(plain),
-             "library_ms": each(library),
-             "call_ms": timer(lambda: kernel(*args))}
+    sets = copies(args)
+    times = {"kernel_ms": each(kernel, sets), "plain_ms": each(plain, sets)}
+    if library_args is not None:
+        del sets
+        sets = copies(library_args)
+    times["library_ms"] = each(library, sets)
+    times["call_ms"] = timer(lambda: kernel(*args))
     del sets
     torch.cuda.empty_cache()
     return times
@@ -618,6 +777,18 @@ def check_blocks_bf16(torch, timer, results):
                       ffn_ln_reference, lib_ffn),
            "bound_ms": bms, "bound_by": by}
     report(results, row, within(out, ref, **tol))
+
+
+def misaligned(t):
+    """A contiguous copy of t 8 bytes past a 16-byte boundary, which
+    the tensor-core and FFMA routes do not take."""
+    item = t.element_size()
+    flat = t.new_empty(t.numel() + 8 // item)
+    y = flat[8 // item:].view(t.shape)
+    y.copy_(t)
+    if y.data_ptr() % 16 != 8:
+        fail(f"misaligned: a copy at {y.data_ptr() % 16} bytes off 16")
+    return y
 
 
 def differ(got, ref) -> float:
@@ -1040,7 +1211,8 @@ def serving_path(torch, tree):
     print(json.dumps({"phase": "model", "config": "gpt3_1p3b",
                       "upload_s": round(time.perf_counter() - t0, 2)}),
           flush=True)
-    eng = Engine(model, num_slots=8, num_pages=256, page_size=16,
+    eng = Engine(model, num_slots=8, num_pages=SERVE_PAGES,
+                 page_size=SERVE_PAGE,
                  prefix_cache_pages=64)
     mix = request_mix(cfg.vocab_size)
     by_call = tap_sub_block_routes(model)
@@ -1554,25 +1726,37 @@ def check_ffn(torch, timer, results):
     """B row 10, ``ops.fused_ffn``, against its plain version: the
     bert_base_512 preset (M = 8192, H = 768, I = 3072), BERT-base's
     16 x 128 tokens (M = 2048) and GPT-3 XL width in bf16 (M = 1024,
-    H = 2048, I = 8192), gelu and relu. Tolerance: f32 sums of 768 and
-    3072 terms in other orders, |err| <= 1e-4 + 1e-4 |ref|; bf16 rounds
-    hid and y once each in both (2**-8 relative), 2e-2 + 2e-2 |ref|. The
-    library yardstick is addmm, the activation, addmm (cuBLAS, TF32 off
-    for f32)."""
+    H = 2048, I = 8192), gelu and relu; and the preset once more in f32
+    and in bf16 with x (and every copy the timing makes) 8 bytes off a
+    16-byte boundary, gelu, which only the SIMT kernel takes. Each row
+    names the route it took and fails on another (f32 at these shapes
+    on ``ffma``, bf16 on ``tc``, misaligned on ``simt``), checks a
+    bit-identical rerun, and gives device time a call (tc_times: the
+    kernel, the plain version and the library chain) beside one call by
+    events (call_ms); the f32 preset also the time on every pair of FFMA
+    tiles (tile_ms). Tolerance: f32 sums of 768
+    and 3072 terms in other orders, |err| <= 1e-4 + 1e-4 |ref|; bf16
+    rounds hid and y once each in both (2**-8 relative), 2e-2 + 2e-2
+    |ref|. The library yardstick is addmm, the activation, addmm
+    (cuBLAS, TF32 off for f32)."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
-    cases = [(FFN_M, FFN_H, FFN_I, torch.float32), (FFN_M, FFN_H, FFN_I,
-                                                    torch.bfloat16),
-             (2048, 768, 3072, torch.float32), (2048, 768, 3072,
-                                                torch.bfloat16),
-             (1024, 2048, 8192, torch.bfloat16)]
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(FFN_M, FFN_H, FFN_I, f32, False),
+             (FFN_M, FFN_H, FFN_I, bf16, False),
+             (2048, 768, 3072, f32, False), (2048, 768, 3072, bf16, False),
+             (1024, 2048, 8192, bf16, False),
+             (FFN_M, FFN_H, FFN_I, f32, True),
+             (FFN_M, FFN_H, FFN_I, bf16, True)]
     g = torch.Generator(device="cuda").manual_seed(4)
-    for M, H, I, dt in cases:
+    for M, H, I, dt, off in cases:
         def rn(*shape, sc=1.0):
             return (torch.randn(*shape, generator=g, device="cuda")
                     * sc).to(dt)
         x, w1, b1 = rn(M, H), rn(H, I, sc=0.02), rn(I, sc=0.02)
         w2, b2 = rn(I, H, sc=0.02), rn(H, sc=0.02)
+        if off:
+            x = misaligned(x)
         isz = 4 if dt == torch.float32 else 2
         tol = {"atol": 1e-4, "rtol": 1e-4} if dt == torch.float32 \
             else {"atol": 2e-2, "rtol": 2e-2}
@@ -1580,28 +1764,33 @@ def check_ffn(torch, timer, results):
         bms, by = bound(nbytes, 4 * M * H * I + 10 * M * I,
                         F32_FLOPS if dt == torch.float32 else BF16_FLOPS)
         name = "f32" if dt == torch.float32 else "bf16"
-        for act in ("gelu", "relu"):
-            y = fused_ffn(x, w1, b1, w2, b2, act)
+        want = "simt" if off else "ffma" if dt == torch.float32 else "tc"
+        for act in ("gelu",) if off else ("gelu", "relu"):
+            y, route = routed("fused_ffn", lambda: fused_ffn(
+                x, w1, b1, w2, b2, act), want)
             ref = ffn_reference(x, w1, b1, w2, b2, act)
             again = fused_ffn(x, w1, b1, w2, b2, act)
             torch.cuda.synchronize()
             if not torch.equal(y, again):
                 fail(f"fused_ffn M={M} {name} {act}: two runs differ")
-            lib_act = (lambda u: F.gelu(u)) if act == "gelu" else torch.relu
 
-            def lib():
-                return torch.addmm(b2, lib_act(torch.addmm(b1, x, w1)), w2)
+            def lib(x, w1, b1, w2, b2, act):
+                u = torch.addmm(b1, x, w1)
+                u = F.gelu(u) if act == "gelu" else torch.relu(u)
+                return torch.addmm(b2, u, w2)
 
             row = {"kernel": "fused_ffn",
-                   "shape": f"M={M} H={H} I={I} {name} {act}",
-                   "max_abs_err": max_err(y, ref), "tol": tol,
-                   "bit_identical_rerun": True,
-                   "kernel_ms": timer(lambda: fused_ffn(x, w1, b1, w2, b2,
-                                                        act)),
-                   "plain_ms": timer(lambda: ffn_reference(x, w1, b1, w2,
-                                                           b2, act)),
-                   "library_ms": timer(lib), "bound_ms": bms,
-                   "bound_by": by}
+                   "shape": f"M={M} H={H} I={I} "
+                            f"{'misaligned x ' if off else ''}{name} {act}",
+                   "route": route, "max_abs_err": max_err(y, ref),
+                   "tol": tol, "bit_identical_rerun": True,
+                   **tc_times(torch, timer, (x, w1, b1, w2, b2, act),
+                              fused_ffn, ffn_reference, lib,
+                              clone=misaligned if off else None),
+                   "bound_ms": bms, "bound_by": by}
+            if route == "ffma" and M == FFN_M and act == "gelu":
+                row["tile_ms"] = ffma_tile_ms(torch, timer, "fused_ffn", (
+                    x, w1, b1, w2, b2, act))
             report(results, row, within(y, ref, **tol))
 
 
@@ -1705,7 +1894,8 @@ def static_ffn_phase(torch, with_profile=False):
     I = 3072, gelu, f32) on the card: startup, then 1 + 4 Adam steps on
     one batch whose target is a fixed map of x (t = tanh(x A), A from a
     seed). The loss must fall; fused_ffn must launch FFN_LAUNCHES_PER_STEP
-    times a step; the same steps from the same start under
+    times a step, every launch on the FFMA route; the peak of allocated
+    device memory over the steps is printed; the same steps from the same start under
     ``composed_ops()`` (the op's composed fallback, exact gelu) must give
     losses within 1e-3 relative; and one eager ``run_op("fused_ffn")``
     must launch the kernel once and agree with the plain version.
@@ -1743,8 +1933,10 @@ def static_ffn_phase(torch, with_profile=False):
 
     torch.cuda.synchronize()
     reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     losses, times, sc = train()
     counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with F.composed_ops():
         reset_launch_counts()
         composed, ctimes, _ = train()
@@ -1776,17 +1968,21 @@ def static_ffn_phase(torch, with_profile=False):
                                          * 1e3, 3),
         "tokens_per_s": round(FFN_M / step_s, 2),
         "tflops_per_s_model": round(flops / step_s / 1e12, 3),
+        "peak_memory_gb": round(peak_gb, 3),
         "launches": counts, "launches_predicted": {
-            "fused_ffn": FFN_LAUNCHES_PER_STEP * FFN_STEPS},
+            "fused_ffn": FFN_LAUNCHES_PER_STEP * FFN_STEPS,
+            "fused_ffn.ffma": FFN_LAUNCHES_PER_STEP * FFN_STEPS},
         "composed_launches": composed_counts,
         "eager_run_op": {"launches": eager, "max_abs_err": eager_err},
         "executor": exe.stats()}), flush=True)
     if not all(math.isfinite(v) for v in losses) \
             or not losses[-1] < losses[0]:
         fail(f"static FFN loss did not fall: {losses}")
-    if counts.get("fused_ffn", 0) != FFN_LAUNCHES_PER_STEP * FFN_STEPS:
-        fail(f"static FFN: fused_ffn launched {counts.get('fused_ffn', 0)} "
-             f"times, predicted {FFN_LAUNCHES_PER_STEP * FFN_STEPS}")
+    for name in ("fused_ffn", "fused_ffn.ffma"):
+        if counts.get(name, 0) != FFN_LAUNCHES_PER_STEP * FFN_STEPS:
+            fail(f"static FFN: {name} launched {counts.get(name, 0)} times, "
+                 f"predicted {FFN_LAUNCHES_PER_STEP * FFN_STEPS} (launches "
+                 f"by route {route_counts(counts, 'fused_ffn')})")
     if composed_counts.get("fused_ffn", 0) != 0:
         fail(f"composed_ops() still launched fused_ffn: {composed_counts}")
     if not rel <= 1e-3:
@@ -1807,10 +2003,16 @@ def profile_static(torch, exe, main, fetch, feed, what, steps=3):
                   top_n=12)
 
 
+def design_of(name):
+    """The routes (and their designs) of the kernel `name`."""
+    if name.startswith("flash"):
+        return FLASH_DESIGN
+    return FFN_DESIGN if name == "fused_ffn" else DESIGN
+
+
 def route_counts(counts, name):
     """The launches of `name` on each of its routes in a path's counts."""
-    design = FLASH_DESIGN if name.startswith("flash") else DESIGN
-    return {r: counts.get(f"{name}.{r}", 0) for r in design}
+    return {r: counts.get(f"{name}.{r}", 0) for r in design_of(name)}
 
 
 def kernel_entry(row, launches):
@@ -1825,10 +2027,16 @@ def kernel_entry(row, launches):
         ent["call_ms"] = row["call_ms"]
     if "device_ms" in row:  # device time per call, host time excluded
         ent["device_ms"] = row["device_ms"]
-    if "route" in row:      # which of the kernel's two designs ran
-        design = FLASH_DESIGN if row["kernel"].startswith("flash") \
-            else DESIGN
-        ent["design"] = f"{row['route']}: {design[row['route']]}"
+    if "route" in row:      # which of the kernel's designs ran
+        ent["design"] = f"{row['route']}: " \
+            f"{design_of(row['kernel'])[row['route']]}"
+    elif row["kernel"] == "paged_attention":
+        ent["design"] = PAGED_DESIGN
+        ent["splits"] = row["splits"]
+        ent["gather_err"] = row["gather_err"]  # from the gather version
+    for key in ("tile_ms", "split_ms"):  # every FFMA tile (pair) / split
+        if key in row:                     # size, beside the rule's pick
+            ent[key] = row[key]
     if "differ" in row:     # share of elements != the plain version's
         ent["differ"] = row["differ"]
     return ent
@@ -1853,8 +2061,12 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
         return next(r for r in results if r["kernel"] == name
                     and all(k in r["shape"] for k in keys))
 
-    kernels = [kernel_entry(row("paged_attention", "cache=f32"),
-                            serve_counts.get("paged_attention", 0))]
+    paged = kernel_entry(row("paged_attention", "ctx<=2048", "cache=f32"),
+                         serve_counts.get("paged_attention", 0))
+    # the serving run's own short contexts: launches counted above
+    paged["serving_mix"] = kernel_entry(
+        row("paged_attention", "serving mix", "cache=f32"), None)
+    kernels = [paged]
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         ent = kernel_entry(row(name, "causal bf16"),
                            train_counts.get(name, 0))
@@ -1886,6 +2098,7 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
                                     layer_counts.get(name, 0)))
     main = f"M={FFN_M} H={FFN_H} I={FFN_I} f32 gelu"
     ent = kernel_entry(row("fused_ffn", main), ffn_counts.get("fused_ffn", 0))
+    ent["routes"] = route_counts(ffn_counts, "fused_ffn")
     # no path runs the other shapes: their launches were not counted
     ent["shapes"] = [kernel_entry(r, None) for r in results
                      if r["kernel"] == "fused_ffn" and r["shape"] != main]

@@ -201,8 +201,8 @@ def _softmax_xent(ctx, ins, attrs):
 
 
 # ---------------------------------------------------------------------------
-# fused transformer FFN: act(x@W1+b1)@W2+b2 with the (M, I) intermediate
-# kept on chip (B row 10, ops/fused_ffn.py over csrc/fused_ffn.cu)
+# fused transformer FFN: act(x@W1+b1)@W2+b2 in one op (B row 10,
+# ops/fused_ffn.py over csrc/fused_ffn.cu, on the route ffn_route picks)
 # ---------------------------------------------------------------------------
 
 @register("fused_ffn", infer_shape=same_shape_as("X", "Out"),

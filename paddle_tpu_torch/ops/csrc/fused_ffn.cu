@@ -1,5 +1,5 @@
-// The transformer FFN in one launch for Hopper (sm_90a), f32 or bf16
-// inputs with f32 accumulation:
+// The transformer FFN for Hopper (sm_90a), f32 or bf16 inputs with f32
+// accumulation:
 //     y = act(x @ W1 + b1) @ W2 + b2     x (M, H), W1 (H, I), W2 (I, H)
 // Replaces paddle_tpu/ops/pallas_ffn.py:_ffn_kernel (launched by
 // _ffn_fwd_impl). Its arithmetic, as the reference's: a = x @ W1 summed
@@ -8,12 +8,40 @@
 // W2 in f32; y = acc + b2, rounded to x's type. act: gelu_tanh, gelu
 // (the reference's A&S erf polynomial) or relu (ffn_common.cuh).
 //
-// Design. The point of the TPU kernel is that the (M, I) intermediate
-// never reaches device memory; the point here is the same, with CUDA's
-// blocks in place of the TPU's sequential grid. A block owns ROWS rows
-// of the output and a column tile [c0, c0 + h_tile) of it, with that
-// (ROWS, h_tile) f32 accumulator in shared memory (up to 128 KB, dynamic
-// shared memory). It walks I in chunks of 128: first
+// Three routes, picked by the wrapper before the launch from the dtype,
+// the row count, the widths and the pointers' alignment, with the rules
+// of rows 2-3 (ops/fused_block.py tc_route, ffma_route, ffma_tiles):
+//
+//   tc    bf16, H and I multiples of 64, 16-byte aligned operands
+//         (fused_ffn_tc_launch): two products on block_gemm.cuh's
+//         tensor-core core (wgmma fed by TMA, 128 x 128 tiles, one
+//         persistent block an SM), hid (M, I) through device memory in
+//         bf16:  hid = round(act(x @ W1 + b1))   tc_gemm MODE 0
+//                y   = round(hid @ W2 + b2)      tc_gemm MODE 2
+//   ffma  f32, M >= 128, the same widths and alignment
+//         (fused_ffn_ffma_launch): the same two launches in f32 on
+//         block_gemm.cuh's register-tiled FFMA core, each product on the
+//         tile the wrapper picks (ffma_tiles: 128 x 128 and 128 x 64 at
+//         the preset M = 8192, H = 768, I = 3072 on 132 SMs); hid (M, I)
+//         in f32 through device memory.
+//   simt  everything else: f32 under 128 rows, widths that are not
+//         multiples of 64, misaligned views (fused_ffn_launch, below).
+//
+// hid's round trip. The TPU kernel keeps hid in VMEM; the tc and ffma
+// routes write it once and read it once (100.7 MB at the preset in f32,
+// 50.3 MB in bf16, 16.8 MB at GPT-3 XL width M = 1024 in bf16), the
+// trade rows 2-3 make: a block that kept its rows' hid on chip would own
+// all of H (a (128, 768) f32 sum is 384 KB, beyond an SM) or recompute
+// hid per column tile, as the SIMT kernel does. Neither product splits
+// K, so every element is summed in one fixed order: identical bits run
+// to run.
+//
+// The SIMT kernel. Its point is the TPU kernel's: the (M, I)
+// intermediate never reaches device memory, with CUDA's blocks in place
+// of the TPU's sequential grid. A block owns ROWS rows of the output and
+// a column tile [c0, c0 + h_tile) of it, with that (ROWS, h_tile) f32
+// accumulator in shared memory (up to 128 KB, dynamic shared memory). It
+// walks I in chunks of 128: first
 //     hid = act(x[rows] @ W1[:, chunk] + b1[chunk])   (ROWS, 128)
 // into shared memory in x's type (the tile GEMM of ffn_common.cuh, x and
 // W1 staged through shared memory in k stages of 32), then
@@ -35,12 +63,11 @@
 // 2 GEMMs of 2*M*H*I = 77.3 GFLOP, so operations bind: 1.15 ms in f32 at
 // 67 TFLOP/s (CUDA cores; TF32 off), 0.078 ms in bf16 at the tensor
 // cores' 989 TFLOP/s; the bytes (x, W1, W2, y once: 69 MB in f32) take
-// 0.021 ms. This first version is SIMT f32 arithmetic with register
-// tiles (no tensor cores, no TMA, no wgmma), so it sits well above the
-// bf16 bound; PERF.md holds its times.
+// 0.021 ms. PERF.md holds each route's times.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "block_gemm.cuh"
 #include "ffn_common.cuh"
 
 namespace {
@@ -239,4 +266,43 @@ extern "C" int fused_ffn_launch(const void* x, const void* w1,
                       : ffn_run<__nv_bfloat16, 16>(x, w1, b1, w2, b2, y, M,
                                                    H, I, h_tile, act, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core route, bfloat16 only: H and I multiples of 64, every
+// pointer 16-byte aligned. hid: (M, I) bf16 scratch the caller
+// allocates. act as fused_ffn_launch. Returns a cudaError_t, or 10001 /
+// 10002 when the TMA descriptor encoder is missing / refuses a matrix.
+extern "C" int fused_ffn_tc_launch(const void* x, const void* w1,
+                                   const void* b1, const void* w2,
+                                   const void* b2, void* y, void* hid, int M,
+                                   int H, int I, int act, void* stream) {
+  if (act < 0 || act > 2 || M < 1 || H % 64 || I % 64 || H < 64 || I < 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop none{0, 0, 0, 1.f};
+  const TcEpi up{(const bf16*)b1, nullptr, (bf16*)hid, nullptr, act, none};
+  const int err = tc_gemm<0>(x, w1, M, I, H, up, st);
+  if (err != 0) return err;
+  const TcEpi down{(const bf16*)b2, nullptr, (bf16*)y, nullptr, 0, none};
+  return tc_gemm<2>(hid, w2, M, H, I, down, st);
+}
+
+// The FFMA route, float32 only: H and I multiples of 64, every pointer
+// 16-byte aligned (the wrapper sends M >= 128). hid: (M, I) f32 scratch
+// the caller allocates. tile1 / tile2: the tiles of the (M, I) and
+// (M, H) products, as ffma_gemm takes them. act as fused_ffn_launch.
+extern "C" int fused_ffn_ffma_launch(const float* x, const float* w1,
+                                     const float* b1, const float* w2,
+                                     const float* b2, float* y, float* hid,
+                                     int M, int H, int I, int tile1,
+                                     int tile2, int act, void* stream) {
+  if (act < 0 || act > 2 || M < 1 || H % 64 || I % 64 || H < 64 || I < 64)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Drop none{0, 0, 0, 1.f};
+  const FfmaEpi up{b1, nullptr, hid, act, none};
+  const int err = ffma_gemm<0>(x, w1, M, I, H, tile1, up, st);
+  if (err != 0) return err;
+  const FfmaEpi down{b2, nullptr, y, 0, none};
+  return ffma_gemm<2>(hid, w2, M, H, I, tile2, down, st);
 }

@@ -1,41 +1,87 @@
-// Ragged paged-attention decode for Hopper (sm_90a).
+// Ragged paged-attention decode for Hopper (sm_90a), split over the
+// context.
 //
 // Replaces paddle_tpu/ops/paged_attention.py:_paged_kernel (launched by
 // paged_attention_pallas): one query token per slot against that slot's
-// ragged KV history in a page pool, online softmax in f32, masked past
-// ctx_lens, an all-masked row (ctx 0) returns 0 (the l==0 -> 1 rule).
+// ragged KV history in a page pool, softmax in f32, masked past ctx_lens;
+// an all-masked row (ctx 0) returns 0 (the l == 0 -> 1 rule). P stays in
+// f32 for the product with V, as _paged_kernel keeps it (:98-103). The
+// JAX package's gather path, paged_attention_xla (:52-72), and the port's
+// plain version (ops/paged_attention.py paged_attention_reference, its
+// port) round the probabilities to V's type instead: a difference between
+// the reference's two functions, inside the bf16 tolerance (2e-2), which
+// the port keeps as it is. The split-and-merge plain version,
+// paged_attention_split_reference, keeps P in f32 as this kernel does.
 //
 // Layouts (row-major, contiguous):
 //   q          [S, H, d]        f32
-//   k/v pages  [P, ps, H, d]    f32 or bf16 (template T)
+//   k/v pages  [P, ps, H, d]    f32 or bf16 (template T), 16-byte aligned
 //   page_table [S, M]           int32, every entry a valid pool index
 //   ctx_lens   [S]              int32
 //   out        [S, H, d]        f32
+//   part       [S, H, splits, d + 2] f32 workspace (m, l, acc[d]) when
+//              splits > 1
+//   tickets    [S, H] int32, zero before the launch and zero again after
+//              it (the last block of a (slot, head) resets its own), when
+//              splits > 1
+// d <= 128 with d * sizeof(T) a multiple of 16; ps <= 128.
 //
-// Design: one block per (slot, head), 4 warps, each lane owning
-// head dimensions lane, lane+32, ... (d <= 128). Warp w walks its own
-// page stream (pages w, w+4, ...) below ceil(ctx/ps), reading the page
-// indices itself from page_table (the TPU kernel scalar-prefetched
-// them): per page it scores the tokens (lane partial dot products +
-// xor-shuffle sums, a fixed order), rescales its running max / sum /
-// accumulator once, and adds p_t * v_t. No block barrier per page; the
-// four warps' (max, sum, acc) merge once at the end in warp order.
+// Bound on this card: bytes. A call must read the K and V rows of the
+// ctx tokens of every (slot, head) once: 2 * sum(ctx) * H * d *
+// sizeof(T), against 4 flops a byte in f32. At the serving shape (S = 8,
+// H = 16, d = 128, ps = 16, ctx 1..2048, 6,143 tokens) that is 100.6 MB
+// in f32: 0.030 ms at 3.35 TB/s (0.015 ms in bf16).
 //
-// Bound on this card: bytes. Each call must read q, the K and V rows
-// of the ctx tokens of every (slot, head), the tables and write out:
-// about 2 * sum(ctx) * H * d * sizeof(T) bytes, against a handful of
-// flops per byte. At the serving shapes (S=8, H=16, d=128, f32 cache,
-// ctx up to 2048) that is at most 268 MB, i.e. 80 us at 3.35 TB/s.
+// Design. The TPU kernel walks a slot's pages in order on one core; here
+// that walk would put a (slot, head) on one SM and let the longest slot
+// set the time. So the context is split:
+//   * Grid (S, H, splits). Block (s, h, j) takes the pages [j * pps,
+//     (j + 1) * pps) of slot s, head h. pps comes from the host
+//     (ops/paged_attention.py paged_splits: M, S, H and the SM count,
+//     never ctx_lens, which live on the device), so the launch needs no
+//     host sync. A block streams its pages at about one SM's share of the
+//     card's bandwidth (issuing the copies, not the arithmetic, sets its
+//     pace), so the split aims at twelve blocks an SM for a full table:
+//     the longest slot's pages then spread over many SMs. A block past
+//     its slot's last page writes an empty partial (m = -1e30, l = 0,
+//     acc = 0) and exits.
+//   * The block's page indices are read into shared memory once, so a
+//     chunk's copies wait on no dependent global load.
+//   * Inside a block, its tokens stream through shared memory in chunks
+//     of 16: each chunk's K and V rows of head h (d * sizeof(T)
+//     contiguous bytes each, H * d apart) arrive by 16-byte cp.async into
+//     a ring of 4 stages, 3 chunks in flight while one is used (3 pages
+//     at ps = 16). Tokens past the block's end or ctx are zero-filled.
+//   * Scores: a warp scores 4 tokens at once, 8 lanes a token, each lane
+//     reading 16-byte vectors of its token's K row (lane j of a group
+//     takes vectors j, j + 8, ...) against its slice of q held in
+//     registers, then a 3-step shuffle sum in the group.
+//   * Softmax in f32 over the block's tokens, chunk by chunk (running
+//     max, rescaled sum and accumulator), masked past ctx. Every warp
+//     forms a chunk's 16 probabilities itself, one exp a lane with
+//     butterfly max and sum (no third barrier, no exp repeated by every
+//     thread); thread i < d owns dimension i of P V and adds p_t *
+//     v_t[i], even and odd tokens in two chains.
+//   * Merge. With one split the block normalises and writes out itself.
+//     Otherwise it writes (m, l, acc) to the workspace, takes a ticket of
+//     its (slot, head), and the last of the splits to arrive combines
+//     them in split order (a thread per dimension), as the SIMT
+//     sub-blocks finish their rows: no second launch. The only atomic is
+//     the ticket; every sum runs in a fixed order, so reruns give the
+//     same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxDim = 128;   // head dim bound: 4 dims per lane
-constexpr int kDimPerLane = kMaxDim / 32;
-constexpr int kMaxPage = 128;  // score buffer bound (page_size)
+constexpr int kMaxDim = 128;   // head dim bound: one P V dimension a thread
+constexpr int kMaxPage = 128;
+constexpr int kChunk = 16;     // tokens a stage: 4 warps x 4 tokens
+constexpr int kStages = 4;     // ring of chunks: 3 in flight
+constexpr int kGroup = 8;      // lanes scoring one token
+constexpr int kMaxSmem = 232448;  // the opt-in maximum of an H100 block
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -43,122 +89,296 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
+// The elements of one 16-byte vector as f32.
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  static constexpr int kElems = 4;
+  __device__ __forceinline__ static void load(const float* p, float* o) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    o[0] = t.x, o[1] = t.y, o[2] = t.z, o[3] = t.w;
+  }
+};
+template <>
+struct Vec<__nv_bfloat16> {
+  static constexpr int kElems = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
+                                              float* o) {
+    const uint4 t = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 b =
+          *reinterpret_cast<const __nv_bfloat162*>(&w[i]);
+      o[2 * i] = __low2float(b), o[2 * i + 1] = __high2float(b);
+    }
+  }
+};
+
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The end of block (sh = slot * H + head, split sp) with its running
+// max m, sum l and thread tid's dimension acc of P V. One split: the
+// block normalises and writes out. Otherwise it writes (m, l, acc) to
+// the workspace and takes a ticket; the last of the splits to arrive
+// combines all of them in split order (reading the others' partials from
+// L2 after the fence) and resets the ticket for the next call. Called
+// by the whole block (it holds barriers); *last is a shared word.
+__device__ __forceinline__ void finish(float m, float l, float acc,
+                                       float* __restrict__ out,
+                                       float* __restrict__ part,
+                                       int* __restrict__ tickets, size_t sh,
+                                       int d, int splits, int sp,
+                                       int* last) {
+  const int tid = threadIdx.x;
+  if (splits == 1) {
+    if (tid < d) out[sh * d + tid] = acc / (l == 0.f ? 1.f : l);
+    return;
+  }
+  float* pp = part + sh * splits * (d + 2);
+  if (tid == 0) pp[sp * (d + 2)] = m, pp[sp * (d + 2) + 1] = l;
+  if (tid < d) pp[sp * (d + 2) + 2 + tid] = acc;
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) *last = atomicAdd(&tickets[sh], 1) == splits - 1;
+  __syncthreads();
+  if (!*last) return;
+  __threadfence();
+  if (tid == 0) tickets[sh] = 0;
+  if (tid >= d) return;
+  float m_tot = kNeg;
+  for (int j = 0; j < splits; ++j)
+    m_tot = fmaxf(m_tot, __ldcg(pp + j * (d + 2)));
+  float l_tot = 0.f, a = 0.f;
+  for (int j = 0; j < splits; ++j) {
+    const float* p = pp + j * (d + 2);
+    const float f = expf(__ldcg(p) - m_tot);
+    l_tot += __ldcg(p + 1) * f;
+    a += __ldcg(p + 2 + tid) * f;
+  }
+  out[sh * d + tid] = a / (l_tot == 0.f ? 1.f : l_tot);
+}
+
+// The ring, the chunk's scores, the block's page indices, then finish's
+// flag.
+template <typename T>
+constexpr int smem_bytes(int d, int pps) {
+  return 2 * kStages * kChunk * d * (int)sizeof(T) + kChunk * 4 + pps * 4 +
+         4;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const float* __restrict__ q,
-                           const T* __restrict__ k_pages,
-                           const T* __restrict__ v_pages,
-                           const int* __restrict__ page_table,
-                           const int* __restrict__ ctx_lens,
-                           float* __restrict__ out, int H, int d, int ps,
-                           int M, float scale) {
-  __shared__ float score_s[kWarps][kMaxPage];
-  __shared__ float m_s[kWarps], l_s[kWarps];
-  __shared__ float acc_s[kWarps][kMaxDim];
-  const int s = blockIdx.x;
-  const int h = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+    paged_split_kernel(const float* __restrict__ q,
+                       const T* __restrict__ k_pages,
+                       const T* __restrict__ v_pages,
+                       const int* __restrict__ page_table,
+                       const int* __restrict__ ctx_lens,
+                       float* __restrict__ out, float* __restrict__ part,
+                       int* __restrict__ tickets, int H, int d, int ps,
+                       int M, int pps, float scale) {
+  constexpr int VE = Vec<T>::kElems;                // elements a vector
+  constexpr int R = kMaxDim / VE / kGroup;          // vectors a lane, max
+  // 16-byte pieces of a chunk's K (or V) rows a thread copies, at most
+  constexpr int PIECES = kChunk * (kMaxDim / VE) / kThreads;
+  extern __shared__ __align__(16) uint8_t smem[];
+  T* kring = reinterpret_cast<T*>(smem);
+  T* vring = kring + kStages * kChunk * d;
+  float* sc = reinterpret_cast<float*>(vring + kStages * kChunk * d);
+  int* pages = reinterpret_cast<int*>(sc + kChunk);
+  int* last = pages + pps;
 
-  const size_t qo = ((size_t)s * H + h) * d;
-  float qr[kDimPerLane], acc[kDimPerLane];
-#pragma unroll
-  for (int j = 0; j < kDimPerLane; ++j) {
-    const int i = lane + 32 * j;
-    qr[j] = i < d ? q[qo + i] : 0.f;
-    acc[j] = 0.f;
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = lane % kGroup, tt = lane / kGroup;
+  const int nv = d / VE;                            // vectors a row
+  const size_t sh = (size_t)s * H + h, qo = sh * d;
+
+  const int ctx = max(0, min(ctx_lens[s], M * ps));
+  const int t0 = sp * pps * ps;
+  const int t1 = min(ctx, t0 + pps * ps);
+  if (t0 >= t1) {  // nothing of this slot in this split: an empty partial
+    finish(kNeg, 0.f, 0.f, out, part, tickets, sh, d, splits, sp, last);
+    return;
   }
 
-  const int ctx = ctx_lens[s];
-  int n_pages = ctx > 0 ? (ctx + ps - 1) / ps : 0;
-  if (n_pages > M) n_pages = M;
-  const size_t tok_stride = (size_t)H * d;
-  const size_t page_stride = (size_t)ps * tok_stride;
-  float* sc = score_s[warp];
-
-  float m_run = kNeg, l_run = 0.f;
-  for (int m = warp; m < n_pages; m += kWarps) {
-    const size_t base =
-        (size_t)page_table[(size_t)s * M + m] * page_stride + (size_t)h * d;
-    const T* kb = k_pages + base;
-    const T* vb = v_pages + base;
-    const int valid = min(ps, ctx - m * ps);   // tokens of this page < ctx
-    float pmax = kNeg;
-    for (int t = 0; t < valid; ++t) {
-      float part = 0.f;
+  float qr[R][VE];
 #pragma unroll
-      for (int j = 0; j < kDimPerLane; ++j) {
-        const int i = lane + 32 * j;
-        if (i < d) part += qr[j] * to_f32(kb[t * tok_stride + i]);
-      }
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      part *= scale;
-      if (lane == 0) sc[t] = part;
-      pmax = fmaxf(pmax, part);
-    }
-    __syncwarp();
-    const float m_new = fmaxf(m_run, pmax);
-    const float alpha = expf(m_run - m_new);
-    l_run *= alpha;
+  for (int r = 0; r < R; ++r) {
+    const int v = j + kGroup * r;
 #pragma unroll
-    for (int j = 0; j < kDimPerLane; ++j) acc[j] *= alpha;
-    for (int t = 0; t < valid; ++t) {
-      const float p = expf(sc[t] - m_new);
-      l_run += p;
-#pragma unroll
-      for (int j = 0; j < kDimPerLane; ++j) {
-        const int i = lane + 32 * j;
-        if (i < d) acc[j] += p * to_f32(vb[t * tok_stride + i]);
-      }
-    }
-    m_run = m_new;
-    __syncwarp();   // sc is rewritten by the next page
+    for (int e = 0; e < VE; ++e)
+      qr[r][e] = v < nv ? q[qo + v * VE + e] : 0.f;
   }
 
-  if (lane == 0) {
-    m_s[warp] = m_run;
-    l_s[warp] = l_run;
-  }
-#pragma unroll
-  for (int j = 0; j < kDimPerLane; ++j) acc_s[warp][lane + 32 * j] = acc[j];
+  // the block's page indices, read once: a chunk's copies then wait on
+  // shared memory, not on a dependent global load each
+  const int p0 = sp * pps;
+  for (int i = tid; i < (t1 - t0 + ps - 1) / ps; i += kThreads)
+    pages[i] = page_table[(size_t)s * M + p0 + i];
   __syncthreads();
-  const int i = threadIdx.x;
-  if (i < d) {
-    float m_tot = kNeg;
-    for (int w = 0; w < kWarps; ++w) m_tot = fmaxf(m_tot, m_s[w]);
-    float l_tot = 0.f, a_tot = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_s[w] - m_tot);
-      l_tot += l_s[w] * f;
-      a_tot += acc_s[w][i] * f;
-    }
-    out[qo + i] = a_tot / (l_tot == 0.f ? 1.f : l_tot);
+
+  // the pieces this thread copies of every chunk: token and vector
+  int tok_of[PIECES], v_of[PIECES];
+#pragma unroll
+  for (int i = 0; i < PIECES; ++i) {
+    const int p = tid + i * kThreads;
+    tok_of[i] = p < kChunk * nv ? p / nv : kChunk;  // kChunk: no piece
+    v_of[i] = p - tok_of[i] * nv;
   }
+  const size_t tok_stride = (size_t)H * d;
+  const int n_chunks = (t1 - t0 + kChunk - 1) / kChunk;
+  auto issue = [&](int c) {
+    const int base = c * kChunk;                    // from t0
+    T* ks = kring + (c % kStages) * kChunk * d;
+    T* vs = vring + (c % kStages) * kChunk * d;
+    size_t off[PIECES];
+    bool ok[PIECES];
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i) {
+      const int t = base + tok_of[i];
+      ok[i] = tok_of[i] < kChunk && t0 + t < t1;
+      off[i] = ok[i] ? ((size_t)pages[t / ps] * ps + t % ps) * tok_stride +
+                           (size_t)h * d + v_of[i] * VE
+                     : 0;
+    }
+#pragma unroll
+    for (int i = 0; i < PIECES; ++i)
+      if (tok_of[i] < kChunk) {
+        const int dst = tok_of[i] * d + v_of[i] * VE;
+        cp16(ks + dst, k_pages + off[i], ok[i]);
+        cp16(vs + dst, v_pages + off[i], ok[i]);
+      }
+  };
+#pragma unroll
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < n_chunks) issue(c);
+    commit();
+  }
+
+  float m_run = kNeg, l_run = 0.f, acc = 0.f;
+  for (int c = 0; c < n_chunks; ++c) {
+    // chunk c has landed; every thread is done with chunk c - 1's stage
+    // (the one refilled next) and with the scores
+    wait_pending<kStages - 2>();
+    __syncthreads();
+    if (c + kStages - 1 < n_chunks) issue(c + kStages - 1);
+    commit();
+
+    const int base = t0 + c * kChunk;
+    const T* ks = kring + (c % kStages) * kChunk * d;
+    const T* vs = vring + (c % kStages) * kChunk * d;
+    {
+      const int tok = warp * (32 / kGroup) + tt;
+      float dot = 0.f;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int v = j + kGroup * r;
+        if (v < nv) {
+          float kv[VE];
+          Vec<T>::load(ks + tok * d + v * VE, kv);
+#pragma unroll
+          for (int e = 0; e < VE; ++e) dot += qr[r][e] * kv[e];
+        }
+      }
+#pragma unroll
+      for (int off = kGroup / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (j == 0) sc[tok] = base + tok < t1 ? dot * scale : kNeg;
+    }
+    __syncthreads();
+
+    // every warp forms the chunk's probabilities itself, lane k for
+    // token k: one exp a lane and butterfly max / sum (the same numbers
+    // in every warp, in a fixed order), then each thread's dimension of
+    // P V from the lanes' p by shuffle
+    const float sk = lane < kChunk ? sc[lane] : kNeg;
+    float cmax = sk;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+    const float m_new = fmaxf(m_run, cmax);
+    const float alpha = expf(m_run - m_new);
+    const float pk =
+        lane < kChunk && base + lane < t1 ? expf(sk - m_new) : 0.f;
+    float psum = pk;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l_run = l_run * alpha + psum;
+    float a0 = 0.f, a1 = 0.f;  // even and odd tokens: two short chains
+#pragma unroll
+    for (int k = 0; k < kChunk; k += 2) {
+      const float p0 = __shfl_sync(0xffffffffu, pk, k);
+      const float p1 = __shfl_sync(0xffffffffu, pk, k + 1);
+      if (tid < d) {
+        a0 += p0 * to_f32(vs[k * d + tid]);
+        a1 += p1 * to_f32(vs[(k + 1) * d + tid]);
+      }
+    }
+    acc = acc * alpha + (a0 + a1);
+    m_run = m_new;
+  }
+  wait_pending<0>();  // the trailing (empty) groups
+  finish(m_run, l_run, acc, out, part, tickets, sh, d, splits, sp, last);
+}
+
+template <typename T>
+int run(const float* q, const void* k_pages, const void* v_pages,
+        const int* page_table, const int* ctx_lens, float* out, float* part,
+        int* tickets, int S, int H, int d, int ps, int M, int pps,
+        float scale, cudaStream_t st) {
+  if (d * (int)sizeof(T) % 16 != 0) return (int)cudaErrorInvalidValue;
+  auto kern = paged_split_kernel<T>;
+  const int smem = smem_bytes<T>(d, pps);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const int splits = (M + pps - 1) / pps;
+  const dim3 grid(S, H, splits);
+  kern<<<grid, kThreads, smem, st>>>(
+      q, static_cast<const T*>(k_pages), static_cast<const T*>(v_pages),
+      page_table, ctx_lens, out, part, tickets, H, d, ps, M, pps, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// pps: pages a split (ops/paged_attention.py paged_splits); part: the
+// [S, H, ceil(M / pps), d + 2] f32 workspace and tickets: S * H int32
+// zeros (zero again when the launch ends), both unused (may be null) with
+// one split. Launches on one stream may share part and tickets; launches
+// that may overlap may not. Returns a cudaError_t.
 extern "C" int paged_attention_launch(const float* q, const void* k_pages,
                                       const void* v_pages,
                                       const int* page_table,
-                                      const int* ctx_lens, float* out, int S,
-                                      int H, int d, int ps, int M,
+                                      const int* ctx_lens, float* out,
+                                      float* part, int* tickets, int S,
+                                      int H, int d, int ps, int M, int pps,
                                       float scale, int cache_is_bf16,
                                       void* stream) {
-  if (d > kMaxDim || ps > kMaxPage) return (int)cudaErrorInvalidValue;
-  const dim3 grid(S, H);
+  if (S < 1 || H < 1 || d < 1 || d > kMaxDim || ps < 1 || ps > kMaxPage ||
+      M < 1 || pps < 1 ||
+      ((M + pps - 1) / pps > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cache_is_bf16) {
-    paged_attention_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        q, static_cast<const __nv_bfloat16*>(k_pages),
-        static_cast<const __nv_bfloat16*>(v_pages), page_table, ctx_lens,
-        out, H, d, ps, M, scale);
-  } else {
-    paged_attention_kernel<float><<<grid, kThreads, 0, st>>>(
-        q, static_cast<const float*>(k_pages),
-        static_cast<const float*>(v_pages), page_table, ctx_lens, out, H, d,
-        ps, M, scale);
-  }
-  return (int)cudaGetLastError();
+  if (cache_is_bf16)
+    return run<__nv_bfloat16>(q, k_pages, v_pages, page_table, ctx_lens, out,
+                              part, tickets, S, H, d, ps, M, pps, scale, st);
+  return run<float>(q, k_pages, v_pages, page_table, ctx_lens, out, part,
+                    tickets, S, H, d, ps, M, pps, scale, st);
 }

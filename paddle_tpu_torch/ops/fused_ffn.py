@@ -2,12 +2,20 @@
 ``paddle_tpu/ops/pallas_ffn.py``, B row 10).
 
   * ``fused_ffn(x, w1, b1, w2, b2, act_name="gelu")`` on x [..., H]: a
-    ``torch.autograd.Function``. CUDA tensors launch the kernel of
-    ``csrc/fused_ffn.cu`` (the (M, I) intermediate stays on chip) or the
-    call raises; CPU tensors take ``ffn_reference``. The backward is the
+    ``torch.autograd.Function``. CUDA tensors launch the kernels of
+    ``csrc/fused_ffn.cu`` on the route ``ffn_route`` picks, or the call
+    raises; CPU tensors take ``ffn_reference``. The backward is the
     reference's own (``_fused_ffn_bwd``): a composed f32 recompute of the
     chain under autograd, with the activation's formula but without the
     rounding of hid, each gradient cast to its input's type.
+  * ``ffn_route(dtype, m, h, i, ptrs, sms)`` — the route of a call, by
+    the rules of rows 2-3 (``fused_block.tc_route``, ``ffma_route``,
+    ``ffma_tiles``): "tc" (bf16, H and I multiples of 64, 16-byte
+    aligned: two wgmma products, hid through device memory in bf16),
+    "ffma" (f32 from 128 rows at such widths: two register-tiled FFMA
+    products, hid in f32, each on its own tile) or "simt" (everything
+    else: one launch, hid kept on chip). Each call counts under
+    ``fused_ffn`` and ``fused_ffn.<route>``.
   * ``ffn_reference`` — the plain version of the kernel: a = x @ W1 + b1
     in f32, hid = act(a) rounded to x's type, y = hid @ W2 + b2 in f32,
     rounded to x's type (pallas_ffn.py:124-140).
@@ -20,8 +28,9 @@
   * ``ffn_wins`` is True: the measured per-shape arbitration is the
     autobench gate (ROADMAP.md A, item 3).
 
-The kernel takes float32 or bfloat16 (one type for x, the weights and the
-biases), any M >= 1, H and I >= 1.
+The kernels take float32 or bfloat16 (one type for x, the weights and the
+biases), any M >= 1, H and I >= 1 (the tc and ffma routes only widths
+that are multiples of 64).
 """
 from __future__ import annotations
 
@@ -31,10 +40,12 @@ import os
 import torch
 
 from . import _build
-from ._launch import _check, _dtype_code, _raise_if, _route
-from .fused_block import ACTS, _grads_of
+from ._launch import _check, _dtype_code, _route
+from .fused_block import (_FFMA_TILES, ACTS, _grads_of, _run, _sms,
+                          ffma_route, ffma_tiles, tc_route)
 
-__all__ = ["fused_ffn", "ffn_reference", "can_use_fused_ffn", "ffn_wins"]
+__all__ = ["fused_ffn", "ffn_reference", "can_use_fused_ffn", "ffn_wins",
+           "ffn_route"]
 
 
 def can_use_fused_ffn(m: int, h: int, i: int, itemsize: int = 4) -> bool:
@@ -72,6 +83,19 @@ def _chain_f32(x2, w1, b1, w2, b2, act_name):
     return _act(act_name)[1](x2 @ w1 + b1) @ w2 + b2
 
 
+def ffn_route(dtype, m, h, i, ptrs, sms):
+    """(route, tiles) of a fused_ffn call on x (m, h) with I = i, whose
+    tensors sit at the addresses `ptrs`, on a card of `sms`
+    multiprocessors: ("tc", None), ("ffma", (tile of the (m, i) product,
+    tile of the (m, h) product)) or ("simt", None). Pure: the wrapper
+    asks it before the launch, nothing is tried and caught."""
+    if tc_route(dtype, (h, i), ptrs):
+        return "tc", None
+    if ffma_route(dtype, m, (h, i), ptrs):
+        return "ffma", (ffma_tiles(m, i, sms), ffma_tiles(m, h, sms))
+    return "simt", None
+
+
 def _ffn_kernel(x2, w1, b1, w2, b2, act_name):
     m, hd = x2.shape
     i = w1.shape[1]
@@ -84,15 +108,30 @@ def _ffn_kernel(x2, w1, b1, w2, b2, act_name):
                          f"{tuple(w1.shape)}, b1 {tuple(b1.shape)}, w2 "
                          f"{tuple(w2.shape)}, b2 {tuple(b2.shape)}")
     act_code = _act(act_name)[0]
+    _build.library("fused_ffn")  # built (or raising) before the card is asked
     y = torch.empty_like(x2)
-    fn = _build.function("fused_ffn", "fused_ffn_launch", 6, 5,
-                         (ctypes.c_void_p,))
-    stream = torch.cuda.current_stream(x2.device).cuda_stream
-    with torch.cuda.device(x2.device):
-        err = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), y.data_ptr(), m, hd, i, code, act_code, stream)
-    _raise_if(err, "fused_ffn")
+    ptrs = [t.data_ptr() for t in (x2, w1, b1, w2, b2)]
+    route, tiles = ffn_route(x2.dtype, m, hd, i, ptrs,
+                             _sms(x2.device.index))
+    args = [t.data_ptr() for t in (x2, w1, b1, w2, b2, y)]
+    if route == "tc":
+        hid = torch.empty((m, i), dtype=x2.dtype, device=x2.device)
+        fn = _build.function("fused_ffn", "fused_ffn_tc_launch", 7, 4,
+                             (ctypes.c_void_p,))
+        _run(x2.device, "fused_ffn", fn, *args, hid.data_ptr(), m, hd, i,
+             act_code)
+    elif route == "ffma":
+        hid = torch.empty((m, i), dtype=torch.float32, device=x2.device)
+        fn = _build.function("fused_ffn", "fused_ffn_ffma_launch", 7, 6,
+                             (ctypes.c_void_p,))
+        _run(x2.device, "fused_ffn", fn, *args, hid.data_ptr(), m, hd, i,
+             *(_FFMA_TILES.index(t) for t in tiles), act_code)
+    else:
+        fn = _build.function("fused_ffn", "fused_ffn_launch", 6, 5,
+                             (ctypes.c_void_p,))
+        _run(x2.device, "fused_ffn", fn, *args, m, hd, i, code, act_code)
     _build.note_launch("fused_ffn")
+    _build.note_launch(f"fused_ffn.{route}")
     return y
 
 
@@ -114,9 +153,8 @@ class _Ffn(torch.autograd.Function):
 
 
 def fused_ffn(x, w1, b1, w2, b2, act_name="gelu"):
-    """x [..., H] -> [..., H] in x's type; the (M, I) intermediate stays
-    on chip. Differentiable in all five tensors (composed f32
-    backward)."""
+    """x [..., H] -> [..., H] in x's type, on the route ffn_route picks.
+    Differentiable in all five tensors (composed f32 backward)."""
     _act(act_name)
     h = x.shape[-1]
     x2 = x.reshape(-1, h)

@@ -9,13 +9,25 @@ request ("slot") against its own ragged-length history.
     ``paged_attention_xla``: gather each slot's pages into a
     ``[S, M*ps]`` context, mask past ``ctx_len``, softmax. The tests and
     the on-card comparison use it; it runs for CPU tensors.
+  * ``paged_attention_split_reference`` — the kernel's algorithm in
+    tensors: the table's pages cut into splits of ``pages_per_split``,
+    each split's masked softmax kept as (max, sum, P V) with P in f32,
+    the splits combined in split order; a slot with ctx 0 gives 0, as
+    the Pallas kernel's l == 0 -> 1 rule does (the gather path gives
+    the mean of V there).
+  * ``paged_splits(S, H, M, sms)`` — the pages a split of the kernel's
+    grid (S, H, splits) takes, from the table's shape and the card's
+    multiprocessor count alone (never from ctx_lens, which live on the
+    device: the launch needs no host sync).
   * ``paged_attention_decode`` — the entry point. A CPU tensor goes to
     the reference; a CUDA tensor goes to the hand-written kernel in
     ``csrc/paged_attention.cu`` or the call raises.
 
 Layouts:
   q          [S, H, d]        one query token per slot (float32)
-  k/v_pages  [P, ps, H, d]    the page pools (float32 or bfloat16)
+  k/v_pages  [P, ps, H, d]    the page pools (float32 or bfloat16; for
+                              the kernel d * itemsize a multiple of 16
+                              and 16-byte aligned)
   page_table [S, M] int32     pool index of each slot's m-th page
   ctx_lens   [S] int32        valid history length per slot
 Returns     [S, H, d] in q's dtype
@@ -28,12 +40,37 @@ import math
 import torch
 
 from . import _build
+from .fused_block import _sms
 
-__all__ = ["paged_attention_decode", "paged_attention_reference"]
+__all__ = ["paged_attention_decode", "paged_attention_reference",
+           "paged_attention_split_reference", "paged_splits"]
 
 _NEG = -1e30
 _MAX_HEAD_DIM = 128
 _MAX_PAGE = 128
+_BLOCKS_PER_SM = 12     # paged_splits' target of blocks an SM
+# the kernel's split workspace and tickets, kept per (device, stream): the
+# last block of a (slot, head) leaves its ticket at zero again, and calls
+# on one stream never overlap
+_WORK: dict = {}
+
+
+def paged_splits(S: int, H: int, M: int, sms: int) -> int:
+    """Pages per split of the kernel's grid (S, H, ceil(M / pps)) for a
+    page table of M columns on a card of `sms` multiprocessors: enough
+    splits that the grid holds _BLOCKS_PER_SM blocks an SM when every
+    slot's table is full, at most one split a page. A block streams its
+    pages at about one SM's share of the card's bandwidth, so the slot
+    with the longest context sets the time unless its pages are spread
+    over many blocks; ctx_lens cannot tell the host which slot that is.
+    Twelve blocks an SM (three are resident at d = 128 in f32) is the
+    pick that chip_smoke.py's split_ms holds against the other splits,
+    at ctx 1 ... 2048 and with every table full (PERF.md). At 132 SMs,
+    S = 8 and H = 16
+    (GPT-3 XL decode), M = 128 takes 10 pages a split (13 splits); S * H
+    >= 1584 takes one split (nothing to merge)."""
+    splits = max(1, min(M, math.ceil(_BLOCKS_PER_SM * sms / (S * H))))
+    return math.ceil(M / splits)
 
 
 def paged_attention_reference(q, k_pages, v_pages, page_table, ctx_lens,
@@ -53,6 +90,42 @@ def paged_attention_reference(q, k_pages, v_pages, page_table, ctx_lens,
     probs = torch.softmax(logits, dim=-1)
     o = torch.einsum("sht,sthd->shd", probs.to(v.dtype), v)
     return o.to(q.dtype)
+
+
+def paged_attention_split_reference(q, k_pages, v_pages, page_table,
+                                    ctx_lens, pages_per_split, scale=None):
+    """Split-and-merge plain version (the kernel's algorithm in tensors)
+    at `pages_per_split` pages a split (the kernel's is paged_splits'
+    pick for the card)."""
+    S, H, d = q.shape
+    ps = k_pages.shape[1]
+    M = page_table.shape[1]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    pps = pages_per_split
+    ctx = ctx_lens.long().clamp(0, M * ps)
+    qf = q.float()
+    ms, ls, accs = [], [], []
+    for p0 in range(0, M, pps):
+        idx = page_table[:, p0:p0 + pps].long()
+        n = idx.shape[1] * ps
+        k = k_pages[idx].reshape(S, n, H, d).float()
+        v = v_pages[idx].reshape(S, n, H, d).float()
+        logits = torch.einsum("shd,sthd->sht", qf, k) * scale
+        pos = p0 * ps + torch.arange(n, device=q.device)
+        valid = (pos[None, :] < ctx[:, None])[:, None, :]
+        logits = torch.where(valid, logits, torch.full_like(logits, _NEG))
+        m = logits.amax(-1)
+        p = torch.where(valid, torch.exp(logits - m[..., None]),
+                        torch.zeros_like(logits))
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("sht,sthd->shd", p, v))
+    m = torch.stack(ms)
+    f = torch.exp(m - m.amax(0))
+    l = (torch.stack(ls) * f).sum(0)
+    acc = (torch.stack(accs) * f[..., None]).sum(0)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    return (acc / l[..., None]).to(q.dtype)
 
 
 def _check(q, k_pages, v_pages, page_table, ctx_lens):
@@ -90,21 +163,48 @@ def _check(q, k_pages, v_pages, page_table, ctx_lens):
     if d > _MAX_HEAD_DIM or ps > _MAX_PAGE:
         raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and "
                          f"page_size <= {_MAX_PAGE}, got {d}, {ps}")
+    if d * k_pages.element_size() % 16:
+        raise ValueError(f"kernel copies K/V rows in 16-byte pieces: "
+                         f"head_dim {d} of {k_pages.dtype} is "
+                         f"{d * k_pages.element_size()} bytes")
+
+
+def _workspace(device, stream, n_part, n_tickets):
+    """Addresses of the split workspace (n_part f32) and the tickets
+    (n_tickets int32, zero between calls) of `stream`, grown when short;
+    None (null) where nothing is needed."""
+    key = (device.index, stream)
+    part, tickets = _WORK.get(key, (None, None))
+    if n_part and (part is None or part.numel() < n_part):
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if n_tickets and (tickets is None or tickets.numel() < n_tickets):
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
+    _WORK[key] = (part, tickets)
+    return (part.data_ptr() if n_part else None,
+            tickets.data_ptr() if n_tickets else None)
 
 
 def _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale):
     _check(q, k_pages, v_pages, page_table, ctx_lens)
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("kernel copies K/V rows in 16-byte pieces: the "
+                         "page pools must be 16-byte aligned")
     S, H, d = q.shape
     ps = k_pages.shape[1]
     M = page_table.shape[1]
-    out = torch.empty_like(q)
-    fn = _build.function("paged_attention", "paged_attention_launch", 6, 5,
+    fn = _build.function("paged_attention", "paged_attention_launch", 8, 6,
                          (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
+    pps = paged_splits(S, H, M, _sms(q.device.index))
+    splits = math.ceil(M / pps)
+    out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    part, tickets = _workspace(q.device, stream,
+                               S * H * splits * (d + 2) if splits > 1 else 0,
+                               S * H if splits > 1 else 0)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-                 S, H, d, ps, M, float(scale),
+                 part, tickets, S, H, d, ps, M, pps, float(scale),
                  int(k_pages.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA "

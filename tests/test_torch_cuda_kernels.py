@@ -17,7 +17,13 @@ flash kernels' two routes in bf16 at the GPT-3 XL, BERT-base, T = 192
 and D = 64 causal shapes, against plain versions that round P and dS
 where the reference does (at most 1% of the elements another bf16
 number), dropout masks bit-equal on the tensor cores, reruns
-bit-identical, and the route by dtype, head dim and alignment.
+bit-identical, and the route by dtype, head dim and alignment; the
+split-context paged-attention kernel at d 64 / 128, ps 16 / 32 / 128 and
+ctx 0, 1, ps, ps + 1, inside a split and the whole table, against both
+plain versions, reruns bit-identical; fused_ffn on its tensor-core and
+FFMA routes (every activation, ragged M, reruns bit-identical), its bias
+epilogue bit-equal to fused_ffn_ln's residual one with a zero residual
+(the GEMM cores both files share), and the calls that stay on SIMT.
 
 Needs a CUDA card: each test skips without one (the `dev` fixture
 decides, at run time). On the card, run
@@ -70,6 +76,83 @@ def test_paged_attention_kernel_matches_plain(dev, cache, d, ps):
     assert _build.launch_counts()["paged_attention"] == before + 1
     tol = 2e-5 if cache == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# ctx 0, 1, one page, one page + 1, a slot that ends inside a split (with
+# three pages a split: page 3 is the first of split 1), and the whole table
+def _split_ctx(ps, M):
+    return (0, 1, ps, ps + 1, 3 * ps + 3, M * ps)
+
+
+@pytest.mark.parametrize("cache", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps", [16, 32, 128])
+@pytest.mark.parametrize("d", [64, 128])
+def test_paged_attention_split_kernel_matches_plain(dev, cache, d, ps):
+    """The split-context kernel (S = 6, H = 16: paged_splits gives three
+    pages a split of the 40-page table at 132 SMs) against the split
+    plain version on every slot, ctx 0 included (0 out), within 2e-5 for
+    both caches (it keeps P in f32, as the kernel does), and against the
+    gather plain version on the slots with ctx > 0 (2e-5 in f32, 2e-2
+    with a bf16 cache: it rounds P to bf16); one launch a call, the same
+    bits when run again, and every ticket back at zero."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops.fused_block import _sms
+    from paddle_tpu_torch.ops.paged_attention import (
+        _WORK, paged_attention_decode, paged_attention_reference,
+        paged_attention_split_reference, paged_splits)
+    S, H, M = 6, 16, 40
+    P = S * M
+    g = _g(3)
+    q = torch.randn(S, H, d, generator=g, device=dev)
+    k = torch.randn(P + 1, ps, H, d, generator=g, device=dev).to(cache)
+    v = torch.randn(P + 1, ps, H, d, generator=g, device=dev).to(cache)
+    ctx = torch.tensor(_split_ctx(ps, M), dtype=torch.int32, device=dev)
+    pt = torch.randperm(P, generator=g, device=dev).reshape(S, M)
+    pt = pt.to(torch.int32).contiguous()
+    for s in range(S):
+        pt[s, math.ceil(int(ctx[s]) / ps):] = P          # trash padding
+    pps = paged_splits(S, H, M, _sms(dev.index or 0))
+    assert math.ceil(M / pps) > 1
+    before = _build.launch_counts().get("paged_attention", 0)
+    got = paged_attention_decode(q, k, v, pt, ctx)
+    again = paged_attention_decode(q, k, v, pt, ctx)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["paged_attention"] == before + 2
+    assert torch.equal(got, again)
+    assert not any(t.any() for _, t in _WORK.values() if t is not None)
+    split = paged_attention_split_reference(q, k, v, pt, ctx,
+                                            pages_per_split=pps)
+    torch.testing.assert_close(got, split, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    tol = 2e-5 if cache == torch.float32 else 2e-2
+    gather = paged_attention_reference(q, k, v, pt, ctx)
+    torch.testing.assert_close(got[1:], gather[1:], atol=tol, rtol=tol)
+
+
+def test_paged_attention_one_split(dev):
+    """2048 (slot, head) pairs fill a 132-SM card alone: one split,
+    nothing to merge, the block normalises and writes out itself."""
+    from paddle_tpu_torch.ops.fused_block import _sms
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_split_reference,
+        paged_splits)
+    S, H, d, ps, M = 64, 32, 64, 16, 8
+    P = S * M
+    g = _g(4)
+    q = torch.randn(S, H, d, generator=g, device=dev)
+    k = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
+    v = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
+    ctx = torch.randint(0, M * ps + 1, (S,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pt = torch.randperm(P, generator=g, device=dev).reshape(S, M)
+    pt = pt.to(torch.int32).contiguous()
+    pps = paged_splits(S, H, M, _sms(dev.index or 0))
+    if _sms(dev.index or 0) <= 170:
+        assert pps == M
+    got = paged_attention_decode(q, k, v, pt, ctx)
+    want = paged_attention_split_reference(q, k, v, pt, ctx, pps)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, paged_attention_decode(q, k, v, pt, ctx))
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 256, 64), (8, 2048, 2048),
@@ -766,6 +849,106 @@ def test_fused_ffn_kernel_matches_plain(dev, m, h, i, dt, act):
     assert torch.equal(got, again)
     tol = 1e-4 if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,h,i", [(300, 768, 3072), (64, 2048, 512),
+                                   (33, 4096, 256)])
+def test_fused_ffn_simt_column_tiles_misaligned(dev, m, h, i, dt, act):
+    """The wide-H shapes of test_fused_ffn_kernel_matches_plain with x 8
+    bytes off a 16-byte boundary, so that both dtypes take the SIMT
+    kernel and its H column tiles, which the aligned bf16 (and 300-row
+    f32) calls no longer reach: within tolerance of the plain version,
+    identical bits when run again."""
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
+    args = _ffn_args(dev, 16, m, h, i, dt)
+    shift = _misaligned_f32 if dt == torch.float32 else _misaligned
+    off = (shift(args[0]), *args[1:])
+    got, routes = _counted("fused_ffn", lambda: fused_ffn(*off, act))
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert torch.equal(got, fused_ffn(*off, act))
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ffn_reference(*args, act).float(),
+                               atol=tol, rtol=tol)
+
+
+FFN_ROUTE_CASES = [  # m, h, i, dtype, route
+    (8192, 768, 3072, torch.float32, "ffma"),    # the static FFN preset
+    (200, 768, 3072, torch.float32, "ffma"),     # M not a tile multiple
+    (300, 128, 512, torch.float32, "ffma"),
+    (1000, 256, 1024, torch.bfloat16, "tc"),
+    (37, 192, 320, torch.bfloat16, "tc"),        # TMA zero-fills past M
+    (1024, 2048, 8192, torch.bfloat16, "tc"),    # GPT-3 XL width
+]
+
+
+def _ffn_args(dev, seed, m, h, i, dt):
+    g = _g(seed)
+    return (torch.randn(m, h, generator=g, device=dev).to(dt),
+            (torch.randn(h, i, generator=g, device=dev) * 0.05).to(dt),
+            (torch.randn(i, generator=g, device=dev) * 0.1).to(dt),
+            (torch.randn(i, h, generator=g, device=dev) * 0.05).to(dt),
+            (torch.randn(h, generator=g, device=dev) * 0.1).to(dt))
+
+
+@pytest.mark.parametrize("act", ["gelu", "gelu_tanh", "relu"])
+@pytest.mark.parametrize("m,h,i,dt,route", FFN_ROUTE_CASES)
+def test_fused_ffn_routes_match_plain(dev, m, h, i, dt, route, act):
+    """fused_ffn on its tensor-core (bf16) and FFMA (f32 from 128 rows)
+    routes: one launch of the expected route, within tolerance of
+    ffn_reference (f32 1e-4 + 1e-4 |ref|: sums of up to 8192 terms in
+    another order; bf16 2e-2 + 2e-2 |ref|: hid and y rounded once each
+    on both sides), and the same bits when run again."""
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
+    args = _ffn_args(dev, 12, m, h, i, dt)
+    got, routes = _counted("fused_ffn", lambda: fused_ffn(*args, act))
+    assert routes == {r: int(r == route) for r in ("tc", "simt", "ffma")}
+    want = ffn_reference(*args, act)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(got, fused_ffn(*args, act))
+
+
+@pytest.mark.parametrize("m,h,i,dt", [(256, 768, 3072, torch.float32),
+                                      (1000, 256, 1024, torch.bfloat16)])
+def test_fused_ffn_bias_epilogue_equals_the_residual_one(dev, m, h, i, dt):
+    """fused_ffn's down product (epilogue MODE 2: bias, no residual, no
+    dropout) gives the bits of fused_ffn_ln's (MODE 1) with a zero
+    residual, norm "none" and p = 0, on the same route and tiles: the
+    GEMM cores the two files share compute one function."""
+    from paddle_tpu_torch.ops.fused_block import fused_ffn_ln
+    from paddle_tpu_torch.ops.fused_ffn import fused_ffn
+    args = _ffn_args(dev, 13, m, h, i, dt)
+    y, r1 = _counted("fused_ffn", lambda: fused_ffn(*args, "gelu_tanh"))
+    z, r2 = _counted("fused_ffn_ln", lambda: fused_ffn_ln(
+        *args, torch.zeros_like(args[0])))
+    assert r1 == r2 and r1["simt"] == 0
+    assert torch.equal(y, z)
+
+
+def test_fused_ffn_routes_by_dtype_rows_width_and_alignment(dev):
+    """f32 under 128 rows, H not a multiple of 64 and a misaligned x take
+    the SIMT kernel, still within tolerance of the plain version."""
+    from paddle_tpu_torch.ops.fused_ffn import ffn_reference, fused_ffn
+    for m, h, i, dt in ((64, 768, 3072, torch.float32),
+                        (256, 96, 512, torch.float32),
+                        (256, 96, 512, torch.bfloat16)):
+        args = _ffn_args(dev, 14, m, h, i, dt)
+        got, routes = _counted("fused_ffn", lambda: fused_ffn(*args))
+        assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), ffn_reference(*args).float(),
+                                   atol=tol, rtol=tol)
+    for dt in (torch.float32, torch.bfloat16):
+        args = _ffn_args(dev, 15, 256, 768, 3072, dt)
+        shift = _misaligned_f32 if dt == torch.float32 else _misaligned
+        off = (shift(args[0]), *args[1:])
+        got, routes = _counted("fused_ffn", lambda: fused_ffn(*off))
+        assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+        tol = 1e-4 if dt == torch.float32 else 2e-2
+        torch.testing.assert_close(got.float(), ffn_reference(*args).float(),
+                                   atol=tol, rtol=tol)
 
 
 @pytest.mark.parametrize("m,h,sms,want", [

@@ -146,6 +146,26 @@ def test_cuda_tensor_without_card_raises(monkeypatch):
                        *map(torch.from_numpy, _inputs(1, 4, 8)[1:]))
 
 
+@pytest.mark.parametrize("dtype,m,h,i,off,want", [
+    # the static FFN program's preset: both products on FFMA tiles that
+    # fill 97% of their waves at 132 SMs
+    (torch.float32, 8192, 768, 3072, 0, ("ffma", ((128, 128), (128, 64)))),
+    (torch.float32, 2048, 768, 3072, 0, ("ffma", ((128, 64), (64, 64)))),
+    (torch.bfloat16, 8192, 768, 3072, 0, ("tc", None)),
+    (torch.bfloat16, 2048, 768, 3072, 0, ("tc", None)),
+    (torch.bfloat16, 1024, 2048, 8192, 0, ("tc", None)),
+    (torch.float32, 64, 768, 3072, 0, ("simt", None)),     # under 128 rows
+    (torch.float32, 8192, 96, 3072, 0, ("simt", None)),    # H % 64
+    (torch.bfloat16, 1024, 96, 3072, 0, ("simt", None)),
+    (torch.float32, 8192, 768, 3072, 8, ("simt", None)),   # misaligned x
+    (torch.bfloat16, 1024, 2048, 8192, 8, ("simt", None))])
+def test_route_of_each_shape(dtype, m, h, i, off, want):
+    """The route and tiles ffn_route picks before a launch, for the
+    shapes chip_smoke.py runs and the calls that stay on SIMT."""
+    ptrs = [256 + off, 4096, 8192, 16384, 32768]
+    assert port.ffn_route(dtype, m, h, i, ptrs, 132) == want
+
+
 def test_unknown_activation_raises():
     with pytest.raises(ValueError, match="gelu"):
         port.fused_ffn(*map(torch.from_numpy, _inputs(4, 8, 16)), "swish")

@@ -95,7 +95,8 @@ def test_paged_attention_other_devices_raise():
 
 
 @pytest.mark.parametrize("case", ["q_dtype", "cache_dtype", "table_dtype",
-                                  "shape", "contiguous", "head_dim"])
+                                  "shape", "contiguous", "head_dim",
+                                  "row_bytes"])
 def test_kernel_argument_checks(case):
     """What the CUDA kernel does not take raises before any launch (the
     checks are plain Python, exercised here on CPU tensors)."""
@@ -113,6 +114,86 @@ def test_kernel_argument_checks(case):
     elif case == "head_dim":
         q = torch.zeros(4, 2, 256)
         k = v = torch.zeros(13, 8, 2, 256)
+    elif case == "row_bytes":   # 60 bf16 = 120 bytes: not 16-byte rows
+        q = torch.zeros(4, 2, 60)
+        k = v = torch.zeros(13, 8, 2, 60, dtype=torch.bfloat16)
     with pytest.raises((TypeError, ValueError)):
         port._check(q, k, v, pt, ln)
     port._check(*(torch.from_numpy(a) for a in _inputs()))
+
+
+# ---------------------------------------------------------------------------
+# the split-context kernel's algorithm (paged_attention_split_reference) and
+# its split rule (paged_splits)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,H,M,sms,want", [
+    (8, 16, 128, 132, 10),    # GPT-3 XL decode: the serving engine's M
+    (8, 16, 64, 132, 5),      # a 64-page pool
+    (8, 16, 8, 132, 1),       # a short table: one split a page
+    (8, 16, 2, 132, 1),
+    (32, 16, 128, 132, 32),   # 512 (slot, head) pairs: four splits
+    (64, 32, 128, 132, 128),  # 2048 pairs fill the card alone
+    (1, 1, 4, 132, 1),
+    (8, 16, 128, 114, 12)])   # a card of 114 SMs: eleven splits
+def test_paged_splits(S, H, M, sms, want):
+    """Pages a split from the table's shape and the SM count alone:
+    twelve blocks an SM when every table is full, at most one split a
+    page, and no split past the table."""
+    pps = port.paged_splits(S, H, M, sms)
+    assert pps == want
+    splits = -(-M // pps)
+    assert 1 <= splits <= M and (splits - 1) * pps < M
+    assert S * H * splits >= 12 * sms or splits == M
+
+
+def _split_inputs(ps, M, ctx, S=None, H=2, d=64, seed=7):
+    """A table of M pages whose unused tail points at the trash page."""
+    S = len(ctx)
+    return _inputs(S=S, H=H, d=d, P=S * M, ps=ps, M=M, ctx=ctx, seed=seed)
+
+
+# ctx 0, 1, one page, one page + 1, a slot that ends inside a split (with
+# two pages a split: page 3 is the second of split 1), and the whole table
+SPLIT_MIXES = [(8, 6, (0, 1, 8, 9, 27, 48)),
+               (16, 5, (0, 1, 16, 17, 55, 80))]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ref", ["xla", "pallas_interpret"])
+@pytest.mark.parametrize("pps", [1, 2, None])
+@pytest.mark.parametrize("ps,M,ctx", SPLIT_MIXES)
+def test_split_reference_matches_jax(dtype, ref, pps, ps, M, ctx):
+    """The split-and-merge plain version against the Pallas kernel in
+    interpret mode on every slot, and against the gather path on the
+    slots with ctx > 0: the gather path softmaxes an all-masked row into
+    the mean of V, where the Pallas kernel (and the port's kernel) give 0
+    by the l == 0 -> 1 rule. f32 within 2e-5; bf16 within 2e-2 (the
+    gather path rounds the probabilities to bf16, the kernel keeps f32)."""
+    q, k, v, pt, ln = _split_inputs(ps, M, ctx)
+    t, j = _both(q, k, v, pt, ln, dtype)
+    # None: paged_splits' pick for this table on a card of 132 SMs
+    pps = pps or port.paged_splits(q.shape[0], q.shape[1], M, 132)
+    got = port.paged_attention_split_reference(*t, pages_per_split=pps)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    got = got.numpy()
+    if ref == "xla":
+        want = np.asarray(paged_attention_xla(*j))
+        rows = ln > 0
+    else:
+        want = np.asarray(paged_attention_pallas(*j, interpret=True))
+        rows = np.ones_like(ln, dtype=bool)
+        np.testing.assert_array_equal(got[ln == 0], 0.0)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(got[rows], want[rows], atol=tol, rtol=tol)
+
+
+def test_split_reference_is_the_same_for_every_split():
+    """The merge makes the split count a matter of rounding only: one
+    split a page, two, and the whole table in one split agree."""
+    q, k, v, pt, ln = _split_inputs(8, 6, (0, 1, 8, 9, 27, 48), seed=9)
+    t = tuple(map(torch.from_numpy, (q, k, v, pt, ln)))
+    outs = [port.paged_attention_split_reference(*t, pages_per_split=p)
+            for p in (1, 2, 6)]
+    for o in outs[1:]:
+        torch.testing.assert_close(o, outs[0], atol=2e-6, rtol=2e-6)
