@@ -26,13 +26,19 @@ Phases:
      gather one, P rounded to the cache's type like the JAX package's
      paged_attention_xla, within 2e-5 / 2e-2) and device time a call
      beside the SDPA yardstick's), the two sub-blocks at decode (f32,
-     M = 8, the SIMT route) and at the 256-row prefill bucket (f32, the
-     FFMA route, with tile_ms: the time on every output tile, beside
-     the tile ffma_tiles picks), the sub-blocks at the training shape
+     M = 8, the stream route, with device_ms beside the SIMT kernel's on
+     misaligned copies (held to the plain version too) and the library
+     chain's, split_ms: the time at every K split beside stream_splits'
+     pick, and the stream_max_rows sweep: stream against SIMT at 16, 32,
+     64 and 127 rows, the evidence for _STREAM_MAX_ROWS) and at the
+     256-row prefill bucket (f32, the FFMA route, with tile_ms: the time
+     on every output tile, beside the tile ffma_tiles picks), the
+     sub-blocks at the training shape
      (bf16, M = 1024 tokens, the tensor-core route), and the three flash
      kernels at B=1, H=16, T=1024, D=128, causal, in bf16 (the
      tensor-core route) and f32 (SIMT); each sub-block and flash row
-     names the route it took (``tc``, ``ffma`` or ``simt``; a sub-block
+     names the route it took (``tc``, ``ffma``, ``stream`` or ``simt``;
+     a sub-block
      row on another route than its shape's fails), each flash row the
      share of its elements that
      differ from the plain version (bf16: at most 1%), and the bf16 rows
@@ -43,9 +49,10 @@ Phases:
      serves a request mix (greedy, seeded-sampled, and a shared-prefix
      pair that takes prefill_tail); every request must end "done", every
      kernel of the path must have launched, every decode launch of the
-     sub-blocks must take the SIMT route and every prefill launch at a
-     bucket of 128 rows or more the FFMA route (launches by route and
-     kind of call in sub_block_routes), and one greedy request must
+     sub-blocks must take the stream route, every prefill launch below
+     128 rows the route stream_route gives it and every prefill launch
+     at a bucket of 128 rows or more the FFMA route (launches by route
+     and kind of call in sub_block_routes), and one greedy request must
      decode the same tokens when served by the plain versions on the
      card;
   4. train parity — ``HybridParallelTrainStep`` on GPT-3 XL cut to 2
@@ -179,8 +186,8 @@ FLASH_DESIGN = {
     "simt": "SIMT f32 FMA on the CUDA cores, 64 x 64 tiles (32 x 32 at D > "
             "128) in f32 shared memory, 256 threads as a 16 x 16 grid; bf16 "
             "rounds P against a pre-pass row max per reference block"}
-# the three routes of the sub-block kernels (ops/fused_block.py tc_route,
-# ffma_route)
+# the four routes of the sub-block kernels (ops/fused_block.py tc_route,
+# ffma_route, stream_route)
 DESIGN = {
     "tc": "tensor cores: wgmma m64n128k16 bf16 (f32 sums) on a 6-stage "
           "ring of 128B-swizzled tiles filled by TMA, 1 producer thread + 2 "
@@ -194,6 +201,16 @@ DESIGN = {
             "3-stage cp.async ring of k = 32, no split over K, the epilogue "
             "fused; fused_ffn_ln passes hid through device memory in f32 "
             "(two product launches); the LN is a row-kernel launch",
+    "stream": "f32 weight streaming on the CUDA cores (f32, 1 to "
+              "_STREAM_MAX_ROWS rows: decode, short prefills; "
+              "csrc/stream_gemm.cuh): a block owns 32 columns of W and a K "
+              "range (stream_splits: about 2 blocks an SM), a 4-stage ring "
+              "of 64-row stages by 16-byte cp.async with A's rows in the "
+              "stage, 4/8/16 rows of accumulators a thread, K splits summed "
+              "in split order by the last block of a column tile to take "
+              "its self-resetting ticket (per-stream workspace), the LN by "
+              "the last column tile of a row tile; fused_out_ln one launch, "
+              "fused_ffn_ln two with hid in f32 in the workspace",
     "simt": "SIMT f32 register-tiled GEMM on the CUDA cores; split-K "
             "(fused_out_ln) / split-I (fused_ffn_ln) f32 partials summed in "
             "fixed order by the last-arriving block"}
@@ -220,6 +237,7 @@ PAGED_DESIGN = ("split context: grid (S, H, splits), pages a split from "
 # the device functions of ops/csrc, as the profiler names them
 PORT_KERNEL_NAMES = ("paged_split_kernel",
                      "out_ln_kernel", "ffn_kernel",
+                     "stream_gemm::stream_kernel",
                      "tc_gemm_kernel", "ffma_gemm_kernel", "ln_rows_kernel",
                      "flash_fwd_kernel",
                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
@@ -522,7 +540,11 @@ def split_ms(torch, timer, args, rule):
 
 def check_blocks(torch, timer, results):
     """The sub-blocks in f32 at GPT-3 XL width, at decode (M = 8, the
-    SIMT route) and at the 256-row prefill bucket (the FFMA route)."""
+    stream route) and at the 256-row prefill bucket (the FFMA route). At
+    decode, beside kernel_ms: the stream kernel's device time a call,
+    the SIMT kernel's on misaligned copies (and its error from the plain
+    version), the library chain's, split_ms and the stream_max_rows
+    sweep."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_block import (
         _FFMA_MIN_ROWS, ffn_ln_reference, fused_ffn_ln, fused_out_ln,
@@ -542,65 +564,219 @@ def check_blocks(torch, timer, results):
     w2 = rn(I, D, s=0.01)
     b2 = rn(D, s=0.02)
     tol = 1e-4
+
+    def lib_out(a, w, b, res, ln_s, ln_b):
+        zz = torch.addmm(b, a, w).add_(res)
+        return F.layer_norm(zz, (D,), ln_s, ln_b, 1e-5)
+
+    def lib_ffn(x, w1, b1, w2, b2, res):
+        u = F.gelu(torch.addmm(b1, x, w1), approximate="tanh")
+        return torch.addmm(b2, u, w2).add_(res)
+
     for M in (8, 256):
-        want = "ffma" if M >= _FFMA_MIN_ROWS else "simt"
+        want = "ffma" if M >= _FFMA_MIN_ROWS else "stream"
         a = rn(M, D)
         res = rn(M, D)
-        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(
-            a, w, b, res, ln_s, ln_b), want)
-        zr, hr = out_ln_reference(a, w, b, res, ln_s, ln_b)
+        args = (a, w, b, res, ln_s, ln_b)
+        (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(*args),
+                               want)
+        zr, hr = out_ln_reference(*args)
         torch.cuda.synchronize()
         err = max(float((z - zr).abs().max()), float((h - hr).abs().max()))
         nbytes = 4 * (M * D + D * D + D + M * D + 2 * D + 2 * M * D)
         bms, by = bound(nbytes, 2 * M * D * D + 10 * M * D)
-
-        def lib_out():
-            zz = torch.addmm(b, a, w).add_(res)
-            return F.layer_norm(zz, (D,), ln_s, ln_b, 1e-5)
-
         row = {"kernel": "fused_out_ln", "shape": f"M={M} D={D} f32",
                "route": route, "max_abs_err": err, "tol": tol,
-               "kernel_ms": timer(lambda: fused_out_ln(a, w, b, res, ln_s,
-                                                       ln_b)),
-               "plain_ms": timer(lambda: out_ln_reference(a, w, b, res, ln_s,
-                                                          ln_b)),
-               "library_ms": timer(lib_out), "bound_ms": bms,
-               "bound_by": by}
+               "kernel_ms": timer(lambda: fused_out_ln(*args)),
+               "plain_ms": timer(lambda: out_ln_reference(*args)),
+               "library_ms": timer(lambda: lib_out(*args)), "bound_ms": bms,
+               "bound_by": by,
+               "device_ms": device_ms(torch, timer, fused_out_ln, args)}
         if route == "ffma":
-            row["device_ms"] = device_ms(torch, timer, fused_out_ln,
-                                         (a, w, b, res, ln_s, ln_b))
             row["tile_ms"] = ffma_tile_ms(torch, timer, "fused_out_ln", (
-                a, w, b, res, ln_s, ln_b, 0.0, 1e-5, 0))
+                *args, 0.0, 1e-5, 0))
+        else:
+            row.update(decode_extras(torch, timer, "fused_out_ln", args,
+                                     lib_out, (zr, hr), tol))
         report(results, row, err <= tol)
 
         x = rn(M, D)
-        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(
-            x, w1, b1, w2, b2, res), want)
-        ref = ffn_ln_reference(x, w1, b1, w2, b2, res)
+        fargs = (x, w1, b1, w2, b2, res)
+        out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(*fargs),
+                            want)
+        ref = ffn_ln_reference(*fargs)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         nbytes = 4 * (M * D + D * I + I + I * D + D + M * D + M * D)
         bms, by = bound(nbytes, 4 * M * D * I + 10 * M * I)
-
-        def lib_ffn():
-            u = F.gelu(torch.addmm(b1, x, w1), approximate="tanh")
-            return torch.addmm(b2, u, w2).add_(res)
-
         row = {"kernel": "fused_ffn_ln", "shape": f"M={M} H={D} I={I} f32",
                "route": route, "max_abs_err": err, "tol": tol,
-               "kernel_ms": timer(lambda: fused_ffn_ln(x, w1, b1, w2, b2,
-                                                       res)),
-               "plain_ms": timer(lambda: ffn_ln_reference(x, w1, b1, w2, b2,
-                                                          res)),
-               "library_ms": timer(lib_ffn), "bound_ms": bms,
-               "bound_by": by}
+               "kernel_ms": timer(lambda: fused_ffn_ln(*fargs)),
+               "plain_ms": timer(lambda: ffn_ln_reference(*fargs)),
+               "library_ms": timer(lambda: lib_ffn(*fargs)), "bound_ms": bms,
+               "bound_by": by,
+               "device_ms": device_ms(torch, timer, fused_ffn_ln, fargs)}
         if route == "ffma":
-            row["device_ms"] = device_ms(torch, timer, fused_ffn_ln,
-                                         (x, w1, b1, w2, b2, res))
             row["tile_ms"] = ffma_tile_ms(torch, timer, "fused_ffn_ln", (
-                x, w1, b1, w2, b2, res, ln_s, ln_b, "gelu_tanh", "none",
-                0.0, 1e-5, 0))
+                *fargs, ln_s, ln_b, "gelu_tanh", "none", 0.0, 1e-5, 0))
+        else:
+            row.update(decode_extras(torch, timer, "fused_ffn_ln", fargs,
+                                     lib_ffn, (ref,), tol))
         report(results, row, err <= tol)
+    stream_max_rows_sweep(torch, timer, (w, b, ln_s, ln_b, w1, b1, w2, b2),
+                          tol)
+
+
+def decode_extras(torch, timer, name, args, library, ref, tol):
+    """At decode: the SIMT kernel's device time a call on misaligned
+    copies of `args` (the route it must take there) and its error from
+    the plain version's `ref`, which must be within `tol`; the library
+    chain's device time; split_ms."""
+    from paddle_tpu_torch.ops.fused_block import fused_ffn_ln, fused_out_ln
+    fn = fused_out_ln if name == "fused_out_ln" else fused_ffn_ln
+    off = tuple(misaligned(t) for t in args)
+    got, _ = routed(name, lambda: fn(*off), "simt")
+    got = got if isinstance(got, tuple) else (got,)
+    torch.cuda.synchronize()
+    err = max(max_err(g_, r_) for g_, r_ in zip(got, ref))
+    if err > tol:
+        fail(f"{name} SIMT at decode: max abs err {err} outside {tol}")
+    return {"simt_device_ms": device_ms(torch, timer, fn, args,
+                                        clone=misaligned),
+            "simt_max_abs_err": err,
+            "library_device_ms": device_ms(torch, timer, library, args),
+            "split_ms": stream_split_ms(torch, timer, name, args)}
+
+
+def stream_launch(torch, name, args, splits):
+    """A function that runs the stream route of `name` (fused_out_ln on
+    (a, w, b, res, ln_s, ln_b), fused_ffn_ln on (x, w1, b1, w2, b2, res)
+    with gelu_tanh, no norm, no dropout) through its C entry point at
+    the K splits given (one count, or one a product), at any row count,
+    on its own scratch; returns its outputs. Not counted: it is the
+    evidence for stream_splits and _STREAM_MAX_ROWS, not the path."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    tail = (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p)
+    m = args[0].shape[0]
+    n_max = max(t.shape[1] for t in args[:4] if t.dim() == 2)
+    # partials, then the LN's (mean, M2) pairs
+    part = torch.empty((max(splits) + 1) * m * n_max, device="cuda")
+    tickets = torch.zeros(-(-m // 4) * (n_max // 32 + 1), device="cuda",
+                          dtype=torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def check(err):
+        if err:
+            fail(f"{name} stream launch at splits {splits}: CUDA error "
+                 f"{err}")
+
+    if name == "fused_out_ln":
+        a, w, b, res, ls, lb = args
+        z, h = torch.empty_like(res), torch.empty_like(res)
+        fn = _build.function("fused_block", "fused_out_ln_stream_launch", 10,
+                             6, tail)
+        ptrs = [t.data_ptr() for t in (a, w, b, res, ls, lb, z, h, part,
+                                       tickets)]
+
+        def run():
+            check(fn(*ptrs, m, a.shape[1], w.shape[1], splits[0], 0, 0, 0,
+                     1.0, 1e-5, stream))
+            return z, h
+        return run
+    x, w1, b1, w2, b2, res = args
+    hd, i = w1.shape
+    out, hid = torch.empty_like(res), torch.empty((m, i), device="cuda")
+    fn = _build.function("fused_block", "fused_ffn_ln_stream_launch", 13, 9,
+                         tail)
+    ptrs = [t.data_ptr() for t in (x, w1, b1, w2, b2, res)]
+
+    def run():
+        check(fn(*ptrs, None, None, out.data_ptr(), None, hid.data_ptr(),
+                 part.data_ptr(), tickets.data_ptr(), m, hd, i, *splits, 0,
+                 0, 0, 0, 0, 1.0, 1e-5, stream))
+        return out
+    return run
+
+
+def stream_split_ms(torch, timer, name, args, n_sets=8):
+    """Device time a call (Timer.queued, n_sets copies of the tensors) of
+    the stream route at several K splits through its C entry point,
+    beside ops/fused_block.py stream_splits' pick ("rule"): fused_out_ln
+    at 1 ... 16 splits; fused_ffn_ln at each product's neighbours of its
+    pick, the other product at its pick (keys "up/down")."""
+    from paddle_tpu_torch.ops.fused_block import _sms, stream_splits
+    sms = _sms(torch.cuda.current_device())
+    m = args[0].shape[0]
+    sets = [tuple(t.clone() for t in args) for _ in range(n_sets)]
+    if name == "fused_out_ln":
+        k, n = args[1].shape
+        rule = stream_splits(m, k, n, sms)
+        cands = [(s,) for s in sorted({1, 2, 4, 8, 16, rule})]
+        times = {"rule": str(rule)}
+    else:
+        hd, i = args[1].shape
+        r1, r2 = stream_splits(m, hd, i, sms), stream_splits(m, i, hd, sms)
+        cands = sorted({(s, r2) for s in (1, 2, 4, r1, 2 * r1)}
+                       | {(r1, s) for s in (1, 2, 8, 16, r2, 2 * r2)})
+        times = {"rule": f"{r1}/{r2}"}
+    for c in cands:
+        runs = [stream_launch(torch, name, st, c) for st in sets]
+        times["/".join(map(str, c))] = timer.queued(runs)
+    del sets
+    torch.cuda.empty_cache()
+    return times
+
+
+def stream_max_rows_sweep(torch, timer, weights, tol, n_sets=8):
+    """The evidence for _STREAM_MAX_ROWS: at 16, 32, 64 and 127 rows of
+    GPT-3 XL width in f32, device time a call (Timer.queued, n_sets
+    copies) of the stream route (its C entry point at stream_splits'
+    pick, whatever the rule says of the rows) and of the SIMT kernel
+    (the wrapper on misaligned copies), each call checked against the
+    plain version within `tol`. One line a row count and sub-block."""
+    from paddle_tpu_torch.ops.fused_block import (
+        _STREAM_MAX_ROWS, _sms, ffn_ln_reference, fused_ffn_ln, fused_out_ln,
+        out_ln_reference, stream_splits)
+    w, b, ln_s, ln_b, w1, b1, w2, b2 = weights
+    D, I = w1.shape
+    sms = _sms(torch.cuda.current_device())
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for M in (16, 32, 64, 127):
+        a = torch.randn(M, D, generator=g, device="cuda")
+        res = torch.randn(M, D, generator=g, device="cuda")
+        for name, args, fn, plain, splits in (
+                ("fused_out_ln", (a, w, b, res, ln_s, ln_b), fused_out_ln,
+                 out_ln_reference, (stream_splits(M, D, D, sms),)),
+                ("fused_ffn_ln", (a, w1, b1, w2, b2, res), fused_ffn_ln,
+                 ffn_ln_reference, (stream_splits(M, D, I, sms),
+                                    stream_splits(M, I, D, sms)))):
+            ref = plain(*args)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            got = stream_launch(torch, name, args, splits)()
+            got = got if isinstance(got, tuple) else (got,)
+            off = tuple(misaligned(t) for t in args)
+            simt, _ = routed(name, lambda: fn(*off), "simt")
+            simt = simt if isinstance(simt, tuple) else (simt,)
+            torch.cuda.synchronize()
+            err = max(max_err(x, r) for x, r in zip(got, ref))
+            simt_err = max(max_err(x, r) for x, r in zip(simt, ref))
+            sets = [tuple(t.clone() for t in args) for _ in range(n_sets)]
+            line = {"sweep": "stream_max_rows", "kernel": name, "M": M,
+                    "rule_max_rows": _STREAM_MAX_ROWS,
+                    "splits": "/".join(map(str, splits)),
+                    "stream_ms": timer.queued([
+                        stream_launch(torch, name, st, splits)
+                        for st in sets]),
+                    "simt_ms": device_ms(torch, timer, fn, args,
+                                         clone=misaligned),
+                    "stream_err": err, "simt_err": simt_err, "tol": tol}
+            print(json.dumps(line), flush=True)
+            del sets
+            torch.cuda.empty_cache()
+            if max(err, simt_err) > tol:
+                fail(f"{name} at M={M}: stream err {err}, SIMT err "
+                     f"{simt_err}, outside {tol}")
 
 
 def ffma_tile_ms(torch, timer, name, args):
@@ -669,12 +845,14 @@ def ffma_tile_ms(torch, timer, name, args):
     return times
 
 
-def device_ms(torch, timer, fn, args, n_sets=8):
-    """Device time per call of fn(*args) on n_sets copies of the tensors,
-    queued behind Timer.queued's spin kernel: the kernels' time without
-    the wrapper's host time, which kernel_ms (one call between two
-    events, the device idle until the host has launched) includes."""
-    sets = [tuple(t.clone() if torch.is_tensor(t) else t for t in args)
+def device_ms(torch, timer, fn, args, n_sets=8, clone=None):
+    """Device time per call of fn(*args) on n_sets copies of the tensors
+    (each copied by `clone`, by default Tensor.clone), queued behind
+    Timer.queued's spin kernel: the kernels' time without the wrapper's
+    host time, which kernel_ms (one call between two events, the device
+    idle until the host has launched) includes."""
+    clone = clone or (lambda t: t.clone())
+    sets = [tuple(clone(t) if torch.is_tensor(t) else t for t in args)
             for _ in range(n_sets)]
     ms = timer.queued([lambda s=s: fn(*s) for s in sets])
     del sets
@@ -781,7 +959,7 @@ def check_blocks_bf16(torch, timer, results):
 
 def misaligned(t):
     """A contiguous copy of t 8 bytes past a 16-byte boundary, which
-    the tensor-core and FFMA routes do not take."""
+    the tensor-core, FFMA and stream routes do not take."""
     item = t.element_size()
     flat = t.new_empty(t.numel() + 8 // item)
     y = flat[8 // item:].view(t.shape)
@@ -1277,13 +1455,25 @@ def serving_path(torch, tree):
     return counts, eng
 
 
+def prefill_kind(rows):
+    """The key of a prefill call of `rows` rows in sub_block_routes:
+    at most _STREAM_MAX_ROWS (the stream route's), fewer than
+    _FFMA_MIN_ROWS (SIMT's), or at least that (FFMA's)."""
+    from paddle_tpu_torch.ops.fused_block import (_FFMA_MIN_ROWS,
+                                                  _STREAM_MAX_ROWS)
+    if rows >= _FFMA_MIN_ROWS:
+        return f"prefill_ge_{_FFMA_MIN_ROWS}"
+    if rows <= _STREAM_MAX_ROWS:
+        return f"prefill_le_{_STREAM_MAX_ROWS}"
+    return f"prefill_lt_{_FFMA_MIN_ROWS}"
+
+
 def tap_sub_block_routes(model):
     """Wraps the model's prefill, prefill_tail and decode (instance
     attributes over the class's) to add up the sub-blocks' launches by
-    route for each kind of call: "decode", and prefill at fewer or at
-    least _FFMA_MIN_ROWS rows. Returns that (live) dict."""
+    route for each kind of call: "decode", and prefill by prefill_kind.
+    Returns that (live) dict."""
     from paddle_tpu_torch.ops import launch_counts
-    from paddle_tpu_torch.ops.fused_block import _FFMA_MIN_ROWS
     by_call = {}
 
     def tap(fn, kind):
@@ -1291,10 +1481,8 @@ def tap_sub_block_routes(model):
             before = launch_counts()
             out = fn(params, cache, tokens, *rest)
             after = launch_counts()
-            key = kind if kind == "decode" else (
-                f"prefill_ge_{_FFMA_MIN_ROWS}"
-                if tokens.shape[0] >= _FFMA_MIN_ROWS
-                else f"prefill_lt_{_FFMA_MIN_ROWS}")
+            key = kind if kind == "decode" \
+                else prefill_kind(tokens.shape[0])
             ent = by_call.setdefault(key, {})
             for k, v in after.items():
                 if k.startswith(("fused_out_ln.", "fused_ffn_ln.")) \
@@ -1310,15 +1498,23 @@ def tap_sub_block_routes(model):
 
 
 def check_serving_routes(by_call):
-    """Every decode launch of the sub-blocks on the SIMT route, every
-    prefill launch at _FFMA_MIN_ROWS rows or more on the FFMA route, and
-    at least one launch of each kind."""
-    from paddle_tpu_torch.ops.fused_block import _FFMA_MIN_ROWS
-    for key, route in (("decode", "simt"),
-                       (f"prefill_ge_{_FFMA_MIN_ROWS}", "ffma")):
+    """Every decode launch of the sub-blocks on the stream route, every
+    prefill launch on its rows' route (stream up to _STREAM_MAX_ROWS,
+    SIMT below _FFMA_MIN_ROWS, FFMA from there), and at least one
+    decode, one prefill below _FFMA_MIN_ROWS and one at or above."""
+    from paddle_tpu_torch.ops.fused_block import (_FFMA_MIN_ROWS,
+                                                  _STREAM_MAX_ROWS)
+    short = (f"prefill_le_{_STREAM_MAX_ROWS}", f"prefill_lt_{_FFMA_MIN_ROWS}")
+    if not any(by_call.get(k) for k in short):
+        fail(f"serving path: no prefill below {_FFMA_MIN_ROWS} rows "
+             f"({by_call})")
+    for key, route, needed in (
+            ("decode", "stream", True),
+            (f"prefill_ge_{_FFMA_MIN_ROWS}", "ffma", True),
+            (short[0], "stream", False), (short[1], "simt", False)):
         got = by_call.get(key, {})
         bad = {k: v for k, v in got.items() if not k.endswith(f".{route}")}
-        if bad or not got:
+        if bad or (needed and not got):
             fail(f"serving path: {key} launches {got}, all expected on the "
                  f"{route} route")
 
@@ -2025,8 +2221,12 @@ def kernel_entry(row, launches):
            "shape": row["shape"]}
     if "call_ms" in row:    # one wrapper call, host time included
         ent["call_ms"] = row["call_ms"]
-    if "device_ms" in row:  # device time per call, host time excluded
-        ent["device_ms"] = row["device_ms"]
+    for key in ("device_ms",           # device time a call, no host time
+                "simt_device_ms",      # the SIMT kernel on misaligned
+                "simt_max_abs_err",    # copies, and the library chain
+                "library_device_ms"):
+        if key in row:
+            ent[key] = row[key]
     if "route" in row:      # which of the kernel's designs ran
         ent["design"] = f"{row['route']}: " \
             f"{design_of(row['kernel'])[row['route']]}"
@@ -2048,7 +2248,7 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     that path's launch count: paged attention from the serving run
     (decode, f32 cache); the flash kernels and the sub-blocks from the
     GPT training run (bf16, M = 1024), the sub-blocks with their serving
-    decode numbers (f32, M = 8, the SIMT launches) nested under
+    decode numbers (f32, M = 8, the stream launches) nested under
     "serving" and their prefill numbers (f32, M = 256, the FFMA
     launches) under "serving_prefill", and all five with their
     BERT-shape numbers and the BERT run's launches nested under "bert";
@@ -2079,10 +2279,10 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
         ent = kernel_entry(row(name, f"M={TRAIN_TOKENS} ", "bf16"),
                            train_counts.get(name, 0))
         ent["routes"] = route_counts(train_counts, name)
-        # the serving run: decode (and the short prefills) on SIMT, the
+        # the serving run: decode (and the short prefills) on stream, the
         # prefill buckets of 128 rows and more on FFMA
         ent["serving"] = kernel_entry(row(name, "M=8 "),
-                                      serve_counts.get(f"{name}.simt", 0))
+                                      serve_counts.get(f"{name}.stream", 0))
         ent["serving_prefill"] = kernel_entry(
             row(name, "M=256 "), serve_counts.get(f"{name}.ffma", 0))
         ent["serving_routes"] = route_counts(serve_counts, name)

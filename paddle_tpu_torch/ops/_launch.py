@@ -1,15 +1,33 @@
 """What every kernel wrapper does before and after its launch: decide
 between the kernel and the plain version by the tensor's device, check
-devices, types and layout, and turn a launch's error code into an
-exception."""
+devices, types and layout, keep the kernels' scratch per stream, and
+turn a launch's error code into an exception."""
 from __future__ import annotations
 
 import torch
 
 __all__ = ["_route", "_check", "_dtype_code", "_raise_if", "_drop_args",
-           "keep_threshold"]
+           "keep_threshold", "workspace"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernels' scratch, by (device index, stream, name): split partials
+# ("part"), tickets ("tickets"), the stream route's hid and xn
+_WORK: dict = {}
+
+
+def workspace(device, stream, name, numel, dtype=torch.float32):
+    """The scratch tensor `name` of `stream` on `device`, at least `numel`
+    elements, kept between calls and replaced by a larger one when short.
+    An int32 one is made of zeros: the kernels take tickets from it and
+    the last block to take each sets it back to zero, so it is zero
+    between launches. Launches on one stream never overlap, so they may
+    share a tensor; two streams never do."""
+    key = (device.index, stream, name)
+    t = _WORK.get(key)
+    if t is None or t.numel() < numel:
+        make = torch.zeros if dtype == torch.int32 else torch.empty
+        t = _WORK[key] = make(numel, dtype=dtype, device=device)
+    return t
 
 
 def _route(t, what):

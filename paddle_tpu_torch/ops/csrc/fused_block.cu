@@ -61,18 +61,33 @@
 // ~69 us, and the SIMT kernel's f32 partials (I/128, M, H) are 537 MB
 // a call.
 //
-// Three routes, chosen by the wrapper from the dtype, the row count, the
+// Four routes, chosen by the wrapper from the dtype, the row count, the
 // widths and the pointers' alignment before the launch
-// (ops/fused_block.py tc_route, ffma_route). The GEMM cores of the FFMA
-// and tensor-core routes, with their epilogues, are block_gemm.cuh's,
-// shared with fused_ffn.cu:
+// (ops/fused_block.py tc_route, ffma_route, stream_route). The GEMM cores
+// of the FFMA and tensor-core routes, with their epilogues, are
+// block_gemm.cuh's, shared with fused_ffn.cu:
 //
-// SIMT (float32 below 128 rows, i.e. decode and the short prefill
-// buckets, and any call at widths or alignments the other routes do not
-// take): the split kernels above, launched by fused_out_ln_launch /
-// fused_ffn_ln_launch. f32 stays full precision on the CUDA cores (the
-// f32 parity checks forbid TF32); at decode it is latency bound per
-// block, so its time sits above the bound by the factor in PERF.md.
+// SIMT (float32 calls no other route takes: ragged widths, misaligned
+// views, and rows between the stream route's limit and 128; any bf16
+// call at ragged widths or alignments): the split kernels above,
+// launched by fused_out_ln_launch / fused_ffn_ln_launch. f32 stays full
+// precision on the CUDA cores (the f32 parity checks forbid TF32).
+//
+// Stream (float32 from 1 to _STREAM_MAX_ROWS rows, i.e. decode and the
+// short prefill buckets, every inner width a multiple of 64, operands
+// 16-byte aligned; fused_out_ln_stream_launch /
+// fused_ffn_ln_stream_launch): the weight-streaming core of
+// stream_gemm.cuh, which at M = 8 is bound by W's bytes. fused_out_ln is
+// one launch (MODE 1 with the LN by the last column tile of a row
+// tile); fused_ffn_ln is two on one stream, ordered without flags:
+//   [pre: xn = LN(x), ln_rows_kernel]
+//   hid = act(xn|x @ W1 + b1)                   stream MODE 0
+//   out = [LN](res + dropout_p(hid @ W2 + b2))  stream MODE 1
+// hid (M, I) f32 (256 KB at M = 8, in L2), the split partials and the
+// tickets live in the caller's per-stream workspace: the last block to
+// take a ticket sets it back to zero, so no call allocates scratch or
+// launches a fill. A single launch would need the SIMT kernel's split-I
+// partials (8 MB a call at M = 8) or a grid-wide barrier.
 //
 // FFMA (float32, M >= 128, every inner width a multiple of 64, operands
 // 16-byte aligned; fused_out_ln_ffma_launch / fused_ffn_ln_ffma_launch):
@@ -122,6 +137,7 @@
 #include "block_gemm.cuh"
 #include "ffn_common.cuh"
 #include "row_norm.cuh"
+#include "stream_gemm.cuh"
 
 namespace {
 
@@ -592,6 +608,67 @@ extern "C" int fused_ffn_ln_ffma_launch(
   err = ffma_gemm<1>(hid, w2, M, H, I, tile2, down, st);
   if (err != 0 || norm != 2) return err;
   return ln_rows_run<float>(zf, out, ln_s, ln_b, M, H, eps, st);
+}
+
+// The stream route, float32 only: K and N multiples of 64, a, w, b, res,
+// z, h 16-byte aligned. One launch: z = res + dropout(a @ W + b), then h
+// = LN(z) by the last column tile of each row tile. splits: the K splits
+// (ops/fused_block.py stream_splits); part, tickets: the per-stream
+// workspace of stream_gemm::run. Returns a cudaError_t.
+extern "C" int fused_out_ln_stream_launch(
+    const float* a, const float* w, const float* b, const float* res,
+    const float* ln_s, const float* ln_b, float* z, float* h, float* part,
+    int* tickets, int M, int K, int N, int splits, int seed, int drop,
+    unsigned int thr, float keep_div, float eps, void* stream) {
+  if (!ln_s || !ln_b) return (int)cudaErrorInvalidValue;
+  const stream_gemm::Epi ep{b,    res,  z,   h,
+                            ln_s, ln_b, 0,   eps,
+                            Drop{(uint32_t)seed, thr, drop, keep_div}};
+  return stream_gemm::run<1>(a, w, ep, part, tickets, M, K, N, splits,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The stream route of fused_ffn_ln, float32 only: H and I multiples of
+// 64, every pointer 16-byte aligned. Scratch from the caller's per-stream
+// workspace: hid (M, I); xn (M, H) with norm "pre" (null otherwise);
+// part, tickets as stream_gemm::run. splits1 / splits2: the K splits of
+// the (M, I) and (M, H) products. With norm "post" the output is
+// normalised in place. act, norm as fused_ffn_ln_launch.
+extern "C" int fused_ffn_ln_stream_launch(
+    const float* x, const float* w1, const float* b1, const float* w2,
+    const float* b2, const float* res, const float* ln_s, const float* ln_b,
+    float* out, float* xn, float* hid, float* part, int* tickets, int M,
+    int H, int I, int splits1, int splits2, int act, int norm, int seed,
+    int drop, unsigned int thr, float keep_div, float eps, void* stream) {
+  if (act < 0 || act > 2 || norm < 0 || norm > 2 || (norm == 1 && !xn) ||
+      (norm != 0 && (!ln_s || !ln_b)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err = 0;
+  const float* src = x;
+  if (norm == 1) {
+    if (M < 1 || H % 64 || H < 64) return (int)cudaErrorInvalidValue;
+    err = ln_rows_run<float>(x, xn, ln_s, ln_b, M, H, eps, st);
+    if (err != 0) return err;
+    src = xn;
+  }
+  const stream_gemm::Epi up{b1,      nullptr, hid, nullptr,
+                            nullptr, nullptr, act, eps,
+                            Drop{0, 0, 0, 1.f}};
+  err = stream_gemm::run<0>(src, w1, up, part, tickets, M, H, I, splits1,
+                            st);
+  if (err != 0) return err;
+  const stream_gemm::Epi down{b2,
+                              res,
+                              out,
+                              out,
+                              norm == 2 ? ln_s : nullptr,
+                              norm == 2 ? ln_b : nullptr,
+                              0,
+                              eps,
+                              Drop{(uint32_t)seed, thr, drop, keep_div}};
+  return stream_gemm::run<1>(hid, w2, down, part, tickets, M, I, H, splits2,
+                             st);
 }
 
 // dtype: 0 float32, 1 bfloat16 (a/w/b/res/z/h); ln_s, ln_b, zf, part f32.

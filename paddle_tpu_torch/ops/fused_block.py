@@ -21,17 +21,22 @@ which CPU tensors take. CUDA tensors go to the kernels in
 ``csrc/fused_block.cu`` or the call raises. The kernels take float32 or
 bfloat16 for the activations, weights and biases (one type per call)
 with float32 ln_s/ln_b, and accumulate in f32; z and the FFN output come
-out in res2's type, h in a2's. Three routes, picked by dtype, row
+out in res2's type, h in a2's. Four routes, picked by dtype, row
 count, widths and alignment before the launch (``tc_route``, then
-``ffma_route``, else SIMT): bfloat16 calls whose inner widths are
-multiples of 64 run on the tensor cores (wgmma fed by TMA; the FFN's
-hid goes through device memory in bf16); float32 calls of at least
-``_FFMA_MIN_ROWS`` rows at such widths run the same launch sequence in
-f32 on a register-tiled FFMA GEMM (``csrc/ffma_tile.cuh``, no split over
-K; the tile per product from ``ffma_tiles``); everything else (decode,
-short prefills, ragged widths, misaligned views) runs the SIMT kernels.
+``ffma_route``, then ``stream_route``, else SIMT): bfloat16 calls whose
+inner widths are multiples of 64 run on the tensor cores (wgmma fed by
+TMA; the FFN's hid goes through device memory in bf16); float32 calls
+of at least ``_FFMA_MIN_ROWS`` rows at such widths run the same launch
+sequence in f32 on a register-tiled FFMA GEMM (``csrc/ffma_tile.cuh``,
+no split over K; the tile per product from ``ffma_tiles``); float32
+calls of 1 to ``_STREAM_MAX_ROWS`` rows at such widths (decode, the
+short prefill buckets) stream the weights (``csrc/stream_gemm.cuh``: a
+block a 32-column slice and a K range, K splits from
+``stream_splits``, scratch and self-resetting tickets in a per-stream
+workspace, ``_launch.workspace``); everything else (ragged widths,
+misaligned views, rows between the two limits) runs the SIMT kernels.
 Each call counts under its op's name and under ``<name>.tc``,
-``<name>.ffma`` or ``<name>.simt``.
+``<name>.ffma``, ``<name>.stream`` or ``<name>.simt``.
 Dropout is the unsalted counter hash of
 ``fused_residual.keep_mask`` over the (M, Dout) ids of the GEMM output,
 from an int32 seed the caller hands in; no mask tensor is kept. Rows are
@@ -52,13 +57,15 @@ import math
 import torch
 
 from . import _build
-from ._launch import _check, _dtype_code, _drop_args, _raise_if, _route
+from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
+                      workspace)
 from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
            "ffn_ln_reference", "gelu_tanh", "gelu_erf_poly", "ACTS",
            "NORMS", "out_ln_split_k", "ffn_block_i", "tc_route",
-           "ffma_route", "ffma_tiles"]
+           "ffma_route", "ffma_tiles", "stream_route", "stream_rows",
+           "stream_splits"]
 
 _ROW_TILE = 32          # BM in csrc/fused_block.cu
 _OUT_COL_TILE = 64      # OL_BN
@@ -72,6 +79,15 @@ _FFMA_MIN_ROWS = 128    # f32 calls from this many rows take the FFMA route
 _FFMA_TILES = ((128, 128), (128, 64), (64, 64))
 _FFMA_BLOCKS = (2, 2, 3)
 _FFMA_FILL = 0.9        # the share of a wave's resident blocks to fill
+# f32 calls of 1 to this many rows take the stream route: the largest of
+# {16, 32, 64, 127} at which it is no slower than SIMT at GPT-3 XL width
+# on the card (chip_smoke.py's stream_max_rows sweep, PERF.md: at 127
+# rows 0.080 / 0.452 ms against SIMT's 0.161 / 0.613 for out_ln / ffn_ln)
+_STREAM_MAX_ROWS = 127
+_STREAM_COLS = 32       # W columns a block (csrc/stream_gemm.cuh kCols)
+_STREAM_K_STAGE = 64    # k rows a stage (kStage)
+_STREAM_BLOCKS_PER_SM = 2   # stream_splits' target (__launch_bounds__)
+_STREAM_MIN_STAGES = 2  # stages a split, at least
 
 
 def gelu_tanh(v):
@@ -181,8 +197,8 @@ def tc_route(dtype, widths, ptrs) -> bool:
     inner width (K and N of fused_out_ln, H and I of fused_ffn_ln) a
     positive multiple of 64, and every tensor's address (`ptrs`, from
     data_ptr()) 16-byte aligned, as TMA and the vector epilogue need.
-    Anything else is asked ffma_route, then takes the SIMT kernels;
-    nothing is tried and caught."""
+    Anything else is asked ffma_route, then stream_route, then takes the
+    SIMT kernels; nothing is tried and caught."""
     return (dtype == torch.bfloat16
             and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
             and all(p % 16 == 0 for p in ptrs))
@@ -191,11 +207,11 @@ def tc_route(dtype, widths, ptrs) -> bool:
 def ffma_route(dtype, m, widths, ptrs) -> bool:
     """Whether a call takes the FFMA kernels: float32, at least
     _FFMA_MIN_ROWS rows (below that, decode and the short prefill
-    buckets, the split SIMT kernels spread the weight stream over more
+    buckets, the stream kernels spread the weight stream over more
     blocks), every inner width a positive multiple of 64 and every
     tensor's address 16-byte aligned (cp.async and the float4
-    epilogue). Asked after tc_route; anything else takes the SIMT
-    kernels."""
+    epilogue). Asked after tc_route; anything else is asked
+    stream_route, then takes the SIMT kernels."""
     return (dtype == torch.float32 and m >= _FFMA_MIN_ROWS
             and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
             and all(p % 16 == 0 for p in ptrs))
@@ -218,6 +234,57 @@ def ffma_tiles(m: int, n: int, sms: int) -> tuple[int, int]:
         if tiles >= _FFMA_FILL * wave * math.ceil(tiles / wave):
             return bm, bn
     return _FFMA_TILES[-1]
+
+
+def stream_route(dtype, m, widths, ptrs) -> bool:
+    """Whether a call takes the stream kernels: float32, 1 to
+    _STREAM_MAX_ROWS rows (decode's slots, the short prefill buckets),
+    every inner width a positive multiple of 64 and every tensor's
+    address 16-byte aligned (the weights and A arrive by 16-byte
+    cp.async; the LN reads ln_s and ln_b as float4). Asked after
+    tc_route and ffma_route; anything else takes the SIMT kernels."""
+    return (dtype == torch.float32 and 1 <= m <= _STREAM_MAX_ROWS
+            and all(w > 0 and w % _TC_WIDTH == 0 for w in widths)
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def stream_rows(m: int) -> int:
+    """Rows of the stream kernel's row tile for m rows (csrc/
+    stream_gemm.cuh rows_a_pass): 4, 8 or 16, so that decode's 8 slots
+    are not padded to a wider tile; more rows take several tiles."""
+    return 4 if m <= 4 else 8 if m <= 8 else 16
+
+
+def stream_splits(m: int, k: int, n: int, sms: int) -> int:
+    """The K splits of the stream kernel's (m, k) @ (k, n) product on a
+    card of `sms` multiprocessors, from the shapes alone (no host sync):
+    enough that the grid of row tiles x n / 32 column slices x splits
+    holds about _STREAM_BLOCKS_PER_SM blocks an SM, with at least
+    _STREAM_MIN_STAGES stages of 64 k rows a split, and no split left
+    empty when the stages are cut into ranges of ceil(stages / splits).
+    At 132 SMs and m = 8: fused_out_ln's (2048, 2048) takes 4 (256
+    blocks), the FFN's (2048, 8192) 1 (256 blocks) and (8192, 2048) 4."""
+    tiles = math.ceil(m / stream_rows(m)) * math.ceil(n / _STREAM_COLS)
+    stages = math.ceil(k / _STREAM_K_STAGE)
+    want = math.floor(_STREAM_BLOCKS_PER_SM * sms / tiles + 0.5)
+    want = max(1, min(want, stages // _STREAM_MIN_STAGES))
+    per = math.ceil(stages / want)
+    return math.ceil(stages / per)
+
+
+def _stream_scratch(dev, stream, m, products):
+    """Addresses of the stream kernels' f32 scratch (split partials, then
+    the LN's (mean, M2) a row and 32 columns) and tickets in the
+    workspace of `stream`, sized for the (k, n, splits) products of one
+    call (run one after another, so they share both)."""
+    rt = math.ceil(m / stream_rows(m))
+    n_part = max((s * m * n if s > 1 else 0) + 2 * m * math.ceil(n / 32)
+                 for _, n, s in products)
+    n_tickets = max(rt * math.ceil(n / _STREAM_COLS) + rt
+                    for _, n, _ in products)
+    part = workspace(dev, stream, "part", n_part)
+    tickets = workspace(dev, stream, "tickets", n_tickets, torch.int32)
+    return part.data_ptr(), tickets.data_ptr()
 
 
 @functools.cache
@@ -272,6 +339,22 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
              keep_div, float(eps))
         _build.note_launch("fused_out_ln")
         _build.note_launch("fused_out_ln.ffma")
+        return z, h
+    if stream_route(a2.dtype, m, (k, n),
+                    ptrs + [ln_s.data_ptr(), ln_b.data_ptr()]):
+        splits = stream_splits(m, k, n, _sms(a2.device.index))
+        stream = torch.cuda.current_stream(a2.device).cuda_stream
+        part, tickets = _stream_scratch(a2.device, stream, m,
+                                        [(k, n, splits)])
+        fn = _build.function(
+            "fused_block", "fused_out_ln_stream_launch", 10, 6,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
+             b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
+             z.data_ptr(), h.data_ptr(), part, tickets, m, k, n, splits,
+             seed, on, thr, keep_div, float(eps))
+        _build.note_launch("fused_out_ln")
+        _build.note_launch("fused_out_ln.stream")
         return z, h
     kc = out_ln_split_k(m, k, n, _sms(a2.device.index))
     splits = math.ceil(k / kc)
@@ -354,6 +437,26 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
              float(eps))
         _build.note_launch("fused_ffn_ln")
         _build.note_launch("fused_ffn_ln.ffma")
+        return out
+    if stream_route(x2.dtype, m, (hd, i), ptrs + list(ln_ptrs)):
+        sms = _sms(x2.device.index)
+        products = [(hd, i, stream_splits(m, hd, i, sms)),
+                    (i, hd, stream_splits(m, i, hd, sms))]
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        part, tickets = _stream_scratch(x2.device, stream, m, products)
+        hid = workspace(x2.device, stream, "hid", m * i)
+        xn = workspace(x2.device, stream, "xn", m * hd).data_ptr() \
+            if norm == "pre" else None
+        fn = _build.function(
+            "fused_block", "fused_ffn_ln_stream_launch", 13, 9,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+        _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(), w1.data_ptr(),
+             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), res2.data_ptr(),
+             *ln_ptrs, out.data_ptr(), xn, hid.data_ptr(), part, tickets,
+             m, hd, i, products[0][2], products[1][2], act_code, norm_code,
+             seed, on, thr, keep_div, float(eps))
+        _build.note_launch("fused_ffn_ln")
+        _build.note_launch("fused_ffn_ln.stream")
         return out
     bi = ffn_block_i(m)
     n_i = math.ceil(i / bi)

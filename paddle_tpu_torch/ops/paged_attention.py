@@ -40,6 +40,7 @@ import math
 import torch
 
 from . import _build
+from ._launch import workspace
 from .fused_block import _sms
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
@@ -49,10 +50,6 @@ _NEG = -1e30
 _MAX_HEAD_DIM = 128
 _MAX_PAGE = 128
 _BLOCKS_PER_SM = 12     # paged_splits' target of blocks an SM
-# the kernel's split workspace and tickets, kept per (device, stream): the
-# last block of a (slot, head) leaves its ticket at zero again, and calls
-# on one stream never overlap
-_WORK: dict = {}
 
 
 def paged_splits(S: int, H: int, M: int, sms: int) -> int:
@@ -169,21 +166,6 @@ def _check(q, k_pages, v_pages, page_table, ctx_lens):
                          f"{d * k_pages.element_size()} bytes")
 
 
-def _workspace(device, stream, n_part, n_tickets):
-    """Addresses of the split workspace (n_part f32) and the tickets
-    (n_tickets int32, zero between calls) of `stream`, grown when short;
-    None (null) where nothing is needed."""
-    key = (device.index, stream)
-    part, tickets = _WORK.get(key, (None, None))
-    if n_part and (part is None or part.numel() < n_part):
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if n_tickets and (tickets is None or tickets.numel() < n_tickets):
-        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=device)
-    _WORK[key] = (part, tickets)
-    return (part.data_ptr() if n_part else None,
-            tickets.data_ptr() if n_tickets else None)
-
-
 def _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale):
     _check(q, k_pages, v_pages, page_table, ctx_lens)
     if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
@@ -198,9 +180,14 @@ def _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale):
     splits = math.ceil(M / pps)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    part, tickets = _workspace(q.device, stream,
-                               S * H * splits * (d + 2) if splits > 1 else 0,
-                               S * H if splits > 1 else 0)
+    # the split workspace and tickets of this stream (ops/_launch.py),
+    # shared with the other kernels that launch on it
+    part = tickets = None
+    if splits > 1:
+        part = workspace(q.device, stream, "part",
+                         S * H * splits * (d + 2)).data_ptr()
+        tickets = workspace(q.device, stream, "tickets", S * H,
+                            torch.int32).data_ptr()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),

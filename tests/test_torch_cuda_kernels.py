@@ -96,9 +96,10 @@ def test_paged_attention_split_kernel_matches_plain(dev, cache, d, ps):
     with a bf16 cache: it rounds P to bf16); one launch a call, the same
     bits when run again, and every ticket back at zero."""
     from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops._launch import _WORK
     from paddle_tpu_torch.ops.fused_block import _sms
     from paddle_tpu_torch.ops.paged_attention import (
-        _WORK, paged_attention_decode, paged_attention_reference,
+        paged_attention_decode, paged_attention_reference,
         paged_attention_split_reference, paged_splits)
     S, H, M = 6, 16, 40
     P = S * M
@@ -119,7 +120,8 @@ def test_paged_attention_split_kernel_matches_plain(dev, cache, d, ps):
     torch.cuda.synchronize()
     assert _build.launch_counts()["paged_attention"] == before + 2
     assert torch.equal(got, again)
-    assert not any(t.any() for _, t in _WORK.values() if t is not None)
+    assert not any(t.any() for key, t in _WORK.items()
+                   if key[2] == "tickets")
     split = paged_attention_split_reference(q, k, v, pt, ctx,
                                             pages_per_split=pps)
     torch.testing.assert_close(got, split, atol=2e-5, rtol=2e-5)
@@ -335,13 +337,16 @@ def test_fused_blocks_backward_on_the_card(dev):
 # -- the tensor-core route of the sub-blocks (bf16, widths % 64 == 0) ------
 
 def _counted(name, fn):
-    """fn()'s result and the per-route launches of `name` it made."""
+    """fn()'s result and the per-route launches of `name` it made (the
+    sub-blocks have a fourth route, stream)."""
     from paddle_tpu_torch.ops import _build
+    routes = ("tc", "simt", "ffma") + (
+        ("stream",) if name in ("fused_out_ln", "fused_ffn_ln") else ())
     before = _build.launch_counts()
     out = fn()
     after = _build.launch_counts()
     return out, {r: after.get(f"{name}.{r}", 0) - before.get(f"{name}.{r}", 0)
-                 for r in ("tc", "simt", "ffma")}
+                 for r in routes}
 
 
 def _bf16_block_args(dev, seed, m, h, i, zero_res=False):
@@ -381,7 +386,7 @@ def test_fused_ffn_ln_tensor_core_route_matches_plain(dev, m, h, i, act,
     args = _bf16_block_args(dev, 20, m, h, i)
     call = (*args, act, norm, p, 1e-5, 31)
     got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
-    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0, "stream": 0}
     want = ffn_ln_reference(*call)
     assert got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), want.float(), atol=3e-2,
@@ -425,7 +430,7 @@ def test_fused_out_ln_tensor_core_route_matches_plain(dev, m, k, n, p):
             1 + 0.1 * torch.randn(n, generator=g, device=dev),
             0.1 * torch.randn(n, generator=g, device=dev), p, 1e-5, 5)
     (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
-    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0, "stream": 0}
     zr, hr = out_ln_reference(*args)
     torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
@@ -434,23 +439,27 @@ def test_fused_out_ln_tensor_core_route_matches_plain(dev, m, k, n, p):
 
 
 def test_sub_block_routes_by_dtype_width_and_alignment(dev):
-    """bf16 at widths % 64 == 0 takes the tensor cores; f32, ragged
-    widths and a misaligned view take the SIMT kernels, whose results
-    still match the plain version: a view TMA cannot read is never
-    launched on the tensor-core route."""
-    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+    """bf16 at widths % 64 == 0 takes the tensor cores; f32 at 64 rows
+    and such widths the stream kernels (while 64 <= _STREAM_MAX_ROWS,
+    else SIMT); ragged widths and a misaligned view take the SIMT
+    kernels, whose results still match the plain version: a view TMA
+    cannot read is never launched on the tensor-core route."""
+    from paddle_tpu_torch.ops.fused_block import (_STREAM_MAX_ROWS,
+                                                  ffn_ln_reference,
                                                   fused_ffn_ln, fused_out_ln,
                                                   out_ln_reference)
     bf = torch.bfloat16
     args = _bf16_block_args(dev, 23, 64, 128, 256)
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*args[:6]))
-    assert routes == {"tc": 1, "simt": 0, "ffma": 0}
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0, "stream": 0}
     f32 = [a.float() for a in args]
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*f32[:6]))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    on_stream = int(64 <= _STREAM_MAX_ROWS)
+    assert routes == {"tc": 0, "simt": 1 - on_stream, "ffma": 0,
+                      "stream": on_stream}
     ragged = _bf16_block_args(dev, 24, 64, 160, 200)
     _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*ragged[:6]))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
     # rows 1.. of a (65, 128) buffer: contiguous, 256 bytes past a row
     # start, but the view of a flat buffer from element 4 is 8 bytes off
     flat = torch.randn(64 * 128 + 4, device=dev).to(bf)
@@ -458,13 +467,13 @@ def test_sub_block_routes_by_dtype_width_and_alignment(dev):
     assert x.is_contiguous() and x.data_ptr() % 16 == 8
     call = (x, *args[1:6])
     got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
     torch.testing.assert_close(got.float(), ffn_ln_reference(*call).float(),
                                atol=3e-2, rtol=3e-2)
     w = (torch.randn(128, 128, device=dev) * 0.05).to(bf)
     ocall = (x, w, args[4], args[5], args[6], args[7])
     (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*ocall))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
     zr, hr = out_ln_reference(*ocall)
     torch.testing.assert_close(z.float(), zr.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(h.float(), hr.float(), atol=2e-2, rtol=2e-2)
@@ -521,7 +530,7 @@ def test_fused_out_ln_ffma_route_matches_plain(dev, m, k, n, p):
     args = (a, w, b, res, 1 + rn(n, sc=0.1), rn(n, sc=0.1), p, 1e-5, 9)
     tol = _ffma_tol(m, n, p)
     (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
-    assert routes == {"tc": 0, "simt": 0, "ffma": 1}
+    assert routes == {"tc": 0, "simt": 0, "ffma": 1, "stream": 0}
     zr, hr = out_ln_reference(*args)
     torch.testing.assert_close(z, zr, atol=tol, rtol=tol)
     torch.testing.assert_close(h, hr, atol=tol, rtol=tol)
@@ -533,7 +542,7 @@ def test_fused_out_ln_ffma_route_matches_plain(dev, m, k, n, p):
     assert torch.equal(z0 != 0, keep_mask(9, m, n, 0.1, dev))
     off = (_misaligned_f32(a), *args[1:])
     (zs, hs), routes = _counted("fused_out_ln", lambda: fused_out_ln(*off))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
     torch.testing.assert_close(zs, zr, atol=tol, rtol=tol)
     torch.testing.assert_close(hs, hr, atol=tol, rtol=tol)
 
@@ -560,7 +569,7 @@ def test_fused_ffn_ln_ffma_route_matches_plain(dev, m, h, i, act, norm, p):
     call = (*args, act, norm, p, 1e-5, 13)
     tol = _ffma_tol(m, h, p)
     got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
-    assert routes == {"tc": 0, "simt": 0, "ffma": 1}
+    assert routes == {"tc": 0, "simt": 0, "ffma": 1, "stream": 0}
     want = ffn_ln_reference(*call)
     torch.testing.assert_close(got, want, atol=tol, rtol=tol)
     assert torch.equal(got, fused_ffn_ln(*call))
@@ -571,8 +580,177 @@ def test_fused_ffn_ln_ffma_route_matches_plain(dev, m, h, i, act, norm, p):
     assert torch.equal(out != 0, keep_mask(13, m, h, 0.1, dev))
     off = (_misaligned_f32(args[0]), *call[1:])
     got_s, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*off))
-    assert routes == {"tc": 0, "simt": 1, "ffma": 0}
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
     torch.testing.assert_close(got_s, want, atol=tol, rtol=tol)
+
+
+# -- the stream route of the sub-blocks (f32, 1 .. _STREAM_MAX_ROWS rows) --
+
+def _stream_rows():
+    from paddle_tpu_torch.ops.fused_block import _STREAM_MAX_ROWS
+    return sorted({1, 3, 8, 16, _STREAM_MAX_ROWS})
+
+
+# (K, N) of fused_out_ln and (H, I) of fused_ffn_ln: GPT-3 XL's out
+# projection, BERT-base's FFN, GPT-3 XL's FFN
+STREAM_WIDTHS = [(2048, 2048), (768, 3072), (2048, 8192)]
+STREAM_TOL = 1e-4   # f32 sums of up to 8192 terms in another order
+
+
+def _tickets_at_zero():
+    from paddle_tpu_torch.ops._launch import _WORK
+    return not any(t.any() for key, t in _WORK.items() if key[2] == "tickets")
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("k,n", STREAM_WIDTHS)
+@pytest.mark.parametrize("m", _stream_rows())
+def test_fused_out_ln_stream_route_matches_plain(dev, m, k, n, p):
+    """f32 at decode's row counts: one launch of the stream route within
+    1e-4 + 1e-4 |ref| of the plain version, the same bits when run
+    again, every ticket back at zero, and with a zero residual z zero
+    exactly where keep_mask drops."""
+    from paddle_tpu_torch.ops.fused_block import (fused_out_ln,
+                                                  out_ln_reference)
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    g = _g(60)
+
+    def rn(*shape, sc=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * sc
+
+    a, w, b, res = rn(m, k), rn(k, n, sc=0.02), rn(n, sc=0.02), rn(m, n)
+    args = (a, w, b, res, 1 + rn(n, sc=0.1), rn(n, sc=0.1), p, 1e-5, 11)
+    (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(*args))
+    assert routes == {"tc": 0, "simt": 0, "ffma": 0, "stream": 1}
+    zr, hr = out_ln_reference(*args)
+    torch.testing.assert_close(z, zr, atol=STREAM_TOL, rtol=STREAM_TOL)
+    torch.testing.assert_close(h, hr, atol=STREAM_TOL, rtol=STREAM_TOL)
+    z2, h2 = fused_out_ln(*args)
+    assert torch.equal(z, z2) and torch.equal(h, h2)
+    if p > 0:
+        z0, _ = fused_out_ln(a, w, b, torch.zeros_like(res), *args[4:])
+        assert torch.equal(z0 != 0, keep_mask(11, m, n, p, dev))
+    torch.cuda.synchronize()
+    assert _tickets_at_zero()
+
+
+@pytest.mark.parametrize("h,i", STREAM_WIDTHS)
+@pytest.mark.parametrize("m", _stream_rows())
+def test_fused_ffn_ln_stream_route_matches_plain(dev, m, h, i):
+    """fused_ffn_ln in f32 at decode's row counts (gelu_tanh, no norm,
+    no dropout: the serving path's call): one call on the stream route
+    (two launches), within 1e-4 + 1e-4 |ref| of the plain version, the
+    same bits when run again, every ticket back at zero."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln)
+    args = _f32_block_args(dev, 61, m, h, i)[:6]
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*args))
+    assert routes == {"tc": 0, "simt": 0, "ffma": 0, "stream": 1}
+    want = ffn_ln_reference(*args)
+    torch.testing.assert_close(got, want, atol=STREAM_TOL, rtol=STREAM_TOL)
+    assert torch.equal(got, fused_ffn_ln(*args))
+    torch.cuda.synchronize()
+    assert _tickets_at_zero()
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("norm", ["none", "pre", "post"])
+@pytest.mark.parametrize("act", ["gelu_tanh", "gelu", "relu"])
+@pytest.mark.parametrize("m", [3, 8])
+def test_fused_ffn_ln_stream_variants_match_plain(dev, m, act, norm, p):
+    """Every act / norm / p on the stream route at BERT-base width:
+    within 1e-4 + 1e-4 |ref| of the plain version, the same bits when
+    run again; with norm "none" and a zero residual the output is zero
+    exactly where keep_mask drops."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln)
+    from paddle_tpu_torch.ops.fused_residual import keep_mask
+    h, i = 768, 3072
+    args = _f32_block_args(dev, 62, m, h, i)
+    call = (*args, act, norm, p, 1e-5, 17)
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*call))
+    assert routes == {"tc": 0, "simt": 0, "ffma": 0, "stream": 1}
+    want = ffn_ln_reference(*call)
+    torch.testing.assert_close(got, want, atol=STREAM_TOL, rtol=STREAM_TOL)
+    assert torch.equal(got, fused_ffn_ln(*call))
+    if norm == "none" and p > 0:
+        zero = (*args[:5], torch.zeros_like(args[5]), *args[6:])
+        out = fused_ffn_ln(*zero, act, norm, p, 1e-5, 17)
+        assert torch.equal(out != 0, keep_mask(17, m, h, p, dev))
+
+
+def test_stream_route_streams_do_not_share_tickets(dev):
+    """Calls on two streams at once take their tickets, partials and hid
+    from two workspaces: both give the default stream's bits, and every
+    ticket of each is back at zero."""
+    from paddle_tpu_torch.ops._launch import _WORK
+    from paddle_tpu_torch.ops.fused_block import fused_ffn_ln, fused_out_ln
+    a, w1, b1, w2, b2, res, ls, lb = _f32_block_args(dev, 63, 8, 2048, 8192)
+    w = w2[:2048].contiguous()
+    want = (fused_out_ln(a, w, b2, res, ls, lb),
+            fused_ffn_ln(a, w1, b1, w2, b2, res, ls, lb, norm="post"))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = {}
+    for _ in range(3):
+        for st in streams:
+            with torch.cuda.stream(st):
+                got[st] = (fused_out_ln(a, w, b2, res, ls, lb),
+                           fused_ffn_ln(a, w1, b1, w2, b2, res, ls, lb,
+                                        norm="post"))
+    torch.cuda.synchronize()
+    for st in streams:
+        (z, h), out = got[st]
+        assert torch.equal(z, want[0][0]) and torch.equal(h, want[0][1])
+        assert torch.equal(out, want[1])
+    ids = [st.cuda_stream for st in streams]
+    tickets = [_WORK[(dev.index or 0, s, "tickets")] for s in ids]
+    assert tickets[0].data_ptr() != tickets[1].data_ptr()
+    assert _WORK[(dev.index or 0, ids[0], "hid")].data_ptr() \
+        != _WORK[(dev.index or 0, ids[1], "hid")].data_ptr()
+    assert _tickets_at_zero()
+
+
+def test_sub_block_simt_route_at_decode_through_a_misaligned_view(dev):
+    """M = 8 at GPT-3 XL width with a or x 8 bytes off a 16-byte boundary
+    takes the SIMT kernels, still within 1e-4 + 1e-4 |ref| of the plain
+    version: they stay for the calls the stream route does not take."""
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln, fused_out_ln,
+                                                  out_ln_reference)
+    x, w1, b1, w2, b2, res, ls, lb = _f32_block_args(dev, 64, 8, 2048, 8192)
+    w = w2[:2048].contiguous()
+    off = _misaligned_f32(x)
+    (z, h), routes = _counted("fused_out_ln", lambda: fused_out_ln(
+        off, w, b2, res, ls, lb))
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
+    zr, hr = out_ln_reference(x, w, b2, res, ls, lb)
+    torch.testing.assert_close(z, zr, atol=STREAM_TOL, rtol=STREAM_TOL)
+    torch.testing.assert_close(h, hr, atol=STREAM_TOL, rtol=STREAM_TOL)
+    got, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(
+        off, w1, b1, w2, b2, res))
+    assert routes == {"tc": 0, "simt": 1, "ffma": 0, "stream": 0}
+    torch.testing.assert_close(got, ffn_ln_reference(x, w1, b1, w2, b2, res),
+                               atol=STREAM_TOL, rtol=STREAM_TOL)
+
+
+def test_sub_block_routes_by_rows(dev):
+    """f32 at widths % 64 == 0 and aligned: 1 .. _STREAM_MAX_ROWS rows on
+    stream, then SIMT below 128 rows, FFMA from 128; bf16 at 8 rows on
+    the tensor cores."""
+    from paddle_tpu_torch.ops.fused_block import (_STREAM_MAX_ROWS,
+                                                  fused_ffn_ln)
+    cases = [(1, "stream"), (_STREAM_MAX_ROWS, "stream"), (128, "ffma")]
+    if _STREAM_MAX_ROWS < 127:
+        cases.append((_STREAM_MAX_ROWS + 1, "simt"))
+    for m, route in cases:
+        args = _f32_block_args(dev, 65, m, 128, 256)[:6]
+        _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*args))
+        assert routes == {r: int(r == route) for r in routes}, m
+    bf = [t.to(torch.bfloat16) for t in _f32_block_args(dev, 65, 8, 128,
+                                                        256)[:6]]
+    _, routes = _counted("fused_ffn_ln", lambda: fused_ffn_ln(*bf))
+    assert routes == {"tc": 1, "simt": 0, "ffma": 0, "stream": 0}
 
 
 # -- layer norm, dropout + residual + layer norm (forward and backward) ----
@@ -923,7 +1101,8 @@ def test_fused_ffn_bias_epilogue_equals_the_residual_one(dev, m, h, i, dt):
     y, r1 = _counted("fused_ffn", lambda: fused_ffn(*args, "gelu_tanh"))
     z, r2 = _counted("fused_ffn_ln", lambda: fused_ffn_ln(
         *args, torch.zeros_like(args[0])))
-    assert r1 == r2 and r1["simt"] == 0
+    assert r1 == {r: r2[r] for r in r1} and r2["stream"] == 0
+    assert r1["simt"] == 0
     assert torch.equal(y, z)
 
 

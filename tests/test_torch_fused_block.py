@@ -322,6 +322,98 @@ def test_ffma_route_picks_by_dtype_rows_width_and_alignment(dtype, m, widths,
     assert port.ffma_route(dtype, m, widths, ptrs) is want
 
 
+_SMR = port._STREAM_MAX_ROWS
+
+
+@pytest.mark.parametrize("dtype,m,widths,ptrs,want", [
+    (torch.float32, 8, (2048, 2048), (0, 256), True),     # decode out_ln
+    (torch.float32, 8, (2048, 8192), (4096,), True),      # decode FFN
+    (torch.float32, 8, (8192, 2048), (), True),
+    (torch.float32, 1, (768, 3072), (), True),            # one row
+    (torch.float32, 16, (2048, 8192), (), True),          # prefill bucket
+    (torch.float32, _SMR, (2048, 8192), (), True),        # the limit
+    (torch.float32, _SMR + 1, (2048, 8192), (), False),   # then SIMT ...
+    (torch.float32, 128, (2048, 8192), (), False),        # ... and FFMA
+    (torch.float32, 0, (2048, 8192), (), False),
+    (torch.bfloat16, 8, (2048, 8192), (), False),         # bf16: tc
+    (torch.float16, 8, (2048, 8192), (), False),
+    (torch.float32, 8, (200, 300), (), False),            # ragged widths
+    (torch.float32, 8, (2048, 96), (), False),
+    (torch.float32, 8, (0, 128), (), False),
+    (torch.float32, 8, (2048, 8192), (0, 8), False),      # 8 bytes off
+    (torch.float32, 8, (768, 3072), (4,), False),
+])
+def test_stream_route_picks_by_dtype_rows_width_and_alignment(dtype, m,
+                                                              widths, ptrs,
+                                                              want):
+    assert port.stream_route(dtype, m, widths, ptrs) is want
+
+
+@pytest.mark.parametrize("m,k,n,sms", [
+    (8, 2048, 2048, 132), (8, 2048, 8192, 132), (8, 8192, 2048, 132),
+    (1, 2048, 2048, 132), (3, 768, 3072, 132), (16, 2048, 8192, 132),
+    (_SMR, 8192, 2048, 132), (8, 768, 768, 132), (8, 3072, 768, 132),
+    (8, 2048, 2048, 1), (8, 2048, 2048, 1000), (5, 640, 320, 7),
+])
+def test_stream_splits_cover_k(m, k, n, sms):
+    """The splits cut K's stages of 64 into ranges of ceil(stages /
+    splits) that cover K with none left empty, each of at least two
+    stages once K is split, and bring the grid near two blocks an SM."""
+    splits = port.stream_splits(m, k, n, sms)
+    stages = math.ceil(k / 64)
+    per = math.ceil(stages / splits)
+    assert splits >= 1
+    assert splits * per >= stages > (splits - 1) * per
+    assert splits == 1 or per >= 2
+    tiles = math.ceil(m / port.stream_rows(m)) * (n // 32)
+    assert splits == 1 or tiles * splits <= 2 * sms + tiles / 2
+
+
+@pytest.mark.parametrize("m,k,n,want_splits,want_blocks", [
+    (8, 2048, 2048, 4, 256),    # fused_out_ln at decode
+    (8, 2048, 8192, 1, 256),    # the FFN's first product
+    (8, 8192, 2048, 4, 256),    # the FFN's second product
+    (16, 2048, 2048, 4, 256),
+    (64, 2048, 8192, 1, 1024),  # four row tiles: no split
+])
+def test_stream_splits_block_count_at_132_sms(m, k, n, want_splits,
+                                              want_blocks):
+    splits = port.stream_splits(m, k, n, 132)
+    blocks = math.ceil(m / port.stream_rows(m)) * (n // 32) * splits
+    assert (splits, blocks) == (want_splits, want_blocks)
+
+
+@pytest.mark.parametrize("k", [32, 64, 127])
+def test_stream_splits_k_shorter_than_two_stages(k):
+    """K of at most one stage, or under two, is never split."""
+    assert port.stream_splits(8, k, 2048, 132) == 1
+
+
+@pytest.mark.parametrize("m,want", [(1, 4), (4, 4), (5, 8), (8, 8),
+                                    (9, 16), (16, 16), (64, 16)])
+def test_stream_rows_by_m(m, want):
+    assert port.stream_rows(m) == want
+
+
+def test_workspace_is_kept_per_stream_and_grown():
+    """One tensor per (device, stream, name), reused while large enough,
+    replaced by a larger one when short; int32 ones start at zero."""
+    from paddle_tpu_torch.ops import _launch
+    dev = torch.device("cpu")
+    a = _launch.workspace(dev, 11, "t_test", 8, torch.int32)
+    assert a.dtype == torch.int32 and not a.any() and a.numel() == 8
+    assert _launch.workspace(dev, 11, "t_test", 4, torch.int32) is a
+    b = _launch.workspace(dev, 12, "t_test", 4, torch.int32)
+    assert b is not a
+    c = _launch.workspace(dev, 11, "t_test", 16, torch.int32)
+    assert c.numel() == 16 and not c.any()
+    assert _launch.workspace(dev, 11, "t_test", 16, torch.int32) is c
+    f = _launch.workspace(dev, 11, "f_test", 5)
+    assert f.dtype == torch.float32 and f.numel() == 5
+    for key in [k for k in _launch._WORK if k[2] in ("t_test", "f_test")]:
+        del _launch._WORK[key]
+
+
 @pytest.mark.parametrize("m,n,sms,want", [
     (2048, 3072, 132, (128, 64)),    # BERT FFN up: 97% of 3 waves
     (2048, 768, 132, (64, 64)),      # BERT out-projection, FFN down
