@@ -25,7 +25,13 @@ Phases:
      one, P in f32 like the kernel, within 2e-5 for both caches; the
      gather one, P rounded to the cache's type like the JAX package's
      paged_attention_xla, within 2e-5 / 2e-2) and device time a call
-     beside the SDPA yardstick's), the two sub-blocks at decode (f32,
+     beside the SDPA yardstick's; each row on the vector route), then
+     the scalar route at the shape of the d = 256 serving run (S = 4,
+     H = 2, d = 256, pages of 16, f32: the path's), with its
+     instantiations and layouts at that shape (bf16 pools; q and pools
+     in bf16; in f16; f32 pools 4 bytes off a 16-byte boundary), each
+     held to both plain versions (the split one within 2e-5, 2e-2 for a
+     bf16 or f16 q), the two sub-blocks at decode (f32,
      M = 8, the stream route, with device_ms beside the SIMT kernel's on
      misaligned copies (held to the plain version too) and the library
      chain's, split_ms: the time at every K split beside stream_splits'
@@ -52,9 +58,13 @@ Phases:
      sub-blocks must take the stream route, every prefill launch below
      128 rows the route stream_route gives it and every prefill launch
      at a bucket of 128 rows or more the FFMA route (launches by route
-     and kind of call in sub_block_routes), and one greedy request must
-     decode the same tokens when served by the plain versions on the
-     card;
+     and kind of call in sub_block_routes), every paged-attention call
+     must take the vector kernel, and one greedy request must decode the
+     same tokens when served by the plain versions on the card; then a
+     2-layer GPT with heads of 256 (hidden 512, 2 heads), which the
+     reference serves and the first paged kernel refused, served through
+     Engine: every paged-attention call on the scalar kernel, greedy
+     tokens equal to the plain versions' (serving_wide_heads);
   4. train parity — ``HybridParallelTrainStep`` on GPT-3 XL cut to 2
      layers at full width, bf16, 3 steps of 1 x 1024 tokens, through the
      kernels (flash, fused sub-blocks) and through the composed chain,
@@ -71,11 +81,13 @@ Phases:
      them (phase 2b, run with the other kernel checks): layer norm and
      dropout + residual + layer norm, forward and backward, at R = 2048
      and R = 304 rows of C = 768, f32 and bf16, p = 0 and 0.1, with
-     bit-equal dropout masks; the two sub-blocks at M = 2048 with
-     dropout, post-norm and the erf-polynomial gelu (f32 on the FFMA
-     route, with tile_ms, and bf16 on the tensor cores); the three flash
-     kernels at B=16, H=12, S=128, D=64, non-causal, with dropout, with
-     and without a padding mask;
+     bit-equal dropout masks; layer norm on the route ln_route picks
+     ("warp"), beside the row route (on misaligned copies) and the warp
+     route on every grid (grid_ms), reruns bit-identical; the queued
+     launch floor; the two sub-blocks at M = 2048 with dropout, post-norm and the
+     erf-polynomial gelu (f32 on the FFMA route, with tile_ms, and bf16
+     on the tensor cores); the three flash kernels at B=16, H=12, S=128,
+     D=64, non-causal, with dropout, with and without a padding mask;
   7. BERT train parity — ``make_train_step`` on BERT-base cut to 2
      layers at full width, dropout 0.1, AMP O1, 3 steps with fixed
      seeds, through the kernels and through the composed chains
@@ -89,8 +101,10 @@ Phases:
      warm-up, overshoots and swings the sum by several nats from step to
      step), every kernel of the path launched as often as the model
      predicts, the 12 launches a step of each flash kernel (bf16) on the
-     tensor-core route and of each sub-block (f32, M = 2048) on the FFMA
-     route; step ms, samples/s, tokens/s, MFU and peak device memory;
+     tensor-core route, of each sub-block (f32, M = 2048) on the FFMA
+     route and of each layer-norm kernel (f32, R = 2048 and 304) on the
+     warp route; step ms, samples/s, tokens/s, MFU and peak device
+     memory;
   9. the encoder-layer phase — one ``TransformerEncoderLayer(768, 12,
      3072)`` with the constructor's defaults (relu, act_dropout =
      dropout = 0.1, post-LN), forward and backward at (16, 128, 768),
@@ -227,15 +241,32 @@ FFN_DESIGN = {
     "simt": "one launch, hid on chip: a block owns 16 or 32 rows and an H "
             "column tile with its f32 sum in shared memory, walking I in "
             "chunks of 128"}
-# paged attention's one design (csrc/paged_attention.cu)
-PAGED_DESIGN = ("split context: grid (S, H, splits), pages a split from "
-                "paged_splits (table shape and SM count, no host sync); K/V "
-                "rows by 16-byte cp.async through a 4-stage ring of 16-token "
-                "chunks, 8 lanes a token score 4 tokens a warp, P in f32, "
-                "(m, l, acc) a split merged in split order by the last "
-                "block of a (slot, head) to take its ticket")
+# the two routes of the layer-norm kernels (ops/layer_norm.py ln_route)
+LN_DESIGN = {
+    "warp": "a warp owns a row in registers: 16-byte loads (float4 / 8 "
+            "bf16) all issued up front, NV vectors a lane (a template "
+            "parameter, 32 elements a lane at most: C <= 1024), scale and "
+            "bias slices kept for every row the warp takes, two-pass "
+            "statistics by xor-butterfly shuffles, no shared memory or "
+            "barrier, 16-byte stores; rows a block and blocks from ln_grid",
+    "row": "a 64-512-thread block owns a row staged in shared memory as "
+           "f32, block sums through shared memory (the first port's "
+           "kernel; any C <= 16384, any alignment)"}
+# the two routes of paged attention (ops/paged_attention.py paged_route),
+# both split over the context: grid (S, H, splits), pages a split from
+# paged_splits (table shape and SM count, no host sync), P in f32,
+# (m, l, acc) a split merged in split order by the last block of a
+# (slot, head) to take its ticket
+PAGED_DESIGN = {
+    "vector": "K/V rows by 16-byte cp.async through a 4-stage ring of "
+              "16-token chunks, 8 lanes a token score 4 tokens a warp (q "
+              "f32, pools f32/bf16, d <= 128, aligned and contiguous)",
+    "scalar": "plain loads of the pools by their strides, a warp scores "
+              "its 4 tokens of a chunk one by one, q and P V in shared "
+              "memory (every other call: q and pools f32/bf16/f16, any "
+              "d <= 16384, any alignment or strides)"}
 # the device functions of ops/csrc, as the profiler names them
-PORT_KERNEL_NAMES = ("paged_split_kernel",
+PORT_KERNEL_NAMES = ("paged_split_kernel", "paged_scalar_kernel",
                      "out_ln_kernel", "ffn_kernel",
                      "stream_gemm::stream_kernel",
                      "tc_gemm_kernel", "ffma_gemm_kernel", "ln_rows_kernel",
@@ -243,8 +274,9 @@ PORT_KERNEL_NAMES = ("paged_split_kernel",
                      "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                      "tc::flash_fwd_tc_kernel", "tc::flash_bwd_dq_tc_kernel",
                      "tc::flash_bwd_dkv_tc_kernel",
-                     "ln_fwd_kernel", "ln_bwd_dx_kernel", "dal_fwd_kernel",
-                     "dal_bwd_kernel")
+                     "ln_fwd_kernel", "ln_bwd_dx_kernel",
+                     "ln_fwd_warp_kernel", "ln_bwd_dx_warp_kernel",
+                     "dal_fwd_kernel", "dal_bwd_kernel")
 SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                     "fused_out_ln", "fused_ffn_ln")
@@ -317,10 +349,11 @@ def report(results, row, ok: bool):
 
 
 def routed(name, fn, want=None):
-    """fn()'s result and the route ("tc", "ffma" or "simt") that its call
-    of the kernel `name` (a sub-block or flash) took, read from the
-    per-route counters; fails if `want` is given and the route is
-    another."""
+    """fn()'s result and the route ("tc", "ffma", "stream", "simt";
+    "warp" or "row" for layer norm, "vector" or "scalar" for paged
+    attention) that its call of the kernel `name` (a
+    sub-block, flash or layer norm) took, read from the per-route
+    counters; fails if `want` is given and the route is another."""
     from paddle_tpu_torch.ops import launch_counts
     before = launch_counts()
     out = fn()
@@ -447,7 +480,9 @@ def check_paged(torch, timer, results):
             v = torch.randn(P + 1, ps, H, d, generator=g,
                             device="cuda").to(dt)
             args = (q, k, v, pt, ctx, scale)
-            got = paged_attention_decode(*args)
+            got, took = routed("paged_attention",
+                               lambda: paged_attention_decode(*args),
+                               "vector")
             again = paged_attention_decode(*args)
             ref = paged_attention_split_reference(q, k, v, pt, ctx, pps,
                                                   scale)
@@ -476,7 +511,7 @@ def check_paged(torch, timer, results):
                 if label == "ctx<=2048" else {}
             row = {"kernel": "paged_attention",
                    "shape": f"S={S} H={H} d={d} ps={ps} M={M} {label} "
-                            f"cache={name}",
+                            f"cache={name}", "route": took,
                    "pages_per_split": pps, "splits": -(-M // pps),
                    "max_abs_err": err, "tol": tol,
                    "gather_err": gather_err, "gather_tol": gather_tol,
@@ -492,6 +527,99 @@ def check_paged(torch, timer, results):
                      f"{gather_tol}")
             del k, v, kd, vd
             torch.cuda.empty_cache()
+
+
+def check_paged_scalar(torch, timer, results):
+    """B row 1's scalar route at the shape of the d = 256 serving run
+    (serving_wide_heads_phase: S = 4 slots, H = 2 heads of d = 256, pages
+    of 16, its 32-page table, contexts of its first four requests half-way
+    through their decode), q and pools in f32 (the path's) and the
+    route's other instantiations and layouts at that shape: bf16 pools;
+    q and pools in bf16; in f16; f32 pools 4 bytes off a 16-byte
+    boundary. Each call must take the scalar route; each row is held to
+    the split plain version (P in f32 as the kernel keeps it) within
+    2e-5 (2e-2 where q, and so the output, is bf16 or f16) and to the
+    gather one on the same terms (2e-2 unless q and pools are f32), with
+    a bit-identical rerun, and timed as check_paged's rows (tc_times;
+    each timed copy keeps its tensor's alignment)."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops.fused_block import _sms
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_reference,
+        paged_attention_split_reference, paged_splits)
+    S, H, d, ps, M = 4, 2, 256, 16, 32
+    ctx_list = [72, 28, 37, 110]
+    P = S * M
+    f32, bf, f16 = torch.float32, torch.bfloat16, torch.float16
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
+    pt = torch.randperm(P, generator=g, device="cuda").reshape(S, M) \
+        .to(torch.int32).contiguous()
+    for s_, c in enumerate(ctx_list):
+        pt[s_, -(-c // ps):] = P
+    pps = paged_splits(S, H, M, _sms(torch.cuda.current_device()))
+    scale = d ** -0.5
+    n_tok = sum(ctx_list)
+
+    def shifted(t, off):
+        """A copy of t viewed `off` elements into its storage."""
+        buf = torch.empty(t.numel() + off, dtype=t.dtype, device="cuda")
+        return buf[off:].view(t.shape).copy_(t)
+
+    def keep_alignment(t):
+        return shifted(t, 1) if t.data_ptr() % 16 else t.clone()
+
+    def sdpa(qd, kd, vd, mask, scale):
+        return F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                              scale=scale)
+
+    for label, qdt, kvdt, off in (
+            ("q=f32 pools=f32 aligned", f32, f32, 0),
+            ("q=f32 pools=bf16 aligned", f32, bf, 0),
+            ("q=bf16 pools=bf16 aligned", bf, bf, 0),
+            ("q=f16 pools=f16 aligned", f16, f16, 0),
+            ("q=f32 pools=f32 4 bytes off", f32, f32, 1)):
+        q = torch.randn(S, H, d, generator=g, device="cuda").to(qdt)
+        k, v = (shifted(torch.randn(P + 1, ps, H, d, generator=g,
+                                    device="cuda").to(kvdt), off)
+                for _ in range(2))
+        args = (q, k, v, pt, ctx, scale)
+        got, took = routed("paged_attention",
+                           lambda: paged_attention_decode(*args), "scalar")
+        again = paged_attention_decode(*args)
+        ref = paged_attention_split_reference(q, k, v, pt, ctx, pps, scale)
+        gather = paged_attention_reference(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"paged_attention scalar {label}: two runs differ")
+        err, gather_err = max_err(got, ref), max_err(got, gather)
+        tol = 2e-5 if qdt == f32 else 2e-2
+        gather_tol = 2e-5 if qdt == kvdt == f32 else 2e-2
+        kd = k[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
+        vd = v[pt.long()].reshape(S, M * ps, H, d).permute(0, 2, 1, 3)
+        kd, vd = kd.float().contiguous(), vd.float().contiguous()
+        mask = (torch.arange(M * ps, device="cuda")[None, :]
+                < ctx[:, None])[:, None, None, :]
+        qd = q[:, :, None, :].float()
+        nbytes = 2 * q.numel() * q.element_size() \
+            + 2 * n_tok * H * d * k.element_size() + pt.numel() * 4 + S * 4
+        bms, by = bound(nbytes, 4 * n_tok * H * d)
+        row = {"kernel": "paged_attention",
+               "shape": f"S={S} H={H} d={d} ps={ps} M={M} scalar {label}",
+               "route": took, "pages_per_split": pps,
+               "splits": -(-M // pps), "max_abs_err": err, "tol": tol,
+               "gather_err": gather_err, "gather_tol": gather_tol,
+               "bit_identical_rerun": True,
+               **tc_times(torch, timer, args, paged_attention_decode,
+                          paged_attention_reference, sdpa,
+                          library_args=(qd, kd, vd, mask, scale),
+                          clone=keep_alignment),
+               "bound_ms": bms, "bound_by": by}
+        report(results, row, err <= tol)
+        if gather_err > gather_tol:
+            fail(f"paged_attention ({row['shape']}) max abs err "
+                 f"{gather_err} from the gather plain version, outside "
+                 f"{gather_tol}")
 
 
 def split_ms(torch, timer, args, rule):
@@ -1093,6 +1221,57 @@ def check_flash(torch, timer, results):
                    lib_fwd, lib_bwd)
 
 
+def ln_grid_ms(torch, timer, name, args, n_sets=16):
+    """Device time a call (Timer.queued, n_sets copies of the tensors) of
+    the layer-norm kernel `name`'s warp route through its C entry point
+    at several grids (rows a block x blocks), beside ops/layer_norm.py
+    ln_grid's pick ("rule"): a row a warp at 1, 2, 4 and 8 rows a block,
+    and 8 or 4 rows a block on one or two blocks an SM, each warp then
+    walking rows. args: (x, scale, bias, eps) for layer_norm_fwd, (x,
+    scale, mean, rstd, dy) for layer_norm_bwd_dx."""
+    import ctypes
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops._launch import _dtype_code, _sms
+    from paddle_tpu_torch.ops.layer_norm import ln_grid
+    x = args[0]
+    R, C = x.shape
+    code = _dtype_code(x, name)
+    sms = _sms(torch.cuda.current_device())
+    rule = ln_grid(R, sms)
+    stream = torch.cuda.current_stream().cuda_stream
+    if name == "layer_norm_fwd":
+        fn = _build.function("layer_norm", "layer_norm_fwd_warp_launch", 6,
+                             3, (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p))
+        sets = []
+        for _ in range(n_sets):
+            xi = x.clone()
+            mean = torch.empty(R, device="cuda")
+            sets.append((xi, args[1], args[2], torch.empty_like(xi), mean,
+                         torch.empty_like(mean)))
+        tail = [R, C, code, float(args[3])]
+    else:
+        fn = _build.function("layer_norm", "layer_norm_bwd_dx_warp_launch",
+                             6, 5, (ctypes.c_void_p,))
+        sets = [(x.clone(), args[1], args[2], args[3], args[4].clone(),
+                 torch.empty_like(x)) for _ in range(n_sets)]
+        tail = [R, C, code]
+
+    def run(st, grid):
+        err = fn(*(t.data_ptr() for t in st), *tail, *grid, stream)
+        if err:
+            fail(f"{name} warp route at grid {grid}: CUDA error {err}")
+
+    cands = sorted({(w, math.ceil(R / w)) for w in (1, 2, 4, 8)}
+                   | {(8, sms), (8, 2 * sms), (4, sms), (4, 2 * sms), rule})
+    times = {"rule": f"{rule[0]}x{rule[1]}"}
+    for grid in cands:
+        times[f"{grid[0]}x{grid[1]}"] = timer.queued(
+            [lambda st=st, grid=grid: run(st, grid) for st in sets])
+    del sets
+    return times
+
+
 def check_rows(torch, timer, results):
     """Layer norm and dropout + residual + layer norm, forward and
     backward, at the BERT-base shapes: R = 2048 tokens and R = 16 * 19 =
@@ -1104,11 +1283,24 @@ def check_rows(torch, timer, results):
     1e-4. The dropout masks must be bit-equal: dx is zero exactly where
     keep_mask dropped. Times are Timer.queued over 16 sets of buffers:
     these kernels run for microseconds, less than their wrappers' host
-    time."""
+    time. The layer-norm rows take the route ln_route picks (read from
+    the route counters, "warp" at these shapes) and carry the row
+    route's time and error beside it (row_ms, row_max_abs_err: the
+    first port's block-a-row kernel, which ln_route gives misaligned
+    copies of the same inputs). Row 7's library time is
+    the autograd backward of F.layer_norm(res + F.dropout(x, p)), its
+    graph kept between calls."""
     import torch.nn.functional as F
     from paddle_tpu_torch.ops import fused_residual as fr
     from paddle_tpu_torch.ops import layer_norm as ln
     C, eps, seed = 768, 1e-12, 20240917
+    # the least a launch costs when queued this way: PyTorch's fill kernel
+    # on one element, against which the rows' few microseconds are read
+    ones = [torch.empty(1, device="cuda") for _ in range(16)]
+    print(json.dumps({"phase": "launch_floor", "what": "Tensor.fill_ of "
+                      "one float32 element, Timer.queued over 16 calls",
+                      "ms": timer.queued([lambda t=t: t.fill_(1.0)
+                                          for t in ones])}), flush=True)
     g = torch.Generator(device="cuda").manual_seed(4)
     s = 1.0 + 0.1 * torch.randn(C, generator=g, device="cuda")
     b = 0.1 * torch.randn(C, generator=g, device="cuda")
@@ -1123,37 +1315,62 @@ def check_rows(torch, timer, results):
             sl, bl = s.to(dt), b.to(dt)
             sets = range(16)
             xs, rs, dys = ([t.clone() for _ in sets] for t in (x, res, dy))
+            # the row route's inputs: misaligned copies
+            xm, dym = misaligned(x), misaligned(dy)
+            xms, dyms = ([misaligned(t) for t in ts] for ts in (xs, dys))
 
             def each(fn):
                 return timer.queued([lambda i=i: fn(i) for i in sets])
 
-            y, mean, rstd = ln._fwd_kernel(x, s, b, eps)
+            (y, mean, rstd), route = routed(
+                "layer_norm_fwd", lambda: ln._fwd_kernel(x, s, b, eps),
+                "warp")
+            (y_w, mean_w, rstd_w), _ = routed(
+                "layer_norm_fwd", lambda: ln._fwd_kernel(xm, s, b, eps),
+                "row")
             y_r, mean_r, rstd_r = ln.layer_norm_reference(x, s, b, eps)
+            again = ln._fwd_kernel(x, s, b, eps)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, w) for a, w in zip((y, mean, rstd),
+                                                         again))
             bms, by = bound(2 * R * C * item + 8 * C + 8 * R, 8 * R * C)
             row = {"kernel": "layer_norm_fwd", "shape": shape,
-                   "max_abs_err": max_err(y, y_r), "tol": tol,
+                   "route": route, "rerun_bit_equal": same,
+                   "max_abs_err": max_err(y, y_r),
+                   "row_max_abs_err": max_err(y_w, y_r), "tol": tol,
                    "kernel_ms": each(lambda i: ln._fwd_kernel(xs[i], s, b,
                                                               eps)),
+                   "row_ms": each(lambda i: ln._fwd_kernel(
+                       xms[i], s, b, eps)),
                    "plain_ms": each(lambda i: ln.layer_norm_reference(
                        xs[i], s, b, eps)),
                    "library_ms": each(lambda i: F.layer_norm(
                        xs[i], (C,), sl, bl, eps)),
+                   "grid_ms": ln_grid_ms(torch, timer, "layer_norm_fwd",
+                                         (x, s, b, eps)),
                    "bound_ms": bms, "bound_by": by}
-            report(results, row, within(y, y_r, **tol)
-                   and within(mean, mean_r, 1e-4, 1e-4)
-                   and within(rstd, rstd_r, 1e-4, 1e-4))
+            report(results, row, same and all(
+                within(a, y_r, **tol) and within(m, mean_r, 1e-4, 1e-4)
+                and within(r_, rstd_r, 1e-4, 1e-4)
+                for a, m, r_ in ((y, mean, rstd), (y_w, mean_w, rstd_w))))
 
-            dx = ln._bwd_dx_kernel(x, s, mean, rstd, dy)
+            dx, route = routed("layer_norm_bwd_dx", lambda: ln._bwd_dx_kernel(
+                x, s, mean, rstd, dy), "warp")
+            dx_w, _ = routed("layer_norm_bwd_dx", lambda: ln._bwd_dx_kernel(
+                xm, s, mean, rstd, dym), "row")
             dx_r = ln.layer_norm_bwd_dx_reference(x, s, mean, rstd, dy)
-            torch.cuda.synchronize()
+            same = torch.equal(dx, ln._bwd_dx_kernel(x, s, mean, rstd, dy))
             bms, by = bound(3 * R * C * item + 4 * C + 8 * R, 11 * R * C)
             # the library's backward takes its own forward's statistics
             _, m2, r2 = torch.native_layer_norm(x, [C], sl, bl, eps)
             row = {"kernel": "layer_norm_bwd_dx", "shape": shape,
-                   "max_abs_err": max_err(dx, dx_r), "tol": tol,
+                   "route": route, "rerun_bit_equal": same,
+                   "max_abs_err": max_err(dx, dx_r),
+                   "row_max_abs_err": max_err(dx_w, dx_r), "tol": tol,
                    "kernel_ms": each(lambda i: ln._bwd_dx_kernel(
                        xs[i], s, mean, rstd, dys[i])),
+                   "row_ms": each(lambda i: ln._bwd_dx_kernel(
+                       xms[i], s, mean, rstd, dyms[i])),
                    "plain_ms": each(
                        lambda i: ln.layer_norm_bwd_dx_reference(
                            xs[i], s, mean, rstd, dys[i])),
@@ -1161,8 +1378,11 @@ def check_rows(torch, timer, results):
                        lambda i: torch.ops.aten.native_layer_norm_backward(
                            dys[i], xs[i], [C], m2, r2, sl, bl,
                            [True, False, False])),
+                   "grid_ms": ln_grid_ms(torch, timer, "layer_norm_bwd_dx",
+                                         (x, s, mean, rstd, dy)),
                    "bound_ms": bms, "bound_by": by}
-            report(results, row, within(dx, dx_r, **tol))
+            report(results, row, same and within(dx, dx_r, **tol)
+                   and within(dx_w, dx_r, **tol))
 
             for p in (0.0, 0.1):
                 pshape = f"{shape} p={p}"
@@ -1190,6 +1410,12 @@ def check_rows(torch, timer, results):
                        and within(rstd, rstd_r, 1e-4, 1e-4))
 
                 zs = [z.clone() for _ in sets]
+                # the library's backward: autograd through its own forward
+                # on each set, the graph kept for every timed call
+                xg = [t.clone().requires_grad_() for t in xs]
+                rg = [t.clone().requires_grad_() for t in rs]
+                outs = [F.layer_norm(rg[i] + F.dropout(xg[i], p), (C,), sl,
+                                     bl, eps) for i in sets]
                 dx, dres = fr._bwd_kernel(z, s, mean, rstd, dy, seed, p)
                 dx_r, dres_r = fr.dropout_add_ln_bwd_reference(
                     z, s, mean, rstd, dy, seed, p)
@@ -1210,7 +1436,9 @@ def check_rows(torch, timer, results):
                        "plain_ms": each(
                            lambda i: fr.dropout_add_ln_bwd_reference(
                                zs[i], s, mean, rstd, dys[i], seed, p)),
-                       "library_ms": None,
+                       "library_ms": each(lambda i: torch.autograd.grad(
+                           outs[i], (xg[i], rg[i]), dys[i],
+                           retain_graph=True)),
                        "bound_ms": bms, "bound_by": by}
                 report(results, row, masks_equal
                        and within(dx, dx_r, **tol)
@@ -1417,6 +1645,13 @@ def serving_path(torch, tree):
     if missing:
         fail(f"kernels never launched on the serving path: {missing} "
              f"(counts {counts})")
+    # GPT-3 XL's heads (d = 128, pages of 16, f32 pools): every paged
+    # attention call on the vector kernel
+    if counts.get("paged_attention.scalar", 0) \
+            or counts.get("paged_attention.vector", 0) \
+            != counts["paged_attention"]:
+        fail(f"serving path: paged attention off the vector kernel: "
+             f"{counts}")
     for name in ("prefill", "prefill_tail", "decode"):   # the class's again
         delattr(model, name)
     check_serving_routes(by_call)
@@ -1453,6 +1688,75 @@ def serving_path(torch, tree):
         fail("greedy tokens differ between the kernels and the plain "
              "versions")
     return counts, eng
+
+
+def serving_wide_heads_phase(torch):
+    """Decode at a head width past the vector paged kernel, on the card:
+    a 2-layer GPT with heads of 256 (hidden 512, 2 heads; the reference
+    serves it through paged_attention_xla, the vector kernel takes
+    head_dim <= 128) served through Engine from seeded weights: five
+    greedy requests, one sharing a 2-page prefix with another so that
+    prefill_tail runs too. Every request must end "done", every
+    paged-attention launch must take the scalar kernel, and each
+    request's tokens must equal those of the same weights served by the
+    plain versions (composed blocks, attn_impl="plain"). Returns the
+    run's launch counts."""
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.serving import Engine, GPTDecodeModel
+    cfg = GPTConfig(vocab_size=8192, hidden_size=512, num_layers=2,
+                    num_heads=2, max_position_embeddings=512)
+    model = GPTDecodeModel(cfg, params=init_gpt_params(cfg, seed=2))
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,))
+               for n in (64, 16, 31, 100, 64)]
+    prompts[4][:32] = prompts[0][:32]
+    news = [16, 24, 12, 20, 16]
+
+    def serve(m, **kw):
+        eng = Engine(m, num_slots=4, num_pages=64, page_size=16, **kw)
+        first = eng.submit(prompts[0], news[0])
+        eng.step()             # prefill request 0 so its pages are cached
+        reqs = [first] + [eng.submit(p, n)
+                          for p, n in zip(prompts[1:], news[1:])]
+        eng.run_until_idle()
+        torch.cuda.synchronize()
+        return eng, reqs
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    eng, reqs = serve(model, prefix_cache_pages=16)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    bad = [(r.id, r.status, r.error) for r in reqs if r.status != "done"]
+    if bad:
+        fail(f"d=256 serving: requests not done: {bad}")
+    plain_model = GPTDecodeModel(dataclasses.replace(cfg,
+                                                     fused_blocks=False),
+                                 params=model.params, attn_impl="plain")
+    _, plain = serve(plain_model)
+    got = [r.result().tolist() for r in reqs]
+    want = [r.result().tolist() for r in plain]
+    st = eng.stats()
+    print(json.dumps({"phase": "serving_wide_heads",
+                      "config": "hidden=512 heads=2 head_dim=256 layers=2 "
+                                "f32 pools, pages of 16",
+                      "requests": len(reqs), "wall_s": round(wall, 3),
+                      "prefix_cache": st["prefix_cache"],
+                      "compiles": st["compiles"], "launches": counts,
+                      "tokens_equal_plain": got == want}), flush=True)
+    if counts.get("paged_attention", 0) <= 0 \
+            or counts.get("paged_attention.scalar", 0) \
+            != counts["paged_attention"]:
+        fail(f"d=256 serving: paged attention must take the scalar kernel "
+             f"only: {counts}")
+    if not any(k.startswith("prefill_tail") for k in st["compiles"]):
+        fail(f"d=256 serving: no prefill_tail call: {st['compiles']}")
+    if got != want:
+        fail(f"d=256 serving: greedy tokens differ from the plain "
+             f"versions': {got} vs {want}")
+    return counts
 
 
 def prefill_kind(rows):
@@ -1696,7 +2000,7 @@ def training_path(torch, tree, steps=5):
 
 def off_route(counts, want, what, route="tc"):
     """Fails unless each kernel in `want` launched exactly that often, all
-    of them on `route` ("tc", "ffma" or "simt")."""
+    of them on `route` (one of the kernel's routes in design_of)."""
     off = {k: (counts.get(k, 0), counts.get(f"{k}.{route}", 0), n)
            for k, n in want.items()
            if not counts.get(k, 0) == counts.get(f"{k}.{route}", 0) == n}
@@ -1858,6 +2162,10 @@ def bert_training_path(torch, steps=5):
     off_route(counts, {k: BERT_LAUNCHES_PER_STEP[k] * steps for k in
                        ("fused_out_ln", "fused_ffn_ln")},
               "BERT training path", "ffma")
+    # layer norm (f32 under O1, C = 768, R = 2048 and 304): the warp route
+    off_route(counts, {k: BERT_LAUNCHES_PER_STEP[k] * steps for k in
+                       ("layer_norm_fwd", "layer_norm_bwd_dx")},
+              "BERT training path", "warp")
     return counts, step, batch
 
 
@@ -2203,6 +2511,10 @@ def design_of(name):
     """The routes (and their designs) of the kernel `name`."""
     if name.startswith("flash"):
         return FLASH_DESIGN
+    if name.startswith("layer_norm"):
+        return LN_DESIGN
+    if name == "paged_attention":
+        return PAGED_DESIGN
     return FFN_DESIGN if name == "fused_ffn" else DESIGN
 
 
@@ -2224,37 +2536,44 @@ def kernel_entry(row, launches):
     for key in ("device_ms",           # device time a call, no host time
                 "simt_device_ms",      # the SIMT kernel on misaligned
                 "simt_max_abs_err",    # copies, and the library chain
-                "library_device_ms"):
+                "library_device_ms",
+                "row_ms",              # layer norm's block-a-row kernel
+                "row_max_abs_err",     # (misaligned copies) beside warp
+                "rerun_bit_equal"):
         if key in row:
             ent[key] = row[key]
     if "route" in row:      # which of the kernel's designs ran
         ent["design"] = f"{row['route']}: " \
             f"{design_of(row['kernel'])[row['route']]}"
-    elif row["kernel"] == "paged_attention":
-        ent["design"] = PAGED_DESIGN
+    if row["kernel"] == "paged_attention":
         ent["splits"] = row["splits"]
         ent["gather_err"] = row["gather_err"]  # from the gather version
-    for key in ("tile_ms", "split_ms"):  # every FFMA tile (pair) / split
-        if key in row:                     # size, beside the rule's pick
+    for key in ("tile_ms", "split_ms",     # every FFMA tile (pair) / split
+                "grid_ms"):                # size / LN grid, beside the
+        if key in row:                     # rule's pick
             ent[key] = row[key]
     if "differ" in row:     # share of elements != the plain version's
         ent["differ"] = row["differ"]
     return ent
 
 
-def kernels_line(results, serve_counts, train_counts, bert_counts,
-                 layer_counts, ffn_counts):
+def kernels_line(results, serve_counts, wide_counts, train_counts,
+                 bert_counts, layer_counts, ffn_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
-    (decode, f32 cache); the flash kernels and the sub-blocks from the
-    GPT training run (bf16, M = 1024), the sub-blocks with their serving
+    (decode, f32 cache, the vector route), its scalar route from the
+    d = 256 serving run nested under "wide_heads" (its other
+    instantiations under "shapes"); the flash kernels and the sub-blocks
+    from the GPT training run (bf16, M = 1024), the sub-blocks with their serving
     decode numbers (f32, M = 8, the stream launches) nested under
     "serving" and their prefill numbers (f32, M = 256, the FFMA
     launches) under "serving_prefill", and all five with their
     BERT-shape numbers and the BERT run's launches nested under "bert";
-    each of these with its launches by route ("routes"); the layer-norm kernels from the BERT run (f32,
-    R = 2048); the dropout + residual + layer norm kernels from the
-    encoder-layer phase (f32, R = 2048, p = 0.1); fused_ffn from the
+    each of these with its launches by route ("routes"); the layer-norm
+    kernels from the BERT run (f32, R = 2048, with the run's launches by
+    route; R = 304 and bf16 under "shapes"); the dropout + residual +
+    layer norm kernels from the encoder-layer phase (f32, R = 2048,
+    p = 0.1); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
     under "shapes" with launches null."""
     def row(name, *keys):
@@ -2266,6 +2585,16 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
     # the serving run's own short contexts: launches counted above
     paged["serving_mix"] = kernel_entry(
         row("paged_attention", "serving mix", "cache=f32"), None)
+    paged["routes"] = route_counts(serve_counts, "paged_attention")
+    wide = row("paged_attention", "scalar", "q=f32 pools=f32 aligned")
+    paged["wide_heads"] = kernel_entry(
+        wide, wide_counts.get("paged_attention", 0))
+    paged["wide_heads"]["routes"] = route_counts(wide_counts,
+                                                 "paged_attention")
+    paged["wide_heads"]["shapes"] = [
+        kernel_entry(r, None) for r in results
+        if r["kernel"] == "paged_attention" and "scalar" in r["shape"]
+        and r is not wide]
     kernels = [paged]
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         ent = kernel_entry(row(name, "causal bf16"),
@@ -2291,8 +2620,13 @@ def kernels_line(results, serve_counts, train_counts, bert_counts,
         ent["bert"]["routes"] = route_counts(bert_counts, name)
         kernels.append(ent)
     for name in ("layer_norm_fwd", "layer_norm_bwd_dx"):
-        kernels.append(kernel_entry(row(name, "R=2048", "f32"),
-                                    bert_counts.get(name, 0)))
+        top = row(name, "R=2048", "f32")
+        ent = kernel_entry(top, bert_counts.get(name, 0))
+        ent["routes"] = route_counts(bert_counts, name)
+        # the MLM head's 304 rows and bf16: launches counted with R=2048
+        ent["shapes"] = [kernel_entry(r, None) for r in results
+                         if r["kernel"] == name and r is not top]
+        kernels.append(ent)
     for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
         kernels.append(kernel_entry(row(name, "R=2048", "f32", "p=0.1"),
                                     layer_counts.get(name, 0)))
@@ -2337,6 +2671,7 @@ def main(argv):
     timer = Timer(torch)
     results = []
     check_paged(torch, timer, results)
+    check_paged_scalar(torch, timer, results)
     check_blocks(torch, timer, results)
     check_blocks_bf16(torch, timer, results)
     check_flash(torch, timer, results)
@@ -2365,6 +2700,9 @@ def main(argv):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    wide_counts = serving_wide_heads_phase(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     train_parity(torch, tree)
     train_counts, step, ids = training_path(torch, tree)
@@ -2389,8 +2727,9 @@ def main(argv):
     static_lenet_phase(torch, with_profile)
     ffn_counts = static_ffn_phase(torch, with_profile)
 
-    print(json.dumps(kernels_line(results, serve_counts, train_counts,
-                                  bert_counts, layer_counts, ffn_counts)),
+    print(json.dumps(kernels_line(results, serve_counts, wide_counts,
+                                  train_counts, bert_counts, layer_counts,
+                                  ffn_counts)),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

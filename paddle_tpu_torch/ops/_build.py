@@ -13,6 +13,8 @@ a CUDA tensor either reaches its kernel or the call raises.
 
 The launch counters live here too: each kernel wrapper calls
 ``note_launch(name)`` right after its kernel launched, and nowhere else.
+Route counters ``<name>.<route>`` sit beside them: a kernel with several
+designs counts each launch under its route as well.
 """
 from __future__ import annotations
 

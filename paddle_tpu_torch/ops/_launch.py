@@ -4,10 +4,12 @@ devices, types and layout, keep the kernels' scratch per stream, and
 turn a launch's error code into an exception."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 __all__ = ["_route", "_check", "_dtype_code", "_raise_if", "_drop_args",
-           "keep_threshold", "workspace"]
+           "_sms", "keep_threshold", "workspace"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' scratch, by (device index, stream, name): split partials
@@ -28,6 +30,12 @@ def workspace(device, stream, name, numel, dtype=torch.float32):
         make = torch.zeros if dtype == torch.int32 else torch.empty
         t = _WORK[key] = make(numel, dtype=dtype, device=device)
     return t
+
+
+@functools.cache
+def _sms(index: int) -> int:
+    """The card's multiprocessor count (one entry per device index)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _route(t, what):

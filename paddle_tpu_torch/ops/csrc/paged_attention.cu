@@ -13,18 +13,29 @@
 // the port keeps as it is. The split-and-merge plain version,
 // paged_attention_split_reference, keeps P in f32 as this kernel does.
 //
-// Layouts (row-major, contiguous):
-//   q          [S, H, d]        f32
-//   k/v pages  [P, ps, H, d]    f32 or bf16 (template T), 16-byte aligned
+// Two kernels share the grid, the softmax and the merge:
+//   * paged_split_kernel, the vector route: q f32, K/V pools f32 or bf16
+//     (template T), contiguous and 16-byte aligned, d <= 128 with
+//     d * sizeof(T) a multiple of 16; rows arrive by cp.async. The
+//     serving shapes (GPT-3 XL: d = 128, ps = 16) take it.
+//   * paged_scalar_kernel, the scalar route: every other call the
+//     reference serves. q and pools in f32, bf16 or f16 (each its own
+//     type), any d up to kScalarMaxDim, pools of any element strides
+//     (a view at any element offset), read by plain loads; out in q's
+//     type.
+//
+// Layouts (row-major; the scalar route's pools by their strides):
+//   q          [S, H, d]        f32 (vector route), f32/bf16/f16 (scalar)
+//   k/v pages  [P, ps, H, d]    see above
 //   page_table [S, M]           int32, every entry a valid pool index
 //   ctx_lens   [S]              int32
-//   out        [S, H, d]        f32
+//   out        [S, H, d]        q's type
 //   part       [S, H, splits, d + 2] f32 workspace (m, l, acc[d]) when
 //              splits > 1
 //   tickets    [S, H] int32, zero before the launch and zero again after
 //              it (the last block of a (slot, head) resets its own), when
 //              splits > 1
-// d <= 128 with d * sizeof(T) a multiple of 16; ps <= 128.
+// Any page size ps >= 1.
 //
 // Bound on this card: bytes. A call must read the K and V rows of the
 // ctx tokens of every (slot, head) once: 2 * sum(ctx) * H * d *
@@ -70,14 +81,15 @@
 //     the ticket; every sum runs in a fixed order, so reruns give the
 //     same bits.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kMaxDim = 128;   // head dim bound: one P V dimension a thread
-constexpr int kMaxPage = 128;
+constexpr int kMaxDim = 128;   // vector route: one P V dimension a thread
+constexpr int kScalarMaxDim = 16384;  // scalar route: q and acc in smem
 constexpr int kChunk = 16;     // tokens a stage: 4 warps x 4 tokens
 constexpr int kStages = 4;     // ring of chunks: 3 in flight
 constexpr int kGroup = 8;      // lanes scoring one token
@@ -87,6 +99,19 @@ constexpr float kNeg = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
 }
 
 // The elements of one 16-byte vector as f32.
@@ -129,27 +154,43 @@ __device__ __forceinline__ void wait_pending() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Calls f(i) for the P V dimensions i that thread tid owns: tid, tid +
+// kThreads, ... below d where kWide (the scalar route), else tid alone
+// (the vector route, d <= kThreads).
+template <bool kWide, typename F>
+__device__ __forceinline__ void each_dim(int d, F f) {
+  if constexpr (kWide) {
+    for (int i = threadIdx.x; i < d; i += kThreads) f(i);
+  } else {
+    if ((int)threadIdx.x < d) f((int)threadIdx.x);
+  }
+}
+
 // The end of block (sh = slot * H + head, split sp) with its running
-// max m, sum l and thread tid's dimension acc of P V. One split: the
-// block normalises and writes out. Otherwise it writes (m, l, acc) to
-// the workspace and takes a ticket; the last of the splits to arrive
-// combines all of them in split order (reading the others' partials from
-// L2 after the fence) and resets the ticket for the next call. Called
-// by the whole block (it holds barriers); *last is a shared word.
-__device__ __forceinline__ void finish(float m, float l, float acc,
-                                       float* __restrict__ out,
+// max m, sum l and P V accumulator acc(i) of dimension i (each_dim's
+// dimensions). One split: the block normalises and writes out.
+// Otherwise it writes (m, l, acc) to the workspace and takes a ticket;
+// the last of the splits to arrive combines all of them in split order
+// (reading the others' partials from L2 after the fence) and resets the
+// ticket for the next call. Called by the whole block (it holds
+// barriers); *last is a shared word.
+template <bool kWide, typename TO, typename Acc>
+__device__ __forceinline__ void finish(float m, float l, Acc acc,
+                                       TO* __restrict__ out,
                                        float* __restrict__ part,
                                        int* __restrict__ tickets, size_t sh,
                                        int d, int splits, int sp,
                                        int* last) {
   const int tid = threadIdx.x;
   if (splits == 1) {
-    if (tid < d) out[sh * d + tid] = acc / (l == 0.f ? 1.f : l);
+    each_dim<kWide>(d, [&](int i) {
+      out[sh * d + i] = from_f32<TO>(acc(i) / (l == 0.f ? 1.f : l));
+    });
     return;
   }
   float* pp = part + sh * splits * (d + 2);
   if (tid == 0) pp[sp * (d + 2)] = m, pp[sp * (d + 2) + 1] = l;
-  if (tid < d) pp[sp * (d + 2) + 2 + tid] = acc;
+  each_dim<kWide>(d, [&](int i) { pp[sp * (d + 2) + 2 + i] = acc(i); });
   __threadfence();
   __syncthreads();
   if (tid == 0) *last = atomicAdd(&tickets[sh], 1) == splits - 1;
@@ -161,14 +202,16 @@ __device__ __forceinline__ void finish(float m, float l, float acc,
   float m_tot = kNeg;
   for (int j = 0; j < splits; ++j)
     m_tot = fmaxf(m_tot, __ldcg(pp + j * (d + 2)));
-  float l_tot = 0.f, a = 0.f;
-  for (int j = 0; j < splits; ++j) {
-    const float* p = pp + j * (d + 2);
-    const float f = expf(__ldcg(p) - m_tot);
-    l_tot += __ldcg(p + 1) * f;
-    a += __ldcg(p + 2 + tid) * f;
-  }
-  out[sh * d + tid] = a / (l_tot == 0.f ? 1.f : l_tot);
+  each_dim<kWide>(d, [&](int i) {
+    float l_tot = 0.f, a = 0.f;
+    for (int j = 0; j < splits; ++j) {
+      const float* p = pp + j * (d + 2);
+      const float f = expf(__ldcg(p) - m_tot);
+      l_tot += __ldcg(p + 1) * f;
+      a += __ldcg(p + 2 + i) * f;
+    }
+    out[sh * d + i] = from_f32<TO>(a / (l_tot == 0.f ? 1.f : l_tot));
+  });
 }
 
 // The ring, the chunk's scores, the block's page indices, then finish's
@@ -211,7 +254,8 @@ __global__ void __launch_bounds__(kThreads)
   const int t0 = sp * pps * ps;
   const int t1 = min(ctx, t0 + pps * ps);
   if (t0 >= t1) {  // nothing of this slot in this split: an empty partial
-    finish(kNeg, 0.f, 0.f, out, part, tickets, sh, d, splits, sp, last);
+    finish<false>(kNeg, 0.f, [](int) { return 0.f; }, out, part, tickets,
+                  sh, d, splits, sp, last);
     return;
   }
 
@@ -333,7 +377,121 @@ __global__ void __launch_bounds__(kThreads)
     m_run = m_new;
   }
   wait_pending<0>();  // the trailing (empty) groups
-  finish(m_run, l_run, acc, out, part, tickets, sh, d, splits, sp, last);
+  finish<false>(m_run, l_run, [&](int) { return acc; }, out, part, tickets,
+                sh, d, splits, sp, last);
+}
+
+// Element strides of a page pool [P, ps, H, d].
+struct Strides {
+  long long page, tok, head, dim;
+};
+
+// The scalar route: the vector route's grid, chunks of kChunk tokens,
+// softmax and merge, with plain loads instead of the cp.async ring, so
+// no term on d, alignment, contiguity or types but d <= kScalarMaxDim.
+//   * q, converted to f32, and the P V accumulator (thread tid owns
+//     dimensions tid, tid + kThreads, ...) live in shared memory.
+//   * Scores: a warp scores its 4 tokens of a chunk one after another,
+//     its lanes reading dimensions lane, lane + 32, ... of the token's K
+//     row (coalesced where the pool is contiguous in d), then a 5-step
+//     butterfly sum.
+//   * P V: each thread reads its dimensions of the chunk's V rows
+//     straight from global memory (consecutive threads, consecutive
+//     addresses), P from the lanes by shuffle.
+template <typename TQ, typename TK>
+__global__ void __launch_bounds__(kThreads)
+    paged_scalar_kernel(const TQ* __restrict__ q,
+                        const TK* __restrict__ k_pages,
+                        const TK* __restrict__ v_pages,
+                        const int* __restrict__ page_table,
+                        const int* __restrict__ ctx_lens,
+                        TQ* __restrict__ out, float* __restrict__ part,
+                        int* __restrict__ tickets, int H, int d, int ps,
+                        int M, int pps, float scale, Strides ks,
+                        Strides vs) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* acc = qs + d;
+  float* sc = acc + d;
+  int* last = reinterpret_cast<int*>(sc + kChunk);
+
+  const int s = blockIdx.x, h = blockIdx.y, sp = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t sh = (size_t)s * H + h;
+
+  const int ctx = max(0, min(ctx_lens[s], M * ps));
+  const int t0 = sp * pps * ps;
+  const int t1 = min(ctx, t0 + pps * ps);
+  if (t0 >= t1) {  // nothing of this slot in this split: an empty partial
+    finish<true>(kNeg, 0.f, [](int) { return 0.f; }, out, part, tickets, sh,
+                 d, splits, sp, last);
+    return;
+  }
+  for (int i = tid; i < d; i += kThreads)
+    qs[i] = to_f32(q[sh * d + i]), acc[i] = 0.f;
+  const int* table = page_table + (size_t)s * M;
+  const TK* kh = k_pages + (size_t)h * ks.head;
+  const TK* vh = v_pages + (size_t)h * vs.head;
+
+  float m_run = kNeg, l_run = 0.f;
+  for (int base = t0; base < t1; base += kChunk) {
+    // every thread is done with the last chunk's scores; q is in place
+    __syncthreads();
+    for (int i = 0; i < kChunk / 4; ++i) {
+      const int tok = warp * (kChunk / 4) + i, t = base + tok;
+      float dot = 0.f;
+      if (t < t1) {
+        const TK* kr =
+            kh + (size_t)table[t / ps] * ks.page + (size_t)(t % ps) * ks.tok;
+        for (int e = lane; e < d; e += 32)
+          dot += qs[e] * to_f32(kr[(size_t)e * ks.dim]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) sc[tok] = t < t1 ? dot * scale : kNeg;
+    }
+    __syncthreads();
+
+    // the chunk's probabilities in every warp, as the vector route forms
+    // them
+    const float sk = lane < kChunk ? sc[lane] : kNeg;
+    float cmax = sk;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      cmax = fmaxf(cmax, __shfl_xor_sync(0xffffffffu, cmax, off));
+    const float m_new = fmaxf(m_run, cmax);
+    const float alpha = expf(m_run - m_new);
+    const float pk =
+        lane < kChunk && base + lane < t1 ? expf(sk - m_new) : 0.f;
+    float psum = pk;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      psum += __shfl_xor_sync(0xffffffffu, psum, off);
+    l_run = l_run * alpha + psum;
+    float p[kChunk];
+    const TK* vr[kChunk];
+#pragma unroll
+    for (int k = 0; k < kChunk; ++k) {
+      p[k] = __shfl_sync(0xffffffffu, pk, k);
+      const int t = min(base + k, t1 - 1);  // p[k] = 0 past t1
+      vr[k] = vh + (size_t)table[t / ps] * vs.page + (size_t)(t % ps) * vs.tok;
+    }
+    for (int i = tid; i < d; i += kThreads) {
+      float a0 = 0.f, a1 = 0.f;  // even and odd tokens: two short chains
+#pragma unroll
+      for (int k = 0; k < kChunk; k += 2) {
+        a0 += p[k] * to_f32(vr[k][(size_t)i * vs.dim]);
+        a1 += p[k + 1] * to_f32(vr[k + 1][(size_t)i * vs.dim]);
+      }
+      acc[i] = acc[i] * alpha + (a0 + a1);
+    }
+    m_run = m_new;
+  }
+  __syncthreads();
+  finish<true>(m_run, l_run, [&](int i) { return acc[i]; }, out, part,
+               tickets, sh, d, splits, sp, last);
 }
 
 template <typename T>
@@ -356,6 +514,49 @@ int run(const float* q, const void* k_pages, const void* v_pages,
   return (int)cudaGetLastError();
 }
 
+template <typename TQ, typename TK>
+int run_scalar(const void* q, const void* k_pages, const void* v_pages,
+               const int* page_table, const int* ctx_lens, void* out,
+               float* part, int* tickets, int S, int H, int d, int ps, int M,
+               int pps, float scale, Strides ks, Strides vs,
+               cudaStream_t st) {
+  auto kern = paged_scalar_kernel<TQ, TK>;
+  const int smem = (2 * d + kChunk + 1) * 4;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const dim3 grid(S, H, (M + pps - 1) / pps);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const TQ*>(q), static_cast<const TK*>(k_pages),
+      static_cast<const TK*>(v_pages), page_table, ctx_lens,
+      static_cast<TQ*>(out), part, tickets, H, d, ps, M, pps, scale, ks, vs);
+  return (int)cudaGetLastError();
+}
+
+template <typename TQ>
+int scalar_by_pool(int kv_type, const void* q, const void* k_pages,
+                   const void* v_pages, const int* page_table,
+                   const int* ctx_lens, void* out, float* part,
+                   int* tickets, int S, int H, int d, int ps, int M, int pps,
+                   float scale, Strides ks, Strides vs, cudaStream_t st) {
+  switch (kv_type) {
+    case 0:
+      return run_scalar<TQ, float>(q, k_pages, v_pages, page_table, ctx_lens,
+                                   out, part, tickets, S, H, d, ps, M, pps,
+                                   scale, ks, vs, st);
+    case 1:
+      return run_scalar<TQ, __nv_bfloat16>(q, k_pages, v_pages, page_table,
+                                           ctx_lens, out, part, tickets, S,
+                                           H, d, ps, M, pps, scale, ks, vs,
+                                           st);
+    case 2:
+      return run_scalar<TQ, __half>(q, k_pages, v_pages, page_table,
+                                    ctx_lens, out, part, tickets, S, H, d,
+                                    ps, M, pps, scale, ks, vs, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // pps: pages a split (ops/paged_attention.py paged_splits); part: the
@@ -371,8 +572,8 @@ extern "C" int paged_attention_launch(const float* q, const void* k_pages,
                                       int H, int d, int ps, int M, int pps,
                                       float scale, int cache_is_bf16,
                                       void* stream) {
-  if (S < 1 || H < 1 || d < 1 || d > kMaxDim || ps < 1 || ps > kMaxPage ||
-      M < 1 || pps < 1 ||
+  if (S < 1 || H < 1 || d < 1 || d > kMaxDim || ps < 1 || M < 1 ||
+      pps < 1 ||
       ((M + pps - 1) / pps > 1 && (part == nullptr || tickets == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -381,4 +582,41 @@ extern "C" int paged_attention_launch(const float* q, const void* k_pages,
                               part, tickets, S, H, d, ps, M, pps, scale, st);
   return run<float>(q, k_pages, v_pages, page_table, ctx_lens, out, part,
                     tickets, S, H, d, ps, M, pps, scale, st);
+}
+
+// The scalar route, with paged_attention_launch's arguments and: q_type
+// and kv_type 0 = f32, 1 = bf16, 2 = f16 (out in q's type, contiguous
+// like q, page_table and ctx_lens); k_strides and v_strides the pools'
+// element strides (page, token, head, dim). 1 <= d <= 16384. Returns a
+// cudaError_t.
+extern "C" int paged_attention_scalar_launch(
+    const void* q, const void* k_pages, const void* v_pages,
+    const int* page_table, const int* ctx_lens, void* out, float* part,
+    int* tickets, int S, int H, int d, int ps, int M, int pps, float scale,
+    int q_type, int kv_type, long long k_page, long long k_tok,
+    long long k_head, long long k_dim, long long v_page, long long v_tok,
+    long long v_head, long long v_dim, void* stream) {
+  if (S < 1 || H < 1 || d < 1 || d > kScalarMaxDim || ps < 1 || M < 1 ||
+      pps < 1 ||
+      ((M + pps - 1) / pps > 1 && (part == nullptr || tickets == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides ks{k_page, k_tok, k_head, k_dim};
+  const Strides vs{v_page, v_tok, v_head, v_dim};
+  switch (q_type) {
+    case 0:
+      return scalar_by_pool<float>(kv_type, q, k_pages, v_pages, page_table,
+                                   ctx_lens, out, part, tickets, S, H, d, ps,
+                                   M, pps, scale, ks, vs, st);
+    case 1:
+      return scalar_by_pool<__nv_bfloat16>(kv_type, q, k_pages, v_pages,
+                                           page_table, ctx_lens, out, part,
+                                           tickets, S, H, d, ps, M, pps,
+                                           scale, ks, vs, st);
+    case 2:
+      return scalar_by_pool<__half>(kv_type, q, k_pages, v_pages, page_table,
+                                    ctx_lens, out, part, tickets, S, H, d, ps,
+                                    M, pps, scale, ks, vs, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,8 @@
 // Row helpers of the layer-norm kernels (layer_norm.cu,
 // fused_residual.cu): one block owns one row of a row-major (R, C)
-// matrix and stages it in shared memory as f32.
+// matrix and stages it in shared memory as f32. At the end, the helpers
+// of layer_norm.cu's warp route, where one warp owns a row and holds it
+// in registers as 16-byte vectors.
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +118,66 @@ template <typename K>
 inline int set_smem(K kernel, size_t bytes) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// ---- the warp route: a warp owns a row, held in registers -------------
+
+// Elements of T in one 16-byte vector.
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+__device__ __forceinline__ uint4 ld16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ void st16(void* p, const uint4& v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// The kVec<T> elements of one 16-byte vector as f32, and back (bf16
+// rounded to nearest even, as __float2bfloat16).
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u, float* v);
+template <>
+__device__ __forceinline__ void unpack16<float>(const uint4& u, float* v) {
+  v[0] = __uint_as_float(u.x), v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z), v[3] = __uint_as_float(u.w);
+}
+template <>
+__device__ __forceinline__ void unpack16<__nv_bfloat16>(const uint4& u,
+                                                        float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+template <typename T>
+__device__ __forceinline__ uint4 pack16(const float* v);
+template <>
+__device__ __forceinline__ uint4 pack16<float>(const float* v) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+template <>
+__device__ __forceinline__ uint4 pack16<__nv_bfloat16>(const float* v) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Two sums over the warp at once, by xor butterfly: every lane ends with
+// the same bits (each step adds the same two numbers in every lane).
+__device__ __forceinline__ void warp_sum2(float& a, float& b) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_xor_sync(0xffffffffu, a, off);
+    b += __shfl_xor_sync(0xffffffffu, b, off);
+  }
 }
 
 }  // namespace row_norm

@@ -51,14 +51,13 @@ mask replayed from the seed and each gradient cast to its input's type.
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 
 import torch
 
 from . import _build
 from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
-                      workspace)
+                      _sms, workspace)
 from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
@@ -285,12 +284,6 @@ def _stream_scratch(dev, stream, m, products):
     part = workspace(dev, stream, "part", n_part)
     tickets = workspace(dev, stream, "tickets", n_tickets, torch.int32)
     return part.data_ptr(), tickets.data_ptr()
-
-
-@functools.cache
-def _sms(index: int) -> int:
-    """The card's multiprocessor count (one entry per device index)."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _run(dev, what, fn, *args):

@@ -40,9 +40,9 @@ import os
 import torch
 
 from . import _build
-from ._launch import _check, _dtype_code, _route
-from .fused_block import (_FFMA_TILES, ACTS, _grads_of, _run, _sms,
-                          ffma_route, ffma_tiles, tc_route)
+from ._launch import _check, _dtype_code, _route, _sms
+from .fused_block import (_FFMA_TILES, ACTS, _grads_of, _run, ffma_route,
+                          ffma_tiles, tc_route)
 
 __all__ = ["fused_ffn", "ffn_reference", "can_use_fused_ffn", "ffn_wins",
            "ffn_route"]

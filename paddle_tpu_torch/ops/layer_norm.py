@@ -15,20 +15,62 @@ arithmetic and statistics, float32 scale and bias) or the call raises.
 Any R >= 1; 1 <= C <= 16384. The statistics are two-pass (mean, then the
 mean of squared differences), so a zero-variance row gives
 rstd = rsqrt(eps) exactly.
+
+Each kernel has two routes, picked before the launch by the pure
+``ln_route(C, dtype, ptrs)``: "warp" (a warp owns a row in registers;
+C a multiple of one 16-byte vector, C <= ``WARP_MAX_COLS``, every
+tensor 16-byte aligned), with ``ln_grid(R, sms)`` rows a block and
+blocks, and "row" (a block owns a row in shared memory; everything
+else). Every launch counts under ``layer_norm_fwd`` /
+``layer_norm_bwd_dx`` and under its route, ``<name>.warp`` or
+``<name>.row``.
 """
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import _build
-from ._launch import _check, _dtype_code, _raise_if, _route
+from ._launch import _check, _dtype_code, _raise_if, _route, _sms
 
 __all__ = ["fused_layer_norm", "layer_norm_reference",
-           "layer_norm_bwd_dx_reference", "MAX_COLS"]
+           "layer_norm_bwd_dx_reference", "ln_route", "ln_grid", "MAX_COLS",
+           "WARP_MAX_COLS"]
 
 MAX_COLS = 16384
+# the warp route's register cap: 32 elements a lane (csrc/layer_norm.cu
+# kLaneElems), so C <= 32 * 32
+WARP_MAX_COLS = 1024
+_WARPS = 8              # rows a block of the warp route, at most
+_BLOCKS_PER_SM = 2      # resident blocks an SM the warp route's grid fills
+
+
+def ln_route(c: int, dtype, ptrs) -> str:
+    """The route of a layer-norm kernel call on rows of `c` columns of
+    `dtype` whose tensors sit at the addresses `ptrs` (data_ptr()):
+    "warp" when a row is whole 16-byte vectors (c a multiple of 4 in
+    float32, of 8 in bfloat16), c <= WARP_MAX_COLS and every address is
+    16-byte aligned; "row" otherwise. Pure: the wrapper asks it before
+    the launch, nothing is tried and caught."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        return "row"
+    vec = 4 if dtype == torch.float32 else 8
+    if c % vec or c > WARP_MAX_COLS or any(p % 16 for p in ptrs):
+        return "row"
+    return "warp"
+
+
+def ln_grid(r: int, sms: int) -> tuple[int, int]:
+    """(rows a block, blocks) of the warp route for r rows on a card of
+    `sms` multiprocessors: r // sms rows a block, between 1 and _WARPS,
+    so that a short call spreads over every SM; at most _BLOCKS_PER_SM
+    blocks an SM, each warp walking rows beyond that. At 132 SMs: R = 304
+    takes 2 rows a block (152 blocks), R = 2048 takes 8 (256 blocks, one
+    wave)."""
+    rows = max(1, min(_WARPS, r // sms))
+    return rows, min(math.ceil(r / rows), _BLOCKS_PER_SM * sms)
 
 
 def layer_norm_reference(x2d, scale, bias, eps):
@@ -74,15 +116,24 @@ def _fwd_kernel(x2d, scale, bias, eps):
     y = torch.empty_like(x2d)
     mean = torch.empty((r,), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty_like(mean)
-    fn = _build.function("layer_norm", "layer_norm_fwd_launch", 6, 3,
-                         (ctypes.c_float, ctypes.c_void_p))
+    route = ln_route(c, x2d.dtype,
+                     [t.data_ptr() for t in (x2d, scale, bias, y)])
+    args = [x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), r, c, code, float(eps)]
+    if route == "warp":
+        fn = _build.function("layer_norm", "layer_norm_fwd_warp_launch", 6,
+                             3, (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p))
+        args += ln_grid(r, _sms(x2d.device.index))
+    else:
+        fn = _build.function("layer_norm", "layer_norm_fwd_launch", 6, 3,
+                             (ctypes.c_float, ctypes.c_void_p))
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        err = fn(x2d.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                 y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), r, c, code,
-                 float(eps), stream)
-    _raise_if(err, "layer_norm_fwd")
+        err = fn(*args, stream)
+    _raise_if(err, f"layer_norm_fwd ({route} route)")
     _build.note_launch("layer_norm_fwd")
+    _build.note_launch(f"layer_norm_fwd.{route}")
     return y, mean, rstd
 
 
@@ -98,15 +149,23 @@ def _bwd_dx_kernel(x2d, scale, mean, rstd, dy):
                          f"{tuple(x2d.shape)}, dy {tuple(dy.shape)}, scale "
                          f"{tuple(scale.shape)}, mean {tuple(mean.shape)}")
     dx = torch.empty_like(x2d)
-    fn = _build.function("layer_norm", "layer_norm_bwd_dx_launch", 6, 3,
-                         (ctypes.c_void_p,))
+    route = ln_route(c, x2d.dtype,
+                     [t.data_ptr() for t in (x2d, scale, dy, dx)])
+    args = [x2d.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), r, c, code]
+    if route == "warp":
+        fn = _build.function("layer_norm", "layer_norm_bwd_dx_warp_launch",
+                             6, 5, (ctypes.c_void_p,))
+        args += ln_grid(r, _sms(x2d.device.index))
+    else:
+        fn = _build.function("layer_norm", "layer_norm_bwd_dx_launch", 6, 3,
+                             (ctypes.c_void_p,))
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        err = fn(x2d.data_ptr(), scale.data_ptr(), mean.data_ptr(),
-                 rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(), r, c, code,
-                 stream)
-    _raise_if(err, "layer_norm_bwd_dx")
+        err = fn(*args, stream)
+    _raise_if(err, f"layer_norm_bwd_dx ({route} route)")
     _build.note_launch("layer_norm_bwd_dx")
+    _build.note_launch(f"layer_norm_bwd_dx.{route}")
     return dx
 
 

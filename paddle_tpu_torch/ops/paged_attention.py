@@ -19,15 +19,22 @@ request ("slot") against its own ragged-length history.
     grid (S, H, splits) takes, from the table's shape and the card's
     multiprocessor count alone (never from ctx_lens, which live on the
     device: the launch needs no host sync).
+  * ``paged_route`` — which of the two kernels in
+    ``csrc/paged_attention.cu`` takes a call on the card: "vector"
+    (16-byte cp.async rows: q f32, pools f32 or bf16, d <= 128, rows of
+    whole 16-byte pieces, aligned and contiguous; the serving shapes) or
+    "scalar" (plain loads, pools by their strides: any other call of
+    f32, bf16 or f16 tensors, d <= 16384). Decided from dtypes, shapes
+    and pointers alone (never ctx_lens: the route needs no host sync).
   * ``paged_attention_decode`` — the entry point. A CPU tensor goes to
-    the reference; a CUDA tensor goes to the hand-written kernel in
-    ``csrc/paged_attention.cu`` or the call raises.
+    the gather plain version; a CUDA tensor to the kernel of its route,
+    or the call raises. Every launch counts under ``paged_attention``
+    and under its route, ``paged_attention.vector`` or
+    ``paged_attention.scalar``.
 
 Layouts:
-  q          [S, H, d]        one query token per slot (float32)
-  k/v_pages  [P, ps, H, d]    the page pools (float32 or bfloat16; for
-                              the kernel d * itemsize a multiple of 16
-                              and 16-byte aligned)
+  q          [S, H, d]        one query token per slot
+  k/v_pages  [P, ps, H, d]    the page pools (one dtype)
   page_table [S, M] int32     pool index of each slot's m-th page
   ctx_lens   [S] int32        valid history length per slot
 Returns     [S, H, d] in q's dtype
@@ -40,15 +47,16 @@ import math
 import torch
 
 from . import _build
-from ._launch import workspace
-from .fused_block import _sms
+from ._launch import _sms, workspace
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
-           "paged_attention_split_reference", "paged_splits"]
+           "paged_attention_split_reference", "paged_splits",
+           "paged_route"]
 
 _NEG = -1e30
-_MAX_HEAD_DIM = 128
-_MAX_PAGE = 128
+_MAX_HEAD_DIM = 128        # the vector route's
+_SCALAR_MAX_DIM = 16384    # the scalar route's (q and P V in smem)
+_TYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BLOCKS_PER_SM = 12     # paged_splits' target of blocks an SM
 
 
@@ -125,21 +133,45 @@ def paged_attention_split_reference(q, k_pages, v_pages, page_table,
     return (acc / l[..., None]).to(q.dtype)
 
 
-def _check(q, k_pages, v_pages, page_table, ctx_lens):
+def paged_route(q_dtype, kv_dtype, d, ptrs, contiguous=True) -> str:
+    """The kernel that takes a decode call on the card: "vector" (the
+    cp.async kernel) when q is float32, the K/V pools float32 or
+    bfloat16, head_dim d <= 128, a K/V row of d * itemsize bytes a
+    multiple of 16, and both pools contiguous (`contiguous`) at 16-byte
+    aligned addresses (`ptrs`, from data_ptr()); "scalar" (plain loads,
+    pools by their strides) for every other call of float32, bfloat16
+    or float16 tensors with d <= 16384; anything else raises. Both take
+    any page size. Pure: decided from dtypes, shapes and pointers
+    before any launch, never from ctx_lens (they live on the device:
+    the route needs no host sync)."""
+    for what, dt in (("q", q_dtype), ("k/v pages", kv_dtype)):
+        if dt not in _TYPE_CODES:
+            raise TypeError(f"paged attention kernels take float32, "
+                            f"bfloat16 or float16 {what}, got {dt}")
+    if d > _SCALAR_MAX_DIM:
+        raise ValueError(f"paged attention kernels take head_dim <= "
+                         f"{_SCALAR_MAX_DIM}, got {d}")
+    item = kv_dtype.itemsize
+    if (q_dtype == torch.float32
+            and kv_dtype in (torch.float32, torch.bfloat16) and contiguous
+            and d <= _MAX_HEAD_DIM and d * item % 16 == 0
+            and all(p % 16 == 0 for p in ptrs)):
+        return "vector"
+    return "scalar"
+
+
+def _check(q, k_pages, v_pages, page_table, ctx_lens) -> str:
+    """The route of a decode call (paged_route, which raises on what
+    neither kernel takes), once the call is what any decode call must
+    be: one device, the two pools of one dtype, int32 table and lengths,
+    shapes that agree."""
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("ctx_lens", ctx_lens)):
         if t.device != dev:
             raise ValueError(f"{name} on {t.device}, q on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if not q.is_contiguous():
-        raise ValueError("q must be contiguous")
-    if q.dtype != torch.float32:
-        raise TypeError(f"q must be float32, got {q.dtype}")
-    if k_pages.dtype not in (torch.float32, torch.bfloat16) \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"k/v pages must share float32 or bfloat16, got "
+    if v_pages.dtype != k_pages.dtype:
+        raise TypeError(f"k/v pages must be of one dtype, got "
                         f"{k_pages.dtype}/{v_pages.dtype}")
     if page_table.dtype != torch.int32 or ctx_lens.dtype != torch.int32:
         raise TypeError("page_table and ctx_lens must be int32")
@@ -148,7 +180,6 @@ def _check(q, k_pages, v_pages, page_table, ctx_lens):
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k/v "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
     S, H, d = q.shape
-    ps = k_pages.shape[1]
     if tuple(k_pages.shape[2:]) != (H, d):
         raise ValueError(f"pages [P, ps, H, d] must match q's (H, d) = "
                          f"{(H, d)}, got {tuple(k_pages.shape)}")
@@ -157,25 +188,21 @@ def _check(q, k_pages, v_pages, page_table, ctx_lens):
         raise ValueError(f"page_table [S, M] / ctx_lens [S] with S={S}, got "
                          f"{tuple(page_table.shape)} / "
                          f"{tuple(ctx_lens.shape)}")
-    if d > _MAX_HEAD_DIM or ps > _MAX_PAGE:
-        raise ValueError(f"kernel takes head_dim <= {_MAX_HEAD_DIM} and "
-                         f"page_size <= {_MAX_PAGE}, got {d}, {ps}")
-    if d * k_pages.element_size() % 16:
-        raise ValueError(f"kernel copies K/V rows in 16-byte pieces: "
-                         f"head_dim {d} of {k_pages.dtype} is "
-                         f"{d * k_pages.element_size()} bytes")
+    return paged_route(q.dtype, k_pages.dtype, d,
+                       (k_pages.data_ptr(), v_pages.data_ptr()),
+                       k_pages.is_contiguous() and v_pages.is_contiguous())
 
 
-def _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale):
-    _check(q, k_pages, v_pages, page_table, ctx_lens)
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("kernel copies K/V rows in 16-byte pieces: the "
-                         "page pools must be 16-byte aligned")
+def _launch(q, k_pages, v_pages, page_table, ctx_lens, scale):
+    """The call on its route's kernel (_check). q, page_table and
+    ctx_lens are made contiguous; the scalar route takes the pools by
+    their strides."""
+    q, page_table, ctx_lens = (t.contiguous()
+                               for t in (q, page_table, ctx_lens))
+    route = _check(q, k_pages, v_pages, page_table, ctx_lens)
     S, H, d = q.shape
     ps = k_pages.shape[1]
     M = page_table.shape[1]
-    fn = _build.function("paged_attention", "paged_attention_launch", 8, 6,
-                         (ctypes.c_float, ctypes.c_int, ctypes.c_void_p))
     pps = paged_splits(S, H, M, _sms(q.device.index))
     splits = math.ceil(M / pps)
     out = torch.empty_like(q)
@@ -188,22 +215,36 @@ def _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale):
                          S * H * splits * (d + 2)).data_ptr()
         tickets = workspace(q.device, stream, "tickets", S * H,
                             torch.int32).data_ptr()
+    args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+            part, tickets, S, H, d, ps, M, pps, float(scale)]
+    if route == "vector":
+        fn = _build.function("paged_attention", "paged_attention_launch", 8,
+                             6, (ctypes.c_float, ctypes.c_int,
+                                 ctypes.c_void_p))
+        args.append(int(k_pages.dtype == torch.bfloat16))
+    else:
+        fn = _build.function("paged_attention",
+                             "paged_attention_scalar_launch", 8, 6,
+                             (ctypes.c_float, ctypes.c_int, ctypes.c_int)
+                             + (ctypes.c_longlong,) * 8 + (ctypes.c_void_p,))
+        args += [_TYPE_CODES[q.dtype], _TYPE_CODES[k_pages.dtype],
+                 *k_pages.stride(), *v_pages.stride()]
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-                 part, tickets, S, H, d, ps, M, pps, float(scale),
-                 int(k_pages.dtype == torch.bfloat16), stream)
+        err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged_attention kernel ({route} route) launch "
+                           f"failed: CUDA error {err}")
     _build.note_launch("paged_attention")
+    _build.note_launch(f"paged_attention.{route}")
     return out
 
 
 def paged_attention_decode(q, k_pages, v_pages, page_table, ctx_lens,
                            scale=None):
     """Ragged paged-attention decode; see the module docstring. CPU
-    tensors take the plain version, CUDA tensors the kernel."""
+    tensors take the plain version; CUDA tensors the kernel of their
+    route (paged_route)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     if q.device.type == "cpu":
         return paged_attention_reference(q, k_pages, v_pages, page_table,
@@ -211,4 +252,4 @@ def paged_attention_decode(q, k_pages, v_pages, page_table, ctx_lens,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention_decode: no kernel for device "
                          f"{q.device}")
-    return _launch_kernel(q, k_pages, v_pages, page_table, ctx_lens, scale)
+    return _launch(q, k_pages, v_pages, page_table, ctx_lens, scale)

@@ -23,7 +23,14 @@ ctx 0, 1, ps, ps + 1, inside a split and the whole table, against both
 plain versions, reruns bit-identical; fused_ffn on its tensor-core and
 FFMA routes (every activation, ragged M, reruns bit-identical), its bias
 epilogue bit-equal to fused_ffn_ln's residual one with a zero residual
-(the GEMM cores both files share), and the calls that stay on SIMT.
+(the GEMM cores both files share), and the calls that stay on SIMT;
+paged-attention decode at the shapes its first kernel did not take
+(head_dim or page size past 128, K/V rows that are not whole 16-byte
+pieces, q in bf16 or f16, misaligned or strided pools), served by the
+scalar kernel (or the vector one at ps = 256), split or not; the
+layer-norm kernels' two routes ("warp", "row"; misaligned copies take
+the row route) around the warp route's cap of C = 1024, reruns
+bit-identical, a zero-variance row, and the route each call takes.
 
 Needs a CUDA card: each test skips without one (the `dev` fixture
 decides, at run time). On the card, run
@@ -141,6 +148,121 @@ def test_paged_attention_one_split(dev):
     S, H, d, ps, M = 64, 32, 64, 16, 8
     P = S * M
     g = _g(4)
+    q = torch.randn(S, H, d, generator=g, device=dev)
+    k = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
+    v = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
+    ctx = torch.randint(0, M * ps + 1, (S,), generator=g, device=dev,
+                        dtype=torch.int32)
+    pt = torch.randperm(P, generator=g, device=dev).reshape(S, M)
+    pt = pt.to(torch.int32).contiguous()
+    pps = paged_splits(S, H, M, _sms(dev.index or 0))
+    if _sms(dev.index or 0) <= 170:
+        assert pps == M
+    got = paged_attention_decode(q, k, v, pt, ctx)
+    want = paged_attention_split_reference(q, k, v, pt, ctx, pps)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.equal(got, paged_attention_decode(q, k, v, pt, ctx))
+
+
+# (name, q dtype, pool dtype, d, ps, pool layout, route): the shapes of
+# fault C2 (the reference serves them, the first kernel raised on them);
+# layout "offset" views each pool 4 bytes (f32) or 8 bytes (bf16) off a
+# 16-byte boundary, "strided" takes heads 0..H-1 of pools of H + 1 heads
+C2_CASES = [
+    ("d256_ps16", torch.float32, torch.float32, 256, 16, "", "scalar"),
+    ("d256_ps16_bf16", torch.float32, torch.bfloat16, 256, 16, "", "scalar"),
+    ("d128_ps256", torch.float32, torch.float32, 128, 256, "", "vector"),
+    ("d4_bf16", torch.float32, torch.bfloat16, 4, 16, "", "scalar"),
+    ("d6_f32", torch.float32, torch.float32, 6, 16, "", "scalar"),
+    ("q_bf16", torch.bfloat16, torch.bfloat16, 128, 16, "", "scalar"),
+    ("q_f16", torch.float16, torch.float16, 64, 16, "", "scalar"),
+    ("pools_4_bytes_off", torch.float32, torch.float32, 128, 16, "offset",
+     "scalar"),
+    ("pools_strided", torch.float32, torch.bfloat16, 128, 16, "strided",
+     "scalar")]
+
+
+def _paged_inputs(dev, seed, qdt, kvdt, d, ps, layout, S=3, H=2, M=4):
+    g = _g(seed)
+    P = S * M
+    q = torch.randn(S, H, d, generator=g, device=dev).to(qdt)
+    n = (P + 1) * ps * H * d
+    if layout == "strided":
+        k, v = (torch.randn(P + 1, ps, H + 1, d, generator=g,
+                            device=dev).to(kvdt)[:, :, :H] for _ in range(2))
+    else:
+        off = 1 if layout == "offset" else 0
+        k, v = (torch.randn(n + off, generator=g, device=dev).to(kvdt)
+                [off:].view(P + 1, ps, H, d) for _ in range(2))
+    ctx = torch.tensor([0, 1, ps + 1, M * ps][-S:], dtype=torch.int32,
+                       device=dev)
+    pt = torch.randperm(P, generator=g, device=dev).reshape(S, M)
+    pt = pt.to(torch.int32).contiguous()
+    for s in range(S):
+        pt[s, math.ceil(int(ctx[s]) / ps):] = P
+    return q, k, v, pt, ctx
+
+
+@pytest.mark.parametrize("S", [3, 4])
+@pytest.mark.parametrize("qdt,kvdt,d,ps,layout,route",
+                         [c[1:] for c in C2_CASES],
+                         ids=[c[0] for c in C2_CASES])
+def test_paged_attention_serves_the_shapes_of_fault_c2(
+        dev, qdt, kvdt, d, ps, layout, route, S):
+    """On the card, decode at d = 256, ps = 256, bf16 d = 4, f32 d = 6,
+    q bf16 or f16, pools off a 16-byte boundary and strided pools takes a
+    kernel (the route paged_route gives: the scalar kernel but at
+    ps = 256) instead of raising: one launch counted under
+    paged_attention and its route, split over the context (the grid of
+    3 or 4 slots of 2 heads splits the 4-page table a page a split), the
+    same bits when run again, every ticket back at zero; against the
+    split plain version (P in f32, as the kernels keep it) on every
+    slot within 2e-5 (f32 q) or 2e-2 (a bf16 or f16 q: the output is
+    rounded to it), against the gather one on the slots with ctx > 0
+    within 2e-5 (f32 q and pools) or 2e-2; ctx 0 gives 0."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops._launch import _WORK
+    from paddle_tpu_torch.ops.fused_block import _sms
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_reference,
+        paged_attention_split_reference, paged_route, paged_splits)
+    q, k, v, pt, ctx = _paged_inputs(dev, 21, qdt, kvdt, d, ps, layout, S=S)
+    assert paged_route(qdt, kvdt, d, (k.data_ptr(), v.data_ptr()),
+                       k.is_contiguous()) == route
+    before = _build.launch_counts()
+    got = paged_attention_decode(q, k, v, pt, ctx)
+    again = paged_attention_decode(q, k, v, pt, ctx)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    for name in ("paged_attention", f"paged_attention.{route}"):
+        assert after.get(name, 0) == before.get(name, 0) + 2
+    assert torch.equal(got, again)
+    assert got.dtype == qdt and got.shape == q.shape
+    assert not any(t.any() for key, t in _WORK.items()
+                   if key[2] == "tickets")
+    pps = paged_splits(S, 2, 4, _sms(dev.index or 0))
+    split = paged_attention_split_reference(q, k, v, pt, ctx, pps)
+    tol = 2e-5 if qdt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), split.float(), atol=tol,
+                               rtol=tol)
+    live = ctx > 0
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    gather = paged_attention_reference(q, k, v, pt, ctx)
+    tol = 2e-5 if qdt == kvdt == torch.float32 else 2e-2
+    torch.testing.assert_close(got[live].float(), gather[live].float(),
+                               atol=tol, rtol=tol)
+
+
+def test_paged_attention_scalar_one_split(dev):
+    """The scalar kernel with one split (2048 (slot, head) pairs): the
+    block normalises and writes out itself; d = 256 in f32."""
+    from paddle_tpu_torch.ops.fused_block import _sms
+    from paddle_tpu_torch.ops.paged_attention import (
+        paged_attention_decode, paged_attention_split_reference,
+        paged_splits)
+    S, H, d, ps, M = 64, 32, 256, 16, 4
+    P = S * M
+    g = _g(24)
     q = torch.randn(S, H, d, generator=g, device=dev)
     k = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
     v = torch.randn(P + 1, ps, H, d, generator=g, device=dev)
@@ -759,22 +881,51 @@ ROW_SHAPES = [(1, 1), (3, 7), (33, 100), (304, 768), (2048, 768),
               (5, 1030), (2, 16384), (7, 16383)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("r,c", ROW_SHAPES)
-def test_layer_norm_kernels_match_plain(dev, dtype, r, c):
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import layer_norm as ln
-    g = _g(9)
+# the layer-norm kernels' shapes: ROW_SHAPES and, around the warp route's
+# register cap (C <= 1024), the cap and the cap plus one 16-byte vector
+# in float32 (4 columns) and bfloat16 (8)
+LN_ROW_SHAPES = ROW_SHAPES + [(64, 1024), (64, 1028), (64, 1032),
+                              (131, 512), (8192, 768)]
+
+
+def _ln_inputs(dev, seed, r, c, dtype):
+    g = _g(seed)
     x = (torch.randn(r, c, generator=g, device=dev) * 2 + 0.5).to(dtype)
     dy = torch.randn(r, c, generator=g, device=dev).to(dtype)
     s = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
     b = 0.1 * torch.randn(c, generator=g, device=dev)
+    return x, dy, s, b
+
+
+def _ln_misaligned(t):
+    """A copy of `t` one element past a 16-byte boundary: ln_route sends
+    it to the row route."""
+    return torch.empty(t.numel() + 1, device=t.device,
+                       dtype=t.dtype)[1:].view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("view", ["chosen", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", LN_ROW_SHAPES)
+def test_layer_norm_kernels_match_plain(dev, dtype, r, c, view):
+    """Both routes against the plain versions: f32 1e-4, bf16 2e-2,
+    statistics 1e-5; the route ln_route picks ("chosen") and, on
+    misaligned copies of x and dy, the row route. Each launch counts
+    under its kernel and its route."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import layer_norm as ln
+    x, dy, s, b = _ln_inputs(dev, 9, r, c, dtype)
+    if view == "misaligned":
+        x, dy = _ln_misaligned(x), _ln_misaligned(dy)
+    took = ln.ln_route(c, dtype, [x.data_ptr(), s.data_ptr(), b.data_ptr()])
+    assert view == "chosen" or took == "row"
     before = _build.launch_counts()
     y, mean, rstd = ln._fwd_kernel(x, s, b, 1e-12)
     dx = ln._bwd_dx_kernel(x, s, mean, rstd, dy)
     torch.cuda.synchronize()
     after = _build.launch_counts()
-    for name in ("layer_norm_fwd", "layer_norm_bwd_dx"):
+    for name in ("layer_norm_fwd", "layer_norm_bwd_dx",
+                 f"layer_norm_fwd.{took}", f"layer_norm_bwd_dx.{took}"):
         assert after[name] == before.get(name, 0) + 1
     if c == 1:      # one column: variance 0, rstd = rsqrt(eps) = 1e6
         torch.testing.assert_close(rstd, torch.full_like(rstd, 1e6),
@@ -787,6 +938,81 @@ def test_layer_norm_kernels_match_plain(dev, dtype, r, c):
     torch.testing.assert_close(rstd, rstd_r, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(y.float(), y_r.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(dx.float(), dx_r.float(), atol=tol, rtol=tol)
+
+
+def _both_routes(x, dy):
+    """(route, x, dy) for the warp route (the aligned inputs) and the row
+    route (misaligned copies)."""
+    return [("warp", x, dy), ("row", _ln_misaligned(x), _ln_misaligned(dy))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(304, 768), (2048, 768), (5, 1024)])
+def test_layer_norm_routes_are_bit_equal_run_to_run(dev, dtype, r, c):
+    """Each route gives the same bits twice (sums in a fixed order)."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    x, dy, s, b = _ln_inputs(dev, 12, r, c, dtype)
+    for route, xr, dyr in _both_routes(x, dy):
+        assert ln.ln_route(c, dtype, [xr.data_ptr()]) == route
+        runs = []
+        for _ in range(2):
+            y, mean, rstd = ln._fwd_kernel(xr, s, b, 1e-12)
+            runs.append((y, mean, rstd,
+                         ln._bwd_dx_kernel(xr, s, mean, rstd, dyr)))
+        for a, w in zip(*runs):
+            assert torch.equal(a, w), route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_zero_variance_row_on_both_routes(dev, dtype):
+    """A row of equal values: variance exactly 0 (two-pass statistics),
+    rstd = rsqrt(1e-12) = 1e6, y = bias, a finite dx; on both routes."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    x, dy, s, b = _ln_inputs(dev, 13, 4, 768, dtype)
+    x[0] = 3.25
+    for route, xr, dyr in _both_routes(x, dy):
+        assert ln.ln_route(768, dtype, [xr.data_ptr()]) == route
+        y, mean, rstd = ln._fwd_kernel(xr, s, b, 1e-12)
+        dx = ln._bwd_dx_kernel(xr, s, mean, rstd, dyr)
+        torch.cuda.synchronize()
+        assert float(mean[0]) == 3.25
+        torch.testing.assert_close(rstd[0], torch.tensor(1e6, device=dev),
+                                   rtol=1e-5, atol=0)
+        assert torch.equal(y[0], b.to(dtype)), route
+        assert bool(torch.isfinite(dx.float()).all()), route
+
+
+def test_layer_norm_routes_by_width_dtype_and_alignment(dev):
+    """The route each call takes, read from the counters: BERT's C = 768
+    in f32 and bf16 on "warp", a misaligned view, C = 7 and C = 1028 on
+    "row"; the autograd Function takes the same routes."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import layer_norm as ln
+
+    def routes(fn):
+        before = _build.launch_counts()
+        fn()
+        after = _build.launch_counts()
+        return {k: after[k] - before.get(k, 0) for k in after
+                if k.startswith("layer_norm") and after[k] != before.get(k, 0)}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy, s, b = _ln_inputs(dev, 14, 16, 768, dtype)
+        assert routes(lambda: ln._fwd_kernel(x, s, b, 1e-12)) == {
+            "layer_norm_fwd": 1, "layer_norm_fwd.warp": 1}
+        off = torch.empty(16 * 768 + 1, device=dev, dtype=dtype)[1:]
+        xm = off.view(16, 768).copy_(x)
+        assert routes(lambda: ln._fwd_kernel(xm, s, b, 1e-12)) == {
+            "layer_norm_fwd": 1, "layer_norm_fwd.row": 1}
+        xt = x.clone().requires_grad_()
+        got = routes(lambda: ln.fused_layer_norm(xt, s, b, 1e-12)[0]
+                     .backward(dy))
+        assert got == {"layer_norm_fwd": 1, "layer_norm_fwd.warp": 1,
+                       "layer_norm_bwd_dx": 1, "layer_norm_bwd_dx.warp": 1}
+    for c in (7, 1028):
+        x, dy, s, b = _ln_inputs(dev, 15, 16, c, torch.float32)
+        assert routes(lambda: ln._fwd_kernel(x, s, b, 1e-12)) == {
+            "layer_norm_fwd": 1, "layer_norm_fwd.row": 1}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

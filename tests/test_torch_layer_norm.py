@@ -136,3 +136,51 @@ def test_bad_shapes_and_devices_raise():
                               torch.ones(16385))
     with pytest.raises(ValueError, match="no kernel"):
         port.fused_layer_norm(torch.empty(2, 4, device="meta"), s, s)
+
+
+# -- the two routes of the CUDA kernels (picked on the host, before launch) --
+
+def _buf(n, dtype, offset=0):
+    """n elements of dtype viewed `offset` elements into their storage."""
+    return torch.zeros(n + offset, dtype=dtype)[offset:]
+
+
+# (C, dtype, element offset of x, want)
+ROUTE_CASES = {
+    "bert_f32": (768, torch.float32, 0, "warp"),
+    "bert_bf16": (768, torch.bfloat16, 0, "warp"),
+    "one_vector_f32": (4, torch.float32, 0, "warp"),
+    "one_vector_bf16": (8, torch.bfloat16, 0, "warp"),
+    "cap_f32": (1024, torch.float32, 0, "warp"),
+    "cap_bf16": (1024, torch.bfloat16, 0, "warp"),
+    "cap_plus_a_vector_f32": (1028, torch.float32, 0, "row"),
+    "cap_plus_a_vector_bf16": (1032, torch.bfloat16, 0, "row"),
+    "c7": (7, torch.float32, 0, "row"),
+    "c12_bf16": (12, torch.bfloat16, 0, "row"),
+    "c16384": (16384, torch.float32, 0, "row"),
+    "misaligned_f32": (768, torch.float32, 1, "row"),
+    "misaligned_bf16": (768, torch.bfloat16, 4, "row"),
+    "float16": (768, torch.float16, 0, "row"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_ln_route(case):
+    c, dtype, offset, want = ROUTE_CASES[case]
+    x = _buf(4 * c, dtype, offset)
+    s = _buf(c, torch.float32)
+    assert port.ln_route(c, dtype, [x.data_ptr(), s.data_ptr()]) == want
+
+
+@pytest.mark.parametrize("r,sms,want", [
+    (304, 132, (2, 152)),    # BERT's MLM head: every SM takes a block
+    (2048, 132, (8, 256)),   # BERT's tokens: one wave of 2 blocks an SM
+    (1, 132, (1, 1)),
+    (131, 132, (1, 131)),
+    (8192, 132, (8, 264)),   # past a wave: each warp walks 4 rows
+    (304, 114, (2, 152))])
+def test_ln_grid(r, sms, want):
+    rows, blocks = port.ln_grid(r, sms)
+    assert (rows, blocks) == want
+    assert 1 <= rows <= 8 and blocks <= 2 * sms
+    assert rows * blocks >= min(r, rows * 2 * sms)

@@ -98,8 +98,10 @@ def test_paged_attention_other_devices_raise():
                                   "shape", "contiguous", "head_dim",
                                   "row_bytes"])
 def test_kernel_argument_checks(case):
-    """What the CUDA kernel does not take raises before any launch (the
-    checks are plain Python, exercised here on CPU tensors)."""
+    """What neither CUDA kernel takes raises before any launch; float16
+    pools, head_dim 256 and rows that are not whole 16-byte pieces go to
+    the scalar kernel (the checks are plain Python, exercised here on CPU
+    tensors)."""
     q, k, v, pt, ln = (torch.from_numpy(a) for a in _inputs())
     if case == "q_dtype":
         q = q.double()
@@ -117,9 +119,13 @@ def test_kernel_argument_checks(case):
     elif case == "row_bytes":   # 60 bf16 = 120 bytes: not 16-byte rows
         q = torch.zeros(4, 2, 60)
         k = v = torch.zeros(13, 8, 2, 60, dtype=torch.bfloat16)
-    with pytest.raises((TypeError, ValueError)):
-        port._check(q, k, v, pt, ln)
-    port._check(*(torch.from_numpy(a) for a in _inputs()))
+    if case in ("cache_dtype", "head_dim", "row_bytes"):
+        assert port._check(q, k, v, pt, ln) == "scalar"
+    else:
+        with pytest.raises((TypeError, ValueError)):
+            port._check(q, k, v, pt, ln)
+    assert port._check(*(torch.from_numpy(a) for a in _inputs())) \
+        == "vector"
 
 
 # ---------------------------------------------------------------------------
@@ -197,3 +203,119 @@ def test_split_reference_is_the_same_for_every_split():
             for p in (1, 2, 6)]
     for o in outs[1:]:
         torch.testing.assert_close(o, outs[0], atol=2e-6, rtol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the route of paged_attention_decode on the card: the vector kernel where
+# paged_route says so, the scalar kernel for every other call
+# ---------------------------------------------------------------------------
+
+def _pools(P, ps, H, d, dtype, offset=0):
+    """A K/V pool pair [P, ps, H, d], each viewed `offset` elements into
+    its storage (offset 1 in float32: a pool 4 bytes off a 16-byte
+    boundary)."""
+    n = P * ps * H * d
+    return tuple(torch.zeros(n + offset, dtype=dtype)[offset:]
+                 .view(P, ps, H, d) for _ in range(2))
+
+
+# (q dtype, pool dtype, d, ps, pool offset in elements, contiguous, route)
+ROUTE_CASES = {
+    "gpt3_xl_f32": (torch.float32, torch.float32, 128, 16, 0, True,
+                    "vector"),
+    "gpt3_xl_bf16": (torch.float32, torch.bfloat16, 128, 16, 0, True,
+                     "vector"),
+    "d64_ps128": (torch.float32, torch.float32, 64, 128, 0, True, "vector"),
+    "d128_ps256": (torch.float32, torch.float32, 128, 256, 0, True,
+                   "vector"),
+    "d8_bf16": (torch.float32, torch.bfloat16, 8, 16, 0, True, "vector"),
+    "d256_ps16": (torch.float32, torch.float32, 256, 16, 0, True, "scalar"),
+    "d4_bf16": (torch.float32, torch.bfloat16, 4, 16, 0, True, "scalar"),
+    "d6_f32": (torch.float32, torch.float32, 6, 16, 0, True, "scalar"),
+    "q_bf16": (torch.bfloat16, torch.bfloat16, 128, 16, 0, True, "scalar"),
+    "q_f16": (torch.float16, torch.float16, 64, 16, 0, True, "scalar"),
+    "pools_f16": (torch.float32, torch.float16, 128, 16, 0, True, "scalar"),
+    "pool_4_bytes_off": (torch.float32, torch.float32, 128, 16, 1, True,
+                         "scalar"),
+    "not_contiguous": (torch.float32, torch.float32, 128, 16, 0, False,
+                       "scalar"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_paged_route(case):
+    """The route's truth table: every call the vector kernel cannot take
+    (head_dim past 128, K/V rows that are not whole 16-byte pieces, q not
+    float32, float16 pools, pools off a 16-byte boundary or not
+    contiguous) goes to the scalar kernel; the GPT-3 XL decode shapes and
+    any page size take the vector kernel."""
+    qdt, kvdt, d, ps, offset, contiguous, want = ROUTE_CASES[case]
+    k, v = _pools(3, ps, 2, d, kvdt, offset)
+    assert port.paged_route(qdt, kvdt, d, (k.data_ptr(), v.data_ptr()),
+                            contiguous) == want
+
+
+def test_paged_route_one_misaligned_pool():
+    k, _ = _pools(3, 16, 2, 128, torch.float32)
+    _, v = _pools(3, 16, 2, 128, torch.float32, offset=1)
+    assert port.paged_route(torch.float32, torch.float32, 128,
+                            (k.data_ptr(), v.data_ptr())) == "scalar"
+    assert port.paged_route(torch.float32, torch.float32, 128,
+                            (k.data_ptr(), k.data_ptr())) == "vector"
+
+
+@pytest.mark.parametrize("qdt,kvdt,d,exc", [
+    (torch.float64, torch.float32, 64, TypeError),
+    (torch.float32, torch.float64, 64, TypeError),
+    (torch.float32, torch.int8, 64, TypeError),
+    (torch.float32, torch.float32, 16385, ValueError)])
+def test_paged_route_raises_past_both_kernels(qdt, kvdt, d, exc):
+    """What neither kernel takes raises before any launch."""
+    with pytest.raises(exc):
+        port.paged_route(qdt, kvdt, d, (0, 0))
+
+
+@pytest.mark.parametrize("case", ["device", "table_dtype", "lens_dtype",
+                                  "shape", "pools_differ"])
+def test_malformed_calls_raise(case):
+    """What no kernel serves raises before any route is taken."""
+    q, k, v, pt, ln = (torch.from_numpy(a) for a in _inputs())
+    if case == "device":
+        k = k.to("meta")
+    elif case == "table_dtype":
+        pt = pt.long()
+    elif case == "lens_dtype":
+        ln = ln.long()
+    elif case == "shape":
+        pt = pt[:2]
+    elif case == "pools_differ":
+        v = v.to(torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        port._check(q, k, v, pt, ln)
+
+
+# the shapes of fault C2, which the reference serves and the vector kernel
+# does not take (but d = 128 at ps = 256, which it now does): (d, ps, ctx,
+# P, M)
+WIDE_SHAPES = [(256, 16, (1, 17, 40, 64), 12, 4),
+               (128, 256, (1, 256, 257, 512), 6, 2),
+               (4, 16, (1, 16, 17, 64), 12, 4),
+               (6, 16, (3, 15, 33, 64), 12, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,ps,ctx,P,M", WIDE_SHAPES)
+def test_wide_shapes_match_jax_decode(d, ps, ctx, P, M, dtype):
+    """The shapes of fault C2 (d = 256 at ps = 16, d = 128 at ps = 256,
+    d = 4 and d = 6), which the reference serves through
+    paged_attention_xla: the port's paged_attention_decode against the
+    JAX package's, same numpy inputs."""
+    from paddle_tpu.ops.paged_attention import paged_attention_decode
+    q, k, v, pt, ln = _inputs(S=len(ctx), H=2, d=d, P=P, ps=ps, M=M,
+                              ctx=ctx, seed=13)
+    t, j = _both(q, k, v, pt, ln, dtype)
+    got = port.paged_attention_decode(*t).numpy()
+    want = np.asarray(paged_attention_decode(*j))
+    assert got.shape == q.shape
+    np.testing.assert_allclose(got, want, **(
+        TOL_F32 if dtype == "float32" else TOL_BF16))
