@@ -81,9 +81,10 @@ Phases:
      them (phase 2b, run with the other kernel checks): layer norm and
      dropout + residual + layer norm, forward and backward, at R = 2048
      and R = 304 rows of C = 768, f32 and bf16, p = 0 and 0.1, with
-     bit-equal dropout masks; layer norm on the route ln_route picks
-     ("warp"), beside the row route (on misaligned copies) and the warp
-     route on every grid (grid_ms), reruns bit-identical; the queued
+     bit-equal dropout masks; all four kernels on the route ln_route
+     picks ("warp"), beside the row route (on misaligned copies) and the
+     warp route on every grid (grid_ms), reruns bit-identical, row 7 at
+     p = 0 writing one gradient (dx_is_dres); the queued
      launch floor; the two sub-blocks at M = 2048 with dropout, post-norm and the
      erf-polynomial gelu (f32 on the FFMA route, with tile_ms, and bf16
      on the tensor cores); the three flash kernels at B=16, H=12, S=128,
@@ -109,7 +110,8 @@ Phases:
      3072)`` with the constructor's defaults (relu, act_dropout =
      dropout = 0.1, post-LN), forward and backward at (16, 128, 768),
      kernels against composed chains; this is the route that launches
-     the dropout + residual + layer norm kernels;
+     the dropout + residual + layer norm kernels, once each way, both
+     on the warp route;
  10. B row 10 (phase 2c, run with the other kernel checks): fused_ffn
      at the bert_base_512 preset (M = 8192, H = 768, I = 3072), at
      M = 2048 and at GPT-3 XL width in bf16, gelu and relu; f32 must
@@ -252,6 +254,21 @@ LN_DESIGN = {
     "row": "a 64-512-thread block owns a row staged in shared memory as "
            "f32, block sums through shared memory (the first port's "
            "kernel; any C <= 16384, any alignment)"}
+# the two routes of the dropout + residual + layer norm kernels, picked
+# by the same ln_route over the pointers of a call
+DAL_DESIGN = {
+    "warp": "a warp owns a row in registers (layer norm's warp frame, "
+            "row_norm.cuh): x and res (forward) or z and dy (backward) by "
+            "16-byte loads all issued up front, the mask replayed in "
+            "registers, two-pass statistics (forward) or both sums in one "
+            "pass (backward) by xor-butterfly shuffles, no shared memory "
+            "or barrier, 16-byte stores; the forward reads scale and bias "
+            "from L1 a row, the backward holds its scale slice; at p = 0 "
+            "the backward writes dres alone; rows a block and blocks from "
+            "ln_grid",
+    "row": "a 64-512-thread block owns a row staged in shared memory as "
+           "f32, block sums through shared memory (the first port's "
+           "kernels; any C <= 16384, any alignment)"}
 # the two routes of paged attention (ops/paged_attention.py paged_route),
 # both split over the context: grid (S, H, splits), pages a split from
 # paged_splits (table shape and SM count, no host sync), P in f32,
@@ -276,7 +293,8 @@ PORT_KERNEL_NAMES = ("paged_split_kernel", "paged_scalar_kernel",
                      "tc::flash_bwd_dkv_tc_kernel",
                      "ln_fwd_kernel", "ln_bwd_dx_kernel",
                      "ln_fwd_warp_kernel", "ln_bwd_dx_warp_kernel",
-                     "dal_fwd_kernel", "dal_bwd_kernel")
+                     "dal_fwd_kernel", "dal_bwd_kernel",
+                     "dal_fwd_warp_kernel", "dal_bwd_warp_kernel")
 SERVING_KERNELS = ("paged_attention", "fused_out_ln", "fused_ffn_ln")
 TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
                     "fused_out_ln", "fused_ffn_ln")
@@ -295,9 +313,12 @@ BERT_LAUNCHES_PER_STEP = {
     "flash_bwd_dkv": BERT_LAYERS, "layer_norm_fwd": 2,
     "layer_norm_bwd_dx": 2}
 # the encoder layer with the constructor's defaults, forward + backward
+# (rows 6-7 at 2048 x 768 in f32: the warp route)
 ENCODER_LAYER_LAUNCHES = {
-    "dropout_add_ln_fwd": 1, "dropout_add_ln_bwd": 1, "fused_out_ln": 1,
-    "flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    "dropout_add_ln_fwd": 1, "dropout_add_ln_bwd": 1,
+    "dropout_add_ln_fwd.warp": 1, "dropout_add_ln_bwd.warp": 1,
+    "fused_out_ln": 1, "flash_fwd": 1, "flash_bwd_dq": 1,
+    "flash_bwd_dkv": 1}
 # the static FFN program: ops/autobench.py's bert_base_512 preset shape
 FFN_M, FFN_H, FFN_I = 8192, 768, 3072
 FFN_STEPS = 5
@@ -1223,15 +1244,17 @@ def check_flash(torch, timer, results):
 
 def ln_grid_ms(torch, timer, name, args, n_sets=16):
     """Device time a call (Timer.queued, n_sets copies of the tensors) of
-    the layer-norm kernel `name`'s warp route through its C entry point
-    at several grids (rows a block x blocks), beside ops/layer_norm.py
+    the row kernel `name`'s warp route through its C entry point at
+    several grids (rows a block x blocks), beside ops/layer_norm.py
     ln_grid's pick ("rule"): a row a warp at 1, 2, 4 and 8 rows a block,
     and 8 or 4 rows a block on one or two blocks an SM, each warp then
     walking rows. args: (x, scale, bias, eps) for layer_norm_fwd, (x,
-    scale, mean, rstd, dy) for layer_norm_bwd_dx."""
+    scale, mean, rstd, dy) for layer_norm_bwd_dx, (x, res, scale, bias,
+    seed, p, eps) for dropout_add_ln_fwd, (z, scale, mean, rstd, dy,
+    seed, p) for dropout_add_ln_bwd (no dx at p = 0, as the wrapper)."""
     import ctypes
     from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops._launch import _dtype_code, _sms
+    from paddle_tpu_torch.ops._launch import _drop_args, _dtype_code, _sms
     from paddle_tpu_torch.ops.layer_norm import ln_grid
     x = args[0]
     R, C = x.shape
@@ -1239,26 +1262,44 @@ def ln_grid_ms(torch, timer, name, args, n_sets=16):
     sms = _sms(torch.cuda.current_device())
     rule = ln_grid(R, sms)
     stream = torch.cuda.current_stream().cuda_stream
+
+    def stats():
+        mean = torch.empty(R, device="cuda")
+        return mean, torch.empty_like(mean)
+
     if name == "layer_norm_fwd":
-        fn = _build.function("layer_norm", "layer_norm_fwd_warp_launch", 6,
-                             3, (ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p))
-        sets = []
-        for _ in range(n_sets):
-            xi = x.clone()
-            mean = torch.empty(R, device="cuda")
-            sets.append((xi, args[1], args[2], torch.empty_like(xi), mean,
-                         torch.empty_like(mean)))
+        lib, n_ptr, floats = "layer_norm", 6, (ctypes.c_float,)
+        sets = [(xi, args[1], args[2], torch.empty_like(xi), *stats())
+                for xi in (x.clone() for _ in range(n_sets))]
         tail = [R, C, code, float(args[3])]
-    else:
-        fn = _build.function("layer_norm", "layer_norm_bwd_dx_warp_launch",
-                             6, 5, (ctypes.c_void_p,))
+    elif name == "layer_norm_bwd_dx":
+        lib, n_ptr, floats = "layer_norm", 6, ()
         sets = [(x.clone(), args[1], args[2], args[3], args[4].clone(),
                  torch.empty_like(x)) for _ in range(n_sets)]
         tail = [R, C, code]
+    elif name == "dropout_add_ln_fwd":
+        lib, n_ptr = "fused_residual", 8
+        floats = (ctypes.c_uint, ctypes.c_float, ctypes.c_float)
+        sets = [(x.clone(), args[1].clone(), args[2], args[3],
+                 torch.empty_like(x), torch.empty_like(x), *stats())
+                for _ in range(n_sets)]
+        tail = [R, C, code, *_drop_args(args[4], args[5]), float(args[6])]
+    else:
+        lib, n_ptr = "fused_residual", 7
+        floats = (ctypes.c_uint, ctypes.c_float)
+        seed, on, thr, keep_div = _drop_args(args[5], args[6])
+        sets = [(x.clone(), args[1], args[2], args[3], args[4].clone(),
+                 torch.empty_like(x) if on else None, torch.empty_like(x))
+                for _ in range(n_sets)]
+        tail = [R, C, code, seed, on, thr, keep_div]
+    fn = _build.function(lib, f"{name}_warp_launch", n_ptr,
+                         len(tail) - len(floats),
+                         floats + (ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_void_p))
 
     def run(st, grid):
-        err = fn(*(t.data_ptr() for t in st), *tail, *grid, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in st), *tail,
+                 *grid, stream)
         if err:
             fail(f"{name} warp route at grid {grid}: CUDA error {err}")
 
@@ -1283,17 +1324,17 @@ def check_rows(torch, timer, results):
     1e-4. The dropout masks must be bit-equal: dx is zero exactly where
     keep_mask dropped. Times are Timer.queued over 16 sets of buffers:
     these kernels run for microseconds, less than their wrappers' host
-    time. The layer-norm rows take the route ln_route picks (read from
-    the route counters, "warp" at these shapes) and carry the row
-    route's time and error beside it (row_ms, row_max_abs_err: the
-    first port's block-a-row kernel, which ln_route gives misaligned
-    copies of the same inputs). Row 7's library time is
-    the autograd backward of F.layer_norm(res + F.dropout(x, p)), its
-    graph kept between calls."""
+    time. Every row (layer norm and dal_rows' rows 6-7, p = 0 and 0.1)
+    takes the route ln_route picks (read from the route counters, "warp"
+    at these shapes) and carries the row route's time and error beside
+    it (row_ms, row_max_abs_err: the first port's block-a-row kernel,
+    which ln_route gives misaligned copies of the same inputs), a rerun
+    checked bit-equal and the warp route at every grid (grid_ms). Row
+    7's library time is the autograd backward of
+    F.layer_norm(res + F.dropout(x, p)), its graph kept between calls."""
     import torch.nn.functional as F
-    from paddle_tpu_torch.ops import fused_residual as fr
     from paddle_tpu_torch.ops import layer_norm as ln
-    C, eps, seed = 768, 1e-12, 20240917
+    C, eps = 768, 1e-12
     # the least a launch costs when queued this way: PyTorch's fill kernel
     # on one element, against which the rows' few microseconds are read
     ones = [torch.empty(1, device="cuda") for _ in range(16)]
@@ -1385,64 +1426,109 @@ def check_rows(torch, timer, results):
                    and within(dx_w, dx_r, **tol))
 
             for p in (0.0, 0.1):
-                pshape = f"{shape} p={p}"
-                y, z, mean, rstd = fr._fwd_kernel(x, res, s, b, seed, p, eps)
-                y_r, z_r, mean_r, rstd_r = fr.dropout_add_ln_reference(
-                    x, res, s, b, seed, p, eps)
-                torch.cuda.synchronize()
-                bms, by = bound(4 * R * C * item + 8 * C + 8 * R,
-                                10 * R * C)
-                row = {"kernel": "dropout_add_ln_fwd", "shape": pshape,
-                       "max_abs_err": max(max_err(y, y_r), max_err(z, z_r)),
-                       "tol": tol,
-                       "kernel_ms": each(lambda i: fr._fwd_kernel(
-                           xs[i], rs[i], s, b, seed, p, eps)),
-                       "plain_ms": each(
-                           lambda i: fr.dropout_add_ln_reference(
-                               xs[i], rs[i], s, b, seed, p, eps)),
-                       "library_ms": each(lambda i: F.layer_norm(
-                           rs[i] + F.dropout(xs[i], p), (C,), sl, bl,
-                           eps)),
-                       "bound_ms": bms, "bound_by": by}
-                report(results, row, within(y, y_r, **tol)
-                       and within(z, z_r, **tol)
-                       and within(mean, mean_r, 1e-4, 1e-4)
-                       and within(rstd, rstd_r, 1e-4, 1e-4))
+                dal_rows(torch, timer, results, each, shape, p,
+                         (x, res, dy, s, b, sl, bl, xs, rs, dys), tol)
 
-                zs = [z.clone() for _ in sets]
-                # the library's backward: autograd through its own forward
-                # on each set, the graph kept for every timed call
-                xg = [t.clone().requires_grad_() for t in xs]
-                rg = [t.clone().requires_grad_() for t in rs]
-                outs = [F.layer_norm(rg[i] + F.dropout(xg[i], p), (C,), sl,
-                                     bl, eps) for i in sets]
-                dx, dres = fr._bwd_kernel(z, s, mean, rstd, dy, seed, p)
-                dx_r, dres_r = fr.dropout_add_ln_bwd_reference(
-                    z, s, mean, rstd, dy, seed, p)
-                torch.cuda.synchronize()
-                masks_equal = True
-                if p > 0:
-                    keep = fr.keep_mask(seed, R, C, p, "cuda")
-                    masks_equal = bool(torch.equal(dx != 0,
-                                                   keep & (dres != 0)))
-                bms, by = bound(4 * R * C * item + 4 * C + 8 * R,
-                                13 * R * C)
-                row = {"kernel": "dropout_add_ln_bwd", "shape": pshape,
-                       "max_abs_err": max(max_err(dx, dx_r),
-                                          max_err(dres, dres_r)),
-                       "tol": tol, "masks_bit_equal": masks_equal,
-                       "kernel_ms": each(lambda i: fr._bwd_kernel(
-                           zs[i], s, mean, rstd, dys[i], seed, p)),
-                       "plain_ms": each(
-                           lambda i: fr.dropout_add_ln_bwd_reference(
-                               zs[i], s, mean, rstd, dys[i], seed, p)),
-                       "library_ms": each(lambda i: torch.autograd.grad(
-                           outs[i], (xg[i], rg[i]), dys[i],
-                           retain_graph=True)),
-                       "bound_ms": bms, "bound_by": by}
-                report(results, row, masks_equal
-                       and within(dx, dx_r, **tol)
-                       and within(dres, dres_r, **tol))
+
+def dal_rows(torch, timer, results, each, shape, p, data, tol):
+    """Rows 6-7 at one shape and p, as check_rows' layer-norm rows: the
+    route ln_route picks ("warp" here; read from the counters), the row
+    route on misaligned copies (row_ms, row_max_abs_err), a rerun
+    bit-equal, every grid of the warp route (grid_ms), the masks of both
+    routes bit-equal. Row 7 at p = 0 writes dres alone and returns it as
+    dx too (dx_is_dres): its bound counts the three tensors it moves."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import fused_residual as fr
+    x, res, dy, s, b, sl, bl, xs, rs, dys = data
+    R, C = x.shape
+    eps, seed = 1e-12, 20240917
+    item = x.element_size()
+    sets = range(len(xs))
+    pshape = f"{shape} p={p}"
+    xm, resm, dym = (misaligned(t) for t in (x, res, dy))
+    xms, rms, dyms = ([misaligned(t) for t in ts] for ts in (xs, rs, dys))
+
+    def fwd(a, r_):
+        return fr._fwd_kernel(a, r_, s, b, seed, p, eps)
+
+    (y, z, mean, rstd), route = routed("dropout_add_ln_fwd",
+                                       lambda: fwd(x, res), "warp")
+    (y_w, z_w, mean_w, rstd_w), _ = routed("dropout_add_ln_fwd",
+                                           lambda: fwd(xm, resm), "row")
+    again = fwd(x, res)
+    y_r, z_r, mean_r, rstd_r = fr.dropout_add_ln_reference(
+        x, res, s, b, seed, p, eps)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, w) for a, w in zip((y, z, mean, rstd), again))
+    bms, by = bound(4 * R * C * item + 8 * C + 8 * R, 10 * R * C)
+    row = {"kernel": "dropout_add_ln_fwd", "shape": pshape, "route": route,
+           "rerun_bit_equal": same,
+           "max_abs_err": max(max_err(y, y_r), max_err(z, z_r)),
+           "row_max_abs_err": max(max_err(y_w, y_r), max_err(z_w, z_r)),
+           "tol": tol,
+           "kernel_ms": each(lambda i: fwd(xs[i], rs[i])),
+           "row_ms": each(lambda i: fwd(xms[i], rms[i])),
+           "plain_ms": each(lambda i: fr.dropout_add_ln_reference(
+               xs[i], rs[i], s, b, seed, p, eps)),
+           "library_ms": each(lambda i: F.layer_norm(
+               rs[i] + F.dropout(xs[i], p), (C,), sl, bl, eps)),
+           "grid_ms": ln_grid_ms(torch, timer, "dropout_add_ln_fwd",
+                                 (x, res, s, b, seed, p, eps)),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, same and all(
+        within(a, y_r, **tol) and within(z_, z_r, **tol)
+        and within(m, mean_r, 1e-4, 1e-4) and within(r_, rstd_r, 1e-4, 1e-4)
+        for a, z_, m, r_ in ((y, z, mean, rstd),
+                             (y_w, z_w, mean_w, rstd_w))))
+
+    zs = [z.clone() for _ in sets]
+    zm, zms = misaligned(z), [misaligned(t) for t in zs]
+    # the library's backward: autograd through its own forward on each
+    # set, the graph kept for every timed call
+    xg = [t.clone().requires_grad_() for t in xs]
+    rg = [t.clone().requires_grad_() for t in rs]
+    outs = [F.layer_norm(rg[i] + F.dropout(xg[i], p), (C,), sl, bl, eps)
+            for i in sets]
+
+    def bwd(z_, dy_):
+        return fr._bwd_kernel(z_, s, mean, rstd, dy_, seed, p)
+
+    (dx, dres), route = routed("dropout_add_ln_bwd", lambda: bwd(z, dy),
+                               "warp")
+    (dx_w, dres_w), _ = routed("dropout_add_ln_bwd", lambda: bwd(zm, dym),
+                               "row")
+    again = bwd(z, dy)
+    dx_r, dres_r = fr.dropout_add_ln_bwd_reference(z, s, mean, rstd, dy,
+                                                   seed, p)
+    torch.cuda.synchronize()
+    same = torch.equal(dx, again[0]) and torch.equal(dres, again[1])
+    one = dx is dres and dx_w is dres_w
+    masks_equal = True
+    if p > 0:
+        keep = fr.keep_mask(seed, R, C, p, "cuda")
+        masks_equal = all(bool(torch.equal(a != 0, keep & (w != 0)))
+                          for a, w in ((dx, dres), (dx_w, dres_w)))
+    # p = 0: z, dy and dres; p > 0: dx too
+    bms, by = bound((3 if p == 0 else 4) * R * C * item + 4 * C + 8 * R,
+                    13 * R * C)
+    row = {"kernel": "dropout_add_ln_bwd", "shape": pshape, "route": route,
+           "rerun_bit_equal": same, "dx_is_dres": one,
+           "max_abs_err": max(max_err(dx, dx_r), max_err(dres, dres_r)),
+           "row_max_abs_err": max(max_err(dx_w, dx_r),
+                                  max_err(dres_w, dres_r)),
+           "tol": tol, "masks_bit_equal": masks_equal,
+           "kernel_ms": each(lambda i: bwd(zs[i], dys[i])),
+           "row_ms": each(lambda i: bwd(zms[i], dyms[i])),
+           "plain_ms": each(lambda i: fr.dropout_add_ln_bwd_reference(
+               zs[i], s, mean, rstd, dys[i], seed, p)),
+           "library_ms": each(lambda i: torch.autograd.grad(
+               outs[i], (xg[i], rg[i]), dys[i], retain_graph=True)),
+           "grid_ms": ln_grid_ms(torch, timer, "dropout_add_ln_bwd",
+                                 (z, s, mean, rstd, dy, seed, p)),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, same and masks_equal and one == (p == 0) and all(
+        within(a, dx_r, **tol) and within(w, dres_r, **tol)
+        for a, w in ((dx, dres), (dx_w, dres_w))))
 
 
 def check_blocks_bert(torch, timer, results):
@@ -2174,10 +2260,12 @@ def encoder_layer_phase(torch):
     defaults (relu, act_dropout = dropout = 0.1, post-LN) in training
     mode, forward and backward at (16, 128, 768) in f32: the activation
     dropout keeps the FFN off the one-kernel block, so its epilogue is
-    the dropout + residual + layer norm kernel pair. Kernels against the
-    composed chains under the same step seed: output and every gradient
-    within 1e-3 + 1e-3 |ref| (f32 GEMMs of 768 and 3072 terms in other
-    orders through the layer). Returns the run's launch counts."""
+    the dropout + residual + layer norm kernel pair, both on the warp
+    route (ENCODER_LAYER_LAUNCHES: any other count fails). Kernels
+    against the composed chains under the same step seed: output and
+    every gradient within 1e-3 + 1e-3 |ref| (f32 GEMMs of 768 and 3072
+    terms in other orders through the layer). Returns the run's launch
+    counts."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.nn import functional as F
     from paddle_tpu_torch.nn import initializer
@@ -2513,6 +2601,8 @@ def design_of(name):
         return FLASH_DESIGN
     if name.startswith("layer_norm"):
         return LN_DESIGN
+    if name.startswith("dropout_add_ln"):
+        return DAL_DESIGN
     if name == "paged_attention":
         return PAGED_DESIGN
     return FFN_DESIGN if name == "fused_ffn" else DESIGN
@@ -2537,9 +2627,10 @@ def kernel_entry(row, launches):
                 "simt_device_ms",      # the SIMT kernel on misaligned
                 "simt_max_abs_err",    # copies, and the library chain
                 "library_device_ms",
-                "row_ms",              # layer norm's block-a-row kernel
+                "row_ms",              # rows 6-9's block-a-row kernel
                 "row_max_abs_err",     # (misaligned copies) beside warp
-                "rerun_bit_equal"):
+                "rerun_bit_equal",
+                "dx_is_dres"):         # row 7 at p = 0: one gradient
         if key in row:
             ent[key] = row[key]
     if "route" in row:      # which of the kernel's designs ran
@@ -2573,7 +2664,8 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     kernels from the BERT run (f32, R = 2048, with the run's launches by
     route; R = 304 and bf16 under "shapes"); the dropout + residual +
     layer norm kernels from the encoder-layer phase (f32, R = 2048,
-    p = 0.1); fused_ffn from the
+    p = 0.1, with the phase's launches by route; R = 304, bf16 and p = 0
+    under "shapes"); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
     under "shapes" with launches null."""
     def row(name, *keys):
@@ -2628,8 +2720,13 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
                          if r["kernel"] == name and r is not top]
         kernels.append(ent)
     for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
-        kernels.append(kernel_entry(row(name, "R=2048", "f32", "p=0.1"),
-                                    layer_counts.get(name, 0)))
+        top = row(name, "R=2048", "f32", "p=0.1")
+        ent = kernel_entry(top, layer_counts.get(name, 0))
+        ent["routes"] = route_counts(layer_counts, name)
+        # R = 304, bf16 and p = 0: launches counted with the layer's shape
+        ent["shapes"] = [kernel_entry(r, None) for r in results
+                         if r["kernel"] == name and r is not top]
+        kernels.append(ent)
     main = f"M={FFN_M} H={FFN_H} I={FFN_I} f32 gelu"
     ent = kernel_entry(row("fused_ffn", main), ffn_counts.get("fused_ffn", 0))
     ent["routes"] = route_counts(ffn_counts, "fused_ffn")

@@ -35,7 +35,9 @@
 // its sums in one register pass with two interleaved butterflies. A
 // block holds `warps` rows at once and the grid walks the rows (the
 // wrapper's ln_grid: at 132 SMs, R = 304 takes 2 warps a block, 152
-// blocks over every SM; R = 2048 takes 8, 256 blocks in one wave).
+// blocks over every SM; R = 2048 takes 8, 256 blocks in one wave). The
+// route's frame (loaders, sums, the register cap kLaneElems, with_nv,
+// warp_takes) lives in row_norm.cuh, shared with fused_residual.cu.
 //
 // The row route (everything else: any R >= 1, 1 <= C <= 16384, any
 // alignment; the kernel of the first port, unchanged). One block per
@@ -49,9 +51,6 @@
 // Bound on this card (HBM 3.35 TB/s): the forward reads x and writes y,
 // the backward reads x and dy and writes dx; at R = 2048, C = 768 in f32
 // that is 12.6 MB (3.8 us) and 18.9 MB (5.6 us).
-#include <initializer_list>
-#include <type_traits>
-
 #include "row_norm.cuh"
 
 namespace {
@@ -146,44 +145,6 @@ int bwd_run(const void* x, const float* scale, const float* mean,
 }
 
 // ---- the warp route ----------------------------------------------------
-
-// 16-byte vectors a lane at most (32 elements a lane in f32 and bf16:
-// C <= 1024), the register cap of the warp route.
-constexpr int kLaneElems = 32;
-constexpr int kMaxWarps = 8;
-
-// Loads NV vectors of a row from p, lane l taking vectors l + 32 i;
-// vectors past the row's nvec read as zeros.
-template <typename T, int NV>
-__device__ __forceinline__ void load_row(const T* p, int nvec, int lane,
-                                         float (&v)[NV][kVec<T>]) {
-  uint4 raw[NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = lane + 32 * i;
-    raw[i] = vi < nvec ? ld16(p + (size_t)vi * kVec<T>)
-                       : make_uint4(0u, 0u, 0u, 0u);
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) unpack16<T>(raw[i], v[i]);
-}
-
-// The lane's slice of a float32 vector of C (scale, bias) laid out as
-// load_row lays out a row of T: vector i holds columns (l + 32 i) * VW on.
-template <typename T, int NV>
-__device__ __forceinline__ void load_slice(const float* p, int nvec,
-                                           int lane,
-                                           float (&v)[NV][kVec<T>]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    const int vi = lane + 32 * i;
-#pragma unroll
-    for (int j = 0; j < kVec<T>; j += 4)
-      unpack16<float>(vi < nvec ? ld16(p + (size_t)vi * kVec<T> + j)
-                                : make_uint4(0u, 0u, 0u, 0u),
-                      &v[i][j]);
-  }
-}
 
 template <typename T, int NV>
 __global__ void __launch_bounds__(32 * kMaxWarps)
@@ -282,35 +243,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
     }
   }
-}
-
-// Calls f(std::integral_constant<int, NV>) with the smallest NV of
-// {1, 2, 3, 4, 6, 8} (up to the cap of T) that holds `need` vectors a
-// lane; cudaErrorInvalidValue past the cap.
-template <typename T, typename F>
-int with_nv(int need, F f) {
-  constexpr int kCap = kLaneElems / kVec<T>;
-  if (need <= 1) return f(std::integral_constant<int, 1>{});
-  if (need <= 2) return f(std::integral_constant<int, 2>{});
-  if (need <= 3) return f(std::integral_constant<int, 3>{});
-  if (need <= 4) return f(std::integral_constant<int, 4>{});
-  if constexpr (kCap >= 8) {
-    if (need <= 6) return f(std::integral_constant<int, 6>{});
-    if (need <= 8) return f(std::integral_constant<int, 8>{});
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// What the warp route takes: C whole vectors, at most kLaneElems a lane,
-// 1..kMaxWarps warps a block, every pointer 16-byte aligned.
-template <typename T>
-bool warp_takes(int R, int C, int warps, int blocks,
-                std::initializer_list<const void*> ptrs) {
-  if (R <= 0 || C <= 0 || C % kVec<T> || C > 32 * kLaneElems) return false;
-  if (warps < 1 || warps > kMaxWarps || blocks < 1) return false;
-  for (const void* p : ptrs)
-    if (!aligned16(p)) return false;
-  return true;
 }
 
 template <typename T>

@@ -1,12 +1,18 @@
 // Row helpers of the layer-norm kernels (layer_norm.cu,
 // fused_residual.cu): one block owns one row of a row-major (R, C)
-// matrix and stages it in shared memory as f32. At the end, the helpers
-// of layer_norm.cu's warp route, where one warp owns a row and holds it
-// in registers as 16-byte vectors.
+// matrix and stages it in shared memory as f32 (the `row` route). At the
+// end, the frame of the `warp` route that both files share, where one
+// warp owns a row and holds it in registers as 16-byte vectors: the
+// vector loads and stores, the xor-butterfly sums, the per-lane register
+// cap (kLaneElems), the row and slice loaders, the pick of the vectors a
+// lane holds (with_nv) and what the route takes (warp_takes).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace row_norm {
 
@@ -178,6 +184,80 @@ __device__ __forceinline__ void warp_sum2(float& a, float& b) {
     a += __shfl_xor_sync(0xffffffffu, a, off);
     b += __shfl_xor_sync(0xffffffffu, b, off);
   }
+}
+
+// Elements a lane holds at most (32 in f32 and bf16: C <= 1024), the
+// register cap of the warp route, and warps (rows at once) a block.
+constexpr int kLaneElems = 32;
+constexpr int kMaxWarps = 8;
+
+// Issues the loads of NV vectors of a row from p, lane l taking vectors
+// l + 32 i; vectors past the row's nvec read as zeros.
+template <typename T, int NV>
+__device__ __forceinline__ void issue_row(const T* p, int nvec, int lane,
+                                          uint4 (&raw)[NV]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+    raw[i] = vi < nvec ? ld16(p + (size_t)vi * kVec<T>)
+                       : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// issue_row, then the vectors as f32.
+template <typename T, int NV>
+__device__ __forceinline__ void load_row(const T* p, int nvec, int lane,
+                                         float (&v)[NV][kVec<T>]) {
+  uint4 raw[NV];
+  issue_row<T, NV>(p, nvec, lane, raw);
+#pragma unroll
+  for (int i = 0; i < NV; ++i) unpack16<T>(raw[i], v[i]);
+}
+
+// The lane's slice of a float32 vector of C (scale, bias) laid out as
+// load_row lays out a row of T: vector i holds columns (l + 32 i) * VW on.
+template <typename T, int NV>
+__device__ __forceinline__ void load_slice(const float* p, int nvec,
+                                           int lane,
+                                           float (&v)[NV][kVec<T>]) {
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int vi = lane + 32 * i;
+#pragma unroll
+    for (int j = 0; j < kVec<T>; j += 4)
+      unpack16<float>(vi < nvec ? ld16(p + (size_t)vi * kVec<T> + j)
+                                : make_uint4(0u, 0u, 0u, 0u),
+                      &v[i][j]);
+  }
+}
+
+// Calls f(std::integral_constant<int, NV>) with the smallest NV of
+// {1, 2, 3, 4, 6, 8} (up to the cap of T) that holds `need` vectors a
+// lane; cudaErrorInvalidValue past the cap.
+template <typename T, typename F>
+int with_nv(int need, F f) {
+  constexpr int kCap = kLaneElems / kVec<T>;
+  if (need <= 1) return f(std::integral_constant<int, 1>{});
+  if (need <= 2) return f(std::integral_constant<int, 2>{});
+  if (need <= 3) return f(std::integral_constant<int, 3>{});
+  if (need <= 4) return f(std::integral_constant<int, 4>{});
+  if constexpr (kCap >= 8) {
+    if (need <= 6) return f(std::integral_constant<int, 6>{});
+    if (need <= 8) return f(std::integral_constant<int, 8>{});
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// What the warp route takes: C whole vectors, at most kLaneElems a lane,
+// 1..kMaxWarps warps a block, every pointer 16-byte aligned.
+template <typename T>
+bool warp_takes(int R, int C, int warps, int blocks,
+                std::initializer_list<const void*> ptrs) {
+  if (R <= 0 || C <= 0 || C % kVec<T> || C > 32 * kLaneElems) return false;
+  if (warps < 1 || warps > kMaxWarps || blocks < 1) return false;
+  for (const void* p : ptrs)
+    if (!aligned16(p)) return false;
+  return true;
 }
 
 }  // namespace row_norm

@@ -7,7 +7,9 @@
     z and the row statistics; the backward kernel writes
     ``dres = dz`` and ``dx = keep ? dz / (1 - p) : 0`` with the mask
     replayed from the seed (no mask tensor exists), and dscale/dbias are
-    cross-row sums in PyTorch.
+    cross-row sums in PyTorch. At p = 0, dx is dres bit for bit: the
+    kernel writes dres alone and the backward returns that one tensor as
+    both gradients (autograd gives each leaf its own copy).
   * ``keep_mask(seed, rows, cols, p)`` — the reference's unsalted
     counter hash (``_keep``): murmur3's finaliser over
     ``seed ^ ((row * cols + col) * 0x85ebca6b)`` in uint32 wrap-around
@@ -21,6 +23,16 @@
 CUDA tensors go to ``csrc/fused_residual.cu`` (float32 or bfloat16 rows,
 one type per call; f32 arithmetic; float32 scale and bias) or the call
 raises. Any R >= 1; 1 <= C <= 16384.
+
+Each kernel has the layer norm's two routes, picked before the launch by
+``layer_norm.ln_route`` over the pointers the call reads and writes
+(``_ptrs``; a null dx at p = 0 decides nothing): "warp" (a warp owns a
+row in registers; C a multiple of one 16-byte vector, C <=
+``WARP_MAX_COLS``, every tensor 16-byte aligned; rows a block and
+blocks from ``ln_grid``) and "row" (a block owns a row in shared memory;
+everything else). Every launch counts under ``dropout_add_ln_fwd`` /
+``dropout_add_ln_bwd`` and under its route, ``<name>.warp`` or
+``<name>.row``.
 """
 from __future__ import annotations
 
@@ -30,8 +42,8 @@ import torch
 
 from . import _build
 from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
-                      keep_threshold)
-from .layer_norm import MAX_COLS, _affine_grads, _rows_cols
+                      _sms, keep_threshold)
+from .layer_norm import MAX_COLS, _affine_grads, _rows_cols, ln_grid, ln_route
 
 __all__ = ["fused_dropout_add_ln", "keep_mask", "hash_u32", "apply_keep",
            "dropout_add_ln_reference", "dropout_add_ln_bwd_reference",
@@ -88,13 +100,23 @@ def dropout_add_ln_reference(x2d, res2d, scale, bias, seed, p, eps):
 
 
 def dropout_add_ln_bwd_reference(z, scale, mean, rstd, dy, seed, p):
-    """Plain version of the backward kernel: (dx, dres) in z's dtype."""
+    """Plain version of the backward kernel: (dx, dres) in z's dtype; at
+    p = 0 one tensor, dres, as both."""
     zhat = (z.float() - mean[:, None]) * rstd[:, None]
     a = dy.float() * scale.float()
     c1 = a.mean(-1, keepdim=True)
     c2 = (a * zhat).mean(-1, keepdim=True)
     dz = rstd[:, None] * (a - c1 - zhat * c2)
-    return apply_keep(dz, seed, p).to(z.dtype), dz.to(z.dtype)
+    dres = dz.to(z.dtype)
+    if p <= 0.0:
+        return dres, dres
+    return apply_keep(dz, seed, p).to(z.dtype), dres
+
+
+def _ptrs(*tensors):
+    """The data pointers that decide a call's route: those of the
+    tensors it reads and writes, a None (dx at p = 0) left out."""
+    return [t.data_ptr() for t in tensors if t is not None]
 
 
 def _fwd_kernel(x2d, res2d, scale, bias, seed, p, eps):
@@ -112,21 +134,31 @@ def _fwd_kernel(x2d, res2d, scale, bias, seed, p, eps):
     z = torch.empty_like(x2d)
     mean = torch.empty((r,), dtype=torch.float32, device=x2d.device)
     rstd = torch.empty_like(mean)
-    fn = _build.function(
-        "fused_residual", "dropout_add_ln_fwd_launch", 8, 5,
-        (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
+    route = ln_route(c, x2d.dtype, _ptrs(x2d, res2d, scale, bias, y, z))
+    args = [x2d.data_ptr(), res2d.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), z.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), r, c, code, seed, on, thr, keep_div,
+            float(eps)]
+    tail = (ctypes.c_uint, ctypes.c_float, ctypes.c_float)
+    if route == "warp":
+        fn = _build.function(
+            "fused_residual", "dropout_add_ln_fwd_warp_launch", 8, 5,
+            tail + (ctypes.c_int, ctypes.c_int, ctypes.c_void_p))
+        args += ln_grid(r, _sms(x2d.device.index))
+    else:
+        fn = _build.function("fused_residual", "dropout_add_ln_fwd_launch",
+                             8, 5, tail + (ctypes.c_void_p,))
     stream = torch.cuda.current_stream(x2d.device).cuda_stream
     with torch.cuda.device(x2d.device):
-        err = fn(x2d.data_ptr(), res2d.data_ptr(), scale.data_ptr(),
-                 bias.data_ptr(), y.data_ptr(), z.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), r, c, code, seed, on,
-                 thr, keep_div, float(eps), stream)
-    _raise_if(err, "dropout_add_ln_fwd")
+        err = fn(*args, stream)
+    _raise_if(err, f"dropout_add_ln_fwd ({route} route)")
     _build.note_launch("dropout_add_ln_fwd")
+    _build.note_launch(f"dropout_add_ln_fwd.{route}")
     return y, z, mean, rstd
 
 
 def _bwd_kernel(z, scale, mean, rstd, dy, seed, p):
+    """(dx, dres) from the kernel; at p = 0 one tensor, dres, as both."""
     r, c = _rows_cols(z, "fused_dropout_add_ln backward")
     code = _dtype_code(z, "fused_dropout_add_ln")
     _check([("z", z), ("dy", dy)], z.device, z.dtype)
@@ -138,20 +170,31 @@ def _bwd_kernel(z, scale, mean, rstd, dy, seed, p):
                          f"{tuple(z.shape)}, dy {tuple(dy.shape)}, scale "
                          f"{tuple(scale.shape)}, mean {tuple(mean.shape)}")
     seed, on, thr, keep_div = _drop_args(seed, p)
-    dx = torch.empty_like(z)
     dres = torch.empty_like(z)
-    fn = _build.function(
-        "fused_residual", "dropout_add_ln_bwd_launch", 7, 5,
-        (ctypes.c_uint, ctypes.c_float, ctypes.c_void_p))
+    # p = 0: dx = dz / 1 is dres bit for bit; the kernel writes dres alone
+    dx = torch.empty_like(z) if on else None
+    route = ln_route(c, z.dtype, _ptrs(z, scale, dy, dres, dx))
+    args = [z.data_ptr(), scale.data_ptr(), mean.data_ptr(),
+            rstd.data_ptr(), dy.data_ptr(),
+            None if dx is None else dx.data_ptr(), dres.data_ptr(), r, c,
+            code, seed, on, thr, keep_div]
+    if route == "warp":
+        fn = _build.function(
+            "fused_residual", "dropout_add_ln_bwd_warp_launch", 7, 5,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p))
+        args += ln_grid(r, _sms(z.device.index))
+    else:
+        fn = _build.function(
+            "fused_residual", "dropout_add_ln_bwd_launch", 7, 5,
+            (ctypes.c_uint, ctypes.c_float, ctypes.c_void_p))
     stream = torch.cuda.current_stream(z.device).cuda_stream
     with torch.cuda.device(z.device):
-        err = fn(z.data_ptr(), scale.data_ptr(), mean.data_ptr(),
-                 rstd.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 dres.data_ptr(), r, c, code, seed, on, thr, keep_div,
-                 stream)
-    _raise_if(err, "dropout_add_ln_bwd")
+        err = fn(*args, stream)
+    _raise_if(err, f"dropout_add_ln_bwd ({route} route)")
     _build.note_launch("dropout_add_ln_bwd")
-    return dx, dres
+    _build.note_launch(f"dropout_add_ln_bwd.{route}")
+    return (dres if dx is None else dx), dres
 
 
 class _DropoutAddLn(torch.autograd.Function):
@@ -179,6 +222,8 @@ class _DropoutAddLn(torch.autograd.Function):
             dx, dres = dropout_add_ln_bwd_reference(
                 z, scale, mean, rstd, dy, ctx.seed, ctx.p)
         dscale, dbias = _affine_grads(dy, z, mean, rstd, scale)
+        # at p = 0 dx is dres itself: one gradient for both inputs, as
+        # the add's own backward hands them
         return (dx, dres, dscale, dbias.to(ctx.bias_dtype), None, None,
                 None)
 

@@ -40,7 +40,7 @@ __all__ = ["fused_layer_norm", "layer_norm_reference",
            "WARP_MAX_COLS"]
 
 MAX_COLS = 16384
-# the warp route's register cap: 32 elements a lane (csrc/layer_norm.cu
+# the warp route's register cap: 32 elements a lane (csrc/row_norm.cuh
 # kLaneElems), so C <= 32 * 32
 WARP_MAX_COLS = 1024
 _WARPS = 8              # rows a block of the warp route, at most

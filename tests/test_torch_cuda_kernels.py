@@ -30,7 +30,9 @@ pieces, q in bf16 or f16, misaligned or strided pools), served by the
 scalar kernel (or the vector one at ps = 256), split or not; the
 layer-norm kernels' two routes ("warp", "row"; misaligned copies take
 the row route) around the warp route's cap of C = 1024, reruns
-bit-identical, a zero-variance row, and the route each call takes.
+bit-identical, a zero-variance row, and the route each call takes; the
+same for the dropout + residual + layer-norm pair, whose backward at
+p = 0 writes one gradient (dres, returned as both).
 
 Needs a CUDA card: each test skips without one (the `dev` fixture
 decides, at run time). On the card, run
@@ -1015,25 +1017,55 @@ def test_layer_norm_routes_by_width_dtype_and_alignment(dev):
             "layer_norm_fwd": 1, "layer_norm_fwd.row": 1}
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("r,c", ROW_SHAPES[1:])
-def test_dropout_add_ln_kernels_match_plain(dev, dtype, p, r, c):
-    from paddle_tpu_torch.ops import _build
-    from paddle_tpu_torch.ops import fused_residual as fr
-    g = _g(10)
+def _dal_inputs(dev, seed, r, c, dtype):
+    g = _g(seed)
     x, res, dy = (torch.randn(r, c, generator=g, device=dev).to(dtype)
                   for _ in range(3))
     s = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
     b = 0.1 * torch.randn(c, generator=g, device=dev)
-    seed = -1234567
+    return x, res, dy, s, b
+
+
+def _dal_launches(fn):
+    """fn()'s result and the launches of rows 6-7 it made, by counter."""
+    from paddle_tpu_torch.ops import _build
     before = _build.launch_counts()
-    y, z, mean, rstd = fr._fwd_kernel(x, res, s, b, seed, p, 1e-12)
-    dx, dres = fr._bwd_kernel(z, s, mean, rstd, dy, seed, p)
+    out = fn()
     torch.cuda.synchronize()
     after = _build.launch_counts()
-    for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
-        assert after[name] == before.get(name, 0) + 1
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if k.startswith("dropout_add_ln")
+                 and after[k] != before.get(k, 0)}
+
+
+@pytest.mark.parametrize("view", ["chosen", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("r,c", LN_ROW_SHAPES)
+def test_dropout_add_ln_kernels_match_plain(dev, dtype, p, r, c, view):
+    """Both routes against the plain versions: f32 1e-4, bf16 2e-2,
+    mean 1e-5, rstd 1e-4; the route ln_route picks ("chosen") and, on
+    misaligned copies of x, res, z and dy, the row route. The masks are
+    bit-equal. Each launch counts under its kernel and its route."""
+    from paddle_tpu_torch.ops import fused_residual as fr
+    from paddle_tpu_torch.ops.layer_norm import ln_route
+    x, res, dy, s, b = _dal_inputs(dev, 10, r, c, dtype)
+    if view == "misaligned":
+        x, res, dy = (_ln_misaligned(t) for t in (x, res, dy))
+    took = ln_route(c, dtype, fr._ptrs(x, res, s, b))
+    assert view == "chosen" or took == "row"
+    seed = -1234567
+    (y, z, mean, rstd), got = _dal_launches(
+        lambda: fr._fwd_kernel(x, res, s, b, seed, p, 1e-12))
+    assert got == {"dropout_add_ln_fwd": 1, f"dropout_add_ln_fwd.{took}": 1}
+    zk = _ln_misaligned(z) if view == "misaligned" else z
+    (dx, dres), got = _dal_launches(
+        lambda: fr._bwd_kernel(zk, s, mean, rstd, dy, seed, p))
+    assert got == {"dropout_add_ln_bwd": 1, f"dropout_add_ln_bwd.{took}": 1}
+    if c == 1:      # one column: variance 0, rstd = rsqrt(eps) = 1e6
+        torch.testing.assert_close(rstd, torch.full_like(rstd, 1e6),
+                                   rtol=1e-5, atol=0)
+        return
     y_r, z_r, mean_r, rstd_r = fr.dropout_add_ln_reference(x, res, s, b,
                                                            seed, p, 1e-12)
     # the backward of both from the kernel's own z and statistics
@@ -1047,6 +1079,133 @@ def test_dropout_add_ln_kernels_match_plain(dev, dtype, p, r, c):
     if p > 0:       # the mask, bit for bit: dx is zero where it dropped
         keep = fr.keep_mask(seed, r, c, p, dev)
         assert torch.equal(dx != 0, keep & (dres != 0))
+
+
+def _dal_both_routes(x, res, dy):
+    """(route, x, res, dy) for the warp route (the aligned inputs) and
+    the row route (misaligned copies)."""
+    return [("warp", x, res, dy),
+            ("row", *(_ln_misaligned(t) for t in (x, res, dy)))]
+
+
+def _dal_run(fr, x, res, dy, s, b, p, route):
+    """Forward then backward of rows 6-7 on `route` (z re-copied off a
+    16-byte boundary for the row route): (y, z, mean, rstd, dx, dres)."""
+    y, z, mean, rstd = fr._fwd_kernel(x, res, s, b, 99, p, 1e-12)
+    zk = z if route == "warp" else _ln_misaligned(z)
+    return (y, z, mean, rstd,
+            *fr._bwd_kernel(zk, s, mean, rstd, dy, 99, p))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(304, 768), (2048, 768), (5, 1024)])
+def test_dropout_add_ln_routes_are_bit_equal_run_to_run(dev, dtype, r, c,
+                                                        p):
+    """Each route gives the same bits twice (sums in a fixed order, the
+    mask replayed from the seed)."""
+    from paddle_tpu_torch.ops import fused_residual as fr
+    x, res, dy, s, b = _dal_inputs(dev, 16, r, c, dtype)
+    for route, xr, rr, dyr in _dal_both_routes(x, res, dy):
+        runs = [_dal_launches(lambda: _dal_run(fr, xr, rr, dyr, s, b, p,
+                                               route)) for _ in range(2)]
+        for out, got in runs:
+            assert got == {
+                "dropout_add_ln_fwd": 1, f"dropout_add_ln_fwd.{route}": 1,
+                "dropout_add_ln_bwd": 1, f"dropout_add_ln_bwd.{route}": 1}
+        for a, w in zip(runs[0][0], runs[1][0]):
+            assert torch.equal(a, w), route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_add_ln_zero_variance_row_on_both_routes(dev, dtype):
+    """x = 0 and a residual row of equal values: z has variance exactly
+    0 (two-pass statistics), rstd = rsqrt(1e-12) = 1e6, y = bias, finite
+    gradients; on both routes, with dropout on."""
+    from paddle_tpu_torch.ops import fused_residual as fr
+    x, res, dy, s, b = _dal_inputs(dev, 17, 4, 768, dtype)
+    x[0] = 0
+    res[0] = -1.5
+    for route, xr, rr, dyr in _dal_both_routes(x, res, dy):
+        (y, z, mean, rstd, dx, dres), got = _dal_launches(
+            lambda: _dal_run(fr, xr, rr, dyr, s, b, 0.1, route))
+        assert got[f"dropout_add_ln_fwd.{route}"] == 1
+        assert float(mean[0]) == -1.5, route
+        torch.testing.assert_close(rstd[0], torch.tensor(1e6, device=dev),
+                                   rtol=1e-5, atol=0)
+        assert torch.equal(y[0], b.to(dtype)), route
+        assert bool(torch.isfinite(dx.float()).all()), route
+        assert bool(torch.isfinite(dres.float()).all()), route
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dropout_add_ln_p0_backward_writes_one_gradient(dev, dtype):
+    """At p = 0 the backward is one launch that writes dres alone (the
+    wrapper allocates no dx and returns dres as both), on both routes;
+    through autograd, x.grad and res.grad equal the plain version's and
+    are separate tensors."""
+    from paddle_tpu_torch.ops import fused_residual as fr
+    x, res, dy, s, b = _dal_inputs(dev, 18, 64, 768, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for route, xr, rr, dyr in _dal_both_routes(x, res, dy):
+        out, got = _dal_launches(
+            lambda: _dal_run(fr, xr, rr, dyr, s, b, 0.0, route))
+        assert got["dropout_add_ln_bwd"] == 1
+        assert got[f"dropout_add_ln_bwd.{route}"] == 1
+        dx, dres = out[4:]
+        assert dx is dres, route
+        _, _, mean, rstd = out[:4]
+        _, dres_r = fr.dropout_add_ln_bwd_reference(out[1], s, mean, rstd,
+                                                    dyr, 99, 0.0)
+        torch.testing.assert_close(dres.float(), dres_r.float(), atol=tol,
+                                   rtol=tol)
+    xt, rt = (t.clone().requires_grad_() for t in (x, res))
+    fr.fused_dropout_add_ln(xt, rt, s, b, 3, 0.0, 1e-12).backward(dy)
+    xc, rc = (t.cpu().clone().requires_grad_() for t in (x, res))
+    fr.fused_dropout_add_ln(xc, rc, s.cpu(), b.cpu(), 3, 0.0,
+                            1e-12).backward(dy.cpu())
+    for a, w in ((xt.grad, xc.grad), (rt.grad, rc.grad)):
+        torch.testing.assert_close(a.float().cpu(), w.float(), atol=tol,
+                                   rtol=tol)
+    assert torch.equal(xt.grad, rt.grad)
+    assert xt.grad.data_ptr() != rt.grad.data_ptr()
+
+
+def test_dropout_add_ln_routes_by_width_dtype_and_alignment(dev):
+    """The route each call takes, read from the counters: BERT's C = 768
+    and the cap C = 1024 in f32 and bf16 on "warp" (both p), a
+    misaligned x on "row", C = 7 and one vector past the cap on "row";
+    the autograd Function takes the same routes."""
+    from paddle_tpu_torch.ops import fused_residual as fr
+    for dtype in (torch.float32, torch.bfloat16):
+        for c in (768, 1024):
+            x, res, dy, s, b = _dal_inputs(dev, 19, 16, c, dtype)
+            for p in (0.0, 0.1):
+                (_, z, mean, rstd), got = _dal_launches(
+                    lambda: fr._fwd_kernel(x, res, s, b, 5, p, 1e-12))
+                assert got == {"dropout_add_ln_fwd": 1,
+                               "dropout_add_ln_fwd.warp": 1}
+                _, got = _dal_launches(
+                    lambda: fr._bwd_kernel(z, s, mean, rstd, dy, 5, p))
+                assert got == {"dropout_add_ln_bwd": 1,
+                               "dropout_add_ln_bwd.warp": 1}
+        x, res, dy, s, b = _dal_inputs(dev, 20, 16, 768, dtype)
+        xm = _ln_misaligned(x)
+        _, got = _dal_launches(
+            lambda: fr._fwd_kernel(xm, res, s, b, 5, 0.1, 1e-12))
+        assert got == {"dropout_add_ln_fwd": 1, "dropout_add_ln_fwd.row": 1}
+        xt = x.clone().requires_grad_()
+        _, got = _dal_launches(lambda: fr.fused_dropout_add_ln(
+            xt, res, s, b, 5, 0.1, 1e-12).backward(dy))
+        assert got == {"dropout_add_ln_fwd": 1, "dropout_add_ln_fwd.warp": 1,
+                       "dropout_add_ln_bwd": 1, "dropout_add_ln_bwd.warp": 1}
+        past = 1028 if dtype == torch.float32 else 1032
+        for c in (7, past):
+            x, res, dy, s, b = _dal_inputs(dev, 21, 16, c, dtype)
+            _, got = _dal_launches(
+                lambda: fr._fwd_kernel(x, res, s, b, 5, 0.1, 1e-12))
+            assert got == {"dropout_add_ln_fwd": 1,
+                           "dropout_add_ln_fwd.row": 1}
 
 
 def test_row_kernels_autograd_and_determinism(dev):

@@ -99,7 +99,7 @@ NAMES = ("y", "dx", "dres", "dscale", "dbias")
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("p", [0.0, 0.1])
-@pytest.mark.parametrize("r,c", [(16, 128), (304, 256)])
+@pytest.mark.parametrize("r,c", [(16, 128), (304, 256), (64, 1024)])
 def test_dropout_add_ln_matches_jax_pallas_interpret(r, c, p, dtype,
                                                      interpret):
     assert jr.can_use_fused_dropout_add_ln(r, c)
@@ -128,6 +128,84 @@ def test_dropout_add_ln_matches_composed_reference(r, c, p):
     want = _jax_fwd_bwd(jr._composed_ref, *a, -77, p, torch.float32)
     for name, g, w in zip(NAMES, got, want):
         np.testing.assert_allclose(g, w, err_msg=name, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_p0_gradients_are_one_tensor_but_independent_leaves(dtype,
+                                                            interpret):
+    """At p = 0 the backward returns one tensor, dres, as the gradient
+    of x and of res (dx = dz / 1 is dres bit for bit): both equal the
+    JAX package's vjp, and autograd still gives each leaf its own
+    storage, so changing x.grad leaves res.grad alone."""
+    r, c = 16, 128
+    x, res, s, b, dy = _inputs(r, c, seed=3)
+    xt, rt = (torch.from_numpy(a).to(dtype).requires_grad_()
+              for a in (x, res))
+    st, bt = (torch.from_numpy(a).requires_grad_() for a in (s, b))
+    port.fused_dropout_add_ln(xt, rt, st, bt, 5, 0.0, EPS).backward(
+        torch.from_numpy(dy).to(dtype))
+    want = _jax_fwd_bwd(jr.fused_dropout_add_ln, x, res, s, b, dy, 5, 0.0,
+                        dtype)
+    for name, g, w in (("dx", xt.grad, want[1]), ("dres", rt.grad, want[2])):
+        np.testing.assert_allclose(g.float().numpy(), w, err_msg=name,
+                                   **TOL[dtype])
+    assert torch.equal(xt.grad, rt.grad)
+    assert xt.grad.data_ptr() != rt.grad.data_ptr()
+    kept = rt.grad.clone()
+    xt.grad.add_(1)
+    assert torch.equal(rt.grad, kept)
+    # the plain version of the kernel returns the one tensor itself
+    _, z, mean, rstd = port.dropout_add_ln_reference(
+        xt.detach(), rt.detach(), st.detach(), bt.detach(), 5, 0.0, EPS)
+    dx, dres = port.dropout_add_ln_bwd_reference(
+        z, st.detach(), mean, rstd, torch.from_numpy(dy).to(dtype), 5, 0.0)
+    assert dx is dres
+
+
+def _misaligned(t):
+    """A copy of `t` one element past its allocation's start (16-byte
+    aligned on the CPU as on the card): not 16-byte aligned."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+
+
+def _call_tensors(kernel, r, c, dtype, p=0.1):
+    """The tensors one call of `kernel` reads and writes, in the order
+    its wrapper hands them to ln_route through _ptrs: x, res, scale,
+    bias, y, z (forward); z, scale, dy, dres, dx (backward; no dx at
+    p = 0)."""
+    row = [torch.empty(r, c, dtype=dtype) for _ in range(4)]
+    vec = [torch.empty(c) for _ in range(2)]
+    if kernel == "fwd":
+        return [row[0], row[1], vec[0], vec[1], row[2], row[3]]
+    return [row[0], vec[0], row[1], row[2], row[3] if p > 0 else None]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["fwd", "bwd"])
+def test_dal_route(kernel, dtype):
+    """Rows 6-7 route by the layer norm's ln_route over the pointers of
+    their calls: C = 768 and the cap 1024 on "warp"; one vector past the
+    cap, C = 7, or any one misaligned tensor on "row"; at p = 0 the
+    backward has no dx, which then decides nothing."""
+    from paddle_tpu_torch.ops.layer_norm import WARP_MAX_COLS, ln_route
+    past = WARP_MAX_COLS + (4 if dtype == torch.float32 else 8)
+
+    def route(c, tensors):
+        return ln_route(c, dtype, port._ptrs(*tensors))
+
+    for c, want in ((768, "warp"), (WARP_MAX_COLS, "warp"), (past, "row"),
+                    (7, "row")):
+        assert route(c, _call_tensors(kernel, 8, c, dtype)) == want, c
+    ts = _call_tensors(kernel, 8, 768, dtype)
+    for i, t in enumerate(ts):
+        off = ts[:i] + [_misaligned(t)] + ts[i + 1:]
+        assert route(768, off) == "row", i
+    if kernel == "bwd":
+        p0 = _call_tensors(kernel, 8, 768, dtype, p=0.0)
+        assert p0[-1] is None and len(port._ptrs(*p0)) == 4
+        assert route(768, p0) == "warp"
+        p0[0] = _misaligned(p0[0])
+        assert route(768, p0) == "row"
 
 
 def test_zero_variance_row():
