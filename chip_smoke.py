@@ -4,9 +4,10 @@
     python3 chip_smoke.py --kernels  # phases 1-2 only: build + check
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
-                                     # step, of one BERT train step and
-                                     # of three steps of each static
-                                     # program (torch.profiler)
+                                     # step, of one BERT train step, of
+                                     # three steps of each static
+                                     # program and of one ResNet-50
+                                     # train step (torch.profiler)
 
 Phases:
   1. card and build — the card's name and power limit, then nvcc builds
@@ -124,7 +125,20 @@ Phases:
      program at the preset on Executor(CUDAPlace(0)): losses fall, both
      fused_ffn launches a step on the FFMA route, kernel and composed
      losses within 1e-3, peak device memory, one eager run_op;
- 12. the kernels line, then the card line, then the result line.
+ 12. ResNet (no kernel of the port on this path: convolutions and pools
+     are PyTorch's, batch norm the reference's arithmetic in tensor
+     code) — resnet_parity: resnet18 at 32 x 32, batch 8, f32, NHWC,
+     weights from seed 0, 3 momentum steps on the card and the same 3 on
+     the CPU: losses within 1e-3 relative, running statistics within
+     1e-4 (+ 1e-4 relative); then under O1 the class-separable batches of
+     tests/test_vision_models.py on the card (lr 0.01): the loss falls
+     over 6 steps. resnet50_phase: bench.py's bench_resnet50 whole (resnet50,
+     1000 classes, NHWC, momentum lr 0.1, O1, batch 256 x 3 x 224 x 224
+     resident on the card), 3 warm-up + 10 timed steps: step ms (median),
+     images/s, MFU against the bf16 peak, peak memory, the finite loss,
+     how far the running statistics moved, the port's launch counts (0),
+     and the stem's output NHWC-contiguous on the card;
+ 13. the kernels line, then the card line, then the result line.
 
 One numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
 BERT phases draw their weights from the port's seeded initialisers.
@@ -328,6 +342,13 @@ FFN_STEPS = 5
 FFN_LAUNCHES_PER_STEP = 2
 # bench.py's bench_lenet
 LENET_BATCH, LENET_STEPS = 256, 30
+# bench.py's bench_resnet50
+RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 3, 10
+# device work, by name, that changes a tensor's layout, and copies (dtype
+# casts among them: torch casts through its direct_copy kernels, whose
+# names profile_steps cuts to "...direct_c")
+LAYOUT_KERNELS = ("transpose", "Transpose", "nchwToNhwc", "nhwcToNchw")
+COPY_KERNELS = ("copy", "Copy", "direct_c")
 
 
 def fail(msg: str):
@@ -1965,6 +1986,7 @@ def profile_steps(torch, run, steps, what, top_n=12):
                           "launches_per_step": v[1] / steps}
                          for k, v in port],
         "port_launches_per_step": counted}), flush=True)
+    return {k: (v[0] / steps, v[1] / steps) for k, v in by_name.items()}
 
 
 def profile_decode(torch, eng, vocab, steps=10):
@@ -2588,6 +2610,190 @@ def static_ffn_phase(torch, with_profile=False):
     return counts
 
 
+def resnet_loss(m, img, label):
+    from paddle_tpu_torch.nn import functional as F
+    return F.cross_entropy(m(img), label)
+
+
+def separable_batches(steps):
+    """tests/test_vision_models.py's class-separable images: 4 fixed
+    patterns plus noise, 16 fresh labels each step, 32 x 32."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    protos = rng.randn(4, 3, 32, 32).astype("float32") * 2
+    out = []
+    for _ in range(steps):
+        lab = rng.randint(0, 4, (16,))
+        img = protos[lab] + rng.randn(16, 3, 32, 32).astype("float32") * .1
+        out.append((img, lab[:, None].astype("int64")))
+    return out
+
+
+def resnet_parity(torch, steps=3, lr=0.01):
+    """resnet18 (10 classes, NHWC, weights from the port's initialisers at
+    seed 0) at 32 x 32, batch 8, f32: `steps` momentum steps through
+    make_train_step on the card and the same steps on the CPU. Every
+    step's loss must agree within 1e-3 relative and every running
+    statistic within 1e-4 + 1e-4 relative. lr 0.01: at lr 0.1 on random
+    labels the untrained net's loss climbs (4.4 to 14.5 in 3 steps) and
+    two float32 sum orders part by 1% (seen on the CPU between the NCHW
+    and NHWC trunks); at 0.01 they agree to 2e-5. Then under O1, on the
+    card, the class-separable recipe (lr 0.01, 6 steps): the last loss
+    below the first (at the reference test's lr 0.05 the loss swings
+    from 0.01 to 16 between steps on the CPU)."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import initializer
+    from paddle_tpu_torch.vision.models import resnet18
+    rng = np.random.RandomState(0)
+    batches = [(rng.randn(8, 3, 32, 32).astype("float32"),
+                rng.randint(0, 10, (8, 1)).astype("int64"))
+               for _ in range(steps)]
+    initializer.seed(0)
+    model = resnet18(num_classes=10, data_format="NHWC").train()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step = make_train_step(model, resnet_loss, optimizer="momentum",
+                               lr=lr, device=dev)
+        losses = [float(step(*(torch.as_tensor(a, device=dev)
+                               for a in b))) for b in batches]
+        runs[dev] = (losses, {n: v.cpu() for n, v in step.buffers.items()})
+    (gl, gb), (cl, cb) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    buf_err = max(max_err(gb[n], cb[n]) for n in gb)
+    moved = sum(not torch.equal(gb[n], v) for n, v in
+                model.named_buffers())
+    bad = [n for n in gb if not within(gb[n], cb[n], 1e-4, 1e-4)]
+    torch.cuda.empty_cache()
+    initializer.seed(0)
+    amp_model = resnet18(num_classes=4, data_format="NHWC").train()
+    step = make_train_step(amp_model, resnet_loss, optimizer="momentum",
+                           lr=lr, amp_level="O1")
+    amp_losses = [float(step(*(torch.as_tensor(a, device="cuda")
+                               for a in b)))
+                  for b in separable_batches(6)]
+    print(json.dumps({
+        "phase": "resnet_parity", "config": "resnet18 NHWC 32x32 batch 8 "
+        f"f32 momentum lr={lr}, card against CPU; O1 separable",
+        "losses_cuda": gl, "losses_cpu": cl, "max_rel": rel,
+        "buffers_max_abs_err": buf_err, "buffers_moved": moved,
+        "buffers": len(gb), "o1_separable_losses": amp_losses}),
+        flush=True)
+    if not rel <= 1e-3:
+        fail(f"resnet18 card and CPU losses differ: {gl} against {cl}")
+    if bad:
+        fail(f"resnet18 running statistics differ between card and CPU: "
+             f"{bad[:4]} (max abs err {buf_err})")
+    if moved != len(gb):
+        fail(f"resnet18: {len(gb) - moved} running statistics did not move")
+    if not all(math.isfinite(v) for v in amp_losses) \
+            or not amp_losses[-1] < amp_losses[0]:
+        fail(f"resnet18 O1 loss did not fall: {amp_losses}")
+
+
+def resnet50_phase(torch, with_profile=False):
+    """bench.py's bench_resnet50 through the port: resnet50 (1000
+    classes, NHWC), make_train_step(optimizer="momentum", lr=0.1,
+    amp_level="O1"), a batch of 256 x 3 x 224 x 224 from
+    np.random.RandomState(0) with labels randint(0, 1000, (256, 1)),
+    resident on the card; RESNET_WARMUP warm-up steps, then
+    RESNET_STEPS steps each timed to a synchronize. The loss must stay
+    finite, every running statistic must move, the stem's convolution
+    must hand back an NHWC-contiguous tensor, and no kernel of the port
+    launches (the launch counts of the timed steps are all zero)."""
+    import math
+    import numpy as np
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import initializer
+    from paddle_tpu_torch.observability.perf import \
+        resnet_train_flops_per_step
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.vision.models import resnet50
+    t0 = time.perf_counter()
+    initializer.seed(0)
+    model = resnet50(num_classes=1000, data_format="NHWC").train()
+    step = make_train_step(model, resnet_loss, optimizer="momentum",
+                           lr=0.1, amp_level="O1")
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    img = torch.as_tensor(rng.randn(RESNET_BATCH, 3, 224, 224).astype(
+        "float32"), device="cuda")
+    lab = torch.as_tensor(rng.randint(0, 1000, (RESNET_BATCH, 1)).astype(
+        "int64"), device="cuda")
+    start = {n: v.clone() for n, v in step.buffers.items()}
+    stem = []
+    hook = model.stem[0].register_forward_hook(
+        lambda mod, args, out: stem.append((tuple(out.shape), out.stride(),
+                                            out.is_contiguous(), out.dtype)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    warm = []
+    for _ in range(RESNET_WARMUP):
+        t0 = time.perf_counter()
+        loss = float(step(img, lab))
+        warm.append([loss, round((time.perf_counter() - t0) * 1e3, 3)])
+    hook.remove()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, times = [], []
+    for _ in range(RESNET_STEPS):
+        t0 = time.perf_counter()
+        loss = step(img, lab)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = launch_counts()
+    step_s = statistics.median(times)
+    flops = resnet_train_flops_per_step(RESNET_BATCH)
+    moved = {n: float((step.buffers[n] - v).abs().max())
+             for n, v in start.items()}
+    main_d = {
+        "phase": "resnet50_phase", "config": "bench_resnet50: resnet50 "
+        "NHWC, 1000 classes, momentum lr=0.1, O1", "batch": RESNET_BATCH,
+        "image": [3, 224, 224], "init_s": round(init_s, 2),
+        "warmup_loss_ms": warm, "losses": losses,
+        "step_ms": [round(t * 1e3, 3) for t in times],
+        "step_ms_median": round(step_s * 1e3, 3),
+        "images_per_s": round(RESNET_BATCH / step_s, 2),
+        "mfu_bf16": round(flops / step_s / BF16_FLOPS, 5),
+        "flops_per_step": flops,
+        "max_memory_allocated_gb": round(
+            torch.cuda.max_memory_allocated() / 1e9, 3),
+        "max_memory_requested_gb": round(torch.cuda.memory_stats()[
+            "requested_bytes.all.peak"] / 1e9, 6),
+        "stem_output": {"shape": stem[0][0], "stride": stem[0][1],
+                        "contiguous": stem[0][2], "dtype": str(stem[0][3])},
+        "buffers": len(moved),
+        "buffers_moved": sum(v > 0 for v in moved.values()),
+        "buffer_max_abs_change": max(moved.values()),
+        "port_launches": counts}
+    print(json.dumps(main_d), flush=True)
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"non-finite ResNet-50 loss: {losses}")
+    if not stem[0][2] or stem[0][0] != (RESNET_BATCH, 112, 112, 64):
+        fail(f"ResNet-50 stem output not NHWC-contiguous: {stem[0]}")
+    if main_d["buffers_moved"] != len(moved):
+        fail(f"ResNet-50: {len(moved) - main_d['buffers_moved']} running "
+             f"statistics did not move")
+    if any(counts.values()):
+        fail(f"ResNet-50 launched kernels of the port: {counts}")
+    if with_profile:
+        table = profile_steps(torch, lambda: step(img, lab), 1,
+                              "resnet50_train_step", top_n=16)
+        kinds = {"layout": LAYOUT_KERNELS, "copy": COPY_KERNELS}
+        row = {"phase": "resnet50_layout",
+               "busy_ms": round(sum(v[0] for v in table.values()), 3)}
+        for kind, words in kinds.items():
+            hit = {k: v for k, v in table.items()
+                   if any(w in k for w in words)}
+            row[f"{kind}_kernels"] = {
+                k: {"ms": round(v[0], 4), "launches": v[1]}
+                for k, v in sorted(hit.items(), key=lambda kv: -kv[1][0])}
+            row[f"{kind}_ms"] = round(sum(v[0] for v in hit.values()), 4)
+        print(json.dumps(row), flush=True)
+
+
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
     """Device-time breakdown of `steps` static steps."""
     profile_steps(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
@@ -2823,6 +3029,13 @@ def main(argv):
 
     static_lenet_phase(torch, with_profile)
     ffn_counts = static_ffn_phase(torch, with_profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    resnet_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resnet50_phase(torch, with_profile)
 
     print(json.dumps(kernels_line(results, serve_counts, wide_counts,
                                   train_counts, bert_counts, layer_counts,

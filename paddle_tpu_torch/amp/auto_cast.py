@@ -19,6 +19,12 @@ and the block ops ``fused_out_ln``, ``fused_ffn_block`` and
 product plus its float32 bias is float32 again, ``fused_out_ln`` sees a
 bfloat16 X beside float32 weights and residual, and ``fused_ffn_block``
 runs in float32 throughout.
+
+``batch_norm`` is on neither list: under O1 its X arrives as the
+producing convolution left it (bfloat16) and Y comes back in X's type,
+while the statistics are float32 inside the op. Under O2 only X is cast:
+the op's Mean, Variance, Scale and Bias slots stay float32
+(``_KEEP_F32_SLOTS``), as the reference keeps them.
 """
 from __future__ import annotations
 
@@ -42,6 +48,13 @@ black_list = {
     "rsqrt", "p_norm", "squared_l2_norm",
 }
 
+# slots that stay float32 when the op itself runs in bfloat16: batch
+# norm's running statistics and affine parameters are float32 state
+_KEEP_F32_SLOTS = {
+    "batch_norm": {"Mean", "Variance", "Scale", "Bias"},
+    "sync_batch_norm": {"Mean", "Variance", "Scale", "Bias"},
+}
+
 _level = 0   # 0 off, 1 "O1", 2 "O2"
 
 
@@ -49,10 +62,11 @@ def amp_level() -> int:
     return _level
 
 
-def autocast_inputs(op_type: str, *tensors):
+def autocast_inputs(op_type: str, *tensors, slots=()):
     """The tensors as op `op_type` takes them under the current level:
     floating tensors cast to the list's type, everything else (None,
-    integer tensors) untouched."""
+    integer tensors) untouched. `slots` names the op's input slot of
+    each tensor where some must keep float32 (``_KEEP_F32_SLOTS``)."""
     if _level == 0:
         return tensors
     if op_type in white_list:
@@ -63,8 +77,17 @@ def autocast_inputs(op_type: str, *tensors):
         target = torch.bfloat16
     else:
         return tensors
-    return tuple(t.to(target) if t is not None and t.is_floating_point()
-                 and t.dtype != target else t for t in tensors)
+    keep = _KEEP_F32_SLOTS.get(op_type) if target == torch.bfloat16 \
+        else None
+    if keep and slots:
+        return tuple(t if slot in keep else _cast(t, target)
+                     for t, slot in zip(tensors, slots))
+    return tuple(_cast(t, target) for t in tensors)
+
+
+def _cast(t, target):
+    return t.to(target) if t is not None and t.is_floating_point() \
+        and t.dtype != target else t
 
 
 @contextlib.contextmanager

@@ -1,11 +1,16 @@
 """NN ops (counterpart of ``paddle_tpu/fluid/ops/nn_ops.py``): conv2d,
-pool2d, softmax_with_cross_entropy and fused_ffn, on torch tensors.
+pool2d, batch_norm, softmax_with_cross_entropy and fused_ffn, on torch
+tensors.
 
-conv2d and pool2d are PyTorch's own (``F.conv2d``, ``F.max_pool2d``,
-``F.avg_pool2d``): the reference computes them outside any Pallas kernel
-(``lax.conv_general_dilated``, ``lax.reduce_window``). fused_ffn reaches
-the port's kernel wrapper ``ops.fused_ffn`` where the reference reaches
-its Pallas kernel (``ops/pallas_ffn.py``), behind the same gate.
+conv2d, pool2d and batch_norm run the bodies that the eager functions of
+``nn/functional.py`` run (``conv2d_op``, ``pool2d_op``,
+``batch_norm_op``): PyTorch's own convolution and pooling, and the
+reference's batch-norm arithmetic with its hand-derived backward; the
+reference computes them outside any Pallas kernel
+(``lax.conv_general_dilated``, ``lax.reduce_window``, jnp).
+fused_ffn reaches the port's kernel wrapper ``ops.fused_ffn`` where the
+reference reaches its Pallas kernel (``ops/pallas_ffn.py``), behind the
+same gate.
 """
 from __future__ import annotations
 
@@ -13,7 +18,8 @@ import math
 
 import torch.nn.functional as F
 
-from ...nn.functional import softmax_with_cross_entropy
+from ...nn.functional import (batch_norm_op, conv2d_op, pool2d_op,
+                              softmax_with_cross_entropy)
 from ...ops import fused_ffn as _ffn
 from ..registry import register, require, same_shape_as
 from .common import out, x
@@ -22,18 +28,6 @@ from .common import out, x
 # ---------------------------------------------------------------------------
 # convolution
 # ---------------------------------------------------------------------------
-
-def _conv_pad(paddings, algorithm, ksize, dilations):
-    if algorithm == "SAME":
-        return "SAME"
-    if algorithm == "VALID":
-        return "VALID"
-    if len(paddings) == 2:
-        return [(paddings[0], paddings[0]), (paddings[1], paddings[1])]
-    if len(paddings) == 4:
-        return [(paddings[0], paddings[1]), (paddings[2], paddings[3])]
-    raise ValueError(f"bad paddings {paddings}")
-
 
 def _conv2d_infer(op):
     iv, fv = op.invar("Input"), op.invar("Filter")
@@ -67,37 +61,12 @@ def _conv2d_infer(op):
         op.block.create_var(name=name, shape=oshape, dtype=iv.dtype)
 
 
-def _same_pads(size, k, s, d):
-    """XLA's SAME padding of one spatial axis: (low, high)."""
-    o = -(-size // s)
-    total = max((o - 1) * s + (k - 1) * d + 1 - size, 0)
-    return total // 2, total - total // 2
-
-
 def _conv2d(ctx, ins, attrs):
-    inp, flt = x(ins, "Input"), x(ins, "Filter")
-    strides = list(attrs.get("strides", [1, 1]))
-    dilations = list(attrs.get("dilations", [1, 1]))
-    pad = _conv_pad(attrs.get("paddings", [0, 0]),
-                    attrs.get("padding_algorithm", "EXPLICIT"),
-                    flt.shape[2:], dilations)
-    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
-    if nhwc:
-        inp = inp.permute(0, 3, 1, 2)
-    if pad == "VALID":
-        pad = [(0, 0), (0, 0)]
-    elif pad == "SAME":
-        pad = [_same_pads(inp.shape[2 + i], flt.shape[2 + i], strides[i],
-                          dilations[i]) for i in (0, 1)]
-    (ph0, ph1), (pw0, pw1) = pad
-    sym = ph0 == ph1 and pw0 == pw1
-    if not sym:
-        inp = F.pad(inp, (pw0, pw1, ph0, ph1))
-    r = F.conv2d(inp, flt, None, strides, (ph0, pw0) if sym else 0,
-                 dilations, attrs.get("groups", 1) or 1)
-    if nhwc:
-        r = r.permute(0, 2, 3, 1)
-    return {"Output": [r]}
+    return {"Output": [conv2d_op(
+        x(ins, "Input"), x(ins, "Filter"), attrs.get("strides", [1, 1]),
+        attrs.get("paddings", [0, 0]), attrs.get("dilations", [1, 1]),
+        attrs.get("groups", 1), attrs.get("padding_algorithm", "EXPLICIT"),
+        attrs.get("data_format", "NCHW"))]}
 
 
 register("conv2d", _conv2d, infer_shape=_conv2d_infer,
@@ -144,33 +113,45 @@ def _pool2d_infer(op):
                  "ceil_mode": False, "exclusive": True, "adaptive": False,
                  "data_format": "NCHW", "use_cudnn": False})
 def _pool2d(ctx, ins, attrs):
-    v = x(ins)
-    ptype = attrs["pooling_type"]
-    nhwc = attrs.get("data_format", "NCHW") == "NHWC"
-    if nhwc:
-        v = v.permute(0, 3, 1, 2)
-    if attrs.get("global_pooling") or (attrs.get("adaptive") and
-                                       list(attrs["ksize"]) == [1, 1]):
-        r = v.amax((2, 3), keepdim=True) if ptype == "max" \
-            else v.mean((2, 3), keepdim=True)
-    elif attrs.get("adaptive"):
-        # the reference's bins are torch's: [floor(i*n/o), ceil((i+1)*n/o))
-        fn = F.adaptive_max_pool2d if ptype == "max" \
-            else F.adaptive_avg_pool2d
-        r = fn(v, list(attrs["ksize"]))
-    else:
-        # the reference pads by `paddings` and ignores ceil_mode here (its
-        # infer_shape reads it)
-        k, s = list(attrs["ksize"]), list(attrs["strides"])
-        p = list(attrs["paddings"])
-        if ptype == "max":
-            r = F.max_pool2d(v, k, s, p)
-        else:
-            r = F.avg_pool2d(v, k, s, p, count_include_pad=not (
-                attrs.get("exclusive", True) and (p[0] or p[1])))
-    if nhwc:
-        r = r.permute(0, 2, 3, 1)
-    return out(r)
+    return out(pool2d_op(
+        x(ins), attrs["pooling_type"], attrs["ksize"], attrs["strides"],
+        attrs["paddings"], attrs.get("global_pooling", False),
+        attrs.get("exclusive", True), attrs.get("adaptive", False),
+        attrs.get("data_format", "NCHW")))
+
+
+# ---------------------------------------------------------------------------
+# batch norm
+# ---------------------------------------------------------------------------
+
+def _bn_infer(op):
+    v = op.invar("X")
+    if v is None:
+        return
+    for name in op.output("Y"):
+        op.block.create_var(name=name, shape=v.shape, dtype=v.dtype)
+    sv = op.invar("Scale")
+    cshape = sv.shape if sv is not None else None
+    for slot in ("MeanOut", "VarianceOut", "SavedMean", "SavedVariance"):
+        for name in op.output(slot):
+            op.block.create_var(name=name, shape=cshape, dtype="float32")
+
+
+@register("batch_norm", infer_shape=_bn_infer,
+          attrs={"momentum": 0.9, "epsilon": 1e-5, "is_test": False,
+                 "data_layout": "NCHW", "use_global_stats": False,
+                 "trainable_statistics": False},
+          no_grad_out_slots=("MeanOut", "VarianceOut", "SavedMean",
+                             "SavedVariance", "ReserveSpace"))
+def _batch_norm(ctx, ins, attrs):
+    is_test = attrs.get("is_test", False) or getattr(ctx, "is_test", False)
+    y, mean_out, var_out, saved_mean, saved_inv = batch_norm_op(
+        x(ins), x(ins, "Scale"), x(ins, "Bias"), x(ins, "Mean"),
+        x(ins, "Variance"), attrs["momentum"], attrs["epsilon"],
+        is_test or attrs.get("use_global_stats", False),
+        attrs.get("data_layout", "NCHW"))
+    return {"Y": [y], "MeanOut": [mean_out], "VarianceOut": [var_out],
+            "SavedMean": [saved_mean], "SavedVariance": [saved_inv]}
 
 
 # ---------------------------------------------------------------------------

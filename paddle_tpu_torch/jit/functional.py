@@ -11,11 +11,21 @@ untouched until ``write_back()``), differentiates with
 ``torch.autograd`` and applies the ported optimizer ops in place.
 
 One call = loss at the parameters BEFORE the update, optional global
-norm clip ``min(1, clip / max(||g||, 1e-12))``, then ``adamw`` or
-``adam`` per parameter, each with its own (beta1_pow, beta2_pow) pair
-and the decay coefficient on every parameter, as the reference applies
-it. A parameter shared under two names (a tied embedding) is one leaf:
-its gradient sums both uses and it is updated once. The step seed is the
+norm clip ``min(1, clip / max(||g||, 1e-12))``, then the optimizer's op
+per parameter: ``adamw`` or ``adam``, each parameter with its own
+(beta1_pow, beta2_pow) pair and the decay coefficient on every
+parameter, as the reference applies it; ``momentum`` with one float32
+Velocity a parameter; or ``sgd``. The reference hands ``weight_decay``
+to every op as ``coeff``, which the momentum and sgd ops do not read, so
+``weight_decay`` does nothing under them here either.
+
+Buffers (batch norm's running statistics) go into the model through
+the same ``functional_call``; a layer that updates one writes into the
+tensor it was given, which is ``self.buffers[name]`` (the reference
+gathers the buffers' values after its trace instead).
+
+A parameter shared under two names (a tied embedding) is one leaf: its
+gradient sums both uses and it is updated once. The step seed is the
 step count unless given; stochastic ops draw their int32 seeds from
 ``nn.functional.seed_scope(step seed)``. ``donate`` has no meaning here:
 updates are in place.
@@ -30,7 +40,7 @@ import torch
 from torch.func import functional_call
 
 from ..amp.auto_cast import amp_guard
-from ..fluid.ops.optimizer_ops import adam, adamw
+from ..fluid.ops.optimizer_ops import adam, adamw, momentum, sgd
 from ..models.gpt import disable_tf32, resolve_device
 from ..nn import functional as F
 
@@ -71,11 +81,12 @@ class TrainStep:
             raise NotImplementedError(
                 "remat=True (per-layer recompute of nn layers) comes with "
                 "slice 5 of the port, beside distributed.recompute")
-        if optimizer not in ("adam", "adamw"):
-            if optimizer in ("sgd", "momentum", "lamb"):
+        if optimizer not in ("adam", "adamw", "momentum", "sgd"):
+            if optimizer == "lamb":
                 raise NotImplementedError(
-                    f"optimizer={optimizer!r} comes with slice 4 of the "
-                    f"port (the op library); adam and adamw are ported")
+                    "optimizer='lamb' comes with slice 4 of the port (the "
+                    "op library, ROADMAP.md A, item 11); adam, adamw, "
+                    "momentum and sgd are ported")
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
@@ -87,6 +98,7 @@ class TrainStep:
         self.loss_fn = loss_fn
         self._bound = _LossModule(model, loss_fn)
         self._lr = lr
+        self._optimizer = optimizer
         self._update = adamw if optimizer == "adamw" else adam
         self._clip = grad_clip_norm
         self._amp_level = amp_level
@@ -101,13 +113,19 @@ class TrainStep:
             for n, p in model.named_parameters() if p.requires_grad}
         self.buffers = {n: b.detach().to(self.device).clone()
                         for n, b in model.named_buffers()}
-        one = torch.ones((1,), dtype=torch.float32, device=self.device)
-        self.opt_state = {
-            n: {"Moment1": torch.zeros_like(p, requires_grad=False),
-                "Moment2": torch.zeros_like(p, requires_grad=False),
-                "Beta1Pow": one.clone(), "Beta2Pow": one.clone()}
-            for n, p in self.params.items()}
+        self.opt_state = {n: self._init_state(p)
+                          for n, p in self.params.items()}
         self._step_count = 0
+
+    def _init_state(self, p):
+        if self._optimizer == "momentum":
+            return {"Velocity": torch.zeros_like(p, requires_grad=False)}
+        if self._optimizer == "sgd":
+            return {}
+        one = torch.ones((1,), dtype=torch.float32, device=self.device)
+        return {"Moment1": torch.zeros_like(p, requires_grad=False),
+                "Moment2": torch.zeros_like(p, requires_grad=False),
+                "Beta1Pow": one, "Beta2Pow": one.clone()}
 
     def _batch(self, b):
         if not isinstance(b, torch.Tensor):
@@ -148,9 +166,14 @@ class TrainStep:
             grads = [g * scale for g in grads]
         for (name, p), g in zip(self.params.items(), grads):
             st = self.opt_state[name]
-            st["Beta1Pow"], st["Beta2Pow"] = self._update(
-                p, g, st["Moment1"], st["Moment2"], st["Beta1Pow"],
-                st["Beta2Pow"], lr, **self._hyper)
+            if self._optimizer == "momentum":
+                momentum(p, g, st["Velocity"], lr)
+            elif self._optimizer == "sgd":
+                sgd(p, g, lr)
+            else:
+                st["Beta1Pow"], st["Beta2Pow"] = self._update(
+                    p, g, st["Moment1"], st["Moment2"], st["Beta1Pow"],
+                    st["Beta2Pow"], lr, **self._hyper)
 
     def write_back(self):
         """Copy the trained values into the model's own parameters and

@@ -1,1 +1,2 @@
-"""Models of the port (GPT)."""
+"""Models of the port: GPT, BERT and the vision zoo (ResNet, VGG,
+MobileNet, LeNet)."""

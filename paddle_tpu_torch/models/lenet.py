@@ -1,9 +1,32 @@
-"""LeNet as a static program (counterpart of
-``paddle_tpu/models/lenet.py``: ``build_lenet_program``, BASELINE config
-1, the reference's recognize_digits book test). The dygraph ``LeNet``
-class waits for the port's ``nn.Conv2D`` and ``nn.MaxPool2D`` layers
-(ROADMAP.md A, item 13)."""
+"""LeNet (counterpart of ``paddle_tpu/models/lenet.py``, BASELINE config
+1, the reference's recognize_digits book test): the dygraph ``LeNet``
+on the port's ``nn`` layers under the reference's names, and
+``build_lenet_program``, the same net as a static program."""
 from __future__ import annotations
+
+from .. import nn
+from .resnet import params_from_jax
+
+__all__ = ["LeNet", "build_lenet_program", "params_from_jax"]
+
+
+class LeNet(nn.Layer):
+    def __init__(self, num_classes: int = 10):
+        super().__init__()
+        self.features = nn.Sequential(
+            nn.Conv2D(1, 6, 3, stride=1, padding=1),
+            nn.ReLU(),
+            nn.MaxPool2D(2, 2),
+            nn.Conv2D(6, 16, 5, stride=1, padding=0),
+            nn.ReLU(),
+            nn.MaxPool2D(2, 2))
+        self.fc = nn.Sequential(
+            nn.Linear(400, 120),
+            nn.Linear(120, 84),
+            nn.Linear(84, num_classes))
+
+    def forward(self, x):
+        return self.fc(nn.functional.flatten(self.features(x), 1))
 
 
 def build_lenet_program(batch_size: int = -1):

@@ -1,6 +1,7 @@
 """Functional ops (counterpart of ``paddle_tpu/nn/functional.py`` and of
 the op kernels behind it in ``paddle_tpu/fluid/ops/nn_ops.py``), as far
-as the BERT pretrain step reaches.
+as the BERT pretrain step and the vision models (ResNet, VGG, MobileNet,
+LeNet) reach.
 
 Each function is the reference's op on ``torch.Tensor``s: it consults the
 autocast lists under the op's own type (``amp.autocast_inputs``), keeps
@@ -9,6 +10,17 @@ or bias defaulting to ones or zeros, an unknown activation raising
 ``ValueError``), and routes to a kernel wrapper of ``ops/`` where the
 reference routes to a Pallas kernel. The wrappers launch CUDA kernels on
 CUDA tensors and take their plain versions on CPU tensors.
+
+Convolution, pooling and batch norm have no Pallas kernel in the
+reference (``lax.conv_general_dilated``, ``lax.reduce_window``, jnp with
+a hand-written VJP), so the port runs PyTorch's own convolution and
+pooling and the reference's batch-norm arithmetic in tensor code. Their
+op bodies (``conv2d_op``, ``pool2d_op``, ``batch_norm_op``) are shared
+with the static graph's ``conv2d``, ``pool2d`` and ``batch_norm`` ops.
+With ``data_format="NHWC"`` a tensor is viewed as NCHW by a permute,
+which leaves it channels-last in memory: PyTorch's convolution and
+pooling then take their channels-last kernels and give channels-last
+results, so the trunk stays NHWC in memory with no copy.
 
 Dropout. The reference derives each stochastic op's seed from the
 tracer's step key and a per-op counter; ``jax.random`` cannot be
@@ -39,7 +51,10 @@ from ..ops import fused_block as _fb
 from ..ops import fused_residual as _fr
 from ..ops import layer_norm as _ln
 
-__all__ = ["linear", "embedding", "layer_norm", "layer_norm_op",
+__all__ = ["linear", "conv2d", "conv2d_op", "max_pool2d", "avg_pool2d",
+           "adaptive_avg_pool2d", "adaptive_max_pool2d", "pool2d_op",
+           "batch_norm", "batch_norm_op", "relu6", "flatten",
+           "embedding", "layer_norm", "layer_norm_op",
            "fused_dropout_add_ln", "fused_out_ln", "fused_ffn_block",
            "scaled_dot_product_attention", "dropout", "gelu", "relu", "tanh",
            "softmax_with_cross_entropy", "cross_entropy", "seed_scope",
@@ -135,6 +150,242 @@ def linear(x, weight, bias=None, name=None):
     return out
 
 
+def _pair(v):
+    return [v, v] if isinstance(v, int) else list(v)
+
+
+# ---------------------------------------------------------------------------
+# convolution
+# ---------------------------------------------------------------------------
+
+def _same_pads(size, k, s, d):
+    """XLA's SAME padding of one spatial axis: (low, high)."""
+    o = -(-size // s)
+    total = max((o - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_op(x, weight, strides=(1, 1), paddings=(0, 0),
+              dilations=(1, 1), groups=1, padding_algorithm="EXPLICIT",
+              data_format="NCHW"):
+    """The conv2d op's body: `weight` OIHW whatever the layout;
+    `paddings` 2 (symmetric) or 4 (top, bottom, left, right) long, or
+    the algorithm "SAME" / "VALID" (XLA's SAME split)."""
+    strides, dilations = list(strides), list(dilations)
+    nhwc = data_format == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if padding_algorithm == "VALID":
+        pad = [(0, 0), (0, 0)]
+    elif padding_algorithm == "SAME":
+        pad = [_same_pads(x.shape[2 + i], weight.shape[2 + i], strides[i],
+                          dilations[i]) for i in (0, 1)]
+    elif len(paddings) == 2:
+        pad = [(paddings[0], paddings[0]), (paddings[1], paddings[1])]
+    elif len(paddings) == 4:
+        pad = [(paddings[0], paddings[1]), (paddings[2], paddings[3])]
+    else:
+        raise ValueError(f"bad paddings {paddings}")
+    (ph0, ph1), (pw0, pw1) = pad
+    sym = ph0 == ph1 and pw0 == pw1
+    if not sym:
+        x = torch.nn.functional.pad(x, (pw0, pw1, ph0, ph1))
+    r = torch.nn.functional.conv2d(x, weight, None, strides,
+                                   (ph0, pw0) if sym else 0, dilations,
+                                   groups or 1)
+    return r.permute(0, 2, 3, 1) if nhwc else r
+
+
+def _channel_bias(out, bias, data_format):
+    """The reference's elementwise_add of a bias on the channel axis
+    that `data_format` names."""
+    out, bias = autocast_inputs("elementwise_add", out, bias)
+    if data_format == "NHWC":
+        return out + bias
+    return out + bias.reshape((1, -1) + (1,) * (out.dim() - 2))
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
+           data_format="NCHW", name=None):
+    algo, p = "EXPLICIT", padding
+    if isinstance(padding, str):
+        algo, p = padding.upper(), [0, 0]
+    x, weight = autocast_inputs("conv2d", x, weight)
+    out = conv2d_op(x, weight, _pair(stride), _pair(p), _pair(dilation),
+                    groups, algo, data_format)
+    return out if bias is None else _channel_bias(out, bias, data_format)
+
+
+# ---------------------------------------------------------------------------
+# pooling
+# ---------------------------------------------------------------------------
+
+def pool2d_op(x, pooling_type="max", ksize=(2, 2), strides=(2, 2),
+              paddings=(0, 0), global_pooling=False, exclusive=True,
+              adaptive=False, data_format="NCHW"):
+    """The pool2d op's body. As in the reference: global pooling where
+    asked or where an adaptive pool's output is 1 x 1; adaptive bins
+    [floor(i n / o), ceil((i + 1) n / o)) (torch's); average pooling
+    divides by the window's elements inside the input when `exclusive`
+    and padded, else by the window's size; ceil_mode is not read here
+    (the reference's infer_shape reads it, its kernel does not)."""
+    F = torch.nn.functional
+    nhwc = data_format == "NHWC"
+    if nhwc:
+        x = x.permute(0, 3, 1, 2)
+    if global_pooling or (adaptive and list(ksize) == [1, 1]):
+        r = x.amax((2, 3), keepdim=True) if pooling_type == "max" \
+            else x.mean((2, 3), keepdim=True)
+    elif adaptive:
+        fn = F.adaptive_max_pool2d if pooling_type == "max" \
+            else F.adaptive_avg_pool2d
+        r = fn(x, list(ksize))
+    else:
+        k, s, p = list(ksize), list(strides), list(paddings)
+        if pooling_type == "max":
+            r = F.max_pool2d(x, k, s, p)
+        else:
+            r = F.avg_pool2d(x, k, s, p, count_include_pad=not (
+                exclusive and (p[0] or p[1])))
+    return r.permute(0, 2, 3, 1) if nhwc else r
+
+
+def _pool2d(x, pooling_type, kernel_size, stride, padding, exclusive=True,
+            adaptive=False, data_format="NCHW"):
+    k = _pair(kernel_size)
+    s = k if stride is None else _pair(stride)
+    (x,) = autocast_inputs("pool2d", x)
+    return pool2d_op(x, pooling_type, k, s, _pair(padding), False,
+                     exclusive, adaptive, data_format)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               return_mask=False, data_format="NCHW", name=None):
+    return _pool2d(x, "max", kernel_size, stride, padding,
+                   data_format=data_format)
+
+
+def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    return _pool2d(x, "avg", kernel_size, stride, padding, exclusive,
+                   data_format=data_format)
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    return _pool2d(x, "avg", output_size, None, 0, adaptive=True,
+                   data_format=data_format)
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    return _pool2d(x, "max", output_size, None, 0, adaptive=True)
+
+
+# ---------------------------------------------------------------------------
+# batch norm
+# ---------------------------------------------------------------------------
+
+def _bn_shapes(x, caxis):
+    axes = tuple(i for i in range(x.dim()) if i != caxis)
+    bshape = [1] * x.dim()
+    bshape[caxis] = x.shape[caxis]
+    return axes, math.prod(x.shape[i] for i in axes), bshape
+
+
+def _bn_train_impl(x, scale, bias, shift, eps, caxis):
+    """The reference's training statistics and output
+    (``_bn_train_impl``): single-pass sums shifted by `shift` (the
+    running mean), the biased variance max(ss / n - d^2, 0), and
+    y = x * se + be computed in float32 and cast to x's type."""
+    axes, n, bshape = _bn_shapes(x, caxis)
+    sh = shift.float()
+    vc = x.float() - sh.reshape(bshape)
+    s = vc.sum(axes)
+    ss = torch.square(vc).sum(axes)
+    d = s / n
+    mean = d + sh
+    var = torch.clamp(ss / n - torch.square(d), min=0.0)
+    inv = torch.rsqrt(var + eps)
+    se = inv * scale.float()
+    be = bias.float() - mean * se
+    y = (x.float() * se.reshape(bshape) + be.reshape(bshape)).to(x.dtype)
+    return y, mean, var, inv
+
+
+class _BatchNormTrain(torch.autograd.Function):
+    """Training batch norm with the reference's hand-derived backward
+    (``_bn_train_bwd``): activation-sized passes in float32, dx cast to
+    x's type, dscale and dbias to the scale's; the statistics carry no
+    gradient, nor does the shift."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, shift, eps, caxis):
+        y, mean, var, inv = _bn_train_impl(x, scale, bias, shift, eps,
+                                           caxis)
+        ctx.save_for_backward(x, scale, mean, inv)
+        ctx.caxis = caxis
+        ctx.mark_non_differentiable(mean, var, inv)
+        return y, mean, var, inv
+
+    @staticmethod
+    def backward(ctx, dy, *_stat_grads):
+        x, scale, mean, inv = ctx.saved_tensors
+        axes, n, bshape = _bn_shapes(x, ctx.caxis)
+        dyf = dy.float()
+        xhat = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        dbias = dyf.sum(axes)
+        dscale = (dyf * xhat).sum(axes)
+        k = (inv * scale.float()).reshape(bshape)
+        dx = (k * (dyf - (dbias / n).reshape(bshape)
+                   - xhat * (dscale / n).reshape(bshape))).to(x.dtype)
+        return (dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None,
+                None, None)
+
+
+def batch_norm_op(x, scale, bias, mean, variance, momentum=0.9,
+                  epsilon=1e-5, is_test=False, data_layout="NCHW"):
+    """The batch_norm op's body: (Y, MeanOut, VarianceOut, SavedMean,
+    SavedVariance). Training: batch statistics (``_bn_train_impl``),
+    MeanOut = m * Mean + (1 - m) * batch mean (m = 0.9 keeps 90% of the
+    old value: torch's momentum 0.1 written the other way round) and
+    VarianceOut likewise from the BIASED batch variance; SavedVariance is
+    1 / sqrt(var + eps). Nothing is written in place. Test: the running
+    statistics, in x's type."""
+    caxis = 1 if data_layout == "NCHW" else x.dim() - 1
+    _, _, bshape = _bn_shapes(x, caxis)
+    if is_test:
+        inv = torch.rsqrt(variance.float() + epsilon)
+        y = (x - mean.reshape(bshape).to(x.dtype)) \
+            * (inv.reshape(bshape) * scale.reshape(bshape)).to(x.dtype) \
+            + bias.reshape(bshape).to(x.dtype)
+        return y, mean, variance, mean, inv
+    y, bm, bv, inv = _BatchNormTrain.apply(x, scale, bias, mean.detach(),
+                                           epsilon, caxis)
+    with torch.no_grad():
+        mean_out = momentum * mean + (1 - momentum) * bm
+        var_out = momentum * variance + (1 - momentum) * bv
+    return y, mean_out, var_out, bm, inv
+
+
+def batch_norm(x, running_mean, running_var, weight, bias, training=False,
+               momentum=0.9, epsilon=1e-5, data_format="NCHW", name=None):
+    """Batch norm over the channel axis of `data_format`; in training
+    the new running statistics are copied INTO `running_mean` and
+    `running_var` (float32), so a caller that handed in its own buffers
+    (``TrainStep`` through ``functional_call``) sees them move."""
+    x, weight, bias, running_mean, running_var = autocast_inputs(
+        "batch_norm", x, weight, bias, running_mean, running_var,
+        slots=("X", "Scale", "Bias", "Mean", "Variance"))
+    y, mean_out, var_out, _, _ = batch_norm_op(
+        x, weight, bias, running_mean, running_var, momentum, epsilon,
+        not training, data_format)
+    if training:
+        with torch.no_grad():
+            running_mean.copy_(mean_out)
+            running_var.copy_(var_out)
+    return y
+
+
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
     out = weight[x.long()]
     if padding_idx is not None and padding_idx != -1:
@@ -154,9 +405,21 @@ def relu(x, name=None):
     return torch.relu(x)
 
 
+def relu6(x, name=None):
+    (x,) = autocast_inputs("relu6", x)
+    return torch.clamp(x, 0.0, 6.0)
+
+
 def tanh(x, name=None):
     (x,) = autocast_inputs("tanh", x)
     return torch.tanh(x)
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """The reference's flatten_contiguous_range: axes start..stop merged
+    into one."""
+    (x,) = autocast_inputs("flatten_contiguous_range", x)
+    return torch.flatten(x, start_axis, stop_axis)
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",

@@ -6,7 +6,10 @@ Each initialiser fills a tensor in place from a ``torch.Generator``; the
 default generator is the module's own, reseeded with ``seed(n)``. The
 reference draws from ``jax.random``, so the port's values match the
 reference's in distribution only; parity tests carry the reference's
-weights across instead (``models.bert.params_from_jax``).
+weights across instead (``models.bert.params_from_jax``,
+``models.resnet.params_from_jax``). Defaults, as the reference's: a
+Linear weight ``XavierUniform``, a Conv2D filter
+``Normal(0, sqrt(2 / (kh kw in_channels)))``, biases ``Constant(0)``.
 """
 from __future__ import annotations
 

@@ -33,6 +33,7 @@ __all__ = [
     "device_kind", "drop_instance", "gpt_train_flops_per_step",
     "kv_cache_gauge", "mfu", "mfu_gauge",
     "note_compile_seconds", "record_breakdown", "register_cost",
+    "resnet_train_flops_per_step",
     "register_provider", "sampling_every", "set_every", "snapshot",
     "weak_provider",
 ]
@@ -139,6 +140,29 @@ def bert_train_flops_per_step(cfg, batch: int, seq: int,
     fwd = tokens * L * per_layer + pred_tokens * mlm_head \
         + batch * (2 * H * 2)
     return 3 * fwd
+
+
+def resnet_train_flops_per_step(batch: int) -> int:
+    """FLOPs of one ResNet-50 train step at 224 x 224 (bench.py's
+    resnet_train_flops_per_step): the convolutions and the fc, 2 FLOPs a
+    multiply-add (8.18 GFLOP an image forward), times 3 for forward, dX
+    and dW; batch norm, pooling and elementwise are ignored."""
+    blocks = [(3, 64), (4, 128), (6, 256), (3, 512)]
+    f = 2 * 7 * 7 * 3 * 64 * 112 * 112          # stem
+    cin, hw = 64, 56 * 56
+    for si, (n, cmid) in enumerate(blocks):
+        cout = cmid * 4
+        for bi in range(n):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            hw2 = hw // (stride * stride)
+            f += 2 * cin * cmid * hw            # 1x1 reduce
+            f += 2 * 9 * cmid * cmid * hw2      # 3x3
+            f += 2 * cmid * cout * hw2          # 1x1 expand
+            if bi == 0:
+                f += 2 * cin * cout * hw2       # downsample shortcut
+            cin, hw = cout, hw2
+    f += 2 * 2048 * 1000                        # fc
+    return 3 * f * batch
 
 
 # ---------------------------------------------------------------------------

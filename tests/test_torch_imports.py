@@ -43,7 +43,8 @@ def test_port_file_list_is_not_empty():
             "registry.py", "scope.py", "param_attr.py", "layer_helper.py",
             "backward.py", "optimizer.py", "executor.py", "math_ops.py",
             "nn_ops.py", "tensor_ops.py", "random_ops.py", "metric_ops.py",
-            "math_op_patch.py", "lenet.py"} <= names
+            "math_op_patch.py", "lenet.py", "resnet.py", "vgg.py",
+            "mobilenet.py", "models.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -81,7 +82,7 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch.static, paddle_tpu_torch.fluid.layers\n"
         "import paddle_tpu_torch.fluid.ops, paddle_tpu_torch.fluid.executor\n"
         "import paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.fluid.backward\n"
-        "import paddle_tpu_torch.models.lenet\n"
+        "import paddle_tpu_torch.models.lenet, paddle_tpu_torch.vision\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
