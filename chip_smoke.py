@@ -6,8 +6,9 @@
                                      # 10 decode steps, of one GPT train
                                      # step, of one BERT train step, of
                                      # three steps of each static
-                                     # program and of one ResNet-50
-                                     # train step (torch.profiler)
+                                     # program, of one ResNet-50
+                                     # train step and of three
+                                     # wide&deep steps (torch.profiler)
 
 Phases:
   1. card and build — the card's name and power limit, then nvcc builds
@@ -138,9 +139,32 @@ Phases:
      images/s, MFU against the bf16 peak, peak memory, the finite loss,
      how far the running statistics moved, the port's launch counts (0),
      and the stem's output NHWC-contiguous on the card;
- 13. the kernels line, then the card line, then the result line.
+ 13. checkpoints (item 2; checkpoint_phase, right after phase 3, on its
+     engine): save the GPT-3 XL weights (f32, 1 MiB content-addressed
+     chunks, each fsync'd) under a temporary root, save them again
+     unchanged (every chunk a dedup hit, nothing written), build
+     Engine.from_checkpoint with phase 3's engine arguments and replay
+     phase 3's 8 requests in its order (every token equal, the seeded
+     sampled request included), then warm_start(version=7) an engine on
+     zero weights while its scheduler thread serves a request, and
+     replay again (the same tokens, model_version 7); bytes, chunks,
+     save / second-save / restore / warm-start seconds and GB/s, peak
+     device memory; the root is removed, and a disk too small fails;
+ 14. wide&deep (item 21, no kernel of the port on this path: lookups,
+     matrix products and the dense Adam are PyTorch's) —
+     widedeep_parity: the tiny config, 3 Adam steps on the card against
+     the same on the CPU: losses, parameters and both moments within
+     1e-4 relative (+ 1e-6); widedeep_phase: bench.py's bench_widedeep
+     headline whole (1,048,576-row hashed vocab, 26 slots, embed 16, 13
+     dense features, hidden 400-400-400, batch 4096, f32, Adam 1e-3,
+     numpy inputs each step), 3 warm-up + 20 timed steps: examples/s,
+     median step ms (CUDA events), the same on inputs resident on the
+     card, peak memory allocated and requested, the loss finite and
+     falling, 0 port launches;
+ 15. the kernels line, then the card line, then the result line.
 
-One numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
+Each phase prints its wall seconds ({"phase": "seconds", ...}). One
+numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
 BERT phases draw their weights from the port's seeded initialisers.
 Any failed phase exits non-zero before the result line.
 """
@@ -344,11 +368,22 @@ FFN_LAUNCHES_PER_STEP = 2
 LENET_BATCH, LENET_STEPS = 256, 30
 # bench.py's bench_resnet50
 RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 3, 10
+# bench.py's bench_widedeep
+WD_BATCH, WD_WARMUP, WD_STEPS = 4096, 3, 20
 # device work, by name, that changes a tensor's layout, and copies (dtype
 # casts among them: torch casts through its direct_copy kernels, whose
 # names profile_steps cuts to "...direct_c")
 LAYOUT_KERNELS = ("transpose", "Transpose", "nchwToNhwc", "nhwcToNchw")
 COPY_KERNELS = ("copy", "Copy", "direct_c")
+
+
+def timed(name, fn, *args):
+    """fn(*args), then one line with the phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(json.dumps({"phase": "seconds", "of": name, "seconds": round(
+        time.perf_counter() - t0, 2)}), flush=True)
+    return out
 
 
 def fail(msg: str):
@@ -1713,6 +1748,17 @@ def request_mix(vocab: int):
     return mix
 
 
+def serve_mix(eng, mix):
+    """Phase 3's order: request 0, one step (its prefill, so its pages
+    are cached for request 7), then the other seven; run to idle on the
+    calling thread. Returns the requests."""
+    first = eng.submit(mix[0][0], mix[0][1], **mix[0][2])
+    eng.step()
+    reqs = [first] + [eng.submit(p, n, **kw) for p, n, kw in mix[1:]]
+    eng.run_until_idle()
+    return reqs
+
+
 def serving_path(torch, tree):
     from paddle_tpu_torch.models.gpt import GPTConfig
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -1732,10 +1778,7 @@ def serving_path(torch, tree):
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    first = eng.submit(mix[0][0], mix[0][1], **mix[0][2])
-    eng.step()             # prefill request 0 so its pages are cached
-    reqs = [first] + [eng.submit(p, n, **kw) for p, n, kw in mix[1:]]
-    eng.run_until_idle()
+    reqs = serve_mix(eng, mix)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -1794,7 +1837,124 @@ def serving_path(torch, tree):
     if got != want:
         fail("greedy tokens differ between the kernels and the plain "
              "versions")
-    return counts, eng
+    return counts, eng, [r.result().tolist() for r in reqs]
+
+
+def checkpoint_phase(torch, eng, want):
+    """Item 2 on phase 3's GPT-3 XL engine: save eng.model under a fresh
+    temporary root, save it again unchanged (every chunk of the second
+    save a dedup hit: nothing written), build
+    Engine.from_checkpoint with phase 3's engine arguments and replay
+    request_mix in phase 3's order (all 8 requests, the seeded sampled
+    request 5 included, must give phase 3's tokens `want`); then a third
+    engine on zero weights of the same shapes, made on the card, its
+    scheduler thread running, warm-started with version 7 while a
+    request is in flight, replays the mix to the same tokens and
+    reports model_version 7. The root is removed at the end, success or
+    failure; a disk too small for one copy of the weights fails."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.checkpoint import CheckpointStore
+    from paddle_tpu_torch.observability import REGISTRY
+    from paddle_tpu_torch.serving import Engine, GPTDecodeModel
+    kw = dict(num_slots=8, num_pages=SERVE_PAGES, page_size=SERVE_PAGE,
+              prefix_cache_pages=64)
+    cfg = eng.model.cfg
+    mix = request_mix(cfg.vocab_size)
+    params = eng.model.params
+    leaves = [params[k] for k in params if k != "blocks"] \
+        + [t for blk in params["blocks"] for t in blk.values()]
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    written = REGISTRY.get("paddle_tpu_ckpt_chunks_written_total")
+    dedup = REGISTRY.get("paddle_tpu_ckpt_chunks_dedup_hits_total")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        print(json.dumps({"phase": "checkpoint_disk", "root": root,
+                          "free_bytes": free, "weights_bytes": nbytes}),
+              flush=True)
+        if free < 1.05 * nbytes:
+            fail(f"checkpoint: {free} bytes free under {root}, the "
+                 f"weights need {nbytes}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng.model.save_checkpoint(root)
+        save_s = time.perf_counter() - t0
+        st = CheckpointStore(root)
+        ents = st.latest_manifest()["arrays"]
+        chunks = sum(len(e["chunks"]) for e in ents.values())
+        on_disk = st.chunks.all_digests()
+        w0, d0 = written.value, dedup.value
+        t0 = time.perf_counter()
+        eng.model.save_checkpoint(root)
+        resave_s = time.perf_counter() - t0
+        new_chunks = int(written.value - w0)
+        hits = int(dedup.value - d0)
+        if new_chunks or hits != chunks or st.steps() != [1, 2] \
+                or st.chunks.all_digests() != on_disk:
+            fail(f"checkpoint: the unchanged second save wrote "
+                 f"{new_chunks} chunks and hit {hits} of {chunks}")
+        t0 = time.perf_counter()
+        eng2 = Engine.from_checkpoint(root, **kw)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        got = [r.result().tolist() for r in serve_mix(eng2, mix)]
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            fail(f"checkpoint: the engine built from the checkpoint "
+                 f"differs from phase 3 on requests {bad}")
+        del eng2
+        gc.collect()
+        torch.cuda.empty_cache()
+        zeros = {k: torch.zeros_like(v) for k, v in params.items()
+                 if k != "blocks"}
+        zeros["blocks"] = [{k: torch.zeros_like(v) for k, v in b.items()}
+                           for b in params["blocks"]]
+        eng3 = Engine(GPTDecodeModel(cfg, params=zeros), **kw)
+        probe = np.random.RandomState(99).randint(0, cfg.vocab_size, (20,))
+        with eng3:                      # the scheduler thread serves
+            busy = eng3.submit(probe, 64)
+            t0 = time.perf_counter()
+            eng3.warm_start(root, version=7)
+            warm_s = time.perf_counter() - t0
+            busy.result(300)
+        version = eng3.stats()["model_version"]
+        got3 = [r.result().tolist() for r in serve_mix(eng3, mix)]
+        peak = torch.cuda.max_memory_allocated()
+        del eng3, zeros
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = {"phase": "checkpoint", "config": "gpt3_1p3b f32, 1 MiB "
+               "chunks, engine of phase 3", "bytes": nbytes,
+               "arrays": len(ents), "chunks": chunks,
+               "save_s": round(save_s, 3),
+               "save_gb_per_s": round(nbytes / save_s / 1e9, 3),
+               "resave_s": round(resave_s, 3),
+               "resave_gb_per_s": round(nbytes / resave_s / 1e9, 3),
+               "resave_chunks_written": new_chunks,
+               "resave_dedup_hits": hits,
+               "from_checkpoint_s": round(restore_s, 3),
+               "from_checkpoint_gb_per_s": round(nbytes / restore_s / 1e9,
+                                                 3),
+               "warm_start_s": round(warm_s, 3),
+               "warm_start_gb_per_s": round(nbytes / warm_s / 1e9, 3),
+               "warm_start_during_request": busy.status,
+               "model_version": version,
+               "tokens_equal_phase3": got == want,
+               "warm_tokens_equal_phase3": got3 == want,
+               "max_memory_allocated_gb": round(peak / 1e9, 3)}
+        print(json.dumps(row), flush=True)
+        if got3 != want:
+            bad = [i for i, (g, w) in enumerate(zip(got3, want)) if g != w]
+            fail(f"checkpoint: the warm-started engine differs from "
+                 f"phase 3 on requests {bad}")
+        if version != 7 or busy.status != "done":
+            fail(f"checkpoint: warm start left model_version {version}, "
+                 f"the in-flight request {busy.status}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def serving_wide_heads_phase(torch):
@@ -2794,6 +2954,120 @@ def resnet50_phase(torch, with_profile=False):
         print(json.dumps(row), flush=True)
 
 
+def widedeep_parity(torch, steps=3, tol=1e-4):
+    """WideDeepConfig.tiny(), batch 64, Adam lr 1e-3: `steps` steps of
+    WideDeepTrainStep on the card and the same on the CPU, from the same
+    seed and batches. Every loss within `tol` relative, every parameter
+    and both Adam moments within `tol` relative (+ 1e-6)."""
+    import numpy as np
+    from paddle_tpu_torch.models.wide_deep import (WideDeepConfig,
+                                                   WideDeepTrainStep,
+                                                   _leaves)
+    cfg = WideDeepConfig.tiny()
+    rng = np.random.RandomState(0)
+    batches = []
+    for _ in range(steps):
+        ids = rng.randint(0, cfg.vocab_size, (64, cfg.num_slots))
+        batches.append((ids, rng.randn(64, cfg.dense_dim).astype(
+            np.float32), (ids[:, 0] % 2).astype(np.float32)[:, None]))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        step = WideDeepTrainStep(cfg, device=dev)
+        losses = [float(step(*b)) for b in batches]
+        state = _leaves(step.params) + [m for st in _leaves(step.opt_state)
+                                        for m in (st["m1"], st["m2"])]
+        runs[dev] = (losses, [t.cpu() for t in state])
+    (gl, gs), (cl, cs) = runs["cuda"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    err = max(max_err(a, b) for a, b in zip(gs, cs))
+    bad = sum(not within(a, b, 1e-6, tol) for a, b in zip(gs, cs))
+    print(json.dumps({"phase": "widedeep_parity", "config": "tiny, batch "
+                      f"64, adam lr 1e-3, {steps} steps, card against CPU",
+                      "losses_cuda": gl, "losses_cpu": cl, "max_rel": rel,
+                      "state_max_abs_err": err, "tensors": len(gs),
+                      "tensors_outside": bad}), flush=True)
+    if not rel <= tol or bad:
+        fail(f"wide&deep card and CPU differ: losses {gl} against {cl}, "
+             f"{bad} of {len(gs)} parameters or moments outside {tol}")
+
+
+def widedeep_phase(torch, with_profile=False):
+    """bench.py's bench_widedeep headline path whole: WideDeepConfig()
+    (1,048,576-row hashed vocab, 26 slots, embed 16, 13 dense features,
+    hidden 400-400-400), WideDeepTrainStep(dp=1, mp=1), Adam lr 1e-3,
+    f32, batch WD_BATCH of the bench's seeded ids, dense features and
+    ids[:, 0] % 2 labels, handed over as numpy arrays each step as the
+    bench does. WD_WARMUP warm-up steps, then WD_STEPS timed ones: the
+    bench's examples/s (one synchronize after the block) and the median
+    of the steps' spans between CUDA events. Then the same count of
+    steps on inputs already on the card (resident_*). The loss must be
+    finite and lower after the warm-up and timed steps than after the
+    first, and no kernel of the port launches."""
+    import numpy as np
+    from paddle_tpu_torch.models.wide_deep import (WideDeepConfig,
+                                                   WideDeepTrainStep)
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = WideDeepConfig()
+    t0 = time.perf_counter()
+    step = WideDeepTrainStep(cfg, dp=1, mp=1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (WD_BATCH, cfg.num_slots))
+    dense = rng.randn(WD_BATCH, cfg.dense_dim).astype(np.float32)
+    label = (ids[:, 0] % 2).astype(np.float32)[:, None]
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(ids, dense, label) for _ in range(WD_WARMUP)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+
+    def block(args):
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(WD_STEPS + 1)]
+        out = []
+        t0 = time.perf_counter()
+        marks[0].record()
+        for i in range(WD_STEPS):
+            out.append(step(*args))
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+        return out, wall, statistics.median(spans)
+
+    timed, wall, med = block((ids, dense, label))
+    counts = launch_counts()
+    losses = [float(v) for v in losses + timed]
+    dev = [torch.as_tensor(a, device=step.device)
+           for a in (ids, dense, label)]
+    _, r_wall, r_med = block(dev)
+    row = {
+        "phase": "widedeep_phase", "config": "bench_widedeep: vocab "
+        f"{cfg.vocab_size}, {cfg.num_slots} slots, embed {cfg.embed_dim}, "
+        f"{cfg.dense_dim} dense, hidden {list(cfg.hidden)}, f32, adam "
+        "lr 1e-3, dense tables", "batch": WD_BATCH,
+        "warmup": WD_WARMUP, "steps": WD_STEPS, "init_s": round(init_s, 3),
+        "losses": losses,
+        "examples_per_s": round(WD_BATCH * WD_STEPS / wall, 1),
+        "step_ms_median": round(med, 4),
+        "resident_examples_per_s": round(WD_BATCH * WD_STEPS / r_wall, 1),
+        "resident_step_ms_median": round(r_med, 4),
+        "max_memory_allocated_gb": round(
+            torch.cuda.max_memory_allocated() / 1e9, 3),
+        "max_memory_requested_gb": round(torch.cuda.memory_stats()[
+            "requested_bytes.all.peak"] / 1e9, 6),
+        "port_launches": counts}
+    print(json.dumps(row), flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"wide&deep loss did not fall: {losses}")
+    if any(counts.values()):
+        fail(f"wide&deep launched kernels of the port: {counts}")
+    if with_profile:
+        profile_steps(torch, lambda: step(ids, dense, label), 3,
+                      "widedeep_train_step", top_n=16)
+
+
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
     """Device-time breakdown of `steps` static steps."""
     profile_steps(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
@@ -2971,6 +3245,7 @@ def main(argv):
                                        "spill", "wgmma")):
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
 
+    t0 = time.perf_counter()
     timer = Timer(torch)
     results = []
     check_paged(torch, timer, results)
@@ -2982,6 +3257,9 @@ def main(argv):
     check_blocks_bert(torch, timer, results)
     check_flash_bert(torch, timer, results)
     check_ffn(torch, timer, results)
+    print(json.dumps({"phase": "seconds", "of": "kernel_checks",
+                      "seconds": round(time.perf_counter() - t0, 2)}),
+          flush=True)
     del timer
     torch.cuda.empty_cache()
     if kernels_only:
@@ -2997,45 +3275,55 @@ def main(argv):
                       "init_s": round(time.perf_counter() - t0, 2)}),
           flush=True)
 
-    serve_counts, eng = serving_path(torch, tree)
+    serve_counts, eng, tokens = timed("serving_path", serving_path, torch,
+                                      tree)
+    timed("checkpoint_phase", checkpoint_phase, torch, eng, tokens)
     if with_profile:
         profile_decode(torch, eng, eng.model.cfg.vocab_size)
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    wide_counts = serving_wide_heads_phase(torch)
+    wide_counts = timed("serving_wide_heads", serving_wide_heads_phase,
+                        torch)
     gc.collect()
     torch.cuda.empty_cache()
 
-    train_parity(torch, tree)
-    train_counts, step, ids = training_path(torch, tree)
+    timed("train_parity", train_parity, torch, tree)
+    train_counts, step, ids = timed("training_path", training_path, torch,
+                                    tree)
     if with_profile:
         profile_steps(torch, lambda: step(ids), 1, "train_step", top_n=16)
     del step
     gc.collect()
     torch.cuda.empty_cache()
 
-    bert_parity(torch)
-    bert_counts, bstep, bbatch = bert_training_path(torch)
+    timed("bert_parity", bert_parity, torch)
+    bert_counts, bstep, bbatch = timed("bert_training_path",
+                                       bert_training_path, torch)
     if with_profile:
         profile_steps(torch, lambda: bstep(*bbatch), 1, "bert_train_step",
                       top_n=24)
     del bstep, bbatch
     gc.collect()
     torch.cuda.empty_cache()
-    layer_counts = encoder_layer_phase(torch)
+    layer_counts = timed("encoder_layer", encoder_layer_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
 
-    static_lenet_phase(torch, with_profile)
-    ffn_counts = static_ffn_phase(torch, with_profile)
+    timed("static_lenet", static_lenet_phase, torch, with_profile)
+    ffn_counts = timed("static_ffn", static_ffn_phase, torch, with_profile)
     gc.collect()
     torch.cuda.empty_cache()
 
-    resnet_parity(torch)
+    timed("resnet_parity", resnet_parity, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    resnet50_phase(torch, with_profile)
+    timed("resnet50_phase", resnet50_phase, torch, with_profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    timed("widedeep_parity", widedeep_parity, torch)
+    timed("widedeep_phase", widedeep_phase, torch, with_profile)
 
     print(json.dumps(kernels_line(results, serve_counts, wide_counts,
                                   train_counts, bert_counts, layer_counts,

@@ -28,9 +28,10 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.flash_attention import flash_attention
 from ..ops.fused_block import fused_ffn_ln, fused_out_ln, gelu_tanh
 
-__all__ = ["GPTConfig", "init_gpt_params", "params_from_jax",
-           "gpt_forward", "gpt_forward_aux", "gpt_loss", "gpt_block_fn",
-           "block_body", "decoder_tail", "resolve_device", "disable_tf32"]
+__all__ = ["GPTConfig", "init_gpt_params", "param_shapes",
+           "params_from_jax", "gpt_forward", "gpt_forward_aux", "gpt_loss",
+           "gpt_block_fn", "block_body", "decoder_tail", "resolve_device",
+           "disable_tf32"]
 
 
 @dataclasses.dataclass
@@ -50,8 +51,13 @@ class GPTConfig:
     # cache dtype
     amp_dtype: str | None = None
     attn_impl: str = "xla"  # "xla" | "flash"; "ring" comes with slice 5
-    # Mixture-of-Experts blocks come with the multi-device slice
+    # Mixture-of-Experts blocks come with the multi-device slice; the
+    # moe_* fields keep the JAX package's defaults so a config written
+    # into a checkpoint's manifest by either package rebuilds in both
     num_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
     # recompute each block in the backward (torch.utils.checkpoint)
     remat: bool = True
     # True runs the decoder tail through the fused sub-block kernels
@@ -152,14 +158,31 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0) -> dict:
     }
 
 
+def param_shapes(cfg: GPTConfig) -> dict:
+    """The shapes of ``init_gpt_params(cfg)``'s tree, same keys, without
+    drawing it (every leaf is float32): the template a checkpoint restore
+    checks its arrays against."""
+    D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    widths = {"b_up": (F,), "w_up": (D, F), "w_down": (F, D)}
+    names = ("ln1_s", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
+             "bo", "ln2_s", "ln2_b", "w_up", "b_up", "w_down", "b_down")
+    blocks = {k: (L,) + widths.get(k, (D, D) if k[0] == "w" else (D,))
+              for k in names}
+    return {"wte": (cfg.vocab_size, D),
+            "wpe": (cfg.max_position_embeddings, D), "blocks": blocks,
+            "lnf_s": (D,), "lnf_b": (D,)}
+
+
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """The port's parameters from a JAX-layout pytree (``init_gpt_params``
-    output or ``GPTDecodeModel.params``; leaves numpy or anything
-    ``np.asarray`` takes). Stacked ``blocks/*`` leaves ``[L, ...]``
+    output or ``GPTDecodeModel.params``; leaves tensors, numpy or
+    anything ``np.asarray`` takes). Stacked ``blocks/*`` leaves ``[L, ...]``
     become a list of per-layer dicts; layouts are unchanged."""
     dev = torch.device(device)
 
     def t(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
         return torch.as_tensor(np.asarray(x)).to(dev)
 
     stacked = {k: t(v) for k, v in tree["blocks"].items()}

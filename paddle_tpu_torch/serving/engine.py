@@ -38,6 +38,7 @@ import numpy as np
 
 import torch
 
+from ..distributed.fleet.runtime import fault_injection as _fi
 from ..observability import (flight as _flight, meter as _meter,
                              perf as _perf, registry as _obs,
                              tracing as _tracing)
@@ -180,8 +181,8 @@ class Engine:
         weakref.finalize(self, _drop_engine_series, eid)
         self._lock = threading.Lock()    # step loop exclusivity
         self._stats_lock = threading.Lock()  # deque append vs snapshot
-        # published-version identity; 0 = cold weights (checkpoint warm
-        # start is not ported yet)
+        # published-version identity; 0 = cold weights, warm_start
+        # stamps the version it installs
         self.model_version = 0
         self._wake = threading.Event()
         self._stop = threading.Event()
@@ -268,6 +269,47 @@ class Engine:
                            priority=priority, tenant=tenant,
                            temperature=temperature, top_k=top_k,
                            top_p=top_p, seed=seed).result(timeout)
+
+    # -- checkpoint warm-start ------------------------------------------
+    def warm_start(self, root: str, step: int | None = None,
+                   version: int | None = None):
+        """Swap in weights from a committed checkpoint manifest
+        (paddle_tpu_torch.checkpoint) without rebuilding the engine:
+        shapes and dtypes must match the current model (the page pools
+        and buckets stay valid).
+
+        Two-phase so the swap is zero-downtime: the checkpoint read AND
+        the host->device upload run off the step lock (decode keeps
+        batching on the old weights through both), then the FLIP takes
+        the lock for a single reference swap to a new parameter dict —
+        weights change between steps, never inside one, and no step
+        reads a half-copied tensor. The pools are untouched, so
+        _recover_cache works after a flip as before.
+
+        ``version`` stamps the published-version identity the flip
+        installs (stats()["model_version"]); it defaults to ``step`` so
+        a plain checkpoint warm start is still identifiable."""
+        prepared = self.model.read_checkpoint(root, step=step)
+        with self._lock:
+            self.model.adopt_checkpoint(prepared)
+            v = version if version is not None else step
+            if v is not None:
+                self.model_version = int(v)
+        return self
+
+    @classmethod
+    def from_checkpoint(cls, root: str, step: int | None = None,
+                        attn_impl: str | None = None, device=None,
+                        **engine_kw) -> "Engine":
+        """Build an Engine whose model (config + weights) comes from a
+        checkpoint manifest — the serving cold-start path that skips
+        drawing and uploading a random init. ``device`` is the model's
+        (CUDA unless "cpu" is asked for); the rest goes to Engine."""
+        from .model import GPTDecodeModel
+        model = GPTDecodeModel.from_checkpoint(root, step=step,
+                                               attn_impl=attn_impl,
+                                               device=device)
+        return cls(model, **engine_kw)
 
     # -- the three programs ------------------------------------------
     # sampling params ride every call as slot-wide tensors
@@ -466,6 +508,11 @@ class Engine:
                 steps[i] = len(r.generated)
                 if r.temperature > 0:
                     sampled_n += 1
+            # hang injection (chaos drills): PADDLE_PS_FAULT_STALL with
+            # PADDLE_PS_FAULT_STALL_POINT=serving_decode wedges the step
+            # thread here — inside the step lock, like a hung decode —
+            # while requests keep queueing
+            _fi.injector().maybe_stall("serving_decode")
             bucket = f"decode[slots={S},pages={self.max_pages_per_req}]"
             targs = (self.model.params, self.cache, self._dev(tokens),
                      self._dev(positions), self._dev(tables),

@@ -28,17 +28,76 @@ pools half-written; on a card the engine rebuilds them (engine.py
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
+from ..checkpoint import CheckpointStore, ShardedArray
 from ..models.gpt import (GPTConfig, _causal_attention, _ln, decoder_tail,
-                          disable_tf32, init_gpt_params, params_from_jax,
-                          resolve_device)
+                          disable_tf32, init_gpt_params, param_shapes,
+                          params_from_jax, resolve_device)
 from ..ops.paged_attention import (paged_attention_decode,
                                    paged_attention_reference)
 
 __all__ = ["GPTDecodeModel"]
+
+
+def _keystr(path) -> str:
+    """A leaf's manifest key: its tree path as jax.tree_util.keystr
+    writes it, ``['blocks']['wq']``."""
+    return "".join(f"[{name!r}]" for name in path)
+
+
+def _tree_items(params) -> list:
+    """(path, leaf) of the port's parameters in the JAX package's
+    flatten order (dict keys sorted at every level); a block leaf is the
+    list of its L per-layer tensors."""
+    out = []
+    for name in sorted(params):
+        if name == "blocks":
+            blocks = params[name]
+            out += [(("blocks", k), [b[k] for b in blocks])
+                    for k in sorted(blocks[0])]
+        else:
+            out.append(((name,), params[name]))
+    return out
+
+
+def _paths(tree, prefix=()):
+    """(path, leaf) of a JAX-layout tree of dicts, in flatten order."""
+    for name in sorted(tree):
+        if isinstance(tree[name], dict):
+            yield from _paths(tree[name], prefix + (name,))
+        else:
+            yield prefix + (name,), tree[name]
+
+
+def _prepare(arrays: dict, template, root: str, device):
+    """The port's parameters on `device` from tree-path-keyed host
+    arrays: one leaf per (path, dtype, shape) of `template`, cast to
+    its dtype. A missing key raises KeyError naming it, a leaf of
+    another shape ValueError. On a card the uploads are complete when
+    this returns, so adopting the result is a bare reference swap."""
+    tree: dict = {}
+    for path, dtype, shape in template:
+        key = _keystr(path)
+        if key not in arrays:
+            raise KeyError(f"checkpoint under {root} is missing param "
+                           f"{key}")
+        arr = arrays[key]
+        if tuple(arr.shape) != tuple(shape):
+            raise ValueError(f"checkpoint under {root}: param {key} has "
+                             f"shape {tuple(arr.shape)}, the model "
+                             f"{tuple(shape)}")
+        node = tree
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = torch.from_numpy(arr).to(dtype)
+    params = params_from_jax(tree, device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return params
 
 
 class GPTDecodeModel:
@@ -72,6 +131,85 @@ class GPTDecodeModel:
         # the engine caps admission at this (a position past wpe would
         # raise on the embedding lookup)
         self.max_positions = cfg.max_position_embeddings
+
+    # -- checkpoint warm-start (paddle_tpu_torch.checkpoint) ------------
+    # The manifest is the JAX package's, key for key: every leaf is keyed
+    # by its JAX tree path (``['blocks']['wq']``, jax.tree_util.keystr)
+    # with the blocks stacked [L, ...], so either package restores what
+    # the other saved.
+    def save_checkpoint(self, root: str, step: int | None = None) -> int:
+        """Persist the parameters through the checkpoint store
+        (content-addressed chunks; repeated saves of a mostly-unchanged
+        model dedup). The config rides the manifest meta; no pickle."""
+        arrays = {}
+        for path, leaf in _tree_items(self.params):
+            # a block leaf's per-layer tensors are the pieces of its
+            # stacked [L, ...] byte stream: nothing is stacked on the card
+            arrays[_keystr(path)] = ShardedArray([t[None] for t in leaf]) \
+                if isinstance(leaf, list) else leaf
+        return CheckpointStore(root).save(
+            arrays, step=step,
+            meta={"kind": "gpt-decode",
+                  "cfg": dataclasses.asdict(self.cfg)})
+
+    @classmethod
+    def from_checkpoint(cls, root: str, step: int | None = None,
+                        attn_impl: str | None = None,
+                        cfg: GPTConfig | None = None,
+                        device=None) -> "GPTDecodeModel":
+        """Build a decode model from a committed manifest: the config
+        rides the manifest meta (overridable), ``param_shapes(cfg)`` is
+        the template, and every leaf is restored by its tree-path key.
+        No random init is drawn. The serving engine's cold-start entry."""
+        dev = resolve_device(device)
+        arrays, meta = CheckpointStore(root).restore(step)
+        if cfg is None:
+            mcfg = (meta or {}).get("cfg")
+            if not mcfg:
+                raise ValueError(
+                    f"manifest under {root} has no model config — pass "
+                    f"cfg= explicitly")
+            cfg = GPTConfig(**mcfg)
+        template = [(path, torch.float32, shape)
+                    for path, shape in _paths(param_shapes(cfg))]
+        return cls(cfg, params=_prepare(arrays, template, root, dev),
+                   attn_impl=attn_impl, device=dev)
+
+    def read_checkpoint(self, root: str, step: int | None = None):
+        """Disk + host->device phase of load_checkpoint: fetch the
+        arrays AND build the complete replacement parameters on the
+        model's device (dtype-cast against the live parameters) without
+        touching them. Engine.warm_start runs this off the step lock so
+        serving overlaps both the read and the upload; the
+        adopt_checkpoint flip is then a pure reference swap."""
+        arrays, _meta = CheckpointStore(root).restore(step)
+        return self._prepare_params(arrays, root)
+
+    def adopt_checkpoint(self, prepared) -> "GPTDecodeModel":
+        """Flip phase: adopt parameters built by read_checkpoint /
+        _prepare_params. One reference assignment — O(1) under the
+        engine step lock, no disk, no host->device transfer."""
+        self.params = prepared
+        return self
+
+    def load_checkpoint(self, root: str, step: int | None = None) \
+            -> "GPTDecodeModel":
+        """Swap this model's weights in place from a committed manifest
+        (same structure required) — no throwaway model init."""
+        return self.adopt_checkpoint(self.read_checkpoint(root, step))
+
+    def _prepare_params(self, arrays: dict, root: str):
+        """The replacement parameters from tree-path-keyed arrays, with
+        the CURRENT parameters as template (read-only; safe concurrent
+        with a live engine decoding on the old ones)."""
+        template = []
+        for path, leaf in _tree_items(self.params):
+            if isinstance(leaf, list):
+                template.append((path, leaf[0].dtype,
+                                 (len(leaf),) + tuple(leaf[0].shape)))
+            else:
+                template.append((path, leaf.dtype, tuple(leaf.shape)))
+        return _prepare(arrays, template, root, self.device)
 
     # -- cache ---------------------------------------------------------
     def init_cache(self, num_pages: int, page_size: int):

@@ -44,7 +44,9 @@ def test_port_file_list_is_not_empty():
             "backward.py", "optimizer.py", "executor.py", "math_ops.py",
             "nn_ops.py", "tensor_ops.py", "random_ops.py", "metric_ops.py",
             "math_op_patch.py", "lenet.py", "resnet.py", "vgg.py",
-            "mobilenet.py", "models.py"} <= names
+            "mobilenet.py", "models.py", "wide_deep.py", "store.py",
+            "chunks.py", "manifest.py", "wal.py",
+            "fault_injection.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -83,6 +85,9 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch.fluid.ops, paddle_tpu_torch.fluid.executor\n"
         "import paddle_tpu_torch.fluid.optimizer, paddle_tpu_torch.fluid.backward\n"
         "import paddle_tpu_torch.models.lenet, paddle_tpu_torch.vision\n"
+        "import paddle_tpu_torch.checkpoint,"
+        " paddle_tpu_torch.models.wide_deep\n"
+        "import paddle_tpu_torch.distributed.fleet.runtime.fault_injection\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
