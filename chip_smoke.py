@@ -150,6 +150,30 @@ Phases:
      replay again (the same tokens, model_version 7); bytes, chunks,
      save / second-save / restore / warm-start seconds and GB/s, peak
      device memory; the root is removed, and a disk too small fails;
+ 13a. wire_serving (item 15): a ServingServer on 127.0.0.1:0 in front of
+     a fresh engine with phase 3's arguments and weights; one
+     ServingClient replays phase 3's requests in its order (request 0
+     streamed first, the other seven on their own threads once its first
+     token arrived, two more streamed, request 5 seeded and sampled):
+     every token equal to phase 3's, ping_info / stats / metrics /
+     debug_dump(write=False) answering, rows 1-3 launched in the phase
+     (counts set to 0 just before, read just after), wire tokens/s
+     beside phase 3's;
+ 13b. slo: bench.py's bench_slo mix (6 s diurnal, seed 7, prompts
+     4/8/16/32, outputs 4/8/16, tenants 3:1, tiers 0/1/2 with deadlines
+     10 s / 20 s / none, token ids under 512) at 8 requests/s, halved
+     while the engine misses any deadline (down to 1/s), once with
+     LoadGenerator.run_engine and once with run_client over the wire:
+     both slo_reports (attainment, goodput, TTFT and inter-token
+     percentiles) and the decode-step mean; a failed request or an
+     out-of-range token fails, attainment does not;
+ 13c. chaos: bench_chaos's drill at that rate: the watchdog deadline
+     (0.5 s) and a temporary PADDLE_TPU_DEBUG_DIR set before the engine
+     is built, a 0.8 s stall armed at serving_decode; WATCHDOG.stalled()
+     must name the engine within 30 s and drop it within 30 s of the
+     stall clearing, and the watchdog's bundle must verify and hold the
+     engine's requests; detection / recovery seconds and the
+     post-recovery attainment delta;
  14. wide&deep (item 21, no kernel of the port on this path: lookups,
      matrix products and the dense Adam are PyTorch's) —
      widedeep_parity: the tiny config, 3 Adam steps on the card against
@@ -339,6 +363,13 @@ TRAINING_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
 TRAIN_TOKENS = 1024
 # the serving run's page pool: pages and their size
 SERVE_PAGES, SERVE_PAGE = 256, 16
+# bench.py's bench_slo / bench_chaos traffic (_slo_traffic): 6 s of
+# diurnal arrivals, seed 7; the offered rate starts at 8 requests/s and
+# halves (to no less than 1) while the engine cannot hold it
+SLO_DURATION, SLO_SEED, SLO_RATE, SLO_MIN_RATE = 6.0, 7, 8.0, 1.0
+# bench_chaos: a 0.8 s stall at serving_decode against a 0.5 s watchdog
+# deadline; detection and recovery each within 30 s
+CHAOS_STALL_S, CHAOS_DEADLINE_S, CHAOS_WAIT_S = 0.8, 0.5, 30.0
 # bench.py's bench_bert: BERT-base, batch 16 x 128, 19 masked positions
 BERT_BATCH, BERT_SEQ = 16, 128
 BERT_PRED = min(BERT_SEQ, max(8, int(round(BERT_SEQ * 0.15))))
@@ -1770,9 +1801,7 @@ def serving_path(torch, tree):
     print(json.dumps({"phase": "model", "config": "gpt3_1p3b",
                       "upload_s": round(time.perf_counter() - t0, 2)}),
           flush=True)
-    eng = Engine(model, num_slots=8, num_pages=SERVE_PAGES,
-                 page_size=SERVE_PAGE,
-                 prefix_cache_pages=64)
+    eng = serving_engine(model, prefix_cache_pages=64)
     mix = request_mix(cfg.vocab_size)
     by_call = tap_sub_block_routes(model)
 
@@ -1837,7 +1866,7 @@ def serving_path(torch, tree):
     if got != want:
         fail("greedy tokens differ between the kernels and the plain "
              "versions")
-    return counts, eng, [r.result().tolist() for r in reqs]
+    return counts, eng, [r.result().tolist() for r in reqs], main
 
 
 def checkpoint_phase(torch, eng, want):
@@ -1955,6 +1984,352 @@ def checkpoint_phase(torch, eng, want):
                  f"the in-flight request {busy.status}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+def serving_engine(model, prefix_cache_pages=0):
+    """An engine with phase 3's slots and pool over `model`'s weights
+    (shared, not uploaded again)."""
+    from paddle_tpu_torch.serving import Engine
+    return Engine(model, num_slots=8, num_pages=SERVE_PAGES,
+                  page_size=SERVE_PAGE,
+                  prefix_cache_pages=prefix_cache_pages)
+
+
+def wire_serving_phase(torch, eng, want, inproc):
+    """Item 15 on phase 3's GPT-3 XL weights: a ServingServer on
+    127.0.0.1:0 in front of a fresh engine with phase 3's arguments
+    (weights shared: no second upload); one ServingClient replays
+    request_mix over the mux wire in phase 3's order — request 0 first,
+    streamed, the other seven from their own threads once its first
+    token arrived (its prompt is then in the prefix cache, so request 7
+    takes prefill_tail as in phase 3), request 5 seeded and sampled,
+    requests 2 and 6 streamed too. Every reply must be "done" with phase
+    3's tokens `want` (the streamed frames reassemble them); ping_info,
+    stats, metrics and debug_dump(write=False) must answer; rows 1-3
+    must launch during the phase (counts set to 0 just before, read just
+    after), paged attention on the vector kernel only. Prints the wire
+    requests, tokens, wall and tokens/s beside phase 3's `inproc`."""
+    import threading
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.serving import ServingClient, ServingServer
+    mix = request_mix(eng.model.cfg.vocab_size)
+    weng = serving_engine(eng.model, prefix_cache_pages=64)
+    streamed = (0, 2, 6)
+    reps = [None] * len(mix)
+    frames = {i: [] for i in streamed}
+    errors = []
+    first = threading.Event()
+    with ServingServer(weng, "127.0.0.1:0") as srv:
+        cli = ServingClient(srv.endpoint)
+        try:
+            def call(i):
+                p, n, kw = mix[i]
+
+                def on_token(toks, idx):
+                    frames[i].extend(int(t) for t in toks)
+                    first.set()
+                try:
+                    reps[i] = cli.generate(
+                        p, n, timeout=300, stream=i in streamed,
+                        on_token=on_token if i in streamed else None,
+                        **kw)
+                except Exception as e:
+                    errors.append(f"request {i}: {type(e).__name__}: {e}")
+                finally:
+                    first.set()
+
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            th0 = threading.Thread(target=call, args=(0,))
+            th0.start()
+            first.wait(300)
+            rest = [threading.Thread(target=call, args=(i,))
+                    for i in range(1, len(mix))]
+            for th in rest:
+                th.start()
+            for th in [th0] + rest:
+                th.join(600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            ping = cli.ping_info()
+            st = cli.stats()
+            text = cli.metrics()
+            dump = cli.debug_dump(write=False)
+        finally:
+            cli.close()
+    if errors:
+        fail(f"wire_serving: {errors}")
+    bad = [(i, r and r.get("status"), r and r.get("error"))
+           for i, r in enumerate(reps)
+           if r is None or r.get("status") != "done"]
+    if bad:
+        fail(f"wire_serving: requests not done: {bad}")
+    got = [r["tokens"].tolist() for r in reps]
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            fail(f"wire_serving: request {i} tokens over the wire {g} != "
+                 f"in-process {w}")
+    for i in streamed:
+        if frames[i] != got[i]:
+            fail(f"wire_serving: request {i} streamed {frames[i]} != "
+                 f"final {got[i]}")
+    key = f"serving.engine.{weng.engine_id}"
+    if not (ping.get("ok") is True and ping.get("draining") is False
+            and isinstance(ping.get("tokens_per_s_per_chip"), float)):
+        fail(f"wire_serving: ping_info {ping}")
+    if st.get("completed", 0) < len(mix) or "compiles" not in st:
+        fail(f"wire_serving: stats {st}")
+    if "paddle_tpu_serving_tokens_total" not in text \
+            or "paddle_tpu_rpc_server_requests_total" not in text:
+        fail("wire_serving: metrics lack the serving / rpc series")
+    if dump.get("reason") != "debug_dump" or dump.get("path") is not None \
+            or key not in dump.get("requests", {}):
+        fail(f"wire_serving: debug_dump {sorted(dump)} "
+             f"{sorted(dump.get('requests', {}))}")
+    missing = [k for k in ("paged_attention.vector", "fused_out_ln",
+                           "fused_ffn_ln") if counts.get(k, 0) <= 0]
+    if missing or counts.get("paged_attention.scalar", 0):
+        fail(f"wire_serving: rows 1-3 did not launch as expected: "
+             f"{missing} (counts {counts})")
+    ntok = sum(len(g) for g in got)
+    print(json.dumps({
+        "phase": "wire_serving", "requests": len(mix), "tokens": ntok,
+        "wall_s": round(wall, 3), "tokens_per_s": round(ntok / wall, 2),
+        "in_process": {k: inproc[k] for k in ("requests", "tokens",
+                                              "wall_s", "tokens_per_s")},
+        "streamed": list(streamed), "tokens_equal": True,
+        "ping_info": ping, "latency_ms_p50": st["latency_ms_p50"],
+        "latency_ms_p99": st["latency_ms_p99"],
+        "debug_dump_sections": sorted(dump), "launches": counts}),
+        flush=True)
+    return counts
+
+
+def slo_traffic(rate):
+    """bench.py's _slo_traffic at `rate`: prompt lengths 4/8/16/32
+    (weights 3/3/2/1), outputs 4/8/16 (3/2/1), diurnal over the run,
+    tenants web:batch 3:1, tiers 0/1/2 with deadlines 10 s / 20 s / none,
+    token ids under 512."""
+    from paddle_tpu_torch.serving import TrafficConfig
+    return TrafficConfig(
+        rate=rate, duration=SLO_DURATION, arrival="diurnal",
+        diurnal_period=SLO_DURATION, seed=SLO_SEED,
+        prompt_lens={4: 3, 8: 3, 16: 2, 32: 1},
+        output_lens={4: 3, 8: 2, 16: 1},
+        tenants={"web": 3, "batch": 1}, tiers={0: 1, 1: 2, 2: 1},
+        deadlines={0: 10.0, 1: 20.0, 2: None}, vocab_size=512)
+
+
+def slo_engine(model):
+    """serving_engine over `model` with every prefill bucket of the SLO
+    mix (16 and 32 rows) and the decode bucket called once, so no first
+    call lands in a measured window (bench.py's _slo_engine)."""
+    import numpy as np
+    e = serving_engine(model)
+    for plen in (4, 8, 16, 32):
+        e.submit(np.full((plen,), 1, np.int32), 2)
+    e.run_until_idle()
+    return e
+
+
+def check_load(res, vocab, what):
+    """A replay fails on a request error or an out-of-range token, never
+    on attainment (a measurement)."""
+    errs = [(a.index, getattr(h, "error", None)) for a, h in res.handles
+            if h.status == "error"]
+    if errs:
+        fail(f"{what}: requests failed: {errs[:8]}")
+    for a, h in res.handles:
+        toks = [int(t) for t in h.generated]
+        if any(t < 0 or t >= vocab for t in toks):
+            fail(f"{what}: arrival {a.index} token out of range: {toks}")
+
+
+def decode_mark(e):
+    """(sum, count) of the engine's decode-step histogram now."""
+    h = e._m_decode_h
+    return h.sum, h.count
+
+
+def decode_ms_since(e, mark):
+    """Mean decode-step wall ms since `mark`, and the steps counted."""
+    s, n = decode_mark(e)
+    steps = n - mark[1]
+    return (round((s - mark[0]) / steps * 1e3, 3) if steps else None,
+            steps)
+
+
+def slo_row(what, rate, rep, e, mark):
+    step_ms, steps = decode_ms_since(e, mark)
+    return {"phase": what, "rate_rps": rate, "duration_s": SLO_DURATION,
+            "decode_steps": steps, "decode_step_ms_mean": step_ms,
+            "offered": rep["offered"], "met": rep["met"],
+            "attainment": rep["attainment"],
+            "goodput_tokens_per_sec": rep["goodput_tokens_per_sec"],
+            "ttft_ms_p50": rep["ttft_ms_p50"],
+            "ttft_ms_p99": rep["ttft_ms_p99"],
+            "itl_ms_p50": rep["itl_ms_p50"],
+            "itl_ms_p99": rep["itl_ms_p99"], "by_status": rep["by_status"],
+            "elapsed_s": rep["elapsed_s"]}
+
+
+def slo_phase(torch, eng):
+    """bench_slo's replay on phase 3's GPT-3 XL weights: LoadGenerator on
+    slo_traffic, once with run_engine on a fresh slo_engine and once
+    with run_client through a ServingServer in front of another. The
+    rate starts at SLO_RATE and halves while run_engine misses any
+    request's SLO (attainment below 1), down to SLO_MIN_RATE. Prints
+    both slo_reports (attainment, goodput, TTFT and inter-token
+    percentiles) and the rate used; returns (rate, the run_engine
+    result: the chaos drill's baseline)."""
+    from paddle_tpu_torch.serving import (LoadGenerator, ServingClient,
+                                          ServingServer, slo_report)
+    vocab = eng.model.cfg.vocab_size
+    rate = SLO_RATE
+    while True:
+        e = slo_engine(eng.model)
+        mark = decode_mark(e)
+        with e:
+            res = LoadGenerator(slo_traffic(rate),
+                                name=f"slo_engine_{rate:g}").run_engine(e)
+            if not res.wait(300):
+                fail(f"slo: run_engine at {rate} rps not finished in 300 s")
+        check_load(res, vocab, "slo run_engine")
+        rep = slo_report(res)
+        print(json.dumps({**slo_row("slo_engine", rate, rep, e, mark),
+                          "preemptions": e.stats()["preemptions"]}),
+              flush=True)
+        del e
+        if rep["attainment"] == 1.0 or rate / 2 < SLO_MIN_RATE:
+            break
+        rate /= 2
+    e = slo_engine(eng.model)
+    mark = decode_mark(e)
+    with ServingServer(e, "127.0.0.1:0") as srv:
+        cli = ServingClient(srv.endpoint)
+        try:
+            wres = LoadGenerator(slo_traffic(rate),
+                                 name=f"slo_wire_{rate:g}").run_client(
+                cli, timeout=300)
+        finally:
+            cli.close()
+    check_load(wres, vocab, "slo run_client")
+    print(json.dumps(slo_row("slo_wire", rate, slo_report(wres), e, mark)),
+          flush=True)
+    return rate, res
+
+
+def chaos_phase(torch, eng, rate, base):
+    """bench_chaos's drill on phase 3's GPT-3 XL weights: with
+    PADDLE_TPU_WATCHDOG_DEADLINE = 0.5 set before a fresh slo_engine is
+    built (its watchdog token reads the deadline when registered) and
+    PADDLE_TPU_DEBUG_DIR a temporary directory, slo_traffic at `rate`
+    runs while a 0.8 s stall is armed at serving_decode (a host sleep in
+    the step, under the step lock; the stream is not synchronised).
+    WATCHDOG.stalled() must name the engine's token within 30 s and drop
+    it within 30 s after the stall clears; the watchdog's bundle must
+    load with load_bundle(verify=True) and hold the engine's requests
+    snapshot. Prints detection and recovery seconds and the
+    post-recovery attainment against `base`, run_engine's result of the
+    same traffic."""
+    import shutil
+    import tempfile
+    import threading
+    from paddle_tpu_torch.distributed.fleet.runtime import (
+        fault_injection as fi)
+    from paddle_tpu_torch.observability.debug import (list_bundles,
+                                                      load_bundle)
+    from paddle_tpu_torch.observability.watchdog import WATCHDOG
+    from paddle_tpu_torch.serving import LoadGenerator, slo_report
+    saved = {k: os.environ.get(k) for k in (
+        "PADDLE_TPU_WATCHDOG_DEADLINE", "PADDLE_TPU_DEBUG_DIR")}
+    dbg = tempfile.mkdtemp(prefix="chip_smoke_bundles_")
+    try:
+        os.environ["PADDLE_TPU_WATCHDOG_DEADLINE"] = str(CHAOS_DEADLINE_S)
+        os.environ["PADDLE_TPU_DEBUG_DIR"] = dbg
+        e = slo_engine(eng.model)
+        token = f"serving.engine.{e.engine_id}"
+        box = []
+        detect_s = recovery_s = None
+        with e:
+            runner = threading.Thread(target=lambda: box.append(
+                LoadGenerator(slo_traffic(rate), name="chaos_fault")
+                .run_engine(e)), daemon=True)
+            runner.start()
+            time.sleep(min(1.0, SLO_DURATION / 4))      # traffic flowing
+            t_fault = time.monotonic()
+            fi.reset_injector(fi.FaultInjector(
+                stall=CHAOS_STALL_S, stall_point="serving_decode"))
+            try:
+                while detect_s is None \
+                        and time.monotonic() - t_fault < CHAOS_WAIT_S:
+                    WATCHDOG.check_once()
+                    if token in WATCHDOG.stalled():
+                        detect_s = time.monotonic() - t_fault
+                    time.sleep(0.05)
+            finally:
+                fi.reset_injector(fi.FaultInjector())
+            t_cleared = time.monotonic()
+            while recovery_s is None \
+                    and time.monotonic() - t_cleared < CHAOS_WAIT_S:
+                WATCHDOG.check_once()
+                if token not in WATCHDOG.stalled():
+                    recovery_s = time.monotonic() - t_fault
+                time.sleep(0.05)
+            runner.join(300)
+            if not box or not box[0].wait(300):
+                fail("chaos: the faulted replay did not finish")
+        res = box[0]
+        if detect_s is None:
+            fail(f"chaos: the watchdog did not name {token} within "
+                 f"{CHAOS_WAIT_S} s of the stall")
+        if recovery_s is None:
+            fail(f"chaos: {token} still stalled {CHAOS_WAIT_S} s after "
+                 f"the stall cleared")
+        check_load(res, eng.model.cfg.vocab_size, "chaos run_engine")
+        bundles = [b for b in list_bundles(dbg)
+                   if b.get("reason") == f"watchdog:{token}"]
+        if not bundles or not bundles[0]["valid"]:
+            fail(f"chaos: no valid watchdog bundle in {list_bundles(dbg)}")
+        b = load_bundle(bundles[0]["path"], verify=True)
+        snap = b["files"]["requests.json"].get(token)
+        if not snap or "inflight" not in snap:
+            fail(f"chaos: the bundle holds no requests snapshot of {token}")
+        faulted = slo_report(res, gen="chaos_faulted")
+        rec_off = (t_cleared + CHAOS_STALL_S) - res.started_at
+        post = post_base = None
+        if rec_off < SLO_DURATION - 0.5:
+            post = slo_report(res, window=(rec_off, float("inf")),
+                              gen="chaos_post")
+            post_base = slo_report(base, window=(rec_off, float("inf")),
+                                   gen="chaos_post_base")
+        delta = None if post is None or post_base["attainment"] is None \
+            else round(post_base["attainment"] - post["attainment"], 4)
+        print(json.dumps({
+            "phase": "chaos", "rate_rps": rate,
+            "fault": f"stall@serving_decode {CHAOS_STALL_S}s",
+            "watchdog_deadline_s": CHAOS_DEADLINE_S,
+            "detect_s": round(detect_s, 3),
+            "recovery_s": round(recovery_s, 3),
+            "faulted_attainment": faulted["attainment"],
+            "post_recovery_attainment": None if post is None
+            else post["attainment"],
+            "post_recovery_baseline": None if post_base is None
+            else post_base["attainment"],
+            "post_recovery_delta": delta,
+            "faulted_goodput_tokens_per_sec":
+                faulted["goodput_tokens_per_sec"],
+            "bundle_files": sorted(b["files"]),
+            "bundle_inflight": len(snap["inflight"]),
+            "bundle_recent": len(snap.get("recent", []))}), flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(dbg, ignore_errors=True)
 
 
 def serving_wide_heads_phase(torch):
@@ -3129,7 +3504,7 @@ def kernel_entry(row, launches):
 
 
 def kernels_line(results, serve_counts, wide_counts, train_counts,
-                 bert_counts, layer_counts, ffn_counts):
+                 bert_counts, layer_counts, ffn_counts, wire_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache, the vector route), its scalar route from the
@@ -3147,7 +3522,8 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     p = 0.1, with the phase's launches by route; R = 304, bf16 and p = 0
     under "shapes"); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
-    under "shapes" with launches null."""
+    under "shapes" with launches null. Rows 1-3 also carry the wire
+    serving run's launches by route under "wire_routes"."""
     def row(name, *keys):
         return next(r for r in results if r["kernel"] == name
                     and all(k in r["shape"] for k in keys))
@@ -3158,6 +3534,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     paged["serving_mix"] = kernel_entry(
         row("paged_attention", "serving mix", "cache=f32"), None)
     paged["routes"] = route_counts(serve_counts, "paged_attention")
+    paged["wire_routes"] = route_counts(wire_counts, "paged_attention")
     wide = row("paged_attention", "scalar", "q=f32 pools=f32 aligned")
     paged["wide_heads"] = kernel_entry(
         wide, wide_counts.get("paged_attention", 0))
@@ -3187,6 +3564,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["serving_prefill"] = kernel_entry(
             row(name, "M=256 "), serve_counts.get(f"{name}.ffma", 0))
         ent["serving_routes"] = route_counts(serve_counts, name)
+        ent["wire_routes"] = route_counts(wire_counts, name)
         ent["bert"] = kernel_entry(row(name, "f32", "(BERT"),
                                    bert_counts.get(name, 0))
         ent["bert"]["routes"] = route_counts(bert_counts, name)
@@ -3275,9 +3653,18 @@ def main(argv):
                       "init_s": round(time.perf_counter() - t0, 2)}),
           flush=True)
 
-    serve_counts, eng, tokens = timed("serving_path", serving_path, torch,
-                                      tree)
+    serve_counts, eng, tokens, inproc = timed("serving_path", serving_path,
+                                              torch, tree)
     timed("checkpoint_phase", checkpoint_phase, torch, eng, tokens)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wire_counts = timed("wire_serving", wire_serving_phase, torch, eng,
+                        tokens, inproc)
+    gc.collect()
+    slo_rate, slo_base = timed("slo", slo_phase, torch, eng)
+    gc.collect()
+    timed("chaos", chaos_phase, torch, eng, slo_rate, slo_base)
+    del slo_base
     if with_profile:
         profile_decode(torch, eng, eng.model.cfg.vocab_size)
     del eng
@@ -3327,7 +3714,7 @@ def main(argv):
 
     print(json.dumps(kernels_line(results, serve_counts, wide_counts,
                                   train_counts, bert_counts, layer_counts,
-                                  ffn_counts)),
+                                  ffn_counts, wire_counts)),
           flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
 """paddle_tpu_torch.distributed — only ``fleet.runtime.fault_injection``
-so far (the fault injector the checkpoint writer and the serving engine
-call); the collectives, the mesh and the fleet facade of
-``paddle_tpu.distributed`` are not ported yet (ROADMAP.md A)."""
+(the fault injector the checkpoint writer, the serving engine and the
+wire call) and ``fleet.runtime.rpc`` (the multiplexed wire the serving
+frontend speaks) so far; the collectives, the mesh and the fleet facade
+of ``paddle_tpu.distributed`` are not ported yet (ROADMAP.md A)."""

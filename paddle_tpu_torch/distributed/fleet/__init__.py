@@ -1,2 +1,2 @@
 """paddle_tpu_torch.distributed.fleet — only ``runtime.fault_injection``
-so far."""
+and ``runtime.rpc`` so far."""

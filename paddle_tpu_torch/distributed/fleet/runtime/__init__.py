@@ -1,3 +1,4 @@
-"""paddle_tpu_torch.distributed.fleet.runtime — only ``fault_injection``
-so far (the PS runtime, its RPC wire and tiered store are not
-ported)."""
+"""paddle_tpu_torch.distributed.fleet.runtime — the fault injector
+(``fault_injection``) and the multiplexed RPC wire (``rpc``) the serving
+frontend speaks (the PS runtime and its tiered store wait for ROADMAP
+item 16)."""

@@ -26,6 +26,7 @@ reader knows the window was clipped.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
@@ -36,7 +37,7 @@ import numpy as np
 from . import registry as _obs
 
 __all__ = ["FlightEvent", "FlightRecorder", "RECORDER", "record",
-           "events", "snapshot", "timeline", "clear",
+           "events", "snapshot", "timeline", "clear", "dump_to_file",
            "DEFAULT_RING_EVENTS"]
 
 DEFAULT_RING_EVENTS = 2048
@@ -154,6 +155,16 @@ class FlightRecorder:
         with self._lock:
             self._rings.clear()
 
+    def dump_to_file(self, path: str) -> str:
+        """Atomic JSON dump (tmp + rename, like the registry dump)."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(self.snapshot(), f)
+        os.replace(tmp, path)
+        return path
+
 # process-wide recorder + module-level shortcuts
 RECORDER = FlightRecorder()
 record = RECORDER.record
@@ -161,3 +172,4 @@ events = RECORDER.events
 snapshot = RECORDER.snapshot
 timeline = RECORDER.timeline
 clear = RECORDER.clear
+dump_to_file = RECORDER.dump_to_file

@@ -23,6 +23,7 @@ every module without cycles.
 """
 from __future__ import annotations
 
+import json
 import math
 import os
 import re
@@ -33,7 +34,7 @@ import time
 __all__ = [
     "MetricError", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "REGISTRY", "counter", "gauge", "histogram", "prometheus_text",
-    "to_dict", "DEFAULT_BUCKETS",
+    "to_dict", "dump_to_file", "aggregate_dumps", "DEFAULT_BUCKETS",
 ]
 
 _NAME_RE = re.compile(r"^paddle_tpu_[a-z][a-z0-9_]*$")
@@ -440,6 +441,68 @@ class MetricsRegistry:
         return {"pid": os.getpid(), "host": socket.gethostname(),
                 "time": time.time(), "metrics": metrics}
 
+    def dump_to_file(self, path: str | None = None) -> str:
+        """Write the JSON snapshot for this process (atomic rename).
+        Default path: $PADDLE_TPU_METRICS_DIR/metrics_<host>_<pid>.json
+        — the per-process dump a multi-process job aggregates."""
+        if path is None:
+            d = os.environ.get("PADDLE_TPU_METRICS_DIR") or "."
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(
+                d, f"metrics_{socket.gethostname()}_{os.getpid()}.json")
+        tmp = f"{path}.tmp{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(self.to_dict(), f)
+        os.replace(tmp, path)
+        return path
+
+
+def aggregate_dumps(dumps: list[dict]) -> dict:
+    """Merge per-process JSON dumps: counters and histograms SUM across
+    processes; gauges keep the value from the newest dump that carries
+    the series (a gauge is a point-in-time reading, not a flow)."""
+    merged: dict[str, dict] = {}
+    order = sorted(dumps, key=lambda d: d.get("time", 0))
+    for dump in order:
+        for m in dump.get("metrics", []):
+            name = m["name"]
+            tgt = merged.get(name)
+            if tgt is None:
+                tgt = merged[name] = {
+                    "name": name, "kind": m["kind"], "help": m["help"],
+                    "labelnames": m["labelnames"], "samples": {}}
+                if "buckets" in m:
+                    tgt["buckets"] = m["buckets"]
+            for s in m["samples"]:
+                key = tuple(sorted(s["labels"].items()))
+                cur = tgt["samples"].get(key)
+                if m["kind"] == "histogram":
+                    if cur is None:
+                        tgt["samples"][key] = {
+                            "labels": s["labels"],
+                            "cumulative": list(s["cumulative"]),
+                            "sum": s["sum"], "count": s["count"]}
+                    else:
+                        cur["cumulative"] = [
+                            a + b for a, b in zip(cur["cumulative"],
+                                                  s["cumulative"])]
+                        cur["sum"] += s["sum"]
+                        cur["count"] += s["count"]
+                elif m["kind"] == "gauge" or cur is None:
+                    tgt["samples"][key] = dict(s)
+                else:  # counter: sum
+                    cur["value"] = (cur.get("value") or 0.0) \
+                        + (s.get("value") or 0.0)
+    out = []
+    for name in sorted(merged):
+        rec = merged[name]
+        rec["samples"] = [rec["samples"][k]
+                          for k in sorted(rec["samples"])]
+        out.append(rec)
+    return {"aggregated_from": len(dumps), "time": time.time(),
+            "metrics": out}
+
+
 # process-wide default registry + module-level shortcuts
 REGISTRY = MetricsRegistry()
 
@@ -467,3 +530,19 @@ def prometheus_text() -> str:
 
 def to_dict() -> dict:
     return REGISTRY.to_dict()
+
+
+def dump_to_file(path: str | None = None) -> str:
+    return REGISTRY.dump_to_file(path)
+
+
+if __name__ == "__main__":  # python -m paddle_tpu_torch.observability.registry
+    import sys
+    _dir = sys.argv[1] if len(sys.argv) > 1 else "."
+    # bundle-aware job aggregation: metrics_*.json dumps PLUS the
+    # metrics.json of every postmortem bundle in the dir, with a
+    # "bundles" listing (reason/host/pid/valid) when any exist (the
+    # per-rank trace merge waits for the telemetry collector, item 18)
+    from .debug import aggregate_with_bundles
+    json.dump(aggregate_with_bundles(_dir), sys.stdout, indent=2)
+    print()

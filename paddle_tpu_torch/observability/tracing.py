@@ -27,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -52,8 +53,12 @@ def new_trace_id() -> str:
 
 
 def _record_function():
-    """torch.profiler.record_function (imported on first use, so the
-    registry-only importers of this module never pay for torch)."""
+    """torch.profiler.record_function, or None while the process has not
+    imported torch: then no profiler can be recording, and a span (an
+    RPC call on a wire-only client, say) must not pay the seconds of a
+    first torch import."""
+    if "torch" not in sys.modules:
+        return None
     from torch.profiler import record_function
     return record_function
 
@@ -137,8 +142,10 @@ class Tracer:
         stack.append(sp)
         ann = None
         if self.enabled and self.bridge_profiler:
-            ann = _record_function()(name)
-            ann.__enter__()
+            rf = _record_function()
+            if rf is not None:
+                ann = rf(name)
+                ann.__enter__()
         try:
             yield sp
         finally:

@@ -39,9 +39,10 @@ import numpy as np
 import torch
 
 from ..distributed.fleet.runtime import fault_injection as _fi
-from ..observability import (flight as _flight, meter as _meter,
-                             perf as _perf, registry as _obs,
-                             tracing as _tracing)
+from ..observability import (debug as _debug, flight as _flight,
+                             meter as _meter, perf as _perf,
+                             registry as _obs, tracing as _tracing,
+                             watchdog as _watchdog)
 from .kv_cache import PagePool, defrag_plan
 from .prefix_cache import PrefixCache
 from .sampling import sample_tokens, seed_to_key
@@ -99,6 +100,18 @@ def _drop_engine_series(eid: str):
               _LATENCY_H, _QUEUE_DEPTH, _OCCUPANCY, _SAMPLING_REQS,
               _SAMPLING_TOKENS):
         m.remove_matching(engine=eid)
+
+
+def _req_summary(req: Request, where: str) -> dict:
+    """One request's postmortem line (JSON-safe, lock-free reads)."""
+    return {"id": req.id, "where": where, "status": req.status,
+            "trace_id": req.trace_id,
+            "prompt_len": int(req.prompt.size),
+            "generated": len(req.generated),
+            "max_new_tokens": req.max_new_tokens, "slot": req.slot,
+            "tier": req.priority, "tenant": req.tenant,
+            "age_s": round(time.monotonic() - req.submitted_at, 3),
+            "error": req.error}
 
 
 def _bucket_len(n: int, page_size: int) -> int:
@@ -179,6 +192,33 @@ class Engine:
         # a dead engine's series (incl. the weakref gauges, which would
         # otherwise report 0.0 forever) leave the exposition
         weakref.finalize(self, _drop_engine_series, eid)
+        # postmortem wiring: a progress token (the engine must keep
+        # producing tokens OR retiring requests while the scheduler is
+        # non-idle — a step wedged on the card or in the host is what
+        # the watchdog exists to catch) and an in-flight-request
+        # provider for debug bundles. Both probe through the weakref so
+        # a dead engine unregisters itself; neither takes the step lock
+        # (a wedged step HOLDS it). Decode steps alone are NOT the
+        # probe: a healthy stream of requests that all finish at
+        # prefill (max_new_tokens=1) or all fail/expire never runs a
+        # decode step, so _wd_progress also advances on every token and
+        # every request retirement.
+        self._wd_progress = 0
+        self._recent: deque[dict] = deque(maxlen=32)
+        wd_name = f"serving.engine.{eid}"
+        _watchdog.WATCHDOG.watch(
+            wd_name,
+            probe=lambda: (lambda e: None if e is None
+                           else e._wd_progress)(wr()),
+            idle=lambda: (lambda e: True if e is None
+                          else e.scheduler.idle)(wr()))
+        weakref.finalize(self, _watchdog.WATCHDOG.unwatch, wd_name)
+        _debug.register_requests_provider(
+            wd_name,
+            lambda: (lambda e: None if e is None
+                     else e._debug_requests())(wr()))
+        weakref.finalize(self, _debug.unregister_requests_provider,
+                         wd_name)
         self._lock = threading.Lock()    # step loop exclusivity
         self._stats_lock = threading.Lock()  # deque append vs snapshot
         # published-version identity; 0 = cold weights, warm_start
@@ -719,6 +759,7 @@ class Engine:
 
     # -- stats ---------------------------------------------------------
     def _note_tokens(self, n: int):
+        self._wd_progress += 1
         self._m_tokens.inc(n)
         with self._stats_lock:
             self._tok_window.append((time.monotonic(), n))
@@ -748,6 +789,7 @@ class Engine:
         return total
 
     def _note_done(self, req: Request):
+        self._wd_progress += 1
         lat = req.latency()
         if lat is not None:
             self._m_latency_h.observe(lat)
@@ -755,6 +797,30 @@ class Engine:
                 self._latencies.append(lat)
         _meter.METER.note_flops(req.tenant, req.priority,
                                 self._req_flops(req))
+        with self._stats_lock:
+            self._recent.append(_req_summary(req, "finished"))
+
+    # -- postmortem view (debug bundles / debug_dump verb) --------------
+    def _debug_requests(self) -> dict:
+        """JSON-safe in-flight table for postmortem bundles. Reads only
+        the scheduler's queue lock (never the step lock — a wedged
+        decode step holds that one, and this runs while it is stuck).
+        Queue AND slots are read under that one lock, matching admit's
+        dequeue+assign critical section, so no live request can fall
+        between the two lists."""
+        with self.scheduler._lock:
+            queued = list(self.scheduler.queue)
+            slotted = [(i, r) for i, r
+                       in enumerate(self.scheduler.slots)
+                       if r is not None]
+        inflight = [_req_summary(r, "queued") for r in queued]
+        inflight += [_req_summary(r, f"slot{i}") for i, r in slotted]
+        with self._stats_lock:
+            recent = list(self._recent)
+        return {"engine": self.engine_id,
+                "num_slots": self.num_slots,
+                "queue_depth": len(queued),
+                "inflight": inflight, "recent": recent}
 
     def stats(self) -> dict:
         """/stats counters: queue depth, latency percentiles, tokens/sec,

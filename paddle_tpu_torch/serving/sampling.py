@@ -31,8 +31,11 @@ _U32 = 0xFFFFFFFF
 
 
 class SamplingParams:
-    """Validated request sampling knobs. temperature == 0 means greedy
-    (top_k/top_p ignored); seed None means "derive from the request"."""
+    """Validated wire/request sampling knobs. temperature == 0 means
+    greedy (top_k/top_p ignored); seed None means "derive from the
+    request id" (frontend.py), which is what makes a retried wire
+    request replay token for token without the client choosing a
+    seed."""
 
     __slots__ = ("temperature", "top_k", "top_p", "seed")
 
@@ -49,9 +52,29 @@ class SamplingParams:
         if not 0 < self.top_p <= 1:
             raise ValueError("top_p must be in (0, 1]")
 
+    @classmethod
+    def from_request(cls, req: dict) -> "SamplingParams":
+        return cls(temperature=req.get("temperature", 0.0),
+                   top_k=req.get("top_k", 0),
+                   top_p=req.get("top_p", 1.0),
+                   seed=req.get("seed"))
+
+    def to_request(self, out: dict) -> dict:
+        """Write non-default knobs into a wire request dict."""
+        if self.temperature > 0:
+            out["temperature"] = self.temperature
+        if self.top_k > 0:
+            out["top_k"] = self.top_k
+        if self.top_p < 1.0:
+            out["top_p"] = self.top_p
+        if self.seed is not None:
+            out["seed"] = self.seed
+        return out
+
 
 def derive_seed(request_id) -> int:
-    """Stable 64-bit seed from a request identity."""
+    """Stable 64-bit seed from a request identity (the frontend keys a
+    seedless sampled request by its stable wire request id)."""
     h = hashlib.blake2b(str(request_id).encode(), digest_size=8)
     return int.from_bytes(h.digest(), "big")
 

@@ -31,6 +31,42 @@ BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 B, H, D = 2, 2, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _fresh_jax_executables():
+    """Drop executables another test file of this worker compiled (under
+    its own env and config) before this file's first Pallas call."""
+    jax.clear_caches()
+
+
+@pytest.fixture(autouse=True)
+def _pinned_numerics(monkeypatch):
+    """Each case runs on the state the tolerances assume, whatever an
+    earlier file of the same worker left behind: f32 default dtype, no
+    autocast, f32 matmuls at full precision on both sides, x64 off, the
+    reference's default flash blocks (the port's ref_block is that
+    default), and the port's kernel wrappers (not composed_ops)."""
+    from paddle_tpu_torch.nn import functional as F
+    for var in ("PADDLE_TPU_FLASH_BLOCK_Q", "PADDLE_TPU_FLASH_BLOCK_K",
+                "PADDLE_TPU_DISABLE_PALLAS"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(F, "_composed", False)
+    dtype = torch.get_default_dtype()
+    prec = torch.get_float32_matmul_precision()
+    x64 = jax.config.jax_enable_x64
+    torch.set_default_dtype(torch.float32)
+    torch.set_float32_matmul_precision("highest")
+    jax.config.update("jax_enable_x64", False)
+    try:
+        with torch.autocast("cpu", enabled=False), \
+                torch.enable_grad(), \
+                jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_default_dtype(dtype)
+        torch.set_float32_matmul_precision(prec)
+        jax.config.update("jax_enable_x64", x64)
+
+
 def _inputs(t, seed=0):
     rng = np.random.RandomState(seed)
     return [rng.randn(B, H, t, D).astype(np.float32) for _ in range(4)]

@@ -46,7 +46,43 @@ def test_port_file_list_is_not_empty():
             "math_op_patch.py", "lenet.py", "resnet.py", "vgg.py",
             "mobilenet.py", "models.py", "wide_deep.py", "store.py",
             "chunks.py", "manifest.py", "wal.py",
-            "fault_injection.py"} <= names
+            "fault_injection.py", "watchdog.py", "debug.py", "loadgen.py",
+            "frontend.py", "rpc.py"} <= names
+    assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \
+        / "runtime" / "rpc.py" in PORT_FILES
+
+
+def _calls(path: Path, names) -> list[ast.Call]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    return [n for n in ast.walk(tree) if isinstance(n, ast.Call)
+            and getattr(n.func, "attr", getattr(n.func, "id", ""))
+            in names]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_dynamic_imports(path):
+    """Every import the AST walk cannot read is refused: an
+    ``__import__`` / ``import_module`` of a computed name (the JAX
+    package's debug bundles record versions through
+    ``__import__(mod)`` over ("jax", "jaxlib", "numpy"))."""
+    bad = [ast.unparse(c) for c in _calls(path, ("import_module",
+                                                 "__import__"))
+           if not (c.args and isinstance(c.args[0], ast.Constant))]
+    assert not bad, f"{path.relative_to(ROOT)}: {bad}"
+
+
+def test_debug_bundles_name_no_jax():
+    """The port's bundle env section records torch, its CUDA, numpy and
+    the card, never jax: no string in debug.py names it."""
+    path = ROOT / "paddle_tpu_torch" / "observability" / "debug.py"
+    text = path.read_text()
+    assert '__import__("jax")' not in text \
+        and "__import__('jax')" not in text
+    tree = ast.parse(text, filename=str(path))
+    consts = {n.value for n in ast.walk(tree)
+              if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+    assert not consts & {"jax", "jaxlib", "JAX_", "XLA_"}
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -88,6 +124,11 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch.checkpoint,"
         " paddle_tpu_torch.models.wide_deep\n"
         "import paddle_tpu_torch.distributed.fleet.runtime.fault_injection\n"
+        "import paddle_tpu_torch.distributed.fleet.runtime.rpc\n"
+        "import paddle_tpu_torch.observability.watchdog,"
+        " paddle_tpu_torch.observability.debug\n"
+        "import paddle_tpu_torch.serving.loadgen,"
+        " paddle_tpu_torch.serving.frontend\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
