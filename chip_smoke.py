@@ -78,7 +78,9 @@ Phases:
      first, every training kernel launched, and all 48 launches a step
      of each sub-block and of flash_fwd, and all 24 of flash_bwd_dq and
      flash_bwd_dkv, on the tensor-core route; step ms, tokens/s, MFU
-     and peak device memory;
+     and peak device memory; then one step of the same at dropout 0.1
+     (fault C4): the loss finite and the launches of rows 2-5, route by
+     route, those of one dropout-0 step;
   6. BERT: the kernels at the shapes the BERT-base pretrain step gives
      them (phase 2b, run with the other kernel checks): layer norm and
      dropout + residual + layer norm, forward and backward, at R = 2048
@@ -91,6 +93,10 @@ Phases:
      erf-polynomial gelu (f32 on the FFMA route, with tile_ms, and bf16
      on the tensor cores); the three flash kernels at B=16, H=12, S=128,
      D=64, non-causal, with dropout, with and without a padding mask;
+     and fault C3 (check_flash_block_override): with the reference's
+     PADDLE_TPU_FLASH_BLOCK_Q / _K at 64, both flash routes at
+     B=1 H=2 T=1024 D=64 bf16 round P at 64-key blocks, as the plain
+     versions do (o at most 1% of its elements another bf16 number);
   7. BERT train parity — ``make_train_step`` on BERT-base cut to 2
      layers at full width, dropout 0.1, AMP O1, 3 steps with fixed
      seeds, through the kernels and through the composed chains
@@ -185,7 +191,27 @@ Phases:
      median step ms (CUDA events), the same on inputs resident on the
      card, peak memory allocated and requested, the loss finite and
      falling, 0 port launches;
- 15. the kernels line, then the card line, then the result line.
+ 15. data parallelism (item 14(a)), two ranks started by
+     the port's distributed.spawn on the one card over gloo (NCCL
+     refuses two ranks on one GPU), each loading the kernels the parent
+     built (a build inside a rank fails): bert_dp — bench_bert's
+     configuration through TrainStep(mesh=make_mesh({"dp": 2})), each
+     rank on 8 of the global 16 sequences, 1 + 4 steps at dropout 0
+     (losses within 1e-3 relative of a dp = 1 run on the card, same
+     weights and global batch) and at dropout 0.1 (step ms, global
+     samples/s beside phase 8's dp = 1 figure, each rank's peak memory,
+     the gradient all-reduce's share of the step, the card drained
+     around it; rows 2-5 and 8-9 launched on both ranks, as often on
+     each, their counts added to the kernels line as
+     "bert_dp_launches"); dp_parity — a conv-BN net (3 momentum steps:
+     losses, parameters, running statistics within 1e-4 + 1e-4
+     relative) and the static regression program of
+     tests/test_data_parallel.py through CompiledProgram
+     .with_data_parallel (20 steps, losses within 2e-3 relative), dp = 2
+     against dp = 1 on the card; allreduce — bench.py's bench_allreduce
+     over the dp group (64 MB f32, 5 + 30 calls, algorithmic bandwidth
+     2 (n - 1) / n bytes / time), a gloo host-path figure, not NCCL's;
+ 16. the kernels line, then the card line, then the result line.
 
 Each phase prints its wall seconds ({"phase": "seconds", ...}). One
 numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
@@ -397,6 +423,11 @@ FFN_STEPS = 5
 FFN_LAUNCHES_PER_STEP = 2
 # bench.py's bench_lenet
 LENET_BATCH, LENET_STEPS = 256, 30
+# data-parallel phases: ranks, all on the one card (gloo: NCCL refuses
+# two ranks on one GPU)
+DP_RANKS = 2
+# figures a later phase prints beside its own
+MEASURED: dict = {}
 # bench.py's bench_resnet50
 RESNET_BATCH, RESNET_WARMUP, RESNET_STEPS = 256, 3, 10
 # bench.py's bench_widedeep
@@ -1713,6 +1744,87 @@ def check_blocks_bert(torch, timer, results):
         report(results, row, within(out, ref, **tol))
 
 
+def check_flash_block_override(torch):
+    """Fault C3: with the reference's PADDLE_TPU_FLASH_BLOCK_K (and _Q)
+    at 64, the reference rounds P at 64-key blocks; the port's plain
+    versions follow (ref_block), and so must both kernel routes. At
+    B=1 H=2 T=1024 D=64 bf16, causal and not, on the tensor-core route
+    and on the SIMT route (misaligned copies), each kernel against its
+    plain version, under the knob and without it (the reference's
+    default, 512-key blocks). The block moves only the forward's
+    rounding of P: o must have at most 1% of its elements another bf16
+    number under the knob (the plain versions at the two blocks differ
+    in ~30%); dq, dk and dv round dS elementwise whatever the block, so
+    under the knob they must be within 2e-2 + 2e-2 |ref| and differ in
+    no larger a share than without it (+ 0.5%: their long f32 sums in
+    another order)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    BH, T, D = 2, 1024, 64
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(BH, T, D, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    knobs = ("PADDLE_TPU_FLASH_BLOCK_Q", "PADDLE_TPU_FLASH_BLOCK_K")
+    saved = {n: os.environ.get(n) for n in knobs}
+
+    def shares(route, args, tail):
+        """Each output's share of elements off the plain version, and
+        whether all are within the bf16 tolerance."""
+        o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
+        ref = (o_r, *fa.flash_bwd_reference(q, k, v, o_r, lse_r, do,
+                                             *tail))
+        (o, lse), _ = routed("flash_fwd",
+                             lambda: fa._fwd_kernel(*args[:3], *tail), route)
+        bargs = (*args, lse, fa.bwd_delta(o, args[3]))
+        dq, _ = routed("flash_bwd_dq", lambda: fa._dq_kernel(*bargs, *tail),
+                       route)
+        (dk, dv), _ = routed("flash_bwd_dkv",
+                             lambda: fa._dkv_kernel(*bargs, *tail), route)
+        torch.cuda.synchronize()
+        got = (o, dq, dk, dv)
+        return ({n: differ(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"),
+                                                    got, ref)},
+                all(within(a, b, 2e-2, 2e-2) for a, b in zip(got, ref)),
+                o_r)
+
+    rows, ok = [], True
+    try:
+        for causal in (True, False):
+            tail = (D ** -0.5, causal, None, 0, 0.0)
+            for route, args in (("tc", (q, k, v, do)),
+                                ("simt", tuple(misaligned(x) for x in
+                                               (q, k, v, do)))):
+                for n in knobs:
+                    os.environ.pop(n, None)
+                base, base_ok, o512 = shares(route, args, tail)
+                os.environ.update({n: "64" for n in knobs})
+                if fa.ref_block(T) != 64:
+                    fail(f"C3: ref_block({T}) = {fa.ref_block(T)} under "
+                         f"the knob at 64")
+                knob, knob_ok, o64 = shares(route, args, tail)
+                row_ok = knob_ok and base_ok and knob["o"] <= 0.01 and all(
+                    knob[n] <= max(0.01, base[n] + 0.005)
+                    for n in ("dq", "dk", "dv"))
+                ok = ok and row_ok
+                rows.append({"causal": causal, "route": route,
+                             "differ_block64": knob,
+                             "differ_block512": base, "ok": row_ok,
+                             "plain_o_block64_vs_512": differ(o64, o512)})
+    finally:
+        for n, val in saved.items():
+            if val is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = val
+    print(json.dumps({"check": "flash_block_override", "fault": "C3",
+                      "shape": f"BH={BH} T={T} D={D} bf16",
+                      "knob": "PADDLE_TPU_FLASH_BLOCK_Q/_K=64", "rows": rows,
+                      "tol": "o <= 1% differ; dq, dk, dv within 2e-2 + "
+                             "2e-2 |ref| and <= max(1%, block-512 share "
+                             "+ 0.5%)"}), flush=True)
+    if not ok:
+        fail(f"C3: a flash route does not round at 64-key blocks: {rows}")
+
+
 def check_flash_bert(torch, timer, results):
     """The three flash kernels as the BERT-base step launches them:
     B=16, H=12, S=T=128, D=64, non-causal, dropout 0.1, in bf16 (the
@@ -2638,7 +2750,43 @@ def training_path(torch, tree, steps=5):
     off_route(counts, {"fused_out_ln": 2 * L, "fused_ffn_ln": 2 * L,
                        "flash_fwd": 2 * L, "flash_bwd_dq": L,
                        "flash_bwd_dkv": L}, "GPT training path")
+    gpt_dropout_step(torch, tree, ids, counts, steps)
     return counts, step, ids
+
+
+def gpt_dropout_step(torch, tree, ids, counts, steps):
+    """One step of the same GPT-3 XL train step at dropout 0.1 (residual
+    dropout in the sub-blocks' epilogues, the embedding's in tensor
+    code): the loss finite, and the launches of rows 2-5 (and their
+    routes) those of one dropout-0 step."""
+    import math
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.parallel import HybridParallelTrainStep
+    cfg = GPTConfig.gpt3_1p3b(amp_dtype="bfloat16", attn_impl="flash",
+                              remat=True, dropout=0.1)
+    step = HybridParallelTrainStep(cfg, dp=1, pp=1, tp=1,
+                                   grad_clip_norm=1.0, params=tree)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss = float(step(ids))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    want = {k: v // steps for k, v in counts.items()}
+    print(json.dumps({"phase": "gpt_dropout_step", "dropout": 0.1,
+                      "loss": loss, "step_ms": round(wall * 1e3, 3),
+                      "launches": got, "launches_p0_step": want}),
+          flush=True)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss):
+        fail(f"GPT at dropout 0.1: non-finite loss {loss}")
+    if got != want:
+        fail(f"GPT at dropout 0.1: launches {got} against a dropout-0 "
+             f"step's {want}")
 
 
 def off_route(counts, want, what, route="tc"):
@@ -2670,11 +2818,16 @@ def bert_loss_fn(m, ids, pos, mlm, nsp):
     return m.loss(logits, nsp_logits, mlm, nsp)
 
 
-def bert_model(layers: int, seed: int = 0):
+def bert_model(layers: int, seed: int = 0, dropout: float | None = None):
+    """BERT-base cut to `layers` layers from the port's seeded
+    initialisers; `dropout` (hidden and attention) other than the
+    config's 0.1 when given."""
     from paddle_tpu_torch.models.bert import BertConfig, BertForPretraining
     from paddle_tpu_torch.nn import initializer
     initializer.seed(seed)
-    cfg = BertConfig.base(num_hidden_layers=layers)
+    kw = {} if dropout is None else dict(
+        hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout)
+    cfg = BertConfig.base(num_hidden_layers=layers, **kw)
     model = BertForPretraining(cfg)
     model.train()
     return cfg, model
@@ -2786,6 +2939,7 @@ def bert_training_path(torch, steps=5):
             "launches_predicted": {k: v * steps for k, v in
                                    BERT_LAUNCHES_PER_STEP.items()}}
     print(json.dumps(main), flush=True)
+    MEASURED["bert_samples_per_s"] = main["samples_per_s"]
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite BERT training loss: {losses}")
     if not mlm_losses[-1] < mlm_losses[0]:
@@ -3443,6 +3597,364 @@ def widedeep_phase(torch, with_profile=False):
                       "widedeep_train_step", top_n=16)
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (item 14(a)): two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def dp_worker(case, out_dir, *args):
+    """One rank of a data-parallel phase, started by the port's
+    distributed.spawn: joins the process group from the PADDLE_* env
+    (two ranks on one card: gloo with CUDA tensors), runs DP_CASES[case]
+    on the card and pickles its result to <out_dir>/rank<r>.pkl. The
+    kernels are the ones the parent built; a build here is recorded and
+    fails the phase."""
+    import pickle
+
+    import torch
+    from paddle_tpu_torch.distributed import env
+    from paddle_tpu_torch.models.gpt import disable_tf32
+    from paddle_tpu_torch.ops import _build
+    if not torch.cuda.is_available():
+        raise RuntimeError("a data-parallel rank found no CUDA card")
+    penv = env.init_parallel_env()
+    disable_tf32()
+    res = DP_CASES[case](torch, *args)
+    res["backend"] = penv.backend
+    res["device"] = str(torch.device("cuda", torch.cuda.current_device()))
+    res["built_here"] = sorted(_build.build_log())
+    with open(os.path.join(out_dir, f"rank{penv.rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def run_dp(case, *args, timeout=300):
+    """DP_CASES[case] on DP_RANKS ranks of the one card; their results,
+    rank by rank. A rank that fails or outlives `timeout` fails the run
+    (spawn terminates the others)."""
+    import pickle
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed import spawn
+    out = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        try:
+            spawn(dp_worker, args=(case, out, *args), nprocs=DP_RANKS,
+                  timeout=timeout)
+        except RuntimeError as e:
+            fail(f"data-parallel phase {case!r}: {e}")
+        res = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
+                res.append(pickle.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    for r, rank in enumerate(res):
+        if rank["built_here"] or rank["backend"] != "gloo" \
+                or not rank["device"].startswith("cuda"):
+            fail(f"{case} rank {r}: backend {rank['backend']}, device "
+                 f"{rank['device']}, kernels built in the rank "
+                 f"{rank['built_here']} (want gloo, cuda, none)")
+    return res
+
+
+def _timed_sync(torch, fn, spent):
+    """fn wrapped so that the wall of each call, the card drained
+    before and after, adds to spent[0]."""
+    def wrapped(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+    return wrapped
+
+
+def bert_dp_steps(torch, dropout, steps, mesh=None, sync=None):
+    """bench_bert's step (BERT-base, seed-0 weights, AdamW 1e-4, O1) on
+    the global batch 16 x 128: losses, step seconds and the launch
+    counts of the steps (set to 0 just before them)."""
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg, model = bert_model(BERT_LAYERS, dropout=dropout)
+    step = make_train_step(model, bert_loss_fn, optimizer="adamw", lr=1e-4,
+                           amp_level="O1", mesh=mesh)
+    batch = bert_batch(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, syncs = [], [], []
+    for _ in range(steps):
+        if sync is not None:
+            sync[0] = 0.0
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        if sync is not None:
+            syncs.append(sync[0])
+    return {"losses": losses, "times": times, "syncs": syncs,
+            "counts": launch_counts(),
+            "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+
+
+def dp_bert_case(torch, steps):
+    """A rank of bert_dp: the step at dropout 0, then at dropout 0.1
+    with the gradient all-reduce timed (the card drained around it)."""
+    from paddle_tpu_torch.distributed import make_mesh
+    from paddle_tpu_torch.jit import functional as jf
+    mesh = make_mesh({"dp": DP_RANKS})
+    p0 = bert_dp_steps(torch, 0.0, steps, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    spent = [0.0]
+    real = jf.all_reduce_buckets
+    jf.all_reduce_buckets = _timed_sync(torch, real, spent)
+    try:
+        p1 = bert_dp_steps(torch, 0.1, steps, mesh, spent)
+    finally:
+        jf.all_reduce_buckets = real
+    return {"p0": p0, "p1": p1}
+
+
+def bert_dp_phase(torch, dp1_samples_per_s, steps=5):
+    """bench_bert's configuration at dp = 2 through TrainStep(mesh=
+    make_mesh({"dp": 2})): two ranks on the card over gloo, each on its
+    8 of the global 16 sequences. At dropout 0 the losses must agree
+    with a dp = 1 run on the card (same weights and global batch) within
+    1e-3 relative; at dropout 0.1: step ms (median of 4), global
+    samples/s beside phase 8's dp = 1 figure, each rank's peak memory
+    and the all-reduce's share of the step; rows 2-5 and 8-9 must launch
+    on both ranks, as often on each. Returns each rank's counts of the
+    dropout-0.1 run."""
+    import math
+    one = bert_dp_steps(torch, 0.0, steps)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_dp("bert", steps)
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["p0"]["losses"], one["losses"]))
+    p1 = [r["p1"] for r in ranks]
+    step_s = statistics.median(max(t) for t in zip(*(p["times"][1:]
+                                                     for p in p1)))
+    sync_share = [statistics.median(s / t for s, t in zip(
+        p["syncs"][1:], p["times"][1:])) for p in p1]
+    dp_counts = [{k: p["counts"].get(k, 0)
+                  for k in BERT_LAUNCHES_PER_STEP} for p in p1]
+    main = {"phase": "bert_dp", "config": "bert_base O1 adamw lr=1e-4",
+            "dp": DP_RANKS, "transport": "gloo, 2 ranks on one card",
+            "batch": BERT_BATCH, "seq": BERT_SEQ,
+            "dp1_losses_p0": one["losses"],
+            "dp2_losses_p0": [r["p0"]["losses"] for r in ranks],
+            "max_rel_p0": rel, "rtol": 1e-3,
+            "dp2_losses_p01": [p["losses"] for p in p1],
+            "step_ms": [[round(t * 1e3, 3) for t in p["times"]]
+                        for p in p1],
+            "step_ms_median": round(step_s * 1e3, 3),
+            "samples_per_s": round(BERT_BATCH / step_s, 2),
+            "dp1_samples_per_s": dp1_samples_per_s,
+            "allreduce_ms": [[round(s * 1e3, 3) for s in p["syncs"]]
+                             for p in p1],
+            "allreduce_share": [round(s, 4) for s in sync_share],
+            "peak_gb": [p["peak_gb"] for p in p1],
+            "launches": dp_counts}
+    print(json.dumps(main), flush=True)
+    if not rel <= 1e-3 or not all(math.isfinite(x) for p in p1
+                                  for x in p["losses"]):
+        fail(f"bert_dp: dp = 2 losses off the dp = 1 run (max rel {rel}) "
+             f"or not finite: {main}")
+    if any(n <= 0 for c in dp_counts for n in c.values()) \
+            or dp_counts[0] != dp_counts[1]:
+        fail(f"bert_dp: rows 2-5 and 8-9 not launched alike on both "
+             f"ranks: {dp_counts}")
+    return dp_counts
+
+
+def conv_bn_net():
+    """conv 3->8 (3 x 3) -> batch norm -> relu -> global average pool ->
+    fc 8->5 from the port's layers, seeded initialisers (the net of
+    tests/test_torch_data_parallel.py)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import initializer
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 8, 3, padding=1, bias_attr=False)
+            self.bn = nn.BatchNorm2D(8)
+            self.relu = nn.ReLU()
+            self.pool = nn.AdaptiveAvgPool2D((1, 1))
+            self.flatten = nn.Flatten()
+            self.fc = nn.Linear(8, 5)
+
+        def forward(self, x):
+            h = self.relu(self.bn(self.conv(x)))
+            return self.fc(self.flatten(self.pool(h)))
+
+    initializer.seed(5)
+    return Net()
+
+
+def conv_bn_batches():
+    """Three global batches of 8 images 16 x 16; the second half shifted
+    by +1.5, so the two ranks' channel means differ."""
+    import numpy as np
+    out = []
+    for i in range(3):
+        rs = np.random.RandomState(20 + i)
+        img = rs.randn(8, 3, 16, 16).astype("float32")
+        img[4:] += 1.5
+        out.append((img, rs.randint(0, 5, (8, 1)).astype("int64")))
+    return out
+
+
+def conv_bn_steps(torch, mesh=None):
+    from paddle_tpu_torch.jit import make_train_step
+    from paddle_tpu_torch.nn import functional as F
+    net = conv_bn_net().train()
+    step = make_train_step(
+        net, lambda m, img, lab: F.cross_entropy(m(img), lab),
+        optimizer="momentum", lr=0.1, mesh=mesh)
+    losses = [float(step(img, lab)) for img, lab in conv_bn_batches()]
+    step.write_back()
+    return losses, {n: v.detach().cpu().numpy()
+                    for n, v in net.state_dict().items()}
+
+
+def regression_program():
+    """tests/test_data_parallel.py's program with the port's fluid: x
+    (-1, 8) -> fc 16 relu -> fc 1, mean squared error, SGD 0.05."""
+    from paddle_tpu_torch import fluid
+    fw, layers = fluid.framework, fluid.layers
+    main, startup = fw.Program(), fw.Program()
+    main.random_seed = startup.random_seed = 7
+    with fw.program_guard(main, startup), fluid.unique_name.guard():
+        x = layers.data("x", [-1, 8], "float32")
+        y = layers.data("y", [-1, 1], "float32")
+        h = layers.fc(x, 16, act="relu")
+        d = layers.elementwise_sub(layers.fc(h, 1), y)
+        loss = layers.mean(layers.elementwise_mul(d, d))
+        fluid.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    return main, startup, loss
+
+
+def regression_losses(torch, start, parallel, steps=20):
+    """20 steps of the regression from the scope `start` on the card,
+    data-parallel through CompiledProgram.with_data_parallel or not."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fluid import (CUDAPlace, Executor,
+                                        scope_from_numpy, scope_guard)
+    from paddle_tpu_torch.fluid.compiler import CompiledProgram
+    pt.enable_static()
+    try:
+        main, _, loss = regression_program()
+        prog = CompiledProgram(main).with_data_parallel(loss.name) \
+            if parallel else main
+        rng = np.random.RandomState(3)
+        w_true = rng.randn(8, 1).astype("float32")
+        losses = []
+        with scope_guard(scope_from_numpy(start, CUDAPlace(0))):
+            exe = Executor(CUDAPlace(0))
+            for _ in range(steps):
+                xb = rng.randn(64, 8).astype("float32")
+                losses.append(float(exe.run(
+                    prog, feed={"x": xb, "y": xb @ w_true},
+                    fetch_list=[loss])[0][0]))
+        return losses
+    finally:
+        pt.disable_static()
+
+
+def dp_parity_case(torch, start):
+    from paddle_tpu_torch.distributed import make_mesh
+    losses, state = conv_bn_steps(torch, make_mesh({"dp": DP_RANKS}))
+    return {"conv_losses": losses, "conv_state": state,
+            "static_losses": regression_losses(torch, start, True)}
+
+
+def dp_parity_phase(torch):
+    """dp = 2 against dp = 1 on the card, small: the conv-BN net in
+    training mode, 3 momentum steps (losses, parameters and running
+    statistics within 1e-4 + 1e-4 relative), and the static regression
+    program through CompiledProgram.with_data_parallel, 20 SGD steps
+    from one initial scope (losses within 2e-3 relative)."""
+    import numpy as np
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fluid import CUDAPlace, Executor, Scope, scope_guard
+    pt.enable_static()
+    try:
+        main, startup, _ = regression_program()
+        scope = Scope()
+        with scope_guard(scope):
+            Executor(CUDAPlace(0)).run(startup)
+        start = {n: scope.numpy(n) for n in scope.local_var_names()}
+    finally:
+        pt.disable_static()
+    one_losses, one_state = conv_bn_steps(torch)
+    one_static = regression_losses(torch, start, False)
+    ranks = run_dp("parity", start)
+    conv_err = max(float(np.max(np.abs(r["conv_state"][n] - v)
+                                / (1e-4 + 1e-4 * np.abs(v))))
+                   for r in ranks for n, v in one_state.items())
+    loss_err = max(abs(a - b) / (1e-4 + 1e-4 * abs(b)) for r in ranks
+                   for a, b in zip(r["conv_losses"], one_losses))
+    static_rel = max(abs(a - b) / abs(b) for r in ranks
+                     for a, b in zip(r["static_losses"], one_static))
+    main = {"phase": "dp_parity", "dp": DP_RANKS,
+            "transport": "gloo, 2 ranks on one card",
+            "conv_bn_losses_dp1": one_losses,
+            "conv_bn_losses_dp2": [r["conv_losses"] for r in ranks],
+            "conv_bn_err_over_tol": max(conv_err, loss_err),
+            "static_losses_dp1": one_static,
+            "static_losses_dp2": [r["static_losses"] for r in ranks],
+            "static_max_rel": static_rel, "static_rtol": 2e-3}
+    print(json.dumps(main), flush=True)
+    if not max(conv_err, loss_err) <= 1.0 or not static_rel <= 2e-3:
+        fail(f"dp_parity: dp = 2 off dp = 1 on the card: {main}")
+
+
+def dp_allreduce_case(torch, mb, warmup, steps):
+    from paddle_tpu_torch.distributed import collective, make_mesh
+    group = make_mesh({"dp": DP_RANKS}).group("dp")
+    x = torch.ones(mb * 1024 * 1024 // 4, device="cuda")
+    for _ in range(warmup):
+        collective.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        collective.all_reduce(x, group=group)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    return {"seconds": dt, "value": float(x[0])}
+
+
+def allreduce_phase(torch, mb=64, warmup=5, steps=30):
+    """bench.py's bench_allreduce over the dp group: 64 MB of f32 on the
+    card, 5 warm-up and 30 timed all-reduces; algorithmic bandwidth
+    2 (n - 1) / n bytes / time, as bench.py computes it. Two ranks on
+    one card over gloo: a host-path figure, not NCCL's or NVLink's."""
+    ranks = run_dp("allreduce", mb, warmup, steps)
+    n = DP_RANKS
+    want = float(n ** (warmup + steps))     # ones summed over n, repeatedly
+    dt = max(r["seconds"] for r in ranks)
+    bw = 2 * (n - 1) / n * mb * 1024 * 1024 / dt / 1e9
+    main = {"phase": "allreduce", "metric": "allreduce_algbw_gbps",
+            "value": round(bw, 3), "unit": "GB/s", "ranks": n,
+            "payload_mb": mb, "ms_per_call": round(dt * 1e3, 3),
+            "transport": "gloo, 2 ranks on one card (host path; not an "
+                         "NCCL or NVLink figure)"}
+    print(json.dumps(main), flush=True)
+    if any(r["value"] != want for r in ranks):
+        fail(f"allreduce: the sum is off: {[r['value'] for r in ranks]} "
+             f"against {want}")
+
+
+DP_CASES = {"bert": dp_bert_case, "parity": dp_parity_case,
+            "allreduce": dp_allreduce_case}
+
+
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
     """Device-time breakdown of `steps` static steps."""
     profile_steps(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
@@ -3634,6 +4146,7 @@ def main(argv):
     check_rows(torch, timer, results)
     check_blocks_bert(torch, timer, results)
     check_flash_bert(torch, timer, results)
+    check_flash_block_override(torch)
     check_ffn(torch, timer, results)
     print(json.dumps({"phase": "seconds", "of": "kernel_checks",
                       "seconds": round(time.perf_counter() - t0, 2)}),
@@ -3711,11 +4224,20 @@ def main(argv):
 
     timed("widedeep_parity", widedeep_parity, torch)
     timed("widedeep_phase", widedeep_phase, torch, with_profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_counts = timed("bert_dp", bert_dp_phase, torch,
+                      MEASURED.get("bert_samples_per_s"))
+    timed("dp_parity", dp_parity_phase, torch)
+    timed("allreduce", allreduce_phase, torch)
 
-    print(json.dumps(kernels_line(results, serve_counts, wide_counts,
-                                  train_counts, bert_counts, layer_counts,
-                                  ffn_counts, wire_counts)),
-          flush=True)
+    line = kernels_line(results, serve_counts, wide_counts, train_counts,
+                        bert_counts, layer_counts, ffn_counts, wire_counts)
+    for ent in line["kernels"]:
+        if ent["name"] in BERT_LAUNCHES_PER_STEP:
+            # the bert_dp run's launches, rank by rank
+            ent["bert_dp_launches"] = [c[ent["name"]] for c in dp_counts]
+    print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

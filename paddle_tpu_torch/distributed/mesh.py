@@ -1,0 +1,106 @@
+"""Global process mesh (counterpart of ``paddle_tpu/distributed/mesh.py``).
+
+The reference's ``Mesh`` lays jax devices out on named axes, and its
+collectives name an axis instead of a ring. The port runs one process
+per rank, so its ``Mesh`` lays the ranks of the process group out on
+named axes, row-major as ``numpy.reshape`` lays out the reference's
+devices, and keeps for each axis the process group of the ranks that
+share this rank's other coordinates. The groups are made over the
+world's backend (``env.init_parallel_env``); ``torch.distributed``'s
+``DeviceMesh`` is not used, since for "cuda" it would ask NCCL, which
+refuses two ranks on one card.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch.distributed as dist
+
+from .env import get_rank, get_world_size
+
+__all__ = ["Mesh", "default_mesh", "get_mesh", "set_mesh", "make_mesh"]
+
+
+class Mesh:
+    """Named axes over the ranks of the world. ``shape`` maps each axis
+    to its size (the reference's ``mesh.shape``); ``group(axis)`` is the
+    process group of this rank's line along it (None when the axis has
+    one rank); ``coord(axis)`` is this rank's index on it."""
+
+    def __init__(self, axes: dict[str, int]):
+        self.axis_names = tuple(axes)
+        self.shape = dict(axes)
+        self.size = math.prod(axes.values())
+        world = get_world_size()
+        if self.size != world:
+            raise ValueError(f"mesh {axes} holds {self.size} ranks; the "
+                             f"world has {world}")
+        ranks = np.arange(world).reshape([axes[a] for a in self.axis_names])
+        here = np.argwhere(ranks == get_rank())[0]
+        self._coord = {a: int(i) for a, i in zip(self.axis_names, here)}
+        self._groups = {}
+        for i, name in enumerate(self.axis_names):
+            if axes[name] == 1:
+                self._groups[name] = None
+                continue
+            if axes[name] == world:
+                self._groups[name] = dist.group.WORLD
+                continue
+            # every rank makes every group, in one order (new_group is
+            # collective over the world); it keeps its own line's
+            lines = np.moveaxis(ranks, i, -1).reshape(-1, axes[name])
+            for line in lines:
+                g = dist.new_group([int(r) for r in line])
+                if get_rank() in line:
+                    self._groups[name] = g
+
+    def group(self, axis: str):
+        return self._groups[axis]
+
+    def coord(self, axis: str) -> int:
+        return self._coord[axis]
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape.get(axis, 1)
+
+    def __repr__(self):
+        return f"Mesh({self.shape})"
+
+
+_mesh: Mesh | None = None
+
+
+def make_mesh(axes: dict[str, int] | None = None) -> Mesh:
+    """A Mesh from {axis_name: size}; the sizes multiply to the world
+    size, one of them may be -1 (the rest of the world). None: one "dp"
+    axis over the world."""
+    world = get_world_size()
+    if not axes:
+        return Mesh({"dp": world})
+    sizes = dict(axes)
+    wild = [a for a, s in sizes.items() if s == -1]
+    if len(wild) > 1:
+        raise ValueError(f"at most one axis may be -1, got {axes}")
+    if wild:
+        known = math.prod(s for s in sizes.values() if s != -1)
+        sizes[wild[0]] = world // known
+    return Mesh(sizes)
+
+
+def default_mesh() -> Mesh:
+    global _mesh
+    if _mesh is None:
+        _mesh = make_mesh(None)
+    return _mesh
+
+
+def get_mesh() -> Mesh | None:
+    return _mesh
+
+
+def set_mesh(mesh: Mesh | dict | None):
+    global _mesh
+    _mesh = make_mesh(mesh) if isinstance(mesh, dict) or mesh is None \
+        else mesh
+    return _mesh

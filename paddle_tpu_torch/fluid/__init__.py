@@ -17,6 +17,7 @@ from .initializer import Constant, Normal, Uniform, Xavier
 from . import optimizer
 from .param_attr import ParamAttr
 from .scope import Scope, scope_from_numpy
+from ..distributed import collective as _collective  # registers the c_* ops
 
 __all__ = [
     "core", "framework", "layers", "initializer", "optimizer",

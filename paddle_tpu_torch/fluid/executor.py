@@ -18,12 +18,26 @@ stochastic op draws its int32 from (run seed, its ``_rng_id``) with
 ``nn.functional.op_seed``, so its forward and its grad op see the same
 numbers.
 
-``CompiledProgram`` and the mesh/sharding branches are multi-device
-(slice 5); ``train_from_dataset`` waits for the dataset readers (slice
-6). Both raise NotImplementedError.
+Data parallelism: a program marked ``{"mode": "dp"}``
+(``CompiledProgram.with_data_parallel``, ``fleet.minimize``) runs on
+this rank's rows of every feed whose first axis the "dp" axis divides
+(the reference's ``_val_sharding``; other feeds whole), and before the
+first update op of each optimizer (``Program._grad_syncs``) the
+gradients it reads are summed over the ranks in flat buckets and scaled
+by 1 / ranks (the reference's ``GradientScaleStrategy.CoeffNumDevice``).
+The run holds ``collective_axis("dp")`` open, so the ``c_*`` ops and
+batch norm reduce over the ranks; stochastic ops fold the rank into
+their seeds; the program's loss (``_sharding_info["loss"]``), when
+fetched, is the mean over the ranks: the global batch's mean loss. The
+first data-parallel run of a program in a scope gives every rank rank
+0's persistables. Over one rank the run is the plain one. A program
+that also names tensor, pipeline or sequence parallel degrees raises
+NotImplementedError (ROADMAP.md A, item 14(b), (c));
+``train_from_dataset`` waits for the dataset readers (slice 6).
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Sequence
 
@@ -56,16 +70,20 @@ __all__ = ["Executor", "ExecContext", "global_scope", "scope_guard",
 
 class ExecContext:
     """Per-run context handed to op compute fns: the device, the run's
-    seed (``rng`` gives an op its int32 from (seed, ``_rng_id``)), and
-    test/train mode."""
+    seed (``rng`` gives an op its int32 from (seed, ``_rng_id``, the
+    data-parallel rank)), test/train mode, and the mesh axis of a
+    data-parallel run."""
 
-    def __init__(self, seed: int, is_test: bool = False, device=None):
+    def __init__(self, seed: int, is_test: bool = False, device=None,
+                 rank: int = 0, mesh_axis: str | None = None):
         self.seed = int(seed)
         self.is_test = is_test
         self.device = torch.device(device or "cpu")
+        self.rank = rank
+        self.mesh_axis = mesh_axis
 
     def rng(self, attrs: dict) -> int:
-        return op_seed(self.seed, attrs.get("_rng_id", 0))
+        return op_seed(self.seed, attrs.get("_rng_id", 0), self.rank)
 
     def generator(self, attrs: dict) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -82,12 +100,16 @@ def _env_get(env: dict, name: str):
             f"an op, or run the startup program first") from None
 
 
-def run_block(block: Block, env: dict, ctx: ExecContext, ops=None) -> dict:
+def run_block(block: Block, env: dict, ctx: ExecContext, ops=None,
+              before=None) -> dict:
     """Run every op of `block` (or the `ops` subset) against `env`
     (name -> tensor), in order, without autograd recording (grad ops
-    record what they need themselves)."""
+    record what they need themselves). `before(op, env)`, when given,
+    runs ahead of each op."""
     with torch.no_grad():
         for i, op in enumerate(block.ops if ops is None else ops):
+            if before is not None:
+                before(op, env)
             opdef = registry.require(op.type)
             ins = {slot: [_env_get(env, n) for n in names]
                    for slot, names in op.inputs.items()}
@@ -145,6 +167,7 @@ class Executor:
         self.device = self.place.torch_device()
         self._cache: dict[tuple, Any] = {}
         self._run_counter = 0
+        self._dp_synced: set[tuple[int, int]] = set()
         self.compiles = 0
         self.cache_hits = 0
 
@@ -170,13 +193,8 @@ class Executor:
                   use_prune):
         program = program if program is not None else default_main_program()
         if hasattr(program, "_program"):  # CompiledProgram wrapper
-            raise NotImplementedError(
-                "CompiledProgram (data-parallel execution) is multi-device: "
-                "it comes with slice 5 of the port (ROADMAP.md A, item 14)")
-        if getattr(program, "_sharding_info", None):
-            raise NotImplementedError(
-                "sharded programs (mesh, tensor-parallel rules) come with "
-                "slice 5 of the port (ROADMAP.md A, item 14)")
+            program = program._program
+        dp = _DataParallel.of(program)
         feed = dict(feed or {})
         scope = scope or global_scope()
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
@@ -217,16 +235,20 @@ class Executor:
         for n in feed_names:
             var = program.global_block()._var_recursive(n)
             dtype = var.dtype if var is not None and var.dtype else None
-            val = self._to_tensor(feed[n], dtype)
+            val = feed[n]
+            if not isinstance(val, torch.Tensor):
+                val = np.asarray(val)
             if var is not None and var.shape is not None:
                 declared = var.shape
-                ok = len(declared) == val.dim() and all(
+                ok = len(declared) == val.ndim and all(
                     d < 0 or d == s for d, s in zip(declared, val.shape))
                 if not ok:
                     raise ValueError(
                         f"feed {n!r} has shape {tuple(val.shape)} but the "
                         f"graph declares {tuple(declared)}")
-            feed_vals.append(val)
+            if dp is not None:
+                val = dp.rows(val)     # on the host, before the copy
+            feed_vals.append(self._to_tensor(val, dtype))
 
         plan = self._plan(program, skey, feed_names, feed_vals, ext_reads,
                           written, persistable, fetch_names, run_ops)
@@ -236,11 +258,19 @@ class Executor:
         seed = ((program.random_seed * 1000003 + self._run_counter)
                 & 0xFFFFFFFF if program.random_seed
                 else int(np.random.randint(0, 2 ** 31)))
+        if dp is not None:
+            dp.sync_persistables(scope, read_names, self._dp_synced)
         env: dict[str, Any] = {n: scope.find_var(n) for n in read_names}
         env.update(zip(feed_names, feed_vals))
-        ctx = ExecContext(seed, is_test=program._is_test, device=self.device)
-        run_block(program.global_block(), env, ctx, ops=run_ops)
+        ctx = ExecContext(seed, is_test=program._is_test, device=self.device,
+                          rank=dp.rank if dp else 0,
+                          mesh_axis="dp" if dp else None)
+        with dp.axis() if dp else contextlib.nullcontext():
+            run_block(program.global_block(), env, ctx, ops=run_ops,
+                      before=dp.before_op if dp else None)
         fetches = [_env_get(env, n) for n in fetch_names]
+        if dp is not None:
+            fetches = dp.global_fetches(fetch_names, fetches)
         updates = [(n, env[n]) for n in upd_names]
         for n, v in updates:
             scope.set(n, v)
@@ -321,3 +351,78 @@ class Executor:
 
     def close(self):
         self._cache.clear()
+
+
+class _DataParallel:
+    """One data-parallel run of a program over the mesh's "dp" axis."""
+
+    @classmethod
+    def of(cls, program: Program):
+        info = getattr(program, "_sharding_info", None)
+        if not info:
+            return None
+        for axis, item in (("tp", "14(b)"), ("pp", "14(b)"), ("sp", "14(c)")):
+            if info.get(axis):
+                raise NotImplementedError(
+                    f"a program sharded over {axis!r} ({info}) comes with "
+                    f"ROADMAP.md A, item {item}; data parallelism runs")
+        from ..distributed.collective import axis_group
+        from ..distributed.mesh import default_mesh, get_mesh
+        group = axis_group("dp")
+        if group is None:
+            return None
+        mesh = get_mesh() or default_mesh()
+        return cls(program, info, group, mesh.axis_size("dp"),
+                   mesh.coord("dp"))
+
+    def __init__(self, program, info, group, n, rank):
+        self.program, self.info = program, info
+        self.group, self.n, self.rank = group, n, rank
+        block = program.global_block()
+        self._syncs = {id(block.ops[i]): grads
+                       for i, grads in program._grad_syncs
+                       if i < len(block.ops)}
+
+    def rows(self, val):
+        """This rank's rows of a feed whose first axis the ranks divide;
+        any other feed whole."""
+        if val.ndim >= 1 and val.shape[0] % self.n == 0:
+            b = val.shape[0] // self.n
+            return val[self.rank * b:(self.rank + 1) * b]
+        return val
+
+    def axis(self):
+        from ..distributed.collective import collective_axis
+        return collective_axis("dp")
+
+    def before_op(self, op, env):
+        grads = self._syncs.get(id(op))
+        if grads:
+            from ..distributed.parallel import all_reduce_buckets
+            all_reduce_buckets([env[g] for g in grads if g in env],
+                               group=self.group, scale=1.0 / self.n)
+
+    def sync_persistables(self, scope, names, done: set):
+        """Rank 0's persistables on every rank, once a (scope, program)
+        (`done` holds the pairs already synced)."""
+        key = (id(scope), id(self.program))
+        if key in done:
+            return
+        from ..distributed.parallel import broadcast_tensors
+        broadcast_tensors([scope.find_var(n) for n in names],
+                          group=self.group)
+        done.add(key)
+
+    def global_fetches(self, names, values):
+        """The program's loss averaged over the ranks; the rest as this
+        rank computed them."""
+        loss = self.info.get("loss")
+        if loss not in names:
+            return values
+        from ..distributed.collective import all_reduce
+        values = list(values)
+        i = names.index(loss)
+        v = values[i].detach().clone()
+        all_reduce(v, group=self.group)
+        values[i] = v / self.n
+        return values

@@ -321,8 +321,13 @@ class Program:
         self.current_block_idx = 0
         self.random_seed = 0
         self._is_test = False
-        # set by the distributed passes (slice 5); the executor refuses it
+        # {"mode": "dp", ...} from CompiledProgram.with_data_parallel or
+        # fleet.minimize: the executor runs the program data-parallel
         self._sharding_info = None
+        # (index of an optimizer's first update op in the global block,
+        # the gradients it and the ops after it read): where a
+        # data-parallel run all-reduces the gradients
+        self._grad_syncs: list[tuple[int, list[str]]] = []
         # mutation counter → executor cache-key / analysis invalidation
         self._version = 0
         self._analysis_cache: tuple | None = None
@@ -375,6 +380,7 @@ class Program:
         p._version = 0
         p._analysis_cache = None
         p._sharding_info = copy.deepcopy(self._sharding_info, memo)
+        p._grad_syncs = copy.deepcopy(self._grad_syncs)
         p.current_block_idx = self.current_block_idx
         p.blocks = []
         for b in self.blocks:

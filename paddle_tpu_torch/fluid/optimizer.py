@@ -1,6 +1,6 @@
 """Static-graph optimizers (counterpart of
-``paddle_tpu/fluid/optimizer.py``; ported: the ``Optimizer`` base and
-Adam).
+``paddle_tpu/fluid/optimizer.py``; ported: the ``Optimizer`` base, Adam
+and SGD).
 
 `minimize` = append_backward + apply_gradients (one optimizer op per
 parameter; regularization and gradient clipping raise
@@ -9,9 +9,12 @@ ported). Accumulators are persistable global
 variables named as the reference names them
 (``<param>_moment1_0``, ``<param>_beta1_pow_acc_0``) and initialised by
 the startup program. The update ops run in place on the scope's
-tensors (``ops/optimizer_ops.py``).
+tensors (``ops/optimizer_ops.py``). Where the update ops begin is
+recorded on the program with the gradients they read
+(``Program._grad_syncs``): a data-parallel run all-reduces those
+gradients there.
 
-Every other optimizer class of the reference (SGD, Momentum, Adagrad,
+Every other optimizer class of the reference (Momentum, Adagrad,
 Adamax, RMSProp, Adadelta, Lamb, Ftrl, DecayedAdagrad, the meta
 optimizers) raises NotImplementedError: it comes with the rest of the
 op library, whose update ops it appends (ROADMAP.md A, item 11).
@@ -95,10 +98,15 @@ class Optimizer:
         self._create_accumulators(
             default_main_program().current_block(),
             [p for p, _ in params_grads])
+        block = default_main_program().current_block()
+        first = len(block.ops)
         ops = []
         for p, g in params_grads:
             ops.append(self._append_optimize_op(
                 default_main_program().current_block(), (p, g)))
+        if block.idx == 0 and len(block.ops) > first:
+            block.program._grad_syncs.append(
+                (first, [g.name for _, g in params_grads]))
         self._finish_update(default_main_program().current_block(),
                             params_grads)
         return ops
@@ -167,18 +175,30 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon})
 
 
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p.name]})
+
+
 def _not_ported(name: str):
     class _NotPorted(Optimizer):
         def __init__(self, *args, **kwargs):
             raise NotImplementedError(
                 f"fluid.optimizer.{name} is not ported to paddle_tpu_torch "
                 f"yet: it comes with the rest of the op library in a later "
-                f"PR of slice 4 (ROADMAP.md A, item 11); Adam is ported")
+                f"PR of slice 4 (ROADMAP.md A, item 11); Adam and SGD are "
+                f"ported")
     _NotPorted.__name__ = _NotPorted.__qualname__ = name
     return _NotPorted
 
 
-SGDOptimizer = _not_ported("SGDOptimizer")
 MomentumOptimizer = _not_ported("MomentumOptimizer")
 AdagradOptimizer = _not_ported("AdagradOptimizer")
 AdamaxOptimizer = _not_ported("AdamaxOptimizer")

@@ -29,6 +29,23 @@ gradient sums both uses and it is updated once. The step seed is the
 step count unless given; stochastic ops draw their int32 seeds from
 ``nn.functional.seed_scope(step seed)``. ``donate`` has no meaning here:
 updates are in place.
+
+Data parallelism (``mesh=`` a ``distributed.make_mesh({"dp": n})``):
+the reference shards the batch over the mesh's "dp" axis inside one
+jitted computation, so every reduction over the batch is global. The
+port runs one process per rank and computes the same global-batch
+function: at construction every rank takes rank 0's parameters and
+buffers; each step slices this rank's rows of every batch argument on
+the host (a batch the ranks do not divide raises, as the reference's
+``device_put`` does), runs the loss with ``collective_axis("dp")`` open
+(batch norm and the masked-LM mean reduce over the ranks, and the seed
+stream folds the rank in, so no two ranks draw one mask), averages the
+gradients over the ranks in flat buckets
+(``distributed.parallel.all_reduce_buckets``), then clips by the global
+norm and updates identically on every rank; it returns the ranks' mean
+loss, the global batch's. ``batch_spec`` is accepted and unused, as in
+the reference. ``remat=True`` recomputes every transformer layer in
+the backward (``distributed.recompute.wrap_layer_recompute``).
 """
 from __future__ import annotations
 
@@ -40,6 +57,10 @@ import torch
 from torch.func import functional_call
 
 from ..amp.auto_cast import amp_guard
+from ..distributed.collective import all_reduce, collective_axis
+from ..distributed.mesh import Mesh
+from ..distributed.parallel import all_reduce_buckets, broadcast_tensors
+from ..distributed.recompute import wrap_layer_recompute
 from ..fluid.ops.optimizer_ops import adam, adamw, momentum, sgd
 from ..models.gpt import disable_tf32, resolve_device
 from ..nn import functional as F
@@ -72,15 +93,6 @@ class TrainStep:
                  donate: bool = True, mesh=None, batch_spec=None,
                  remat: bool = False, amp_level: str | None = None,
                  device=None):
-        if mesh is not None or batch_spec is not None:
-            raise NotImplementedError(
-                "mesh= / batch_spec= (data-parallel sharding) come with "
-                "slice 5 of the port (torch.distributed); the port trains "
-                "on one device")
-        if remat:
-            raise NotImplementedError(
-                "remat=True (per-layer recompute of nn layers) comes with "
-                "slice 5 of the port, beside distributed.recompute")
         if optimizer not in ("adam", "adamw", "momentum", "sgd"):
             if optimizer == "lamb":
                 raise NotImplementedError(
@@ -96,6 +108,7 @@ class TrainStep:
             disable_tf32()
         self.model = model
         self.loss_fn = loss_fn
+        self.remat_layers = wrap_layer_recompute(model) if remat else 0
         self._bound = _LossModule(model, loss_fn)
         self._lr = lr
         self._optimizer = optimizer
@@ -116,6 +129,19 @@ class TrainStep:
         self.opt_state = {n: self._init_state(p)
                           for n, p in self.params.items()}
         self._step_count = 0
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a distributed.make_mesh() Mesh, "
+                            f"got {type(mesh).__name__}")
+        self._mesh = mesh
+        self._group = mesh.group("dp") if mesh is not None \
+            and "dp" in mesh.shape else None
+        self.dp = mesh.axis_size("dp") if self._group is not None else 1
+        self.dp_rank = mesh.coord("dp") if self._group is not None else 0
+        if self.dp > 1:
+            with torch.no_grad():
+                broadcast_tensors([*self.params.values(),
+                                   *self.buffers.values()],
+                                  group=self._group)
 
     def _init_state(self, p):
         if self._optimizer == "momentum":
@@ -128,18 +154,31 @@ class TrainStep:
                 "Beta1Pow": one, "Beta2Pow": one.clone()}
 
     def _batch(self, b):
+        """A batch argument on the device; under data parallelism this
+        rank's rows of it, cut on the host before the copy."""
         if not isinstance(b, torch.Tensor):
-            b = torch.as_tensor(np.asarray(b))
-        return b.to(self.device)
+            b = np.asarray(b)
+        if self.dp > 1:
+            n = b.shape[0] if b.ndim else 0
+            if n % self.dp:
+                raise ValueError(
+                    f"a batch of {n} rows does not split over dp = "
+                    f"{self.dp} ranks")
+            rows = n // self.dp
+            b = b[self.dp_rank * rows:(self.dp_rank + 1) * rows]
+        return torch.as_tensor(b).to(self.device)
 
     def loss(self, *batch, seed: int = 0):
         """loss_fn on the step's parameters under its autocast level and
-        the seed stream of `seed`, with autograd recording."""
+        the seed stream of `seed`, with autograd recording: this rank's
+        term of the global batch's loss under data parallelism."""
         amp_cm = amp_guard(True, level=self._amp_level) \
             if self._amp_level else contextlib.nullcontext()
+        dp_cm = collective_axis("dp", self._group) if self.dp > 1 \
+            else contextlib.nullcontext()
         state = {f"model.{n}": v for n, v in
                  (*self.params.items(), *self.buffers.items())}
-        with amp_cm, F.seed_scope(seed):
+        with amp_cm, dp_cm, F.seed_scope(seed, self.dp_rank):
             out = functional_call(self._bound, state,
                                   tuple(self._batch(b) for b in batch))
         return out.reshape(())
@@ -154,8 +193,13 @@ class TrainStep:
         with torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g
                      for p, g in zip(leaves, grads)]
+            loss = loss.detach()
+            if self.dp > 1:
+                all_reduce_buckets(grads, group=self._group,
+                                   scale=1.0 / self.dp)
+                loss = all_reduce(loss.clone(), group=self._group) / self.dp
             self._apply_update(grads, lr)
-        return loss.detach()
+        return loss
 
     def _apply_update(self, grads, lr):
         if self._clip:

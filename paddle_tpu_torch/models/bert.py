@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import nn
+from ..distributed.collective import batch_total
 from ..nn import functional as F
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertPooler", "BertModel",
@@ -164,14 +165,21 @@ class BertForPretraining(nn.Layer):
     def loss(self, prediction_logits, nsp_logits, masked_lm_labels,
              next_sentence_labels, ignore_index=-100):
         """Mean MLM cross entropy over non-ignored positions + NSP cross
-        entropy; a 0-d tensor."""
+        entropy; a 0-d tensor. In a data-parallel step the MLM mean is
+        the global batch's: the count of masked positions is summed over
+        the ranks (``batch_total``), and this rank's term is scaled by
+        the number of ranks, so that the ranks' mean loss and mean
+        gradient are the global batch's."""
         vocab = prediction_logits.shape[-1]
         logits2d = prediction_logits.reshape(-1, vocab)
         labels = masked_lm_labels.reshape(-1, 1)
         per_tok = F.softmax_with_cross_entropy(logits2d, labels,
                                                ignore_index=ignore_index)
         mask = (labels != ignore_index).float()
-        mlm = (per_tok * mask).sum() / mask.sum().clamp(min=1.0)
+        count, ranks = batch_total(mask.sum())
+        mlm = (per_tok * mask).sum() / count.clamp(min=1.0)
+        if ranks > 1:
+            mlm = mlm * ranks
         return mlm + F.cross_entropy(nsp_logits, next_sentence_labels)
 
 

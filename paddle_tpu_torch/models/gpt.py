@@ -15,6 +15,17 @@ The dense pre-LN decoder tail (``decoder_tail``) runs the two fused
 sub-block kernels of ``ops/fused_block.py``; causal attention is plain
 PyTorch with impl "xla" (the JAX package left it to XLA) and the flash
 kernels of ``ops/flash_attention.py`` with impl "flash".
+
+Residual dropout (``cfg.dropout``, the reference's GPT-2 placement: the
+embedding output, the attention out-projection and the FFN
+down-projection) is on when the forward is given a step seed ``key``.
+The reference draws its masks from ``jax.random``, which torch cannot
+replay; the port draws one int32 a dropout from the counter-hash seed
+stream of ``nn.functional`` (``seed_scope(key)``: the embedding's first,
+then two a layer), all before the first layer, so a layer recomputed in
+the backward replays its masks. The fused sub-blocks apply the two
+block dropouts in their epilogues; the composed tail drops with the same
+keep masks (``ops.fused_residual.apply_keep``).
 """
 from __future__ import annotations
 
@@ -26,7 +37,9 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
+from ..nn import functional as F
 from ..ops.fused_block import fused_ffn_ln, fused_out_ln, gelu_tanh
+from ..ops.fused_residual import apply_keep
 
 __all__ = ["GPTConfig", "init_gpt_params", "param_shapes",
            "params_from_jax", "gpt_forward", "gpt_forward_aux", "gpt_loss",
@@ -44,13 +57,13 @@ class GPTConfig:
     intermediate_size: int | None = None  # default 4*hidden
     layer_norm_eps: float = 1e-5
     initializer_range: float = 0.02
-    # residual dropout of the train step; the reference draws it from
-    # jax.random, which torch cannot replay, so only 0.0 is ported
+    # residual dropout of the train step (masks from the port's seed
+    # stream: the reference's jax.random cannot be replayed)
     dropout: float = 0.0
     # "bfloat16" casts block compute (training) and sets the serving KV
     # cache dtype
     amp_dtype: str | None = None
-    attn_impl: str = "xla"  # "xla" | "flash"; "ring" comes with slice 5
+    attn_impl: str = "xla"  # "xla" | "flash"; "ring" comes with item 14(c)
     # Mixture-of-Experts blocks come with the multi-device slice; the
     # moe_* fields keep the JAX package's defaults so a config written
     # into a checkpoint's manifest by either package rebuilds in both
@@ -73,7 +86,7 @@ class GPTConfig:
         if self.num_experts > 0:
             raise NotImplementedError(
                 "num_experts > 0 (MoE blocks, the ep mesh axis) comes with "
-                "slice 5 of the port (multi-device)")
+                "item 14(c) of the port (ROADMAP.md A)")
 
     @classmethod
     def tiny(cls, **kw):
@@ -210,8 +223,8 @@ def _causal_attention(q, k, v, n_heads, impl="xla"):
     impl "flash" runs the flash kernels (T a multiple of 64)."""
     if impl not in ("xla", "flash"):
         raise NotImplementedError(
-            f"attn_impl={impl!r}: ring attention comes with slice 5 of the "
-            f"port (multi-device)")
+            f"attn_impl={impl!r}: ring attention comes with item 14(c) of "
+            f"the port (ROADMAP.md A)")
     B, T, D = q.shape
     hd = D // n_heads
     q = q.reshape(B, T, n_heads, hd)
@@ -231,15 +244,24 @@ def _causal_attention(q, k, v, n_heads, impl="xla"):
     return o.reshape(B, T, D).contiguous()
 
 
-def decoder_tail(p, a2, x2, cfg: GPTConfig):
+def _drop(y, p, seed):
+    """Dropout at rate p with the keep mask of int32 `seed`, in f32 as
+    the fused sub-blocks drop, back in y's type."""
+    return y if p <= 0.0 else apply_keep(y.float(), seed, p).to(y.dtype)
+
+
+def decoder_tail(p, a2, x2, cfg: GPTConfig, drop: float = 0.0,
+                 seeds=(0, 0)):
     """Post-attention tail of a dense pre-LN decoder block, 2-d form:
 
-        z = x2 + a2 @ wo + bo
+        z = x2 + dropout(a2 @ wo + bo)
         h = LN2(z)
-        out = z + gelu_tanh(h @ w_up + b_up) @ w_down + b_down
+        out = z + dropout(gelu_tanh(h @ w_up + b_up) @ w_down + b_down)
 
-    a2/x2: (M, D) contiguous. With cfg.fused_blocks the two sub-blocks
-    are the fused kernels (their plain versions for CPU tensors)."""
+    a2/x2: (M, D) contiguous; dropout at rate `drop` with the masks of
+    the two int32 `seeds` (none at 0). With cfg.fused_blocks the two
+    sub-blocks are the fused kernels (their plain versions for CPU
+    tensors)."""
     cdt = x2.dtype
     wo, bo = p["wo"].to(cdt), p["bo"].to(cdt)
     w_up, b_up = p["w_up"].to(cdt), p["b_up"].to(cdt)
@@ -247,19 +269,20 @@ def decoder_tail(p, a2, x2, cfg: GPTConfig):
     eps = cfg.layer_norm_eps
     if cfg.fused_blocks:
         z, h = fused_out_ln(a2, wo, bo, x2, p["ln2_s"], p["ln2_b"],
-                            eps=eps)
+                            p=drop, eps=eps, seed=seeds[0])
         return fused_ffn_ln(h.to(cdt), w_up, b_up, w_down, b_down, z,
-                            eps=eps)
-    z = x2 + (a2 @ wo + bo).to(x2.dtype)
+                            p=drop, eps=eps, seed=seeds[1])
+    z = x2 + _drop(a2 @ wo + bo, drop, seeds[0]).to(x2.dtype)
     h = _ln(z, p["ln2_s"], p["ln2_b"], eps)
     u = gelu_tanh(h.to(cdt) @ w_up + b_up)
-    dn = u @ w_down + b_down
+    dn = _drop(u @ w_down + b_down, drop, seeds[1])
     return z + dn.to(z.dtype)
 
 
-def gpt_block_fn(p: dict, x, cfg: GPTConfig):
-    """One pre-LN decoder block on [B, T, D] (deterministic dense path:
-    no dropout, no experts). Returns the new x."""
+def gpt_block_fn(p: dict, x, cfg: GPTConfig, seeds=None):
+    """One pre-LN decoder block on [B, T, D] (dense: no experts), with
+    residual dropout at cfg.dropout from the two int32 `seeds` when they
+    are given. Returns the new x."""
     cdt = getattr(torch, cfg.amp_dtype) if cfg.amp_dtype else x.dtype
 
     def c(a):
@@ -271,8 +294,9 @@ def gpt_block_fn(p: dict, x, cfg: GPTConfig):
     v = c(h) @ c(p["wv"]) + c(p["bv"])
     a = _causal_attention(q, k, v, cfg.num_heads, cfg.attn_impl)
     B, T, D = x.shape
-    return decoder_tail(p, c(a).reshape(B * T, D),
-                        x.reshape(B * T, D), cfg).reshape(B, T, D)
+    drop = cfg.dropout if seeds is not None else 0.0
+    return decoder_tail(p, c(a).reshape(B * T, D), x.reshape(B * T, D),
+                        cfg, drop, seeds or (0, 0)).reshape(B, T, D)
 
 
 def _embed(params, ids, cfg: GPTConfig):
@@ -307,38 +331,47 @@ def _layers(blocks) -> list[dict]:
 
 
 def block_body(cfg: GPTConfig):
-    """(h, blk) -> h for one layer, recomputed in the backward when
-    cfg.remat and autograd is recording (the reference's jax.checkpoint
-    per layer)."""
-    def body(h, blk):
+    """(h, blk, seeds=None) -> h for one layer, recomputed in the
+    backward when cfg.remat and autograd is recording (the reference's
+    jax.checkpoint per layer); the seeds ride along, so the recompute
+    drops the same elements."""
+    def body(h, blk, seeds=None):
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(gpt_block_fn, blk, h, cfg, use_reentrant=False)
-        return gpt_block_fn(blk, h, cfg)
+            return checkpoint(gpt_block_fn, blk, h, cfg, seeds,
+                              use_reentrant=False)
+        return gpt_block_fn(blk, h, cfg, seeds)
     return body
 
 
-def gpt_forward_aux(params: dict, ids, cfg: GPTConfig):
+def gpt_forward_aux(params: dict, ids, cfg: GPTConfig, key=None):
     """(logits [B, T, V] float32, aux): aux is the MoE load-balance loss
-    of the reference, 0.0 for the dense blocks the port has."""
+    of the reference, 0.0 for the dense blocks the port has. `key` (an
+    int step seed) turns on dropout when cfg.dropout > 0."""
     x = _embed(params, ids, cfg)
     body = block_body(cfg)
-    for blk in _layers(params["blocks"]):
-        x = body(x, blk)
+    layers = _layers(params["blocks"])
+    seeds = [None] * len(layers)
+    if cfg.dropout and key is not None:
+        with F.seed_scope(key):
+            x = F.dropout(x, cfg.dropout, seed=F.next_seed())
+            seeds = [(F.next_seed(), F.next_seed()) for _ in layers]
+    for blk, s in zip(layers, seeds):
+        x = body(x, blk, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return _head(params, x, cfg), aux
 
 
-def gpt_forward(params: dict, ids, cfg: GPTConfig):
+def gpt_forward(params: dict, ids, cfg: GPTConfig, key=None):
     """ids [B, T] int -> logits [B, T, V] (float32)."""
-    return gpt_forward_aux(params, ids, cfg)[0]
+    return gpt_forward_aux(params, ids, cfg, key)[0]
 
 
-def gpt_loss(params: dict, ids, cfg: GPTConfig, logits=None):
+def gpt_loss(params: dict, ids, cfg: GPTConfig, logits=None, key=None):
     """Mean next-token cross entropy, as the reference computes it:
     logsumexp(logits) - gold logit, predicting ids[:, 1:] from
-    ids[:, :-1]."""
+    ids[:, :-1]. `key`: the step seed of the dropout masks."""
     if logits is None:
-        logits = gpt_forward_aux(params, ids, cfg)[0]
+        logits = gpt_forward_aux(params, ids, cfg, key)[0]
     ids = torch.as_tensor(ids, device=logits.device).long()
     logits = logits[:, :-1]
     labels = ids[:, 1:]

@@ -30,7 +30,13 @@ stochastic op that is given no ``seed`` takes ``next_seed()``, an int32
 hashed from (step seed, op index). The int32 goes to the kernel (or its
 plain version), which builds the mask with the reference's counter hash;
 the same step seed therefore gives the same masks on the CPU, on the
-card, through the kernels and through the composed chains.
+card, through the kernels and through the composed chains. Under data
+parallelism each rank opens its stream with its rank folded in
+(``seed_scope(step_seed, rank)``), so no two ranks draw one mask, as the
+reference draws distinct masks for every row of the global batch; rank
+0's stream is the single-device one. ``seed_state()`` and
+``seed_scope(*state)`` replay a stream from where it stood
+(``distributed.recompute``).
 
 ``composed_ops()`` is the port's counterpart of the reference's
 ``PADDLE_TPU_DISABLE_PALLAS``: inside the block every op takes its
@@ -58,7 +64,7 @@ __all__ = ["linear", "conv2d", "conv2d_op", "max_pool2d", "avg_pool2d",
            "fused_dropout_add_ln", "fused_out_ln", "fused_ffn_block",
            "scaled_dot_product_attention", "dropout", "gelu", "relu", "tanh",
            "softmax_with_cross_entropy", "cross_entropy", "seed_scope",
-           "next_seed", "op_seed", "composed_ops"]
+           "next_seed", "op_seed", "seed_state", "composed_ops"]
 
 _composed = False
 
@@ -79,12 +85,13 @@ def composed_ops(enable: bool = True):
 # per-op dropout seeds
 # ---------------------------------------------------------------------------
 
-def op_seed(step_seed: int, index: int) -> int:
-    """The int32 seed of stochastic op number `index` of a step: murmur3's
-    finaliser over the pair, so neighbouring steps and ops share no
-    mask."""
+def op_seed(step_seed: int, index: int, rank: int = 0) -> int:
+    """The int32 seed of stochastic op number `index` of a step on data-
+    parallel rank `rank`: murmur3's finaliser over the three, so
+    neighbouring steps, ops and ranks share no mask (rank 0 adds
+    nothing)."""
     x = (int(step_seed) * 0x9E3779B9 + int(index) * 0x85EBCA6B
-         + 0x165667B1) & 0xFFFFFFFF
+         + int(rank) * 0xC2B2AE35 + 0x165667B1) & 0xFFFFFFFF
     x ^= x >> 16
     x = (x * 0x85EBCA6B) & 0xFFFFFFFF
     x ^= x >> 13
@@ -94,28 +101,34 @@ def op_seed(step_seed: int, index: int) -> int:
 
 
 class _SeedStream:
-    def __init__(self, step_seed: int):
-        self.step_seed, self.index = int(step_seed), 0
+    def __init__(self, step_seed: int, rank: int = 0, index: int = 0):
+        self.step_seed, self.rank, self.index = \
+            int(step_seed), int(rank), int(index)
 
     def next(self) -> int:
         self.index += 1
-        return op_seed(self.step_seed, self.index)
+        return op_seed(self.step_seed, self.index, self.rank)
 
 
 _stream = _SeedStream(0)
 
 
 @contextlib.contextmanager
-def seed_scope(step_seed: int):
+def seed_scope(step_seed: int, rank: int = 0, drawn: int = 0):
     """Stochastic ops inside the block draw their seeds from a fresh
-    stream keyed by `step_seed`: op k of the block gets
-    op_seed(step_seed, k)."""
+    stream keyed by `step_seed` and `rank`: op k of the block gets
+    op_seed(step_seed, drawn + k, rank)."""
     global _stream
-    prev, _stream = _stream, _SeedStream(step_seed)
+    prev, _stream = _stream, _SeedStream(step_seed, rank, drawn)
     try:
         yield _stream
     finally:
         _stream = prev
+
+
+def seed_state() -> tuple[int, int, int]:
+    """(step seed, rank, seeds drawn) of the current stream."""
+    return _stream.step_seed, _stream.rank, _stream.index
 
 
 def next_seed() -> int:
@@ -292,16 +305,38 @@ def _bn_shapes(x, caxis):
     return axes, math.prod(x.shape[i] for i in axes), bshape
 
 
-def _bn_train_impl(x, scale, bias, shift, eps, caxis):
+def _batch_group():
+    """The data-parallel group batch statistics reduce over (None
+    outside a data-parallel step or program, or over one rank)."""
+    from ..distributed.collective import batch_group
+    return batch_group()
+
+
+def _sum_over(group, *sums):
+    """The per-channel sums added over the ranks of `group` (one
+    all-reduce), and the number of ranks; as given when group is None."""
+    if group is None:
+        return sums, 1
+    import torch.distributed as dist
+    both = torch.stack(sums)
+    dist.all_reduce(both, group=group)
+    return tuple(both.unbind(0)), dist.get_world_size(group)
+
+
+def _bn_train_impl(x, scale, bias, shift, eps, caxis, group=None):
     """The reference's training statistics and output
     (``_bn_train_impl``): single-pass sums shifted by `shift` (the
     running mean), the biased variance max(ss / n - d^2, 0), and
-    y = x * se + be computed in float32 and cast to x's type."""
+    y = x * se + be computed in float32 and cast to x's type. Under a
+    data-parallel `group` the two sums and n are the global batch's
+    (every rank's slice, the same shift on each), so every rank gets
+    the statistics the reference computes over the whole batch."""
     axes, n, bshape = _bn_shapes(x, caxis)
     sh = shift.float()
     vc = x.float() - sh.reshape(bshape)
-    s = vc.sum(axes)
-    ss = torch.square(vc).sum(axes)
+    (s, ss), ranks = _sum_over(group, vc.sum(axes),
+                               torch.square(vc).sum(axes))
+    n = n * ranks
     d = s / n
     mean = d + sh
     var = torch.clamp(ss / n - torch.square(d), min=0.0)
@@ -316,14 +351,17 @@ class _BatchNormTrain(torch.autograd.Function):
     """Training batch norm with the reference's hand-derived backward
     (``_bn_train_bwd``): activation-sized passes in float32, dx cast to
     x's type, dscale and dbias to the scale's; the statistics carry no
-    gradient, nor does the shift."""
+    gradient, nor does the shift. Under a data-parallel `group`, dx
+    takes Σdy and Σdy·x̂ over the global batch (each rank's dy is the
+    gradient of its own loss term), while dscale and dbias stay this
+    rank's sums: the step's gradient all-reduce adds them up."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, shift, eps, caxis):
+    def forward(ctx, x, scale, bias, shift, eps, caxis, group=None):
         y, mean, var, inv = _bn_train_impl(x, scale, bias, shift, eps,
-                                           caxis)
+                                           caxis, group)
         ctx.save_for_backward(x, scale, mean, inv)
-        ctx.caxis = caxis
+        ctx.caxis, ctx.group = caxis, group
         ctx.mark_non_differentiable(mean, var, inv)
         return y, mean, var, inv
 
@@ -335,11 +373,13 @@ class _BatchNormTrain(torch.autograd.Function):
         xhat = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
         dbias = dyf.sum(axes)
         dscale = (dyf * xhat).sum(axes)
+        (gbias, gscale), ranks = _sum_over(ctx.group, dbias, dscale)
+        n = n * ranks
         k = (inv * scale.float()).reshape(bshape)
-        dx = (k * (dyf - (dbias / n).reshape(bshape)
-                   - xhat * (dscale / n).reshape(bshape))).to(x.dtype)
+        dx = (k * (dyf - (gbias / n).reshape(bshape)
+                   - xhat * (gscale / n).reshape(bshape))).to(x.dtype)
         return (dx, dscale.to(scale.dtype), dbias.to(scale.dtype), None,
-                None, None)
+                None, None, None)
 
 
 def batch_norm_op(x, scale, bias, mean, variance, momentum=0.9,
@@ -350,7 +390,8 @@ def batch_norm_op(x, scale, bias, mean, variance, momentum=0.9,
     old value: torch's momentum 0.1 written the other way round) and
     VarianceOut likewise from the BIASED batch variance; SavedVariance is
     1 / sqrt(var + eps). Nothing is written in place. Test: the running
-    statistics, in x's type."""
+    statistics, in x's type. In a data-parallel step or program the
+    training statistics are the global batch's (``_BatchNormTrain``)."""
     caxis = 1 if data_layout == "NCHW" else x.dim() - 1
     _, _, bshape = _bn_shapes(x, caxis)
     if is_test:
@@ -360,7 +401,7 @@ def batch_norm_op(x, scale, bias, mean, variance, momentum=0.9,
             + bias.reshape(bshape).to(x.dtype)
         return y, mean, variance, mean, inv
     y, bm, bv, inv = _BatchNormTrain.apply(x, scale, bias, mean.detach(),
-                                           epsilon, caxis)
+                                           epsilon, caxis, _batch_group())
     with torch.no_grad():
         mean_out = momentum * mean + (1 - momentum) * bm
         var_out = momentum * variance + (1 - momentum) * bv

@@ -6,7 +6,10 @@ build takes seconds). All sources are compiled at once, one ``nvcc``
 process each, the first time any kernel is needed; the result lands in
 ``ops/build/`` under a name that carries a hash of the source, the
 shared ``csrc/*.cuh`` headers and the flags, so an edited source is
-rebuilt and an unchanged one is reused.
+rebuilt and an unchanged one is reused. Processes that share the
+checkout (the ranks of a data-parallel run) build under one file lock
+(``build/.lock``): the first builds, the others wait and load its
+libraries.
 
 A failed build raises with the compiler's output. There is no fallback:
 a CUDA tensor either reaches its kernel or the call raises.
@@ -19,6 +22,7 @@ designs counts each launch under its route as well.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -91,11 +95,19 @@ def build_all() -> dict[str, float]:
 
 
 def _build_locked() -> dict[str, float]:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
     secs = {n: 0.0 for n in SOURCES}
-    if not todo:
+    if all(_target(n).exists() for n in SOURCES):
         return secs
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # another process may be building
+        todo = {n: _target(n) for n in SOURCES if not _target(n).exists()}
+        if todo:
+            _compile(todo, secs)
+    return secs
+
+
+def _compile(todo: dict, secs: dict) -> None:
     nvcc = nvcc_path()
     procs = {}
     t0 = time.perf_counter()
@@ -117,7 +129,6 @@ def _build_locked() -> dict[str, float]:
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return secs
 
 
 def build_log() -> dict[str, str]:

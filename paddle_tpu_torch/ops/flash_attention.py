@@ -32,7 +32,11 @@
 The probabilities, the dropped probabilities and dS are rounded to the
 input type before their products, where the reference's kernels round
 them; P in the forward against the running row max at the reference's
-key blocks (``ref_block``). In float32 the rounding is the identity.
+key blocks (``ref_block``, which follows the reference's
+``PADDLE_TPU_FLASH_BLOCK_K`` override). In float32 the rounding is the
+identity. The kernels round at key blocks of 64, 128, 256 or 512; a
+call whose reference block is another width raises on the card before
+the launch.
 
 CUDA tensors go to ``csrc/flash_attention.cu`` or the call raises, on
 one of two routes chosen before the launch (``flash_tc_route``): bf16
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 
 import torch
 
@@ -63,6 +68,8 @@ __all__ = ["flash_attention", "scaled_dot_product_attention",
            "bwd_dkv_reference", "bwd_delta", "flash_tc_route", "ref_block"]
 
 _MIN_BLOCK = 64
+# the key blocks both kernel routes round at (flash_attention.cu valid())
+_KERNEL_BLOCKS = (64, 128, 256, 512)
 
 
 def keep_mask_salted(seed: int, bh: int, s: int, t: int, p: float,
@@ -140,10 +147,13 @@ def _scores(q3, k3, scale, causal, mask2):
 
 
 def ref_block(t: int) -> int:
-    """The reference's key block for T keys: the largest of 512, 256,
-    128 and 64 dividing T (its ``_auto_block`` default, without the
-    environment override). The forward rounds P against the running row
-    max at these blocks' boundaries."""
+    """The reference's key block for T keys (its ``_auto_block``):
+    ``PADDLE_TPU_FLASH_BLOCK_K`` when it is set and divides T, else the
+    largest of 512, 256, 128 and 64 dividing T. The forward rounds P
+    against the running row max at these blocks' boundaries."""
+    env = os.environ.get("PADDLE_TPU_FLASH_BLOCK_K")
+    if env and t % int(env) == 0:
+        return int(env)
     for b in (512, 256, 128, 64):
         if t % b == 0:
             return b
@@ -268,6 +278,12 @@ def _launch(op, ins, outs, t, code, scale, causal, mask2, seed, dropout_p):
     `op.simt`."""
     q3 = ins[0]
     bh, s, d = q3.shape
+    rb = ref_block(t)
+    if rb not in _KERNEL_BLOCKS:
+        raise ValueError(
+            f"{op}: the reference rounds at key blocks of {rb} "
+            f"(PADDLE_TPU_FLASH_BLOCK_K); the kernels round at "
+            f"{_KERNEL_BLOCKS}")
     mptr, heads, (seed, on, thr, keep_div) = _tail(q3, t, mask2, seed,
                                                    dropout_p)
     copied = ins if mask2 is None else (*ins, mask2)
@@ -279,7 +295,7 @@ def _launch(op, ins, outs, t, code, scale, causal, mask2, seed, dropout_p):
     stream = torch.cuda.current_stream(q3.device).cuda_stream
     with torch.cuda.device(q3.device):
         err = fn(*(x.data_ptr() for x in (*ins, *outs)), mptr, bh, s, t, d,
-                 code, int(causal), heads, seed, on, ref_block(t), thr,
+                 code, int(causal), heads, seed, on, rb, thr,
                  keep_div, float(scale), stream)
     _raise_if(err, op)
     _build.note_launch(op)

@@ -10,13 +10,18 @@ Paddle's ``adamw`` update on every leaf, as the reference's jitted step:
     ``torch.nn.utils.clip_grad_norm_``, whose ``+1e-6`` differs);
   * weight decay only on leaves whose last name is in ``_DECAY``;
   * one (beta1_pow, beta2_pow) pair shared by every leaf;
-  * ``lr`` a float or a callable returning one per step.
+  * ``lr`` a float or a callable returning one per step;
+  * residual dropout at ``cfg.dropout`` from step k's seed
+    ``op_seed(seed, k)`` (the reference folds k into ``PRNGKey(seed)``;
+    its masks come from ``jax.random``, the port's from its counter
+    hash, ``models.gpt``).
 
 Parameters stay float32 leaves in the reference's layout, block leaves
 stacked ``[L, ...]`` (``models.gpt`` unbinds them per step); the AdamW
 moments are float32 beside them and everything is updated in place.
-The dp/pp/tp/sp/ep mesh axes come with slice 5 (torch.distributed) and
-raise NotImplementedError when any is above 1.
+The dp/pp/tp/sp/ep mesh axes of the hybrid step come with item 14(b)
+(ROADMAP.md A) and raise NotImplementedError when any is above 1;
+data parallelism over ``torch.distributed`` is ``jit.TrainStep(mesh=)``.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ import torch
 
 from ..fluid.ops.optimizer_ops import adamw
 from ..models import gpt as G
+from ..nn import functional as F
 
 __all__ = ["HybridParallelTrainStep"]
 
@@ -54,18 +60,15 @@ class HybridParallelTrainStep:
         axes = dict(dp=dp, pp=pp, tp=tp, sp=sp, ep=ep)
         if mesh is not None or any(n > 1 for n in axes.values()):
             raise NotImplementedError(
-                f"a device mesh ({mesh!r}, {axes}) comes with slice 5 of "
-                f"the port (torch.distributed); the port trains on one "
-                f"device")
+                f"a device mesh ({mesh!r}, {axes}) for the hybrid GPT step "
+                f"comes with item 14(b) of the port (ROADMAP.md A); it "
+                f"trains on one device")
         if pipeline_schedule not in ("1F1B", "F-then-B", "gpipe"):
             raise ValueError(f"unknown pipeline_schedule "
                              f"{pipeline_schedule!r}")
-        if cfg.dropout:
-            raise NotImplementedError(
-                "dropout > 0: the reference draws its masks from "
-                "jax.random, which torch cannot replay; only dropout 0.0 "
-                "is ported")
         self.cfg = cfg
+        self._seed = seed
+        self._step = 0
         self.device = G.resolve_device(device)
         if self.device.type == "cuda":
             G.disable_tf32()
@@ -94,13 +97,18 @@ class HybridParallelTrainStep:
         one = torch.ones((1,), dtype=torch.float32, device=self.device)
         self._pows = (one, one.clone())
 
-    def loss_fn(self, params, ids):
-        return G.gpt_loss(params, ids, self.cfg)
+    def loss_fn(self, params, ids, key=None):
+        return G.gpt_loss(params, ids, self.cfg, key=key)
+
+    def step_key(self, step: int) -> int:
+        """The dropout step seed of step `step` (1 for the first call)."""
+        return F.op_seed(self._seed, step)
 
     def __call__(self, ids):
         ids = torch.as_tensor(np.asarray(ids), device=self.device).long()
         lr = self._lr() if callable(self._lr) else float(self._lr)
-        loss = self.loss_fn(self.params, ids)
+        self._step += 1
+        loss = self.loss_fn(self.params, ids, self.step_key(self._step))
         grads = torch.autograd.grad(loss, [p for _, p in self._leaves])
         with torch.no_grad():
             self._apply_update(grads, lr)

@@ -381,12 +381,27 @@ def test_entry_points_need_a_card_or_device_cpu():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "slice 5"), (dict(batch_spec="dp"), "slice 5"),
-    (dict(remat=True), "slice 5"), (dict(optimizer="lamb"), "slice 4")])
+    (dict(mesh="dp1"), None), (dict(batch_spec="dp"), None),
+    (dict(remat=True), None), (dict(optimizer="lamb"), "slice 4")])
 def test_deferred_train_step_arguments_raise(kw, match):
+    """lamb is still deferred (the op library); mesh=, batch_spec= and
+    remat= are ported (tests/test_torch_data_parallel.py,
+    tests/test_torch_recompute.py): here, on one rank, the step builds
+    and trains, and a mesh that is not the port's raises."""
+    from paddle_tpu_torch.distributed import make_mesh
     lin = pnn.Linear(4, 2)
-    with pytest.raises(NotImplementedError, match=match):
-        make_train_step(lin, lambda m, x: m(x).sum(), device="cpu", **kw)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            make_train_step(lin, lambda m, x: m(x).sum(), device="cpu", **kw)
+        return
+    if kw.get("mesh") == "dp1":
+        kw = dict(mesh=make_mesh({"dp": 1}))
+        with pytest.raises(TypeError, match="make_mesh"):
+            make_train_step(lin, lambda m, x: m(x).sum(), device="cpu",
+                            mesh=object())
+    step = make_train_step(lin, lambda m, x: m(x).sum(), device="cpu", **kw)
+    assert step.dp == 1
+    assert np.isfinite(float(step(np.ones((2, 4), np.float32))))
 
 
 def test_bad_train_step_arguments_raise():

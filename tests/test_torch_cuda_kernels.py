@@ -1681,6 +1681,51 @@ def test_flash_bf16_routes_match_plain(dev, route, b, h, s, t, d, causal,
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("route", ["tc", "simt"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_routes_round_at_the_reference_block_override(
+        dev, route, causal, monkeypatch):
+    """Fault C3: with PADDLE_TPU_FLASH_BLOCK_Q / _K at 64 the reference
+    rounds P at 64-key blocks of T = 1024 (not 512), and so do the plain
+    versions (ref_block) and both routes: o at most 1% of its elements
+    another bf16 number. The gradients round dS elementwise whatever the
+    block: within 2e-2 + 2e-2 |ref|, and no more elements off than at
+    the default block (+ 0.5%). A block the kernels cannot round at
+    raises before the launch."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    for name in ("PADDLE_TPU_FLASH_BLOCK_Q", "PADDLE_TPU_FLASH_BLOCK_K"):
+        monkeypatch.delenv(name, raising=False)
+    q, k, v, do, _ = _flash_case(dev, 32, 1, 2, 1024, 1024, 64, False)
+    if route == "simt":
+        q, k, v, do = (_misaligned(x) for x in (q, k, v, do))
+    tail = (64 ** -0.5, causal, None, 0, 0.0)
+
+    def off():
+        got, routes = _flash_routes(q, k, v, do, tail)
+        for r in routes:
+            assert r[route] == 1
+        o_r, lse_r = fa.flash_fwd_reference(q, k, v, *tail)
+        ref = (o_r, *fa.flash_bwd_reference(q, k, v, o_r, lse_r, do, *tail))
+        out = []
+        for x, y in zip((got[0], *got[2:]), ref):
+            torch.testing.assert_close(x.float(), y.float(), atol=2e-2,
+                                       rtol=2e-2)
+            out.append((x != y).float().mean().item())
+        return out
+
+    base = off()
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_Q", "64")
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_K", "64")
+    assert fa.ref_block(1024) == 64
+    knob = off()
+    assert knob[0] <= 0.01
+    for a, b in zip(knob[1:], base[1:]):
+        assert a <= max(0.01, b + 0.005)
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_K", "32")
+    with pytest.raises(ValueError, match="PADDLE_TPU_FLASH_BLOCK_K"):
+        fa._fwd_kernel(q, k, v, *tail)
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_tensor_core_dropout_masks_are_bit_equal(dev, d):
     """Identity blocks expose the dropped probabilities: V = I makes o the

@@ -147,7 +147,7 @@ def test_causal_attention_flash_matches_xla_impl():
     got = pgpt._causal_attention(q, k, v, 2, impl="flash")
     want = pgpt._causal_attention(q, k, v, 2, impl="xla")
     torch.testing.assert_close(got, want, **TOL)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         pgpt._causal_attention(q, k, v, 2, impl="ring")
 
 
@@ -373,6 +373,29 @@ def test_flash_bf16_rounds_like_pallas_interpret(t, causal):
     got = _port_variant(q, k, v, do, causal, None, 0.0, 0, torch.bfloat16)
     want = _jax_variant(q, k, v, do, causal, None, 0.0, 0, jnp.bfloat16)
     _assert_rounds_alike(got, want)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_rounds_at_the_reference_block_override(causal,
+                                                           monkeypatch):
+    """With the reference's block knobs at 64, its kernels round P at
+    64-key blocks of T = 1024 (sixteen, not two), and so does the
+    port."""
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_Q", "64")
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_K", "64")
+    assert port.ref_block(1024) == 64
+    q, k, v, do = _small_inputs(1024)
+    got = _port_variant(q, k, v, do, causal, None, 0.0, 0, torch.bfloat16)
+    want = _jax_variant(q, k, v, do, causal, None, 0.0, 0, jnp.bfloat16)
+    _assert_rounds_alike(got, want)
+
+
+def test_ref_block_follows_the_override_where_it_divides(monkeypatch):
+    from paddle_tpu.ops.pallas_attention import _auto_block
+    monkeypatch.setenv("PADDLE_TPU_FLASH_BLOCK_K", "128")
+    for t in (128, 192, 384, 1024):
+        assert port.ref_block(t) == _auto_block(t, "PADDLE_TPU_FLASH_BLOCK_K")
+    assert port.ref_block(192) == 64 and port.ref_block(1024) == 128
 
 
 @pytest.mark.parametrize("causal", [True, False])

@@ -154,15 +154,110 @@ def test_lr_may_be_callable():
 @pytest.mark.parametrize("kw", [dict(dp=2), dict(pp=2), dict(tp=2),
                                 dict(sp=2), dict(ep=2), dict(mesh=object())])
 def test_mesh_axes_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         PStep(pgpt.GPTConfig(**SIZE), device="cpu", **kw)
 
 
 def test_dropout_and_experts_raise():
-    with pytest.raises(NotImplementedError, match="jax.random"):
-        PStep(pgpt.GPTConfig(**SIZE, dropout=0.1), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    """Experts still raise (item 14(c)); dropout no longer does: the
+    step trains at 0.1 and returns a finite loss."""
+    step = PStep(pgpt.GPTConfig(**SIZE, dropout=0.1), device="cpu")
+    assert np.isfinite(float(step(_ids())))
+    with pytest.raises(NotImplementedError, match="item 14"):
         pgpt.GPTConfig(**SIZE, num_experts=4)
+
+
+# -- residual dropout (the reference's jax.random masks cannot be
+# replayed: the port's come from its counter-hash seed stream, held to
+# its own composed chain with the same masks)
+
+def _leaf_params(cfg, seed=1):
+    tree = pgpt.init_gpt_params(cfg, seed=seed)
+    params = {k: torch.from_numpy(v).requires_grad_() for k, v in
+              tree.items() if k != "blocks"}
+    params["blocks"] = {k: torch.from_numpy(v).requires_grad_()
+                        for k, v in tree["blocks"].items()}
+    leaves = [params[k] for k in ("wte", "wpe", "lnf_s", "lnf_b")] + \
+        [params["blocks"][k] for k in sorted(params["blocks"])]
+    return params, leaves
+
+
+def test_dropout_zero_is_the_deterministic_path_bit_for_bit():
+    cfg = pgpt.GPTConfig(**SIZE)
+    params, leaves = _leaf_params(cfg)
+    ids = torch.from_numpy(_ids(seed=4))
+    plain = pgpt.gpt_loss(params, ids, cfg)
+    keyed = pgpt.gpt_loss(params, ids, cfg, key=7)
+    assert torch.equal(plain, keyed)
+    for a, b in zip(torch.autograd.grad(plain, leaves),
+                    torch.autograd.grad(keyed, leaves)):
+        assert torch.equal(a, b)
+    a, _ = _run_port(steps=2)
+    b, _ = _run_port(steps=2, dropout=0.0)
+    assert a == b
+
+
+def test_dropout_keep_rate_and_masks_from_the_step_seed(monkeypatch):
+    """Every residual mask (the embedding's and two a layer, five here)
+    keeps 90% +- 2% of its elements; the same step seed gives the same
+    seeds and loss bit for bit, the next step other seeds."""
+    from paddle_tpu_torch.ops import fused_block, fused_residual
+    seen = []
+    real = fused_residual.keep_mask
+
+    def spy(seed, rows, cols, p, device="cpu"):
+        keep = real(seed, rows, cols, p, device)
+        seen.append((seed, float(keep.float().mean())))
+        return keep
+
+    monkeypatch.setattr(fused_residual, "keep_mask", spy)
+    cfg = pgpt.GPTConfig(**SIZE, dropout=0.1)
+    params, _ = _leaf_params(cfg)
+    ids = torch.from_numpy(_ids(seed=4))
+    with torch.no_grad():
+        a = pgpt.gpt_loss(params, ids, cfg, key=11)
+        first = list(seen)
+        seen.clear()
+        b = pgpt.gpt_loss(params, ids, cfg, key=11)
+        assert seen == first and torch.equal(a, b)
+        seen.clear()
+        c = pgpt.gpt_loss(params, ids, cfg, key=12)
+    assert len(first) == 1 + 2 * SIZE["num_layers"]
+    assert len({s for s, _ in first}) == len(first)
+    assert not {s for s, _ in first} & {s for s, _ in seen}
+    assert all(0.88 <= rate <= 0.92 for _, rate in first + seen), first
+    assert float(c) != float(a)
+    step = PStep(cfg, device="cpu", lr=0.0)
+    l1, l2 = float(step(_ids())), float(step(_ids()))     # lr 0
+    assert l1 != l2
+    assert step.step_key(1) != step.step_key(2)
+    with torch.no_grad():
+        again = step.loss_fn(step.params, torch.from_numpy(_ids()).long(),
+                             step.step_key(1))
+    assert float(again) == l1
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_dropout_kernels_match_the_composed_chain(remat):
+    """The fused sub-blocks (their plain versions here) and flash
+    against the composed tail and attention, same step seed: loss and
+    every gradient, remat (masks replayed in the recompute) or not."""
+    kw = dict(SIZE, dropout=0.1, remat=remat)
+    fused = pgpt.GPTConfig(**kw)
+    composed = pgpt.GPTConfig(**{**kw, "attn_impl": "xla"},
+                              fused_blocks=False)
+    ids = torch.from_numpy(_ids(seed=5))
+    out = []
+    for cfg in (fused, composed):
+        params, leaves = _leaf_params(cfg)
+        loss = pgpt.gpt_loss(params, ids, cfg, key=3)
+        out.append((float(loss), torch.autograd.grad(loss, leaves)))
+    (la, ga), (lb, gb) = out
+    assert abs(la - lb) <= 1e-5 * abs(lb)
+    gmax = max(float(g.abs().max()) for g in gb)
+    for x, y in zip(ga, gb):
+        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0,
+                                   atol=1e-4 * gmax)
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
