@@ -211,7 +211,27 @@ Phases:
      against dp = 1 on the card; allreduce — bench.py's bench_allreduce
      over the dp group (64 MB f32, 5 + 30 calls, algorithmic bandwidth
      2 (n - 1) / n bytes / time), a gloo host-path figure, not NCCL's;
- 16. the kernels line, then the card line, then the result line.
+ 16. hybrid_gpt (item 14(b)): the hybrid GPT step over a world of
+     ranks on the one card (gloo; p2p through host copies), each rank
+     reading its pieces of one weight tree the parent wrote once
+     (np.save, read back as memmaps). (a) GPT-3 XL whole (24 layers)
+     at pp = 2 x tp = 2 (4 ranks), bf16, flash, remat, dropout 0,
+     global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 3
+     steps each: every loss within 1e-3 relative of the single-rank
+     step's on the same batch and weights; (b) 4 layers at full width,
+     dp = 2 x pp = 2 x tp = 2 (8 ranks), ZeRO-1, batch 8 x 1024: at
+     dropout 0 the losses within 1e-3 of the single rank's, at dropout
+     0.1 under 1F1B finite and equal on every rank; each rank's moment
+     bytes 1/dp of the unsharded layout's. Printed: step ms, tokens/s,
+     each rank's peak memory, the ms a step in tp all-reduces and in pp
+     send / recv, the measured bubble (pp receive wait over the
+     schedule) against (S - 1) / (M + S - 1), and the launches of rows
+     2-5 and 8-9 on each rank by route (rows 2-5 all tc, in the counts
+     HYBRID_LAUNCHES predicts); with phase 2 the kernels at the shapes
+     this path gives them (check_hybrid_kernels: the partial sub-blocks
+     at K = 1024 / I = 4096 bf16, flash at 8 heads, layer norm at
+     R = 1024, C = 2048 bf16);
+ 17. the kernels line, then the card line, then the result line.
 
 Each phase prints its wall seconds ({"phase": "seconds", ...}). One
 numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
@@ -426,6 +446,30 @@ LENET_BATCH, LENET_STEPS = 256, 30
 # data-parallel phases: ranks, all on the one card (gloo: NCCL refuses
 # two ranks on one GPU)
 DP_RANKS = 2
+# hybrid_gpt: (a) GPT-3 XL at pp x tp, (b) B_LAYERS at dp x pp x tp with
+# ZeRO-1; the global batches; microbatches; 1 + 3 steps a run
+HYBRID_A = dict(pp=2, tp=2)
+HYBRID_B = dict(dp=2, pp=2, tp=2)
+HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 4
+HYBRID_B_LAYERS = 4
+HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
+# the losses against the single rank's: tighter than phase 4's 2e-2, so
+# that a split fault shows. Sound splits read at most 3.25e-4 (H100,
+# 700 W), and a step moves GPT-3 XL's loss by 0.3-0.7, so a wrong tp or
+# stage-pair sum, which changes the update, moves the later losses
+HYBRID_RTOL = 1e-3
+
+
+def hybrid_launches(layers, pp, micro, steps):
+    """Launches a rank makes of rows 2-5 and 8 on the hybrid path: each
+    of its layers runs, per microbatch, both partial sub-blocks, flash
+    forward and LN2 (row 8) twice (forward, then the recompute), and the
+    two flash backward kernels and LN2's dx once (the sub-blocks'
+    backward is the composed recompute)."""
+    n = layers // pp * micro * steps
+    return {"fused_out_ln": 2 * n, "fused_ffn_ln": 2 * n,
+            "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "layer_norm_fwd": 2 * n, "layer_norm_bwd_dx": n}
 # figures a later phase prints beside its own
 MEASURED: dict = {}
 # bench.py's bench_resnet50
@@ -1358,6 +1402,136 @@ def check_flash(torch, timer, results):
                    (scale, True, None, 0, 0.0),
                    f"B={B} H={H} T={T} D={D} causal {name}", peak, n_el, 0,
                    lib_fwd, lib_bwd)
+
+
+def check_hybrid_kernels(torch, timer, results):
+    """The kernels at the shapes the hybrid GPT path gives a tp = 2 rank
+    at GPT-3 XL width (M = 1024 tokens a microbatch, bf16): the partial
+    out sub-block (a: M x D/tp, wo's rows M: K = 1024, N = 2048, a zero
+    residual), the partial FFN sub-block (H = 2048, I = F/tp = 4096, a
+    zero residual), the three flash kernels on the rank's 8 heads, and
+    LN2 after the tp sum on row 8-9's kernels (R = 1024, C = 2048 > the
+    warp route's 1024 columns: the row route). Tolerances as
+    check_blocks_bf16, flash_rows and check_rows (bf16: 2e-2 + 2e-2
+    |ref|, statistics 1e-4). Each row's shape ends in "(hybrid)"."""
+    import torch.nn.functional as F
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops.fused_block import (
+        ffn_ln_reference, fused_ffn_ln, fused_out_ln, out_ln_reference)
+    M, D, K, I = TRAIN_TOKENS, 2048, 1024, 4096
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rn(*shape, s=1.0, dt=bf):
+        return (torch.randn(*shape, generator=g, device="cuda") * s).to(dt)
+
+    w, b = rn(K, D, s=0.02), rn(D, s=0.02)
+    ln_s, ln_b = rn(D, s=0.1, dt=torch.float32) + 1.0, \
+        rn(D, s=0.1, dt=torch.float32)
+    w1, b1 = rn(D, I, s=0.02), rn(I, s=0.02)
+    w2, b2 = rn(I, D, s=0.01), rn(D, s=0.02)
+    a, x = rn(M, K), rn(M, D)
+    zero = torch.zeros(M, D, dtype=bf, device="cuda")
+    tol = {"atol": 2e-2, "rtol": 2e-2}
+
+    (z, h), route = routed("fused_out_ln", lambda: fused_out_ln(
+        a, w, b, zero, ln_s, ln_b), "tc")
+    zr, hr = out_ln_reference(a, w, b, zero, ln_s, ln_b)
+    torch.cuda.synchronize()
+    nbytes = 2 * (M * K + K * D + D + M * D + 2 * M * D) + 4 * 2 * D
+    bms, by = bound(nbytes, 2 * M * K * D + 10 * M * D, BF16_FLOPS)
+
+    ls16, lb16 = ln_s.to(bf), ln_b.to(bf)
+
+    def lib_out(a, w, b, *_):
+        return F.layer_norm(torch.addmm(b, a, w), (D,), ls16, lb16, 1e-5)
+
+    row = {"kernel": "fused_out_ln",
+           "shape": f"M={M} K={K} N={D} bf16 zero residual (hybrid)",
+           "route": route,
+           "max_abs_err": max(max_err(z, zr), max_err(h, hr)), "tol": tol,
+           **tc_times(torch, timer, (a, w, b, zero, ln_s, ln_b),
+                      fused_out_ln, out_ln_reference, lib_out),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, within(z, zr, **tol) and within(h, hr, **tol))
+
+    out, route = routed("fused_ffn_ln", lambda: fused_ffn_ln(
+        x, w1, b1, w2, b2, zero), "tc")
+    ref = ffn_ln_reference(x, w1, b1, w2, b2, zero)
+    torch.cuda.synchronize()
+    nbytes = 2 * (M * D + D * I + I + I * D + D + M * D + M * D)
+    bms, by = bound(nbytes, 4 * M * D * I + 10 * M * I, BF16_FLOPS)
+
+    def lib_ffn(x, w1, b1, w2, b2, _):
+        u = F.gelu(torch.addmm(b1, x, w1), approximate="tanh")
+        return torch.addmm(b2, u, w2)
+
+    row = {"kernel": "fused_ffn_ln",
+           "shape": f"M={M} H={D} I={I} bf16 zero residual (hybrid)",
+           "route": route, "max_abs_err": max_err(out, ref), "tol": tol,
+           **tc_times(torch, timer, (x, w1, b1, w2, b2, zero), fused_ffn_ln,
+                      ffn_ln_reference, lib_ffn),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, within(out, ref, **tol))
+    del w1, w2, x, out, ref
+    torch.cuda.empty_cache()
+
+    B, H, T, Dh = 1, 8, TRAIN_TOKENS, 128
+    lib_fwd, lib_bwd = sdpa_yardsticks(torch, B, H, is_causal=True)
+    q, k, v, do = (torch.randn(B * H, T, Dh, generator=g, device="cuda")
+                   .to(bf) for _ in range(4))
+    flash_rows(torch, timer, results, q, k, v, do,
+               (Dh ** -0.5, True, None, 0, 0.0),
+               f"B={B} H={H} T={T} D={Dh} causal bf16 (hybrid)", BF16_FLOPS,
+               B * H * T * (T + 1) // 2, 0, lib_fwd, lib_bwd)
+
+    R = M
+    zs = rn(R, D)
+    dy = rn(R, D)
+    sets = range(16)
+    zss, dys = [zs.clone() for _ in sets], [dy.clone() for _ in sets]
+
+    def each(fn):
+        return timer.queued([lambda i=i: fn(i) for i in sets])
+
+    (y, mean, rstd), route = routed(
+        "layer_norm_fwd", lambda: ln._fwd_kernel(zs, ln_s, ln_b, 1e-5),
+        "row")
+    y_r, mean_r, rstd_r = ln.layer_norm_reference(zs, ln_s, ln_b, 1e-5)
+    torch.cuda.synchronize()
+    bms, by = bound(2 * R * D * 2 + 8 * D + 8 * R, 8 * R * D)
+    row = {"kernel": "layer_norm_fwd", "shape": f"R={R} C={D} bf16 "
+           f"(hybrid)", "route": route, "max_abs_err": max_err(y, y_r),
+           "tol": tol,
+           "kernel_ms": each(lambda i: ln._fwd_kernel(zss[i], ln_s, ln_b,
+                                                      1e-5)),
+           "plain_ms": each(lambda i: ln.layer_norm_reference(
+               zss[i], ln_s, ln_b, 1e-5)),
+           "library_ms": each(lambda i: F.layer_norm(
+               zss[i], (D,), ls16, lb16, 1e-5)),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, within(y, y_r, **tol)
+           and within(mean, mean_r, 1e-4, 1e-4)
+           and within(rstd, rstd_r, 1e-4, 1e-4))
+    dx, route = routed("layer_norm_bwd_dx", lambda: ln._bwd_dx_kernel(
+        zs, ln_s, mean, rstd, dy), "row")
+    dx_r = ln.layer_norm_bwd_dx_reference(zs, ln_s, mean, rstd, dy)
+    torch.cuda.synchronize()
+    bms, by = bound(3 * R * D * 2 + 4 * D + 8 * R, 11 * R * D)
+    _, m2, r2 = torch.native_layer_norm(zs, [D], ls16, lb16, 1e-5)
+    row = {"kernel": "layer_norm_bwd_dx", "shape": f"R={R} C={D} bf16 "
+           f"(hybrid)", "route": route, "max_abs_err": max_err(dx, dx_r),
+           "tol": tol,
+           "kernel_ms": each(lambda i: ln._bwd_dx_kernel(
+               zss[i], ln_s, mean, rstd, dys[i])),
+           "plain_ms": each(lambda i: ln.layer_norm_bwd_dx_reference(
+               zss[i], ln_s, mean, rstd, dys[i])),
+           "library_ms": each(
+               lambda i: torch.ops.aten.native_layer_norm_backward(
+                   dys[i], zss[i], [D], m2, r2, ls16, lb16,
+                   [True, False, False])),
+           "bound_ms": bms, "bound_by": by}
+    report(results, row, within(dx, dx_r, **tol))
 
 
 def ln_grid_ms(torch, timer, name, args, n_sets=16):
@@ -3626,8 +3800,8 @@ def dp_worker(case, out_dir, *args):
         pickle.dump(res, f)
 
 
-def run_dp(case, *args, timeout=300):
-    """DP_CASES[case] on DP_RANKS ranks of the one card; their results,
+def run_dp(case, *args, timeout=300, nprocs=DP_RANKS):
+    """DP_CASES[case] on `nprocs` ranks of the one card; their results,
     rank by rank. A rank that fails or outlives `timeout` fails the run
     (spawn terminates the others)."""
     import pickle
@@ -3637,12 +3811,12 @@ def run_dp(case, *args, timeout=300):
     out = tempfile.mkdtemp(prefix="chip_smoke_dp_")
     try:
         try:
-            spawn(dp_worker, args=(case, out, *args), nprocs=DP_RANKS,
+            spawn(dp_worker, args=(case, out, *args), nprocs=nprocs,
                   timeout=timeout)
         except RuntimeError as e:
             fail(f"data-parallel phase {case!r}: {e}")
         res = []
-        for r in range(DP_RANKS):
+        for r in range(nprocs):
             with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
                 res.append(pickle.load(f))
     finally:
@@ -3951,8 +4125,218 @@ def allreduce_phase(torch, mb=64, warmup=5, steps=30):
              f"against {want}")
 
 
+# ---------------------------------------------------------------------------
+# hybrid GPT (item 14(b)): dp x pp x tp ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+def save_tree(tree, root):
+    """The numpy weight tree as one .npy a leaf under `root`."""
+    import numpy as np
+    for k, v in tree.items():
+        if k == "blocks":
+            for b, w in v.items():
+                np.save(os.path.join(root, f"blocks.{b}.npy"), w)
+        else:
+            np.save(os.path.join(root, f"{k}.npy"), v)
+
+
+def load_tree(root, layers=None):
+    """save_tree's tree as read-only memmaps (a rank reads only the
+    pieces it holds), block leaves cut to the first `layers`."""
+    import numpy as np
+    tree = {"blocks": {}}
+    for name in os.listdir(root):
+        v = np.load(os.path.join(root, name), mmap_mode="r")
+        key = name[:-len(".npy")]
+        if key.startswith("blocks."):
+            tree["blocks"][key[7:]] = v[:layers] if layers else v
+        else:
+            tree[key] = v
+    return tree
+
+
+def hybrid_ids(vocab: int, batch: int):
+    import numpy as np
+    return np.random.RandomState(0).randint(
+        0, vocab, (batch, TRAIN_TOKENS)).astype(np.int32)
+
+
+def hybrid_run(torch, cfg, kw, params, ids, steps):
+    """`steps` calls of HybridParallelTrainStep(cfg, **kw) from
+    `params` on the global batch `ids`, launch counts set to 0 just
+    before and read just after: losses, step seconds, the step's comm
+    seconds (last_stats) a step, peak memory, moment bytes, counts."""
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.parallel import HybridParallelTrainStep
+    t0 = time.perf_counter()
+    step = HybridParallelTrainStep(cfg, grad_clip_norm=1.0, params=params,
+                                   n_microbatches=HYBRID_MICRO, **kw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, times, stats = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        stats.append(dict(step.last_stats))
+    res = {"losses": losses, "times": times, "stats": stats,
+           "counts": launch_counts(), "load_s": load_s,
+           "moment_bytes": step.moment_bytes(),
+           "unsharded_moment_bytes": 8 * sum(
+               p.numel() for _, p in step._leaves),
+           "zero": step.zero_sharding,
+           "coords": {a: step.mesh.coord(a) for a in step.mesh.axis_names},
+           "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def hybrid_case(torch, root, runs):
+    """One rank of a hybrid world: each run (name, layers, step kwargs,
+    config kwargs, batch) from the tree under `root`, in order."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    out = {}
+    for name, layers, kw, cfg_kw, batch in runs:
+        cfg = GPTConfig.gpt3_1p3b(num_layers=layers, **HYBRID_CFG, **cfg_kw)
+        out[name] = hybrid_run(torch, cfg, kw, load_tree(root, layers),
+                               hybrid_ids(cfg.vocab_size, batch),
+                               HYBRID_STEPS)
+    return out
+
+
+def hybrid_reference(torch, root, layers, batch):
+    """The single-rank step's losses on the same weights and batch."""
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    cfg = GPTConfig.gpt3_1p3b(num_layers=layers, **HYBRID_CFG)
+    return hybrid_run(torch, cfg, {}, load_tree(root, layers),
+                      hybrid_ids(cfg.vocab_size, batch), HYBRID_STEPS)
+
+
+def hybrid_report(what, name, ranks, ref, mesh, batch, layers):
+    """Print one line for a hybrid run and fail on its checks: losses
+    against the single rank's (when `ref`), rows 2-5 on tc in
+    hybrid_launches' counts and rows 8-9 as counted, on every rank."""
+    S, M = mesh.get("pp", 1), HYBRID_MICRO
+    per = [r[name] for r in ranks]
+    losses = per[0]["losses"]
+    for r, got in enumerate(per):
+        if got["losses"] != losses:
+            fail(f"hybrid {what}: rank {r} losses {got['losses']} against "
+                 f"rank 0's {losses}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"hybrid {what}: non-finite losses {losses}")
+    rel = None
+    if ref is not None:
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        if not max(rel) <= HYBRID_RTOL:
+            fail(f"hybrid {what}: losses {losses} against the single "
+                 f"rank's {ref['losses']} (rtol {HYBRID_RTOL})")
+    want = hybrid_launches(layers, S, M, HYBRID_STEPS)
+    for r, got in enumerate(per):
+        off_route(got["counts"], {k: v for k, v in want.items()
+                                  if not k.startswith("layer_norm")},
+                  f"hybrid {what} rank {r}")
+        for k in ("layer_norm_fwd", "layer_norm_bwd_dx"):
+            if got["counts"].get(k, 0) != want[k]:
+                fail(f"hybrid {what} rank {r}: {k} launched "
+                     f"{got['counts'].get(k, 0)} times, expected {want[k]}")
+
+    def med(key, got):
+        return statistics.median(s.get(key, 0.0) for s in got["stats"][1:])
+
+    step_s = statistics.median(t for got in per for t in got["times"][1:])
+    line = {"phase": "hybrid_gpt", "run": what, "mesh": mesh,
+            "layers": layers, "batch": batch, "seq": TRAIN_TOKENS,
+            "microbatches": M, "losses": losses,
+            "single_rank_losses": ref["losses"] if ref else None,
+            "max_rel": max(rel) if rel else None, "rtol": HYBRID_RTOL,
+            "step_ms_median": round(step_s * 1e3, 3),
+            "single_rank_step_ms_median": round(statistics.median(
+                ref["times"][1:]) * 1e3, 3) if ref else None,
+            "tokens_per_s": round(batch * TRAIN_TOKENS / step_s, 2),
+            "peak_gb": [got["peak_gb"] for got in per],
+            "load_s": [round(got["load_s"], 2) for got in per],
+            "tp_allreduce_ms": [round(med("tp_s", got) * 1e3, 3)
+                                for got in per],
+            "pp_sendrecv_ms": [round((med("pp_send_s", got)
+                                      + med("pp_recv_s", got)) * 1e3, 3)
+                               for got in per],
+            "dp_allreduce_ms": [round(med("dp_s", got) * 1e3, 3)
+                                for got in per],
+            "bubble": [round(med("pp_recv_s", got)
+                             / med("schedule_s", got), 4) for got in per],
+            "bubble_predicted": round((S - 1) / (M + S - 1), 4),
+            "moment_bytes": [got["moment_bytes"] for got in per],
+            "unsharded_moment_bytes": [got["unsharded_moment_bytes"]
+                                       for got in per],
+            "launches_predicted": want,
+            "launches": [{k: v for k, v in got["counts"].items()
+                          if k.split(".")[0] in want} for got in per]}
+    print(json.dumps(line), flush=True)
+    return line
+
+
+def hybrid_gpt_phase(torch, tree):
+    """(a) GPT-3 XL at pp x tp under both schedules and (b) 4 layers at
+    dp x pp x tp with ZeRO-1, against single-rank steps (module
+    docstring, phase 16). Returns each rank's launch counts of (a)'s
+    1F1B run, for the kernels line."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    try:
+        t0 = time.perf_counter()
+        save_tree(tree, root)
+        print(json.dumps({"phase": "hybrid_tree", "seconds": round(
+            time.perf_counter() - t0, 2), "gb": round(sum(
+                os.path.getsize(os.path.join(root, n))
+                for n in os.listdir(root)) / 1e9, 3)}), flush=True)
+        L = tree["blocks"]["wq"].shape[0]
+        ref_a = hybrid_reference(torch, root, L, HYBRID_A_BATCH)
+        print(json.dumps({"phase": "hybrid_single_rank", "layers": L,
+                          "losses": ref_a["losses"],
+                          "peak_gb": ref_a["peak_gb"]}), flush=True)
+        runs = [(sched, L, dict(HYBRID_A, pipeline_schedule=sched), {},
+                 HYBRID_A_BATCH) for sched in ("1F1B", "F-then-B")]
+        ranks_a = run_dp("hybrid", root, runs, timeout=900,
+                         nprocs=math.prod(HYBRID_A.values()))
+        for sched in ("1F1B", "F-then-B"):
+            hybrid_report(f"a {sched}", sched, ranks_a, ref_a, HYBRID_A,
+                          HYBRID_A_BATCH, L)
+
+        Lb = HYBRID_B_LAYERS
+        ref_b = hybrid_reference(torch, root, Lb, HYBRID_B_BATCH)
+        runs = [("zero", Lb, dict(HYBRID_B, sharding=True), {},
+                 HYBRID_B_BATCH),
+                ("dropout", Lb, dict(HYBRID_B, sharding=True),
+                 {"dropout": 0.1}, HYBRID_B_BATCH)]
+        ranks_b = run_dp("hybrid", root, runs, timeout=600,
+                         nprocs=math.prod(HYBRID_B.values()))
+        hybrid_report("b ZeRO-1", "zero", ranks_b, ref_b, HYBRID_B,
+                      HYBRID_B_BATCH, Lb)
+        hybrid_report("b dropout 0.1", "dropout", ranks_b, None, HYBRID_B,
+                      HYBRID_B_BATCH, Lb)
+        dp = HYBRID_B["dp"]
+        for r, rank in enumerate(ranks_b):
+            got = rank["zero"]
+            if not got["zero"] or got["moment_bytes"] * dp != \
+                    got["unsharded_moment_bytes"]:
+                fail(f"hybrid b rank {r}: moment bytes "
+                     f"{got['moment_bytes']} not 1/{dp} of "
+                     f"{got['unsharded_moment_bytes']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return [rank["1F1B"]["counts"] for rank in ranks_a]
+
+
 DP_CASES = {"bert": dp_bert_case, "parity": dp_parity_case,
-            "allreduce": dp_allreduce_case}
+            "allreduce": dp_allreduce_case, "hybrid": hybrid_case}
 
 
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
@@ -4016,7 +4400,8 @@ def kernel_entry(row, launches):
 
 
 def kernels_line(results, serve_counts, wide_counts, train_counts,
-                 bert_counts, layer_counts, ffn_counts, wire_counts):
+                 bert_counts, layer_counts, ffn_counts, wire_counts,
+                 hybrid_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache, the vector route), its scalar route from the
@@ -4035,7 +4420,11 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     under "shapes"); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
     under "shapes" with launches null. Rows 1-3 also carry the wire
-    serving run's launches by route under "wire_routes"."""
+    serving run's launches by route under "wire_routes". Rows 2-5 and
+    8-9 carry under "hybrid" their numbers at the shapes of the hybrid
+    GPT path (a tp = 2 rank at GPT-3 XL width) with rank 0's launches of
+    the pp = 2 x tp = 2 1F1B run, every rank's ("rank_launches") and
+    rank 0's by route."""
     def row(name, *keys):
         return next(r for r in results if r["kernel"] == name
                     and all(k in r["shape"] for k in keys))
@@ -4064,6 +4453,11 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["bert"] = kernel_entry(row(name, "bf16", "no mask (BERT)"),
                                    bert_counts.get(name, 0))
         ent["bert"]["routes"] = route_counts(bert_counts, name)
+        ent["hybrid"] = kernel_entry(row(name, "(hybrid)"),
+                                     hybrid_counts[0].get(name, 0))
+        ent["hybrid"]["rank_launches"] = [c.get(name, 0)
+                                          for c in hybrid_counts]
+        ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
         kernels.append(ent)
     for name in ("fused_out_ln", "fused_ffn_ln"):
         ent = kernel_entry(row(name, f"M={TRAIN_TOKENS} ", "bf16"),
@@ -4080,6 +4474,11 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["bert"] = kernel_entry(row(name, "f32", "(BERT"),
                                    bert_counts.get(name, 0))
         ent["bert"]["routes"] = route_counts(bert_counts, name)
+        ent["hybrid"] = kernel_entry(row(name, "(hybrid)"),
+                                     hybrid_counts[0].get(name, 0))
+        ent["hybrid"]["rank_launches"] = [c.get(name, 0)
+                                          for c in hybrid_counts]
+        ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
         kernels.append(ent)
     for name in ("layer_norm_fwd", "layer_norm_bwd_dx"):
         top = row(name, "R=2048", "f32")
@@ -4087,7 +4486,13 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["routes"] = route_counts(bert_counts, name)
         # the MLM head's 304 rows and bf16: launches counted with R=2048
         ent["shapes"] = [kernel_entry(r, None) for r in results
-                         if r["kernel"] == name and r is not top]
+                         if r["kernel"] == name and r is not top
+                         and "(hybrid)" not in r["shape"]]
+        ent["hybrid"] = kernel_entry(row(name, "(hybrid)"),
+                                     hybrid_counts[0].get(name, 0))
+        ent["hybrid"]["rank_launches"] = [c.get(name, 0)
+                                          for c in hybrid_counts]
+        ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
         kernels.append(ent)
     for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
         top = row(name, "R=2048", "f32", "p=0.1")
@@ -4148,6 +4553,7 @@ def main(argv):
     check_flash_bert(torch, timer, results)
     check_flash_block_override(torch)
     check_ffn(torch, timer, results)
+    check_hybrid_kernels(torch, timer, results)
     print(json.dumps({"phase": "seconds", "of": "kernel_checks",
                       "seconds": round(time.perf_counter() - t0, 2)}),
           flush=True)
@@ -4230,9 +4636,13 @@ def main(argv):
                       MEASURED.get("bert_samples_per_s"))
     timed("dp_parity", dp_parity_phase, torch)
     timed("allreduce", allreduce_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_counts = timed("hybrid_gpt", hybrid_gpt_phase, torch, tree)
 
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
-                        bert_counts, layer_counts, ffn_counts, wire_counts)
+                        bert_counts, layer_counts, ffn_counts, wire_counts,
+                        hybrid_counts)
     for ent in line["kernels"]:
         if ent["name"] in BERT_LAUNCHES_PER_STEP:
             # the bert_dp run's launches, rank by rank

@@ -9,7 +9,7 @@ ported) and marks the program data-parallel (``{"mode": "dp"}``, as the
 reference's ``_sharding_info``), so the executor runs it on this rank's
 slice of every batch and all-reduces the gradients;
 ``distributed_model`` is ``DataParallel``; ``hybrid_train_step`` builds
-the GPT step from the strategy's degrees. The parameter-server methods
+the dp x pp x tp GPT step from the strategy's degrees. The parameter-server methods
 raise (ROADMAP.md A, item 16), as do the savers (item 12).
 """
 from __future__ import annotations
@@ -129,9 +129,11 @@ class Fleet:
         return None
 
     def hybrid_train_step(self, cfg, **kwargs):
-        """The GPT train step from this fleet's strategy
-        (``hybrid_configs`` and the pipeline / tensor-parallel flags);
-        degrees above 1 raise in the step (ROADMAP.md A, item 14(b))."""
+        """The dp x pp x tp GPT train step from this fleet's strategy
+        (``hybrid_configs`` and the pipeline / tensor-parallel / ZeRO
+        ``sharding`` flags), over a world of dp * pp * tp ranks; sp and
+        ep degrees above 1 raise in the step (ROADMAP.md A, item
+        14(c))."""
         from ....parallel.hybrid import HybridParallelTrainStep
         st = self._strategy or DistributedStrategy()
         hc = st.hybrid_configs

@@ -26,17 +26,25 @@ class Mesh:
     """Named axes over the ranks of the world. ``shape`` maps each axis
     to its size (the reference's ``mesh.shape``); ``group(axis)`` is the
     process group of this rank's line along it (None when the axis has
-    one rank); ``coord(axis)`` is this rank's index on it."""
+    one rank); ``coord(axis)`` is this rank's index on it; ``ranks`` is
+    the grid of world ranks. A mesh of one rank holds this rank alone,
+    in a world of any size (the reference's mesh over ``devices[:1]``)."""
 
     def __init__(self, axes: dict[str, int]):
         self.axis_names = tuple(axes)
         self.shape = dict(axes)
         self.size = math.prod(axes.values())
         world = get_world_size()
+        if self.size == 1:
+            self.ranks = np.full([1] * len(axes), get_rank())
+            self._coord = {a: 0 for a in self.axis_names}
+            self._groups = {a: None for a in self.axis_names}
+            return
         if self.size != world:
             raise ValueError(f"mesh {axes} holds {self.size} ranks; the "
                              f"world has {world}")
         ranks = np.arange(world).reshape([axes[a] for a in self.axis_names])
+        self.ranks = ranks
         here = np.argwhere(ranks == get_rank())[0]
         self._coord = {a: int(i) for a, i in zip(self.axis_names, here)}
         self._groups = {}
@@ -63,6 +71,12 @@ class Mesh:
 
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
+
+    def rank_at(self, **coords) -> int:
+        """The world rank at `coords` (axis -> index), this rank's own
+        index on every axis not named."""
+        return int(self.ranks[tuple(coords.get(a, self._coord[a])
+                                    for a in self.axis_names)])
 
     def __repr__(self):
         return f"Mesh({self.shape})"

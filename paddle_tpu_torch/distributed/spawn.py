@@ -42,6 +42,14 @@ def get_cluster_env(rank, endpoints, role="TRAINER", servers="",
 def _worker(rank, endpoints, func, args):
     os.environ.update(get_cluster_env(rank, endpoints))
     func(*args)
+    # tear the process group down before the interpreter exits: left to
+    # the exit, gloo's threads can be destroyed unjoined while the peers
+    # exit too, and the process aborts ("terminate called without an
+    # active exception") after its work is done
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.barrier()
+        dist.destroy_process_group()
 
 
 def _free_ports(n: int) -> list[int]:

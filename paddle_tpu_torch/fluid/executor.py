@@ -30,10 +30,22 @@ batch norm reduce over the ranks; stochastic ops fold the rank into
 their seeds; the program's loss (``_sharding_info["loss"]``), when
 fetched, is the mean over the ranks: the global batch's mean loss. The
 first data-parallel run of a program in a scope gives every rank rank
-0's persistables. Over one rank the run is the plain one. A program
-that also names tensor, pipeline or sequence parallel degrees raises
-NotImplementedError (ROADMAP.md A, item 14(b), (c));
-``train_from_dataset`` waits for the dataset readers (slice 6).
+0's persistables. Over one rank the run is the plain one.
+
+Tensor parallelism (``_sharding_info["tp"]`` > 1, the strategy's
+``tensor_parallel``): the program runs over a ``{"dp": -1, "tp": tp}``
+mesh, batch rows split over dp only. A persistable whose name matches
+one of ``tp_rules`` ((regex, spec) pairs, first match wins) is held in
+the scope as this rank's tp slice between runs, by the reference's
+resolution rules: a spec with more dimensions than the value is dropped
+(beta-pow accumulators stay whole; moments take their weight's rule),
+and an axis that does not divide its dimension is dropped. A run
+gathers the slices over tp, runs the ops on the whole values and hands
+the slices back: compute is replicated over tp, only the persistables'
+storage is split. The reference reads no other key: a program marked
+``pp`` or ``sp`` (the strategy's pipeline / sequence-parallel flags)
+trains data-parallel, as there. ``train_from_dataset`` waits for the
+dataset readers (slice 6).
 """
 from __future__ import annotations
 
@@ -259,8 +271,9 @@ class Executor:
                 & 0xFFFFFFFF if program.random_seed
                 else int(np.random.randint(0, 2 ** 31)))
         if dp is not None:
-            dp.sync_persistables(scope, read_names, self._dp_synced)
-        env: dict[str, Any] = {n: scope.find_var(n) for n in read_names}
+            env: dict[str, Any] = dp.read(scope, read_names, self._dp_synced)
+        else:
+            env = {n: scope.find_var(n) for n in read_names}
         env.update(zip(feed_names, feed_vals))
         ctx = ExecContext(seed, is_test=program._is_test, device=self.device,
                           rank=dp.rank if dp else 0,
@@ -273,7 +286,7 @@ class Executor:
             fetches = dp.global_fetches(fetch_names, fetches)
         updates = [(n, env[n]) for n in upd_names]
         for n, v in updates:
-            scope.set(n, v)
+            scope.set(n, dp.store(n, v) if dp is not None else v)
         if core.get_flags("FLAGS_benchmark")["FLAGS_benchmark"] \
                 and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -354,20 +367,22 @@ class Executor:
 
 
 class _DataParallel:
-    """One data-parallel run of a program over the mesh's "dp" axis."""
+    """One data-parallel run of a program over the "dp" axis: the global
+    mesh's, or with a tp degree that of a {"dp": -1, "tp": tp} mesh."""
 
     @classmethod
     def of(cls, program: Program):
         info = getattr(program, "_sharding_info", None)
         if not info:
             return None
-        for axis, item in (("tp", "14(b)"), ("pp", "14(b)"), ("sp", "14(c)")):
-            if info.get(axis):
-                raise NotImplementedError(
-                    f"a program sharded over {axis!r} ({info}) comes with "
-                    f"ROADMAP.md A, item {item}; data parallelism runs")
         from ..distributed.collective import axis_group
+        from ..distributed.env import get_world_size
         from ..distributed.mesh import default_mesh, get_mesh
+        tp = int(info.get("tp") or 1)
+        if tp > 1 and get_world_size() > 1:
+            mesh = _tp_mesh(tp)
+            return cls(program, info, mesh.group("dp"), mesh.axis_size("dp"),
+                       mesh.coord("dp"), mesh)
         group = axis_group("dp")
         if group is None:
             return None
@@ -375,49 +390,93 @@ class _DataParallel:
         return cls(program, info, group, mesh.axis_size("dp"),
                    mesh.coord("dp"))
 
-    def __init__(self, program, info, group, n, rank):
+    def __init__(self, program, info, group, n, rank, tp_mesh=None):
         self.program, self.info = program, info
         self.group, self.n, self.rank = group, n, rank
+        self.tp_mesh = tp_mesh
         block = program.global_block()
         self._syncs = {id(block.ops[i]): grads
                        for i, grads in program._grad_syncs
                        if i < len(block.ops)}
+        self._specs: dict[str, tuple] = {}
+        if tp_mesh is not None and info.get("tp_rules"):
+            from ..parallel.sharding import ShardingRules, resolve_spec
+            rules = ShardingRules(info["tp_rules"])
+            for var in program.list_vars():
+                shape = tuple(var.shape or ())
+                if not var.persistable or not shape or min(shape) < 0:
+                    continue
+                spec = resolve_spec(rules.spec(var.name), tp_mesh.shape,
+                                    shape)
+                if "tp" in spec:
+                    self._specs[var.name] = spec
 
     def rows(self, val):
         """This rank's rows of a feed whose first axis the ranks divide;
         any other feed whole."""
-        if val.ndim >= 1 and val.shape[0] % self.n == 0:
+        if self.n > 1 and val.ndim >= 1 and val.shape[0] % self.n == 0:
             b = val.shape[0] // self.n
             return val[self.rank * b:(self.rank + 1) * b]
         return val
 
     def axis(self):
         from ..distributed.collective import collective_axis
+        if self.tp_mesh is not None:
+            return collective_axis("dp", self.group)
         return collective_axis("dp")
 
     def before_op(self, op, env):
         grads = self._syncs.get(id(op))
-        if grads:
+        if grads and self.n > 1:
             from ..distributed.parallel import all_reduce_buckets
             all_reduce_buckets([env[g] for g in grads if g in env],
                                group=self.group, scale=1.0 / self.n)
 
-    def sync_persistables(self, scope, names, done: set):
-        """Rank 0's persistables on every rank, once a (scope, program)
-        (`done` holds the pairs already synced)."""
+    def read(self, scope, names, done: set) -> dict:
+        """name -> whole value of the persistables `names`: tp slices
+        gathered; on the first run of the program in the scope, every
+        rank takes world rank 0's values (`done` holds the (scope,
+        program) pairs already synced)."""
+        env = {n: self._whole(n, scope.find_var(n)) for n in names}
         key = (id(scope), id(self.program))
-        if key in done:
-            return
-        from ..distributed.parallel import broadcast_tensors
-        broadcast_tensors([scope.find_var(n) for n in names],
-                          group=self.group)
-        done.add(key)
+        if key not in done:
+            import torch.distributed as dist
+            from ..distributed.parallel import broadcast_tensors
+            broadcast_tensors(
+                [env[n] for n in names],
+                group=self.group if self.tp_mesh is None
+                else dist.group.WORLD)
+            done.add(key)
+        return env
+
+    def store(self, name, val):
+        """What the scope keeps of an updated persistable: its tp slice
+        where a rule splits it, else the value."""
+        spec = self._specs.get(name)
+        if spec is None:
+            return val
+        from ..parallel.sharding import shard_of
+        m = self.tp_mesh
+        return shard_of(val, spec, {"tp": m.coord("tp")},
+                        {"tp": m.axis_size("tp")}).contiguous()
+
+    def _whole(self, name, val):
+        spec = self._specs.get(name)
+        var = self.program.global_block()._var_recursive(name)
+        if spec is None or tuple(val.shape) == tuple(var.shape):
+            return val
+        from ..distributed.collective import all_gather
+        group = self.tp_mesh.group("tp")
+        for i, e in enumerate(spec):
+            if e == "tp":
+                val = torch.cat(all_gather([], val, group=group), i)
+        return val
 
     def global_fetches(self, names, values):
         """The program's loss averaged over the ranks; the rest as this
         rank computed them."""
         loss = self.info.get("loss")
-        if loss not in names:
+        if loss not in names or self.n == 1:
             return values
         from ..distributed.collective import all_reduce
         values = list(values)
@@ -426,3 +485,17 @@ class _DataParallel:
         all_reduce(v, group=self.group)
         values[i] = v / self.n
         return values
+
+
+_TP_MESHES: dict = {}
+
+
+def _tp_mesh(tp: int):
+    """The {"dp": world / tp, "tp": tp} mesh of this world (made once:
+    its process groups are collective to make)."""
+    from ..distributed.env import get_world_size
+    from ..distributed.mesh import make_mesh
+    key = (get_world_size(), tp)
+    if key not in _TP_MESHES:
+        _TP_MESHES[key] = make_mesh({"dp": -1, "tp": tp})
+    return _TP_MESHES[key]

@@ -42,9 +42,9 @@ from ..ops.fused_block import fused_ffn_ln, fused_out_ln, gelu_tanh
 from ..ops.fused_residual import apply_keep
 
 __all__ = ["GPTConfig", "init_gpt_params", "param_shapes",
-           "params_from_jax", "gpt_forward", "gpt_forward_aux", "gpt_loss",
-           "gpt_block_fn", "block_body", "decoder_tail", "resolve_device",
-           "disable_tf32"]
+           "params_from_jax", "gpt_param_specs", "shard_params",
+           "gpt_forward", "gpt_forward_aux", "gpt_loss", "gpt_block_fn",
+           "block_body", "decoder_tail", "resolve_device", "disable_tf32"]
 
 
 @dataclasses.dataclass
@@ -184,6 +184,65 @@ def param_shapes(cfg: GPTConfig) -> dict:
     return {"wte": (cfg.vocab_size, D),
             "wpe": (cfg.max_position_embeddings, D), "blocks": blocks,
             "lnf_s": (D,), "lnf_b": (D,)}
+
+
+def gpt_param_specs(pp_stacked: bool = False) -> dict:
+    """Megatron-style tensor-parallel specs of the parameter tree (the
+    reference's ``gpt_param_specs`` for the dense blocks), as tuples of
+    axis names: the q/k/v and up projections and their biases split on
+    columns over "tp" (a column split of wq is H/tp whole heads), the
+    out and down projections on rows, wte over the vocabulary; block
+    leaves carry a leading "pp" dimension when stacked per stage."""
+    def blk(*entries):
+        return (*(("pp",) if pp_stacked else ()), None, *entries)
+
+    blocks = {
+        "ln1_s": blk(None), "ln1_b": blk(None),
+        "wq": blk(None, "tp"), "bq": blk("tp"),
+        "wk": blk(None, "tp"), "bk": blk("tp"),
+        "wv": blk(None, "tp"), "bv": blk("tp"),
+        "wo": blk("tp", None), "bo": blk(None),
+        "ln2_s": blk(None), "ln2_b": blk(None),
+        "w_up": blk(None, "tp"), "b_up": blk("tp"),
+        "w_down": blk("tp", None), "b_down": blk(None),
+    }
+    return {"wte": ("tp", None), "wpe": (), "blocks": blocks,
+            "lnf_s": (), "lnf_b": ()}
+
+
+def shard_params(tree: dict, coords: dict, sizes: dict,
+                 names=None) -> dict:
+    """This rank's pieces of a full reference-layout tree (numpy arrays
+    or memmaps; block leaves [L, ...]) under ``gpt_param_specs``: block
+    leaves cut to the rank's pp stage (L/pp layers, the leading pp
+    dimension of the stacked specs) and every leaf to its tp part;
+    `coords` / `sizes` map axis names to this rank's index and the
+    axis's size. `names` (top-level keys) keeps only those leaves, so a
+    stage reads only what it holds. Only the pieces are read from a
+    memmap; each comes back as a fresh float32 numpy array."""
+    specs = gpt_param_specs(pp_stacked=True)
+    from ..parallel.sharding import shard_of
+    pp = sizes.get("pp", 1)
+
+    def piece(v, spec):
+        return np.array(shard_of(v, spec, coords, sizes), dtype=np.float32,
+                        order="C", copy=True)
+
+    out = {}
+    for k in ("wte", "wpe", "lnf_s", "lnf_b"):
+        if names is None or k in names:
+            out[k] = piece(tree[k], specs[k])
+    if names is None or "blocks" in names:
+        blocks = {}
+        for k, v in tree["blocks"].items():
+            L = v.shape[0]
+            if L % pp:
+                raise ValueError(f"num_layers={L} not divisible by pp={pp}")
+            stacked = v.reshape(pp, L // pp, *v.shape[1:])
+            blocks[k] = piece(stacked, specs["blocks"][k])[0] if pp > 1 \
+                else piece(v, specs["blocks"][k][1:])
+        out["blocks"] = blocks
+    return out
 
 
 def params_from_jax(tree: dict, device="cpu") -> dict:

@@ -1,4 +1,5 @@
-"""Training over a device mesh (so far: one device)."""
-from .hybrid import HybridParallelTrainStep
+"""Training over a device mesh: the hybrid GPT step (dp x pp x tp,
+both pipeline schedules, ZeRO-1) and the pieces it is built from."""
+from .hybrid import HybridParallelTrainStep, make_hybrid_mesh
 
-__all__ = ["HybridParallelTrainStep"]
+__all__ = ["HybridParallelTrainStep", "make_hybrid_mesh"]

@@ -219,9 +219,15 @@ def test_fleet_collective_mode_surface(monkeypatch):
     step = fleet.hybrid_train_step(GPTConfig.tiny(), device="cpu")
     ids = np.random.RandomState(0).randint(0, 512, (2, 64))
     assert np.isfinite(float(step(ids)))
+    # the hybrid step runs dp / pp / tp over a world of their size
+    # (tests/test_torch_hybrid_parallel.py): outside one the mesh raises;
+    # sequence parallelism comes with item 14(c)
     st = fleet.DistributedStrategy()
     st.hybrid_configs = {"dp_degree": 2}
     fleet.init(is_collective=True, strategy=st)
-    with pytest.raises(NotImplementedError, match=r"item 14\(b\)"):
+    with pytest.raises(ValueError, match="world has 1"):
+        fleet.hybrid_train_step(GPTConfig.tiny(), device="cpu")
+    st.hybrid_configs = {"dp_degree": 1, "sp_degree": 2}
+    with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
         fleet.hybrid_train_step(GPTConfig.tiny(), device="cpu")
     fleet.init(is_collective=True)      # the default strategy again

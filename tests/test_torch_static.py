@@ -336,12 +336,25 @@ def test_unported_parts_raise_naming_their_slice():
     with pytest.raises(NotImplementedError, match="slice 6"):
         exe.train_from_dataset(main, None)
 
-    # data parallelism runs (tests/test_torch_data_parallel.py); the
-    # tensor / pipeline / sequence axes of a sharded program do not yet
-    for axis in ("tp", "pp", "sp"):
-        main._sharding_info = {"mode": "dp", axis: 2}
-        with pytest.raises(NotImplementedError, match="item 14"):
-            exe.run(main)
+    # a program marked with a tensor / pipeline / sequence degree runs
+    # (tests/test_torch_hybrid_parallel.py holds it over ranks); over one
+    # rank it is the plain run, as in the reference
+    pt.enable_static()
+    try:
+        prog, start = tfw.Program(), tfw.Program()
+        with tfw.program_guard(prog, start):
+            x = tlayers.data("x", [-1, 3], "float32")
+            out = tlayers.mean(tlayers.fc(x, 2))
+    finally:
+        pt.disable_static()
+    feed = {"x": np.arange(6, dtype="float32").reshape(2, 3)}
+    with scope_guard(Scope()):
+        exe.run(start)
+        plain = exe.run(prog, feed=feed, fetch_list=[out])[0]
+        for axis in ("tp", "pp", "sp"):
+            prog._sharding_info = {"mode": "dp", axis: 2}
+            got = exe.run(prog, feed=feed, fetch_list=[out])[0]
+            np.testing.assert_array_equal(got, plain)
 
 
 def test_static_mode_switch():

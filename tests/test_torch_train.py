@@ -151,10 +151,18 @@ def test_lr_may_be_callable():
     assert calls == [1]
 
 
-@pytest.mark.parametrize("kw", [dict(dp=2), dict(pp=2), dict(tp=2),
-                                dict(sp=2), dict(ep=2), dict(mesh=object())])
-def test_mesh_axes_raise(kw):
-    with pytest.raises(NotImplementedError, match="item 14"):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(dp=2), ValueError, "world has 1"),
+    (dict(pp=2), ValueError, "world has 1"),
+    (dict(tp=2), ValueError, "world has 1"),
+    (dict(sp=2), NotImplementedError, r"item 14\(c\)"),
+    (dict(ep=2), NotImplementedError, r"item 14\(c\)"),
+    (dict(mesh=object()), TypeError, "Mesh")])
+def test_mesh_axes_raise(kw, exc, match):
+    """dp / pp / tp run over a world of their size
+    (tests/test_torch_hybrid_parallel.py): outside one, the mesh raises;
+    sp and ep come with item 14(c); a mesh is the port's Mesh."""
+    with pytest.raises(exc, match=match):
         PStep(pgpt.GPTConfig(**SIZE), device="cpu", **kw)
 
 

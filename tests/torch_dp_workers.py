@@ -18,6 +18,9 @@ import torch
 
 def run(case: str, out: str, *args):
     from paddle_tpu_torch.distributed import env
+    # one thread a rank: the world's ranks share the host's cores with
+    # the other test workers (several threads each oversubscribe them)
+    torch.set_num_threads(1)
     env.init_parallel_env()
     result = CASES[case](*args)
     with open(os.path.join(out, f"rank{env.get_rank()}.pkl"), "wb") as f:
@@ -282,8 +285,10 @@ def regression_feeds(steps=20):
 def static_dp(start, how):
     """The regression program from the reference's initial scope `start`,
     20 steps data-parallel: `how` "compiled" (CompiledProgram
-    .with_data_parallel) or "fleet" (fleet.init(is_collective=True),
-    fleet.distributed_optimizer(SGD).minimize)."""
+    .with_data_parallel), "fleet" (fleet.init(is_collective=True),
+    fleet.distributed_optimizer(SGD).minimize) or "pipeline" (fleet's
+    minimize under strategy.pipeline: the program is marked "pp", which
+    the reference's executor does not read)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.distributed import fleet
@@ -294,9 +299,10 @@ def static_dp(start, how):
     try:
         main, startup, loss, sgd = build_regression(fluid)
         with fluid.framework.program_guard(main, startup):
-            if how == "fleet":
+            if how in ("fleet", "pipeline"):
                 fleet.init(is_collective=True)
                 strategy = fleet.DistributedStrategy()
+                strategy.pipeline = how == "pipeline"
                 fleet.distributed_optimizer(sgd, strategy).minimize(loss)
                 prog = main
             else:
