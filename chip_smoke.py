@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --kernels  # phases 1-2 only: build + check
+    python3 chip_smoke.py --moe-seed N  # phase 1, then phase 18 alone
+                                     # on weights and batch from seed N
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
                                      # step, of one BERT train step, of
@@ -216,7 +218,7 @@ Phases:
      reading its pieces of one weight tree the parent wrote once
      (np.save, read back as memmaps). (a) GPT-3 XL whole (24 layers)
      at pp = 2 x tp = 2 (4 ranks), bf16, flash, remat, dropout 0,
-     global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 3
+     global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 2
      steps each: every loss within 1e-3 relative of the single-rank
      step's on the same batch and weights; (b) 4 layers at full width,
      dp = 2 x pp = 2 x tp = 2 (8 ranks), ZeRO-1, batch 8 x 1024: at
@@ -227,11 +229,47 @@ Phases:
      send / recv, the measured bubble (pp receive wait over the
      schedule) against (S - 1) / (M + S - 1), and the launches of rows
      2-5 and 8-9 on each rank by route (rows 2-5 all tc, in the counts
-     HYBRID_LAUNCHES predicts); with phase 2 the kernels at the shapes
+     mesh_launches predicts); with phase 2 the kernels at the shapes
      this path gives them (check_hybrid_kernels: the partial sub-blocks
      at K = 1024 / I = 4096 bf16, flash at 8 heads, layer norm at
      R = 1024, C = 2048 bf16);
- 17. the kernels line, then the card line, then the result line.
+ 17. sp_gpt (item 14(c)): ring attention over the sp axis, on the same
+     weight tree as phase 16: (a) GPT-3 XL whole at sp = 2 (2 ranks),
+     bf16, remat, dropout 0, global batch 2 x 2048 (a rank's half of
+     each sequence); (b) 4 layers at dp = 2 x pp = 2 x sp = 2 (8 ranks)
+     under 1F1B, 2 microbatches, batch 8 x 1024, then one step at
+     dropout 0.1 (finite and equal on every rank); 1 + 3 steps each,
+     every loss within 1e-3 relative of the single rank's (attn_impl
+     "xla", the reference test's comparison) on the same weights and
+     batch. Printed: step ms, tokens/s, each rank's peak memory, the ms
+     a step in ring hops and in the sp / dp gradient sum, and each
+     rank's launches of rows 2-5 and 8-9 against mesh_launches (rows
+     2-3 on tc; no flash, the ring replaces it; no row 8-9 at tp = 1);
+ 18. moe_gpt: GPT-2 small widths (12 layers, d 768, 12 heads, vocab
+     50304) with Switch-Base-8's 8 experts, top-1, capacity factor
+     1.25, flash, remat, at dp = 2 x ep = 2 x tp = 2 (8 ranks), global
+     batch 8 x 1024, weights and batch from seed 0, 1 + 3 steps, once
+     in bf16 and once in f32, each against the single rank in the same
+     dtype: the first step's gradients (the same weights, no update)
+     on every rank, the clip's global norm and the router's wg, within
+     1e-5 relative in f32 and 5e-3 / 0.1 in bf16; the first loss (one
+     forward) within 1e-5 (f32) / 1e-3 (bf16), the later ones within
+     1e-3 / 1.5e-2 (Adam's first updates grow rounding about tenfold a
+     step; bf16's own trajectory and gradients against f32's on one
+     rank alone printed beside); each rank's split expert bytes
+     1/(ep tp) of the bank's; the share of layer 0's tokens routed to another expert
+     than on the single rank and dropped at capacity; step ms, the ms
+     in ep and tp all-reduces; rows 4-5 launched on tc (bf16) / simt
+     (f32) in mesh_launches' counts on every rank;
+ 19. widedeep_mp: phase 14's headline wide&deep at dp = 2 x mp = 2 (4
+     ranks; both tables row-sharded over mp, the collective lookup),
+     batch 4096, 1 + 5 Adam steps: losses within 5e-4 of the single
+     rank's (the reference test's bound), each rank's table bytes 1/mp
+     of the whole; examples/s beside phase 14's, the ms a step in the
+     lookup's all-reduce and in the dp gradient average; with phase 2
+     (check_mesh_kernels) rows 2-3 at an sp_gpt rank's shape (M = 2048)
+     and rows 4-5 at a moe_gpt rank's (4 x 6 heads of 64);
+ 20. the kernels line, then the card line, then the result line.
 
 Each phase prints its wall seconds ({"phase": "seconds", ...}). One
 numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
@@ -447,10 +485,12 @@ LENET_BATCH, LENET_STEPS = 256, 30
 # two ranks on one GPU)
 DP_RANKS = 2
 # hybrid_gpt: (a) GPT-3 XL at pp x tp, (b) B_LAYERS at dp x pp x tp with
-# ZeRO-1; the global batches; microbatches; 1 + 3 steps a run
+# ZeRO-1; the global batches; microbatches; 1 + 3 steps a run, (a) 1 + 2
+# (the whole script passed 800 s with 1 + 3)
 HYBRID_A = dict(pp=2, tp=2)
 HYBRID_B = dict(dp=2, pp=2, tp=2)
 HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 4
+HYBRID_A_STEPS = 3
 HYBRID_B_LAYERS = 4
 HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
 # the losses against the single rank's: tighter than phase 4's 2e-2, so
@@ -460,16 +500,66 @@ HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
 HYBRID_RTOL = 1e-3
 
 
-def hybrid_launches(layers, pp, micro, steps):
-    """Launches a rank makes of rows 2-5 and 8 on the hybrid path: each
-    of its layers runs, per microbatch, both partial sub-blocks, flash
-    forward and LN2 (row 8) twice (forward, then the recompute), and the
-    two flash backward kernels and LN2's dx once (the sub-blocks'
-    backward is the composed recompute)."""
+# sp_gpt (item 14(c)): (a) GPT-3 XL whole at sp 2, batch 2 x 2048; (b)
+# HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B, 2 microbatches,
+# batch 8 x 1024; the step sets attn_impl "ring", the single rank runs
+# "xla" (the reference test's comparison)
+SP_A, SP_A_BATCH, SP_A_SEQ = dict(sp=2), 2, 2048
+SP_B, SP_B_BATCH = dict(dp=2, pp=2, sp=2, n_microbatches=2), 8
+SP_CFG = dict(amp_dtype="bfloat16", remat=True)
+# moe_gpt: GPT-2 small widths with Switch-Base-8's 8 experts, top-1,
+# capacity factor 1.25, at dp 2 x ep 2 x tp 2, batch 8 x 1024
+MOE_CFG = dict(num_experts=8, moe_top_k=1, moe_capacity_factor=1.25,
+               amp_dtype="bfloat16", attn_impl="flash", remat=True)
+MOE_MESH, MOE_BATCH = dict(dp=2, ep=2, tp=2), 8
+# the first step's gradients (the same weights, before any update)
+# against the single rank's: the clip's global norm and the router's
+# wg, relative. Sound splits on seeds 0 and 1 read in f32 norm 0, wg
+# 7.2e-7; in bf16 norm 1.8e-3, wg 3.6e-2 (H100, 700 W). A router
+# gradient counted ep = 2 times is 100% off, a sum missing over 2 ranks
+# about half of a part.
+MOE_PROBE = ("blocks.wg",)
+MOE_PROBE_RTOL = {"bf16": {"norm": 5e-3, "blocks.wg": 0.1},
+                  "f32": {"norm": 1e-5, "blocks.wg": 1e-5}}
+# the losses against the single rank's, a bound a step: step 1 is one
+# forward on the same weights; after it Adam's first updates take the
+# sign of each gradient element, so rounding in near-zero elements
+# grows about tenfold a step. Sound splits read at step 1 2.1e-4 (bf16)
+# and 0 (f32), after it up to 5.04e-3 (bf16) and 2.44e-4 (f32), seeds
+# 0 and 1. These hold the update (Adam on the split's gradients) to
+# that noise; a wrong scale, which Adam's update hides, is the probe's.
+MOE_RTOL = {"bf16": (HYBRID_RTOL, 1.5e-2), "f32": (1e-5, HYBRID_RTOL)}
+# widedeep_mp: phase 14's headline config at dp 2 x mp 2, 1 + 5 steps;
+# the losses against the single rank's within the reference test's bound
+WD_MESH, WD_MP_STEPS, WD_MP_ATOL = dict(dp=2, mp=2), 6, 5e-4
+
+
+def mesh_launches(layers, pp=1, micro=1, steps=HYBRID_STEPS, kind="tp"):
+    """Launches a rank makes of rows 2-5 and 8-9 on a mesh path, n =
+    layers a stage x microbatches x steps. "tp" (hybrid_gpt: dense
+    blocks at tp > 1): each layer runs, per microbatch, both partial
+    sub-blocks, flash forward and LN2 (row 8) twice (forward, then the
+    recompute), and the two flash backward kernels and LN2's dx once
+    (the sub-blocks' backward is the composed recompute); "sp" (sp_gpt:
+    dense blocks at tp = 1 under the ring): both sub-blocks twice, no
+    flash (the ring replaces it) and no row 8-9; "moe" (moe_gpt: the
+    expert blocks' composed tail): flash as "tp", nothing else."""
     n = layers // pp * micro * steps
-    return {"fused_out_ln": 2 * n, "fused_ffn_ln": 2 * n,
-            "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-            "layer_norm_fwd": 2 * n, "layer_norm_bwd_dx": n}
+    sub, flash, ln = kind in ("tp", "sp"), kind in ("tp", "moe"), \
+        kind == "tp"
+    return {"fused_out_ln": 2 * n * sub, "fused_ffn_ln": 2 * n * sub,
+            "flash_fwd": 2 * n * flash, "flash_bwd_dq": n * flash,
+            "flash_bwd_dkv": n * flash, "layer_norm_fwd": 2 * n * ln,
+            "layer_norm_bwd_dx": n * ln}
+
+
+def mesh_routes(want):
+    """The route each kernel of mesh_launches takes on the mesh paths:
+    rows 2-5 tc (bf16 at widths of multiples of 64), rows 8-9 row (LN2
+    after the tp sum at C = 2048, past the warp route's 1024)."""
+    return {k: "row" if k.startswith("layer_norm") else "tc" for k in want}
+
+
 # figures a later phase prints beside its own
 MEASURED: dict = {}
 # bench.py's bench_resnet50
@@ -1203,10 +1293,11 @@ def tc_times(torch, timer, args, kernel, plain, library, n_sets=8,
     return times
 
 
-def check_blocks_bf16(torch, timer, results):
+def check_blocks_bf16(torch, timer, results, M=TRAIN_TOKENS, tag=""):
     """The sub-blocks at the training shape: bf16 activations, weights
-    and biases with f32 LN vectors, M = 1024 tokens; both take the
-    tensor-core route there, and each row says which route it took.
+    and biases with f32 LN vectors, M = 1024 tokens (or `M`, the shape
+    ending in `tag`); both take the tensor-core route there, and each
+    row says which route it took.
     Tolerance: both the kernel and the plain version accumulate in f32
     from the same bf16 numbers (hid rounded to bf16 on both sides) and
     round each output once to bf16 (2**-8 relative), so |err| <= 2e-2 +
@@ -1214,7 +1305,7 @@ def check_blocks_bf16(torch, timer, results):
     import torch.nn.functional as F
     from paddle_tpu_torch.ops.fused_block import (
         ffn_ln_reference, fused_ffn_ln, fused_out_ln, out_ln_reference)
-    M, D, I = TRAIN_TOKENS, 2048, 8192
+    D, I = 2048, 8192
     bf = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -1241,7 +1332,7 @@ def check_blocks_bf16(torch, timer, results):
         zz = torch.addmm(b, a, w).add_(res)
         return F.layer_norm(zz, (D,), ls16, lb16, 1e-5)
 
-    row = {"kernel": "fused_out_ln", "shape": f"M={M} D={D} bf16",
+    row = {"kernel": "fused_out_ln", "shape": f"M={M} D={D} bf16{tag}",
            "route": route,
            "max_abs_err": max(max_err(z, zr), max_err(h, hr)), "tol": tol,
            **tc_times(torch, timer, (a, w, b, res, ln_s, ln_b),
@@ -1260,7 +1351,8 @@ def check_blocks_bf16(torch, timer, results):
         u = F.gelu(torch.addmm(b1, x, w1), approximate="tanh")
         return torch.addmm(b2, u, w2).add_(res)
 
-    row = {"kernel": "fused_ffn_ln", "shape": f"M={M} H={D} I={I} bf16",
+    row = {"kernel": "fused_ffn_ln",
+           "shape": f"M={M} H={D} I={I} bf16{tag}",
            "route": route, "max_abs_err": max_err(out, ref), "tol": tol,
            **tc_times(torch, timer, (x, w1, b1, w2, b2, res), fused_ffn_ln,
                       ffn_ln_reference, lib_ffn),
@@ -1532,6 +1624,28 @@ def check_hybrid_kernels(torch, timer, results):
                    [True, False, False])),
            "bound_ms": bms, "bound_by": by}
     report(results, row, within(dx, dx_r, **tol))
+
+
+def check_mesh_kernels(torch, timer, results):
+    """The kernels at the shapes the sp and MoE paths give a rank: rows
+    2-3 on an sp_gpt (a) rank's dense blocks (tp = 1, its half of two
+    2048-token sequences: M = 2048, D = 2048, I = 8192, bf16, with the
+    residual), shapes ending in "(sp)"; rows 4-5 on a moe_gpt rank's
+    heads (dp 2: 4 sequences of 1024; tp 2: 6 of GPT-2 small's 12 heads
+    of 64; causal bf16), shapes ending in "(moe)". Tolerances as
+    check_blocks_bf16 and flash_rows."""
+    check_blocks_bf16(torch, timer, results,
+                      M=SP_A_BATCH * SP_A_SEQ // SP_A["sp"], tag=" (sp)")
+    B, H, T, Dh = MOE_BATCH // MOE_MESH["dp"], 12 // MOE_MESH["tp"], \
+        TRAIN_TOKENS, 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lib_fwd, lib_bwd = sdpa_yardsticks(torch, B, H, is_causal=True)
+    q, k, v, do = (torch.randn(B * H, T, Dh, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    flash_rows(torch, timer, results, q, k, v, do,
+               (Dh ** -0.5, True, None, 0, 0.0),
+               f"B={B} H={H} T={T} D={Dh} causal bf16 (moe)", BF16_FLOPS,
+               B * H * T * (T + 1) // 2, 0, lib_fwd, lib_bwd)
 
 
 def ln_grid_ms(torch, timer, name, args, n_sets=16):
@@ -3760,6 +3874,7 @@ def widedeep_phase(torch, with_profile=False):
         "max_memory_requested_gb": round(torch.cuda.memory_stats()[
             "requested_bytes.all.peak"] / 1e9, 6),
         "port_launches": counts}
+    MEASURED["widedeep_examples_per_s"] = row["examples_per_s"]
     print(json.dumps(row), flush=True)
     if not all(math.isfinite(v) for v in losses) \
             or not losses[-1] < losses[0]:
@@ -4155,24 +4270,28 @@ def load_tree(root, layers=None):
     return tree
 
 
-def hybrid_ids(vocab: int, batch: int):
-    import numpy as np
-    return np.random.RandomState(0).randint(
-        0, vocab, (batch, TRAIN_TOKENS)).astype(np.int32)
-
-
-def hybrid_run(torch, cfg, kw, params, ids, steps):
+def hybrid_run(torch, cfg, kw, params, ids, steps, probe=()):
     """`steps` calls of HybridParallelTrainStep(cfg, **kw) from
     `params` on the global batch `ids`, launch counts set to 0 just
     before and read just after: losses, step seconds, the step's comm
-    seconds (last_stats) a step, peak memory, moment bytes, counts."""
+    seconds (last_stats) a step, peak memory, moment bytes, counts.
+    With `probe` (leaf names), first one loss_and_grads on `params`
+    without an update: the global norm the clip takes and this rank's
+    reduced gradients of those leaves ("probe")."""
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
     from paddle_tpu_torch.parallel import HybridParallelTrainStep
     t0 = time.perf_counter()
     step = HybridParallelTrainStep(cfg, grad_clip_norm=1.0, params=params,
-                                   n_microbatches=HYBRID_MICRO, **kw)
+                                   **{"n_microbatches": HYBRID_MICRO, **kw})
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    probed = None
+    if probe:
+        grads = step.loss_and_grads(ids)[1]
+        probed = {"norm": float(step._global_norm(grads)), "grads": {
+            n: g.float().cpu().numpy() for (n, _), g in
+            zip(step._leaves, grads) if n in probe}}
+        del grads
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     losses, times, stats = [], [], []
@@ -4189,7 +4308,10 @@ def hybrid_run(torch, cfg, kw, params, ids, steps):
            "unsharded_moment_bytes": 8 * sum(
                p.numel() for _, p in step._leaves),
            "zero": step.zero_sharding,
+           "leaf_bytes": {n: p.numel() * p.element_size()
+                          for n, p in step._leaves},
            "coords": {a: step.mesh.coord(a) for a in step.mesh.axis_names},
+           "probe": probed,
            "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
     del step
     gc.collect()
@@ -4197,146 +4319,436 @@ def hybrid_run(torch, cfg, kw, params, ids, steps):
     return res
 
 
-def hybrid_case(torch, root, runs):
-    """One rank of a hybrid world: each run (name, layers, step kwargs,
-    config kwargs, batch) from the tree under `root`, in order."""
+def tree_root(tree, what):
+    """`tree` saved (save_tree) under a new temporary directory, which
+    the caller removes; one line with the seconds and GB."""
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    t0 = time.perf_counter()
+    save_tree(tree, root)
+    print(json.dumps({"phase": what, "seconds": round(
+        time.perf_counter() - t0, 2), "gb": round(sum(
+            os.path.getsize(os.path.join(root, n))
+            for n in os.listdir(root)) / 1e9, 3)}), flush=True)
+    return root
+
+
+def hybrid_gpt_phase(torch, root, L):
+    """(a) GPT-3 XL (L layers, the tree under `root`) at pp x tp under
+    both schedules and (b) 4 layers at dp x pp x tp with ZeRO-1, against
+    single-rank steps (module docstring, phase 16). Returns each rank's
+    launch counts of (a)'s 1F1B run, for the kernels line."""
+    cfg_a = dict(XL, num_layers=L, **HYBRID_CFG)
+    ref_a = gpt_run(torch, root, cfg_a, {}, HYBRID_A_BATCH, TRAIN_TOKENS,
+                    HYBRID_A_STEPS)
+    runs = [(sched, cfg_a, dict(HYBRID_A, pipeline_schedule=sched),
+             HYBRID_A_BATCH, TRAIN_TOKENS, HYBRID_A_STEPS)
+            for sched in ("1F1B", "F-then-B")]
+    ranks_a = run_dp("gpt", root, runs, timeout=900,
+                     nprocs=math.prod(HYBRID_A.values()))
+    want = mesh_launches(L, HYBRID_A["pp"], HYBRID_MICRO, HYBRID_A_STEPS)
+    for sched in ("1F1B", "F-then-B"):
+        check(mesh_report("hybrid_gpt", f"a {sched}", sched, ranks_a, ref_a,
+                          HYBRID_A, HYBRID_A_BATCH, TRAIN_TOKENS, want,
+                          mesh_routes(want), micro=HYBRID_MICRO)[1])
+
+    Lb = HYBRID_B_LAYERS
+    cfg_b = dict(XL, num_layers=Lb, **HYBRID_CFG)
+    ref_b = gpt_run(torch, root, cfg_b, {}, HYBRID_B_BATCH, TRAIN_TOKENS)
+    kw = dict(HYBRID_B, sharding=True)
+    runs = [("zero", cfg_b, kw, HYBRID_B_BATCH, TRAIN_TOKENS),
+            ("dropout", dict(cfg_b, dropout=0.1), kw, HYBRID_B_BATCH,
+             TRAIN_TOKENS)]
+    ranks_b = run_dp("gpt", root, runs, timeout=600,
+                     nprocs=math.prod(HYBRID_B.values()))
+    want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO)
+    bad = mesh_report("hybrid_gpt", "b ZeRO-1", "zero", ranks_b, ref_b,
+                      HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
+                      mesh_routes(want), micro=HYBRID_MICRO)[1]
+    bad += mesh_report("hybrid_gpt", "b dropout 0.1", "dropout", ranks_b,
+                       None, HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
+                       mesh_routes(want), micro=HYBRID_MICRO)[1]
+    dp = HYBRID_B["dp"]
+    for r, rank in enumerate(ranks_b):
+        got = rank["zero"]
+        if not got["zero"] or got["moment_bytes"] * dp != \
+                got["unsharded_moment_bytes"]:
+            bad.append(f"hybrid b rank {r}: moment bytes "
+                       f"{got['moment_bytes']} not 1/{dp} of "
+                       f"{got['unsharded_moment_bytes']}")
+    check(bad)
+    return [rank["1F1B"]["counts"] for rank in ranks_a]
+
+
+# ---------------------------------------------------------------------------
+# item 14(c): ring attention over sp, experts over ep, sharded tables
+# ---------------------------------------------------------------------------
+
+# GPT-3 XL's widths (GPTConfig.gpt3_1p3b)
+XL = dict(hidden_size=2048, num_heads=16, max_position_embeddings=2048)
+
+
+def gpt_ids(vocab: int, batch: int, seq: int, seed: int = 0):
+    import numpy as np
+    return np.random.RandomState(seed).randint(
+        0, vocab, (batch, seq)).astype(np.int32)
+
+
+class RouteTap:
+    """Keeps the first routing decision moe_ffn makes in this process
+    while open (layer 0's forward in the first step): round 0's expert
+    of each of the rank's tokens and whether it fit, on the host."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.parallel import moe
+        self.mod, self.orig, self.first = moe, moe._route, None
+
+        def tapped(*args, **kw):
+            out = self.orig(*args, **kw)
+            if self.first is None:
+                self.first = (out[0][0].cpu().numpy(),
+                              out[2][0].cpu().numpy())
+            return out
+
+        moe._route = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route = self.orig
+
+
+def gpt_run(torch, root, cfg_kw, kw, batch, seq, steps=HYBRID_STEPS,
+            seed=0, probe=()):
+    """hybrid_run of GPTConfig(**cfg_kw) from the tree under `root` on
+    the [batch, seq] ids of `seed` (with `probe`); with experts, layer
+    0's first routing ("route0": experts, kept) beside."""
     from paddle_tpu_torch.models.gpt import GPTConfig
-    out = {}
-    for name, layers, kw, cfg_kw, batch in runs:
-        cfg = GPTConfig.gpt3_1p3b(num_layers=layers, **HYBRID_CFG, **cfg_kw)
-        out[name] = hybrid_run(torch, cfg, kw, load_tree(root, layers),
-                               hybrid_ids(cfg.vocab_size, batch),
-                               HYBRID_STEPS)
-    return out
+    cfg = GPTConfig(**cfg_kw)
+    with RouteTap() as tap:
+        res = hybrid_run(torch, cfg, kw, load_tree(root, cfg.num_layers),
+                         gpt_ids(cfg.vocab_size, batch, seq, seed), steps,
+                         probe)
+    res["route0"] = tap.first
+    return res
 
 
-def hybrid_reference(torch, root, layers, batch):
-    """The single-rank step's losses on the same weights and batch."""
-    from paddle_tpu_torch.models.gpt import GPTConfig
-    cfg = GPTConfig.gpt3_1p3b(num_layers=layers, **HYBRID_CFG)
-    return hybrid_run(torch, cfg, {}, load_tree(root, layers),
-                      hybrid_ids(cfg.vocab_size, batch), HYBRID_STEPS)
+def gpt_case(torch, root, runs):
+    """One rank of a hybrid_gpt, sp_gpt or moe_gpt world: each run
+    (name, config kwargs, step kwargs, batch, seq[, steps]) in order."""
+    return {name: gpt_run(torch, root, *args) for name, *args in runs}
 
 
-def hybrid_report(what, name, ranks, ref, mesh, batch, layers):
-    """Print one line for a hybrid run and fail on its checks: losses
-    against the single rank's (when `ref`), rows 2-5 on tc in
-    hybrid_launches' counts and rows 8-9 as counted, on every rank."""
-    S, M = mesh.get("pp", 1), HYBRID_MICRO
+def mesh_report(phase, what, name, ranks, ref, mesh, batch, seq, want,
+                route="tc", rtol=(HYBRID_RTOL,), micro=1):
+    """One line for a run of a hybrid_gpt / sp_gpt / moe_gpt world, then
+    its gates: the same losses on every rank, finite, each within its
+    step's `rtol` (one bound a step, the last repeating) of the single
+    rank's (when `ref`), and each rank's launches of rows 2-5 and 8-9 exactly `want`,
+    all on `route` (one name, or one a kernel). Under pp the line has
+    the measured bubble (pp receive wait over the schedule) beside
+    (S - 1) / (M + S - 1), M = `micro`. Returns the line and the gates'
+    failures (the caller fails on them once it has printed what it
+    adds)."""
     per = [r[name] for r in ranks]
     losses = per[0]["losses"]
-    for r, got in enumerate(per):
-        if got["losses"] != losses:
-            fail(f"hybrid {what}: rank {r} losses {got['losses']} against "
-                 f"rank 0's {losses}")
-    if not all(math.isfinite(x) for x in losses):
-        fail(f"hybrid {what}: non-finite losses {losses}")
-    rel = None
-    if ref is not None:
-        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
-        if not max(rel) <= HYBRID_RTOL:
-            fail(f"hybrid {what}: losses {losses} against the single "
-                 f"rank's {ref['losses']} (rtol {HYBRID_RTOL})")
-    want = hybrid_launches(layers, S, M, HYBRID_STEPS)
-    for r, got in enumerate(per):
-        off_route(got["counts"], {k: v for k, v in want.items()
-                                  if not k.startswith("layer_norm")},
-                  f"hybrid {what} rank {r}")
-        for k in ("layer_norm_fwd", "layer_norm_bwd_dx"):
-            if got["counts"].get(k, 0) != want[k]:
-                fail(f"hybrid {what} rank {r}: {k} launched "
-                     f"{got['counts'].get(k, 0)} times, expected {want[k]}")
+    rel = None if ref is None else [
+        abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+    tol = [rtol[min(i, len(rtol) - 1)] for i in range(len(losses))]
+    timed_steps = max(len(per[0]["times"]) - 1, 1)
 
     def med(key, got):
-        return statistics.median(s.get(key, 0.0) for s in got["stats"][1:])
+        return statistics.median(s.get(key, 0.0)
+                                 for s in got["stats"][-timed_steps:])
 
-    step_s = statistics.median(t for got in per for t in got["times"][1:])
-    line = {"phase": "hybrid_gpt", "run": what, "mesh": mesh,
-            "layers": layers, "batch": batch, "seq": TRAIN_TOKENS,
-            "microbatches": M, "losses": losses,
+    step_s = statistics.median(t for got in per
+                               for t in got["times"][-timed_steps:])
+    ref_s = statistics.median(ref["times"][1:]) if ref else None
+    line = {"phase": phase, "run": what, "mesh": mesh, "batch": batch,
+            "seq": seq, "losses": losses,
             "single_rank_losses": ref["losses"] if ref else None,
-            "max_rel": max(rel) if rel else None, "rtol": HYBRID_RTOL,
+            "max_rel": max(rel) if rel else None,
+            "rtol": tol,
             "step_ms_median": round(step_s * 1e3, 3),
-            "single_rank_step_ms_median": round(statistics.median(
-                ref["times"][1:]) * 1e3, 3) if ref else None,
-            "tokens_per_s": round(batch * TRAIN_TOKENS / step_s, 2),
+            "single_rank_step_ms_median": round(ref_s * 1e3, 3)
+            if ref else None,
+            "tokens_per_s": round(batch * seq / step_s, 2),
+            "single_rank_tokens_per_s": round(batch * seq / ref_s, 2)
+            if ref else None,
             "peak_gb": [got["peak_gb"] for got in per],
+            "single_rank_peak_gb": ref["peak_gb"] if ref else None,
             "load_s": [round(got["load_s"], 2) for got in per],
-            "tp_allreduce_ms": [round(med("tp_s", got) * 1e3, 3)
-                                for got in per],
-            "pp_sendrecv_ms": [round((med("pp_send_s", got)
-                                      + med("pp_recv_s", got)) * 1e3, 3)
-                               for got in per],
-            "dp_allreduce_ms": [round(med("dp_s", got) * 1e3, 3)
-                                for got in per],
-            "bubble": [round(med("pp_recv_s", got)
-                             / med("schedule_s", got), 4) for got in per],
-            "bubble_predicted": round((S - 1) / (M + S - 1), 4),
+            **{f"{k}_ms": [round(med(f"{k}_s", got) * 1e3, 3)
+                           for got in per]
+               for k in ("sp", "ep", "tp", "dp", "pp_send", "pp_recv")},
+            "schedule_ms": [round(med("schedule_s", got) * 1e3, 3)
+                            for got in per],
             "moment_bytes": [got["moment_bytes"] for got in per],
             "unsharded_moment_bytes": [got["unsharded_moment_bytes"]
                                        for got in per],
             "launches_predicted": want,
             "launches": [{k: v for k, v in got["counts"].items()
                           if k.split(".")[0] in want} for got in per]}
+    S = mesh.get("pp", 1)
+    if S > 1:
+        line["bubble"] = [round(med("pp_recv_s", got)
+                                / med("schedule_s", got), 4) for got in per]
+        line["bubble_predicted"] = round((S - 1) / (micro + S - 1), 4)
     print(json.dumps(line), flush=True)
-    return line
+    bad = [f"rank {r} losses {got['losses']} against rank 0's {losses}"
+           for r, got in enumerate(per) if got["losses"] != losses]
+    if not all(math.isfinite(x) for x in losses):
+        bad.append(f"non-finite losses {losses}")
+    if rel is not None and not all(r <= t for r, t in zip(rel, tol)):
+        bad.append(f"losses {losses} against the single rank's "
+                   f"{ref['losses']} (rtol {tol})")
+    routes = route if isinstance(route, dict) else {k: route for k in want}
+    for r, got in enumerate(per):
+        c = got["counts"]
+        off = {k: (c.get(k, 0), c.get(f"{k}.{routes[k]}", 0), n)
+               for k, n in want.items()
+               if not c.get(k, 0) == c.get(f"{k}.{routes[k]}", 0) == n}
+        if off:
+            bad.append(f"rank {r} launches (all, on {routes}, expected) "
+                       f"{off}")
+    return line, [f"{phase} {what}: {b}" for b in bad]
 
 
-def hybrid_gpt_phase(torch, tree):
-    """(a) GPT-3 XL at pp x tp under both schedules and (b) 4 layers at
-    dp x pp x tp with ZeRO-1, against single-rank steps (module
-    docstring, phase 16). Returns each rank's launch counts of (a)'s
-    1F1B run, for the kernels line."""
+def check(failures):
+    if failures:
+        fail("; ".join(failures))
+
+
+def sp_gpt_phase(torch, root, L):
+    """(a) GPT-3 XL whole (the tree under `root`, L layers) at sp 2 and
+    (b) HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B, each against
+    the single rank (attn_impl "xla") on the same weights and batch, and
+    (b) once at dropout 0.1 (module docstring, phase 17). Returns each
+    rank's launch counts of (a), for the kernels line."""
+    cfg_a = dict(XL, num_layers=L, **SP_CFG)
+    ref_a = gpt_run(torch, root, dict(cfg_a, attn_impl="xla"), {},
+                    SP_A_BATCH, SP_A_SEQ)
+    ranks_a = run_dp("gpt", root, [("a", cfg_a, SP_A, SP_A_BATCH,
+                                    SP_A_SEQ, HYBRID_STEPS)],
+                     timeout=600, nprocs=math.prod(SP_A.values()))
+    check(mesh_report("sp_gpt", "a", "a", ranks_a, ref_a, SP_A, SP_A_BATCH,
+                      SP_A_SEQ, mesh_launches(L, kind="sp"))[1])
+    Lb = HYBRID_B_LAYERS
+    cfg_b = dict(XL, num_layers=Lb, **SP_CFG)
+    ref_b = gpt_run(torch, root, dict(cfg_b, attn_impl="xla"), {},
+                    SP_B_BATCH, TRAIN_TOKENS)
+    mesh_b = {k: v for k, v in SP_B.items() if k != "n_microbatches"}
+    runs = [("b", cfg_b, SP_B, SP_B_BATCH, TRAIN_TOKENS, HYBRID_STEPS),
+            ("dropout", dict(cfg_b, dropout=0.1), SP_B, SP_B_BATCH,
+             TRAIN_TOKENS, 1)]
+    ranks_b = run_dp("gpt", root, runs, timeout=600,
+                     nprocs=math.prod(mesh_b.values()))
+    M = SP_B["n_microbatches"]
+    check(mesh_report("sp_gpt", "b 1F1B", "b", ranks_b, ref_b, mesh_b,
+                      SP_B_BATCH, TRAIN_TOKENS,
+                      mesh_launches(Lb, mesh_b["pp"], M, kind="sp"),
+                      micro=M)[1])
+    check(mesh_report("sp_gpt", "b dropout 0.1", "dropout", ranks_b, None,
+                      mesh_b, SP_B_BATCH, TRAIN_TOKENS,
+                      mesh_launches(Lb, mesh_b["pp"], M, steps=1,
+                                    kind="sp"), micro=M)[1])
+    return [rank["a"]["counts"] for rank in ranks_a]
+
+
+def probe_errors(got, want):
+    """The worst rank's relative error of hybrid_run's probe against the
+    single rank's: the global norm, and each probed leaf in L2."""
+    import numpy as np
+    out = {"norm": max(abs(g["norm"] - want["norm"]) / want["norm"]
+                       for g in got)}
+    for n, w in want["grads"].items():
+        out[n] = max(float(np.linalg.norm(g["grads"][n] - w)
+                           / np.linalg.norm(w)) for g in got)
+    return out
+
+
+def moe_gpt_phase(torch, seed=0):
+    """GPT-2 small widths with 8 experts (MOE_CFG) at dp 2 x ep 2 x tp 2
+    against the single rank on the same tree and batch (both drawn from
+    `seed`), in bf16 and again in f32 (module docstring, phase 18).
+    Returns each rank's launch counts of the bf16 run."""
     import shutil
-    import tempfile
-    root = tempfile.mkdtemp(prefix="chip_smoke_tree_")
+    import numpy as np
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    cfg = GPTConfig(**MOE_CFG)
+    t0 = time.perf_counter()
+    tree = init_gpt_params(cfg, seed=seed)
+    init_s = time.perf_counter() - t0
+    root = tree_root(tree, "moe_tree")
+    bank = {k: tree["blocks"][k].nbytes for k in
+            ("we_up", "be_up", "we_down", "be_down")}
+    n_params = sum(v.size for v in tree.values() if hasattr(v, "size")) \
+        + sum(v.size for v in tree["blocks"].values())
+    del tree
+    f32 = dict(MOE_CFG, amp_dtype=None)
     try:
-        t0 = time.perf_counter()
-        save_tree(tree, root)
-        print(json.dumps({"phase": "hybrid_tree", "seconds": round(
-            time.perf_counter() - t0, 2), "gb": round(sum(
-                os.path.getsize(os.path.join(root, n))
-                for n in os.listdir(root)) / 1e9, 3)}), flush=True)
-        L = tree["blocks"]["wq"].shape[0]
-        ref_a = hybrid_reference(torch, root, L, HYBRID_A_BATCH)
-        print(json.dumps({"phase": "hybrid_single_rank", "layers": L,
-                          "losses": ref_a["losses"],
-                          "peak_gb": ref_a["peak_gb"]}), flush=True)
-        runs = [(sched, L, dict(HYBRID_A, pipeline_schedule=sched), {},
-                 HYBRID_A_BATCH) for sched in ("1F1B", "F-then-B")]
-        ranks_a = run_dp("hybrid", root, runs, timeout=900,
-                         nprocs=math.prod(HYBRID_A.values()))
-        for sched in ("1F1B", "F-then-B"):
-            hybrid_report(f"a {sched}", sched, ranks_a, ref_a, HYBRID_A,
-                          HYBRID_A_BATCH, L)
-
-        Lb = HYBRID_B_LAYERS
-        ref_b = hybrid_reference(torch, root, Lb, HYBRID_B_BATCH)
-        runs = [("zero", Lb, dict(HYBRID_B, sharding=True), {},
-                 HYBRID_B_BATCH),
-                ("dropout", Lb, dict(HYBRID_B, sharding=True),
-                 {"dropout": 0.1}, HYBRID_B_BATCH)]
-        ranks_b = run_dp("hybrid", root, runs, timeout=600,
-                         nprocs=math.prod(HYBRID_B.values()))
-        hybrid_report("b ZeRO-1", "zero", ranks_b, ref_b, HYBRID_B,
-                      HYBRID_B_BATCH, Lb)
-        hybrid_report("b dropout 0.1", "dropout", ranks_b, None, HYBRID_B,
-                      HYBRID_B_BATCH, Lb)
-        dp = HYBRID_B["dp"]
-        for r, rank in enumerate(ranks_b):
-            got = rank["zero"]
-            if not got["zero"] or got["moment_bytes"] * dp != \
-                    got["unsharded_moment_bytes"]:
-                fail(f"hybrid b rank {r}: moment bytes "
-                     f"{got['moment_bytes']} not 1/{dp} of "
-                     f"{got['unsharded_moment_bytes']}")
+        ref = gpt_run(torch, root, MOE_CFG, {}, MOE_BATCH, TRAIN_TOKENS,
+                      seed=seed, probe=MOE_PROBE)
+        ref32 = gpt_run(torch, root, f32, {}, MOE_BATCH, TRAIN_TOKENS,
+                        seed=seed, probe=MOE_PROBE)
+        runs = [(name, c, MOE_MESH, MOE_BATCH, TRAIN_TOKENS, HYBRID_STEPS,
+                 seed, MOE_PROBE)
+                for name, c in (("moe", MOE_CFG), ("moe_f32", f32))]
+        ranks = run_dp("gpt", root, runs, timeout=600,
+                       nprocs=math.prod(MOE_MESH.values()))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return [rank["1F1B"]["counts"] for rank in ranks_a]
+    want_launches = mesh_launches(cfg.num_layers, kind="moe")
+    line, bad = mesh_report("moe_gpt", "dp2 x ep2 x tp2", "moe", ranks, ref,
+                            MOE_MESH, MOE_BATCH, TRAIN_TOKENS, want_launches,
+                            rtol=MOE_RTOL["bf16"])
+    bad += mesh_report("moe_gpt", "dp2 x ep2 x tp2 f32", "moe_f32", ranks,
+                       ref32, MOE_MESH, MOE_BATCH, TRAIN_TOKENS,
+                       want_launches, route="simt", rtol=MOE_RTOL["f32"])[1]
+    probes = {}
+    for what, name, want in (("bf16", "moe", ref), ("f32", "moe_f32", ref32)):
+        probes[what] = probe_errors([r[name]["probe"] for r in ranks],
+                                    want["probe"])
+        tol = MOE_PROBE_RTOL[what]
+        over = {k: v for k, v in probes[what].items() if not v <= tol[k]}
+        if over:
+            bad.append(f"moe_gpt {what} first-step gradients off the "
+                       f"single rank's by {over} (relative, bound {tol})")
+    ep, tp = MOE_MESH["ep"], MOE_MESH["tp"]
+    split = ("we_up", "be_up", "we_down")
+    want = sum(bank[k] for k in split)
+    for r, rank in enumerate(ranks):
+        got = sum(rank["moe"]["leaf_bytes"][f"blocks.{k}"] for k in split)
+        if got * ep * tp != want:
+            bad.append(f"moe_gpt rank {r}: expert bytes {got} not "
+                       f"1/{ep * tp} of the bank's {want}")
+    experts, kept = ref["route0"]
+    n = experts.size // MOE_MESH["dp"]
+    other = [float(np.mean(rank["moe"]["route0"][0] != experts[
+        rank["moe"]["coords"]["dp"] * n:(rank["moe"]["coords"]["dp"] + 1)
+        * n])) for rank in ranks]
+    print(json.dumps({
+        "phase": "moe_gpt", "run": "routing and memory",
+        "config": "GPT-2 small widths, 8 experts top-1, capacity factor "
+        "1.25, bf16, flash, remat", "seed": seed, "params": int(n_params),
+        "init_s": round(init_s, 2),
+        "layer0_routed_elsewhere": other,
+        "layer0_dropped_single_rank": float(1.0 - kept.mean()),
+        "layer0_dropped": [float(1.0 - rank["moe"]["route0"][1].mean())
+                           for rank in ranks],
+        "expert_bytes_split": [sum(rank["moe"]["leaf_bytes"][
+            f"blocks.{k}"] for k in split) for rank in ranks],
+        "expert_bytes_bank": want,
+        "be_down_bytes": [rank["moe"]["leaf_bytes"]["blocks.be_down"]
+                          for rank in ranks],
+        "be_down_bank": bank["be_down"],
+        "routes": [{k: v for k, v in rank["moe"]["counts"].items()
+                    if k.startswith("flash")} for rank in ranks],
+        "step_ms": line["step_ms_median"],
+        # the first step's gradients (the same weights) against the
+        # single rank's, relative, worst rank
+        "first_step_grads_rel": probes,
+        "first_step_grads_rtol": MOE_PROBE_RTOL,
+        "single_rank_bf16_vs_f32_first_step_grads_rel": probe_errors(
+            [ref["probe"]], ref32["probe"]),
+        # bf16's own trajectory against f32's, on one rank and split
+        "single_rank_bf16_vs_f32_max_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(ref["losses"],
+                                                ref32["losses"])),
+        "split_bf16_vs_f32_max_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(
+                ranks[0]["moe"]["losses"], ranks[0]["moe_f32"]["losses"]))}),
+          flush=True)
+    check(bad)
+    return [rank["moe"]["counts"] for rank in ranks]
+
+
+def widedeep_batch(cfg):
+    """widedeep_phase's (bench_widedeep's) seeded batch."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (WD_BATCH, cfg.num_slots))
+    dense = rng.randn(WD_BATCH, cfg.dense_dim).astype(np.float32)
+    return ids, dense, (ids[:, 0] % 2).astype(np.float32)[:, None]
+
+
+def widedeep_steps(torch, kw, steps):
+    """`steps` steps of WideDeepTrainStep(WideDeepConfig(), **kw) on
+    widedeep_batch: losses, each step's seconds and comm seconds, peak
+    memory, this rank's and the whole tables' bytes."""
+    from paddle_tpu_torch.models.wide_deep import (WideDeepConfig,
+                                                   WideDeepTrainStep)
+    cfg = WideDeepConfig()
+    step = WideDeepTrainStep(cfg, **kw)
+    batch = widedeep_batch(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, stats = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        stats.append(dict(step.last_stats))
+    return {"losses": losses, "times": times, "stats": stats,
+            "table_bytes": sum(step.local_params[k].numel() * 4
+                               for k in ("embed", "wide")),
+            "whole_table_bytes": cfg.vocab_size * (cfg.embed_dim + 1) * 4,
+            "coords": {a: step.mesh.coord(a) for a in ("dp", "mp")},
+            "peak_gb": round(torch.cuda.max_memory_allocated() / 1e9, 3)}
+
+
+def widedeep_mp_case(torch, steps):
+    return widedeep_steps(torch, WD_MESH, steps)
+
+
+def widedeep_mp_phase(torch):
+    """Phase 14's headline wide&deep at dp 2 x mp 2 against the single
+    rank (module docstring, phase 19)."""
+    ref = widedeep_steps(torch, dict(dp=1, mp=1), WD_MP_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_dp("widedeep_mp", WD_MP_STEPS, timeout=300,
+                   nprocs=math.prod(WD_MESH.values()))
+    losses = ranks[0]["losses"]
+    for r, rank in enumerate(ranks):
+        if rank["losses"] != losses:
+            fail(f"widedeep_mp rank {r} losses {rank['losses']} against "
+                 f"rank 0's {losses}")
+        if rank["table_bytes"] * WD_MESH["mp"] != rank["whole_table_bytes"]:
+            fail(f"widedeep_mp rank {r}: table bytes {rank['table_bytes']} "
+                 f"not 1/{WD_MESH['mp']} of {rank['whole_table_bytes']}")
+    diff = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+    timed_s = statistics.median(t for rank in ranks
+                                for t in rank["times"][1:])
+    print(json.dumps({
+        "phase": "widedeep_mp", "mesh": WD_MESH, "batch": WD_BATCH,
+        "steps": WD_MP_STEPS, "losses": losses,
+        "single_rank_losses": ref["losses"], "max_abs_diff": max(diff),
+        "atol": WD_MP_ATOL,
+        "step_ms_median": round(timed_s * 1e3, 3),
+        "examples_per_s": round(WD_BATCH / timed_s, 1),
+        "single_rank_examples_per_s": round(WD_BATCH / statistics.median(
+            ref["times"][1:]), 1),
+        "phase14_examples_per_s": MEASURED.get("widedeep_examples_per_s"),
+        "lookup_allreduce_ms": [round(statistics.median(
+            s.get("mp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
+            for rank in ranks],
+        "dp_allreduce_ms": [round(statistics.median(
+            s.get("dp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
+            for rank in ranks],
+        "table_bytes": [rank["table_bytes"] for rank in ranks],
+        "whole_table_bytes": ranks[0]["whole_table_bytes"],
+        "peak_gb": [rank["peak_gb"] for rank in ranks]}), flush=True)
+    if not max(diff) <= WD_MP_ATOL or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"widedeep_mp: losses {losses} against the single rank's "
+             f"{ref['losses']} (atol {WD_MP_ATOL}), or not falling")
 
 
 DP_CASES = {"bert": dp_bert_case, "parity": dp_parity_case,
-            "allreduce": dp_allreduce_case, "hybrid": hybrid_case}
+            "allreduce": dp_allreduce_case, "gpt": gpt_case,
+            "widedeep_mp": widedeep_mp_case}
 
 
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
@@ -4401,7 +4813,7 @@ def kernel_entry(row, launches):
 
 def kernels_line(results, serve_counts, wide_counts, train_counts,
                  bert_counts, layer_counts, ffn_counts, wire_counts,
-                 hybrid_counts):
+                 hybrid_counts, sp_counts, moe_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache, the vector route), its scalar route from the
@@ -4424,10 +4836,26 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     8-9 carry under "hybrid" their numbers at the shapes of the hybrid
     GPT path (a tp = 2 rank at GPT-3 XL width) with rank 0's launches of
     the pp = 2 x tp = 2 1F1B run, every rank's ("rank_launches") and
-    rank 0's by route."""
+    rank 0's by route. Rows 2-3 carry under "sp_gpt" their numbers at
+    an sp_gpt (a) rank's shape with that run's launches, rows 4-5 under
+    "moe_gpt" theirs at a moe_gpt rank's shape with its launches; every
+    row of 2-5 and 8-9 lists each rank's launches in both runs
+    ("sp_gpt_launches", "moe_gpt_launches"; 0 where the path does not
+    run it)."""
     def row(name, *keys):
         return next(r for r in results if r["kernel"] == name
                     and all(k in r["shape"] for k in keys))
+
+    def mesh_runs(ent, name, tags):
+        for phase, counts in (("sp_gpt", sp_counts),
+                              ("moe_gpt", moe_counts)):
+            ent[f"{phase}_launches"] = [c.get(name, 0) for c in counts]
+            if phase in tags:
+                sub = kernel_entry(row(name, tags[phase]),
+                                   counts[0].get(name, 0))
+                sub["rank_launches"] = ent[f"{phase}_launches"]
+                sub["routes"] = route_counts(counts[0], name)
+                ent[phase] = sub
 
     paged = kernel_entry(row("paged_attention", "ctx<=2048", "cache=f32"),
                          serve_counts.get("paged_attention", 0))
@@ -4458,6 +4886,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["hybrid"]["rank_launches"] = [c.get(name, 0)
                                           for c in hybrid_counts]
         ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
+        mesh_runs(ent, name, {"moe_gpt": "(moe)"})
         kernels.append(ent)
     for name in ("fused_out_ln", "fused_ffn_ln"):
         ent = kernel_entry(row(name, f"M={TRAIN_TOKENS} ", "bf16"),
@@ -4479,6 +4908,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["hybrid"]["rank_launches"] = [c.get(name, 0)
                                           for c in hybrid_counts]
         ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
+        mesh_runs(ent, name, {"sp_gpt": "(sp)"})
         kernels.append(ent)
     for name in ("layer_norm_fwd", "layer_norm_bwd_dx"):
         top = row(name, "R=2048", "f32")
@@ -4493,6 +4923,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["hybrid"]["rank_launches"] = [c.get(name, 0)
                                           for c in hybrid_counts]
         ent["hybrid"]["routes"] = route_counts(hybrid_counts[0], name)
+        mesh_runs(ent, name, {})
         kernels.append(ent)
     for name in ("dropout_add_ln_fwd", "dropout_add_ln_bwd"):
         top = row(name, "R=2048", "f32", "p=0.1")
@@ -4515,6 +4946,8 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
 def main(argv):
     kernels_only = "--kernels" in argv
     with_profile = "--profile" in argv
+    moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
+        if "--moe-seed" in argv else None
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA card (torch.cuda.is_available() is False)")
@@ -4540,6 +4973,14 @@ def main(argv):
                                        "spill", "wgmma")):
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
 
+    if moe_seed is not None:
+        timed("moe_gpt", moe_gpt_phase, torch, moe_seed)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
     t0 = time.perf_counter()
     timer = Timer(torch)
     results = []
@@ -4554,6 +4995,7 @@ def main(argv):
     check_flash_block_override(torch)
     check_ffn(torch, timer, results)
     check_hybrid_kernels(torch, timer, results)
+    check_mesh_kernels(torch, timer, results)
     print(json.dumps({"phase": "seconds", "of": "kernel_checks",
                       "seconds": round(time.perf_counter() - t0, 2)}),
           flush=True)
@@ -4638,11 +5080,29 @@ def main(argv):
     timed("allreduce", allreduce_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
-    hybrid_counts = timed("hybrid_gpt", hybrid_gpt_phase, torch, tree)
+    import shutil
+    L = tree["blocks"]["wq"].shape[0]
+    root = tree_root(tree, "hybrid_tree")
+    del tree
+    gc.collect()
+    try:
+        hybrid_counts = timed("hybrid_gpt", hybrid_gpt_phase, torch, root,
+                              L)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sp_counts = timed("sp_gpt", sp_gpt_phase, torch, root, L)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_counts = timed("moe_gpt", moe_gpt_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("widedeep_mp", widedeep_mp_phase, torch)
 
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
                         bert_counts, layer_counts, ffn_counts, wire_counts,
-                        hybrid_counts)
+                        hybrid_counts, sp_counts, moe_counts)
     for ent in line["kernels"]:
         if ent["name"] in BERT_LAUNCHES_PER_STEP:
             # the bert_dp run's launches, rank by rank

@@ -12,9 +12,9 @@
 
 The names below load on first use, so that ``fleet.runtime.rpc`` (the
 serving wire) still imports without torch. The fleet's parameter-server
-mode (ROADMAP.md A, item 16) and the sequence / expert axes (item
-14(c)) are not ported; the hybrid dp x pp x tp step is
-``paddle_tpu_torch.parallel``.
+mode (ROADMAP.md A, item 16) is not ported; the hybrid step (dp x pp x
+tp x sp x ep), ring attention, the expert layer and the row-sharded
+embedding are ``paddle_tpu_torch.parallel``.
 """
 import importlib
 

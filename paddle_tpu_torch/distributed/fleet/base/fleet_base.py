@@ -129,11 +129,10 @@ class Fleet:
         return None
 
     def hybrid_train_step(self, cfg, **kwargs):
-        """The dp x pp x tp GPT train step from this fleet's strategy
-        (``hybrid_configs`` and the pipeline / tensor-parallel / ZeRO
-        ``sharding`` flags), over a world of dp * pp * tp ranks; sp and
-        ep degrees above 1 raise in the step (ROADMAP.md A, item
-        14(c))."""
+        """The hybrid GPT train step from this fleet's strategy
+        (``hybrid_configs`` and the pipeline / tensor-parallel /
+        sequence-parallel / expert-parallel / ZeRO ``sharding`` flags),
+        over a world of dp * pp * sp * ep * tp ranks."""
         from ....parallel.hybrid import HybridParallelTrainStep
         st = self._strategy or DistributedStrategy()
         hc = st.hybrid_configs

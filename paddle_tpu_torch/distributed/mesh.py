@@ -66,6 +66,40 @@ class Mesh:
     def group(self, axis: str):
         return self._groups[axis]
 
+    def joint_group(self, axes) -> object:
+        """The process group of the ranks that share this rank's
+        coordinates on every axis but `axes` (None when they are one
+        rank; an axis's own group when only it has more than one), in
+        rank order: the first of `axes` (in mesh order) outermost.
+        Collective the first time for a set of axes: every rank asks for
+        the same sets in the same order."""
+        axes = tuple(a for a in self.axis_names
+                     if a in axes and self.shape[a] > 1)
+        if len(axes) <= 1:
+            return self._groups[axes[0]] if axes else None
+        if axes in self._groups:
+            return self._groups[axes]
+        if math.prod(self.shape[a] for a in axes) == self.size:
+            self._groups[axes] = dist.group.WORLD
+            return dist.group.WORLD
+        inner = [self.axis_names.index(a) for a in axes]
+        outer = [i for i in range(len(self.axis_names)) if i not in inner]
+        n = math.prod(self.shape[a] for a in axes)
+        lines = np.transpose(self.ranks, outer + inner).reshape(-1, n)
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if get_rank() in line:
+                self._groups[axes] = g
+        return self._groups[axes]
+
+    def joint_coord(self, axes) -> int:
+        """This rank's index in ``joint_group(axes)``."""
+        i = 0
+        for a in self.axis_names:
+            if a in axes:
+                i = i * self.shape[a] + self._coord[a]
+        return i
+
     def coord(self, axis: str) -> int:
         return self._coord[axis]
 

@@ -11,9 +11,11 @@ port's copy of the reference's launcher helper
 """
 from __future__ import annotations
 
+import atexit
 import multiprocessing as mp
 import os
 import socket
+import sys
 import time
 
 __all__ = ["spawn", "get_cluster_env"]
@@ -42,14 +44,19 @@ def get_cluster_env(rank, endpoints, role="TRAINER", servers="",
 def _worker(rank, endpoints, func, args):
     os.environ.update(get_cluster_env(rank, endpoints))
     func(*args)
-    # tear the process group down before the interpreter exits: left to
-    # the exit, gloo's threads can be destroyed unjoined while the peers
-    # exit too, and the process aborts ("terminate called without an
-    # active exception") after its work is done
+    # tear the process group down, then leave without the runtime's own
+    # teardown (the atexit hooks still run): under load a thread left
+    # joinable is destroyed there and the process aborts ("terminate
+    # called without an active exception", exit -6) after its work is
+    # done and its group is gone
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         dist.barrier()
         dist.destroy_process_group()
+    atexit._run_exitfuncs()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
 
 
 def _free_ports(n: int) -> list[int]:

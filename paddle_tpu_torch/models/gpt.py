@@ -13,8 +13,13 @@ one ``stack``); the ``lax.scan`` over layers becomes a Python loop, and
 
 The dense pre-LN decoder tail (``decoder_tail``) runs the two fused
 sub-block kernels of ``ops/fused_block.py``; causal attention is plain
-PyTorch with impl "xla" (the JAX package left it to XLA) and the flash
-kernels of ``ops/flash_attention.py`` with impl "flash".
+PyTorch with impl "xla" (the JAX package left it to XLA), the flash
+kernels of ``ops/flash_attention.py`` with impl "flash", and ring
+attention over the sp axis of an enclosing ``ring_context`` with impl
+"ring" (``parallel/sequence_parallel.py``). With ``num_experts > 0``
+every block's FFN is a routed expert bank (``parallel/moe.py``): the
+composed chain, no fused tail, and the loss adds ``moe_aux_weight``
+times the load-balance aux summed over the layers.
 
 Residual dropout (``cfg.dropout``, the reference's GPT-2 placement: the
 embedding output, the attention out-projection and the FFN
@@ -44,7 +49,8 @@ from ..ops.fused_residual import apply_keep
 __all__ = ["GPTConfig", "init_gpt_params", "param_shapes",
            "params_from_jax", "gpt_param_specs", "shard_params",
            "gpt_forward", "gpt_forward_aux", "gpt_loss", "gpt_block_fn",
-           "block_body", "decoder_tail", "resolve_device", "disable_tf32"]
+           "block_body", "decoder_tail", "moe_tail", "resolve_device",
+           "disable_tf32"]
 
 
 @dataclasses.dataclass
@@ -63,10 +69,9 @@ class GPTConfig:
     # "bfloat16" casts block compute (training) and sets the serving KV
     # cache dtype
     amp_dtype: str | None = None
-    attn_impl: str = "xla"  # "xla" | "flash"; "ring" comes with item 14(c)
-    # Mixture-of-Experts blocks come with the multi-device slice; the
-    # moe_* fields keep the JAX package's defaults so a config written
-    # into a checkpoint's manifest by either package rebuilds in both
+    attn_impl: str = "xla"  # "xla" | "flash" | "ring" (sp mesh)
+    # Mixture-of-Experts (num_experts > 0 replaces every block's dense
+    # FFN with a routed expert bank: parallel/moe.py, the "ep" axis)
     num_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -83,10 +88,6 @@ class GPTConfig:
             self.intermediate_size = 4 * self.hidden_size
         if self.hidden_size % self.num_heads:
             raise ValueError("hidden_size must be a multiple of num_heads")
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "num_experts > 0 (MoE blocks, the ep mesh axis) comes with "
-                "item 14(c) of the port (ROADMAP.md A)")
 
     @classmethod
     def tiny(cls, **kw):
@@ -137,9 +138,9 @@ def disable_tf32():
 
 def init_gpt_params(cfg: GPTConfig, seed: int = 0) -> dict:
     """Numpy pytree, bit-identical to the JAX package's init_gpt_params
-    for the same seed: embeddings + stacked dense blocks [L, ...] + final
-    LN. The LM head is tied to wte. Dense blocks only: expert (MoE)
-    blocks are not ported."""
+    for the same seed (the same draws in the same order): embeddings +
+    stacked blocks [L, ...] (dense, or with an expert bank when
+    cfg.num_experts > 0) + final LN. The LM head is tied to wte."""
     rng = np.random.RandomState(seed)
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
     s = cfg.initializer_range
@@ -158,10 +159,22 @@ def init_gpt_params(cfg: GPTConfig, seed: int = 0) -> dict:
         "bo": np.zeros((L, D), np.float32),
         "ln2_s": np.ones((L, D), np.float32),
         "ln2_b": np.zeros((L, D), np.float32),
-        "w_up": norm(L, D, F), "b_up": np.zeros((L, F), np.float32),
-        "w_down": norm(L, F, D) / math.sqrt(2 * L),
-        "b_down": np.zeros((L, D), np.float32),
     }
+    E = cfg.num_experts
+    if E > 0:
+        blocks.update({
+            "wg": norm(L, D, E),
+            "we_up": norm(L, E, D, F),
+            "be_up": np.zeros((L, E, F), np.float32),
+            "we_down": norm(L, E, F, D) / math.sqrt(2 * L),
+            "be_down": np.zeros((L, E, D), np.float32),
+        })
+    else:
+        blocks.update({
+            "w_up": norm(L, D, F), "b_up": np.zeros((L, F), np.float32),
+            "w_down": norm(L, F, D) / math.sqrt(2 * L),
+            "b_down": np.zeros((L, D), np.float32),
+        })
     return {
         "wte": norm(cfg.vocab_size, D),
         "wpe": norm(cfg.max_position_embeddings, D),
@@ -176,9 +189,14 @@ def param_shapes(cfg: GPTConfig) -> dict:
     drawing it (every leaf is float32): the template a checkpoint restore
     checks its arrays against."""
     D, F, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
-    widths = {"b_up": (F,), "w_up": (D, F), "w_down": (F, D)}
+    E = cfg.num_experts
+    widths = {"b_up": (F,), "w_up": (D, F), "w_down": (F, D),
+              "wg": (D, E), "we_up": (E, D, F), "be_up": (E, F),
+              "we_down": (E, F, D), "be_down": (E, D)}
+    ffn = ("wg", "we_up", "be_up", "we_down", "be_down") if E > 0 else \
+        ("w_up", "b_up", "w_down", "b_down")
     names = ("ln1_s", "ln1_b", "wq", "bq", "wk", "bk", "wv", "bv", "wo",
-             "bo", "ln2_s", "ln2_b", "w_up", "b_up", "w_down", "b_down")
+             "bo", "ln2_s", "ln2_b") + ffn
     blocks = {k: (L,) + widths.get(k, (D, D) if k[0] == "w" else (D,))
               for k in names}
     return {"wte": (cfg.vocab_size, D),
@@ -186,13 +204,15 @@ def param_shapes(cfg: GPTConfig) -> dict:
             "lnf_s": (D,), "lnf_b": (D,)}
 
 
-def gpt_param_specs(pp_stacked: bool = False) -> dict:
+def gpt_param_specs(pp_stacked: bool = False, moe: bool = False) -> dict:
     """Megatron-style tensor-parallel specs of the parameter tree (the
-    reference's ``gpt_param_specs`` for the dense blocks), as tuples of
-    axis names: the q/k/v and up projections and their biases split on
-    columns over "tp" (a column split of wq is H/tp whole heads), the
-    out and down projections on rows, wte over the vocabulary; block
-    leaves carry a leading "pp" dimension when stacked per stage."""
+    reference's ``gpt_param_specs``), as tuples of axis names: the
+    q/k/v and up projections and their biases split on columns over
+    "tp" (a column split of wq is H/tp whole heads), the out and down
+    projections on rows, wte over the vocabulary; block leaves carry a
+    leading "pp" dimension when stacked per stage. With `moe` the
+    expert bank splits its experts over "ep" and each expert over "tp"
+    (up on columns, down on rows); the router wg is replicated."""
     def blk(*entries):
         return (*(("pp",) if pp_stacked else ()), None, *entries)
 
@@ -203,9 +223,18 @@ def gpt_param_specs(pp_stacked: bool = False) -> dict:
         "wv": blk(None, "tp"), "bv": blk("tp"),
         "wo": blk("tp", None), "bo": blk(None),
         "ln2_s": blk(None), "ln2_b": blk(None),
-        "w_up": blk(None, "tp"), "b_up": blk("tp"),
-        "w_down": blk("tp", None), "b_down": blk(None),
     }
+    if moe:
+        blocks.update({
+            "wg": blk(None, None),
+            "we_up": blk("ep", None, "tp"), "be_up": blk("ep", "tp"),
+            "we_down": blk("ep", "tp", None), "be_down": blk("ep", None),
+        })
+    else:
+        blocks.update({
+            "w_up": blk(None, "tp"), "b_up": blk("tp"),
+            "w_down": blk("tp", None), "b_down": blk(None),
+        })
     return {"wte": ("tp", None), "wpe": (), "blocks": blocks,
             "lnf_s": (), "lnf_b": ()}
 
@@ -215,12 +244,14 @@ def shard_params(tree: dict, coords: dict, sizes: dict,
     """This rank's pieces of a full reference-layout tree (numpy arrays
     or memmaps; block leaves [L, ...]) under ``gpt_param_specs``: block
     leaves cut to the rank's pp stage (L/pp layers, the leading pp
-    dimension of the stacked specs) and every leaf to its tp part;
+    dimension of the stacked specs) and every leaf to its tp and ep
+    parts (an expert bank when the tree has one);
     `coords` / `sizes` map axis names to this rank's index and the
     axis's size. `names` (top-level keys) keeps only those leaves, so a
     stage reads only what it holds. Only the pieces are read from a
     memmap; each comes back as a fresh float32 numpy array."""
-    specs = gpt_param_specs(pp_stacked=True)
+    specs = gpt_param_specs(pp_stacked=True,
+                            moe="wg" in tree.get("blocks", {}))
     from ..parallel.sharding import shard_of
     pp = sizes.get("pp", 1)
 
@@ -279,16 +310,26 @@ def _ln(x, scale, bias, eps):
 
 def _causal_attention(q, k, v, n_heads, impl="xla"):
     """q,k,v: [B, T, D] -> [B, T, D] (contiguous); softmax in fp32.
-    impl "flash" runs the flash kernels (T a multiple of 64)."""
-    if impl not in ("xla", "flash"):
-        raise NotImplementedError(
-            f"attn_impl={impl!r}: ring attention comes with item 14(c) of "
-            f"the port (ROADMAP.md A)")
+    impl "flash" runs the flash kernels (T a multiple of 64); impl
+    "ring" ring-attends over the axis of the enclosing ``ring_context``
+    (T is this rank's shard of the sequence)."""
     B, T, D = q.shape
     hd = D // n_heads
     q = q.reshape(B, T, n_heads, hd)
     k = k.reshape(B, T, n_heads, hd)
     v = v.reshape(B, T, n_heads, hd)
+    if impl == "ring":
+        from ..parallel.sequence_parallel import current_ring, \
+            ring_attention
+        ctx = current_ring()
+        if ctx is None:
+            raise RuntimeError(
+                "attn_impl='ring' needs an enclosing ring_context(mesh, "
+                "axis)")
+        mesh, axis = ctx
+        o = ring_attention(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), mesh, axis, causal=True)
+        return o.transpose(1, 2).reshape(B, T, D)
     if impl == "flash":
         qh, kh, vh = (a.transpose(1, 2) for a in (q, k, v))
         o = flash_attention(qh, kh, vh, causal=True)
@@ -338,10 +379,35 @@ def decoder_tail(p, a2, x2, cfg: GPTConfig, drop: float = 0.0,
     return z + dn.to(z.dtype)
 
 
+def moe_tail(p, a, x, cfg: GPTConfig, drop: float = 0.0, seeds=(0, 0),
+             matmul=None):
+    """Post-attention tail of an expert block (the reference's composed
+    chain, no fused sub-blocks):
+
+        x = x + dropout(a @ wo + bo)
+        out = x + dropout(moe_ffn(LN2(x)))
+
+    `matmul(a, wo)` overrides the out-projection's product (a tp rank
+    passes its partial summed over tp). Returns (out, aux)."""
+    from ..parallel.moe import moe_ffn
+    cdt = a.dtype
+    wo = p["wo"]
+    prod = a @ wo.to(cdt) if matmul is None else matmul(a, wo)
+    proj = _drop(prod + p["bo"].to(cdt), drop, seeds[0])
+    x = x + proj.to(x.dtype)
+    h = _ln(x, p["ln2_s"], p["ln2_b"], cfg.layer_norm_eps)
+    y, aux = moe_ffn(h.to(cdt), p["wg"], p["we_up"], p["be_up"],
+                     p["we_down"], p["be_down"],
+                     capacity_factor=cfg.moe_capacity_factor,
+                     top_k=cfg.moe_top_k)
+    return x + _drop(y, drop, seeds[1]).to(x.dtype), aux
+
+
 def gpt_block_fn(p: dict, x, cfg: GPTConfig, seeds=None):
-    """One pre-LN decoder block on [B, T, D] (dense: no experts), with
-    residual dropout at cfg.dropout from the two int32 `seeds` when they
-    are given. Returns the new x."""
+    """One pre-LN decoder block on [B, T, D], with residual dropout at
+    cfg.dropout from the two int32 `seeds` when they are given. Returns
+    (x, aux): aux the block's MoE load-balance loss (None for a dense
+    block)."""
     cdt = getattr(torch, cfg.amp_dtype) if cfg.amp_dtype else x.dtype
 
     def c(a):
@@ -354,18 +420,22 @@ def gpt_block_fn(p: dict, x, cfg: GPTConfig, seeds=None):
     a = _causal_attention(q, k, v, cfg.num_heads, cfg.attn_impl)
     B, T, D = x.shape
     drop = cfg.dropout if seeds is not None else 0.0
+    if cfg.num_experts > 0:
+        return moe_tail(p, c(a), x, cfg, drop, seeds or (0, 0))
     return decoder_tail(p, c(a).reshape(B * T, D), x.reshape(B * T, D),
-                        cfg, drop, seeds or (0, 0)).reshape(B, T, D)
+                        cfg, drop, seeds or (0, 0)).reshape(B, T, D), None
 
 
-def _embed(params, ids, cfg: GPTConfig):
-    T = ids.shape[-1]
+def _embed(params, ids, cfg: GPTConfig, pos0: int = 0):
+    """wte[ids] + wpe[pos0 : pos0 + T] (pos0: the global position of a
+    sequence shard's first token)."""
+    T = pos0 + ids.shape[-1]
     if T > params["wpe"].shape[0]:
         raise ValueError(
             f"sequence length {T} exceeds max_position_embeddings="
             f"{params['wpe'].shape[0]}")
     ids = torch.as_tensor(ids, device=params["wte"].device).long()
-    x = params["wte"][ids] + params["wpe"][:T]
+    x = params["wte"][ids] + params["wpe"][pos0:T]
     if cfg.amp_dtype:
         x = x.to(getattr(torch, cfg.amp_dtype))
     return x
@@ -390,7 +460,7 @@ def _layers(blocks) -> list[dict]:
 
 
 def block_body(cfg: GPTConfig):
-    """(h, blk, seeds=None) -> h for one layer, recomputed in the
+    """(h, blk, seeds=None) -> (h, aux) for one layer, recomputed in the
     backward when cfg.remat and autograd is recording (the reference's
     jax.checkpoint per layer); the seeds ride along, so the recompute
     drops the same elements."""
@@ -404,8 +474,8 @@ def block_body(cfg: GPTConfig):
 
 def gpt_forward_aux(params: dict, ids, cfg: GPTConfig, key=None):
     """(logits [B, T, V] float32, aux): aux is the MoE load-balance loss
-    of the reference, 0.0 for the dense blocks the port has. `key` (an
-    int step seed) turns on dropout when cfg.dropout > 0."""
+    summed over the layers (0.0 for dense blocks). `key` (an int step
+    seed) turns on dropout when cfg.dropout > 0."""
     x = _embed(params, ids, cfg)
     body = block_body(cfg)
     layers = _layers(params["blocks"])
@@ -414,9 +484,11 @@ def gpt_forward_aux(params: dict, ids, cfg: GPTConfig, key=None):
         with F.seed_scope(key):
             x = F.dropout(x, cfg.dropout, seed=F.next_seed())
             seeds = [(F.next_seed(), F.next_seed()) for _ in layers]
-    for blk, s in zip(layers, seeds):
-        x = body(x, blk, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk, s in zip(layers, seeds):
+        x, a = body(x, blk, s)
+        if a is not None:
+            aux = aux + a
     return _head(params, x, cfg), aux
 
 
@@ -428,12 +500,17 @@ def gpt_forward(params: dict, ids, cfg: GPTConfig, key=None):
 def gpt_loss(params: dict, ids, cfg: GPTConfig, logits=None, key=None):
     """Mean next-token cross entropy, as the reference computes it:
     logsumexp(logits) - gold logit, predicting ids[:, 1:] from
-    ids[:, :-1]. `key`: the step seed of the dropout masks."""
+    ids[:, :-1]; MoE models add cfg.moe_aux_weight * aux. `key`: the
+    step seed of the dropout masks."""
+    aux = None
     if logits is None:
-        logits = gpt_forward_aux(params, ids, cfg, key)[0]
+        logits, aux = gpt_forward_aux(params, ids, cfg, key)
     ids = torch.as_tensor(ids, device=logits.device).long()
     logits = logits[:, :-1]
     labels = ids[:, 1:]
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    loss = torch.mean(logz - gold)
+    if aux is not None and cfg.num_experts > 0:
+        loss = loss + cfg.moe_aux_weight * aux
+    return loss

@@ -11,9 +11,12 @@ every leaf, so every row's moments decay each step as in the JAX
 package. No kernel of the port lies on this path: the MLP's products are
 plain matrix products, as they were for XLA.
 
-One card only: the JAX package's ``("dp", "mp")`` mesh (tables row-
-sharded over ``mp`` with the collective lookup) comes with the
-multi-device slice (ROADMAP.md A, item 14).
+Over a ``("dp", "mp")`` mesh (one process a rank, as the JAX package's
+device mesh): the batch's rows over dp, both tables row-sharded over mp
+with the collective lookup (``parallel/embedding.py``), the dense tower
+replicated over mp (so its gradients are not summed over mp), every
+gradient averaged over dp, and each rank's Adam on its slice of each
+table.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ import torch.nn.functional as F
 
 from ..fluid.ops.optimizer_ops import adam
 from .gpt import disable_tf32, resolve_device
+
+_TABLES = ("embed", "wide")
 
 __all__ = ["WideDeepConfig", "init_widedeep_params", "params_from_numpy",
            "widedeep_forward", "widedeep_loss", "WideDeepTrainStep"]
@@ -135,58 +140,125 @@ def widedeep_loss(params, sparse_ids, dense, label, cfg, lookup=None):
 
 
 class WideDeepTrainStep:
-    """step(sparse_ids, dense, label) -> loss on one device: the loss and
-    its gradients (dense, tables included), then the port's ``adam`` on
-    every leaf in the JAX package's leaf order, each with the same pair
-    of beta powers before the step. ``params`` and ``opt_state`` (a
-    ``{"m1", "m2"}`` dict per leaf, float32) are updated in place and
-    keep the JAX package's tree layout. `lr` may be a callable, read
-    once a step. Inputs may be numpy arrays or tensors; they are moved
-    to the step's device. `device` defaults to CUDA and raises without
-    a card unless the caller asks for "cpu"."""
+    """step(sparse_ids, dense, label) -> loss: the loss and its gradients
+    (dense, tables included), then the port's ``adam`` on every leaf in
+    the JAX package's leaf order, each with the same pair of beta powers
+    before the step. `lr` may be a callable, read once a step. Inputs
+    may be numpy arrays or tensors; they are moved to the step's device.
+    `device` defaults to CUDA and raises without a card unless the
+    caller asks for "cpu".
+
+    On one rank ``params`` and ``opt_state`` (a ``{"m1", "m2"}`` dict
+    per leaf, float32) are updated in place and keep the JAX package's
+    tree layout. Over a ``("dp", "mp")`` mesh (``mesh``, a
+    ``distributed.mesh.Mesh``, or ``Mesh({"dp": dp, "mp": mp})`` over
+    the world) every rank is called with the same global batch (B must
+    divide by dp) and returns the global loss; ``local_params`` /
+    ``local_opt_state`` hold its pieces (the tables' rows [i V/mp,
+    (i+1) V/mp) of its mp coordinate i), and ``params`` / ``opt_state``
+    gather the reference's whole tree (collective: every rank reads
+    them). ``last_stats`` holds a step's host seconds in the lookup's
+    all-reduce ("mp_s") and the dp gradient average ("dp_s")."""
 
     def __init__(self, cfg: WideDeepConfig, mesh=None, dp: int = 1,
                  mp: int = 1, lr=1e-3, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, seed: int = 0, device=None):
-        if mesh is not None or dp != 1 or mp != 1:
-            raise NotImplementedError(
-                "a dp x mp mesh (tables row-sharded over mp with the "
-                "collective lookup) comes with the multi-device slice of "
-                "the port (ROADMAP.md A, item 14); use dp=mp=1")
+        from ..distributed.mesh import Mesh
+        from ..parallel.comm import Comm
+        from ..parallel.embedding import shard_rows
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a paddle_tpu_torch.distributed."
+                            f"mesh.Mesh, got {type(mesh).__name__}")
         self.cfg = cfg
+        self.mesh = mesh if mesh is not None else Mesh({"dp": dp, "mp": mp})
+        self.dp, self.mp = (self.mesh.axis_size(a) for a in ("dp", "mp"))
         self.device = resolve_device(device)
         disable_tf32()
         self._lr = lr
         self._hyper = dict(beta1=beta1, beta2=beta2, epsilon=epsilon)
-        self.params = params_from_numpy(init_widedeep_params(cfg, seed),
-                                        self.device)
-        self.opt_state = _unflatten(self.params, [
+        self.comm = Comm()
+        self.last_stats: dict = {}
+        tree = init_widedeep_params(cfg, seed)
+        for k in _TABLES:
+            tree[k] = shard_rows(tree[k], self.mesh, "mp")
+        self.local_params = params_from_numpy(tree, self.device)
+        self.local_opt_state = _unflatten(self.local_params, [
             {"m1": torch.zeros_like(p), "m2": torch.zeros_like(p)}
-            for p in _leaves(self.params)])
+            for p in _leaves(self.local_params)])
         self._pows = (torch.ones(1, device=self.device),
                       torch.ones(1, device=self.device))
+
+    def _whole(self, t):
+        """A table's (or its moment's) rows gathered over mp."""
+        from ..distributed.collective import all_gather
+        return torch.cat(all_gather([], t, group=self.mesh.group("mp")), 0)
+
+    @property
+    def params(self) -> dict:
+        if self.mp == 1:
+            return self.local_params
+        return {**self.local_params, **{
+            k: self._whole(self.local_params[k]) for k in _TABLES}}
+
+    @property
+    def opt_state(self) -> dict:
+        if self.mp == 1:
+            return self.local_opt_state
+        return {**self.local_opt_state, **{
+            k: {n: self._whole(v) for n, v in
+                self.local_opt_state[k].items()} for k in _TABLES}}
+
+    def _lookup(self):
+        if self.mp == 1:
+            return None
+        from ..parallel.embedding import sharded_embedding_lookup
+        return lambda t, i: sharded_embedding_lookup(
+            t, i, self.mesh, "mp", self.comm)
 
     def _tensor(self, a, dtype=None):
         t = a if isinstance(a, torch.Tensor) else torch.as_tensor(
             np.asarray(a))
         return t.to(self.device, dtype) if dtype else t.to(self.device)
 
+    def _rows(self, a):
+        if self.dp == 1:
+            return a
+        B = a.shape[0]
+        if B % self.dp:
+            raise ValueError(f"batch {B} not divisible by dp={self.dp}")
+        b = B // self.dp
+        r = self.mesh.coord("dp")
+        return a[r * b:(r + 1) * b]
+
     def __call__(self, sparse_ids, dense, label):
-        ids = self._tensor(sparse_ids, torch.long)
+        from ..distributed.parallel import all_reduce_buckets
+        ids, dense, label = (self._rows(a) for a in (sparse_ids, dense,
+                                                      label))
+        ids = self._tensor(ids, torch.long)
         dense = self._tensor(dense, torch.float32)
         label = self._tensor(label)
-        leaves = _leaves(self.params)
+        self.comm.reset()
+        leaves = _leaves(self.local_params)
         live = [p.detach().requires_grad_() for p in leaves]
-        loss = widedeep_loss(_unflatten(self.params, live), ids, dense,
-                             label, self.cfg)
-        grads = torch.autograd.grad(loss, live)
+        loss = widedeep_loss(_unflatten(self.local_params, live), ids,
+                             dense, label, self.cfg, self._lookup())
+        grads = list(torch.autograd.grad(loss, live))
+        loss = loss.detach()
+        if self.dp > 1:
+            group = self.mesh.group("dp")
+            with self.comm.timed("dp", loss):
+                all_reduce_buckets(grads, group=group, scale=1.0 / self.dp)
+            loss = self.comm.all_reduce(loss.reshape(1), group,
+                                        "dp")[0] / self.dp
         lr = self._lr() if callable(self._lr) else self._lr
         # the JAX step carries lr as a float32 array
         lr = float(np.float32(lr))
         b1p, b2p = self._pows
         with torch.no_grad():
-            for p, g, st in zip(leaves, grads, _leaves(self.opt_state)):
+            for p, g, st in zip(leaves, grads,
+                                _leaves(self.local_opt_state)):
                 b1n, b2n = adam(p, g, st["m1"], st["m2"], b1p, b2p, lr,
                                 **self._hyper)
         self._pows = (b1n, b2n)
-        return loss.detach()
+        self.last_stats = {f"{k}_s": v for k, v in self.comm.seconds.items()}
+        return loss

@@ -6,6 +6,7 @@ port runs one process per rank, so each of those is a call here or in
 ``distributed/collective.py`` / ``distributed/parallel.py``, over the
 process group of its mesh axis, and its host wall time adds to
 ``seconds[kind]`` (the train step's kinds: "tp", "pp_send", "pp_recv",
+"sp" (the ring's hops), "ep" (the expert sums and the routing counts),
 "dp", "grad", "loss", "zero"). ``Comm`` holds what the shared layer
 lacks:
 
@@ -17,6 +18,8 @@ lacks:
     not block (``isend``; ``wait_sends`` closes the step's sends);
     ``recv`` blocks until the tensor is here, so its time includes the
     wait for the neighbour stage (the pipeline's bubble).
+  * ``shift``: one ring hop (sp): t sent to one neighbour while the
+    other's tensor is received; returns when both are done.
 
 Where the backend is gloo and the tensor is on a card (ranks sharing
 one card, where NCCL refuses), p2p goes through a host copy: gloo's
@@ -95,25 +98,42 @@ class Comm:
                 dist.all_reduce(t, op, group=group)
         return t
 
-    def send(self, t, dst: int, group, tag: int, kind: str):
-        """Start sending t to world rank `dst`; returns at once."""
-        t0 = self._start(t)
+    def _isend(self, t, dst: int, group, tag: int):
+        """isend of a copy of t (on the host where gloo stages it);
+        returns the work and the copy, which must live until it ends."""
         buf = t.detach()
         buf = buf.to("cpu") if _host_staged(buf, group) else \
             buf.contiguous().clone()
-        self._pending.append(
-            (dist.isend(_wire(buf), dst, group=group, tag=tag), buf))
+        return dist.isend(_wire(buf), dst, group=group, tag=tag), buf
+
+    def _recv(self, shape, dtype, device, src: int, group, tag: int):
+        staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if staged else device)
+        dist.recv(_wire(buf), src, group=group, tag=tag)
+        return buf.to(device) if staged else buf
+
+    def send(self, t, dst: int, group, tag: int, kind: str):
+        """Start sending t to world rank `dst`; returns at once."""
+        t0 = self._start(t)
+        self._pending.append(self._isend(t, dst, group, tag))
         self._stop(kind, t0)
 
     def recv(self, shape, dtype, device, src: int, group, tag: int,
              kind: str):
         """The tensor world rank `src` sends with `tag`, on `device`."""
         t0 = time.perf_counter()
-        staged = device.type == "cuda" and dist.get_backend(group) == "gloo"
-        buf = torch.empty(shape, dtype=dtype,
-                          device="cpu" if staged else device)
-        dist.recv(_wire(buf), src, group=group, tag=tag)
-        out = buf.to(device) if staged else buf
+        out = self._recv(shape, dtype, device, src, group, tag)
+        self._stop(kind, t0)
+        return out
+
+    def shift(self, t, dst: int, src: int, group, kind: str):
+        """t sent to world rank `dst` while the tensor of t's shape from
+        world rank `src` is received and returned (on t's device)."""
+        t0 = self._start(t)
+        work, _ = self._isend(t, dst, group, 0)
+        out = self._recv(t.shape, t.dtype, t.device, src, group, 0)
+        work.wait()
         self._stop(kind, t0)
         return out
 

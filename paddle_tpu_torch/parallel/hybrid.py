@@ -1,5 +1,5 @@
-"""HybridParallelTrainStep: GPT training over a (dp, pp, tp) mesh
-(counterpart of ``paddle_tpu/parallel/hybrid.py``).
+"""HybridParallelTrainStep: GPT training over a (pp, dp, sp, ep, tp)
+mesh (counterpart of ``paddle_tpu/parallel/hybrid.py``).
 
 One call = forward + backward of the GPT loss + global-norm clip +
 Paddle's ``adamw`` update on every leaf, as the reference's step:
@@ -13,10 +13,12 @@ Paddle's ``adamw`` update on every leaf, as the reference's step:
   * one (beta1_pow, beta2_pow) pair shared by every leaf;
   * ``lr`` a float or a callable returning one per step;
   * residual dropout at ``cfg.dropout`` from step k's seed
-    ``op_seed(seed, k)``, data-parallel rank d folded in as the data-
-    parallel ``TrainStep`` folds it (d = 0 adds nothing); at pp > 1
-    microbatch m's seeds come from ``op_seed(step seed, m + 1)``, so a
-    (step, stage, microbatch, layer) has one mask on every tp rank.
+    ``op_seed(seed, k)``, the (dp, sp) coordinate d = dp_rank * sp +
+    sp_rank folded in as the data-parallel ``TrainStep`` folds its rank
+    (d = 0 adds nothing); at pp > 1 microbatch m's seeds come from
+    ``op_seed(step seed, m + 1)``, so a (step, stage, microbatch, layer)
+    has one mask on every tp and ep rank, which hold the same
+    activation.
 
 The reference's step is one SPMD program over a device mesh; the port
 runs one process per rank of a ``torch.distributed`` world laid out as
@@ -37,19 +39,40 @@ innermost), each rank holding its pieces of the tree
     sent point to point; the loss is the mean over microbatches. The
     tied wte's two gradients (embedding and head) are summed over the
     (first, last) pair, so both copies take the same update.
+  * sp: the sequence is cut over sp (T must divide): a rank takes
+    columns [s T/sp, (s+1) T/sp) of its rows, at positions
+    ``wpe[s T/sp + t]``, and ``cfg.attn_impl`` becomes "ring" (ring
+    attention over the sp group, ``sequence_parallel.py``). Its loss
+    pairs its last position with the next shard's first token (every
+    rank holds the whole batch, so the labels are local); the last
+    global position has no target, and a rank's loss is its terms' sum
+    over the global B (T - 1). Gradients are summed over sp.
+  * ep (cfg.num_experts > 0): each block's FFN is a routed expert bank
+    (``moe.py``) with E/ep experts a rank, each split over tp; tokens
+    are replicated over ep and tp, routed alike on each; the experts'
+    tp partials are summed over tp, the combine over ep. Routing sees
+    the global batch (capacity, slots, aux), as the reference's
+    ``moe_ffn`` does. The loss adds ``moe_aux_weight`` times the aux
+    summed over the layers. Expert leaves are never reduced over ep;
+    an expert block's biases are added after the tp sums, so none of
+    its leaves is summed over tp.
   * ZeRO-1 (``sharding=True``, dp > 1): the AdamW moments of each leaf
     are split over dp on the first dimension its spec leaves whole and
     dp divides; a dp rank updates its slice of the parameter, and the
     slices are all-gathered over dp.
 
+Under pp, sp and MoE need "1F1B" (as in the reference: its GPipe scan
+has no per-stage function to host the ring and drops the aux); a stage
+adds its layers' aux to the loss with the microbatch's cotangent.
+
 Parameters stay float32 leaves in the reference's layout (block leaves
 stacked [L/pp, ...] a stage), the moments float32 beside them, all
-updated in place. ``unstacked_params()`` gathers the full tree. The sp
-and ep axes (ring attention, experts) come with item 14(c) of the port
-and raise.
+updated in place. ``unstacked_params()`` gathers the full tree.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import time
 
 import numpy as np
@@ -63,8 +86,10 @@ from ..fluid.ops.optimizer_ops import adamw
 from ..models import gpt as G
 from ..nn import functional as F
 from .comm import Comm
+from .moe import moe_context
 from .pipeline import check_microbatches, gpipe_actions, run_stage
 from .pipeline_1f1b import simulate_1f1b, stage_actions
+from .sequence_parallel import ring_context
 from .sharding import resolve_spec
 from .tensor_parallel import TP, tp_block_body, tp_embed, tp_head_loss
 
@@ -73,7 +98,8 @@ __all__ = ["HybridParallelTrainStep", "make_hybrid_mesh", "AXES"]
 _DECAY = {"wte", "wpe", "wq", "wk", "wv", "wo", "w_up", "w_down",
           "we_up", "we_down"}
 AXES = ("pp", "dp", "sp", "ep", "tp")
-# replicated leaves used on tp rank 0 only: their gradients sum over tp
+# dense blocks' leaves used on tp rank 0 only: their gradients sum over
+# tp (an expert block adds its biases after the tp sums, on every rank)
 _TP_RANK0 = ("blocks.bo", "blocks.b_down")
 
 
@@ -117,14 +143,28 @@ class HybridParallelTrainStep:
                             f"mesh.Mesh, got {type(mesh).__name__}")
         sizes = ({a: mesh.axis_size(a) for a in AXES} if mesh is not None
                  else dict(pp=pp, dp=dp, sp=sp, ep=ep, tp=tp))
-        for axis, what in (("sp", "sequence parallelism (ring attention)"),
-                           ("ep", "expert parallelism (MoE blocks)")):
-            if sizes[axis] > 1:
-                raise NotImplementedError(
-                    f"{axis}={sizes[axis]}: {what} comes with item 14(c) "
-                    f"of the port (ROADMAP.md A)")
         self.pp, self.dp, self.tp = sizes["pp"], sizes["dp"], sizes["tp"]
         self.sp, self.ep = sizes["sp"], sizes["ep"]
+        if self.ep > 1 and cfg.num_experts <= 0:
+            raise ValueError("ep>1 needs a MoE model (cfg.num_experts>0)")
+        if cfg.num_experts > 0:
+            if self.pp > 1 and self._schedule != "1F1B":
+                raise NotImplementedError(
+                    "MoE x pipeline needs schedule_mode='1F1B' (the GPipe "
+                    "scan drops the per-layer load-balance aux; the 1F1B "
+                    "schedule threads it through each stage's backward)")
+            if self.ep > 1 and cfg.num_experts % self.ep:
+                raise ValueError(
+                    f"num_experts={cfg.num_experts} not divisible by "
+                    f"ep={self.ep}")
+        if self.sp > 1:
+            if self.pp > 1 and self._schedule != "1F1B":
+                raise NotImplementedError(
+                    "sp x pp needs schedule_mode='1F1B': the ring "
+                    "attention rides inside the 1F1B stage functions; the "
+                    "GPipe scan has no per-stage function to host it")
+            # sequence parallel => ring attention over the sp axis
+            cfg = dataclasses.replace(cfg, attn_impl="ring")
         if self.pp > 1 and cfg.dropout and self._schedule != "1F1B":
             raise NotImplementedError(
                 "pipeline dropout needs schedule_mode='1F1B' (its stage "
@@ -153,9 +193,16 @@ class HybridParallelTrainStep:
         m = self.mesh
         self.stage = m.coord("pp")
         self.dp_rank = m.coord("dp")
+        self.sp_rank = m.coord("sp")
         self.comm = Comm()
         self._tp = TP(m.group("tp"), m.coord("tp"), self.tp, self.comm)
         self._pp_group, self._dp_group = m.group("pp"), m.group("dp")
+        # (dp, sp): the ranks that share the batch; every rank asks for
+        # the joint groups in one order (their creation is collective)
+        self._data_group = m.joint_group(("dp", "sp"))
+        self._data_rank = m.joint_coord(("dp", "sp"))
+        if cfg.num_experts > 0:
+            m.joint_group(("ep", "tp"))
         self.first = self.stage == 0
         self.last = self.stage == self.pp - 1
         self._prev = m.rank_at(pp=self.stage - 1) if not self.first else None
@@ -182,7 +229,7 @@ class HybridParallelTrainStep:
         self._leaves = sorted(
             [(f"blocks.{k}", v) for k, v in self.params["blocks"].items()]
             + [(k, v) for k, v in self.params.items() if k != "blocks"])
-        specs = G.gpt_param_specs()
+        specs = G.gpt_param_specs(moe=cfg.num_experts > 0)
         self._specs = {n: resolve_spec(
             specs["blocks"][n[7:]] if n.startswith("blocks.") else specs[n],
             sizes, tuple(p.shape)) for n, p in self._leaves}
@@ -247,20 +294,27 @@ class HybridParallelTrainStep:
             return None, [None] * L
         if micro is not None:
             key = F.op_seed(key, micro + 1)
-        with F.seed_scope(key, self.dp_rank):
+        with F.seed_scope(key, self._data_rank):
             emb = F.next_seed()
             return emb, [(F.next_seed(), F.next_seed()) for _ in range(L)]
 
     def _run_layers(self, x, seeds):
+        """This stage's layers on x: (x, the sum of their aux terms
+        times cfg.moe_aux_weight, None for dense blocks)."""
         body = tp_block_body(self.cfg, self._tp)
         lps = self.cfg.num_layers // self.pp
         mine = seeds[self.stage * lps:(self.stage + 1) * lps]
+        aux = None
         for blk, s in zip(G._layers(self.params["blocks"]), mine):
-            x = body(x, blk, s)
-        return x
+            x, a = body(x, blk, s)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        if aux is not None:
+            aux = self.cfg.moe_aux_weight * aux
+        return x, aux
 
-    def _embed(self, ids, emb_seed):
-        x = tp_embed(self.params, ids, self.cfg, self._tp)
+    def _embed(self, ids, emb_seed, pos0=0):
+        x = tp_embed(self.params, ids, self.cfg, self._tp, pos0)
         if emb_seed is not None:
             x = F.dropout(x, self.cfg.dropout, seed=emb_seed)
         return x
@@ -283,42 +337,90 @@ class HybridParallelTrainStep:
         r = self.dp_rank
         return ids.reshape(M, B // M, -1)[:, r * mb:(r + 1) * mb]
 
-    def __call__(self, ids):
+    def _columns(self, ids):
+        """This rank's columns of `ids` [..., T] (all of them at sp = 1):
+        (tokens, labels or None, the position of the first, the global
+        count of loss terms of its rows)."""
+        if self.sp == 1:
+            return ids, None, 0, None
+        T = ids.shape[-1]
+        if T % self.sp:
+            raise ValueError(f"sequence length {T} not divisible by "
+                             f"sp={self.sp}")
+        n, s = T // self.sp, self.sp_rank
+        return (ids[..., s * n:(s + 1) * n],
+                ids[..., s * n + 1:(s + 1) * n + 1], s * n,
+                ids.shape[-2] * (T - 1))
+
+    def _contexts(self):
+        stack = contextlib.ExitStack()
+        if self.sp > 1:
+            stack.enter_context(ring_context(self.mesh, "sp", self.comm))
+        if self.cfg.num_experts > 0:
+            stack.enter_context(moe_context(self.mesh, "ep", self.comm))
+        return stack
+
+    def loss_and_grads(self, ids):
+        """The step's loss (as ``__call__`` returns it) and this rank's
+        gradients, reduced as the update takes them (a list in
+        ``_leaves`` order), without the update; the step count (and so
+        the dropout seed) advances."""
         ids = self._rows(np.asarray(ids))
-        lr = self._lr() if callable(self._lr) else float(self._lr)
         self._step += 1
         key = self.step_key(self._step)
         self.comm.reset()
         t0 = time.perf_counter()
-        if self.pp == 1:
-            ids_t = torch.as_tensor(ids, device=self.device).long()
-            emb_seed, seeds = self._seeds(key)
-            x = self._run_layers(self._embed(ids_t, emb_seed), seeds)
-            loss = tp_head_loss(self.params, x, ids_t, self.cfg, self._tp)
-            loss.backward()
-            loss = loss.detach()
-        else:
-            loss = self._pipeline(ids, key)
-        t_sched = time.perf_counter() - t0
+        with self._contexts():
+            if self.pp == 1:
+                loss = self._single_stage(ids, key)
+            else:
+                loss = self._pipeline(ids, key)
+        self._schedule_s = time.perf_counter() - t0
         grads = self._reduce_grads()
-        with torch.no_grad():
-            self._apply_update(grads, lr)
         for _, p in self._leaves:
             p.grad = None
-        loss = self.comm.all_reduce(loss.float().reshape(1), self._dp_group,
-                                    "loss")[0] / self.dp
-        self.last_stats = {"schedule_s": t_sched,
+        loss = self.comm.all_reduce(loss.float().reshape(1),
+                                    self._data_group, "loss")[0] / self.dp
+        return loss, grads
+
+    def __call__(self, ids):
+        lr = self._lr() if callable(self._lr) else float(self._lr)
+        t0 = time.perf_counter()
+        loss, grads = self.loss_and_grads(ids)
+        with torch.no_grad():
+            self._apply_update(grads, lr)
+        self.last_stats = {"schedule_s": self._schedule_s,
                            "step_s": time.perf_counter() - t0,
                            **{f"{k}_s": v for k, v in
                               self.comm.seconds.items()}}
         return loss
 
+    def _tensor(self, a):
+        return None if a is None else \
+            torch.as_tensor(np.ascontiguousarray(a), device=self.device).long()
+
+    def _single_stage(self, ids, key):
+        """Forward and backward of the whole model on this rank's rows
+        (and columns); returns the detached loss share."""
+        toks, labels, pos0, count = self._columns(ids)
+        ids_t, labels_t = self._tensor(toks), self._tensor(labels)
+        emb_seed, seeds = self._seeds(key)
+        x, aux = self._run_layers(self._embed(ids_t, emb_seed, pos0), seeds)
+        loss = tp_head_loss(self.params, x, ids_t, self.cfg, self._tp,
+                            labels_t, count)
+        if aux is not None:
+            loss = loss + aux
+        loss.backward()
+        return loss.detach()
+
     def _pipeline(self, ids_mb, key):
         """This stage's part of the schedule over the M microbatches;
-        returns the step's loss (the microbatch mean), on every stage."""
+        returns the step's loss share (the microbatch mean, the stages'
+        aux terms added), on every stage."""
         cfg, M = self.cfg, self.n_micro
-        mb, T = ids_mb.shape[1], ids_mb.shape[2]
-        ids_t = torch.as_tensor(ids_mb, device=self.device).long()
+        toks, labels, pos0, count = self._columns(ids_mb)
+        mb, T = toks.shape[1], toks.shape[2]
+        ids_t, labels_t = self._tensor(toks), self._tensor(labels)
         seeds = [self._seeds(key, m) for m in range(M)]
         act_dtype = getattr(torch, cfg.amp_dtype) if cfg.amp_dtype \
             else torch.float32
@@ -326,57 +428,66 @@ class HybridParallelTrainStep:
         def forward(m, x):
             emb_seed, layer_seeds = seeds[m]
             if self.first:
-                x = self._embed(ids_t[m], emb_seed)
-            y = self._run_layers(x, layer_seeds)
+                x = self._embed(ids_t[m], emb_seed, pos0)
+            y, aux = self._run_layers(x, layer_seeds)
             if self.last:
-                return tp_head_loss(self.params, y, ids_t[m], cfg, self._tp)
-            return y
+                return tp_head_loss(
+                    self.params, y, ids_t[m], cfg, self._tp,
+                    None if labels_t is None else labels_t[m], count), aux
+            return y, aux
 
         actions = (stage_actions(simulate_1f1b(self.pp, M), self.stage)
                    if self._schedule == "1F1B"
                    else gpipe_actions(self.pp, M))
-        losses = run_stage(
+        losses, extra = run_stage(
             actions, forward, first=self.first, last=self.last,
             comm=self.comm, group=self._pp_group, prev=self._prev,
             nxt=self._next, act_shape=(mb, T, cfg.hidden_size),
             act_dtype=act_dtype, device=self.device, loss_scale=1.0 / M)
         loss = (torch.stack(losses).float().mean() if self.last else
                 torch.zeros((), dtype=torch.float32, device=self.device))
+        if extra is not None:
+            loss = loss + extra.float()
         return self.comm.all_reduce(loss.reshape(1), self._pp_group,
                                     "loss")[0]
 
     # -- gradients and the update ----------------------------------------------
     def _reduce_grads(self):
-        """The leaves' gradients, reduced where the layout needs it: bo
-        and b_down summed over tp, wte summed over the (first, last)
-        stage pair, everything averaged over dp."""
+        """The leaves' gradients, reduced where the layout needs it: a
+        dense block's bo and b_down summed over tp, wte summed over the
+        (first, last) stage pair, everything summed over sp and averaged
+        over dp (one pass over the (dp, sp) group); nothing over ep."""
         grads = []
         for n, p in self._leaves:
             g = p.grad if p.grad is not None else torch.zeros_like(p)
             grads.append(g)
-            if n in _TP_RANK0:
+            if n in _TP_RANK0 and not self.cfg.num_experts:
                 self.comm.all_reduce(g, self._tp.group, "grad")
             if n == "wte" and self._emb_group is not None:
                 self.comm.all_reduce(g, self._emb_group, "grad")
-        if self.dp > 1:
+        if self.dp * self.sp > 1:
             with self.comm.timed("dp", grads[0]):
-                all_reduce_buckets(grads, group=self._dp_group,
+                all_reduce_buckets(grads, group=self._data_group,
                                    scale=1.0 / self.dp)
         return grads
 
     def _global_norm(self, grads):
-        """||g|| over the whole model, each leaf once: tp-split leaves
-        summed over tp, stages over pp, wte on the first stage only."""
-        split, repl = [], []
+        """||g|| over the whole model, each leaf once: leaves split over
+        tp and / or ep summed over those axes, stages over pp, wte on
+        the first stage only."""
+        parts = {}
         for (n, _), g in zip(self._leaves, grads):
             if n == "wte" and self.pp > 1 and not self.first:
                 continue
+            axes = tuple(a for a in ("ep", "tp") if a in self._specs[n])
             sq = torch.sum(torch.square(g.float()))
-            (split if "tp" in self._specs[n] else repl).append(sq)
-        zero = torch.zeros((), dtype=torch.float32, device=self.device)
-        s = sum(split, zero.clone()).reshape(1)
-        self.comm.all_reduce(s, self._tp.group, "grad")
-        total = (s + sum(repl, zero.clone()))
+            parts[axes] = parts[axes] + sq if axes in parts else sq
+        total = torch.zeros((1,), dtype=torch.float32, device=self.device)
+        for axes in sorted(parts, key=len, reverse=True):
+            s = parts[axes].reshape(1)
+            if axes:
+                self.comm.all_reduce(s, self.mesh.joint_group(axes), "grad")
+            total = total + s
         self.comm.all_reduce(total, self._pp_group, "grad")
         return torch.sqrt(total[0])
 
@@ -412,15 +523,15 @@ class HybridParallelTrainStep:
     # -- export ---------------------------------------------------------------
     def unstacked_params(self) -> dict:
         """The full parameters as the reference's numpy pytree (block
-        leaves [L, ...]), on every rank: split leaves gathered over tp,
-        stages over pp (collective: every rank calls it)."""
+        leaves [L, ...]), on every rank: split leaves gathered over tp
+        and ep, stages over pp (collective: every rank calls it)."""
         cfg = self.cfg
         shapes = G.param_shapes(cfg)
 
         def whole(n, t):
             for i, e in enumerate(self._specs[n]):
-                if e == "tp":
-                    t = _gather(t, self._tp.group, i)
+                if e in ("tp", "ep"):
+                    t = _gather(t, self.mesh.group(e), i)
             return t
 
         def a(t):

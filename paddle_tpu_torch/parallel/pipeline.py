@@ -14,6 +14,12 @@ over the pp axis's group (``comm.Comm``), tagged with the microbatch.
 A stage keeps the autograd graph of a microbatch from its forward to
 its backward (with ``cfg.remat``, only each layer's input), so GPipe
 holds all M microbatches at its peak and 1F1B at most S - s on stage s.
+
+A stage may add a term of its own to the loss (the MoE load-balance
+aux of its layers, the reference 1F1B engine's per-stage aux): its
+cotangent is seeded with the microbatch's loss scale on every stage.
+The reference's GPipe scan drops that term, so the train step refuses
+MoE (and ring attention) under GPipe, as the reference does.
 """
 from __future__ import annotations
 
@@ -43,48 +49,59 @@ def gpipe_actions(n_stages: int, n_micro: int) -> list[tuple[str, int]]:
 def run_stage(actions, forward: Callable, *, first: bool, last: bool,
               comm, group, prev: int | None, nxt: int | None, act_shape,
               act_dtype, device, loss_scale: float) -> list:
-    """Run one stage's `actions` (("F", m) / ("B", m)) and return the
+    """Run one stage's `actions` (("F", m) / ("B", m)) and return (the
     detached losses of its microbatches (the last stage's; [] on the
-    others).
+    others), the detached sum of its extra loss terms).
 
-    forward(m, x) -> the stage's output for microbatch m from its input
-    x (None on the first stage, which embeds its ids): the activation
-    for the next stage, or on the last stage the microbatch's mean loss.
+    forward(m, x) -> (out, extra): the stage's output for microbatch m
+    from its input x (None on the first stage, which embeds its ids) —
+    the activation for the next stage, or on the last stage the
+    microbatch's mean loss — and a 0-d term the stage adds to that
+    microbatch's loss (None for none).
     A backward on the last stage runs its loss's backward scaled by
     `loss_scale`; one with no forward before it (1F1B's last stage) runs
     the forward first. A stage other than the last receives the
     cotangent of its output from `nxt`; every stage but the first sends
     the gradient of its input to `prev` (world ranks, over `group`)."""
-    saved, losses = {}, []
+    saved, losses, extras = {}, [], []
 
     def fwd(m):
         x = None
         if not first:
             x = comm.recv(act_shape, act_dtype, device, prev, group, m,
                           "pp_recv").requires_grad_()
-        return x, forward(m, x)
+        out, extra = forward(m, x)
+        if extra is not None:
+            extras.append(extra.detach())
+        return x, out, extra
 
     for kind, m in actions:
         if kind == "F":
-            x, out = fwd(m)
+            x, out, extra = fwd(m)
             if last:
                 losses.append(out.detach())
             else:
                 comm.send(out, nxt, group, m, "pp_send")
-            saved[m] = (x, out)
+            saved[m] = (x, out, extra)
             continue
         if m in saved:
-            x, out = saved.pop(m)
+            x, out, extra = saved.pop(m)
         else:
-            x, out = fwd(m)
+            x, out, extra = fwd(m)
             losses.append(out.detach())
         if last:
-            (out * loss_scale).backward()
+            total = out if extra is None else out + extra
+            (total * loss_scale).backward()
         else:
             dy = comm.recv(act_shape, act_dtype, device, nxt, group, m,
                            "pp_recv")
-            torch.autograd.backward(out, dy)
+            if extra is None:
+                torch.autograd.backward(out, dy)
+            else:
+                torch.autograd.backward(
+                    [out, extra], [dy, torch.full_like(extra, loss_scale)])
         if not first:
             comm.send(x.grad, prev, group, m, "pp_send")
     comm.wait_sends("pp_send")
-    return losses
+    extra = torch.stack(extras).sum() * loss_scale if extras else None
+    return losses, extra

@@ -29,6 +29,14 @@ A block (``tp_block_fn``):
 Replicated parameters used on tp rank 0 only (bo, b_down) have their
 gradient summed over tp by the train step before the clip.
 
+An expert block (cfg.num_experts > 0) is the reference's composed
+chain: its out-projection's tp partials are float32 products summed
+over tp before they round and take bo (the unsplit block's rounding
+points, on which top-1 routing in the later layers depends; bo is then
+replicated and its gradient not summed), then ``parallel/moe.py``'s
+``moe_ffn`` on the rank's experts and columns. With attn_impl "ring" a
+tp rank ring-attends its H/tp heads over the sp group.
+
 The embedding is a vocab-parallel lookup (ids outside the rank's rows
 masked, then a sum over tp); the head is vocab-parallel logits with a
 distributed ``logsumexp - gold`` in float32 (max, sum of exponentials
@@ -57,14 +65,16 @@ __all__ = ["TP", "copy_to_tp", "reduce_from_tp", "tp_embed", "tp_block_fn",
 class TP:
     """A rank's place on the tp axis: its process group (None when the
     axis has one rank), index and the axis size; ``comm`` times the
-    all-reduces under "tp"."""
+    all-reduces under `kind` ("tp"; the MoE FFN's (ep, tp) pair uses
+    the same conjugate functions under "ep")."""
     group: object = None
     rank: int = 0
     size: int = 1
     comm: Comm = dataclasses.field(default_factory=Comm)
+    kind: str = "tp"
 
     def all_reduce(self, t, op=dist.ReduceOp.SUM):
-        return self.comm.all_reduce(t, self.group, "tp", op)
+        return self.comm.all_reduce(t, self.group, self.kind, op)
 
 
 class _CopyToTP(torch.autograd.Function):
@@ -98,12 +108,12 @@ def reduce_from_tp(x, tp: TP):
     return x if tp.size == 1 else _ReduceFromTP.apply(x, tp)
 
 
-def tp_embed(params, ids, cfg: G.GPTConfig, tp: TP):
-    """wte[ids] + wpe[:T] with this rank's vocabulary rows of wte; the
-    model's ``_embed`` at tp = 1."""
+def tp_embed(params, ids, cfg: G.GPTConfig, tp: TP, pos0: int = 0):
+    """wte[ids] + wpe[pos0 : pos0 + T] with this rank's vocabulary rows
+    of wte; the model's ``_embed`` at tp = 1."""
     if tp.size == 1:
-        return G._embed(params, ids, cfg)
-    T = ids.shape[-1]
+        return G._embed(params, ids, cfg, pos0)
+    T = pos0 + ids.shape[-1]
     if T > params["wpe"].shape[0]:
         raise ValueError(
             f"sequence length {T} exceeds max_position_embeddings="
@@ -113,33 +123,45 @@ def tp_embed(params, ids, cfg: G.GPTConfig, tp: TP):
     local = torch.as_tensor(ids, device=wte.device).long() - tp.rank * rows
     inside = (local >= 0) & (local < rows)
     e = wte[local.clamp(0, rows - 1)] * inside[..., None].to(wte.dtype)
-    x = reduce_from_tp(e, tp) + params["wpe"][:T]
+    x = reduce_from_tp(e, tp) + params["wpe"][pos0:T]
     if cfg.amp_dtype:
         x = x.to(getattr(torch, cfg.amp_dtype))
     return x
 
 
-def tp_head_loss(params, x, ids, cfg: G.GPTConfig, tp: TP):
+def tp_head_loss(params, x, ids, cfg: G.GPTConfig, tp: TP, labels=None,
+                 count=None):
     """Mean next-token cross entropy of the final hidden states x [B, T,
     D] against ids [B, T] (``gpt_loss``): final LN, then logits against
     this rank's vocabulary rows in float32 and a logsumexp - gold
-    reduced over tp."""
+    reduced over tp. A sequence shard passes its `labels` [B, T'] (the
+    next tokens of its first T' positions, T' = T or T - 1) and the
+    global term `count`: the result is its terms' sum over `count`."""
+    if labels is None:
+        labels = ids[:, 1:]
+    labels = torch.as_tensor(labels, device=x.device).long()
+    n = labels.shape[1]
     if tp.size == 1:
-        return G.gpt_loss(None, ids, cfg, logits=G._head(params, x, cfg))
-    h = G._ln(x, params["lnf_s"], params["lnf_b"], cfg.layer_norm_eps)
-    h = copy_to_tp(h, tp)
-    wte = params["wte"]
-    rows = wte.shape[0]
-    logits = (h.float() @ wte.float().T)[:, :-1]
-    labels = torch.as_tensor(ids, device=wte.device).long()[:, 1:] \
-        - tp.rank * rows
-    m = logits.detach().amax(-1)
-    tp.all_reduce(m, dist.ReduceOp.MAX)
-    sumexp = reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1), tp)
-    inside = (labels >= 0) & (labels < rows)
-    gold = torch.gather(logits, -1, labels.clamp(0, rows - 1)[..., None])
-    gold = reduce_from_tp(gold[..., 0] * inside.to(gold.dtype), tp)
-    return torch.mean(torch.log(sumexp) + m - gold)
+        logits = G._head(params, x, cfg)[:, :n]
+        terms = torch.logsumexp(logits, -1) - torch.gather(
+            logits, -1, labels[..., None])[..., 0]
+    else:
+        h = G._ln(x, params["lnf_s"], params["lnf_b"], cfg.layer_norm_eps)
+        h = copy_to_tp(h, tp)
+        wte = params["wte"]
+        rows = wte.shape[0]
+        logits = (h.float() @ wte.float().T)[:, :n]
+        labels = labels - tp.rank * rows
+        m = logits.detach().amax(-1)
+        tp.all_reduce(m, dist.ReduceOp.MAX)
+        sumexp = reduce_from_tp(torch.exp(logits - m[..., None]).sum(-1),
+                                tp)
+        inside = (labels >= 0) & (labels < rows)
+        gold = torch.gather(logits, -1,
+                            labels.clamp(0, rows - 1)[..., None])
+        gold = reduce_from_tp(gold[..., 0] * inside.to(gold.dtype), tp)
+        terms = torch.log(sumexp) + m - gold
+    return torch.mean(terms) if count is None else terms.sum() / count
 
 
 def _tail(p, a2, x2, cfg: G.GPTConfig, tp: TP, drop, seeds):
@@ -175,7 +197,7 @@ def _tail(p, a2, x2, cfg: G.GPTConfig, tp: TP, drop, seeds):
 
 def tp_block_fn(p: dict, x, cfg: G.GPTConfig, tp: TP, seeds=None):
     """One pre-LN decoder block on [B, T, D] with this rank's parts of
-    the split leaves (``gpt_block_fn`` at tp = 1)."""
+    the split leaves (``gpt_block_fn`` at tp = 1). Returns (x, aux)."""
     if tp.size == 1:
         return G.gpt_block_fn(p, x, cfg, seeds)
     if cfg.num_heads % tp.size:
@@ -195,14 +217,18 @@ def tp_block_fn(p: dict, x, cfg: G.GPTConfig, tp: TP, seeds=None):
                             cfg.attn_impl)
     B, T, D = x.shape
     drop = cfg.dropout if seeds is not None else 0.0
+    if cfg.num_experts > 0:
+        return G.moe_tail(p, c(a), x, cfg, drop, seeds or (0, 0),
+                          matmul=lambda a, w: reduce_from_tp(
+                              a.float() @ w.float(), tp).to(a.dtype))
     return _tail(p, c(a).reshape(B * T, -1), x.reshape(B * T, D), cfg, tp,
-                 drop, seeds or (0, 0)).reshape(B, T, D)
+                 drop, seeds or (0, 0)).reshape(B, T, D), None
 
 
 def tp_block_body(cfg: G.GPTConfig, tp: TP):
-    """(h, blk, seeds=None) -> h for one layer, recomputed in the
+    """(h, blk, seeds=None) -> (h, aux) for one layer, recomputed in the
     backward when cfg.remat (``models.gpt.block_body``); the recompute
-    repeats the forward's all-reduces on every tp rank alike."""
+    repeats the forward's collectives on every rank alike."""
     if tp.size == 1:
         return G.block_body(cfg)
 

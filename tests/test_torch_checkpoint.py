@@ -487,8 +487,8 @@ def test_gpt_config_fields_match_the_jax_package():
         == dataclasses.asdict(JConfig()).keys()
     assert dataclasses.asdict(pgpt.GPTConfig(**SIZE)) \
         == dataclasses.asdict(JConfig(**SIZE))
-    with pytest.raises(NotImplementedError):
-        pgpt.GPTConfig(num_experts=2)
+    assert dataclasses.asdict(pgpt.GPTConfig(**SIZE, num_experts=2)) \
+        == dataclasses.asdict(JConfig(**SIZE, num_experts=2))
 
 
 def test_param_shapes_is_the_init_tree():

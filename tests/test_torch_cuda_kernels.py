@@ -1780,3 +1780,49 @@ def test_flash_routes_by_dtype_head_dim_and_alignment(dev):
                 torch.testing.assert_close(x, y, atol=1e-4, rtol=1e-4)
             else:
                 _assert_bf16_close(x, y, name)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_attention_two_ranks_on_the_card_match_dense(dev, tmp_path,
+                                                          dtype):
+    """Ring attention over two ranks sharing the card (gloo; the hops
+    through host copies) on CUDA tensors: each rank's output shard, the
+    summed loss and the q/k/v gradient shards against the dense
+    function on the whole sequence on the card. f32 at the CPU test's
+    tolerance (atol 2e-4, rtol 1e-3); bf16 at 2e-2 + 2e-2 |ref| (the
+    ring and the dense function round P and the output to bf16 at
+    other points of the online softmax)."""
+    import os
+    import pickle
+    import sys
+    sys.path.insert(0, os.path.dirname(__file__))
+    import torch_hybrid_workers as W
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.parallel.sequence_parallel import _dense
+    spawn(W.run, args=(str(tmp_path), [("ring", "ring", (
+        {"sp": 2}, True, 256, "cuda", dtype))]), nprocs=2, timeout=120)
+    ranks = []
+    for r in range(2):
+        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f)["ring"])
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(a).to(dev, dt).requires_grad_()
+               for a in W.qkv(S=256))
+    o = _dense(q, k, v, True, 0.25)
+    loss = torch.sum(o.float() ** 2)
+    grads = torch.autograd.grad(loss, (q, k, v))
+    loss = loss.item()
+    tol = dict(atol=2e-4, rtol=1e-3) if dtype == "float32" else \
+        dict(atol=2e-2, rtol=2e-2)
+    got = sum(r["loss"] for r in ranks)
+    assert abs(got - loss) <= (1e-5 if dtype == "float32" else 2e-2) \
+        * abs(loss)
+    for r, res in enumerate(ranks):
+        assert res["sp"] == r and res["device"].startswith("cuda")
+        want = o.float()[:, :, r * 128:(r + 1) * 128].cpu()
+        torch.testing.assert_close(torch.from_numpy(res["out"]), want,
+                                   **tol)
+    for i, g in enumerate(grads):
+        whole = torch.cat([torch.from_numpy(r["grads"][i]) for r in ranks],
+                          2)
+        torch.testing.assert_close(whole, g.float().cpu(), **tol)

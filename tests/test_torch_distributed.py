@@ -200,8 +200,13 @@ def test_fleet_collective_mode_surface(monkeypatch):
     assert apply_meta_optimizers(opt, st) is opt
     st.amp = True
     with pytest.raises(NotImplementedError, match=r"amp \(ROADMAP.md A, "
-                                                  r"item 14\(c\)\)"):
+                                                  r"item 13\)"):
         apply_meta_optimizers(opt, st)
+    st.amp, st.lamb = False, True
+    with pytest.raises(NotImplementedError, match=r"lamb \(ROADMAP.md A, "
+                                                  r"item 11\)"):
+        apply_meta_optimizers(opt, st)
+    st.lamb = False
     st.amp, st.recompute = False, True
     with pytest.raises(NotImplementedError, match="item 12"):
         apply_meta_optimizers(opt, st)
@@ -220,14 +225,14 @@ def test_fleet_collective_mode_surface(monkeypatch):
     ids = np.random.RandomState(0).randint(0, 512, (2, 64))
     assert np.isfinite(float(step(ids)))
     # the hybrid step runs dp / pp / tp over a world of their size
-    # (tests/test_torch_hybrid_parallel.py): outside one the mesh raises;
-    # sequence parallelism comes with item 14(c)
+    # (tests/test_torch_hybrid_parallel.py): outside one the mesh raises,
+    # sequence parallelism's too
     st = fleet.DistributedStrategy()
     st.hybrid_configs = {"dp_degree": 2}
     fleet.init(is_collective=True, strategy=st)
     with pytest.raises(ValueError, match="world has 1"):
         fleet.hybrid_train_step(GPTConfig.tiny(), device="cpu")
     st.hybrid_configs = {"dp_degree": 1, "sp_degree": 2}
-    with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
+    with pytest.raises(ValueError, match="world has 1"):
         fleet.hybrid_train_step(GPTConfig.tiny(), device="cpu")
     fleet.init(is_collective=True)      # the default strategy again

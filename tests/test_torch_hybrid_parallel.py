@@ -131,7 +131,7 @@ def test_schedule_simulator_invariants():
 
 def test_the_reference_validation_errors():
     """The reference step's construction errors, raised before any
-    rank is asked for (sp and ep name item 14(c))."""
+    rank is asked for (sp and ep: the reference's own checks)."""
     cfg = GPTConfig.tiny()
     with pytest.raises(ValueError, match="unknown pipeline_schedule"):
         HybridParallelTrainStep(cfg, device="cpu", pipeline_schedule="x")
@@ -144,9 +144,14 @@ def test_the_reference_validation_errors():
                                 pipeline_schedule="F-then-B", device="cpu")
     with pytest.raises(ValueError, match="num_heads=4 not divisible"):
         HybridParallelTrainStep(cfg, tp=8, device="cpu")
-    for kw in (dict(sp=2), dict(ep=2)):
-        with pytest.raises(NotImplementedError, match=r"item 14\(c\)"):
-            HybridParallelTrainStep(cfg, device="cpu", **kw)
+    with pytest.raises(ValueError, match=r"ep>1 needs a MoE model"):
+        HybridParallelTrainStep(cfg, ep=2, device="cpu")
+    for kw in (dict(sp=2), dict(num_experts=4)):
+        c = GPTConfig.tiny(**{k: v for k, v in kw.items()
+                              if k == "num_experts"})
+        with pytest.raises(NotImplementedError, match="1F1B"):
+            HybridParallelTrainStep(c, pp=2, pipeline_schedule="F-then-B",
+                                    device="cpu", sp=kw.get("sp", 1))
 
 
 # -- the layout (pure) ----------------------------------------------------------

@@ -140,9 +140,15 @@ def test_inputs_may_be_tensors_and_loss_falls():
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
 
 
-@pytest.mark.parametrize("kw", [dict(mp=2), dict(dp=2), dict(mesh=object())])
-def test_mesh_raises_naming_item_14(kw):
-    with pytest.raises(NotImplementedError, match="item 14"):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(mp=2), ValueError, "world has 1"),
+    (dict(dp=2), ValueError, "world has 1"),
+    (dict(mesh=object()), TypeError, "Mesh")])
+def test_mesh_raises_naming_item_14(kw, exc, match):
+    """dp x mp runs over a world of its size (item 14,
+    tests/test_torch_sharded_embedding.py): outside one the mesh
+    raises; a mesh is the port's Mesh."""
+    with pytest.raises(exc, match=match):
         WideDeepTrainStep(WideDeepConfig.tiny(), device="cpu", **kw)
 
 

@@ -1,4 +1,6 @@
-"""Worker processes of tests/test_torch_hybrid_parallel.py.
+"""Worker processes of tests/test_torch_hybrid_parallel.py,
+test_torch_ring_attention.py, test_torch_moe.py and
+test_torch_sharded_embedding.py.
 
 ``run`` is what ``paddle_tpu_torch.distributed.spawn`` starts in each
 rank: it joins the process group from the PADDLE_* env, runs the named
@@ -62,20 +64,111 @@ def hybrid(kw, cfg_kw, ids, steps, full=True):
     return res
 
 
-def fleet_hybrid(strategy_kw, ids):
+def hybrid_grads(kw, cfg_kw, ids, names):
+    """One ``loss_and_grads`` of HybridParallelTrainStep(**kw): the loss,
+    the global gradient norm the clip takes, this rank's reduced
+    gradients of the leaves `names`, its coordinates and their specs."""
+    from paddle_tpu_torch.parallel import HybridParallelTrainStep
+    step = HybridParallelTrainStep(_cfg(**cfg_kw), device="cpu", seed=0,
+                                   **kw)
+    loss, grads = step.loss_and_grads(ids)
+    return {"loss": float(loss), "norm": float(step._global_norm(grads)),
+            "grads": {n: g.numpy().copy() for (n, _), g in
+                      zip(step._leaves, grads) if n in names},
+            "specs": {n: step._specs[n] for n in names},
+            "coords": {a: step.mesh.coord(a) for a in step.mesh.axis_names}}
+
+
+def fleet_hybrid(strategy_kw, ids, cfg_kw=None):
     """fleet.hybrid_train_step from a strategy: its mesh shape, the
-    microbatches, ZeRO, and one step's loss."""
+    microbatches, ZeRO, the ring, and one step's loss."""
     from paddle_tpu_torch.distributed import fleet
     from paddle_tpu_torch.distributed.fleet.base.fleet_base import _fleet
     strategy = fleet.DistributedStrategy()
     for k, v in strategy_kw.items():
         setattr(strategy, k, v)
     _fleet.init(is_collective=True, strategy=strategy)
-    step = _fleet.hybrid_train_step(_cfg(), seed=0, device="cpu")
+    step = _fleet.hybrid_train_step(_cfg(**(cfg_kw or {})), seed=0,
+                                    device="cpu")
     loss = float(step(ids))
     _fleet.init(is_collective=True)
     return {"shape": dict(step.mesh.shape), "n_micro": step.n_micro,
-            "zero": step.zero_sharding, "loss": loss}
+            "zero": step.zero_sharding, "sp": step.sp, "ep": step.ep,
+            "attn_impl": step.cfg.attn_impl, "loss": loss}
+
+
+def qkv(B=2, H=2, S=256, D=16, seed=0):
+    """tests/test_ring_attention.py's inputs (numpy)."""
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(B, H, S, D).astype(np.float32) * .5)
+            for _ in range(3)]
+
+
+def ring(axes, causal, S, device="cpu", dtype="float32"):
+    """Ring attention of this rank's sequence shard of ``qkv(S=S)`` (in
+    `dtype` on `device`) over the "sp" axis of Mesh(axes): its output,
+    its share of sum(o ** 2) and the gradients of its q, k, v shards
+    (float32 numpy)."""
+    from paddle_tpu_torch.distributed.mesh import Mesh
+    from paddle_tpu_torch.parallel.sequence_parallel import ring_attention
+    mesh = Mesh(axes)
+    n, s = mesh.axis_size("sp"), mesh.coord("sp")
+    piece = slice(s * S // n, (s + 1) * S // n)
+    q, k, v = (torch.from_numpy(a[:, :, piece].copy()).to(
+        device, getattr(torch, dtype)).requires_grad_() for a in qkv(S=S))
+    o = ring_attention(q, k, v, mesh, "sp", causal=causal)
+    loss = torch.sum(o.float() ** 2)
+    loss.backward()
+    return {"sp": s, "out": o.detach().float().cpu().numpy(),
+            "loss": float(loss), "device": str(o.device),
+            "grads": [t.grad.float().cpu().numpy() for t in (q, k, v)]}
+
+
+def lookup(axes, V, D, rows, seed=0):
+    """tests/test_sparse_embedding.py's sharded lookup on Mesh(axes):
+    this rank's embeddings, its share of sum(out ** 2) (the same on
+    every mp rank) and the gradient of its table rows; and the
+    ValueError of a table mp does not divide."""
+    from paddle_tpu_torch.distributed.mesh import Mesh
+    from paddle_tpu_torch.parallel.embedding import (
+        ShardedEmbedding, shard_rows, sharded_embedding_lookup)
+    mesh = Mesh(axes)
+    rng = np.random.RandomState(seed)
+    table = rng.randn(V, D).astype(np.float32)
+    ids = rng.randint(0, V, rows)
+    t = torch.from_numpy(shard_rows(table, mesh, "mp").copy()) \
+        .requires_grad_()
+    out = sharded_embedding_lookup(t, ids, mesh, "mp")
+    loss = torch.sum(out ** 2)
+    loss.backward()
+    try:
+        shard_rows(np.zeros((V - 1, D), np.float32), mesh, "mp")
+        err = None
+    except ValueError as e:
+        err = str(e)
+    emb = ShardedEmbedding(V, D, mesh, seed=3)
+    return {"mp": mesh.coord("mp"), "out": out.detach().numpy(),
+            "loss": float(loss), "grad": t.grad.numpy(), "error": err,
+            "module_table": emb.table.numpy(),
+            "module_out": emb(ids).numpy()}
+
+
+def widedeep(kw, batches):
+    """WideDeepTrainStep(WideDeepConfig.tiny(), **kw) over `batches`:
+    the losses, this rank's table shapes and the gathered tree."""
+    from paddle_tpu_torch.models.wide_deep import (WideDeepConfig,
+                                                   WideDeepTrainStep)
+    step = WideDeepTrainStep(WideDeepConfig.tiny(), seed=0, device="cpu",
+                             **kw)
+    losses = [float(step(*b)) for b in batches]
+    params = step.params
+    return {"losses": losses,
+            "local": {k: tuple(step.local_params[k].shape)
+                      for k in ("embed", "wide")},
+            "moments": tuple(step.local_opt_state["embed"]["m1"].shape),
+            "params": {k: (v.numpy().copy() if k != "mlp" else
+                           [{n: t.numpy().copy() for n, t in l.items()}
+                            for l in v]) for k, v in params.items()}}
 
 
 def saved_bytes(schedule, cfg_kw, ids, pp, micro):
@@ -176,4 +269,6 @@ def static_tp(start, tp_rules, opt, feeds):
 
 
 CASES = {"hybrid": hybrid, "fleet_hybrid": fleet_hybrid,
-         "saved_bytes": saved_bytes, "errors": errors, "static_tp": static_tp}
+         "saved_bytes": saved_bytes, "errors": errors, "static_tp": static_tp,
+         "hybrid_grads": hybrid_grads, "ring": ring, "lookup": lookup,
+         "widedeep": widedeep}
