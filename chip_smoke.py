@@ -4,6 +4,9 @@
     python3 chip_smoke.py --kernels  # phases 1-2 only: build + check
     python3 chip_smoke.py --moe-seed N  # phase 1, then phase 18 alone
                                      # on weights and batch from seed N
+    python3 chip_smoke.py --ps       # the card line, then phases 20-22
+                                     # alone (no kernel lies on them)
+    python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
                                      # step, of one BERT train step, of
@@ -269,7 +272,44 @@ Phases:
      lookup's all-reduce and in the dp gradient average; with phase 2
      (check_mesh_kernels) rows 2-3 at an sp_gpt rank's shape (M = 2048)
      and rows 4-5 at a moe_gpt rank's (4 x 6 heads of 64);
- 20. the kernels line, then the card line, then the result line.
+ 20. widedeep_ps_parity (item 16(a), the parameter-server tier; no
+     kernel of the port on this path: the workers' products and the
+     dense gradients are PyTorch's, the shards' tables host numpy behind
+     the C++ core): WideDeepConfig.tiny() with a local-mode FleetWrapper
+     (in-process tables on the native core), lr 0.1, the batches of
+     tests/test_fleet_wrapper.py: a DownpourWorker on the card and one on
+     the CPU, 20 batches from seed 0, every loss and every table pulled
+     back afterwards within rtol 1e-4 / atol 1e-6; then one
+     HeterDenseWorker step on the card against the CPU (loss, d_emb,
+     d_wide and the updated parameters, same tolerance);
+ 21. widedeep_ps: bench.py's bench_widedeep_ps_tcp whole (steps 8,
+     warm-up 1): 2 port PSServer processes and 2 DownpourWorker
+     processes on the one card over localhost TCP
+     (paddle_tpu_torch.distributed.fleet.ps_roles), WideDeepConfig()
+     (1,048,576 hashed vocab, 26 slots, embed 16, 13 dense, hidden
+     400-400-400), batch 4096 of Zipf(1.3) ids from RandomState(7 +
+     worker), lr 0.05, worker 0 seeding the dense tables; then the same
+     through the BoxPS cache (capacity 1 << 21, flush every 8). The
+     workers meet at a fetch barrier before their timed windows. Each
+     mode: examples/s of both workers (every timed example over the
+     first start to the last end) and the share of that span in which
+     both windows were open, wire MB out and in per worker step
+     (PSClient byte counters), each worker's median pull / local-step
+     (CUDA events: uploads, forward, backward, gradients to the host) /
+     push / step ms, the card's busy ms in one step (torch.profiler,
+     that worker's kernels and copies) and its share of the median
+     step, peak memory and losses, each shard's table sizes and its
+     native core (its ready line). Gates: losses finite, wire bytes
+     non-zero, 0 port launches, every shard on its native core, workers
+     on the card;
+ 22. heter_ps: a HeterDenseWorker on the card (this process) behind 1,
+     then 2, HeterCpuWorker processes over one port PSServer process,
+     WideDeepConfig(), batch 4096, 1 + 8 steps each: examples/s as in
+     21, the dense step's ms (CUDA events; with 2 CPU workers a span can
+     hold the other worker's step, so the 1-worker run gives the step
+     alone), the losses. Gates: losses finite, 0 port launches. Every
+     phase 21-22 process has a timeout and is killed in a finally;
+ 23. the kernels line, then the card line, then the result line.
 
 Each phase prints its wall seconds ({"phase": "seconds", ...}). One
 numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
@@ -4751,6 +4791,281 @@ DP_CASES = {"bert": dp_bert_case, "parity": dp_parity_case,
             "widedeep_mp": widedeep_mp_case}
 
 
+# ---------------------------------------------------------------------------
+# the parameter-server tier (item 16(a)): shards on the host over localhost
+# TCP, Downpour and heter wide&deep workers on the card
+# ---------------------------------------------------------------------------
+
+PS_STEPS, PS_WARMUP, PS_BATCH, PS_TIMEOUT = 8, 1, 4096, 240
+PS_RTOL, PS_ATOL = 1e-4, 1e-6
+
+
+def ps_close(got, ref) -> bool:
+    import numpy as np
+    return bool(np.allclose(np.asarray(got), np.asarray(ref),
+                            rtol=PS_RTOL, atol=PS_ATOL))
+
+
+def np_err(got, ref) -> float:
+    import numpy as np
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(ref))))
+
+
+def widedeep_ps_parity(torch, steps=20):
+    """WideDeepConfig.tiny(), local-mode FleetWrapper (in-process tables
+    on the native core), lr 0.1, seed 0: a DownpourWorker on the card and
+    one on the CPU run the same `steps` batches; every loss and every
+    table pulled back afterwards within PS_RTOL / PS_ATOL. Then one
+    HeterDenseWorker step on the card against the same step on the CPU:
+    loss, d_emb, d_wide and the updated parameters."""
+    import numpy as np
+    from paddle_tpu_torch.distributed.fleet import (DownpourWorker,
+                                                    FleetWrapper,
+                                                    HeterDenseWorker)
+    from paddle_tpu_torch.distributed.fleet.ps_roles import (ctr_batches,
+                                                             run_tables)
+    from paddle_tpu_torch.models.wide_deep import WideDeepConfig
+    cfg = WideDeepConfig.tiny()
+    batches = ctr_batches(cfg, steps)
+    runs, native = {}, []
+    for dev in ("cuda", "cpu"):
+        fw = FleetWrapper()
+        w = DownpourWorker(fw, cfg, lr=0.1, device=dev)
+        w.push_initial_dense()
+        losses = [w.train_one_batch(*b) for b in batches]
+        tables = run_tables(fw, w, cfg)
+        native += [t._native is not None for t in fw._local.values()]
+        runs[dev] = (losses, tables)
+    (gl, gt), (cl, ct) = runs["cuda"], runs["cpu"]
+    outside = sorted(k for k in gt if not ps_close(gt[k], ct[k]))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(gl, cl))
+    err = max(np_err(gt[k], ct[k]) for k in gt)
+
+    rng = np.random.RandomState(1)
+    B = 64
+    args = (rng.randn(B, cfg.num_slots * cfg.embed_dim).astype(np.float32)
+            * 0.01, rng.randn(B, 1).astype(np.float32) * 0.01,
+            rng.randn(B, cfg.dense_dim).astype(np.float32),
+            (rng.rand(B, 1) > 0.5).astype(np.float32))
+    heter = {}
+    for dev in ("cuda", "cpu"):
+        dw = HeterDenseWorker(cfg, "127.0.0.1:0", lr=0.1, device=dev)
+        try:
+            loss, d_emb, d_wide = dw.step(*args)
+            heter[dev] = (loss, d_emb, d_wide, dw.host_params())
+        finally:
+            dw.server_close()
+    (gl2, ge, gw, gp), (cl2, ce, cw, cp) = heter["cuda"], heter["cpu"]
+    pairs = [(ge, ce), (gw, cw), (gp["wide_dense"], cp["wide_dense"]),
+             (gp["bias"], cp["bias"])] + [
+        (a[k], b[k]) for a, b in zip(gp["mlp"], cp["mlp"]) for k in a]
+    heter_ok = abs(gl2 - cl2) <= PS_ATOL + PS_RTOL * abs(cl2) \
+        and all(ps_close(a, b) for a, b in pairs)
+    print(json.dumps({
+        "phase": "widedeep_ps_parity", "config": "tiny, local-mode "
+        f"FleetWrapper, batch 64, lr 0.1, {steps} Downpour steps, card "
+        "against CPU; one heter dense step", "rtol": PS_RTOL,
+        "atol": PS_ATOL, "losses_cuda": gl, "losses_cpu": cl,
+        "loss_max_rel": rel, "tables_max_abs_err": err,
+        "tables_outside": outside, "native_tables": native,
+        "heter_loss": [gl2, cl2],
+        "heter_max_abs_err": max(np_err(a, b) for a, b in pairs),
+        "heter_within": heter_ok}), flush=True)
+    if not all(ps_close(a, b) for a, b in zip(gl, cl)) or outside \
+            or not heter_ok:
+        fail(f"PS workers: card and CPU differ: losses {gl} against "
+             f"{cl}, tables outside {outside}, heter within {heter_ok}")
+    if not native or not all(native):
+        fail(f"PS tables not on the native core: {native}")
+
+
+def ps_endpoints(n: int) -> list[str]:
+    from paddle_tpu_torch.distributed.spawn import _free_ports
+    return [f"127.0.0.1:{p}" for p in _free_ports(n)]
+
+
+def ps_result(p, what) -> dict:
+    """The last stdout line of a finished role as JSON."""
+    try:
+        out, err = p.communicate(timeout=PS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"{what} outlived {PS_TIMEOUT} s")
+    if p.returncode != 0:
+        fail(f"{what} exited {p.returncode}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def ps_rate(outs) -> tuple[float, float]:
+    """The workers' examples/s together: every example of their timed
+    windows over the union of the windows (the first start to the last
+    end; the workers met at a barrier before them), and the share of
+    that union in which every worker's window was open."""
+    start = min(o["window"][0] for o in outs)
+    end = max(o["window"][1] for o in outs)
+    both = min(o["window"][1] for o in outs) - max(o["window"][0]
+                                                   for o in outs)
+    total = sum(o["batch"] * o["steps"] for o in outs)
+    return total / (end - start), max(both, 0.0) / (end - start)
+
+
+def ps_tables(eps, names) -> list[dict]:
+    """Each shard's table sizes, read over the wire."""
+    from paddle_tpu_torch.distributed.fleet.runtime \
+        .parameter_server_runtime import PSClient
+    out = []
+    for ep in eps:
+        cl = PSClient([ep])
+        try:
+            out.append({n: cl.size(n) for n in names})
+        finally:
+            cl.close()
+    return out
+
+
+def widedeep_ps_run(mode: str | None):
+    """bench.py's bench_widedeep_ps_tcp whole (the call bench_widedeep
+    makes): 2 port PSServer processes and 2 DownpourWorker processes on
+    the one card over localhost TCP, WideDeepConfig(), batch PS_BATCH of
+    Zipf(1.3) ids, lr 0.05, PS_WARMUP + PS_STEPS steps; mode "boxps"
+    runs the workers through the BoxPS cache (capacity 1 << 21, flush
+    every 8). Gates: losses finite, wire bytes non-zero, 0 port kernel
+    launches, every shard on its native core, workers on the card."""
+    from paddle_tpu_torch.distributed.fleet import ps_roles
+    eps = ps_endpoints(2)
+    job = dict(PS_ENDPOINTS=",".join(eps), WORKERS=2)
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        shards = [ps_roles.spawn(ROLE="server", MY_ENDPOINT=ep)
+                  for ep in eps]
+        procs += shards
+        ready = [ps_roles.ready(p) for p in shards]
+        workers = [ps_roles.spawn(ROLE="worker", WORKER_ID=w,
+                                  STEPS=PS_STEPS, WARMUP=PS_WARMUP,
+                                  BATCH=PS_BATCH, MODE=mode or "",
+                                  FLUSH_EVERY=8, **job) for w in range(2)]
+        procs += workers
+        outs = [ps_result(p, f"PS worker {w}")
+                for w, p in enumerate(workers)]
+        wall = time.perf_counter() - t0
+        names = ["embed", "wide", "wide_dense", "bias"] + [
+            f"mlp{i}.{k}" for i in range(4) for k in ("w", "b")]
+        sizes = ps_tables(eps, names)
+    finally:
+        ps_roles.stop(procs)
+    rate, overlap = ps_rate(outs)
+    detail = [{k: (round(v, 4) if isinstance(v, float) else v)
+               for k, v in o.items() if k not in ("batch", "window")}
+              for o in outs]
+    row = {
+        "phase": "widedeep_ps", "mode": mode or "plain",
+        "config": "bench_widedeep_ps_tcp: WideDeepConfig() (vocab "
+        "1048576, 26 slots, embed 16, 13 dense, hidden 400-400-400), "
+        "Zipf(1.3) ids, lr 0.05" + (", BoxPS capacity 1<<21 flush 8"
+                                    if mode else ""),
+        "servers": 2, "workers": 2, "batch": PS_BATCH,
+        "warmup": PS_WARMUP, "steps": PS_STEPS, "wall_s": round(wall, 2),
+        "examples_per_s": round(rate, 1),
+        "windows_overlap_share": round(overlap, 4),
+        "wire_mb_out_per_worker_step": round(statistics.mean(
+            o["push_pull_mb_out"] / o["steps"] for o in outs), 4),
+        "wire_mb_in_per_worker_step": round(statistics.mean(
+            o["push_pull_mb_in"] / o["steps"] for o in outs), 4),
+        "worker_detail": detail,
+        "shards": [dict(endpoint=r["endpoint"], native=r["native"],
+                        tables=s) for r, s in zip(ready, sizes)]}
+    print(json.dumps(row), flush=True)
+    losses = [v for o in outs for v in o["losses"]]
+    launched = {k: v for o in outs for k, v in o["port_launches"].items()
+                if v}
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"widedeep_ps {row['mode']}: losses not finite: {losses}")
+    if not all(o["push_pull_mb_out"] > 0 and o["push_pull_mb_in"] > 0
+               for o in outs):
+        fail(f"widedeep_ps {row['mode']}: no wire bytes")
+    if launched:
+        fail(f"widedeep_ps {row['mode']} launched port kernels: "
+             f"{launched}")
+    if not all(r["native"] for r in ready):
+        fail(f"widedeep_ps {row['mode']}: a shard is off its native "
+             f"core: {ready}")
+    if not all(o["device"].startswith("cuda") for o in outs):
+        fail(f"widedeep_ps {row['mode']}: a worker ran off the card: "
+             f"{[o['device'] for o in outs]}")
+    return row
+
+
+def widedeep_ps_phase(torch):
+    """widedeep_ps_run plain, then through the BoxPS cache."""
+    return [widedeep_ps_run(None), widedeep_ps_run("boxps")]
+
+
+def heter_ps_run(n_cpu: int) -> dict:
+    """A HeterDenseWorker on the card (this process, WideDeepConfig(),
+    lr 0.05) behind `n_cpu` HeterCpuWorker processes over one port
+    PSServer process, batch PS_BATCH, PS_WARMUP + PS_STEPS steps each:
+    examples/s (ps_rate), the dense step's ms on the card, the losses.
+    The dense step's CUDA events lie on the one default stream that
+    every handler thread shares, so with more than one CPU worker a
+    span can hold another worker's step as well; with one it holds its
+    own step alone. Gates: losses finite, 0 port kernel launches, the
+    dense worker on the card."""
+    from paddle_tpu_torch.distributed.fleet import HeterDenseWorker, ps_roles
+    from paddle_tpu_torch.models.wide_deep import WideDeepConfig
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    ep, = ps_endpoints(1)
+    dw = HeterDenseWorker(WideDeepConfig(), "127.0.0.1:0", lr=0.05)
+    dw.serve_in_thread()
+    reset_launch_counts()
+    procs = []
+    try:
+        shard = ps_roles.spawn(ROLE="server", MY_ENDPOINT=ep)
+        procs.append(shard)
+        ready = ps_roles.ready(shard)
+        cpus = [ps_roles.spawn(ROLE="heter_cpu", WORKER_ID=w,
+                               PS_ENDPOINTS=ep, WORKERS=n_cpu,
+                               DENSE_ENDPOINT=dw.endpoint, STEPS=PS_STEPS,
+                               WARMUP=PS_WARMUP, BATCH=PS_BATCH)
+                for w in range(n_cpu)]
+        procs += cpus
+        outs = [ps_result(p, f"heter CPU worker {w}")
+                for w, p in enumerate(cpus)]
+    finally:
+        ps_roles.stop(procs)
+        dw.shutdown()
+        dw.server_close()
+    counts = {k: v for k, v in launch_counts().items() if v}
+    steps = dw.step_seconds[n_cpu * PS_WARMUP:]
+    rate, overlap = ps_rate(outs)
+    row = {
+        "phase": "heter_ps", "cpu_workers": n_cpu,
+        "config": f"WideDeepConfig(), dense worker on the card, {n_cpu} "
+        "CPU workers, 1 shard, lr 0.05", "batch": PS_BATCH,
+        "warmup": PS_WARMUP, "steps": PS_STEPS,
+        "examples_per_s": round(rate, 1),
+        "windows_overlap_share": round(overlap, 4),
+        "dense_step_ms_median": round(statistics.median(steps) * 1e3, 4),
+        "dense_step_spans_may_hold_other_steps": n_cpu > 1,
+        "dense_steps": len(dw.step_seconds), "shard_native":
+        ready["native"], "losses": [o["losses"] for o in outs],
+        "dense_losses": dw.losses, "port_launches": counts}
+    print(json.dumps(row), flush=True)
+    losses = [v for o in outs for v in o["losses"]] + dw.losses
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"heter_ps: losses not finite: {losses}")
+    if counts:
+        fail(f"heter_ps launched port kernels: {counts}")
+    if dw.device.type != "cuda":
+        fail(f"heter_ps: the dense worker ran on {dw.device}")
+    return row
+
+
+def heter_ps_phase(torch):
+    """heter_ps_run with one CPU worker (the dense step's ms alone on
+    the card), then with two (the workers' examples/s together)."""
+    return [heter_ps_run(1), heter_ps_run(2)]
+
+
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
     """Device-time breakdown of `steps` static steps."""
     profile_steps(torch, lambda: exe.run(main, feed=feed, fetch_list=fetch,
@@ -4943,8 +5258,23 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     return {"kernels": kernels}
 
 
+def ps_phases(torch):
+    """Phases 20-22: the parameter-server tier."""
+    timed("widedeep_ps_parity", widedeep_ps_parity, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("widedeep_ps", widedeep_ps_phase, torch)
+    timed("heter_ps", heter_ps_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main(argv):
+    if "--help" in argv or "-h" in argv:
+        print(__doc__)
+        return
     kernels_only = "--kernels" in argv
+    ps_only = "--ps" in argv
     with_profile = "--profile" in argv
     moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
         if "--moe-seed" in argv else None
@@ -4963,6 +5293,14 @@ def main(argv):
     print(json.dumps({"phase": "versions", "python": sys.version.split()[0],
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
+    if ps_only:
+        # no kernel lies on the PS path: nothing to build first
+        ps_phases(torch)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(json.dumps({"phase": "build", "seconds": round(
@@ -5099,6 +5437,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     timed("widedeep_mp", widedeep_mp_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ps_phases(torch)
 
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
                         bert_counts, layer_counts, ffn_counts, wire_counts,

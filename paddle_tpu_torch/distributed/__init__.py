@@ -7,12 +7,13 @@
   parallel.py    — DataParallel and the bucketed gradient all-reduce
   spawn.py       — worker processes with the launcher's env
   recompute.py   — activation recompute
-  fleet/         — the fleet facade's collective mode, the strategy bag,
-                   and the runtime's fault injector and wire
+  fleet/         — the fleet facade's collective and parameter-server
+                   modes, the strategy bag, the PS runtime, workers and
+                   cache, and the runtime's fault injector and wire
+  fs.py          — LocalFS / HDFSClient, the PS snapshots' storage
 
 The names below load on first use, so that ``fleet.runtime.rpc`` (the
-serving wire) still imports without torch. The fleet's parameter-server
-mode (ROADMAP.md A, item 16) is not ported; the hybrid step (dp x pp x
+serving and PS wire) still imports without torch. The hybrid step (dp x pp x
 tp x sp x ep), ring attention, the expert layer and the row-sharded
 embedding are ``paddle_tpu_torch.parallel``.
 """

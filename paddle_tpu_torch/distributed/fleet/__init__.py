@@ -1,10 +1,13 @@
 """paddle_tpu_torch.distributed.fleet — the fleet 2.0 facade in collective
 mode (``init``, the worker queries, ``distributed_optimizer``,
 ``distributed_model``, ``minimize``, ``hybrid_train_step``), the
-``DistributedStrategy`` bag and the role makers, beside ``runtime``'s
-fault injector and wire. The facade loads on first use, so that
-``runtime.rpc`` imports without torch. Parameter-server mode, the
-fleet wrapper, heter workers and BoxPS wait for ROADMAP.md A, item 16.
+``DistributedStrategy`` bag and the role makers; parameter-server mode
+(``init_server``, ``run_server``, ``init_worker``, ``stop_worker``) over
+``runtime``'s PS shards and clients, the ``FleetWrapper`` /
+``DownpourWorker`` pair, ``BoxPSWrapper``'s hot-row cache and the heter
+workers (``HeterCpuWorker``, ``HeterDenseWorker``); ``ps_roles`` holds
+the shard and worker processes. Names load on first use, so that
+``runtime.rpc`` and the PS shards import without torch.
 """
 __all__ = ["DistributedStrategy", "init", "is_first_worker", "worker_index",
            "worker_num", "is_worker", "worker_endpoints", "server_num",
@@ -12,7 +15,9 @@ __all__ = ["DistributedStrategy", "init", "is_first_worker", "worker_index",
            "init_worker", "init_server", "run_server", "stop_worker",
            "distributed_optimizer", "distributed_model", "minimize",
            "hybrid_train_step", "PaddleCloudRoleMaker",
-           "UserDefinedRoleMaker", "Role", "Fleet"]
+           "UserDefinedRoleMaker", "Role", "Fleet", "FleetWrapper",
+           "DownpourWorker", "BoxPSWrapper", "HeterCpuWorker",
+           "HeterDenseWorker"]
 
 _BASE = ("DistributedStrategy", "PaddleCloudRoleMaker",
          "UserDefinedRoleMaker", "Role")
@@ -23,6 +28,12 @@ def __getattr__(name):
         from .base import distributed_strategy as home
     elif name in _BASE:
         from .base import role_maker as home
+    elif name in ("FleetWrapper", "DownpourWorker"):
+        from . import fleet_wrapper as home
+    elif name == "BoxPSWrapper":
+        from . import boxps_cache as home
+    elif name in ("HeterCpuWorker", "HeterDenseWorker"):
+        from . import heter_worker as home
     elif name in __all__:
         from .base import fleet_base as home
     else:

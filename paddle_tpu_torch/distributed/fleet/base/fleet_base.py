@@ -1,4 +1,4 @@
-"""Fleet facade, collective mode (counterpart of
+"""Fleet facade, collective and parameter-server modes (counterpart of
 ``paddle_tpu/distributed/fleet/base/fleet_base.py``; reference
 distributed/fleet/base/fleet_base.py:125,572,937).
 
@@ -9,8 +9,11 @@ ported) and marks the program data-parallel (``{"mode": "dp"}``, as the
 reference's ``_sharding_info``), so the executor runs it on this rank's
 slice of every batch and all-reduces the gradients;
 ``distributed_model`` is ``DataParallel``; ``hybrid_train_step`` builds
-the dp x pp x tp GPT step from the strategy's degrees. The parameter-server methods
-raise (ROADMAP.md A, item 16), as do the savers (item 12).
+the dp x pp x tp GPT step from the strategy's degrees. Parameter-server
+mode (``init_server`` / ``run_server`` / ``init_worker`` /
+``stop_worker``) runs ``runtime/parameter_server_runtime.py``'s
+``ParameterServerRuntime`` for the role maker's role. The savers raise
+(ROADMAP.md A, item 12).
 """
 from __future__ import annotations
 
@@ -75,19 +78,30 @@ class Fleet:
     def barrier_worker(self):
         self._rm()._barrier()
 
-    # -- parameter-server mode and savers -------------------------------------
+    # -- parameter-server mode -----------------------------------------------
+    def _runtime(self):
+        if getattr(self, "_ps_runtime", None) is None:
+            from ..runtime.parameter_server_runtime import \
+                ParameterServerRuntime
+            self._ps_runtime = ParameterServerRuntime(self._rm())
+        return self._ps_runtime
+
     def init_worker(self):
-        _queued("init_worker (parameter-server mode)", "16")
+        """Connect the worker-side PSClient to all server endpoints."""
+        return self._runtime().init_worker()
 
     def init_server(self, *args, **kwargs):
-        _queued("init_server (parameter-server mode)", "16")
+        self._runtime().init_server(*args, **kwargs)
 
     def run_server(self, block: bool = True):
-        _queued("run_server (parameter-server mode)", "16")
+        """Serve this shard. Blocks like the reference's run_server unless
+        block=False (in-process tests)."""
+        return self._runtime().run_server(block=block)
 
     def stop_worker(self):
-        _queued("stop_worker (parameter-server mode)", "16")
+        self._runtime().stop_worker()
 
+    # -- savers ---------------------------------------------------------------
     def save_inference_model(self, *args, **kwargs):
         _queued("save_inference_model (fluid.io)", "12")
 

@@ -3,13 +3,15 @@
 class, knobs, names and defaults, so a chaos drill's environment arms
 both packages alike).
 
-Two hooks of the port call it today: the checkpoint chunk writer
+The port calls it from the checkpoint chunk writer
 (``checkpoint/chunks.py``, kill-after-bytes between a chunk's fsync and
-its rename) and the serving engine's decode step
-(``serving/engine.py``, the ``serving_decode`` stall, inside the step
-lock). The transport, PS, trainer and watchdog hooks the knobs below
-name belong to tiers of the JAX package not ported yet (ROADMAP.md A);
-their knobs are parsed and kept here all the same.
+its rename), the serving engine's decode step (``serving/engine.py``,
+the ``serving_decode`` stall, inside the step lock), the wire
+(``rpc.py``: frame faults, the kill before dispatch or before the
+reply) and the PS shard's dispatch (the ``dispatch`` stall point). The
+trainer, replication and cold-tier hooks the knobs below name belong to
+tiers of the JAX package not ported yet (ROADMAP.md A); their knobs are
+parsed and kept here all the same.
 
 Env-driven (all optional; a hook pays one attribute check when nothing
 is configured):

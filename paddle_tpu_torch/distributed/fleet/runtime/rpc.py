@@ -1,4 +1,4 @@
-"""Fault-tolerant multiplexed RPC layer for the serving tier
+"""Fault-tolerant multiplexed RPC layer for the serving and PS tiers
 (counterpart of ``paddle_tpu/distributed/fleet/runtime/rpc.py``: frames
 are byte-identical for the same object, so either package's client
 talks to the other's server).
@@ -1211,6 +1211,7 @@ class RpcClient:
 # ---------------------------------------------------------------------------
 
 _FRESH = object()
+_NULL_SCOPE = contextlib.nullcontext()
 
 
 def _reply_nbytes(obj) -> int:
@@ -1303,15 +1304,41 @@ class DedupCache:
             self._inflight.discard(req_id)
             self._cond.notify_all()
 
+    # -- snapshot support ----------------------------------------------
+    def export(self) -> tuple[np.ndarray, list[bytes]]:
+        """(ids, encoded replies) in retention order: a PS snapshot
+        stores them beside the tables, in the same bytes as the JAX
+        package's, so either package's shard restores the other's."""
+        with self._cond:
+            ids = np.array(self._order, np.uint64)
+            blobs = [encode_body(self._done[i]) for i in self._order]
+        return ids, blobs
+
+    def import_(self, ids: np.ndarray, blobs: list[bytes]):
+        with self._cond:
+            self._done.clear()
+            self._order = []
+            self._bytes = 0
+            self._newest = {}
+            self._token_order = []
+            for i, blob in zip(ids.tolist(), blobs):
+                reply = decode_body(blob)
+                self._done[int(i)] = reply
+                self._order.append(int(i))
+                self._bytes += _reply_nbytes(reply)
+                if (int(i) >> 32) not in self._newest:
+                    self._token_order.append(int(i) >> 32)
+                self._newest[int(i) >> 32] = int(i)
+            self._cond.notify_all()
+
 
 class RpcServerState:
-    """Per-server transport state shared by all connection handlers.
-    (The reference's persistence hooks — after_commit, commit_scope,
-    journal, after_retry, before_reply — and the dedup cache's snapshot
-    export serve its PS tier and come with it, ROADMAP item 16.)"""
+    """Per-server transport state shared by all connection handlers,
+    with the parameter server's persistence hooks."""
 
     def __init__(self, read_ops=frozenset(), secret: str | None = None,
-                 dedup_capacity: int = 65536,
+                 dedup_capacity: int = 65536, after_commit=None,
+                 commit_scope=None, after_retry=None,
                  expose_req_id: bool = False):
         self.read_ops = frozenset(read_ops)
         # inject the wire request id into the skeleton as "_req_id"
@@ -1321,6 +1348,24 @@ class RpcServerState:
         self.secret = secret if secret is not None \
             else os.environ.get("PADDLE_PS_SECRET")
         self.dedup = DedupCache(dedup_capacity)
+        # called with the op name when a MUTATING request is answered
+        # from the dedup cache (client retry): the original dispatch may
+        # have died between commit and its after_commit side effect, so
+        # this is the hook's chance to finish pending persistence. It
+        # must be idempotent and must NOT count a new mutation.
+        self.after_retry = after_retry
+        # called with the op name after a mutating op was dispatched and
+        # its dedup entry recorded, BEFORE the reply is sent — the
+        # snapshot hook runs here so a post-snapshot crash still yields
+        # exactly-once on retry
+        self.after_commit = after_commit
+        # optional op -> lock/context-manager hook: when set, dispatch
+        # + dedup.commit + after_commit run inside it, so a concurrent
+        # snapshot export can never observe an applied mutation whose
+        # dedup id is missing (or vice versa). Only ops whose dispatch
+        # cannot block should return a scope — a barrier op waiting on
+        # straggler trainers inside a shared lock would stall the shard
+        self.commit_scope = commit_scope
 
 
 class _ServerConn:
@@ -1466,33 +1511,40 @@ class _ServerConn:
                 cached = state.dedup.begin(req_id)
                 if cached is not _FRESH:
                     _SERVER_DEDUP_HITS.labels(op=op or "?").inc()
+                    if state.after_retry is not None:
+                        state.after_retry(op)
                     if inj.active:
                         inj.maybe_kill("reply", armed)
                     self.enqueue(cached, req_id)
                     return
             err = None
-            try:
-                with _tracing.span(f"rpc.server.{op or 'raw'}",
-                                   trace_id=wire_tid, op=op or "?"):
-                    rep = self.dispatch(req)
-                    if isinstance(rep, types.GeneratorType):
-                        rep = self._drain(rep, req_id, cancel_ev)
-            except _Cancelled:
-                # the client abandoned this id: no reply to send,
-                # nothing to memoise — the op did not complete
-                if mutating and req_id:
-                    state.dedup.abort(req_id)
-                return
-            except Exception as e:
-                # application/dispatch failure: report as an error
-                # frame instead of silently killing the connection
-                if mutating and req_id:
-                    state.dedup.abort(req_id)
-                err = {"error": f"{type(e).__name__}: {e}",
-                       "kind": "app"}
-            else:
-                if mutating and req_id:
-                    state.dedup.commit(req_id, rep)
+            scope = state.commit_scope(op) \
+                if state.commit_scope is not None else None
+            with scope if scope is not None else _NULL_SCOPE:
+                try:
+                    with _tracing.span(f"rpc.server.{op or 'raw'}",
+                                       trace_id=wire_tid,
+                                       op=op or "?"):
+                        rep = self.dispatch(req)
+                        if isinstance(rep, types.GeneratorType):
+                            rep = self._drain(rep, req_id, cancel_ev)
+                except _Cancelled:
+                    # the client abandoned this id: no reply to send,
+                    # nothing to memoise — the op did not complete
+                    if mutating and req_id:
+                        state.dedup.abort(req_id)
+                    return
+                except Exception as e:
+                    # application/dispatch failure (including barrier
+                    # timeouts): report as an error frame instead of
+                    # silently killing the connection
+                    if mutating and req_id:
+                        state.dedup.abort(req_id)
+                    err = {"error": f"{type(e).__name__}: {e}",
+                           "kind": "app"}
+                else:
+                    if mutating and req_id:
+                        state.dedup.commit(req_id, rep)
             if err is not None:
                 _SERVER_ERRORS.labels(op=op or "?").inc()
                 _flight.record("rpc", "server_error",
@@ -1500,6 +1552,15 @@ class _ServerConn:
                                error=err.get("error"))
                 self.enqueue(err, req_id, F_ERROR)
                 return
+            if mutating and state.after_commit is not None:
+                # outside the commit scope (a snapshot's disk write
+                # must not stall other pushes on the commit lock) but
+                # before the reply: a crash in here still resolves to
+                # exactly-once — the mutation IS committed, so the
+                # client's retry lands on the dedup cache. Failures
+                # (e.g. snapshot disk error) propagate and end the
+                # connection for the same reason.
+                state.after_commit(op)
             if inj.active:
                 inj.maybe_kill("reply", armed)
             self.enqueue(rep, req_id)

@@ -20,6 +20,7 @@ Views over the one metrics registry:
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 import weakref
@@ -198,9 +199,10 @@ _KV_BYTES = _obs.gauge(
 
 def _hbm_stat(stat: str) -> float:
     """Allocator statistics of card 0. Reads nothing (0.0) unless CUDA
-    is already initialised: exposition must never create a context."""
-    import torch
-    if not torch.cuda.is_initialized():
+    is already initialised: exposition must never create a context, nor
+    import torch into a process that has not (a PS shard's scrape)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
         return 0.0
     if stat == "limit":
         return float(torch.cuda.mem_get_info(0)[1])

@@ -39,7 +39,7 @@ default 300, read at registration time), ``PADDLE_TPU_WATCHDOG_SIGTERM``.
 
 The launcher-heartbeat token (``watch_heartbeats``, a health predicate
 over ``distributed.elastic``) waits for the elastic launcher (ROADMAP
-item 16).
+item 16(c)).
 """
 from __future__ import annotations
 
