@@ -4,7 +4,7 @@
     python3 chip_smoke.py --kernels  # phases 1-2 only: build + check
     python3 chip_smoke.py --moe-seed N  # phase 1, then phase 18 alone
                                      # on weights and batch from seed N
-    python3 chip_smoke.py --ps       # the card line, then phases 20-22
+    python3 chip_smoke.py --ps       # the card line, then phases 20-24
                                      # alone (no kernel lies on them)
     python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
@@ -219,14 +219,17 @@ Phases:
  16. hybrid_gpt (item 14(b)): the hybrid GPT step over a world of
      ranks on the one card (gloo; p2p through host copies), each rank
      reading its pieces of one weight tree the parent wrote once
-     (np.save, read back as memmaps). (a) GPT-3 XL whole (24 layers)
-     at pp = 2 x tp = 2 (4 ranks), bf16, flash, remat, dropout 0,
+     (np.save, read back as memmaps). (a) GPT-3 XL cut to its first
+     MESH_A_LAYERS = 12 layers at full width (the time limit: see
+     HYBRID_STEPS) at pp = 2 x tp = 2 (4 ranks), bf16, flash,
+     remat, dropout 0,
      global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 2
      steps each: every loss within 1e-3 relative of the single-rank
      step's on the same batch and weights; (b) 4 layers at full width,
      dp = 2 x pp = 2 x tp = 2 (8 ranks), ZeRO-1, batch 8 x 1024: at
-     dropout 0 the losses within 1e-3 of the single rank's, at dropout
-     0.1 under 1F1B finite and equal on every rank; each rank's moment
+     dropout 0 the losses within 1e-3 of the single rank's, then one
+     step at dropout 0.1 under 1F1B, finite and equal on every rank;
+     each rank's moment
      bytes 1/dp of the unsharded layout's. Printed: step ms, tokens/s,
      each rank's peak memory, the ms a step in tp all-reduces and in pp
      send / recv, the measured bubble (pp receive wait over the
@@ -237,11 +240,12 @@ Phases:
      at K = 1024 / I = 4096 bf16, flash at 8 heads, layer norm at
      R = 1024, C = 2048 bf16);
  17. sp_gpt (item 14(c)): ring attention over the sp axis, on the same
-     weight tree as phase 16: (a) GPT-3 XL whole at sp = 2 (2 ranks),
-     bf16, remat, dropout 0, global batch 2 x 2048 (a rank's half of
-     each sequence); (b) 4 layers at dp = 2 x pp = 2 x sp = 2 (8 ranks)
-     under 1F1B, 2 microbatches, batch 8 x 1024, then one step at
-     dropout 0.1 (finite and equal on every rank); 1 + 3 steps each,
+     weight tree as phase 16: (a) GPT-3 XL's first MESH_A_LAYERS
+     layers at sp = 2 (2 ranks), bf16, remat, dropout 0, global batch
+     2 x 2048 (a rank's half of each sequence); (b) 4 layers at dp = 2
+     x pp = 2 x sp = 2 (8 ranks) under 1F1B, 2 microbatches, batch 8 x
+     1024, then one step at dropout 0.1 (finite and equal on every
+     rank); 1 + 2 steps each,
      every loss within 1e-3 relative of the single rank's (attn_impl
      "xla", the reference test's comparison) on the same weights and
      batch. Printed: step ms, tokens/s, each rank's peak memory, the ms
@@ -251,7 +255,7 @@ Phases:
  18. moe_gpt: GPT-2 small widths (12 layers, d 768, 12 heads, vocab
      50304) with Switch-Base-8's 8 experts, top-1, capacity factor
      1.25, flash, remat, at dp = 2 x ep = 2 x tp = 2 (8 ranks), global
-     batch 8 x 1024, weights and batch from seed 0, 1 + 3 steps, once
+     batch 8 x 1024, weights and batch from seed 0, 1 + 2 steps, once
      in bf16 and once in f32, each against the single rank in the same
      dtype: the first step's gradients (the same weights, no update)
      on every rank, the clip's global norm and the router's wg, within
@@ -308,8 +312,43 @@ Phases:
      21, the dense step's ms (CUDA events; with 2 CPU workers a span can
      hold the other worker's step, so the 1-worker run gives the step
      alone), the losses. Gates: losses finite, 0 port launches. Every
-     phase 21-22 process has a timeout and is killed in a finally;
- 23. the kernels line, then the card line, then the result line.
+     phase 21-24 process has a timeout and is killed in a finally;
+ 23. widedeep_ps_ha (item 16(b)): one DownpourWorker process on the card
+     (WideDeepConfig(), batch 4096 of Zipf(1.3) ids from RandomState(7),
+     lr 0.05, 1 + 8 steps, the local step under
+     torch.use_deterministic_algorithms with CUBLAS_WORKSPACE_CONFIG
+     =:4096:8 set before CUDA starts; it serves every run of phases
+     23-24 on one context) over 2 shard groups, each a WAL-on primary
+     and one standby process (PADDLE_PS_HA_SEMISYNC=1): two fault-free
+     runs, one over async pairs, then a chaos run in which shard 0's
+     primary dies after a commit and before its reply
+     (PADDLE_PS_FAULT_KILL_AFTER / _KILL_POINT=reply, at half the
+     requests that primary received in the first fault-free run; the
+     row gives the push it cut) and ps_ha.promote_best promotes its
+     standby at epoch 2, as bench_ps_ha does. Printed: kill -> first
+     successful push seconds, the standbys' lag in records (mean, max,
+     sampled every 20 ms) and the drain seconds of the fault-free and
+     async runs, the push p50 of a step in semi-sync against async,
+     examples/s and pull / local-step / push ms of each run. Gates:
+     the primary died and its standby was promoted, the worker failed
+     over, the chaos run's and the async run's losses and tables
+     (every touched row of embed and wide, every dense table, pulled
+     back) bit-equal to the first fault-free run's (if the two
+     fault-free runs differ, both are held to that spread and it is
+     printed), workers on the card, 0 port launches;
+ 24. ps_tiered (item 16(b)): (a) bench.py's bench_tiered whole on the
+     port (a WAL-on shard in this process, every table tiered under a
+     256 KiB warm budget, 2^26-row vocab, dim 8, batch 256, Zipf(1.2),
+     400 train + 400 serving steps): serving pull p50 / p99 ms, train
+     examples/s, warm hit rate, warm / cold rows, demotions (clean /
+     flush), warm bytes after a drain; gates: warm bytes within the
+     budget, no failed cold read. (b) phase 23's worker over 2 shards
+     (numpy tables), once all-warm and once with embed tiered
+     (PADDLE_PS_TIER_TABLES=embed) under 1/8 of the embed bytes the
+     all-warm run left on each shard: examples/s, pull ms and cold
+     faults of both; gates: losses and tables bit-equal (phase 23's
+     rule), cold faults and demotions > 0, no failed cold read;
+ 25. the kernels line, then the card line, then the result line.
 
 Each phase prints its wall seconds ({"phase": "seconds", ...}). One
 numpy weight tree (seed 0, 1.3 B parameters) feeds phases 3-5; the
@@ -525,12 +564,16 @@ LENET_BATCH, LENET_STEPS = 256, 30
 # two ranks on one GPU)
 DP_RANKS = 2
 # hybrid_gpt: (a) GPT-3 XL at pp x tp, (b) B_LAYERS at dp x pp x tp with
-# ZeRO-1; the global batches; microbatches; 1 + 3 steps a run, (a) 1 + 2
-# (the whole script passed 800 s with 1 + 3)
+# ZeRO-1; the global batches; microbatches; 1 + 2 steps a run, (b)'s
+# dropout run 1. These, sp_gpt (a)'s depth and moe_gpt's steps are cut
+# to fit the time limit: with the whole 24 layers and 1 + 3 steps the
+# script took 927 s on an H100 (hybrid_gpt 184.5, sp_gpt 166.2,
+# moe_gpt 106.5 s), past the 820 s it keeps as margin
 HYBRID_A = dict(pp=2, tp=2)
 HYBRID_B = dict(dp=2, pp=2, tp=2)
-HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 4
+HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 3
 HYBRID_A_STEPS = 3
+MESH_A_LAYERS = 12
 HYBRID_B_LAYERS = 4
 HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
 # the losses against the single rank's: tighter than phase 4's 2e-2, so
@@ -540,7 +583,8 @@ HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
 HYBRID_RTOL = 1e-3
 
 
-# sp_gpt (item 14(c)): (a) GPT-3 XL whole at sp 2, batch 2 x 2048; (b)
+# sp_gpt (item 14(c)): (a) GPT-3 XL's first MESH_A_LAYERS layers at
+# sp 2, batch 2 x 2048; (b)
 # HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B, 2 microbatches,
 # batch 8 x 1024; the step sets attn_impl "ring", the single rank runs
 # "xla" (the reference test's comparison)
@@ -4398,13 +4442,14 @@ def hybrid_gpt_phase(torch, root, L):
     kw = dict(HYBRID_B, sharding=True)
     runs = [("zero", cfg_b, kw, HYBRID_B_BATCH, TRAIN_TOKENS),
             ("dropout", dict(cfg_b, dropout=0.1), kw, HYBRID_B_BATCH,
-             TRAIN_TOKENS)]
+             TRAIN_TOKENS, 1)]
     ranks_b = run_dp("gpt", root, runs, timeout=600,
                      nprocs=math.prod(HYBRID_B.values()))
     want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO)
     bad = mesh_report("hybrid_gpt", "b ZeRO-1", "zero", ranks_b, ref_b,
                       HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
                       mesh_routes(want), micro=HYBRID_MICRO)[1]
+    want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO, steps=1)
     bad += mesh_report("hybrid_gpt", "b dropout 0.1", "dropout", ranks_b,
                        None, HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
                        mesh_routes(want), micro=HYBRID_MICRO)[1]
@@ -4559,7 +4604,7 @@ def check(failures):
 
 
 def sp_gpt_phase(torch, root, L):
-    """(a) GPT-3 XL whole (the tree under `root`, L layers) at sp 2 and
+    """(a) GPT-3 XL's first L layers (the tree under `root`) at sp 2 and
     (b) HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B, each against
     the single rank (attn_impl "xla") on the same weights and batch, and
     (b) once at dropout 0.1 (module docstring, phase 17). Returns each
@@ -4879,11 +4924,6 @@ def widedeep_ps_parity(torch, steps=20):
         fail(f"PS tables not on the native core: {native}")
 
 
-def ps_endpoints(n: int) -> list[str]:
-    from paddle_tpu_torch.distributed.spawn import _free_ports
-    return [f"127.0.0.1:{p}" for p in _free_ports(n)]
-
-
 def ps_result(p, what) -> dict:
     """The last stdout line of a finished role as JSON."""
     try:
@@ -4931,7 +4971,7 @@ def widedeep_ps_run(mode: str | None):
     every 8). Gates: losses finite, wire bytes non-zero, 0 port kernel
     launches, every shard on its native core, workers on the card."""
     from paddle_tpu_torch.distributed.fleet import ps_roles
-    eps = ps_endpoints(2)
+    eps = ps_roles.free_endpoints(2)
     job = dict(PS_ENDPOINTS=",".join(eps), WORKERS=2)
     procs = []
     try:
@@ -5013,7 +5053,7 @@ def heter_ps_run(n_cpu: int) -> dict:
     from paddle_tpu_torch.distributed.fleet import HeterDenseWorker, ps_roles
     from paddle_tpu_torch.models.wide_deep import WideDeepConfig
     from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
-    ep, = ps_endpoints(1)
+    ep, = ps_roles.free_endpoints(1)
     dw = HeterDenseWorker(WideDeepConfig(), "127.0.0.1:0", lr=0.05)
     dw.serve_in_thread()
     reset_launch_counts()
@@ -5064,6 +5104,290 @@ def heter_ps_phase(torch):
     """heter_ps_run with one CPU worker (the dense step's ms alone on
     the card), then with two (the workers' examples/s together)."""
     return [heter_ps_run(1), heter_ps_run(2)]
+
+
+def ps_runner(root: str):
+    """One DownpourWorker process on the card for the runs of phases
+    23-24 (ps_roles ROLE=runner): WideDeepConfig(), batch PS_BATCH,
+    PS_WARMUP + PS_STEPS steps a run, the local step under
+    torch.use_deterministic_algorithms with cuBLAS's deterministic
+    workspace set before the process starts CUDA."""
+    from paddle_tpu_torch.distributed.fleet import ps_roles
+    return ps_roles.Runner(os.path.join(root, "runner.log"),
+                           BATCH=PS_BATCH, WARMUP=PS_WARMUP,
+                           STEPS=PS_STEPS)
+
+
+def run_diff(a: dict, b: dict) -> float:
+    """The largest absolute difference between two runs' losses and
+    pulled-back tables (0.0: bit-equal)."""
+    import numpy as np
+    la, lb = np.asarray(a["line"]["losses"]), np.asarray(b["line"]["losses"])
+    if la.shape != lb.shape or set(a["tables"]) != set(b["tables"]):
+        return math.inf
+    d = [float(np.max(np.abs(la - lb))) if la.size else 0.0]
+    for k, v in a["tables"].items():
+        w = b["tables"][k]
+        if v.shape != w.shape:
+            return math.inf
+        if k == "ids":
+            d.append(0.0 if np.array_equal(v, w) else math.inf)
+        elif v.size:
+            d.append(float(np.max(np.abs(v.astype(np.float64) - w))))
+    return max(d)
+
+
+def run_figures(r: dict) -> dict:
+    line = r["line"]
+    return {"examples_per_s": round(line["examples_per_sec"], 1),
+            "pull_ms": round(line["pull_ms"], 4),
+            "local_ms": round(line["local_ms"], 4),
+            "push_ms": round(line["push_ms"], 4),
+            "step_ms": round(line["step_ms"], 4)}
+
+
+def check_run(what: str, r: dict):
+    """Gates every PS runner run shares: losses finite, the worker on
+    the card, no port kernel launched."""
+    line = r["line"]
+    launched = {k: v for k, v in line["port_launches"].items() if v}
+    if not all(math.isfinite(v) for v in line["losses"]):
+        fail(f"{what}: losses not finite: {line['losses']}")
+    if not line["device"].startswith("cuda"):
+        fail(f"{what}: the worker ran on {line['device']}")
+    if launched:
+        fail(f"{what} launched port kernels: {launched}")
+
+
+def widedeep_ps_ha_phase(torch, runner, root) -> float:
+    """Phase 23: the DownpourWorker on the card over 2 shard groups,
+    each a WAL-on primary and one standby process (semi-sync, K = 1):
+    two fault-free runs, one over async pairs, then a chaos run in
+    which shard 0's primary dies after a commit and before its reply
+    (PADDLE_PS_FAULT_KILL_AFTER: half as many requests as that primary
+    received in the first fault-free run, the standby's replication
+    calls and the status polls before the run included, the lag
+    sampler's left out; the row gives the push it cut) and
+    ps_ha.promote_best promotes its standby at epoch 2. Gates: the
+    primary died and the standby took over, the chaos run's and the
+    async run's losses and tables (every touched row of embed and wide,
+    every dense table) bit-equal to the first fault-free run's, or
+    within the spread between the two fault-free runs if that is not 0;
+    workers on the card; 0 port launches. Returns that spread."""
+    from paddle_tpu_torch.distributed.fleet import ps_roles
+    from paddle_tpu_torch.distributed.fleet.runtime.fault_injection \
+        import KILL_EXIT_CODE
+    semi = ps_roles.ha_run(runner, root, "semisync")
+    semi2 = ps_roles.ha_run(runner, root, "semisync_2")
+    asyn = ps_roles.ha_run(runner, root, "async", semisync=0)
+    chaos = ps_roles.ha_run(runner, root, "chaos",
+                            kill_after=semi["requests"] // 2)
+    spread = run_diff(semi, semi2)
+    async_diff = run_diff(semi, asyn)
+    diff = run_diff(semi, chaos)
+    kill_t = chaos["kill_t"]
+    after = [e for _, e in chaos["line"]["pushes"]
+             if kill_t is not None and e > kill_t]
+    pushes = len(chaos["line"]["pushes"])
+    stby = chaos["standby_status"]
+    lag = {r["line"]["tag"]: {
+        "mean": round(statistics.mean(r["lag_rows"]), 4)
+        if r["lag_rows"] else None,
+        "max": max(r["lag_rows"]) if r["lag_rows"] else None,
+        "samples": len(r["lag_rows"]), "drain_s": round(r["drain_s"], 6)}
+        for r in (semi, semi2, asyn)}
+    row = {
+        "phase": "widedeep_ps_ha",
+        "config": "WideDeepConfig() (vocab 1048576, 26 slots, embed 16, "
+        "13 dense, hidden 400-400-400), batch 4096 Zipf(1.3) ids from "
+        "RandomState(7), lr 0.05, 1 worker on the card, 2 shard groups "
+        "of a WAL-on primary + 1 standby, native tables",
+        "batch": PS_BATCH, "warmup": PS_WARMUP, "steps": PS_STEPS,
+        "semisync_k": 1, "kill_after_requests": semi["requests"] // 2,
+        "killed_in_push": [pushes - len(after) + 1, pushes],
+        "shards_native": [r["native"] for r in semi["ready"]],
+        "killed_exit_code": chaos["killed_code"],
+        "promoted": chaos["promoted"], "standby_now": {
+            k: stby.get(k) for k in ("role", "epoch", "applied_seq")},
+        "failover_kill_to_first_push_s":
+        round(min(after) - kill_t, 6) if after else None,
+        "promote_s": round(chaos["promote_t"] - kill_t, 6)
+        if chaos["promote_t"] else None,
+        "client_failovers": chaos["line"]["failovers"],
+        "client_redirects": chaos["line"]["redirects"],
+        "lag_rows": lag,
+        "push_ms_p50": {"semisync": round(statistics.median(
+            semi["line"]["push_ms_each"]), 4),
+            "async": round(statistics.median(
+                asyn["line"]["push_ms_each"]), 4)},
+        "semisync": run_figures(semi), "async": run_figures(asyn),
+        "chaos": run_figures(chaos),
+        "fault_free_spread": spread, "async_max_abs_diff": async_diff,
+        "chaos_max_abs_diff": diff,
+        "losses": semi["line"]["losses"]}
+    print(json.dumps(row), flush=True)
+    for r in (semi, semi2, asyn, chaos):
+        check_run(f"widedeep_ps_ha {r['line']['tag']}", r)
+    if chaos["killed_code"] != KILL_EXIT_CODE:
+        fail(f"widedeep_ps_ha: shard 0's primary did not die by the "
+             f"injected kill (exit {chaos['killed_code']})")
+    want = chaos["groups"][0].split("|")[1]
+    if chaos["promoted"] != want or stby.get("role") != "primary" \
+            or stby.get("epoch") != 2:
+        fail(f"widedeep_ps_ha: standby {want} was not promoted at epoch "
+             f"2: {chaos['promoted']}, {stby}")
+    if chaos["line"]["failovers"] < 1 or not after:
+        fail("widedeep_ps_ha: the worker never failed over to the "
+             "promoted standby")
+    if spread:
+        print(json.dumps({"phase": "widedeep_ps_ha_nondeterminism",
+                          "fault_free_max_abs_diff": spread}), flush=True)
+    if async_diff > spread:
+        fail(f"widedeep_ps_ha: the async run differs from the fault-free "
+             f"run by {async_diff} (two fault-free runs: {spread})")
+    if diff > spread:
+        fail(f"widedeep_ps_ha: the chaos run differs from the fault-free "
+             f"run by {diff} (two fault-free runs: {spread})")
+    return spread
+
+
+def tiered_bench(vocab=1 << 26, dim=8, batch=256, train_steps=400,
+                 serve_steps=400, warm_budget=256 * 1024, seed=0) -> dict:
+    """bench.py's bench_tiered whole on the port: a WAL-on PSServer
+    (in this process, on a thread) with every table tiered under a
+    256 KiB warm budget, 400 train steps (pull + push) and 400 serving
+    pulls of Zipf(1.2) ids over a 2^26-row vocab, dim 8, batch 256."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch.distributed.fleet.runtime \
+        .parameter_server_runtime import PSClient, PSServer
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiered_")
+    rng = np.random.default_rng(seed)
+    try:
+        srv = PSServer("127.0.0.1:0", wal=True,
+                       snapshot_dir=os.path.join(root, "snap"),
+                       tier_warm_bytes=warm_budget,
+                       tier_store_dir=os.path.join(root, "store"))
+        srv.serve_in_thread()
+        cl = PSClient([srv.endpoint])
+
+        def ids_for():
+            return (rng.zipf(1.2, batch).astype(np.int64) - 1) % vocab
+
+        t0 = time.perf_counter()
+        for _ in range(train_steps):
+            ids = ids_for()
+            v = cl.pull("emb", dim, ids)
+            cl.push("emb", dim, ids, 0.01 * v)
+        train_s = time.perf_counter() - t0
+        train_faults = cl.cold_faults
+        lats = []
+        for _ in range(serve_steps):
+            ids = ids_for()
+            t1 = time.perf_counter()
+            cl.pull("emb", dim, ids)
+            lats.append(time.perf_counter() - t1)
+        serve_faults = cl.cold_faults - train_faults
+        t = srv.tables["emb"]
+        t.drain()
+        st = t.stats()
+        warm_after = t.warm_resident_bytes()
+        cl.close()
+        srv.kill()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lats.sort()
+    lookups = st["warm_hits"] + st["cold_faults"]
+    return {"vocab_rows": vocab, "dim": dim, "batch": batch,
+            "train_steps": train_steps, "serve_steps": serve_steps,
+            "serve_pull_p50_ms": round(lats[len(lats) // 2] * 1e3, 4),
+            "serve_pull_p99_ms": round(lats[min(int(len(lats) * 0.99),
+                                                len(lats) - 1)] * 1e3, 4),
+            "train_examples_per_s": round(train_steps * batch / train_s, 1),
+            "warm_hit_rate": round(st["warm_hits"] / lookups, 4)
+            if lookups else 0.0,
+            "warm_rows": st["warm_rows"], "cold_rows": st["cold_rows"],
+            "segments": st["segments"],
+            "demoted_clean": st["demoted_clean"],
+            "demoted_flush": st["demoted_flush"],
+            "cold_read_errors": st["cold_read_errors"],
+            "client_cold_faults_train": int(train_faults),
+            "client_cold_faults_serve": int(serve_faults),
+            "warm_budget_bytes": warm_budget,
+            "warm_bytes_after_drain": warm_after}
+
+
+def ps_tiered_phase(torch, runner, root, spread: float):
+    """Phase 24: (a) tiered_bench (bench_tiered whole); gates: warm
+    bytes within the budget after the drain, no failed cold read.
+    (b) the DownpourWorker on the card over 2 shards (numpy tables: a
+    tiered table draws its new rows as the all-warm one does only
+    there), once all-warm and once with embed tiered under a warm
+    budget of 1/8 of the embed bytes the all-warm run left on each
+    shard; gates: losses and tables bit-equal (or within phase 23's
+    fault-free spread, if that was not 0), cold faults and demotions
+    > 0, no failed cold read, the worker on the card, 0 port launches."""
+    from paddle_tpu_torch.distributed.fleet import ps_roles
+    from paddle_tpu_torch.models.wide_deep import WideDeepConfig
+    bench = tiered_bench()
+    print(json.dumps(dict({"phase": "ps_tiered", "part": "bench_tiered"},
+                          **bench)), flush=True)
+    if bench["warm_bytes_after_drain"] > bench["warm_budget_bytes"]:
+        fail(f"ps_tiered: {bench['warm_bytes_after_drain']} warm bytes "
+             f"after the drain, over the {bench['warm_budget_bytes']} "
+             "budget")
+    if bench["cold_read_errors"]:
+        fail(f"ps_tiered: {bench['cold_read_errors']} failed cold reads")
+    row_bytes = WideDeepConfig().embed_dim * 4
+    warm = ps_roles.tier_run(runner, root, "all_warm")
+    budgets = [s["embed_rows"] * row_bytes // 8 for s in warm["shards"]]
+    tiered = ps_roles.tier_run(runner, root, "tiered", budgets=budgets)
+    diff = run_diff(warm, tiered)
+    shards = tiered["shards"]
+    row = {"phase": "ps_tiered", "part": "downpour",
+           "config": "WideDeepConfig(), batch 4096 Zipf(1.3) ids, lr 0.05, "
+           "1 worker on the card, 2 shards (numpy tables), embed tiered "
+           "under 1/8 of its all-warm bytes a shard",
+           "batch": PS_BATCH, "warmup": PS_WARMUP, "steps": PS_STEPS,
+           "warm_budget_bytes": budgets,
+           "embed_rows": [s["embed_rows"] for s in warm["shards"]],
+           "all_warm": run_figures(warm), "tiered": dict(
+               run_figures(tiered),
+               client_cold_faults=tiered["line"]["cold_faults"]),
+           "shards": shards, "max_abs_diff": diff,
+           "held_to": spread}
+    print(json.dumps(row), flush=True)
+    for r in (warm, tiered):
+        check_run(f"ps_tiered {r['line']['tag']}", r)
+    if diff > spread:
+        fail(f"ps_tiered: the tiered run differs from the all-warm run by "
+             f"{diff} (two fault-free runs: {spread})")
+    if not tiered["line"]["cold_faults"] or not sum(
+            s["cold_faults"] for s in shards):
+        fail(f"ps_tiered: the cold tier served no row: {shards}")
+    if not sum(s["demoted_clean"] + s["demoted_flush"] for s in shards):
+        fail(f"ps_tiered: no row was demoted: {shards}")
+    if any(s["cold_read_errors"] for s in shards):
+        fail(f"ps_tiered: failed cold reads: {shards}")
+    return row
+
+
+def ps_ha_tier_phases(torch):
+    """Phases 23-24 on one runner process (its own CUDA context), every
+    process killed and the scratch root removed in a finally."""
+    import shutil
+    import tempfile
+    root = tempfile.mkdtemp(prefix="chip_smoke_ps_ha_")
+    runner = ps_runner(root)
+    try:
+        spread = timed("widedeep_ps_ha", widedeep_ps_ha_phase, torch,
+                       runner, root)
+        timed("ps_tiered", ps_tiered_phase, torch, runner, root, spread)
+    finally:
+        runner.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def profile_static(torch, exe, main, fetch, feed, what, steps=3):
@@ -5259,7 +5583,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
 
 
 def ps_phases(torch):
-    """Phases 20-22: the parameter-server tier."""
+    """Phases 20-24: the parameter-server tier."""
     timed("widedeep_ps_parity", widedeep_ps_parity, torch)
     gc.collect()
     torch.cuda.empty_cache()
@@ -5267,6 +5591,7 @@ def ps_phases(torch):
     timed("heter_ps", heter_ps_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    ps_ha_tier_phases(torch)
 
 
 def main(argv):
@@ -5419,7 +5744,7 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     import shutil
-    L = tree["blocks"]["wq"].shape[0]
+    L = min(MESH_A_LAYERS, tree["blocks"]["wq"].shape[0])
     root = tree_root(tree, "hybrid_tree")
     del tree
     gc.collect()

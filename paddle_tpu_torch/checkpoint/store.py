@@ -34,12 +34,12 @@ retained manifest references.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 import weakref
 
 import numpy as np
-import torch
 
 from ..observability import flight as _flight, registry as _obs
 from . import manifest as _manifest
@@ -165,8 +165,11 @@ def _host_array(x) -> np.ndarray:
     ndarray. NOT ascontiguousarray: that promotes 0-d to 1-d and would
     lose scalar shapes in the manifest. bfloat16 has no numpy dtype the
     chunker can cut (the JAX package's store fails on it too), so a
-    bfloat16 tensor raises."""
-    if isinstance(x, torch.Tensor):
+    bfloat16 tensor raises. torch is read from ``sys.modules``: a
+    process that never imported it holds no tensor, and the parameter
+    server's cold tier uses this store without importing torch."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise ValueError(
                 "cannot checkpoint a bfloat16 tensor: the store's format "

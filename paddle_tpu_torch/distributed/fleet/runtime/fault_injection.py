@@ -8,10 +8,13 @@ The port calls it from the checkpoint chunk writer
 its rename), the serving engine's decode step (``serving/engine.py``,
 the ``serving_decode`` stall, inside the step lock), the wire
 (``rpc.py``: frame faults, the kill before dispatch or before the
-reply) and the PS shard's dispatch (the ``dispatch`` stall point). The
-trainer, replication and cold-tier hooks the knobs below name belong to
-tiers of the JAX package not ported yet (ROADMAP.md A); their knobs are
-parsed and kept here all the same.
+reply), the PS shard's dispatch (the ``dispatch`` stall point), its
+replication stream (``ps_ha.py`` / ``repl_watch``: a record dropped,
+corrupted or delayed; a standby's kill at its N-th record) and its
+cold tier (``tiered_store.py``: a cold read delayed or failed). The
+trainer hooks the knobs below name belong to a tier of the JAX package
+not ported yet (ROADMAP.md A, item 16(c)); their knobs are parsed and
+kept here all the same.
 
 Env-driven (all optional; a hook pays one attribute check when nothing
 is configured):

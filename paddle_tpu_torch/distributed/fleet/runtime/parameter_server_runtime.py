@@ -22,10 +22,21 @@ package's) through ``distributed/fs.py``, and
 ``PSServer.restart_from_snapshot`` resumes a killed shard so workers
 reconnect instead of restarting the job.
 
+Durability and high availability: with the row-level WAL on
+(``wal=`` / PADDLE_PS_WAL) a push journals only its touched rows
+(``checkpoint/wal.py``) and a restart replays base + journal; a shard
+started with a primary endpoint is a hot standby fed by the primary's
+journal over ``repl_watch`` (``ps_ha.py``: semi-sync acks, epoch
+fencing, promotion, planned handoff), and a ``|``-joined group in
+PSClient fails over to the promoted member with the same request ids;
+``tier_warm_bytes`` holds warm rows in RAM under a byte budget and
+demand-pages cold ones from a chunk store (``tiered_store.py``).
+Journal records, replication streams and bootstraps are the JAX
+package's bytes, so the two packages' shards replicate to each other.
+
 Not in this module yet (each raises NotImplementedError naming its
-ROADMAP.md A item): the row-level WAL, hot standbys / epoch fencing and
-the tiered store (item 16(b)); continuous publication (item 17); the
-hosted telemetry collector (item 18).
+ROADMAP.md A item): continuous publication (item 17); the hosted
+telemetry collector (item 18).
 """
 from __future__ import annotations
 
@@ -33,6 +44,7 @@ import itertools
 import json
 import os
 import queue
+import re
 import socketserver
 import tempfile
 import threading
@@ -44,8 +56,11 @@ import numpy as np
 from ....observability import (debug as _debug, flight as _flight,
                                registry as _obs, watchdog as _watchdog)
 from .fault_injection import injector
-from .rpc import RpcClient, RpcServerState, TransportStats, _hard_close, \
-    serve_connection
+from .ps_ha import (ReplicationHub, StandbyReplicator, note_fenced_write,
+                    note_handoff, note_promotion, set_role_gauges)
+from .rpc import (PSDeadlineError, PSRemoteError, RpcClient,
+                  RpcServerState, TransportStats, _hard_close,
+                  serve_connection)
 
 __all__ = ["ParameterServerRuntime", "LargeScaleKV", "PSServer", "PSClient"]
 
@@ -74,10 +89,6 @@ def _later(what: str, item: str):
 def _set(*values) -> bool:
     """Whether any argument or knob turns its feature on."""
     return any(v not in (None, False, 0, "", "0") for v in values)
-
-
-def _knobs(prefix: str) -> list[str]:
-    return [v for k, v in os.environ.items() if k.startswith(prefix)]
 
 
 class LargeScaleKV:
@@ -146,6 +157,53 @@ class LargeScaleKV:
             slots = self._ensure(np.asarray(keys).ravel())
             np.add.at(self._data, slots,
                       (-lr * np.asarray(grads)).astype(np.float32))
+
+    def rows_for(self, keys: np.ndarray) -> np.ndarray:
+        """Current values of EXISTING rows (post-apply read for the WAL
+        journal — O(len(keys)·dim), never O(table))."""
+        with self._lock:
+            ks = np.asarray(keys, np.int64).ravel()
+            if self._native is not None:
+                return self._native.pull(ks)
+            slots = np.fromiter((self._index[int(k)]
+                                 for k in ks.tolist()), np.int64,
+                                len(ks))
+            return self._data[slots].copy()
+
+    def missing_keys(self, keys) -> np.ndarray | None:
+        """Keys with no row yet, first-occurrence order (the exact set
+        a pull would lazily init) — or None when unknown (the native
+        core has no membership probe), meaning callers must assume
+        all."""
+        with self._lock:
+            if self._native is not None:
+                return None
+            idx = self._index
+            return np.fromiter(
+                dict.fromkeys(k for k in np.asarray(keys, np.int64)
+                              .ravel().tolist() if k not in idx),
+                np.int64)
+
+    def apply_rows(self, keys: np.ndarray, rows: np.ndarray):
+        """WAL replay / replication apply: ensure the rows exist —
+        consuming the init RNG stream exactly as the original apply did
+        for then-missing keys — then assign the journaled post-values.
+        Idempotent; replayed in append order from the same base it
+        reproduces data, key→slot index and RNG stream bit for bit.
+        (Native path: the pull creates missing rows through the native
+        RNG, so its stream advances identically too; a native base
+        restore is value-exact only, since base snapshots do not carry
+        the native RNG's position.)"""
+        with self._lock:
+            ks = np.asarray(keys, np.int64).ravel()
+            vals = np.asarray(rows, np.float32).reshape(len(ks),
+                                                        self.dim)
+            if self._native is not None:
+                self._native.pull(ks)  # create via RNG, then overwrite
+                self._native.import_(ks, vals)
+                return
+            slots = self._ensure(ks)
+            self._data[slots] = vals
 
     def size(self) -> int:
         with self._lock:
@@ -351,10 +409,15 @@ class PSServer(socketserver.ThreadingTCPServer):
     retry-reconnect. Recovery covers the async push path; sync/DGC
     round state is volatile by design (those jobs restart the round).
 
-    The shard is always an unfenced primary. `wal`, `wal_bg_replay`,
-    `primary` / `ha_epoch` and `tier_*` (and their PADDLE_PS_* knobs)
-    raise naming item 16(b), `publish_dir` / PADDLE_TPU_PUBLISH_DIR
-    item 17, PADDLE_TPU_TELEMETRY_HOST=1 item 18."""
+    `wal` (PADDLE_PS_WAL) journals each push's touched rows and makes
+    every snapshot a full base that compacts the journal;
+    `wal_bg_replay` serves pulls of restored rows while the journal
+    replays. `primary` (PADDLE_PS_HA_PRIMARY) makes the shard a hot
+    standby of that endpoint, `ha_epoch` (PADDLE_PS_HA_EPOCH) is its
+    fencing epoch. `tier_warm_bytes` / `tier_store_dir` /
+    `tier_tables` (PADDLE_PS_TIER_*) tier the named tables.
+    `publish_dir` / PADDLE_TPU_PUBLISH_DIR raise naming item 17,
+    PADDLE_TPU_TELEMETRY_HOST=1 item 18."""
 
     allow_reuse_address = True
     daemon_threads = True
@@ -381,10 +444,16 @@ class PSServer(socketserver.ThreadingTCPServer):
     # waiting out a slow trainer is round semantics, not a wedged
     # server)
     _BLOCKING_OPS = frozenset({"send_barrier", "fetch_barrier",
-                               "dgc_push", "dgc_pull", "subscribe_inval"})
-    # the high-availability plane's verbs (item 16(b))
-    _HA_OPS = frozenset({"repl_watch", "repl_ack", "ha_status",
-                         "ha_promote", "ha_handoff"})
+                               "dgc_push", "dgc_pull", "subscribe_inval",
+                               # replication streams sit open for the
+                               # standby's lifetime; handoff blocks on
+                               # standby catch-up by design
+                               "repl_watch", "ha_handoff"})
+    # ops a standby (or a fenced ex-primary) still answers: liveness,
+    # observability, the replication/ack plane, and promotion itself
+    _HA_CTRL_OPS = frozenset({"ping", "metrics", "debug_dump",
+                              "heartbeat", "lost_workers", "ha_status",
+                              "ha_promote", "repl_ack", "repl_watch"})
 
     def __init__(self, endpoint: str, worker_timeout: float = 60.0,
                  snapshot_dir: str | None = None,
@@ -404,16 +473,6 @@ class PSServer(socketserver.ThreadingTCPServer):
                  tier_store_dir: str | None = None,
                  tier_tables=None):
         env = os.environ.get
-        if _set(wal, wal_bg_replay, *_knobs("PADDLE_PS_WAL")):
-            _later("the row-level WAL (wal=, wal_bg_replay=, "
-                   "PADDLE_PS_WAL*)", "16(b)")
-        if _set(primary, ha_epoch, *_knobs("PADDLE_PS_HA_")):
-            _later("hot standbys and epoch fencing (primary=, ha_epoch=, "
-                   "PADDLE_PS_HA_*)", "16(b)")
-        if _set(tier_warm_bytes, tier_store_dir, tier_tables,
-                *_knobs("PADDLE_PS_TIER_")):
-            _later("the tiered embedding store (tier_*=, "
-                   "PADDLE_PS_TIER_*)", "16(b)")
         if _set(publish_dir, env("PADDLE_TPU_PUBLISH_DIR")):
             _later("continuous publication (publish_dir=, "
                    "PADDLE_TPU_PUBLISH_DIR)", "17")
@@ -455,6 +514,68 @@ class PSServer(socketserver.ThreadingTCPServer):
             else float(env("PADDLE_PS_SNAPSHOT_INTERVAL", "0") or 0)
         self.snapshot_compact_every = int(
             env("PADDLE_PS_SNAPSHOT_COMPACT_EVERY", "64") or 0)
+        # row-level WAL tier: with wal on, a push journals only its
+        # touched ROWS (checkpoint/wal.py) and durability is
+        # write-through by construction; full base snapshots happen
+        # only at the compaction threshold. Restore = base + journal
+        # replay. Opt-in (PADDLE_PS_WAL / wal=True) — the delta-npz
+        # tier stays the default.
+        self.wal_enabled = wal if wal is not None \
+            else env("PADDLE_PS_WAL", "") not in ("", "0")
+        self.wal_compact_bytes = int(
+            env("PADDLE_PS_WAL_COMPACT_BYTES", str(64 << 20)) or 0)
+        if self.wal_enabled and not self.snapshot_dir:
+            raise ValueError(
+                "PADDLE_PS_WAL needs a snapshot dir "
+                "(PADDLE_PS_SNAPSHOT_DIR) for its base snapshots")
+        self._wal = None
+        self._wal_pending = False
+        # tiered embedding store: opt-in per server; tables named in
+        # tier_tables (every table when empty) hold warm rows in RAM
+        # under the byte budget and demand-page cold rows from a local
+        # chunk store. Snapshots/WAL/HA are unchanged: TieredTable
+        # exports materialize cold rows, so every downstream consumer
+        # sees flat keys/rows state.
+        self.tier_warm_bytes = int(
+            tier_warm_bytes if tier_warm_bytes is not None
+            else env("PADDLE_PS_TIER_WARM_BYTES", "0") or 0)
+        tt = tier_tables if tier_tables is not None \
+            else env("PADDLE_PS_TIER_TABLES", "")
+        self.tier_tables = {s.strip() for s in tt.split(",")
+                            if s.strip()} \
+            if isinstance(tt, str) else set(tt)
+        self.tier_store_dir = tier_store_dir \
+            if tier_store_dir is not None \
+            else (env("PADDLE_PS_TIER_STORE_DIR") or None)
+        if self.tier_warm_bytes > 0 and not self.tier_store_dir:
+            if not self.snapshot_dir:
+                raise ValueError(
+                    "PADDLE_PS_TIER_WARM_BYTES needs a cold-store "
+                    "dir (PADDLE_PS_TIER_STORE_DIR, or a snapshot "
+                    "dir to default under)")
+            self.tier_store_dir = os.path.join(self.snapshot_dir,
+                                               "tier_store")
+        self.tier_demote_interval = float(
+            env("PADDLE_PS_TIER_DEMOTE_INTERVAL", "0.05") or 0)
+        self._tier_store = None  # lazy CheckpointStore
+        self._tier_lock = threading.Lock()
+        # high-availability plane: a shard started with a primary
+        # endpoint is a hot STANDBY — it rejects normal traffic with
+        # not_primary and tracks the primary row for row over the
+        # repl_watch stream until promoted. The shard epoch fences
+        # zombie ex-primaries: any request carrying a NEWER epoch
+        # proves a successor exists, so this instance fences itself and
+        # rejects writes with stale_epoch.
+        self.ha_primary = primary if primary is not None \
+            else (env("PADDLE_PS_HA_PRIMARY") or None)
+        self.ha_role = "standby" if self.ha_primary else "primary"
+        self.shard_epoch = int(ha_epoch if ha_epoch is not None
+                               else env("PADDLE_PS_HA_EPOCH", "0")
+                               or 0)
+        self._ha_fenced = False
+        self._ha_replicator: StandbyReplicator | None = None
+        self._ha_replicated_bytes = 0
+        self._ha: ReplicationHub | None = None  # built once port bound
         if fs is None:
             from ...fs import LocalFS
             fs = LocalFS()
@@ -486,10 +607,11 @@ class PSServer(socketserver.ThreadingTCPServer):
                                    secret=secret,
                                    after_commit=self._after_commit,
                                    commit_scope=self._commit_scope,
-                                   after_retry=self._after_retry)
+                                   after_retry=self._after_retry,
+                                   before_reply=self._ha_before_reply)
         # every live handler socket, so server_close/kill can sever
-        # them (inval streams included — peers must see EOF now, not
-        # after a full recv timeout)
+        # them (replication subscribers + inval streams included —
+        # peers must see EOF now, not after a full recv timeout)
         self._conns_lock = threading.Lock()
         self._conns: weakref.WeakSet = weakref.WeakSet()
         outer = self
@@ -503,6 +625,8 @@ class PSServer(socketserver.ThreadingTCPServer):
 
         super().__init__((host, int(port)), Handler)
         self.endpoint = f"{host}:{self.server_address[1]}"
+        self._ha = ReplicationHub(self.endpoint)
+        set_role_gauges(self.endpoint, self.ha_role, self.shard_epoch)
         # stall watchdog: completed dispatches are this shard's
         # progress counter; the shard is idle while no non-barrier op
         # is in flight, so a quiet server never looks stalled but a
@@ -528,10 +652,59 @@ class PSServer(socketserver.ThreadingTCPServer):
                 and self._fs.is_file(self.snapshot_path):
             self.load_snapshot()
             self._base_written = True
+        # WAL replay gate: set = fully caught up. Background replay
+        # clears it so the shard SERVES during replay — pulls of rows
+        # the base/partial replay already holds come back stale-marked,
+        # everything else (mutations, row-creating pulls) waits on the
+        # event in _replay_gate. Default stays blocking replay
+        # (construction returns caught-up).
+        self._replay_done = threading.Event()
+        self._replay_done.set()
+        self.wal_bg_replay = wal_bg_replay if wal_bg_replay is not None \
+            else env("PADDLE_PS_WAL_BG_REPLAY", "") not in ("", "0")
+        if self.wal_enabled:
+            # replay runs even with NO base on disk: before the first
+            # compaction the journal alone holds the whole history
+            if auto_restore and self.wal_bg_replay:
+                self._replay_done.clear()
+                # journal hook armed NOW: it no-ops while _wal is None,
+                # and every mutating op is gated until _open_wal ran,
+                # so no mutation can slip through un-journaled
+                self._rpc.journal = self._journal
+                threading.Thread(target=self._bg_replay, daemon=True,
+                                 name="ps-wal-replay").start()
+            else:
+                if auto_restore:
+                    self._replay_wal()
+                self._open_wal()
+                self._rpc.journal = self._journal
         self._snap_stop = threading.Event()
         if self.snapshot_dir and self.snapshot_interval > 0:
             threading.Thread(target=self._snapshot_loop,
                              daemon=True).start()
+        if self.ha_role == "standby":
+            self._ha_replicator = StandbyReplicator(
+                self, self.ha_primary).start()
+
+    def _bg_replay(self):
+        """Background WAL replay (PADDLE_PS_WAL_BG_REPLAY): identical
+        work to the blocking path — same journal files, same order,
+        same dedup re-arming — just behind the read-through gate
+        instead of in front of serve_forever. The finally guarantees a
+        replay crash still unwedges gated clients (they see the
+        table state the partial replay reached; the WAL files are
+        still on disk for the next restart)."""
+        try:
+            self._replay_wal()
+        finally:
+            try:
+                # arm journaling even after a partial replay: appends
+                # land after the torn tail recover=True truncated, the
+                # same state a blocking restart would reach
+                self._open_wal()
+            except Exception:
+                pass
+            self._replay_done.set()
 
     def serve_in_thread(self) -> threading.Thread:
         th = threading.Thread(target=self.serve_forever, daemon=True)
@@ -540,9 +713,22 @@ class PSServer(socketserver.ThreadingTCPServer):
 
     def server_close(self):
         self._snap_stop.set()
+        with self._tables_lock:
+            ts = list(self.tables.values())
+        for t in ts:
+            close = getattr(t, "close", None)
+            if close is not None:
+                close()  # stop tiered tables' demoter threads
+        rep = self._ha_replicator
+        if rep is not None:
+            rep.close()
+        if self._wal is not None:
+            self._wal.close()
         super().server_close()
-        # sever every live handler socket: inval streams must see EOF
-        # NOW, not after a full recv timeout
+        # sever every live handler socket: replication subscribers and
+        # inval streams must see EOF NOW, so a standby detects primary
+        # death within its heartbeat interval, not after a full recv
+        # timeout
         with self._conns_lock:
             conns = list(self._conns)
         for s in conns:
@@ -550,7 +736,8 @@ class PSServer(socketserver.ThreadingTCPServer):
 
     def kill(self):
         """Stop serving AND sever every open connection — the
-        in-process stand-in for shard death (chaos drills)."""
+        in-process stand-in for shard death (chaos drills): attached
+        standbys see the stream break immediately."""
         self.shutdown()
         self.server_close()
 
@@ -568,17 +755,49 @@ class PSServer(socketserver.ThreadingTCPServer):
         # round state is volatile by design (not snapshot-covered)
         if op == "push" and self.snapshot_dir:
             return self._apply_lock
+        if op == "ha_handoff":
+            # handoff IS the drain: dispatching under the apply lock
+            # means every in-flight push has committed + journaled
+            # before the catch-up wait, and new pushes queue on the
+            # lock — after the epoch flip they dispatch against a
+            # demoted server, get not_primary, and redirect with the
+            # SAME request id (zero failed pushes)
+            return self._apply_lock
         return None
+
+    def _ha_before_reply(self, op: str, req_id: int):
+        """RPC-layer hook between dedup commit and reply: semi-sync
+        replication holds the push's ack here — OUTSIDE the commit
+        scope, so a waiting push never serializes other pushes."""
+        if op in self._SNAPSHOT_OPS and self._ha is not None \
+                and self._ha.semisync > 0:
+            self._ha.wait_semisync(req_id)
 
     def _after_commit(self, op: str):
         if op not in self._SNAPSHOT_OPS:
             return
         with self._snap_lock:
             self._mutations += 1
-            due = bool(self.snapshot_dir and self.snapshot_every
-                       and self._mutations % self.snapshot_every == 0)
+            if self._wal is not None:
+                # WAL mode: durability already happened (the journal
+                # hook ran inside the commit scope); the only disk work
+                # owed here is threshold compaction into a fresh base
+                due = bool(self._wal_pending
+                           or (self.wal_compact_bytes
+                               and self._wal.bytes_written
+                               >= self.wal_compact_bytes))
+                full = True
+            else:
+                due = bool(self.snapshot_dir and self.snapshot_every
+                           and self._mutations % self.snapshot_every
+                           == 0)
+                full = None
         if due:
-            self.snapshot()
+            # _wal_pending is cleared inside snapshot() at rotation
+            # time (under the apply lock) — clearing HERE would erase a
+            # flag set concurrently by another push's journal failure
+            # after our export captured state
+            self.snapshot(full=full)
 
     def _after_retry(self, op: str):
         """Dedup-hit retry of a mutating op: the original after_commit
@@ -592,13 +811,190 @@ class PSServer(socketserver.ThreadingTCPServer):
         if op not in self._SNAPSHOT_OPS or not self.snapshot_dir:
             return
         with self._snap_lock:
-            pending = self._snap_pending
+            pending = self._snap_pending or self._wal_pending
         if pending:
-            self.snapshot()
+            # WAL mode: a failed journal append leaves rows whose exact
+            # apply ORDER is unrecoverable — a full base (which rotates
+            # the journal and clears _wal_pending under the apply lock)
+            # recaptures everything including RNG streams
+            self.snapshot(full=True if self._wal is not None else None)
 
     def _snapshot_loop(self):
         while not self._snap_stop.wait(self.snapshot_interval):
             self.snapshot()
+
+    # -- row-level WAL tier (checkpoint/wal.py) --------------------------
+    def _wal_path(self, stamp: int) -> str:
+        tag = self.endpoint.replace(":", "_")
+        return os.path.join(self.snapshot_dir,
+                            f"ps_{tag}.wal_{stamp:010d}")
+
+    def _wal_files(self) -> list[tuple[int, str]]:
+        """(stamp, path) of every journal on LOCAL disk, by stamp. The
+        WAL is a local-disk tier (os.open append path) — remote-fs
+        deployments keep bases remote and journals beside the shard."""
+        tag = self.endpoint.replace(":", "_")
+        prefix = f"ps_{tag}.wal_"
+        out = []
+        try:
+            names = os.listdir(self.snapshot_dir)
+        except FileNotFoundError:
+            return []
+        for f in names:
+            if f.startswith(prefix):
+                try:
+                    out.append((int(f[len(prefix):]),
+                                os.path.join(self.snapshot_dir, f)))
+                except ValueError:
+                    continue
+        return sorted(out)
+
+    def _make_journal(self, path: str, recover: bool = False):
+        """Every journal on an HA-capable server is a ReplicatedJournal:
+        with no subscribers attached the publish is a few dict ops, and
+        the moment a standby subscribes it sees records in exactly
+        journal append order."""
+        from .ps_ha import ReplicatedJournal
+        return ReplicatedJournal(path, self._ha, recover=recover)
+
+    def _open_wal(self):
+        os.makedirs(self.snapshot_dir, exist_ok=True)
+        files = self._wal_files()
+        stamp = max(files[-1][0] if files else 0, self._snap_written)
+        # recover=True: truncate any torn tail left by the previous
+        # incarnation BEFORE appending — records written after garbage
+        # would sit beyond every future replay's stop point
+        self._wal = self._make_journal(self._wal_path(stamp),
+                                       recover=True)
+
+    def _rotate_wal(self, seq: int):
+        """Start journal wal_<seq> (records from now on replay on top
+        of base seq). Called under the apply lock at base-export time;
+        the superseded journals are deleted only once that base COMMITS
+        (_write_snapshot_files), so a failed base write loses nothing."""
+        from ....checkpoint.wal import RowJournal
+        old, self._wal = self._wal, self._make_journal(
+            self._wal_path(seq))
+        if old is not None:
+            old.close()
+        RowJournal.note_compaction()
+        # tell standbys we folded the journal into a fresh base so
+        # they re-anchor (compact their own journal) too
+        self._wal.publish_rotate(seq)
+
+    def _replay_wal(self):
+        """Rebuild state journaled after the restored base: apply each
+        committed rows-record (ensure+assign — idempotent for rows the
+        base already holds) and re-arm the dedup cache from journaled
+        request ids, so a client retrying across the crash still gets
+        exactly-once. Stops cleanly at a torn tail (the crash point)."""
+        from ....checkpoint.wal import replay_file
+        from .rpc import decode_body
+        replayed = 0
+        for _stamp, path in self._wal_files():
+            for rec in replay_file(path):
+                if rec["kind"] == "rows":
+                    t = self.table(rec["table"], int(rec["dim"]),
+                                   float(rec.get("init_std", 0.01)))
+                    t.apply_rows(rec["idx"], rec["values"])
+                rid = int(rec.get("req_id", 0))
+                if rid:
+                    reply = decode_body(rec["extra"]) \
+                        if rec["extra"] else True
+                    self._rpc.dedup.commit(rid, reply)
+                    with self._snap_lock:
+                        self._mutations += 1
+                replayed += 1
+        return replayed
+
+    def _wal_guard(self, append):
+        """Run one journal append under the owed-durability contract:
+        on failure the mutation is applied (and possibly dedup'd) but
+        NOT on disk — flag it so the retry/after_commit hooks recover
+        with a full base snapshot (which re-captures the un-journaled
+        rows/RNG and rotates the journal), and re-raise so the client
+        sees the failure."""
+        try:
+            return append()
+        except BaseException:
+            with self._snap_lock:
+                self._wal_pending = True
+            raise
+
+    def _tier_pull(self, t, keys):
+        """Pull with cold-fault accounting: a tiered table reports how
+        many rows it demand-paged, and a faulting reply is wrapped
+        ``{"v": rows, "cold_faults": n}`` (the replay-gate dict-reply
+        precedent) so PSClient can count cold faults per pull."""
+        pull_ex = getattr(t, "pull_ex", None)
+        if pull_ex is None:
+            return t.pull(keys)
+        out, faults = pull_ex(keys)
+        if faults:
+            return {"v": out, "cold_faults": int(faults)}
+        return out
+
+    def _wal_pull(self, req: dict):
+        """WAL-mode pull. Hot path (every key already has a row): only
+        the per-table lock, same as non-WAL mode. A pull that must
+        lazily init rows consumes the table RNG, so the created rows
+        are journaled — under the apply lock, because the
+        create+journal pair must serialize against pushes or replay
+        order could diverge from allocation order."""
+        t = self.table(req["table"], req["dim"],
+                       req.get("init_std", 0.01))
+        probe = t.missing_keys(req["keys"])
+        if probe is not None and len(probe) == 0:
+            # cold faults (tiered tables) happen HERE, off the apply
+            # lock — paging in an existing row creates nothing and
+            # consumes no RNG, so it needs no journaling
+            return self._tier_pull(t, req["keys"])
+        with self._apply_lock:
+            missing = t.missing_keys(req["keys"])  # re-check under lock
+            n0 = t.size()
+            out = self._tier_pull(t, req["keys"])
+            if missing is not None:
+                created = missing
+            elif t.size() != n0:  # native: no membership probe —
+                created = np.asarray(req["keys"],  # journal full set
+                                     np.int64).ravel()
+            else:
+                created = np.empty(0, np.int64)
+            if len(created):
+                # journal ONLY the created rows (O(created), not
+                # O(pulled)); replay's ensure+assign re-draws the init
+                # stream at the same point
+                self._mark_dirty(req["table"])
+                self._wal_guard(lambda: self._wal.append_rows(
+                    req["table"], created, t.rows_for(created),
+                    dim=t.dim, init_std=t.init_std, seed=t.seed))
+        return out
+
+    def _journal(self, op: str, req: dict, req_id: int, reply):
+        """RpcServerState.journal hook — runs INSIDE the commit scope,
+        right after the dedup commit. A push journals its touched rows'
+        post-values; every other mutating op journals a dedup mark (its
+        state effects are either volatile round state or journaled by
+        the barrier apply itself)."""
+        if self._wal is None:
+            return
+        from .rpc import encode_body
+        if op == "push":
+            t = self.tables[req["table"]]
+            keys = np.asarray(req["keys"], np.int64).ravel()
+            self._wal_guard(lambda: self._wal.append_rows(
+                req["table"], keys, t.rows_for(keys), dim=t.dim,
+                init_std=t.init_std, seed=t.seed, req_id=req_id,
+                extra=encode_body(reply)))
+            _flight.record("ps", "wal_commit", endpoint=self.endpoint,
+                           op=op, table=req.get("table"),
+                           rows=int(keys.size), req_id=req_id)
+        else:
+            self._wal_guard(lambda: self._wal.append_mark(
+                req_id, extra=encode_body(reply)))
+            _flight.record("ps", "wal_commit", endpoint=self.endpoint,
+                           op=op, rows=0, req_id=req_id)
+
 
     def _delta_path(self, seq: int) -> str:
         tag = self.endpoint.replace(":", "_")
@@ -667,11 +1063,27 @@ class PSServer(socketserver.ThreadingTCPServer):
             self._snap_seq += 1
             seq = self._snap_seq
             try:
-                do_full = full if full is not None else (
-                    not self._base_written
-                    or (self.snapshot_compact_every
-                        and self._deltas_since_base
-                        >= self.snapshot_compact_every))
+                if self._wal is not None:
+                    # WAL mode has no deltas: every snapshot is a full
+                    # base that compacts the journal. Rotate FIRST
+                    # (still under the apply lock): rows applied after
+                    # this instant land in wal_<seq>, which is exactly
+                    # what replays on top of base seq. Any owed
+                    # persistence (_wal_pending) is satisfied by this
+                    # export — clearing it under the apply lock means a
+                    # journal failure racing us either happened before
+                    # (rows captured by this export) or will set the
+                    # flag after we clear it (kept for the next base)
+                    do_full = True
+                    self._rotate_wal(seq)
+                    with self._snap_lock:
+                        self._wal_pending = False
+                else:
+                    do_full = full if full is not None else (
+                        not self._base_written
+                        or (self.snapshot_compact_every
+                            and self._deltas_since_base
+                            >= self.snapshot_compact_every))
                 arrays = self._export_arrays(
                     seq, names=None if do_full else dirty,
                     kind="base" if do_full else "delta")
@@ -713,11 +1125,28 @@ class PSServer(socketserver.ThreadingTCPServer):
                     if dseq <= seq:
                         self._fs.delete(
                             os.path.join(self.snapshot_dir, fname))
+                if self._wal is not None:
+                    # journals superseded by this base (their rows are
+                    # all ≤ the base's export instant)
+                    for wseq, wpath in self._wal_files():
+                        if wseq < seq:
+                            try:
+                                os.unlink(wpath)
+                            except OSError:
+                                pass
             else:
                 self._write_snapshot(self._delta_path(seq), arrays)
                 self._deltas_since_base += 1
                 self.delta_snapshots += 1
             self.snapshots_taken += 1
+        if do_full and self._tier_store is not None:
+            # fold the cold store's garbage in with base compaction:
+            # chunks no live segment references (age-guarded, so a
+            # segment mid-write is never collected) are dropped here
+            from .tiered_store import gc_cold_store
+            with self._tables_lock:
+                ts = list(self.tables.values())
+            gc_cold_store(self._tier_store, ts)
         dt = time.perf_counter() - t0
         nbytes = sum(a.nbytes for a in arrays.values())
         _SNAPSHOT_SECONDS.labels(kind=kind).observe(dt)
@@ -820,23 +1249,33 @@ class PSServer(socketserver.ThreadingTCPServer):
                 os.unlink(staged)
 
     def _import_snapshot_blob(self, blob, replace: bool = True) -> dict:
-        """Import one exported state blob (an open npz file) into
-        tables + dedup + mutation count."""
+        """Import one exported state blob (an open npz file, or the
+        same arrays as a plain dict — the HA bootstrap arrives as a dict
+        over the wire) into tables + dedup + mutation count."""
         meta = json.loads(bytes(blob["meta"]).decode("utf-8"))
+
+        def writable(a):
+            # wire-decoded arrays (HA bootstrap) view read-only
+            # frombuffer memory; tables update rows in place
+            a = np.asarray(a)
+            return a if a.flags.writeable else a.copy()
+
         tables: dict[str, LargeScaleKV] = {}
         for name, tmeta in meta["tables"].items():
-            t = LargeScaleKV(int(tmeta["dim"]),
-                             init_std=float(tmeta["init_std"]),
-                             seed=int(tmeta["seed"]))
+            t = self._make_table(name, int(tmeta["dim"]),
+                                 init_std=float(tmeta["init_std"]),
+                                 seed=int(tmeta["seed"]))
             st = {"dim": tmeta["dim"],
                   "init_std": tmeta["init_std"],
                   "seed": tmeta["seed"],
-                  "keys": blob[f"k:{name}"],
-                  "rows": blob[f"r:{name}"]}
+                  "keys": writable(blob[f"k:{name}"]),
+                  "rows": writable(blob[f"r:{name}"])}
             if "rng" in tmeta:
-                st["rng"] = dict(tmeta["rng"], key=blob[f"s:{name}"])
+                st["rng"] = dict(tmeta["rng"],
+                                 key=writable(blob[f"s:{name}"]))
             t.import_state(st)
             tables[name] = t
+        ids = blob["dedup_ids"]
         lens = blob["dedup_lens"].tolist()
         raw = blob["dedup_blob"].tobytes()
         blobs, off = [], 0
@@ -845,10 +1284,16 @@ class PSServer(socketserver.ThreadingTCPServer):
             off += n
         with self._tables_lock:
             if replace:
-                self.tables = tables
+                old, self.tables = self.tables, tables
             else:
                 self.tables.update(tables)
-        self._rpc.dedup.import_(blob["dedup_ids"], blobs)
+                old = {}
+        for t in old.values():
+            # replaced tiered tables must stop their demoter threads
+            close = getattr(t, "close", None)
+            if close is not None:
+                close()
+        self._rpc.dedup.import_(ids, blobs)
         with self._snap_lock:
             self._mutations = int(meta.get("mutations", 0))
         return meta
@@ -862,11 +1307,35 @@ class PSServer(socketserver.ThreadingTCPServer):
         return cls(endpoint, snapshot_dir=snapshot_dir,
                    auto_restore=True, **kwargs)
 
+    def _tier_store_handle(self):
+        """Lazy shared CheckpointStore for every tiered table's cold
+        segments (content-addressed chunks dedup across tables)."""
+        with self._tier_lock:
+            if self._tier_store is None:
+                from ....checkpoint.store import CheckpointStore
+                os.makedirs(self.tier_store_dir, exist_ok=True)
+                self._tier_store = CheckpointStore(self.tier_store_dir,
+                                                   keep=0)
+            return self._tier_store
+
+    def _make_table(self, name: str, dim: int, init_std: float = 0.01,
+                    seed: int = 0) -> LargeScaleKV:
+        if self.tier_warm_bytes > 0 and (
+                not self.tier_tables or name in self.tier_tables):
+            from .tiered_store import TieredTable
+            return TieredTable(
+                dim, init_std=init_std, seed=seed,
+                store=self._tier_store_handle(), name=name,
+                warm_bytes=self.tier_warm_bytes,
+                demote_interval=self.tier_demote_interval)
+        return LargeScaleKV(dim, init_std=init_std, seed=seed)
+
     def table(self, name: str, dim: int,
               init_std: float = 0.01) -> LargeScaleKV:
         with self._tables_lock:
             if name not in self.tables:
-                self.tables[name] = LargeScaleKV(dim, init_std)
+                self.tables[name] = self._make_table(name, dim,
+                                                     init_std)
             return self.tables[name]
 
     def _mark_dirty(self, name: str):
@@ -920,6 +1389,248 @@ class PSServer(socketserver.ThreadingTCPServer):
             with self._inval_lock:
                 self._inval_subs.pop(sid, None)
 
+    # -- high availability (ps_ha.py) -----------------------------------
+    def _ha_gate(self, op: str, req_epoch: int):
+        """Role/epoch admission check, before the op switch. Standbys
+        answer only the control plane (everything else redirects via
+        not_primary). A primary that sees a request carrying a NEWER
+        epoch has proof a successor was promoted: it fences itself and
+        rejects writes with stale_epoch — a zombie ex-primary can
+        never fork the shard."""
+        if self.ha_role == "standby":
+            if op in self._HA_CTRL_OPS:
+                return
+            raise ValueError(
+                f"not_primary primary={self.ha_primary or ''} "
+                f"epoch={self.shard_epoch}")
+        if req_epoch > self.shard_epoch and not self._ha_fenced:
+            self._ha_fenced = True
+            _flight.record("ps", "ha_fenced", endpoint=self.endpoint,
+                           epoch=self.shard_epoch,
+                           req_epoch=req_epoch)
+        if self._ha_fenced and op not in self._HA_CTRL_OPS:
+            if op not in self.READ_OPS:
+                note_fenced_write(self.endpoint, op, req_epoch,
+                                  self.shard_epoch)
+            raise ValueError(f"stale_epoch epoch={self.shard_epoch}")
+
+    def _repl_watch(self, req: dict):
+        """Dispatch generator for repl_watch: one standby's replication
+        feed. Subscribing and exporting the bootstrap state under the
+        apply lock guarantees no record committed after the bootstrap
+        can be missed (duplicates across the boundary are benign —
+        the standby skips already-applied sequence numbers)."""
+        # a bg-replaying primary applies journal records WITHOUT
+        # publishing them — bootstrapping mid-replay would hand the
+        # standby partial state with no stream to fill the rest
+        self._replay_done.wait()
+        if self._wal is None:
+            raise ValueError(
+                "repl_watch needs the WAL tier (PADDLE_PS_WAL=1 with "
+                "a snapshot dir) on the primary")
+        name = str(req.get("name", "?"))
+        hub = self._ha
+        sub = None
+        try:
+            with self._apply_lock:
+                sub = hub.subscribe(name)
+                arrays = self._export_arrays(self._snap_seq,
+                                             names=None, kind="base")
+                start_seq = hub.seq
+                epoch = self.shard_epoch
+            yield {"bootstrap": arrays, "seq": start_seq,
+                   "epoch": epoch, "sub": sub.sid,
+                   "primary": self.endpoint}
+            _flight.record("ps", "ha_standby_attach",
+                           endpoint=self.endpoint, peer=name,
+                           seq=start_seq)
+            inj = injector()
+            while True:
+                if sub.broken:
+                    raise ValueError(
+                        "replication queue overflow — resync")
+                try:
+                    rec = sub.q.get(timeout=5.0)
+                except queue.Empty:
+                    yield {"kind": "keepalive",
+                           "epoch": self.shard_epoch}
+                    continue
+                if inj.active:
+                    act = inj.repl_fault(int(rec.get("seq", 0)))
+                    if act is not None:
+                        action, delay = act
+                        if action == "drop":
+                            continue  # standby sees the gap -> resync
+                        if action == "delay":
+                            time.sleep(delay)
+                        elif action == "corrupt" \
+                                and rec.get("kind") == "rows":
+                            bad = np.array(rec["values"], np.float32,
+                                           copy=True)
+                            if bad.size:
+                                bad.flat[0] += 1.0
+                            rec = dict(rec, values=bad)  # crc now lies
+                yield rec
+        finally:
+            if sub is not None:
+                hub.unsubscribe(sub)
+
+    def _ha_import_bootstrap(self, arrays: dict, seq: int, epoch: int):
+        """Standby: replace local state with the primary's bootstrap
+        export (tables + RNG streams + dedup cache), adopt its epoch,
+        and re-anchor our own journal with a fresh full base."""
+        with self._apply_lock:
+            self._import_snapshot_blob(arrays, replace=True)
+            if epoch > self.shard_epoch:
+                self.shard_epoch = int(epoch)
+                set_role_gauges(self.endpoint, self.ha_role,
+                                self.shard_epoch)
+            self._ha_replicated_bytes = 0
+        _flight.record("ps", "ha_bootstrap", endpoint=self.endpoint,
+                       primary=self.ha_primary or "", seq=int(seq),
+                       epoch=int(epoch))
+        if self._wal is not None:
+            self.snapshot(full=True)
+
+    def _ha_apply_record(self, rec: dict):
+        """Standby: apply one replicated journal record through the
+        same ensure+assign path WAL replay uses, journal it to our OWN
+        journal (so a promoted standby restarts from its own disk),
+        and commit the request id + reply into the dedup cache —
+        exactly-once is preserved across failover."""
+        from .rpc import decode_body
+        extra = b""
+        if "extra" in rec and len(rec["extra"]):
+            extra = np.asarray(rec["extra"], np.uint8).tobytes()
+        kind = rec.get("kind")
+        with self._apply_lock:
+            n = 0
+            if kind == "rows":
+                t = self.table(rec["table"], int(rec["dim"]),
+                               float(rec.get("init_std", 0.01)))
+                idx = np.asarray(rec["idx"], np.int64).ravel()
+                t.apply_rows(idx, rec["values"])
+                self._mark_dirty(rec["table"])
+                if self._wal is not None:
+                    n = self._wal_guard(
+                        lambda: self._wal.append_rows(
+                            rec["table"], idx,
+                            np.asarray(rec["values"], np.float32),
+                            dim=int(rec["dim"]),
+                            init_std=float(rec.get("init_std", 0.01)),
+                            seed=int(rec.get("seed", 0)),
+                            req_id=int(rec.get("req_id", 0)),
+                            extra=extra))
+                else:
+                    idx_b = idx.nbytes
+                    n = int(np.asarray(rec["values"]).nbytes + idx_b)
+            elif kind == "mark":
+                if self._wal is not None:
+                    n = self._wal_guard(
+                        lambda: self._wal.append_mark(
+                            int(rec.get("req_id", 0)), extra=extra))
+            rid = int(rec.get("req_id", 0))
+            if rid:
+                self._rpc.dedup.commit(
+                    rid, decode_body(extra) if extra else True)
+                with self._snap_lock:
+                    self._mutations += 1
+            self._ha_replicated_bytes += n
+
+    def _ha_note_rotate(self):
+        """Standby: the primary compacted its journal into a fresh
+        base — compact ours too, so standby disk usage tracks the
+        primary's bound."""
+        if self._wal is not None:
+            self.snapshot(full=True)
+
+    def promote(self, epoch: int) -> dict:
+        """Standby -> primary (launcher failover or handoff target):
+        adopt the bumped epoch, stop replicating, start serving. On an
+        already-primary server this only ratchets the epoch."""
+        epoch = int(epoch)
+        rep = self._ha_replicator
+        applied = int(rep.applied_seq) if rep is not None \
+            else int(self._ha.seq)
+        if self.ha_role != "primary":
+            # order matters: flip the role FIRST so the replicator
+            # loop exits instead of resyncing, then sever its stream
+            self.ha_role = "primary"
+            self.ha_primary = None
+            self._ha_replicator = None
+            if rep is not None:
+                rep.close()
+            note_promotion(self.endpoint, max(self.shard_epoch, epoch))
+        self.shard_epoch = max(self.shard_epoch, epoch)
+        self._ha_fenced = False
+        set_role_gauges(self.endpoint, "primary", self.shard_epoch)
+        return {"role": "primary", "epoch": int(self.shard_epoch),
+                "endpoint": self.endpoint, "applied_seq": applied}
+
+    def _ha_demote(self, new_primary: str, epoch: int):
+        """Handoff tail: this ex-primary becomes a standby of the
+        freshly promoted target, so the shard keeps a hot spare."""
+        self.shard_epoch = int(epoch)
+        self.ha_primary = new_primary
+        self.ha_role = "standby"
+        self._ha_fenced = False
+        set_role_gauges(self.endpoint, "standby", self.shard_epoch)
+        self._ha_replicator = StandbyReplicator(
+            self, new_primary).start()
+
+    def _ha_handoff(self, req: dict) -> dict:
+        """Planned handoff (maintenance / shard rebalancing): runs
+        UNDER the apply lock (commit_scope), so every in-flight push
+        has committed and journaled before the catch-up wait, and new
+        pushes queue on the lock — after the flip they redirect to the
+        new primary with their SAME request ids. Zero failed pushes."""
+        target = str(req.get("target", ""))
+        if self.ha_role != "primary":
+            raise ValueError(
+                f"not_primary primary={self.ha_primary or ''} "
+                f"epoch={self.shard_epoch}")
+        if self._wal is None:
+            raise ValueError("ha_handoff needs the WAL tier")
+        sub = self._ha.find(target)
+        if sub is None:
+            raise ValueError(
+                f"ha_handoff: {target!r} is not an attached standby")
+        last = self._ha.seq
+        if not self._ha.wait_caught_up(
+                sub, last, timeout=float(req.get("timeout", 30.0))):
+            raise RuntimeError(
+                f"ha_handoff: {target} did not catch up to seq "
+                f"{last}")
+        epoch_new = int(self.shard_epoch) + 1
+        cl = RpcClient(target, timeout=10.0, deadline=15.0,
+                       max_retries=1)
+        try:
+            st = cl.call({"op": "ha_promote", "epoch": epoch_new},
+                         timeout=10.0)
+        finally:
+            cl.close()
+        self._ha_demote(target, epoch_new)
+        note_handoff(self.endpoint, target, epoch_new)
+        return {"promoted": target, "epoch": epoch_new,
+                "applied_seq": int(st.get("applied_seq", 0))
+                if isinstance(st, dict) else 0}
+
+    def ha_status(self) -> dict:
+        rep = self._ha_replicator
+        return {"role": self.ha_role,
+                "epoch": int(self.shard_epoch),
+                "endpoint": self.endpoint,
+                "primary": self.ha_primary or "",
+                "fenced": bool(self._ha_fenced),
+                "applied_seq": int(rep.applied_seq)
+                if rep is not None else int(self._ha.seq),
+                "repl_seq": int(self._ha.seq),
+                "resyncs": int(rep.resyncs) if rep is not None else 0,
+                "synced": bool(rep.synced.is_set())
+                if rep is not None else True,
+                "standbys": self._ha.status(),
+                "semisync_degraded": int(self._ha.degraded)}
+
     # -- dispatch -------------------------------------------------------
     def _dispatch(self, req: dict):
         """In-flight accounting wrapper around the op switch: arms the
@@ -948,23 +1659,70 @@ class PSServer(socketserver.ThreadingTCPServer):
                            if "keys" in req else 0)
         return rep
 
+    def _replay_gate(self, req: dict):
+        """Read-through gate while background WAL replay rebuilds
+        state. Pulls whose rows ALL exist already (base + replay so
+        far) are served immediately, wrapped ``{"v": rows, "stale":
+        True}`` so the client knows they predate catch-up. Everything
+        that would perturb replay — mutations, and pulls that would
+        lazily CREATE rows (row creation consumes the table RNG, so
+        out-of-order creation would diverge from journal order) —
+        waits on the replay-done event. Pure status reads (ping,
+        metrics, ...) pass through. Returns a reply to short-circuit
+        with, or None to fall through to the normal op switch."""
+        op = req["op"]
+        if op == "pull":
+            t = self.tables.get(req.get("table"))
+            if t is not None:
+                probe = t.missing_keys(req["keys"])
+                if probe is not None and len(probe) == 0:
+                    return {"v": t.pull(req["keys"]), "stale": True}
+            self._replay_done.wait()
+            return None
+        if op in ("ping", "size", "metrics", "debug_dump",
+                  "heartbeat", "lost_workers", "subscribe_inval",
+                  "tsdb_query", "alerts", "usage_report") \
+                or op.startswith("pub_") or op.startswith("tel_"):
+            return None
+        self._replay_done.wait()
+        return None
+
     def _dispatch_inner(self, req: dict):
         op = req["op"]
-        # a shard epoch on the request skeleton comes from an HA client;
-        # epoch 0 (or none) is the plain client this shard serves
-        if int(req.pop("_epoch", 0) or 0) or op in self._HA_OPS:
-            _later(f"the PS high-availability plane (verb {op!r}, shard "
-                   f"epochs)", "16(b)")
+        # shard epoch rides the request skeleton (HA fencing); epoch 0
+        # = legacy client, always admitted on an unfenced primary
+        req_epoch = int(req.pop("_epoch", 0) or 0)
+        if req_epoch or self._ha_fenced or self.ha_role != "primary":
+            self._ha_gate(op, req_epoch)
+        if op == "repl_watch":
+            return self._repl_watch(req)
+        if op == "repl_ack":
+            return self._ha.ack(int(req.get("sub", -1)),
+                                int(req.get("seq", 0)),
+                                int(req.get("bytes", 0)),
+                                float(req.get("t", 0.0)))
+        if op == "ha_status":
+            return self.ha_status()
+        if op == "ha_promote":
+            return self.promote(int(req.get("epoch", 0)))
+        if op == "ha_handoff":
+            return self._ha_handoff(req)
+        if not self._replay_done.is_set():
+            gated = self._replay_gate(req)
+            if gated is not None:
+                return gated
         if op.startswith("pub_"):
             _later(f"the publish registry verbs ({op!r})", "17")
         if op.startswith("tel_") \
                 or op in ("tsdb_query", "alerts", "usage_report"):
             _later(f"the hosted telemetry collector ({op!r})", "18")
         if op == "pull":
+            if self._wal is not None:
+                return self._wal_pull(req)
             t = self.table(req["table"], req["dim"],
                            req.get("init_std", 0.01))
             n0 = t.size()
-            out = t.pull(req["keys"])
+            out = self._tier_pull(t, req["keys"])
             if self.snapshot_dir and t.size() != n0:
                 # lazy row init consumed the table's rng stream — the
                 # next delta must carry this table even without a push
@@ -1007,6 +1765,20 @@ class PSServer(socketserver.ThreadingTCPServer):
                         # sync-mode mutation: the post-barrier delta
                         # snapshot must carry these tables too
                         self._mark_dirty(table)
+                    if self._wal is not None:
+                        # rows-only record; the barrier's own journal
+                        # mark (separate record) only preserves its
+                        # reply. A crash between the two is still
+                        # exactly-once: a retried barrier re-applies
+                        # the VOLATILE pending buffer, which is empty
+                        # after a restart because every acked
+                        # push_sync dedups via its own mark (and an
+                        # unacked one re-buffers exactly once).
+                        ks = np.asarray(keys, np.int64).ravel()
+                        self._wal_guard(
+                            lambda ks=ks, t=t: self._wal.append_rows(
+                                table, ks, t.rows_for(ks), dim=t.dim,
+                                init_std=t.init_std, seed=t.seed))
             return self._sync_state(req["trainers"]).send_barrier(
                 req["worker"], apply_fn)
         if op == "fetch_barrier":
@@ -1084,13 +1856,25 @@ class PSServer(socketserver.ThreadingTCPServer):
                       if now - t > self.worker_timeout)
 
 
+_NOT_PRIMARY_RE = re.compile(
+    r"not_primary(?:\s+primary=(\S*))?(?:\s+epoch=(\d+))?")
+_STALE_EPOCH_RE = re.compile(r"stale_epoch\s+epoch=(\d+)")
+
+
 class PSClient:
     """Worker-side stub: key-hash routing across server shards (reference
     ps_dispatcher hash dispatch + Communicator send path), one
     fault-tolerant RpcClient channel per shard (retry with stable
     request ids, per-request deadlines, backoff — reference brpc
-    channel timeout_ms/max_retry). A ``|``-joined HA group as a shard's
-    endpoint raises naming item 16(b)."""
+    channel timeout_ms/max_retry).
+
+    HA: a shard entry may be a ``|``-joined member list,
+    ``primary|standby[|standby2]``. Shard routing is unchanged (one
+    ACTIVE endpoint per shard); on a dead or demoted active member the
+    client probes the group, adopts the live primary with the highest
+    epoch, and replays the in-flight call with the SAME request id —
+    server dedup makes the retry exactly-once even across a
+    failover."""
 
     # sync-mode barrier (and DGC round) calls legitimately block
     # server-side for up to 300s waiting on straggler trainers — their
@@ -1102,20 +1886,35 @@ class PSClient:
                  deadline: float | None = None,
                  max_retries: int | None = None,
                  backoff: float | None = None):
-        self.endpoints = [str(ep) for ep in endpoints]
-        for ep in self.endpoints:
-            if "|" in ep:
-                _later(f"PS high-availability groups (shard {ep!r})",
-                       "16(b)")
+        self._groups = [str(ep).split("|") for ep in endpoints]
+        # active member per shard: shard count and key routing see ONE
+        # endpoint per group, exactly the non-HA shape
+        self.endpoints = [g[0] for g in self._groups]
         # wire + fault accounting shared across shard channels
         # (bench/diagnostics read .bytes_out/.bytes_in; robustness
         # tests read .stats)
         self.stats = TransportStats()
-        self._clients = [RpcClient(ep, stats=self.stats, secret=secret,
-                                   timeout=timeout, deadline=deadline,
-                                   max_retries=max_retries,
-                                   backoff=backoff)
+        self._client_kw = dict(stats=self.stats, secret=secret,
+                               timeout=timeout, deadline=deadline,
+                               max_retries=max_retries,
+                               backoff=backoff)
+        self._ha_lock = threading.RLock()
+        self._cl_cache: dict[str, RpcClient] = {}
+        self._clients = [self._client_for(ep)
                          for ep in self.endpoints]
+        self._epochs = [0] * len(self._groups)  # newest epoch seen
+        self.failovers = 0        # active-member switches on failure
+        self.redirects = 0        # not_primary redirects followed
+        self.fenced_rejects = 0   # stale_epoch answers seen
+        # pulls answered stale-marked by a shard mid-background-replay
+        # (read-through gate): values predate WAL catch-up. Count, not
+        # content — training tolerates bounded staleness by design
+        self.stale_pulls = 0
+        self.last_pull_stale = False
+        # rows the tiered store demand-paged to answer our pulls: cost
+        # visibility for the cold tier
+        self.cold_faults = 0
+        self.last_pull_cold_faults = 0
         self._pool = None  # lazy persistent fan-out pool
         self._inval_stop: threading.Event | None = None
         self._inval_threads: list[threading.Thread] = []
@@ -1128,8 +1927,150 @@ class PSClient:
     def bytes_in(self) -> int:
         return self.stats.bytes_in
 
+    def _client_for(self, ep: str) -> RpcClient:
+        with self._ha_lock:
+            cl = self._cl_cache.get(ep)
+            if cl is None:
+                cl = self._cl_cache[ep] = RpcClient(
+                    ep, **self._client_kw)
+            return cl
+
     def _call(self, i: int, req: dict, **kw):
-        return self._clients[i].call(req, **kw)
+        if len(self._groups[i]) == 1:
+            # non-HA shard: exactly the pre-HA code path
+            return self._clients[i].call(req, **kw)
+        return self._ha_call(i, req, **kw)
+
+    # -- HA failover path ------------------------------------------------
+    def _set_active(self, i: int, ep: str):
+        with self._ha_lock:
+            if ep not in self._groups[i]:
+                self._groups[i].append(ep)
+            self.endpoints[i] = ep
+            self._clients[i] = self._client_for(ep)
+
+    def _advance(self, i: int):
+        with self._ha_lock:
+            g = self._groups[i]
+            cur = self.endpoints[i]
+            j = (g.index(cur) + 1) % len(g) if cur in g else 0
+            self._set_active(i, g[j])
+
+    def _failover(self, i: int):
+        """Probe the group for a live primary (short single-attempt
+        ha_status calls) and adopt the one with the highest epoch;
+        with none answering yet (promotion in flight) stay put — the
+        caller's retry loop keeps probing until its deadline."""
+        with self._ha_lock:
+            group = list(self._groups[i])
+            cur = self.endpoints[i]
+        best_ep, best_epoch = None, -1
+        for ep in group:
+            if ep == cur:
+                continue
+            try:
+                st = self._client_for(ep).call(
+                    {"op": "ha_status"}, timeout=1.0, deadline=1.5,
+                    max_retries=0)
+            except Exception:
+                continue
+            if isinstance(st, dict) and st.get("role") == "primary" \
+                    and not st.get("fenced"):
+                e = int(st.get("epoch", 0))
+                if e > best_epoch:
+                    best_ep, best_epoch = ep, e
+        with self._ha_lock:
+            if best_ep is not None \
+                    and best_epoch >= self._epochs[i]:
+                self._epochs[i] = max(self._epochs[i], best_epoch)
+                self._set_active(i, best_ep)
+                self.failovers += 1
+                _flight.record("ps_client", "ha_failover", shard=i,
+                               endpoint=best_ep, epoch=best_epoch)
+                return True
+        return False
+
+    def _ha_call(self, i: int, req: dict, timeout: float | None = None,
+                 deadline: float | None = None, req_id=None, **kw):
+        """Group-aware call: pin the request id up front so every
+        retry — including against a freshly promoted standby — is the
+        SAME request to the dedup cache; follow not_primary redirects;
+        adopt newer epochs from stale_epoch answers; probe the group
+        on transport failures. Bounded by the normal call deadline."""
+        cl0 = self._clients[i]
+        budget = deadline if deadline is not None else cl0.deadline
+        deadline_ts = time.monotonic() + budget
+        if req_id is None:
+            req_id = cl0._next_id()
+        barrier = req.get("op") in ("send_barrier", "fetch_barrier",
+                                    "dgc_push", "dgc_pull")
+        probe = float(os.environ.get(
+            "PADDLE_PS_HA_PROBE", "2.0") or 2.0)
+        last: Exception | None = None
+        while True:
+            with self._ha_lock:
+                cl = self._clients[i]
+                epoch = self._epochs[i]
+            r = dict(req)
+            if epoch:
+                r["_epoch"] = epoch
+            left = deadline_ts - time.monotonic()
+            if left <= 0:
+                raise PSDeadlineError(
+                    f"PS {req.get('op')!r} failed across HA group "
+                    f"{self._groups[i]}: {last}") from last
+            if barrier:
+                # barrier dispatch legitimately blocks on stragglers:
+                # a short probing cycle would tear rounds apart
+                cycle = min(left, (timeout or self.BARRIER_TIMEOUT)
+                            + 5.0)
+            else:
+                cycle = min(left, max(probe, 0.2))
+            try:
+                if not barrier and "max_retries" not in kw:
+                    # single attempt per cycle: the OUTER loop owns
+                    # retries here, so a dead active member triggers a
+                    # group probe NOW instead of burning the whole
+                    # probe cycle in reconnect backoff against it
+                    return cl.call(r, timeout=timeout, deadline=cycle,
+                                   req_id=req_id, max_retries=0, **kw)
+                return cl.call(r, timeout=timeout, deadline=cycle,
+                               req_id=req_id, **kw)
+            except PSRemoteError as e:
+                msg = str(e)
+                m = _NOT_PRIMARY_RE.search(msg)
+                if m is not None:
+                    self.redirects += 1
+                    last = e
+                    with self._ha_lock:
+                        if int(m.group(2) or 0) > self._epochs[i]:
+                            self._epochs[i] = int(m.group(2) or 0)
+                    if m.group(1):
+                        self._set_active(i, m.group(1))
+                    else:
+                        self._failover(i) or self._advance(i)
+                    continue
+                m = _STALE_EPOCH_RE.search(msg)
+                if m is None:
+                    raise
+                self.fenced_rejects += 1
+                last = e
+                srv_epoch = int(m.group(1))
+                with self._ha_lock:
+                    behind = srv_epoch > self._epochs[i]
+                    if behind:
+                        # we were behind this server: adopt its epoch
+                        # and retry it
+                        self._epochs[i] = srv_epoch
+                if not behind:
+                    # the server is the stale one (zombie): find the
+                    # successor primary
+                    self._failover(i) or self._advance(i)
+            except (PSDeadlineError, ConnectionError, OSError) as e:
+                last = e
+                if self._failover(i):
+                    continue    # adopted a live primary: retry NOW
+            time.sleep(0.05)
 
     def _route(self, keys: np.ndarray) -> np.ndarray:
         return (keys.astype(np.int64) % len(self.endpoints)).astype(np.int64)
@@ -1160,8 +2101,19 @@ class PSClient:
                                              "keys": keys[m],
                                              "init_std": init_std}))
             for i, m in masks])
+        stale = False
+        cold = 0
         for (i, m), r in zip(masks, res):
+            if isinstance(r, dict):  # replay-gate / tiered-store reply
+                stale = stale or bool(r.get("stale"))
+                cold += int(r.get("cold_faults", 0))
+                r = r["v"]
             out[m] = r
+        if stale:
+            self.stale_pulls += 1
+        self.last_pull_stale = stale
+        self.cold_faults += cold
+        self.last_pull_cold_faults = cold
         return out
 
     def push(self, table: str, dim: int, keys, grads, lr: float = 1.0,
@@ -1340,7 +2292,10 @@ class PSClient:
         if self._pool is not None:
             self._pool.shutdown(wait=False)
             self._pool = None
-        for c in self._clients:
+        with self._ha_lock:
+            clients = list(self._cl_cache.values())
+            self._cl_cache.clear()
+        for c in clients:
             c.close()
 
 
@@ -1364,7 +2319,12 @@ class ParameterServerRuntime:
         eps = self._role_maker.get_pserver_endpoints()
         me = eps[self._role_maker.server_index()]
         if "|" in me:
-            _later(f"PS high-availability groups (shard {me!r})", "16(b)")
+            # HA group entry: bind the member matching this process's
+            # identity; primary/standby role comes from
+            # PADDLE_PS_HA_PRIMARY (the launcher sets both)
+            members = me.split("|")
+            mine = os.environ.get("PADDLE_CURRENT_ENDPOINT", "")
+            me = mine if mine in members else members[0]
         self.server = PSServer(me)
         model_dir = args[0] if args else kwargs.get("dirname")
         if model_dir:

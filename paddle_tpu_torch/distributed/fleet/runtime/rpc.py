@@ -1334,12 +1334,12 @@ class DedupCache:
 
 class RpcServerState:
     """Per-server transport state shared by all connection handlers,
-    with the parameter server's persistence hooks."""
+    with the parameter server's persistence and replication hooks."""
 
     def __init__(self, read_ops=frozenset(), secret: str | None = None,
                  dedup_capacity: int = 65536, after_commit=None,
                  commit_scope=None, after_retry=None,
-                 expose_req_id: bool = False):
+                 expose_req_id: bool = False, before_reply=None):
         self.read_ops = frozenset(read_ops)
         # inject the wire request id into the skeleton as "_req_id"
         # before dispatch: the serving frontend keys a seedless sampled
@@ -1366,6 +1366,18 @@ class RpcServerState:
         # cannot block should return a scope — a barrier op waiting on
         # straggler trainers inside a shared lock would stall the shard
         self.commit_scope = commit_scope
+        # optional (op, req, req_id, reply) hook called INSIDE the
+        # commit scope right after dedup.commit — the WAL tier journals
+        # the mutation (touched rows + request id) here, so a record is
+        # on disk before the reply leaves and replay order matches
+        # apply order
+        self.journal = None
+        # optional (op, req_id) hook called for mutating ops after
+        # after_commit but BEFORE the reply frame is enqueued, OUTSIDE
+        # the commit scope (it may block without serializing other
+        # pushes) — the PS HA semi-sync ack gate waits here until K
+        # standbys hold the journaled record (or degrades to async)
+        self.before_reply = before_reply
 
 
 class _ServerConn:
@@ -1545,6 +1557,12 @@ class _ServerConn:
                 else:
                     if mutating and req_id:
                         state.dedup.commit(req_id, rep)
+                        if state.journal is not None:
+                            # WAL write-ahead: rows + request id land
+                            # on disk inside the commit scope, so a
+                            # crash-restore replays this mutation AND
+                            # dedups its retry (exactly-once survives)
+                            state.journal(op, req, req_id, rep)
             if err is not None:
                 _SERVER_ERRORS.labels(op=op or "?").inc()
                 _flight.record("rpc", "server_error",
@@ -1561,6 +1579,8 @@ class _ServerConn:
                 # (e.g. snapshot disk error) propagate and end the
                 # connection for the same reason.
                 state.after_commit(op)
+            if mutating and req_id and state.before_reply is not None:
+                state.before_reply(op, req_id)
             if inj.active:
                 inj.maybe_kill("reply", armed)
             self.enqueue(rep, req_id)

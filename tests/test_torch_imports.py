@@ -47,7 +47,8 @@ def test_port_file_list_is_not_empty():
             "mobilenet.py", "models.py", "wide_deep.py", "store.py",
             "chunks.py", "manifest.py", "wal.py",
             "fault_injection.py", "watchdog.py", "debug.py", "loadgen.py",
-            "frontend.py", "rpc.py"} <= names
+            "frontend.py", "rpc.py", "parameter_server_runtime.py",
+            "ps_ha.py", "tiered_store.py"} <= names
     assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \
         / "runtime" / "rpc.py" in PORT_FILES
 

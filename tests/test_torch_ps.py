@@ -1,7 +1,7 @@
 """The port's parameter-server tier (paddle_tpu_torch/distributed/fleet/
 runtime/parameter_server_runtime.py, paddle_tpu_torch/native) against the
 JAX package's: the KV core, the wire both ways, snapshots both ways, the
-fleet PS lifecycle, the configurations left to later items, and a
+fleet PS lifecycle, the configurations left to items 17 and 18, and a
 Downpour run through frame corruption and a shard kill."""
 import json
 import os
@@ -490,18 +490,10 @@ def test_concurrent_pushes_with_interval_snapshots_no_deadlock(
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,env,item", [
-    ({"wal": True}, {}, "16(b)"),
-    ({}, {"PADDLE_PS_WAL": "1"}, "16(b)"),
-    ({"wal_bg_replay": True}, {}, "16(b)"),
-    ({"primary": "127.0.0.1:1"}, {}, "16(b)"),
-    ({}, {"PADDLE_PS_HA_EPOCH": "2"}, "16(b)"),
-    ({"tier_warm_bytes": 1 << 20}, {}, "16(b)"),
-    ({}, {"PADDLE_PS_TIER_WARM_BYTES": "1048576"}, "16(b)"),
     ({"publish_dir": "pub"}, {}, "17"),
     ({}, {"PADDLE_TPU_PUBLISH_DIR": "pub"}, "17"),
     ({}, {"PADDLE_TPU_TELEMETRY_HOST": "1"}, "18"),
-], ids=["wal", "wal_env", "wal_bg_replay", "ha_primary", "ha_epoch_env",
-        "tier", "tier_env", "publish", "publish_env", "telemetry_host"])
+], ids=["publish", "publish_env", "telemetry_host"])
 def test_unported_server_configurations_raise(kw, env, item, monkeypatch):
     for k, v in env.items():
         monkeypatch.setenv(k, v)
@@ -509,15 +501,10 @@ def test_unported_server_configurations_raise(kw, env, item, monkeypatch):
         ps.PSServer("127.0.0.1:0", **kw)
 
 
-def test_ha_group_and_ha_verbs_raise_naming_16b():
-    with pytest.raises(NotImplementedError, match=r"item 16\(b\)"):
-        ps.PSClient(["127.0.0.1:1|127.0.0.1:2"])
+def test_publish_verb_raises_naming_17_and_the_shard_serves_on():
     srv = _serve(ps)
     try:
         cl = rpc.RpcClient(srv.endpoint, max_retries=0)
-        for req in ({"op": "ha_status"}, {"op": "ping", "_epoch": 3}):
-            with pytest.raises(rpc.PSRemoteError, match=r"item 16\(b\)"):
-                cl.call(req)
         with pytest.raises(rpc.PSRemoteError, match=r"item 17"):
             cl.call({"op": "pub_latest"})
         assert cl.call({"op": "ping"}) == "pong"
@@ -536,6 +523,8 @@ def test_new_modules_import_without_jax_and_shards_without_torch():
         "sys.meta_path.insert(0, _Block())\n"
         "import paddle_tpu_torch.distributed.fleet.runtime"
         ".parameter_server_runtime\n"
+        "import paddle_tpu_torch.distributed.fleet.runtime.ps_ha\n"
+        "import paddle_tpu_torch.distributed.fleet.runtime.tiered_store\n"
         "import paddle_tpu_torch.distributed.fleet.boxps_cache\n"
         "import paddle_tpu_torch.distributed.fleet.ps_roles\n"
         "import paddle_tpu_torch.distributed.fs, paddle_tpu_torch.native\n"
