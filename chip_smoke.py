@@ -6,6 +6,7 @@
                                      # on weights and batch from seed N
     python3 chip_smoke.py --ps       # the card line, then phases 20-24
                                      # alone (no kernel lies on them)
+    python3 chip_smoke.py --elastic  # phase 1, then phase 19b alone
     python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
@@ -276,6 +277,38 @@ Phases:
      lookup's all-reduce and in the dp gradient average; with phase 2
      (check_mesh_kernels) rows 2-3 at an sp_gpt rank's shape (M = 2048)
      and rows 4-5 at a moe_gpt rank's (4 x 6 heads of 64);
+ 19b. elastic (item 16(c)): bench.py's bench_elastic measures at
+     bench_bert's configuration (BERT-base, global batch 16 x 128, O1,
+     AdamW lr 1e-4) at dp 2: tests/torch_elastic_trainer.py under
+     ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2``,
+     both ranks on the one card over gloo (``TrainStep(mesh=make_mesh(
+     {"dp": 2}))``, deterministic algorithms, CUBLAS_WORKSPACE_CONFIG
+     set in the child before CUDA starts), 8 steps of a seeded corpus of
+     512 sequences in SampleSchedule order, an async ClusterCheckpoint
+     save every 2 steps (float32 parameters and Adam slots replicated,
+     the cursor per rank), the dropout seed step + 1: (a) fault-free at
+     dropout 0.1, without saves; (b) rank 1 killed at step 5 (once step
+     4's version has committed), --max_restarts 2, backoff 0.05 s: the
+     gang restarts from step 4's version, and every step's loss and
+     every final parameter must equal (a)'s bit for bit; (c) at dropout
+     0, a fault-free world-2 run without saves, then rank 1 failing at
+     step 5 in every life under --exclude_flapping --flap_threshold 1:
+     the job goes on at world 1 from step 4's version, steps 5-7 within
+     1e-3 relative of the world-2 curve, every step's record showing
+     the world. Every rank and life: on the card, gloo where two ranks
+     run, no kernel built in the child, rows 2-5 and 8-9 launched
+     BERT_LAUNCHES_PER_STEP times a step it ran, flash on tc, the
+     sub-blocks on ffma, layer norm on warp. Printed: each run's
+     launcher lines, losses, worlds, step ms, its lives (each with its
+     start: process start to its first step), detect -> resume seconds
+     (the largest gap between two step records, and the kill to the
+     first resumed record), the restore's seconds
+     (paddle_tpu_elastic_resume_seconds) and the upload's, rank 0's
+     save host-copy, part-write and merge seconds and the checkpoint's
+     GB; then bench_elastic's save overhead on the card
+     (a 512-wide tanh MLP, 120 steps, a save every 30: async and sync
+     against no save, beside its 5% bar). Every job runs in a session
+     of its own, killed whole on the way out;
  20. widedeep_ps_parity (item 16(a), the parameter-server tier; no
      kernel of the port on this path: the workers' products and the
      dense gradients are PyTorch's, the shards' tables host numpy behind
@@ -4133,6 +4166,7 @@ def bert_dp_phase(torch, dp1_samples_per_s, steps=5):
             "peak_gb": [p["peak_gb"] for p in p1],
             "launches": dp_counts}
     print(json.dumps(main), flush=True)
+    MEASURED["bert_dp_step_ms"] = main["step_ms_median"]
     if not rel <= 1e-3 or not all(math.isfinite(x) for p in p1
                                   for x in p["losses"]):
         fail(f"bert_dp: dp = 2 losses off the dp = 1 run (max rel {rel}) "
@@ -4829,6 +4863,382 @@ def widedeep_mp_phase(torch):
             math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"widedeep_mp: losses {losses} against the single rank's "
              f"{ref['losses']} (atol {WD_MP_ATOL}), or not falling")
+
+
+# ---------------------------------------------------------------------------
+# elastic training (item 16(c)): the launcher, gang restarts and the
+# cluster checkpoint, BERT-base at dp 2 on the one card
+# ---------------------------------------------------------------------------
+
+# bench_elastic's drill at bench_bert's configuration: 8 steps a run, an
+# async cluster save every 2, rank 1 killed (run b) or flapping (run c)
+# at step 5; run (c)'s world-1 losses against the world-2 curve within
+# bert_dp's bound. Then bench_elastic's save-overhead measure as it is
+# (a 512-wide tanh MLP, 120 steps, a save every 30).
+ELASTIC_STEPS, ELASTIC_SAVE_EVERY, ELASTIC_KILL_AT = 8, 2, 5
+ELASTIC_RTOL, ELASTIC_JOB_TIMEOUT = 1e-3, 420
+ELASTIC_MLP, ELASTIC_MLP_STEPS, ELASTIC_MLP_EVERY = 512, 120, 30
+ELASTIC_ROOT = os.path.dirname(os.path.abspath(__file__))
+ELASTIC_TRAINER = os.path.join(ELASTIC_ROOT, "tests",
+                               "torch_elastic_trainer.py")
+# the route of each BERT row at a dp 2 rank's shapes (8 x 128 tokens):
+# flash in bf16 on the tensor cores, the f32 sub-blocks on FFMA, layer
+# norm (C = 768) on the warp route
+ELASTIC_ROUTES = {"flash_fwd": "tc", "flash_bwd_dq": "tc",
+                  "flash_bwd_dkv": "tc", "fused_out_ln": "ffma",
+                  "fused_ffn_ln": "ffma", "layer_norm_fwd": "warp",
+                  "layer_norm_bwd_dx": "warp"}
+
+
+def elastic_job(work, tag, args=(), **knobs):
+    """tests/torch_elastic_trainer.py in bert mode on the card under
+    ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2``
+    (gloo, both ranks on the one card), in a session of its own that is
+    killed whole on the way out. Returns the launcher's exit code, its
+    [launch] lines, every step record of both ranks (time order), the
+    wall seconds and the final parameters' npz path."""
+    import signal
+    import socket
+    base = os.path.join(work, tag)
+    out, ckpt, logs = (os.path.join(base, d) for d in ("out", "ckpt",
+                                                       "logs"))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ELASTIC_ROOT + os.pathsep + env.get("PYTHONPATH",
+                                                            "")
+    drill = dict(ELASTIC_DRILL_OUT=out, ELASTIC_DRILL_MODEL="bert",
+                 ELASTIC_DRILL_DEVICE="cuda", ELASTIC_DRILL_BERT_SIZE="base",
+                 ELASTIC_DRILL_STEPS=ELASTIC_STEPS,
+                 ELASTIC_DRILL_SAVE_EVERY=ELASTIC_SAVE_EVERY,
+                 ELASTIC_DRILL_STEP_SLEEP=0)
+    drill.update(knobs)
+    env.update({k: str(v) for k, v in drill.items()})
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node=2", f"--started_port={port}", "--log_dir",
+           logs, f"--cluster_ckpt_dir={ckpt}", *args, ELASTIC_TRAINER]
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, env=env, cwd=ELASTIC_ROOT,
+                         stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    try:
+        _, err = p.communicate(timeout=ELASTIC_JOB_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.communicate()
+        fail(f"elastic {tag}: the job outlived {ELASTIC_JOB_TIMEOUT} s; "
+             f"{elastic_tails(logs)}")
+    finally:
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    wall = time.perf_counter() - t0
+    recs, ends = [], []
+    for r in (0, 1):
+        for name, into in (("loss", recs), ("saves", ends)):
+            path = os.path.join(out, f"{name}_rank{r}.jsonl")
+            if os.path.exists(path):
+                with open(path) as f:
+                    into += [dict(json.loads(line), rank=r) for line in f]
+    recs.sort(key=lambda r: r["t"])
+    kills = []
+    if os.path.exists(os.path.join(out, "kills.jsonl")):
+        with open(os.path.join(out, "kills.jsonl")) as f:
+            kills = [json.loads(line) for line in f]
+    lines = [ln for ln in err.splitlines() if ln.startswith("[launch]")]
+    return {"tag": tag, "rc": p.returncode, "launcher": lines,
+            "records": recs, "ends": ends, "kills": kills, "t_end":
+            time.time(), "wall_s": wall, "logs": logs,
+            "final": os.path.join(out, "final_rank0.npz")}
+
+
+def elastic_tails(logs, n=1500):
+    if not os.path.isdir(logs):
+        return "no logs"
+    return " | ".join(f"{f}: {open(os.path.join(logs, f)).read()[-n:]}"
+                      for f in sorted(os.listdir(logs)))
+
+
+def elastic_curve(job, rank=0):
+    """step -> record; the last record of a step wins (a killed life's
+    tail is recomputed by the resumed one)."""
+    return {r["step"]: r for r in job["records"] if r["rank"] == rank}
+
+
+def elastic_lives(job):
+    """The job's lives, one per (rank, pid), each its records in order,
+    and the check of each: card, gloo where two ranks run, no kernel
+    built in the child, and rows 2-5 and 8-9 launched
+    BERT_LAUNCHES_PER_STEP times a step of that life, all on the routes
+    of ELASTIC_ROUTES."""
+    lives: dict = {}
+    for r in job["records"]:
+        lives.setdefault((r["rank"], r["pid"]), []).append(r)
+    out = []
+    # pid order: the launcher starts rank 0 first, and a later life later
+    for (rank, pid), recs in sorted(lives.items(), key=lambda kv: kv[0][1]):
+        last, n = recs[-1], len(recs)
+        counts = last["counts"]
+        want = {k: v * n for k, v in BERT_LAUNCHES_PER_STEP.items()}
+        off = {k: (counts.get(k, 0), counts.get(f"{k}.{ELASTIC_ROUTES[k]}",
+                                                0), w)
+               for k, w in want.items()
+               if not counts.get(k, 0) == w
+               == counts.get(f"{k}.{ELASTIC_ROUTES[k]}", 0)}
+        backend = "gloo" if last["world"] == 2 else None
+        life = {"rank": rank, "pid": pid, "world": last["world"],
+                "steps": [recs[0]["step"], last["step"]],
+                "resumed_from": last["resumed_from"],
+                "restore_s": last["restore_s"],
+                "upload_s": last["upload_s"],
+                # process start -> the first step's record, less the step
+                "start_s": round(recs[0]["since_start"]
+                                 - recs[0]["step_s"], 3),
+                "device": last["device"], "backend": last["backend"],
+                "built_here": last["built_here"],
+                "launches": {k: counts.get(k, 0) for k in want},
+                "off_route": off}
+        out.append(life)
+        if not last["device"].startswith("cuda") \
+                or last["backend"] != backend or last["built_here"] or off:
+            fail(f"elastic {job['tag']}: rank {rank} life {pid}: device "
+                 f"{last['device']}, backend {last['backend']} (want "
+                 f"{backend}), kernels built in the child "
+                 f"{last['built_here']}, launches (all, on the route, "
+                 f"expected) off: {off}")
+    return out
+
+
+def elastic_row(job, ref=None):
+    """The printed row of one job: the launcher's lines, its lives, the
+    losses, step ms (a life's first step left out), detect -> resume (the
+    largest gap between two step records, both ranks, as bench_elastic
+    takes it), and rank 0's saves: host-copy seconds, the writer
+    thread's part and merge seconds, the part's GB (from the step
+    records and the end records of the lives that ran to the end)."""
+    lives = elastic_lives(job)
+    curve = elastic_curve(job)
+    ts = [r["t"] for r in job["records"]]
+    steady = [r["step_s"] for r in job["records"]
+              if r["resumed_from"] is None and r["step"] > 0
+              or r["resumed_from"] is not None
+              and r["step"] > r["resumed_from"]]
+    rank0 = [r for r in job["records"] + job["ends"] if r["rank"] == 0]
+    saves = [s for r in rank0 for s in r["saves"]]
+    writes = [w for r in rank0 for w in r["writes"]]
+    seen, uniq = set(), []
+    for x in saves + writes:
+        key = json.dumps(x, sort_keys=True)
+        if key not in seen:
+            seen.add(key)
+            uniq.append(x)
+    parts = [w for w in uniq if w.get("kind") == "part"]
+    merges = [w for w in uniq if w.get("kind") == "merge"]
+    copies = [x["host_copy_s"] for x in uniq if "host_copy_s" in x]
+    row = {"run": job["tag"], "rc": job["rc"],
+           "wall_s": round(job["wall_s"], 2), "launcher": job["launcher"],
+           "losses": [curve[s]["loss"] for s in sorted(curve)],
+           "worlds": [curve[s]["world"] for s in sorted(curve)],
+           "step_ms_median": round(statistics.median(steady) * 1e3, 3)
+           if steady else None,
+           "detect_resume_s": round(max(b - a for a, b in zip(ts, ts[1:])),
+                                    3) if len(ts) > 1 else None,
+           # the kill (after step 4's commit) -> the resumed life's first
+           # step record
+           "kill_to_resume_s": round(min(
+               r["t"] for r in job["records"]
+               if r["resumed_from"] is not None) - job["kills"][-1]["t"],
+               3) if job["kills"] else None,
+           "after_last_record_s": round(job["t_end"] - ts[-1], 3)
+           if ts else None,
+           "host_copy_s": [round(c, 4) for c in copies],
+           "part_write_s": [w["seconds"] for w in parts],
+           "merge_s": [w["seconds"] for w in merges],
+           "ckpt_gb": max((w["bytes"] for w in parts), default=0) / 1e9,
+           "lives": lives}
+    if ref is not None:
+        row["rel_to_ref"] = [abs(curve[s]["loss"] - ref[s]["loss"])
+                             / abs(ref[s]["loss"]) for s in sorted(curve)]
+    return row
+
+
+def elastic_save_overhead(torch):
+    """bench_elastic's cadence overhead on the card: the 512-wide tanh
+    MLP step (float32, plain PyTorch), 120 steps, a ClusterCheckpoint
+    save every 30, async then sync, between two runs without saves;
+    the overhead against the faster of the two."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    from paddle_tpu_torch.distributed.cluster_ckpt import ClusterCheckpoint
+    rs = np.random.RandomState(0)
+    p0 = torch.tensor(rs.randn(ELASTIC_MLP, ELASTIC_MLP).astype("float32"),
+                      device="cuda")
+    x = torch.tensor(rs.randn(64, ELASTIC_MLP).astype("float32"),
+                     device="cuda")
+
+    def step(p):
+        p = p.detach().requires_grad_()
+        h = torch.tanh(torch.tanh(x @ p) @ p)
+        g, = torch.autograd.grad(torch.sum(h * h), p)
+        return (p - 1e-4 * g).detach()
+
+    def run(async_save):
+        p = step(p0)                          # warm
+        torch.cuda.synchronize()
+        root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+        ck = None if async_save is None else ClusterCheckpoint(
+            root, rank=0, world=1, every_steps=ELASTIC_MLP_EVERY,
+            async_save=async_save)
+        try:
+            t0 = time.perf_counter()
+            for i in range(ELASTIC_MLP_STEPS):
+                p = step(p)
+                if ck is not None:
+                    ck.maybe_save(i, replicated={"p": p})
+            torch.cuda.synchronize()
+            if ck is not None:
+                ck.wait()
+            return (time.perf_counter() - t0) / ELASTIC_MLP_STEPS
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+
+    base1, t_async, t_sync, base2 = run(None), run(True), run(False), \
+        run(None)
+    base = min(base1, base2)
+    return {"config": f"bench_elastic: tanh MLP {ELASTIC_MLP} wide, "
+            f"{ELASTIC_MLP_STEPS} steps, save every {ELASTIC_MLP_EVERY}",
+            "baseline_step_ms": [round(base1 * 1e3, 4),
+                                 round(base2 * 1e3, 4)],
+            "async_step_ms": round(t_async * 1e3, 4),
+            "sync_step_ms": round(t_sync * 1e3, 4),
+            "async_save_overhead_pct": round((t_async - base) / base * 100,
+                                             2),
+            "sync_save_overhead_pct": round((t_sync - base) / base * 100,
+                                            2),
+            "async_overhead_bar_pct": 5.0}
+
+
+def elastic_phase(torch):
+    """Phase 19b: BERT-base at dp 2 through the port's launcher, killed,
+    resumed bit for bit and shrunk to one rank (module docstring).
+    Returns each rank's launches of run (a)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    work = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        # (a) fault-free, dropout 0.1, without saves: the losses and
+        # parameters are the same with them, and (b) measures them
+        a = elastic_job(work, "a_fault_free",
+                        ELASTIC_DRILL_SAVE_EVERY=ELASTIC_STEPS + 1)
+        if a["rc"] != 0:
+            fail(f"elastic (a): launcher exit {a['rc']}: {a['launcher']} "
+                 f"{elastic_tails(a['logs'])}")
+        row_a = elastic_row(a)
+        print(json.dumps({"phase": "elastic", **row_a}), flush=True)
+        final_a = dict(np.load(a["final"]))
+        # (b) rank 1 killed at step 5, a gang restart, the resume
+        b = elastic_job(work, "b_kill_resume",
+                        ("--max_restarts=2", "--restart_backoff=0.05"),
+                        ELASTIC_DRILL_KILL_RANK=1,
+                        ELASTIC_DRILL_KILL_AT=ELASTIC_KILL_AT)
+        if b["rc"] != 0:
+            fail(f"elastic (b): launcher exit {b['rc']}: {b['launcher']} "
+                 f"{elastic_tails(b['logs'])}")
+        ca, cb = elastic_curve(a), elastic_curve(b)
+        row_b = elastic_row(b, ca)
+        final_b = dict(np.load(b["final"]))
+        same = sorted(final_a) == sorted(final_b) and all(
+            np.array_equal(final_a[k], final_b[k]) for k in final_a)
+        row_b["bit_equal_losses"] = sorted(ca) == sorted(cb) and all(
+            ca[s]["loss"] == cb[s]["loss"] for s in ca)
+        row_b["bit_equal_params"] = same
+        row_b["restarted"] = any("elastic restart 1/2" in ln
+                                 for ln in b["launcher"])
+        # the armed kill waits for step 4's version to commit
+        row_b["resumed_from"] = sorted(
+            {r["resumed_from"] for r in b["records"]} - {None})
+        print(json.dumps({"phase": "elastic", **row_b}), flush=True)
+        if not (row_b["bit_equal_losses"] and same and row_b["restarted"]
+                and len(row_b["lives"]) == 4
+                and row_b["resumed_from"] == [ELASTIC_KILL_AT]):
+            fail(f"elastic (b): losses {row_b['losses']} against (a) "
+                 f"{row_a['losses']}, parameters bit-equal {same}, "
+                 f"launcher {b['launcher']}, lives {len(row_b['lives'])}, "
+                 f"resumed from {row_b['resumed_from']}")
+        shutil.rmtree(os.path.join(work, "b_kill_resume", "ckpt"))
+        # (c) dropout 0: the world-2 curve, then rank 1 flapping at step
+        # 5, excluded at its first failure: the job goes on at world 1
+        # (no saves: the curve is the same without them)
+        c0 = elastic_job(work, "c_world2", ELASTIC_DRILL_DROPOUT=0.0,
+                         ELASTIC_DRILL_SAVE_EVERY=ELASTIC_STEPS + 1)
+        if c0["rc"] != 0:
+            fail(f"elastic (c) world 2: launcher exit {c0['rc']}: "
+                 f"{elastic_tails(c0['logs'])}")
+        row_c0 = elastic_row(c0)
+        print(json.dumps({"phase": "elastic", **row_c0}), flush=True)
+        c = elastic_job(work, "c_shrink",
+                        ("--max_restarts=2", "--restart_backoff=0.05",
+                         "--exclude_flapping", "--flap_threshold=1"),
+                        ELASTIC_DRILL_DROPOUT=0.0,
+                        ELASTIC_DRILL_FLAP_RANK=1,
+                        ELASTIC_DRILL_KILL_AT=ELASTIC_KILL_AT)
+        if c["rc"] != 0:
+            fail(f"elastic (c): launcher exit {c['rc']}: {c['launcher']} "
+                 f"{elastic_tails(c['logs'])}")
+        cc0, cc = elastic_curve(c0), elastic_curve(c)
+        row_c = elastic_row(c, cc0)
+        resumed = {r["resumed_from"] for r in c["records"]} - {None}
+        row_c["resumed_from"] = sorted(resumed)
+        tail = range(ELASTIC_KILL_AT, ELASTIC_STEPS)
+        rel = max(row_c["rel_to_ref"][s] for s in tail)
+        row_c["max_rel_steps_5_7"] = rel
+        row_c["rtol"] = ELASTIC_RTOL
+        row_c["excluded"] = any("excluding flapping rank trainer.1" in ln
+                                for ln in c["launcher"])
+        print(json.dumps({"phase": "elastic", **row_c}), flush=True)
+        worlds_ok = resumed == {ELASTIC_KILL_AT} and all(
+            cc[s]["world"] == (2 if s < ELASTIC_KILL_AT else 1) for s in cc)
+        if not (rel <= ELASTIC_RTOL and row_c["excluded"] and worlds_ok
+                and sorted(cc) == list(range(ELASTIC_STEPS))):
+            fail(f"elastic (c): steps 5-7 off the world-2 curve by {rel} "
+                 f"(rtol {ELASTIC_RTOL}), excluded {row_c['excluded']}, "
+                 f"worlds {row_c['worlds']}, resumed from {resumed}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = elastic_save_overhead(torch)
+    print(json.dumps({"phase": "elastic_save_overhead", **over}),
+          flush=True)
+    print(json.dumps({
+        "phase": "elastic_summary", "detect_resume_s":
+        row_b["detect_resume_s"],
+        "kill_to_resume_s": [row_b["kill_to_resume_s"],
+                             row_c["kill_to_resume_s"]],
+        "start_s": [lf["start_s"] for row in (row_a, row_b, row_c0, row_c)
+                    for lf in row["lives"]],
+        "restore_s": [
+            lf["restore_s"] for lf in row_b["lives"] + row_c["lives"]
+            if lf["restore_s"] is not None],
+        "upload_s": [lf["upload_s"] for lf in row_b["lives"]
+                     + row_c["lives"] if lf["upload_s"] is not None],
+        "host_copy_s": row_b["host_copy_s"],
+        "part_write_s": row_b["part_write_s"], "merge_s": row_b["merge_s"],
+        "ckpt_gb": row_b["ckpt_gb"],
+        "step_ms_median": row_a["step_ms_median"],
+        "bert_dp_step_ms": MEASURED.get("bert_dp_step_ms"),
+        "async_save_overhead_pct": over["async_save_overhead_pct"],
+        "sync_save_overhead_pct": over["sync_save_overhead_pct"]}),
+        flush=True)
+    return [lf["launches"] for lf in row_a["lives"]]
 
 
 DP_CASES = {"bert": dp_bert_case, "parity": dp_parity_case,
@@ -5600,6 +6010,7 @@ def main(argv):
         return
     kernels_only = "--kernels" in argv
     ps_only = "--ps" in argv
+    elastic_only = "--elastic" in argv
     with_profile = "--profile" in argv
     moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
         if "--moe-seed" in argv else None
@@ -5635,6 +6046,14 @@ def main(argv):
             if any(k in line for k in ("Compiling entry", "registers",
                                        "spill", "wgmma")):
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
+
+    if elastic_only:
+        timed("elastic", elastic_phase, torch)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     if moe_seed is not None:
         timed("moe_gpt", moe_gpt_phase, torch, moe_seed)
@@ -5764,6 +6183,9 @@ def main(argv):
     timed("widedeep_mp", widedeep_mp_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
+    elastic_counts = timed("elastic", elastic_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
     ps_phases(torch)
 
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
@@ -5771,8 +6193,11 @@ def main(argv):
                         hybrid_counts, sp_counts, moe_counts)
     for ent in line["kernels"]:
         if ent["name"] in BERT_LAUNCHES_PER_STEP:
-            # the bert_dp run's launches, rank by rank
+            # the bert_dp run's launches, rank by rank, and those of
+            # the elastic phase's fault-free run
             ent["bert_dp_launches"] = [c[ent["name"]] for c in dp_counts]
+            ent["elastic_launches"] = [c[ent["name"]]
+                                       for c in elastic_counts]
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,17 @@
   collective.py  — all_reduce / all_gather / ... and the c_* ops
   parallel.py    — DataParallel and the bucketed gradient all-reduce
   spawn.py       — worker processes with the launcher's env
+  launch.py      — ``python -m paddle_tpu_torch.distributed.launch``:
+                   trainers, PS shards and serving replicas, watched and
+                   restarted (elastic mode)
+  elastic.py     — heartbeats, hung-rank and straggler detection
+  cluster_ckpt.py — coordinated cluster checkpoints, world-resize resume
+                   and the counter-based sample schedule
   recompute.py   — activation recompute
   fleet/         — the fleet facade's collective and parameter-server
                    modes, the strategy bag, the PS runtime, workers and
-                   cache, and the runtime's fault injector and wire
+                   cache, the runtime's fault injector and wire, and
+                   fleetrun (``fleet/launch.py``)
   fs.py          — LocalFS / HDFSClient, the PS snapshots' storage
 
 The names below load on first use, so that ``fleet.runtime.rpc`` (the

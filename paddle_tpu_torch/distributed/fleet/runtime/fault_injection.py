@@ -11,10 +11,10 @@ the ``serving_decode`` stall, inside the step lock), the wire
 reply), the PS shard's dispatch (the ``dispatch`` stall point), its
 replication stream (``ps_ha.py`` / ``repl_watch``: a record dropped,
 corrupted or delayed; a standby's kill at its N-th record) and its
-cold tier (``tiered_store.py``: a cold read delayed or failed). The
-trainer hooks the knobs below name belong to a tier of the JAX package
-not ported yet (ROADMAP.md A, item 16(c)); their knobs are parsed and
-kept here all the same.
+cold tier (``tiered_store.py``: a cold read delayed or failed), and a
+trainer's step (``distributed/elastic.py``'s ``note_step``: the kill at
+a step and the ``trainer_step`` stall, which the launcher's elastic
+drills arm).
 
 Env-driven (all optional; a hook pays one attribute check when nothing
 is configured):

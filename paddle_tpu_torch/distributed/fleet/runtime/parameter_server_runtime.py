@@ -600,6 +600,11 @@ class PSServer(socketserver.ThreadingTCPServer):
         self._deltas_since_base = 0
         self._last_export_mutations = -1
         self._snap_pending = False   # a DUE snapshot failed; retry owes it
+        # exports taken but not yet on disk (seqs, under _snap_lock): a
+        # snapshot returns only once every export up to its own is
+        # written (see snapshot())
+        self._unwritten: set[int] = set()
+        self._written = threading.Condition(self._snap_lock)
         self.snapshots_taken = 0
         self.full_snapshots = 0
         self.delta_snapshots = 0
@@ -1046,7 +1051,15 @@ class PSServer(socketserver.ThreadingTCPServer):
         redundant full base (the io-side seq check discards all but
         the newest). Deciding the base optimistically instead would let
         a racing DELTA land on disk with no base beneath it, turning a
-        crash in that window into real data loss."""
+        crash in that window into real data loss.
+
+        Ordering: a push's rows can ride an EARLIER export than its own
+        (another pusher's export ran after this push applied), and a
+        restore replays only the deltas on disk. So a snapshot returns,
+        and the reply goes out, only once every export up to its own
+        is written; one that finds nothing new waits for the newest
+        export in flight: otherwise a kill between the two writes loses
+        an acknowledged push."""
         path = self.snapshot_path
         if path is None:
             return
@@ -1058,54 +1071,78 @@ class PSServer(socketserver.ThreadingTCPServer):
                     and self._mutations == self._last_export_mutations:
                 # nothing changed since the last export: an idle server
                 # on a snapshot_interval timer must not churn empty
-                # deltas (or periodic full bases) forever
-                return
-            self._snap_seq += 1
-            seq = self._snap_seq
-            try:
-                if self._wal is not None:
-                    # WAL mode has no deltas: every snapshot is a full
-                    # base that compacts the journal. Rotate FIRST
-                    # (still under the apply lock): rows applied after
-                    # this instant land in wal_<seq>, which is exactly
-                    # what replays on top of base seq. Any owed
-                    # persistence (_wal_pending) is satisfied by this
-                    # export — clearing it under the apply lock means a
-                    # journal failure racing us either happened before
-                    # (rows captured by this export) or will set the
-                    # flag after we clear it (kept for the next base)
-                    do_full = True
-                    self._rotate_wal(seq)
+                # deltas (or periodic full bases) forever. That export
+                # holds this state, but may still be in its writer
+                seq = None
+                upto = self._snap_seq
+            else:
+                self._snap_seq += 1
+                seq = upto = self._snap_seq
+                try:
+                    if self._wal is not None:
+                        # WAL mode has no deltas: every snapshot is a
+                        # full base that compacts the journal. Rotate
+                        # FIRST (still under the apply lock): rows
+                        # applied after this instant land in wal_<seq>,
+                        # which is exactly what replays on top of base
+                        # seq. Any owed persistence (_wal_pending) is
+                        # satisfied by this export — clearing it under
+                        # the apply lock means a journal failure racing
+                        # us either happened before (rows captured by
+                        # this export) or will set the flag after we
+                        # clear it (kept for the next base)
+                        do_full = True
+                        self._rotate_wal(seq)
+                        with self._snap_lock:
+                            self._wal_pending = False
+                    else:
+                        do_full = full if full is not None else (
+                            not self._base_written
+                            or (self.snapshot_compact_every
+                                and self._deltas_since_base
+                                >= self.snapshot_compact_every))
+                    arrays = self._export_arrays(
+                        seq, names=None if do_full else dirty,
+                        kind="base" if do_full else "delta")
+                    self._last_export_mutations = self._mutations
+                except BaseException:
                     with self._snap_lock:
-                        self._wal_pending = False
-                else:
-                    do_full = full if full is not None else (
-                        not self._base_written
-                        or (self.snapshot_compact_every
-                            and self._deltas_since_base
-                            >= self.snapshot_compact_every))
-                arrays = self._export_arrays(
-                    seq, names=None if do_full else dirty,
-                    kind="base" if do_full else "delta")
-                self._last_export_mutations = self._mutations
+                        self._dirty |= dirty
+                        self._snap_pending = True
+                    raise
+                with self._snap_lock:
+                    self._unwritten.add(seq)
+        if seq is not None:
+            try:
+                self._write_snapshot_files(path, arrays, seq, do_full)
             except BaseException:
+                # the dirty marks were consumed by this export; a failed
+                # export/write must put them back (and flag the owed
+                # snapshot for the retry hook) or every later delta
+                # would silently omit these tables until the next base
                 with self._snap_lock:
                     self._dirty |= dirty
                     self._snap_pending = True
+                    self._unwritten.discard(seq)
+                    self._written.notify_all()
                 raise
-        try:
-            self._write_snapshot_files(path, arrays, seq, do_full)
-        except BaseException:
-            # the dirty marks were consumed by this export; a failed
-            # export/write must put them back (and flag the owed
-            # snapshot for the retry hook) or every later delta would
-            # silently omit these tables until the next full base
             with self._snap_lock:
-                self._dirty |= dirty
-                self._snap_pending = True
-            raise
-        with self._snap_lock:
-            self._snap_pending = False
+                self._snap_pending = False
+                self._unwritten.discard(seq)
+                self._written.notify_all()
+        self._wait_written(upto)
+
+    def _wait_written(self, upto: int):
+        """Block until no export up to seq `upto` is still being
+        written. If one of them failed (its dirty marks are back and a
+        snapshot is owed), take that snapshot here: the caller's reply
+        must not go out on state that is not on disk."""
+        with self._written:
+            while any(s <= upto for s in self._unwritten):
+                self._written.wait()
+            owed = self._snap_pending
+        if owed:
+            self.snapshot(full=True if self._wal is not None else None)
 
     def _write_snapshot_files(self, path, arrays, seq, do_full):
         kind = "base" if do_full else "delta"

@@ -4,10 +4,11 @@
 Starts `nprocs` worker processes with the launcher's PADDLE_* env and
 runs ``func(*args)`` in each. The start method is ``spawn``: CUDA does
 not survive a fork. A worker that fails, or a run past `timeout`
-seconds, terminates the others and raises. ``get_cluster_env`` is the
-port's copy of the reference's launcher helper
-(``distributed/launch.py:188``); the launcher itself is not ported
-(ROADMAP.md A, item 16).
+seconds, terminates the others and raises. A worker's env is the
+launcher's (``distributed/launch.py``'s ``get_cluster_env``, importable
+from here under that name too); for elastic jobs (restarts, heartbeats,
+cluster checkpoints) start the script under
+``python -m paddle_tpu_torch.distributed.launch`` instead.
 """
 from __future__ import annotations
 
@@ -18,37 +19,25 @@ import socket
 import sys
 import time
 
+from .launch import get_cluster_env
+
 __all__ = ["spawn", "get_cluster_env"]
-
-
-def get_cluster_env(rank, endpoints, role="TRAINER", servers="",
-                    workers=""):
-    """PADDLE_* env for one child (reference launch_utils.py
-    start_local_trainers)."""
-    env = {
-        "PADDLE_TRAINER_ID": str(rank),
-        "PADDLE_CURRENT_ENDPOINT": endpoints[rank],
-        "PADDLE_TRAINERS_NUM": str(len(endpoints)),
-        "PADDLE_TRAINER_ENDPOINTS": ",".join(endpoints),
-        "PADDLE_COORDINATOR": endpoints[0],
-        "TRAINING_ROLE": role,
-        "FLAGS_selected_gpus": "0",
-    }
-    if servers:
-        env["PADDLE_PSERVERS_IP_PORT_LIST"] = servers
-    if workers:
-        env["PADDLE_WORKERS_IP_PORT_LIST"] = workers
-    return env
 
 
 def _worker(rank, endpoints, func, args):
     os.environ.update(get_cluster_env(rank, endpoints))
     func(*args)
-    # tear the process group down, then leave without the runtime's own
-    # teardown (the atexit hooks still run): under load a thread left
-    # joinable is destroyed there and the process aborts ("terminate
-    # called without an active exception", exit -6) after its work is
-    # done and its group is gone
+    _leave()
+
+
+def _leave():
+    """Tear the process group down, then leave without the runtime's own
+    teardown (the atexit hooks still run): under load a thread left
+    joinable is destroyed there and the process aborts ("terminate
+    called without an active exception", exit -6) after its work is
+    done and its group is gone. A launcher's child that joined a group
+    leaves the same way (else the launcher reads the abort as a
+    crash)."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         dist.barrier()

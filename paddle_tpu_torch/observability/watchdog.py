@@ -10,8 +10,10 @@ advancing while it has work — and the watchdog fires when a token goes
   * serving engine — ``_wd_progress`` (advanced on every token and every
     retirement); idle = scheduler idle (an empty engine is never a
     stall);
-  * any tier with a health predicate — ``watch(..., healthy=True)``
-    (truthy = progress).
+  * any tier with a health predicate — ``watch_healthy`` (truthy =
+    progress);
+  * the launcher's heartbeat files — ``watch_heartbeats``, healthy while
+    ``distributed.elastic.stale_ranks`` reports no hung rank.
 
 On fire the watchdog raises ``paddle_tpu_watchdog_*`` metrics, records
 a ``watchdog`` flight event, writes a postmortem bundle
@@ -36,10 +38,6 @@ Knobs: ``PADDLE_TPU_WATCHDOG`` (truthy = auto-start),
 ``PADDLE_TPU_WATCHDOG_INTERVAL`` (poll seconds, default 1),
 ``PADDLE_TPU_WATCHDOG_DEADLINE`` (default token deadline seconds,
 default 300, read at registration time), ``PADDLE_TPU_WATCHDOG_SIGTERM``.
-
-The launcher-heartbeat token (``watch_heartbeats``, a health predicate
-over ``distributed.elastic``) waits for the elastic launcher (ROADMAP
-item 16(c)).
 """
 from __future__ import annotations
 
@@ -51,8 +49,8 @@ import time
 from . import flight as _flight
 from . import registry as _obs
 
-__all__ = ["Watchdog", "WATCHDOG", "watch", "unwatch", "check_once",
-           "default_deadline"]
+__all__ = ["Watchdog", "WATCHDOG", "watch", "watch_healthy",
+           "watch_heartbeats", "unwatch", "check_once", "default_deadline"]
 
 _CHECKS = _obs.counter(
     "paddle_tpu_watchdog_checks_total",
@@ -133,6 +131,31 @@ class Watchdog:
         with self._lock:
             self._tokens[name] = tok
         return name
+
+    def watch_healthy(self, name: str, healthy_fn,
+                      deadline: float | None = None,
+                      on_stall=None) -> str:
+        """Predicate token: progress = ``healthy_fn()`` truthy; fires
+        after `deadline` seconds of continuous unhealth."""
+        return self.watch(name, healthy_fn, deadline=deadline,
+                          on_stall=on_stall, healthy=True)
+
+    def watch_heartbeats(self, dir_: str, timeout: float,
+                         expected: int, grace: float = 0.0,
+                         deadline: float | None = None,
+                         name: str = "elastic.heartbeats",
+                         on_stall=None) -> str:
+        """Arm the watchdog on the launcher-side heartbeat files: the
+        token is healthy while ``elastic.stale_ranks`` reports no hung
+        rank, so stale heartbeats become an in-process stall (bundle +
+        metrics) instead of only a launcher kill."""
+        def healthy():
+            from ..distributed.elastic import stale_ranks
+            return not stale_ranks(dir_, timeout, expected, grace=grace)
+
+        return self.watch_healthy(
+            name, healthy, deadline=deadline if deadline is not None
+            else timeout, on_stall=on_stall)
 
     def unwatch(self, name: str) -> bool:
         with self._lock:
@@ -254,5 +277,7 @@ class Watchdog:
 # process-wide watchdog + module-level shortcuts (tiers register here)
 WATCHDOG = Watchdog()
 watch = WATCHDOG.watch
+watch_healthy = WATCHDOG.watch_healthy
+watch_heartbeats = WATCHDOG.watch_heartbeats
 unwatch = WATCHDOG.unwatch
 check_once = WATCHDOG.check_once

@@ -48,7 +48,8 @@ def test_port_file_list_is_not_empty():
             "chunks.py", "manifest.py", "wal.py",
             "fault_injection.py", "watchdog.py", "debug.py", "loadgen.py",
             "frontend.py", "rpc.py", "parameter_server_runtime.py",
-            "ps_ha.py", "tiered_store.py"} <= names
+            "ps_ha.py", "tiered_store.py", "launch.py", "elastic.py",
+            "cluster_ckpt.py"} <= names
     assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \
         / "runtime" / "rpc.py" in PORT_FILES
 

@@ -10,9 +10,12 @@ engine's wiring into them) on the CPU, held to the JAX package:
   * a bundle written by either package loads, CRC-verified, with the
     other's ``load_bundle`` (and a corrupted one fails in both).
 
-The heartbeat token (``watch_heartbeats``, distributed.elastic), the
-launcher's ``--debug_dir`` and the PS tier's hang and ``debug_dump``
-cases wait for ROADMAP item 16 (the elastic launcher and the PS tier).
+  * the launcher-heartbeat token (``watch_heartbeats`` over
+    distributed.elastic's heartbeat files) and the launcher's
+    ``--debug_dir`` / ``--metrics_dir`` flags.
+
+The lock sanitizer's rerun of these cases waits for ROADMAP.md A,
+item 19.
 """
 import json
 import os
@@ -190,6 +193,41 @@ def test_watchdog_healthy_predicate_fires_after_continuous_unhealth():
     ok[0] = True
     now[0] = 3.6
     assert wd.check_once() == [] and wd.stalled() == []
+
+
+def test_watchdog_healthy_predicate_and_heartbeats(tmp_path):
+    from paddle_tpu_torch.distributed.elastic import HeartbeatWriter
+    wd = Watchdog(debug_dir=None)
+    hb = HeartbeatWriter(str(tmp_path), rank=0, interval=0.05).start()
+    try:
+        wd.watch_heartbeats(str(tmp_path), timeout=0.5, expected=1,
+                            deadline=0.05)
+        wd.check_once()
+        time.sleep(0.1)
+        assert wd.check_once() == []           # beating = healthy
+    finally:
+        hb.stop()
+    time.sleep(0.7)                            # beats go stale
+    fired = wd.check_once()
+    if not fired:                              # unhealth just started
+        time.sleep(0.07)
+        fired = wd.check_once()
+    assert fired == ["elastic.heartbeats"]
+
+
+def test_module_level_watch_helpers_match_the_jax_package():
+    for name in ("watch", "watch_healthy", "watch_heartbeats", "unwatch",
+                 "check_once"):
+        assert hasattr(obs_watchdog, name), name
+    assert set(jwatchdog.__all__) <= set(obs_watchdog.__all__)
+
+
+def test_launch_parser_accepts_debug_dir():
+    from paddle_tpu_torch.distributed.launch import _parse
+    args = _parse(["--debug_dir", "/tmp/x", "--metrics_dir", "/tmp/y",
+                   "train.py"])
+    assert args.debug_dir == "/tmp/x" and args.metrics_dir == "/tmp/y"
+    assert args.training_script == "train.py"
 
 
 def test_watchdog_deadline_from_env_at_registration(monkeypatch):

@@ -406,6 +406,54 @@ def test_delta_snapshots_rewrite_only_dirty_tables(tmp_path, monkeypatch):
         _stop(srv2)
 
 
+def test_a_reply_waits_for_an_earlier_export_in_flight(tmp_path,
+                                                      monkeypatch):
+    """Write-through snapshots (snapshot_every=1): push A's export is
+    still being written when push B commits and writes a later delta.
+    A restore replays only the deltas on disk, so B's reply waits for
+    A's write; a kill between them would otherwise lose B's rows if they
+    rode A's export, or A's table in B's delta chain. (The launcher's
+    mid-push respawn drill lost one push in 40 under load before.)"""
+    monkeypatch.setenv("PADDLE_TPU_DISABLE_NATIVE", "1")
+    ep = W.endpoint()
+    srv = _serve(ps, ep, snapshot_dir=str(tmp_path), snapshot_every=1)
+    cl_a, cl_b = ps.PSClient([ep]), ps.PSClient([ep])
+    try:
+        cl_a.push("t", 4, [0], np.ones((1, 4)), lr=1.0)   # the base
+        gate, held = threading.Event(), threading.Event()
+        real = srv._write_snapshot_files
+        target = srv._snap_seq + 1
+
+        def slow(path, arrays, seq, do_full):
+            if seq == target:
+                held.set()
+                assert gate.wait(30)
+            return real(path, arrays, seq, do_full)
+
+        srv._write_snapshot_files = slow
+        done = []
+        a = threading.Thread(target=lambda: done.append(cl_a.push(
+            "t", 4, [1], np.ones((1, 4)), lr=1.0) or "a"))
+        a.start()
+        assert held.wait(30)            # A's export is in its write
+        b = threading.Thread(target=lambda: done.append(cl_b.push(
+            "t", 4, [2], np.ones((1, 4)), lr=1.0) or "b"))
+        b.start()
+        b.join(1.0)
+        assert b.is_alive() and not done, \
+            "B replied while A's earlier export was still unwritten"
+        gate.set()
+        a.join(30)
+        b.join(30)
+        assert sorted(done) == ["a", "b"]
+        assert srv.delta_snapshots == 2
+    finally:
+        gate.set()
+        cl_a.close()
+        cl_b.close()
+        _stop(srv)
+
+
 def test_snapshot_compaction_collapses_deltas(tmp_path, monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_DISABLE_NATIVE", "1")
     ep = W.endpoint()
