@@ -34,9 +34,12 @@ demand-pages cold ones from a chunk store (``tiered_store.py``).
 Journal records, replication streams and bootstraps are the JAX
 package's bytes, so the two packages' shards replicate to each other.
 
-Not in this module yet (each raises NotImplementedError naming its
-ROADMAP.md A item): continuous publication (item 17); the hosted
-telemetry collector (item 18).
+Online learning and telemetry: with ``publish_dir`` (or
+PADDLE_TPU_PUBLISH_DIR) the shard publishes its tables through the
+publish tier (``paddle_tpu_torch/publish``) on a cadence and answers the
+``pub_*`` registry verbs; PADDLE_TPU_TELEMETRY_HOST=1 makes it host a
+telemetry collector answering the ``tel_*`` verbs, so one endpoint
+serves pulls, version announces and the fleet's telemetry.
 """
 from __future__ import annotations
 
@@ -78,17 +81,6 @@ _SNAPSHOT_SECONDS = _obs.histogram(
 
 # watchdog token uniqueness across same-endpoint server respawns
 _ps_server_ids = itertools.count()
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: it comes with ROADMAP.md A, item "
-        f"{item}")
-
-
-def _set(*values) -> bool:
-    """Whether any argument or knob turns its feature on."""
-    return any(v not in (None, False, 0, "", "0") for v in values)
 
 
 class LargeScaleKV:
@@ -416,8 +408,10 @@ class PSServer(socketserver.ThreadingTCPServer):
     standby of that endpoint, `ha_epoch` (PADDLE_PS_HA_EPOCH) is its
     fencing epoch. `tier_warm_bytes` / `tier_store_dir` /
     `tier_tables` (PADDLE_PS_TIER_*) tier the named tables.
-    `publish_dir` / PADDLE_TPU_PUBLISH_DIR raise naming item 17,
-    PADDLE_TPU_TELEMETRY_HOST=1 item 18."""
+    `publish_dir` (PADDLE_TPU_PUBLISH_DIR) publishes the tables on the
+    `publish_every_{steps,seconds,rows}` cadence
+    (PADDLE_TPU_PUBLISH_EVERY_*); PADDLE_TPU_TELEMETRY_HOST=1 hosts a
+    telemetry collector on this shard's wire."""
 
     allow_reuse_address = True
     daemon_threads = True
@@ -444,7 +438,9 @@ class PSServer(socketserver.ThreadingTCPServer):
     # waiting out a slow trainer is round semantics, not a wedged
     # server)
     _BLOCKING_OPS = frozenset({"send_barrier", "fetch_barrier",
-                               "dgc_push", "dgc_pull", "subscribe_inval",
+                               "dgc_push", "dgc_pull",
+                               "subscribe_inval", "pub_watch",
+                               "tel_watch",
                                # replication streams sit open for the
                                # standby's lifetime; handoff blocks on
                                # standby catch-up by design
@@ -473,12 +469,6 @@ class PSServer(socketserver.ThreadingTCPServer):
                  tier_store_dir: str | None = None,
                  tier_tables=None):
         env = os.environ.get
-        if _set(publish_dir, env("PADDLE_TPU_PUBLISH_DIR")):
-            _later("continuous publication (publish_dir=, "
-                   "PADDLE_TPU_PUBLISH_DIR)", "17")
-        if env("PADDLE_TPU_TELEMETRY_HOST", "") == "1":
-            _later("the hosted telemetry collector "
-                   "(PADDLE_TPU_TELEMETRY_HOST=1)", "18")
         host, port = endpoint.rsplit(":", 1)
         self.tables: dict[str, LargeScaleKV] = {}
         self._tables_lock = threading.Lock()
@@ -608,6 +598,13 @@ class PSServer(socketserver.ThreadingTCPServer):
         self.snapshots_taken = 0
         self.full_snapshots = 0
         self.delta_snapshots = 0
+        # fleet-telemetry hosting: this shard answers the tel_* verbs
+        # (collector role) when PADDLE_TPU_TELEMETRY_HOST=1, so small
+        # fleets need no separate collector process
+        self._tel_collector = None
+        if env("PADDLE_TPU_TELEMETRY_HOST", "") == "1":
+            from ....observability.collector import TelemetryCollector
+            self._tel_collector = TelemetryCollector()
         self._rpc = RpcServerState(read_ops=self.READ_OPS,
                                    secret=secret,
                                    after_commit=self._after_commit,
@@ -683,6 +680,23 @@ class PSServer(socketserver.ThreadingTCPServer):
                     self._replay_wal()
                 self._open_wal()
                 self._rpc.journal = self._journal
+        # continuous publication: route table exports through the
+        # publish tier's content-addressed store on a cadence; the
+        # pub_* registry verbs ride this server's own wire
+        self.publish_dir = publish_dir if publish_dir is not None \
+            else (env("PADDLE_TPU_PUBLISH_DIR") or None)
+        self._publisher = None
+        self._exporter = None
+        if self.publish_dir:
+            from ....publish import PSExporter, Publisher
+            self._publisher = Publisher(
+                self.publish_dir,
+                run=f"ps:{self.endpoint}")
+            self._exporter = PSExporter(
+                self, self._publisher,
+                every_steps=publish_every_steps,
+                every_seconds=publish_every_seconds,
+                every_rows=publish_every_rows).start()
         self._snap_stop = threading.Event()
         if self.snapshot_dir and self.snapshot_interval > 0:
             threading.Thread(target=self._snapshot_loop,
@@ -727,6 +741,8 @@ class PSServer(socketserver.ThreadingTCPServer):
         rep = self._ha_replicator
         if rep is not None:
             rep.close()
+        if self._exporter is not None:
+            self._exporter.stop()
         if self._wal is not None:
             self._wal.close()
         super().server_close()
@@ -781,6 +797,10 @@ class PSServer(socketserver.ThreadingTCPServer):
     def _after_commit(self, op: str):
         if op not in self._SNAPSHOT_OPS:
             return
+        if self._exporter is not None:
+            # cadence counters + wake event only — publication IO
+            # never runs on the push path
+            self._exporter.note_commit(op)
         with self._snap_lock:
             self._mutations += 1
             if self._wal is not None:
@@ -1749,10 +1769,26 @@ class PSServer(socketserver.ThreadingTCPServer):
             if gated is not None:
                 return gated
         if op.startswith("pub_"):
-            _later(f"the publish registry verbs ({op!r})", "17")
+            # version-registry verbs ride the PS wire when publishing is
+            # configured — one endpoint serves pulls AND version
+            # announces, so serving subscribers need no extra connection
+            if self._publisher is None:
+                raise ValueError(
+                    "publishing not configured on this shard "
+                    "(set PADDLE_TPU_PUBLISH_DIR or publish_dir=)")
+            from ....publish.registry import registry_dispatch
+            return registry_dispatch(self._publisher.registry, req)
         if op.startswith("tel_") \
                 or op in ("tsdb_query", "alerts", "usage_report"):
-            _later(f"the hosted telemetry collector ({op!r})", "18")
+            # fleet-telemetry verbs (hosted collector): one PS endpoint
+            # can double as the collector, the debug_dump / pub_*
+            # hosting pattern
+            if self._tel_collector is None:
+                raise ValueError(
+                    "telemetry collector not hosted on this shard "
+                    "(set PADDLE_TPU_TELEMETRY_HOST=1)")
+            from ....observability.collector import telemetry_dispatch
+            return telemetry_dispatch(self._tel_collector, req)
         if op == "pull":
             if self._wal is not None:
                 return self._wal_pull(req)
@@ -1772,6 +1808,9 @@ class PSServer(socketserver.ThreadingTCPServer):
             if self.snapshot_dir:
                 self._mark_dirty(req["table"])
             self._publish_inval(req["table"], req["keys"])
+            if self._exporter is not None:
+                self._exporter.note_rows(
+                    int(np.asarray(req["keys"]).size))
             return True
         if op == "save":
             tag = self.endpoint.replace(":", "_")

@@ -25,9 +25,14 @@ exited FIRST is blamed: with real collectives a rank's death makes its
 peers fail a moment later, and the flap and crash-loop accounting must
 name the rank that died, not its victims.
 
-Not ported yet: ``--telemetry`` / ``--tsdb-dir`` (the fleet telemetry
-collector, ROADMAP.md A, item 18) and ``--publish_dir`` (online
-learning's publish pipeline, item 17) raise before any child starts.
+Online learning and telemetry: ``--publish_dir`` hands
+PADDLE_TPU_PUBLISH_DIR to the PS server and serving-replica children
+(servers publish their tables there, replicas adopt from it);
+``--telemetry`` points every child's agent at a ``telemetry`` child
+running ``python -m paddle_tpu_torch.observability.collector``, which
+the watch loop respawns alone, and ``--tsdb-dir`` gives that collector
+its durable metric history. The serving router, ``top`` and
+``perfwatch`` wait for the next slice of the port.
 """
 from __future__ import annotations
 
@@ -156,9 +161,12 @@ def _parse(argv):
                         "(PADDLE_PS_TIER_STORE_DIR). Default: "
                         "<snapshot_dir>/tier_store")
     p.add_argument("--publish_dir", type=str, default=None,
-                   help="online learning (PADDLE_TPU_PUBLISH_DIR for "
-                        "PS server and serving-replica children): not "
-                        "ported yet, raises (ROADMAP.md A, item 17)")
+                   help="online learning: set PADDLE_TPU_PUBLISH_DIR "
+                        "for PS server and serving-replica children. "
+                        "Servers export their tables through the "
+                        "publish pipeline on the PADDLE_TPU_PUBLISH_"
+                        "EVERY_* cadence; replicas adopt published "
+                        "versions from it")
     p.add_argument("--metrics_dir", type=str, default=None,
                    help="telemetry: set PADDLE_TPU_METRICS_DIR for "
                         "every child so each process dumps its metric "
@@ -176,14 +184,19 @@ def _parse(argv):
     p.add_argument("--telemetry", type=str, default=None,
                    nargs="?", const="127.0.0.1:8600",
                    metavar="HOST:PORT",
-                   help="fleet telemetry (a collector child every "
-                        "process streams to): not ported yet, raises "
-                        "(ROADMAP.md A, item 18)")
+                   help="fleet telemetry: spawn a collector child on "
+                        "this endpoint (default 127.0.0.1:8600 when "
+                        "the flag is given bare) and set "
+                        "PADDLE_TPU_TELEMETRY_COLLECTOR for every "
+                        "other child so each process streams spans / "
+                        "flight events / metric deltas to it")
     p.add_argument("--tsdb-dir", type=str, default=None,
                    metavar="DIR",
-                   help="with --telemetry: the collector's durable "
-                        "metric history: not ported yet, raises "
-                        "(ROADMAP.md A, item 18)")
+                   help="with --telemetry: durable metric history — "
+                        "the collector child persists its TSDB blocks "
+                        "here (PADDLE_TPU_TSDB_DIR), so its history "
+                        "and SLO burn-rate alerts survive collector "
+                        "restarts; without it history is memory-only")
     p.add_argument("training_script", type=str)
     p.add_argument("training_script_args", nargs=argparse.REMAINDER)
     return p.parse_args(argv)
@@ -310,11 +323,14 @@ def _watch(procs, manager=None, specs=None, log_dir=None,
                             continue
                         # shard unrecoverable: fall through to teardown
                     if spec is not None and manager is not None \
-                            and name.startswith(("server.", "replica.")) \
+                            and (name.startswith(("server.", "replica."))
+                                 or name == "telemetry") \
                             and manager.should_restart_server():
                         manager.record_server_restart()
                         if name.startswith("server."):
                             what = "it from snapshot"
+                        elif name == "telemetry":
+                            what = "the stateless collector alone"
                         else:
                             what = "it alone from its engine checkpoint"
                         sys.stderr.write(
@@ -340,13 +356,15 @@ def _watch(procs, manager=None, specs=None, log_dir=None,
             # tears servers down once trainers exit)
             worker_rcs = [p.poll() for name, p, _ in procs
                           if not name.startswith(
-                              ("server.", "standby.", "replica."))]
+                              ("server.", "standby.", "replica."))
+                          and name != "telemetry"]
             if worker_rcs and all(rc == 0 for rc in worker_rcs) \
                     and any(name.startswith(("server.", "standby."))
+                            or name == "telemetry"
                             for name, _, _ in procs):
                 sys.stderr.write(
                     "[launch] all workers finished; stopping daemon "
-                    "children (PS servers)\n")
+                    "children (PS servers / telemetry)\n")
                 _kill_all(procs)
                 return 0, False, None, None
             if manager is not None:
@@ -452,14 +470,6 @@ def _kill_all(procs):
 
 def launch(argv=None):
     args = _parse(argv if argv is not None else sys.argv[1:])
-    if args.telemetry or args.tsdb_dir:
-        raise NotImplementedError(
-            "--telemetry / --tsdb-dir: the fleet telemetry collector is "
-            "not ported yet (ROADMAP.md A, item 18)")
-    if args.publish_dir:
-        raise NotImplementedError(
-            "--publish_dir: online learning's publish pipeline is not "
-            "ported yet (ROADMAP.md A, item 17)")
     script = [sys.executable, args.training_script] \
         + args.training_script_args
     specs = []
@@ -548,6 +558,30 @@ def launch(argv=None):
         os.makedirs(args.cluster_ckpt_dir, exist_ok=True)
         for _name, env, _argv in specs:
             env["PADDLE_TPU_CLUSTER_CKPT_DIR"] = args.cluster_ckpt_dir
+    if args.publish_dir:
+        # online learning: servers PUBLISH through this store, serving
+        # replicas ADOPT from it (workers/trainers don't need it)
+        os.makedirs(args.publish_dir, exist_ok=True)
+        for name, env, _argv in specs:
+            if name.startswith(("server.", "replica.")):
+                env["PADDLE_TPU_PUBLISH_DIR"] = args.publish_dir
+    if args.telemetry:
+        # fleet telemetry: one collector child answers the tel_* verbs;
+        # every rank's agent autostarts from this env at observability
+        # import and streams spans/flight/metric deltas to it. Agents
+        # reconnect with backoff, so neither spawn order nor collector
+        # respawns matter to serving.
+        for name, env, _argv in specs:
+            env["PADDLE_TPU_TELEMETRY_COLLECTOR"] = args.telemetry
+            env.setdefault("PADDLE_TPU_TELEMETRY_ROLE", name)
+        tel_env = {"PADDLE_TPU_TELEMETRY_COLLECTOR": ""}
+        if args.tsdb_dir:
+            os.makedirs(args.tsdb_dir, exist_ok=True)
+            tel_env["PADDLE_TPU_TSDB_DIR"] = args.tsdb_dir
+        specs.append(("telemetry", tel_env,
+                      [sys.executable, "-m",
+                       "paddle_tpu_torch.observability.collector",
+                       "--endpoint", args.telemetry]))
     from .elastic import ElasticManager
     hb_dir = None
     if args.max_restarts > 0:
@@ -590,11 +624,19 @@ def launch(argv=None):
         for name, env, argv in specs:
             if name.startswith("replica."):
                 server_specs[name] = (env, argv)
+    if args.telemetry and args.max_restarts > 0:
+        # the collector is stateless — respawn it alone; agents just
+        # reconnect, serving is never in the loop
+        for name, env, argv in specs:
+            if name == "telemetry":
+                server_specs[name] = (env, argv)
     manager = ElasticManager(
         max_restarts=args.max_restarts,
         heartbeat_timeout=args.heartbeat_timeout,
         heartbeat_dir=hb_dir,
-        world_size=len(specs),
+        # the telemetry collector never writes heartbeat files — it
+        # must not count toward the expected rank set
+        world_size=sum(1 for n, _, _ in specs if n != "telemetry"),
         step_deadline=args.step_deadline,
         straggler_lag=args.straggler_lag) \
         if args.max_restarts > 0 else None
@@ -677,7 +719,8 @@ def launch(argv=None):
                 shrunk = _drop_trainer_rank(specs, offender)
                 if shrunk is not None:
                     specs = shrunk
-                    manager.world_size = len(specs)
+                    manager.world_size = sum(
+                        1 for n, _, _ in specs if n != "telemetry")
                     # identities renumbered — restart the flap accounting
                     offender_counts.clear()
                     sys.stderr.write(
@@ -705,6 +748,8 @@ def _heartbeat_rank_names(specs):
     PADDLE_TRAINER_ID, which is what start_heartbeat writes)."""
     names = {}
     for name, env, _argv in specs:
+        if name == "telemetry":
+            continue
         try:
             names[int(env.get("PADDLE_TRAINER_ID", "-1"))] = name
         except ValueError:

@@ -8,7 +8,13 @@ deadline raises ``paddle_tpu_watchdog_*`` metrics, writes a bundle and
 can re-raise SIGTERM) and ``debug`` (atomic, CRC-manifested postmortem
 bundle directories under ``PADDLE_TPU_DEBUG_DIR``, written on watchdog
 fire, unhandled exception, SIGTERM, and on demand through the serving
-frontend's ``debug_dump`` verb).
+frontend's ``debug_dump`` verb), and the fleet telemetry plane: the
+per-process ``agent`` (spans, flight events, metric snapshots and
+discrete events streamed to a collector; armed from
+``PADDLE_TPU_TELEMETRY_COLLECTOR`` at import), the ``collector``
+(cross-process trace assembly with tail sampling, fleet state, the
+``tel_*`` / ``tsdb_query`` / ``alerts`` / ``usage_report`` verbs), its
+``timeseries`` store and its ``alerts`` rules.
 
 ``set_enabled(False)`` (or ``PADDLE_TPU_TELEMETRY=0``) turns metric
 writes, span records and flight events into cheap no-ops.
@@ -19,21 +25,41 @@ import atexit
 import os
 import socket
 
-from . import debug, flight, meter, perf, registry, tracing, watchdog
+from . import agent, alerts, collector, debug, flight, meter, perf, \
+    registry, timeseries, tracing, watchdog
+from .agent import TelemetryAgent, publish_event
+from .alerts import AlertManager, AlertRule
+from .collector import TelemetryCollector, telemetry_dispatch
 from .debug import collect, load_bundle, write_bundle
 from .flight import RECORDER
-from .meter import METER
-from .registry import (REGISTRY, counter, gauge, histogram,
+from .meter import METER, UsageMeter, usage_report
+from .registry import (REGISTRY, Counter, Gauge, Histogram, MetricError,
+                       MetricsRegistry, aggregate_dir, aggregate_dumps,
+                       counter, dump_to_file, gauge, histogram,
                        prometheus_text, to_dict)
-from .tracing import TRACER, current_trace_id, new_trace_id, span
+from .timeseries import TimeSeriesDB
+from .tracing import (TRACER, Span, Tracer, current_trace_id,
+                      export_chrome_trace, new_trace_id, span)
 from .watchdog import WATCHDOG
 
-__all__ = ["registry", "tracing", "flight", "meter", "perf", "watchdog",
-           "debug", "REGISTRY", "TRACER", "RECORDER", "METER",
-           "WATCHDOG", "counter", "gauge", "histogram",
-           "prometheus_text", "to_dict", "span", "current_trace_id",
-           "new_trace_id", "collect", "write_bundle", "load_bundle",
-           "set_enabled", "enabled"]
+__all__ = [
+    "registry", "tracing", "flight", "watchdog", "debug",
+    "agent", "collector", "perf", "timeseries", "alerts", "meter",
+    "TelemetryAgent", "TelemetryCollector",
+    "telemetry_dispatch", "publish_event",
+    "TimeSeriesDB", "AlertManager", "AlertRule",
+    "UsageMeter", "METER", "usage_report",
+    "REGISTRY", "MetricsRegistry", "MetricError",
+    "Counter", "Gauge", "Histogram",
+    "counter", "gauge", "histogram",
+    "prometheus_text", "to_dict", "dump_to_file",
+    "aggregate_dumps", "aggregate_dir",
+    "TRACER", "Tracer", "Span", "span", "current_trace_id",
+    "new_trace_id", "export_chrome_trace",
+    "RECORDER", "WATCHDOG",
+    "collect", "write_bundle", "load_bundle",
+    "set_enabled", "enabled",
+]
 
 
 def set_enabled(on: bool):
@@ -139,3 +165,14 @@ if os.environ.get("PADDLE_TPU_WATCHDOG", "") not in ("", "0"):
         WATCHDOG.start()
     except Exception:
         pass
+
+
+# opt-in per-process telemetry agent: PADDLE_TPU_TELEMETRY_COLLECTOR
+# (the launcher's --telemetry sets it for every child) arms a streamer
+# to the fleet collector — spans/flight/metrics/events, one daemon
+# sender thread, never in a serving path (a daemon: it never keeps a
+# process alive at exit)
+try:
+    agent.maybe_start_from_env()
+except Exception:
+    pass

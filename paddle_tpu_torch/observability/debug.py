@@ -231,9 +231,11 @@ def write_bundle(dir_: str | None = None, reason: str = "manual",
         json.dump(manifest, f, indent=1, sort_keys=True)
     final = os.path.join(d, name)
     os.rename(tmp, final)
-    # the bundle event for the fleet dashboard (the reference's
-    # agent.publish_event) waits for the telemetry agent, ROADMAP
-    # item 18
+    # bundle writes show up on the fleet dashboard (path + reason)
+    # when a telemetry agent is armed; silent no-op otherwise
+    from . import agent as _agent
+    _agent.publish_event("bundle", reason=bundle["reason"],
+                         path=final)
     return final
 
 

@@ -104,9 +104,19 @@ class FlightRecorder:
         self.enabled = bool(enabled)
         self._rings: dict[str, deque[FlightEvent]] = {}
         self._lock = threading.Lock()
+        # optional per-event tap (the telemetry agent): called OUTSIDE
+        # the recorder lock with each event; must never block
+        self._sink = None
 
     def set_enabled(self, on: bool):
         self.enabled = bool(on)
+
+    def set_sink(self, fn):
+        """``fn(event)`` runs for every recorded event (after ring
+        append, outside the recorder lock). Pass None to detach. The
+        sink must be cheap and non-blocking — it runs on the recording
+        thread."""
+        self._sink = fn
 
     # -- hot path -------------------------------------------------------
     def record(self, tier: str, kind: str, /,
@@ -126,6 +136,12 @@ class FlightRecorder:
                 _DROPPED.labels(tier=tier).inc()
             ring.append(ev)
         _EVENTS.labels(tier=tier).inc()
+        sink = self._sink
+        if sink is not None:
+            try:
+                sink(ev)
+            except Exception:
+                pass
         return ev
 
     # -- inspection / export --------------------------------------------

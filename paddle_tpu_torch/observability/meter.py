@@ -19,6 +19,10 @@ Label cardinality stays bounded: tenant label values pass through
 interning — the first ``PADDLE_TPU_TENANT_CAP`` distinct tenants keep
 their names, the rest collapse into the ``~other`` overflow bucket
 (counted, never dropped). Tier labels clamp to a single digit.
+
+Process-locality: ``METER`` accounts the traffic of *this* process; the
+fleet-wide view is assembled collector-side from TSDB series
+(``usage_report(tsdb)``), summing across hosts.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import threading
 
 from . import registry as _obs
 
-__all__ = ["UsageMeter", "METER", "OVERFLOW_TENANT", "OUTCOMES"]
+__all__ = ["UsageMeter", "METER", "OVERFLOW_TENANT", "OUTCOMES",
+           "usage_report"]
 
 OVERFLOW_TENANT = "~other"
 
@@ -175,6 +180,41 @@ class UsageMeter:
                 "cap": self.cap}
 
 
-# one process-wide meter: engine/scheduler/router hooks share it so a
+# one process-wide meter: engine/scheduler hooks share it so a
 # process's tenants intern once
 METER = UsageMeter()
+
+
+def usage_report(tsdb=None, window: float | None = None) -> dict:
+    """The ``usage_report`` verb body. With a TSDB (collector-side):
+    fleet-wide usage summed across processes from the tenant series —
+    latest totals plus, when ``window`` is given, trailing-window
+    deltas. Without one: this process's local meter."""
+    if tsdb is None:
+        return {"scope": "process", **METER.report()}
+    gb = ("tenant", "tier")
+    names = {"tokens_in": "paddle_tpu_tenant_tokens_in_total",
+             "tokens_out": "paddle_tpu_tenant_tokens_out_total",
+             "queue_seconds": "paddle_tpu_tenant_queue_seconds_total",
+             "kv_page_seconds":
+                 "paddle_tpu_tenant_kv_page_seconds_total",
+             "flops": "paddle_tpu_tenant_flops_total"}
+    out: dict[str, dict] = {}
+
+    def slot(g):
+        key = "/".join(g)
+        return out.setdefault(key, {"tenant": g[0], "tier": g[1]})
+
+    for field, name in names.items():
+        for g, v in tsdb.latest_by(name, gb).items():
+            slot(g)[field] = v
+        if window:
+            for g, v in tsdb.delta_by(name, window, gb).items():
+                slot(g)[f"{field}_window"] = v
+    for g, v in tsdb.latest_by("paddle_tpu_tenant_requests_total",
+                               ("tenant", "tier", "outcome")).items():
+        slot(g[:2]).setdefault("outcomes", {})[g[2]] = v
+    rep = {"scope": "fleet", "tenants": out}
+    if window:
+        rep["window_s"] = float(window)
+    return rep

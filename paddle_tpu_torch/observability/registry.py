@@ -34,7 +34,8 @@ import time
 __all__ = [
     "MetricError", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "REGISTRY", "counter", "gauge", "histogram", "prometheus_text",
-    "to_dict", "dump_to_file", "aggregate_dumps", "DEFAULT_BUCKETS",
+    "to_dict", "dump_to_file", "aggregate_dumps", "aggregate_dir",
+    "DEFAULT_BUCKETS",
 ]
 
 _NAME_RE = re.compile(r"^paddle_tpu_[a-z][a-z0-9_]*$")
@@ -503,6 +504,17 @@ def aggregate_dumps(dumps: list[dict]) -> dict:
             "metrics": out}
 
 
+def aggregate_dir(path: str) -> dict:
+    """Aggregate every metrics_*.json under `path` (one per process,
+    as written by dump_to_file / PADDLE_TPU_METRICS_DIR at exit)."""
+    dumps = []
+    for fn in sorted(os.listdir(path)):
+        if fn.startswith("metrics_") and fn.endswith(".json"):
+            with open(os.path.join(path, fn), encoding="utf-8") as f:
+                dumps.append(json.load(f))
+    return aggregate_dumps(dumps)
+
+
 # process-wide default registry + module-level shortcuts
 REGISTRY = MetricsRegistry()
 
@@ -541,8 +553,35 @@ if __name__ == "__main__":  # python -m paddle_tpu_torch.observability.registry
     _dir = sys.argv[1] if len(sys.argv) > 1 else "."
     # bundle-aware job aggregation: metrics_*.json dumps PLUS the
     # metrics.json of every postmortem bundle in the dir, with a
-    # "bundles" listing (reason/host/pid/valid) when any exist (the
-    # per-rank trace merge waits for the telemetry collector, item 18)
+    # "bundles" listing (reason/host/pid/valid) when any exist
     from .debug import aggregate_with_bundles
-    json.dump(aggregate_with_bundles(_dir), sys.stdout, indent=2)
+    agg = aggregate_with_bundles(_dir)
+    # merge the per-rank trace_<host>_<pid>.json span rings (the
+    # SIGTERM dump / PADDLE_TPU_METRICS_DIR artifacts) into ONE Chrome
+    # trace with per-rank pid labels, using the telemetry collector's
+    # merge code — one Perfetto load instead of one per rank
+    _parts = []
+    for _fn in sorted(os.listdir(_dir) if os.path.isdir(_dir) else ()):
+        if (_fn.startswith("trace_") and _fn.endswith(".json")
+                and _fn != "trace_merged.json"):
+            try:
+                with open(os.path.join(_dir, _fn),
+                          encoding="utf-8") as _f:
+                    _doc = json.load(_f)
+            except (OSError, json.JSONDecodeError):
+                continue
+            _parts.append((_fn[len("trace_"):-len(".json")],
+                           _doc.get("traceEvents") or []))
+    if _parts:
+        from .collector import merge_chrome_traces
+        _merged = merge_chrome_traces(_parts)
+        _out = os.path.join(_dir, "trace_merged.json")
+        _tmp = f"{_out}.tmp{os.getpid()}"
+        with open(_tmp, "w", encoding="utf-8") as _f:
+            json.dump(_merged, _f)
+        os.replace(_tmp, _out)
+        agg["trace_merged"] = {
+            "path": _out, "ranks": len(_parts),
+            "events": len(_merged["traceEvents"]) - len(_parts)}
+    json.dump(agg, sys.stdout, indent=2)
     print()

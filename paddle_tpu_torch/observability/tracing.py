@@ -110,6 +110,15 @@ class Tracer:
         self._lock = threading.Lock()
         self._tls = threading.local()
         self._high_water = 0
+        # optional per-span tap (the telemetry agent): called OUTSIDE
+        # the ring lock with each finished span; must never block
+        self._sink = None
+
+    def set_sink(self, fn):
+        """``fn(span)`` is called for every finished span (after ring
+        append, outside the tracer lock). Pass None to detach. The sink
+        must be cheap and non-blocking — it runs on the traced thread."""
+        self._sink = fn
 
     # -- context --------------------------------------------------------
     def _stack(self) -> list:
@@ -162,6 +171,12 @@ class Tracer:
                     if n > self._high_water:
                         self._high_water = n
                         _HIGH_WATER.set(n)
+                sink = self._sink
+                if sink is not None:
+                    try:
+                        sink(sp)
+                    except Exception:
+                        pass
 
     # -- inspection / export --------------------------------------------
     def spans(self) -> list[Span]:

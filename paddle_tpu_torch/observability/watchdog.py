@@ -236,9 +236,15 @@ class Watchdog:
             _debug.arm_hard_exit(name="watchdog-sigterm-escalate")
         path = _debug.try_write_bundle(f"watchdog:{tok.name}",
                                        self.debug_dir)
-        # the stall event for the fleet dashboard (the reference's
-        # agent.publish_event) waits for the telemetry agent, ROADMAP
-        # item 18
+        # stall episodes surface on the fleet dashboard (with their
+        # bundle path) when a telemetry agent is armed; no-op otherwise
+        from . import agent as _agent
+        # attr is `name`, not `token`: the agent's credential redaction
+        # blanks TOKEN-ish keys, and a progress-token name is the one
+        # thing the dashboard must show
+        _agent.publish_event("watchdog_stall", name=tok.name,
+                             age_s=round(age, 3),
+                             deadline_s=tok.deadline, bundle=path)
         if tok.on_stall is not None:
             try:
                 tok.on_stall(tok.name, age, path)

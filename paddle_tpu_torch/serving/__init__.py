@@ -26,8 +26,14 @@ open-loop load generator (serving/loadgen.py):
     res = LoadGenerator(TrafficConfig(rate=8, duration=6)).run_client(cli)
     print(slo_report(res))
 
-The replicated fleet's router (``paddle_tpu.serving.router``) is not
-ported yet: it waits for the telemetry plane (ROADMAP item 18).
+Online weight swaps: ``ServingServer(eng, publish_root=...)`` answers
+``adopt_version``, and ``paddle_tpu_torch.publish.VersionSubscriber``
+hot-swaps an engine on every version a publisher commits.
+
+The replicated fleet's router (``paddle_tpu.serving.router``), with the
+``top`` dashboard and ``perfwatch``, waits for the next slice of the
+port (slice 23); the telemetry plane it needs is ported
+(``paddle_tpu_torch.observability``).
 """
 from .kv_cache import PagePool, PageTable, defrag_plan, pages_needed
 from .prefix_cache import PrefixCache, PrefixMatch

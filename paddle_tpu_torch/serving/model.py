@@ -64,6 +64,17 @@ def _tree_items(params) -> list:
     return out
 
 
+def checkpoint_arrays(params) -> dict:
+    """The store's view of the port's parameters: tree-path key ->
+    array, in the JAX package's flatten order. A block leaf's per-layer
+    tensors are the pieces of its stacked [L, ...] byte stream, so
+    nothing is stacked on the card and the chunks equal those of the
+    JAX package's stacked leaf."""
+    return {_keystr(path): ShardedArray([t[None] for t in leaf])
+            if isinstance(leaf, list) else leaf
+            for path, leaf in _tree_items(params)}
+
+
 def _paths(tree, prefix=()):
     """(path, leaf) of a JAX-layout tree of dicts, in flatten order."""
     for name in sorted(tree):
@@ -141,14 +152,8 @@ class GPTDecodeModel:
         """Persist the parameters through the checkpoint store
         (content-addressed chunks; repeated saves of a mostly-unchanged
         model dedup). The config rides the manifest meta; no pickle."""
-        arrays = {}
-        for path, leaf in _tree_items(self.params):
-            # a block leaf's per-layer tensors are the pieces of its
-            # stacked [L, ...] byte stream: nothing is stacked on the card
-            arrays[_keystr(path)] = ShardedArray([t[None] for t in leaf]) \
-                if isinstance(leaf, list) else leaf
         return CheckpointStore(root).save(
-            arrays, step=step,
+            checkpoint_arrays(self.params), step=step,
             meta={"kind": "gpt-decode",
                   "cfg": dataclasses.asdict(self.cfg)})
 

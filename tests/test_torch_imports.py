@@ -49,7 +49,11 @@ def test_port_file_list_is_not_empty():
             "fault_injection.py", "watchdog.py", "debug.py", "loadgen.py",
             "frontend.py", "rpc.py", "parameter_server_runtime.py",
             "ps_ha.py", "tiered_store.py", "launch.py", "elastic.py",
-            "cluster_ckpt.py"} <= names
+            "cluster_ckpt.py", "exporter.py", "subscriber.py",
+            "agent.py", "alerts.py", "collector.py",
+            "timeseries.py"} <= names
+    assert ROOT / "paddle_tpu_torch" / "publish" / "registry.py" \
+        in PORT_FILES
     assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \
         / "runtime" / "rpc.py" in PORT_FILES
 
@@ -131,11 +135,39 @@ def test_import_needs_no_nvcc_triton_or_jax():
         " paddle_tpu_torch.observability.debug\n"
         "import paddle_tpu_torch.serving.loadgen,"
         " paddle_tpu_torch.serving.frontend\n"
+        "import paddle_tpu_torch.publish,"
+        " paddle_tpu_torch.observability.agent\n"
+        "import paddle_tpu_torch.observability.collector,"
+        " paddle_tpu_torch.observability.alerts,"
+        " paddle_tpu_torch.observability.timeseries\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_publish_and_telemetry_import_without_torch():
+    """The publish tier and the telemetry plane load on a host process
+    that never imports torch (a PS shard or a collector child): only
+    ``Publisher.publish_model`` and ``VersionSubscriber``'s engine swap
+    need it, and they import it when called."""
+    code = (
+        "import sys\n"
+        "class _Block:\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('torch', 'jax', 'paddle_tpu'):\n"
+        "            raise ImportError('blocked: ' + name)\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        "import paddle_tpu_torch.publish\n"
+        "import paddle_tpu_torch.observability.collector\n"
+        "from paddle_tpu_torch.observability import agent, alerts, "
+        "timeseries\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -5,11 +5,12 @@ tests/test_launcher.py and tests/test_elastic.py through
 join one group and run collectives, teardown on a crash, fleetrun's PS
 roles, restarts with backoff, the crash-loop give-up and its bundle, a
 rank whose heartbeat stops, ``--metrics_dir``), the parser and helpers
-against the reference's, the flags not ported yet, and the offender of a
-gang that fell together.
+against the reference's, the env that ``--telemetry`` / ``--tsdb-dir`` /
+``--publish_dir`` hand the children, and the offender of a gang that
+fell together.
 
-The metrics case checks each child's own dump: the JAX package's
-aggregation (``aggregate_dir``) comes with ROADMAP.md A, item 18.
+The metrics case checks each child's own dump (``aggregate_dir`` and the
+registry CLI's trace merge are tests/test_torch_telemetry.py's).
 """
 import json
 import os
@@ -121,20 +122,49 @@ def test_ha_state_and_rank_names_match_the_reference():
     (["--telemetry", "--log_dir", "logs"], "18"),
     (["--telemetry", "127.0.0.1:9"], "18"),
     (["--tsdb-dir", "tsdb"], "18"), (["--publish_dir", "pub"], "17")])
-def test_unported_flags_raise_before_any_child(tmp_path, flag, item):
-    marker = tmp_path / "started"
-    script = tmp_path / "w.py"
-    script.write_text(f"open({str(marker)!r}, 'w').close()\n")
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        launch.launch(["--nproc_per_node=1", *flag, str(script)])
-    res = subprocess.run(LAUNCH + ["--nproc_per_node=1", *flag,
-                                   str(script)],
-                         env=_env(), capture_output=True, text=True,
-                         timeout=60, cwd=str(tmp_path))
-    assert res.returncode != 0
-    assert "NotImplementedError" in res.stderr
-    assert f"item {item}" in res.stderr
-    assert not marker.exists()
+def test_unported_flags_raise_before_any_child(tmp_path, monkeypatch,
+                                               flag, item):
+    """The flags this test once saw raise (ROADMAP.md A items 17 and
+    18) are ported: launch() no longer raises and hands each child the
+    reference's env — --telemetry points every child's agent at a
+    `telemetry` child running the port's collector (bare: the default
+    127.0.0.1:8600), --tsdb-dir alone changes nothing (it needs
+    --telemetry), --publish_dir reaches PS server and replica children
+    only. The children are captured, not started."""
+    import types
+    got = {}
+
+    def spawn(specs, log_dir):
+        got["specs"] = [(n, dict(e), list(a)) for n, e, a in specs]
+        return []
+
+    monkeypatch.setattr(launch, "_spawn_children", spawn)
+    monkeypatch.setattr(launch, "_watch",
+                        lambda *a, **k: (0, False, None, None))
+    monkeypatch.setattr(launch, "signal", types.SimpleNamespace(
+        signal=lambda *a: None, SIGTERM=15))
+    monkeypatch.chdir(tmp_path)
+    assert launch.launch(["--nproc_per_node=1", *flag, "w.py"]) == 0
+    specs = {n: (e, a) for n, e, a in got["specs"]}
+    if "--telemetry" in flag:
+        ep = "127.0.0.1:8600" if flag[1].startswith("--") else flag[1]
+        assert set(specs) == {"trainer.0", "telemetry"}
+        env, argv = specs["telemetry"]
+        assert argv[1:] == ["-m", "paddle_tpu_torch.observability.collector",
+                            "--endpoint", ep]
+        assert env == {"PADDLE_TPU_TELEMETRY_COLLECTOR": ""}
+        tenv = specs["trainer.0"][0]
+        assert tenv["PADDLE_TPU_TELEMETRY_COLLECTOR"] == ep
+        assert tenv["PADDLE_TPU_TELEMETRY_ROLE"] == "trainer.0"
+    else:
+        assert set(specs) == {"trainer.0"}
+        env = specs["trainer.0"][0]
+        assert "PADDLE_TPU_TELEMETRY_COLLECTOR" not in env
+        assert "PADDLE_TPU_TSDB_DIR" not in env
+        # a trainer never publishes: the dir is made, not handed over
+        assert "PADDLE_TPU_PUBLISH_DIR" not in env
+        if item == "17":
+            assert (tmp_path / "pub").is_dir()
 
 
 # ---------------------------------------------------------------------------

@@ -534,7 +534,7 @@ def test_concurrent_pushes_with_interval_snapshots_no_deadlock(
 
 
 # ---------------------------------------------------------------------------
-# configurations left to later items raise, naming them
+# configurations the port once left to later items (17, 18): now wired
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kw,env,item", [
@@ -542,19 +542,50 @@ def test_concurrent_pushes_with_interval_snapshots_no_deadlock(
     ({}, {"PADDLE_TPU_PUBLISH_DIR": "pub"}, "17"),
     ({}, {"PADDLE_TPU_TELEMETRY_HOST": "1"}, "18"),
 ], ids=["publish", "publish_env", "telemetry_host"])
-def test_unported_server_configurations_raise(kw, env, item, monkeypatch):
+def test_unported_server_configurations_raise(kw, env, item, monkeypatch,
+                                              tmp_path):
+    """These configurations raised NotImplementedError naming their item
+    until it was ported; now the shard starts with them, as the
+    reference's does: a publisher and cadence exporter over the publish
+    dir (item 17), or a hosted telemetry collector (item 18), each
+    answering its verbs on the shard's wire."""
+    monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match=re.escape(f"item {item}")):
-        ps.PSServer("127.0.0.1:0", **kw)
+    srv = ps.PSServer("127.0.0.1:0", **kw)
+    srv.serve_in_thread()
+    try:
+        cl = rpc.RpcClient(srv.endpoint, max_retries=0)
+        if item == "17":
+            assert srv.publish_dir == "pub" and srv._exporter is not None
+            assert srv._tel_collector is None
+            rep = cl.call({"op": "pub_latest"})
+            assert rep["latest"] == 0 and rep["record"] is None
+        else:
+            assert srv._publisher is None
+            assert type(srv._tel_collector).__name__ == \
+                "TelemetryCollector"
+            assert "t_collector" in cl.call({"op": "tel_ping"})
+        cl.close()
+    finally:
+        _stop(srv)
+    if item == "17":
+        assert srv._exporter._thread is None     # stopped with the shard
 
 
 def test_publish_verb_raises_naming_17_and_the_shard_serves_on():
+    """Without a publish dir a pub_* verb fails as the reference's does
+    (it named ROADMAP item 17 while the tier was unported) and the shard
+    serves on."""
     srv = _serve(ps)
     try:
         cl = rpc.RpcClient(srv.endpoint, max_retries=0)
-        with pytest.raises(rpc.PSRemoteError, match=r"item 17"):
+        with pytest.raises(rpc.PSRemoteError,
+                           match=r"publishing not configured"):
             cl.call({"op": "pub_latest"})
+        with pytest.raises(rpc.PSRemoteError,
+                           match=r"telemetry collector not hosted"):
+            cl.call({"op": "tel_ping"})
         assert cl.call({"op": "ping"}) == "pong"
         cl.close()
     finally:

@@ -12,8 +12,8 @@ loadgen.py) on the CPU, held to the JAX package's:
   * chaos drill 1: a stall at ``serving_decode`` under generated load is
     detected by the watchdog and the SLO recovers.
 
-The router's chaos drill waits for ROADMAP item 18 (the router and the
-telemetry plane it imports), the PS-kill drill for item 16.
+The router's chaos drill waits for the router (slice 23 of the port),
+the PS-kill drill for item 16.
 """
 import gc
 import threading

@@ -47,7 +47,10 @@ real all-reduce.
 
 Every step appends one record to ``loss_rank<r>.jsonl``: the step,
 loss, world, rank, wall time (and since the process started), this
-life's pid and the step it resumed from, and (bert) the step's seconds, the restore's seconds and those of
+life's pid and the step it resumed from, and (bert) the step's seconds,
+the seconds from the process start to each setup stage (first record
+of a life: imports, rendezvous, model, train step, restore), the
+restore's seconds and those of
 the copies onto the device, the device and backend, the kernels built
 in this process, the life's kernel launch counts so far, and the
 cluster saves' host-copy seconds and writer-thread events (a life that
@@ -62,6 +65,7 @@ import time
 import numpy as np
 
 T0 = time.time()                   # this life's start, for its records
+SETUP = {}                         # seconds from T0 to each setup stage
 RANK = int(os.environ.get("PADDLE_TRAINER_ID", "0"))
 WORLD = int(os.environ.get("PADDLE_TRAINERS_NUM", "1"))
 OUT = os.environ["ELASTIC_DRILL_OUT"]
@@ -127,6 +131,7 @@ from paddle_tpu_torch.distributed.collective import all_reduce  # noqa: E402
 from paddle_tpu_torch.distributed.spawn import _leave  # noqa: E402
 
 SEED = 7
+SETUP["imports"] = time.time() - T0
 
 
 def settle_before_kill(ck, step):
@@ -237,6 +242,7 @@ def bert(ck, log):
     initializer.seed(0)
     model = BertForPretraining(cfg)
     model.train()
+    SETUP["model"] = time.time() - T0
 
     def loss_fn(m, ids, pos, mlm, nsp):
         logits, nsp_logits = m(ids, masked_positions=pos)
@@ -245,6 +251,7 @@ def bert(ck, log):
     step_fn = make_train_step(
         model, loss_fn, optimizer="adamw", lr=1e-4, amp_level="O1",
         device=device, mesh=make_mesh({"dp": WORLD}) if WORLD > 1 else None)
+    SETUP["train_step"] = time.time() - T0
     slots = ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow")
     start, resumed, restore_s, upload_s = 0, None, None, None
     if ClusterCheckpoint.exists(ROOT):
@@ -263,6 +270,7 @@ def bert(ck, log):
             torch.cuda.synchronize()
         upload_s = time.perf_counter() - t0
         start = resumed = info["step"] + 1
+    SETUP["restore"] = time.time() - T0
     built_here = sorted(_build.build_log())
     penv = env.ParallelEnv()
     elastic.start_heartbeat(interval=0.1)
@@ -292,6 +300,7 @@ def bert(ck, log):
             saves.append({"step": step,
                           "host_copy_s": time.perf_counter() - t0})
         log({"step": step, "loss": loss, "step_s": step_s,
+             "setup": SETUP if step == start else None,
              "resumed_from": resumed, "restore_s": restore_s,
              "upload_s": upload_s, "device": str(step_fn.device),
              "backend": penv.backend, "built_here": built_here,
@@ -315,7 +324,13 @@ def main():
         # ranks share the host's cores: one thread each, else two ranks
         # oversubscribe them many times over
         torch.set_num_threads(1)
+    else:
+        # on the card the host still builds the model: each rank takes
+        # its share of the cores (with every core each, two ranks spent
+        # 12-14 s in BertForPretraining's init on an 8-core host)
+        torch.set_num_threads(max(1, torch.get_num_threads() // WORLD))
     env.init_parallel_env()
+    SETUP["rendezvous"] = time.time() - T0
     ck = ClusterCheckpoint(ROOT, rank=RANK, world=WORLD,
                            every_steps=SAVE_EVERY,
                            merge_timeout=MERGE_TIMEOUT)
