@@ -9,6 +9,12 @@
     python3 chip_smoke.py --elastic  # phase 1, then phase 19b alone
     python3 chip_smoke.py --online   # phase 1, the GPT-3 XL engine and
                                      # its store, then phase 13d alone
+    python3 chip_smoke.py --router   # phase 1, the C7 check, the GPT-3
+                                     # XL engine, the slo phase and two
+                                     # published versions, then phase
+                                     # 13e alone
+    python3 chip_smoke.py --read-parts  # phase 1, then where one read of
+                                     # the GPT-3 XL checkpoint goes
     python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
@@ -213,6 +219,33 @@ Phases:
      pending -> firing -> resolved; then decode-step ms at 8 slots with
      the agent armed / disarmed and with the TSDB and alerts on / off
      (A/B/A, 60 steps a leg, no gate);
+ 13e. router (item 18's rest, on phase 3's weights and phase 13's store
+     after 13d, router_phase): replica A a fresh engine with phase 3's
+     slots and pool on the same weights behind a ServingServer with
+     publish_root, replica B an InProcessReplica built from the store's
+     step of the version 13d left (Engine.from_checkpoint), both
+     warmed, no prefix cache; a Router with bench_router's probe
+     settings; both must report one model_version before traffic.
+     (a) bench_router over the wire: the slo traffic at 13b's held rate
+     for max(8 s, B's start + 1 s + 5 s), fault-free, then again with B
+     killed 2.5 s in and respawned from its checkpoint by the router:
+     detect and recovery seconds, failovers, attainment (baseline,
+     faulted, after recovery against the baseline's same window), wire
+     TTFT / inter-token p50 and p99 beside 13b's wire figures; gates: no
+     request error, no token out of range, every request done in both
+     runs with the same tokens, one final reply a request. (b)
+     bench_online's part (2): rollout_version to version 1 (published,
+     served by neither) while 64-token streams of phase 3's first
+     prompt run back to back through the router: the rollout's seconds,
+     each replica's read + upload s and flip ms, the largest
+     inter-token gap in each flip window beside the streams' median;
+     gates: every stream whole, streams before the first flip and after
+     the last equal to the in-process tokens on their weights, one
+     final reply a stream, both replicas on version 1. Each replica's
+     decode launches (its own thread's, tapped per engine) on the
+     vector / stream kernels (rows 1-3: "router_launches"). Fault C7's
+     check runs with phase 2: two threads launching rows 2-3 at decode
+     on one stream, each output held to its own plain version;
  14. wide&deep (item 21, no kernel of the port on this path: lookups,
      matrix products and the dense Adam are PyTorch's) —
      widedeep_parity: the tiny config, 3 Adam steps on the card against
@@ -248,10 +281,10 @@ Phases:
      ranks on the one card (gloo; p2p through host copies), each rank
      reading its pieces of one weight tree the parent wrote once
      (np.save, read back as memmaps). (a) GPT-3 XL cut to its first
-     MESH_A_LAYERS = 12 layers at full width (the time limit: see
+     MESH_A_LAYERS = 4 layers at full width (the time limit: see
      HYBRID_STEPS) at pp = 2 x tp = 2 (4 ranks), bf16, flash,
      remat, dropout 0,
-     global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 2
+     global batch 4 x 1024, 4 microbatches, 1F1B then F-then-B, 1 + 1
      steps each: every loss within 1e-3 relative of the single-rank
      step's on the same batch and weights; (b) 4 layers at full width,
      dp = 2 x pp = 2 x tp = 2 (8 ranks), ZeRO-1, batch 8 x 1024: at
@@ -273,7 +306,7 @@ Phases:
      2 x 2048 (a rank's half of each sequence); (b) 4 layers at dp = 2
      x pp = 2 x sp = 2 (8 ranks) under 1F1B, 2 microbatches, batch 8 x
      1024, then one step at dropout 0.1 (finite and equal on every
-     rank); 1 + 2 steps each,
+     rank); 1 + 1 steps each,
      every loss within 1e-3 relative of the single rank's (attn_impl
      "xla", the reference test's comparison) on the same weights and
      batch. Printed: step ms, tokens/s, each rank's peak memory, the ms
@@ -283,7 +316,7 @@ Phases:
  18. moe_gpt: GPT-2 small widths (12 layers, d 768, 12 heads, vocab
      50304) with Switch-Base-8's 8 experts, top-1, capacity factor
      1.25, flash, remat, at dp = 2 x ep = 2 x tp = 2 (8 ranks), global
-     batch 8 x 1024, weights and batch from seed 0, 1 + 2 steps, once
+     batch 8 x 1024, weights and batch from seed 0, 1 + 1 steps, once
      in bf16 and once in f32, each against the single rank in the same
      dtype: the first step's gradients (the same weights, no update)
      on every rank, the clip's global norm and the router's wg, within
@@ -305,8 +338,9 @@ Phases:
      (check_mesh_kernels) rows 2-3 at an sp_gpt rank's shape (M = 2048)
      and rows 4-5 at a moe_gpt rank's (4 x 6 heads of 64);
  19b. elastic (item 16(c)): bench.py's bench_elastic measures at
-     bench_bert's configuration (BERT-base, global batch 16 x 128, O1,
-     AdamW lr 1e-4) at dp 2: tests/torch_elastic_trainer.py under
+     bench_bert's configuration (BERT-base widths cut to
+     ELASTIC_BERT_LAYERS = 4 layers, global batch 16 x 128, O1, AdamW
+     lr 1e-4) at dp 2: tests/torch_elastic_trainer.py under
      ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2``,
      both ranks on the one card over gloo (``TrainStep(mesh=make_mesh(
      {"dp": 2}))``, deterministic algorithms, CUBLAS_WORKSPACE_CONFIG
@@ -323,7 +357,7 @@ Phases:
      1e-3 relative of (a)'s world-2 curve, every step's record showing
      the world. Every rank and life: on the card, gloo where two ranks
      run, no kernel built in the child, rows 2-5 and 8-9 launched
-     BERT_LAUNCHES_PER_STEP times a step it ran, flash on tc, the
+     bert_launches(4) times a step it ran, flash on tc, the
      sub-blocks on ffma, layer norm on warp. Printed: each run's
      launcher lines, losses, worlds, step ms, its lives (each with its
      start: process start to its first step), detect -> resume seconds
@@ -409,7 +443,13 @@ Phases:
      rule), cold faults and demotions > 0, no failed cold read;
  25. the kernels line, then the card line, then the result line.
 
-Each phase prints its wall seconds ({"phase": "seconds", ...}). One
+Each phase prints its wall seconds ({"phase": "seconds", ...}). Phases
+15-19 run their ranks in three worlds, one a size (world_phases: 2
+ranks for 15 and 17 (a), 4 for 16 (a) and 19, 8 for 16 (b), 17 (b) and
+18), so a rank's start and warm-up are paid once a world; each such
+phase's seconds are its single-rank references and its report, and each
+world prints its own ({"phase": "spawn", ...}: each rank's start, its
+process group and the end of each phase's cases). One
 numpy weight tree (seed 0, 1.3 B parameters, drawn on a thread while
 the kernels build) feeds phases 3-5; the
 BERT phases draw their weights from the port's seeded initialisers.
@@ -425,6 +465,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -597,13 +638,19 @@ CHAOS_STALL_S, CHAOS_DEADLINE_S, CHAOS_WAIT_S = 0.8, 0.5, 30.0
 BERT_BATCH, BERT_SEQ = 16, 128
 BERT_PRED = min(BERT_SEQ, max(8, int(round(BERT_SEQ * 0.15))))
 BERT_LAYERS = 12
-# launches of one BERT-base train step (no remat; the sub-blocks' backward
-# is the composed recompute; LN: embeddings and MLM head)
-BERT_LAUNCHES_PER_STEP = {
-    "fused_out_ln": BERT_LAYERS, "fused_ffn_ln": BERT_LAYERS,
-    "flash_fwd": BERT_LAYERS, "flash_bwd_dq": BERT_LAYERS,
-    "flash_bwd_dkv": BERT_LAYERS, "layer_norm_fwd": 2,
-    "layer_norm_bwd_dx": 2}
+
+
+def bert_launches(layers):
+    """Launches of one BERT train step of `layers` layers (no remat; the
+    sub-blocks' backward is the composed recompute; LN: embeddings and
+    MLM head)."""
+    return {"fused_out_ln": layers, "fused_ffn_ln": layers,
+            "flash_fwd": layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers, "layer_norm_fwd": 2,
+            "layer_norm_bwd_dx": 2}
+
+
+BERT_LAUNCHES_PER_STEP = bert_launches(BERT_LAYERS)
 # the encoder layer with the constructor's defaults, forward + backward
 # (rows 6-7 at 2048 x 768 in f32: the warp route)
 ENCODER_LAYER_LAUNCHES = {
@@ -624,16 +671,16 @@ LENET_BATCH, LENET_STEPS = 256, 30
 # two ranks on one GPU)
 DP_RANKS = 2
 # hybrid_gpt: (a) GPT-3 XL at pp x tp, (b) B_LAYERS at dp x pp x tp with
-# ZeRO-1; the global batches; microbatches; 1 + 2 steps a run, (b)'s
-# dropout run 1. These, sp_gpt (a)'s depth and moe_gpt's steps are cut
-# to fit the time limit: with the whole 24 layers and 1 + 3 steps the
-# script took 927 s on an H100 (hybrid_gpt 184.5, sp_gpt 166.2,
-# moe_gpt 106.5 s), past the 820 s it keeps as margin
+# ZeRO-1; the global batches; microbatches; 1 + 1 steps a run (the
+# second loss is the first update's), (b)'s dropout run 1. These, sp_gpt
+# (a)'s depth and moe_gpt's steps are cut to fit the time limit: at 12
+# layers and 1 + 2 steps the whole script took 994 s on one H100 (hybrid_gpt
+# 136, sp_gpt 109, moe_gpt 98 s) and more than its 1,200 s on another
 HYBRID_A = dict(pp=2, tp=2)
 HYBRID_B = dict(dp=2, pp=2, tp=2)
-HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 3
-HYBRID_A_STEPS = 3
-MESH_A_LAYERS = 12
+HYBRID_A_BATCH, HYBRID_B_BATCH, HYBRID_MICRO, HYBRID_STEPS = 4, 8, 4, 2
+HYBRID_A_STEPS = 2
+MESH_A_LAYERS = 4
 HYBRID_B_LAYERS = 4
 HYBRID_CFG = dict(amp_dtype="bfloat16", attn_impl="flash", remat=True)
 # the losses against the single rank's: tighter than phase 4's 2e-2, so
@@ -2656,15 +2703,15 @@ def wire_serving_phase(torch, eng, want, inproc):
     return counts
 
 
-def slo_traffic(rate):
-    """bench.py's _slo_traffic at `rate`: prompt lengths 4/8/16/32
-    (weights 3/3/2/1), outputs 4/8/16 (3/2/1), diurnal over the run,
-    tenants web:batch 3:1, tiers 0/1/2 with deadlines 10 s / 20 s / none,
-    token ids under 512."""
+def slo_traffic(rate, duration=SLO_DURATION):
+    """bench.py's _slo_traffic at `rate` for `duration` seconds: prompt
+    lengths 4/8/16/32 (weights 3/3/2/1), outputs 4/8/16 (3/2/1), diurnal
+    over the run, tenants web:batch 3:1, tiers 0/1/2 with deadlines
+    10 s / 20 s / none, token ids under 512."""
     from paddle_tpu_torch.serving import TrafficConfig
     return TrafficConfig(
-        rate=rate, duration=SLO_DURATION, arrival="diurnal",
-        diurnal_period=SLO_DURATION, seed=SLO_SEED,
+        rate=rate, duration=duration, arrival="diurnal",
+        diurnal_period=duration, seed=SLO_SEED,
         prompt_lens={4: 3, 8: 3, 16: 2, 32: 1},
         output_lens={4: 3, 8: 2, 16: 1},
         tenants={"web": 3, "batch": 1}, tiers={0: 1, 1: 2, 2: 1},
@@ -2683,17 +2730,25 @@ def slo_engine(model):
     return e
 
 
-def check_load(res, vocab, what):
-    """A replay fails on a request error or an out-of-range token, never
-    on attainment (a measurement)."""
+def load_problems(res, vocab, what):
+    """A replay's request errors and out-of-range tokens (attainment is a
+    measurement, never a failure)."""
     errs = [(a.index, getattr(h, "error", None)) for a, h in res.handles
             if h.status == "error"]
-    if errs:
-        fail(f"{what}: requests failed: {errs[:8]}")
+    out = [f"{what}: requests failed: {errs[:8]}"] if errs else []
     for a, h in res.handles:
         toks = [int(t) for t in h.generated]
         if any(t < 0 or t >= vocab for t in toks):
-            fail(f"{what}: arrival {a.index} token out of range: {toks}")
+            out.append(f"{what}: arrival {a.index} token out of range: "
+                       f"{toks}")
+    return out
+
+
+def check_load(res, vocab, what):
+    """Fails on load_problems."""
+    problems = load_problems(res, vocab, what)
+    if problems:
+        fail("; ".join(problems))
 
 
 def decode_mark(e):
@@ -2732,7 +2787,8 @@ def slo_phase(torch, eng):
     request's SLO (attainment below 1), down to SLO_MIN_RATE. Prints
     both slo_reports (attainment, goodput, TTFT and inter-token
     percentiles) and the rate used; returns (rate, the run_engine
-    result: the chaos drill's baseline)."""
+    result: the chaos drill's baseline, the run_client row: the router
+    phase's yardstick)."""
     from paddle_tpu_torch.serving import (LoadGenerator, ServingClient,
                                           ServingServer, slo_report)
     vocab = eng.model.cfg.vocab_size
@@ -2765,9 +2821,9 @@ def slo_phase(torch, eng):
         finally:
             cli.close()
     check_load(wres, vocab, "slo run_client")
-    print(json.dumps(slo_row("slo_wire", rate, slo_report(wres), e, mark)),
-          flush=True)
-    return rate, res
+    wire = slo_row("slo_wire", rate, slo_report(wres), e, mark)
+    print(json.dumps(wire), flush=True)
+    return rate, res, wire
 
 
 def chaos_phase(torch, eng, rate, base):
@@ -2894,14 +2950,15 @@ ONLINE_RULE = {"name": "chip-smoke-online-gauge", "kind": "threshold",
 ONLINE_WAIT_S = 300.0
 
 
-def wait_until(pred, what, timeout=60.0, every=0.05):
-    """Polls pred() until it is true, or fails naming `what`."""
+def wait_until(pred, what, timeout=60.0, every=0.05, phase="online"):
+    """Polls pred() until it is true, or fails naming `phase` and
+    `what`."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if pred():
             return
         time.sleep(every)
-    fail(f"online: {what} within {timeout} s")
+    fail(f"{phase}: {what} within {timeout} s")
 
 
 def online_staleness(pub_dir):
@@ -3385,6 +3442,747 @@ def online_alone(torch):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# the router phase: bench.py's bench_router (its probe settings, lines
+# 1127-1131, and its kill at 2.5 s) and bench_online's part (2) (64-token
+# streams through a staggered rollout). A run lasts at least 8 s and 5 s
+# past the killed replica's predicted re-admission
+ROUTER_PROBE = dict(ping_interval=0.2, ping_timeout=1.0, suspect_after=1,
+                    dead_after=2, token_stall=5.0, respawn_cooldown=0.5)
+ROUTER_KILL_AT, ROUTER_MIN_RUN_S, ROUTER_AFTER_S = 2.5, 8.0, 5.0
+ROUTER_WAIT_S = 120.0
+ROUTER_TAP = ("paged_attention", "fused_out_ln.", "fused_ffn_ln.")
+
+
+def router_series(router, name):
+    """{label: value} of the router metric `name`'s series of `router`
+    (the label after the router id: an outcome, a reason, a replica)."""
+    from paddle_tpu_torch.observability import REGISTRY
+    return {lv[1]: s.value for lv, s in REGISTRY.get(name)._series()
+            if lv[0] == router.router_id}
+
+
+def series_delta(now, before):
+    return {k: int(v - before.get(k, 0)) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+class FleetWatch:
+    """Samples the router's view of its replicas every 20 ms on a thread
+    of its own: each replica's largest in-flight count and its seconds
+    out of the healthy state."""
+
+    def __init__(self, router):
+        self.router = router
+        self.peak: dict = {}
+        self.down: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        t_last = time.monotonic()
+        while not self._stop.wait(0.02):
+            now = time.monotonic()
+            for n, r in self.router.stats()["replicas"].items():
+                self.peak[n] = max(self.peak.get(n, 0), r["inflight"])
+                if r["state"] != "healthy":
+                    self.down[n] = self.down.get(n, 0.0) + now - t_last
+            t_last = now
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(10)
+        return {"peak_inflight": dict(self.peak),
+                "not_healthy_s": {n: round(v, 3)
+                                  for n, v in self.down.items()}}
+
+
+def routes_prefills(taps, layers):
+    """Prefill calls of 128 rows or more (the rollout's streams and the
+    in-process reference after it) in a replica's by-call tallies."""
+    from paddle_tpu_torch.ops.fused_block import _FFMA_MIN_ROWS
+    return sum(t.get(f"prefill_ge_{_FFMA_MIN_ROWS}", {}).get(
+        "fused_out_ln.ffma", 0) for t in taps) // layers
+
+
+def check_replica_routes(name, taps):
+    """A replica's decode calls launched paged attention on the vector
+    kernel and the sub-blocks on stream, and nothing else; its prefill
+    calls' sub-blocks took their rows' route. `taps` are the by-call
+    launch tallies of its engines (one a life)."""
+    from paddle_tpu_torch.ops.fused_block import (_FFMA_MIN_ROWS,
+                                                  _STREAM_MAX_ROWS)
+    want = {"decode": "stream", f"prefill_le_{_STREAM_MAX_ROWS}": "stream",
+            f"prefill_lt_{_FFMA_MIN_ROWS}": "simt",
+            f"prefill_ge_{_FFMA_MIN_ROWS}": "ffma"}
+    merged: dict = {}
+    for by_call in taps:
+        for kind, ent in by_call.items():
+            for k, v in ent.items():
+                merged.setdefault(kind, {})[k] = \
+                    merged.setdefault(kind, {}).get(k, 0) + v
+    dec = merged.get("decode", {})
+    if not dec.get("paged_attention") \
+            or dec.get("paged_attention.vector") != dec["paged_attention"] \
+            or not any(k.startswith("fused_") for k in dec):
+        fail(f"router: replica {name}'s decode launches {dec}")
+    for kind, ent in merged.items():
+        bad = {k: v for k, v in ent.items() if k.startswith("fused_")
+               and not k.endswith(f".{want[kind]}")}
+        if bad:
+            fail(f"router: replica {name}'s {kind} launches {bad}, all "
+                 f"expected on the {want[kind]} route")
+    return merged
+
+
+def router_streams(cli, prompt, stop, out):
+    """Streams of ONLINE_STREAM greedy tokens of `prompt`, one after
+    another through `cli`, until `stop` is set; each appended to `out`
+    when it starts as (start time, frames [(arrival time, index,
+    tokens)], final reply: filled when it ends)."""
+    while not stop.is_set():
+        frames, rep = [], {}
+        out.append((time.monotonic(), frames, rep))
+        try:
+            rep.update(cli.generate(
+                prompt, ONLINE_STREAM, timeout=ROUTER_WAIT_S, stream=True,
+                on_token=lambda toks, idx: frames.append(
+                    (time.monotonic(), idx, [int(x) for x in toks]))))
+        except Exception as e:
+            rep.update(status="exception", error=f"{type(e).__name__}: {e}")
+
+
+def router_phase(torch, eng, root, rate, wire, versions):
+    """The replicated-serving router (item 18's rest) at GPT-3 XL width
+    over two replicas on the card. Replica A: a fresh engine with phase
+    3's slots and pool on phase 3's weights (eng.model: no second upload)
+    behind a ServingServer with publish_root=`root`, warmed as slo_engine;
+    replica B: InProcessReplica(root) built from store step versions[0]
+    (Engine.from_checkpoint: a read and upload), warmed alike. Neither
+    keeps a prefix cache, so a request replayed between runs prefills as
+    it did the first time. A Router with bench_router's probe settings
+    fronts them; before any traffic both must report the same
+    model_version. (a) bench_router over the wire through the router
+    (router_drill): slo_traffic for max(8 s, B's predicted re-admission
+    + 5 s) with no fault, then the same with B killed (listener and live
+    connections severed, decode halted) 2.5 s in and respawned from its
+    checkpoint by the router: detect s (kill -> B not healthy), recovery
+    s (kill -> the respawned B healthy), failovers, attainment
+    (baseline, faulted, after recovery beside the baseline's same
+    window), wire TTFT and inter-token p50 / p99 beside the slo phase's
+    (`wire`, its run_client row at `rate`). The rate starts at half the
+    slo phase's held `rate` (two GPT-3 XL decode loops, the router and
+    the clients share one process and its GIL: a replica's decode step
+    took 3.6-4.4x the lone engine's, and at the full rate the survivor
+    could not take the dead replica's streams) and halves, each attempt
+    printed, while the faulted run has any outcome but "done", down to
+    SLO_MIN_RATE. Gates, on the last attempt: no request error and no
+    token out of range, every request done in both runs the same
+    tokens, one final reply a request. (b) bench_online's part
+    (2): router.rollout_version(versions[1]), a version already published
+    that neither serves, while streams of ONLINE_STREAM tokens of phase
+    3's first prompt run back to back through the router: the rollout's
+    wall s, each replica's read + upload s and flip ms, the largest
+    inter-token gap inside each flip window beside the streams' median,
+    `adopted` and both replicas' model_version after. Gates: every
+    stream whole (no frame lost or repeated, its tokens the final
+    reply's), a stream that ended before the first flip equal to the
+    in-process tokens on the old weights and one that began after the
+    last flip to those on the new, one final reply a stream, both
+    replicas on versions[1]. Each replica's decode launches on the
+    vector / stream kernels (its own thread's launches, tapped per
+    engine). Returns the launch counts of (a) and (b) (set to 0 just
+    before the first run's traffic)."""
+    import numpy as np
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.serving import (InProcessReplica, ReplicaSpec,
+                                          Router, ServingClient,
+                                          ServingServer)
+    cur, target = versions
+    vocab = eng.model.cfg.vocab_size
+    prompt = request_mix(vocab)[0][0]
+    t_phase = time.perf_counter()
+    a_eng = slo_engine(eng.model)
+    ref = a_eng.submit(prompt, ONLINE_STREAM)
+    a_eng.run_until_idle()
+    want_cur = ref.result().tolist()
+    taps = {"A": [tap_sub_block_routes(a_eng.model, ROUTER_TAP)], "B": []}
+    rep_b = InProcessReplica(root, name="B", publish_root=root, engine_kw=dict(
+        step=cur, num_slots=8, num_pages=SERVE_PAGES, page_size=SERVE_PAGE))
+    lives = []
+
+    def start_b(respawn):
+        t = time.perf_counter()
+        ep = rep_b.respawn() if respawn else rep_b.start()
+        torch.cuda.synchronize()
+        lives.append(round(time.perf_counter() - t, 3))
+        taps["B"].append(tap_sub_block_routes(rep_b.engine.model,
+                                              ROUTER_TAP))
+        return ep
+
+    srv_a = router = None
+    models = [a_eng.model]
+    try:
+        start_b(False)
+        for plen in (4, 8, 16, 32):     # slo_engine's warm-up, live
+            rep_b.engine.generate(np.full((plen,), 1, np.int32), 2,
+                                  timeout=ROUTER_WAIT_S)
+        models.append(rep_b.engine.model)
+        srv_a = ServingServer(a_eng, "127.0.0.1:0", publish_root=root).start()
+        router = Router("127.0.0.1:0", publish_root=root, replicas=[
+            ReplicaSpec("A", srv_a.endpoint),
+            ReplicaSpec("B", rep_b.endpoint,
+                        respawn=lambda: start_b(True))],
+            **ROUTER_PROBE)
+        router.start()
+        wait_until(lambda: router.stats()["healthy_replicas"] == 2,
+                   "both replicas healthy", timeout=ROUTER_WAIT_S,
+                   phase="router")
+        start_versions = {n: r["last_info"].get("model_version")
+                          for n, r in router.stats()["replicas"].items()}
+        if len(set(start_versions.values())) != 1:
+            fail(f"router: the replicas serve other versions "
+                 f"{start_versions}")
+        setup_s = time.perf_counter() - t_phase
+
+        # (a) failover and respawn, from half the slo phase's rate,
+        # halving while the survivor cannot hold it
+        reset_launch_counts()
+        drill_rate = rate / 2
+        while True:
+            row, problems = router_drill(router, a_eng, rep_b, lives,
+                                         drill_rate, wire, vocab)
+            row.update(setup_s=round(setup_s, 3),
+                       start_model_version=start_versions)
+            print(json.dumps(row), flush=True)
+            held = set(row["router_outcomes"][1]) == {"done"}
+            if held or drill_rate / 2 < SLO_MIN_RATE:
+                break
+            drill_rate /= 2
+        models.append(rep_b.engine.model)
+        if problems:
+            fail(f"router: {problems}")
+
+        # (b) the staggered rollout under back-to-back streams
+        swaps: dict = {}
+        b_eng = rep_b.engine
+        for name, e in (("A", a_eng), ("B", b_eng)):
+            m = e.model
+            read, upload = m.read_checkpoint, m._prepare_params
+            adopt = m.adopt_checkpoint
+
+            def read_hook(r, step=None, _n=name, _read=read):
+                swaps[_n] = {"t_read": time.monotonic()}
+                prepared = _read(r, step=step)
+                torch.cuda.synchronize()
+                swaps[_n]["t_release"] = time.monotonic()
+                return prepared
+
+            def upload_hook(arrays, r, _n=name, _upload=upload):
+                swaps[_n]["t_upload"] = time.monotonic()
+                return _upload(arrays, r)
+
+            def adopt_hook(prepared, _n=name, _adopt=adopt):
+                out = _adopt(prepared)
+                swaps[_n]["t_flip"] = time.monotonic()
+                return out
+
+            m.read_checkpoint, m.adopt_checkpoint = read_hook, adopt_hook
+            m._prepare_params = upload_hook
+        stop = threading.Event()
+        streams: list = []
+        cli = ServingClient(router.endpoint)
+        answers0 = router_series(router, "paddle_tpu_router_requests_total")
+        streamer = threading.Thread(target=router_streams, daemon=True,
+                                    args=(cli, prompt, stop, streams))
+        try:
+            streamer.start()
+            wait_until(lambda: streams and len(streams[0][1]) >= 4,
+                       "a stream under way", timeout=ROUTER_WAIT_S,
+                       phase="router")
+            t = time.perf_counter()
+            out = router.rollout_version(target)
+            rollout_s = time.perf_counter() - t
+            # on until a stream begun after the last flip has ended
+            t_done = time.monotonic()
+            wait_until(lambda: any(t0 > t_done and rep
+                                   for t0, _f, rep in streams),
+                       "a whole stream after the rollout",
+                       timeout=ROUTER_WAIT_S, phase="router")
+            stop.set()
+            streamer.join(ROUTER_WAIT_S)
+            if streamer.is_alive():
+                fail("router: the streams did not end")
+        finally:
+            stop.set()
+            cli.close()
+        stream_answers = sum(series_delta(router_series(
+            router, "paddle_tpu_router_requests_total"), answers0).values())
+        after = {n: r["last_info"].get("model_version")
+                 for n, r in router.stats()["replicas"].items()}
+        engines = {"A": a_eng.stats()["model_version"],
+                   "B": b_eng.stats()["model_version"]}
+        if out.get("adopted") != target or set(after.values()) != {target} \
+                or set(engines.values()) != {target} or set(swaps) != {"A", "B"}:
+            fail(f"router: rollout {out}, replicas on {after} / {engines}")
+        ref = a_eng.submit(prompt, ONLINE_STREAM)
+        want_target = ref.result(ROUTER_WAIT_S).tolist()
+        first_flip = min(sw["t_read"] for sw in swaps.values())
+        last_flip = max(sw["t_flip"] for sw in swaps.values())
+        # a gap is the wait for a frame, counted in the window (read,
+        # upload, flip of a replica) in which that frame arrived
+        windows = {(n, w): (sw[t0], sw[t1] + (0.05 if w == "flip" else 0))
+                   for n, sw in swaps.items()
+                   for w, t0, t1 in (("read", "t_read", "t_upload"),
+                                     ("upload", "t_upload", "t_release"),
+                                     ("flip", "t_release", "t_flip"))}
+        gaps_in = {k: [] for k in windows}
+        gaps_out, equal = [], []
+        for t0, frames, rep in streams:
+            toks, idx_ok = [], True
+            for _t, idx, ts in frames:
+                idx_ok &= idx == len(toks)
+                toks.extend(ts)
+            final = [int(x) for x in np.asarray(rep.get("tokens", ())).ravel()]
+            if rep.get("status") != "done" or not idx_ok \
+                    or len(toks) != ONLINE_STREAM or toks != final:
+                fail(f"router: a stream lost, doubled or reordered tokens: "
+                     f"{rep.get('status')} {rep.get('error')} frames "
+                     f"{[f[1] for f in frames]}")
+            end = frames[-1][0]
+            if end < first_flip and toks != want_cur \
+                    or t0 > last_flip and toks != want_target:
+                fail("router: a stream's tokens differ from the in-process "
+                     "tokens on its weights")
+            equal.append(toks in (want_cur, want_target))
+            for (a, _i, _x), (b, _j, _y) in zip(frames, frames[1:]):
+                inside = [k for k, (lo, hi) in windows.items()
+                          if lo <= b <= hi]
+                for k in inside:
+                    gaps_in[k].append(b - a)
+                if not inside:
+                    gaps_out.append(b - a)
+        if stream_answers != len(streams):
+            fail(f"router: {stream_answers} final replies for "
+                 f"{len(streams)} streams")
+        routes = {n: check_replica_routes(n, taps[n]) for n in ("A", "B")}
+        counts = launch_counts()
+        print(json.dumps({
+            "phase": "router_rollout", "version_from": cur,
+            "version_to": target, "adopted": out.get("adopted"),
+            "replicas": out.get("replicas"), "model_version_after": after,
+            "rollout_s": round(rollout_s, 3),
+            "read_upload_s": {n: round(sw["t_release"] - sw["t_read"], 3)
+                              for n, sw in swaps.items()},
+            "upload_s": {n: round(sw["t_release"] - sw["t_upload"], 3)
+                         for n, sw in swaps.items()},
+            "flip_ms": {n: round((sw["t_flip"] - sw["t_release"]) * 1e3, 3)
+                        for n, sw in swaps.items()},
+            "window_max_gap_ms": {
+                f"{n}.{w}": round(max(g) * 1e3, 3) if g else None
+                for (n, w), g in gaps_in.items()},
+            "long_prefills": {n: routes_prefills(
+                taps[n], a_eng.model.cfg.num_layers) for n in ("A", "B")},
+            "stream_median_gap_ms": round(statistics.median(gaps_out) * 1e3,
+                                          3) if gaps_out else None,
+            "streams": len(streams), "final_replies": int(stream_answers),
+            "old_equals_new_weights_tokens": want_cur == want_target,
+            "streams_equal_reference": sum(equal)}), flush=True)
+        print(json.dumps({"phase": "router_launches", "launches": counts,
+                          "replica_routes": routes,
+                          "phase_s": round(time.perf_counter() - t_phase,
+                                           2)}), flush=True)
+        if counts.get("paged_attention.vector", 0) \
+                != counts.get("paged_attention", 0):
+            fail(f"router: paged attention off the vector kernel {counts}")
+        return counts
+    finally:
+        if router is not None:
+            router.stop()
+        if srv_a is not None:
+            srv_a.stop()
+        rep_b.stop()
+        for m in models:
+            for name in ("read_checkpoint", "adopt_checkpoint", "prefill",
+                         "prefill_tail", "decode"):
+                if name in vars(m):
+                    delattr(m, name)
+
+
+def router_drill(router, a_eng, rep_b, lives, rate, wire, vocab):
+    """router_phase's part (a) at `rate`: slo_traffic for max(8 s, B's
+    predicted re-admission + 5 s) through `router`, fault-free, then again
+    with B killed ROUTER_KILL_AT s in (on a thread: detection is timed
+    from the kill's start) and respawned by the router. Returns the
+    row to print and the gates' failures (none: every gate met)."""
+    from paddle_tpu_torch.serving import (LoadGenerator, ServingClient,
+                                          slo_report)
+    # B's respawn runs beside a loaded survivor: 1.5-1.8x its idle start
+    # on an H100 (PERF.md, the router runs), then a probe re-admits it
+    predicted = 2 * lives[-1] + 1.0
+    run_s = max(ROUTER_MIN_RUN_S, predicted + ROUTER_AFTER_S)
+    traffic = slo_traffic(rate, duration=run_s)
+    cli = ServingClient(router.endpoint)
+    outcomes, reasons, watched = [], [], []
+    try:
+        out0 = router_series(router, "paddle_tpu_router_requests_total")
+        watch = FleetWatch(router)
+        marks = [decode_mark(e) for e in (a_eng, rep_b.engine)]
+        base = LoadGenerator(traffic, name="router_base").run_client(
+            cli, timeout=ROUTER_WAIT_S)
+        if not base.wait(300):
+            fail("router: the fault-free run did not finish")
+        step_ms = [decode_ms_since(e, m) for e, m in
+                   zip((a_eng, rep_b.engine), marks)]
+        watched.append(watch.stop())
+        out1 = router_series(router, "paddle_tpu_router_requests_total")
+        outcomes.append(series_delta(out1, out0))
+        fo0 = router_series(router, "paddle_tpu_router_failovers_total")
+        box = []
+        watch = FleetWatch(router)
+        runner = threading.Thread(target=lambda: box.append(
+            LoadGenerator(traffic, name="router_fault").run_client(
+                cli, timeout=ROUTER_WAIT_S)), daemon=True)
+        runner.start()
+        time.sleep(ROUTER_KILL_AT)
+        # the kill (listener, connections, then the decode loop) on
+        # a thread of its own: detection is timed from its start
+        killer = threading.Thread(target=rep_b.kill, daemon=True)
+        epoch = router.stats()["replicas"]["B"]["epoch"]
+        t_kill = time.monotonic()
+        killer.start()
+        detect_s = recovery_s = None
+        while time.monotonic() - t_kill < ROUTER_WAIT_S \
+                and recovery_s is None:
+            st = router.stats()["replicas"]["B"]
+            now = time.monotonic()
+            if detect_s is None and st["state"] != "healthy":
+                detect_s = now - t_kill
+            if detect_s is not None and st["state"] == "healthy" \
+                    and st["epoch"] > epoch:
+                recovery_s = now - t_kill
+            time.sleep(0.01)
+        killer.join(60)
+        runner.join(300)
+        if not box or not box[0].wait(300):
+            fail("router: the faulted run did not finish")
+        fault = box[0]
+        watched.append(watch.stop())
+        outcomes.append(series_delta(router_series(
+            router, "paddle_tpu_router_requests_total"), out1))
+        reasons = series_delta(router_series(
+            router, "paddle_tpu_router_failovers_total"), fo0)
+    finally:
+        cli.close()
+    want = {a.index: [int(t) for t in h.generated]
+            for a, h in base.handles if h.status == "done"}
+    got = {a.index: [int(t) for t in h.generated]
+           for a, h in fault.handles if h.status == "done"}
+    differ = sorted(i for i in set(want) & set(got) if want[i] != got[i])
+    rep_base, rep_fault = slo_report(base), slo_report(fault)
+    rec_off = None if recovery_s is None \
+        else t_kill + recovery_s - fault.started_at
+    post = post_base = None
+    if rec_off is not None and rec_off < run_s - 0.5:
+        post = slo_report(fault, window=(rec_off, float("inf")),
+                          gen="router_post")
+        post_base = slo_report(base, window=(rec_off, float("inf")),
+                               gen="router_post_base")
+    delta = None if post is None or post_base["attainment"] is None \
+        or post["attainment"] is None \
+        else round(post_base["attainment"] - post["attainment"], 4)
+    row = {
+        "phase": "router_failover", "rate_rps": rate,
+        "duration_s": run_s, "kill_at_s": ROUTER_KILL_AT,
+        "replica_start_s": list(lives),
+        "baseline_decode_step_ms": {n: list(v) for n, v in
+                                    zip("AB", step_ms)},
+        "fleet": watched,
+        "predicted_recovery_s": round(predicted, 3),
+        "detect_s": None if detect_s is None else round(detect_s, 3),
+        "recovery_s": None if recovery_s is None
+        else round(recovery_s, 3),
+        "failovers": reasons, "requests": len(fault.handles),
+        "done_in_both": len(set(want) & set(got)),
+        "router_outcomes": outcomes,
+        "baseline_attainment": rep_base["attainment"],
+        "faulted_attainment": rep_fault["attainment"],
+        "post_recovery_attainment": None if post is None
+        else post["attainment"],
+        "post_recovery_baseline": None if post_base is None
+        else post_base["attainment"],
+        "post_recovery_delta": delta,
+        "wire_ttft_ms": [rep_base["ttft_ms_p50"],
+                         rep_base["ttft_ms_p99"]],
+        "wire_itl_ms": [rep_base["itl_ms_p50"], rep_base["itl_ms_p99"]],
+        "faulted_ttft_ms": [rep_fault["ttft_ms_p50"],
+                            rep_fault["ttft_ms_p99"]],
+        "slo_wire_ttft_ms": None if wire is None
+        else [wire["ttft_ms_p50"], wire["ttft_ms_p99"]],
+        "slo_wire_itl_ms": None if wire is None
+        else [wire["itl_ms_p50"], wire["itl_ms_p99"]],
+        "by_status": [rep_base["by_status"], rep_fault["by_status"]]}
+    problems = []
+    if detect_s is None or recovery_s is None:
+        problems.append(f"B detected {detect_s}, recovered {recovery_s} "
+                        f"within {ROUTER_WAIT_S} s of the kill")
+    for res, what in ((base, "fault-free"), (fault, "faulted")):
+        problems += load_problems(res, vocab, f"the {what} run")
+    replies = [sum(o.values()) for o in outcomes]
+    if replies != [len(base.handles), len(fault.handles)]:
+        problems.append(f"{replies} final replies for {len(base.handles)} "
+                        f"/ {len(fault.handles)} requests")
+    if differ or not got:
+        problems.append(f"{len(got)} requests done in the faulted run, "
+                        f"tokens differ from the fault-free run on "
+                        f"{differ[:8]}")
+    return row, problems
+
+
+
+def publish_versions(torch, eng, root):
+    """--router's store: phase 3's weights published as version 1 (every
+    chunk written) and again as version 2 (every chunk a dedup hit) under
+    `root`, and `eng` warm-started onto version 2, as the online phase
+    leaves them. Returns (2, 1): the version served, the one to roll
+    out."""
+    import types
+    from paddle_tpu_torch.publish import Publisher
+    pub = Publisher(root, run="chip_smoke")
+    model = types.SimpleNamespace(params=eng.model.params,
+                                  cfg=eng.model.cfg)
+    t = time.perf_counter()
+    for version in (1, 2):
+        rec = pub.publish_model(model, step=version)
+        if rec["version"] != version:
+            fail(f"router: published {rec}, expected version {version}")
+    pub_s = time.perf_counter() - t
+    t = time.perf_counter()
+    eng.warm_start(root, step=2, version=2)
+    print(json.dumps({"phase": "router_store", "publish_s": round(pub_s, 2),
+                      "warm_start_s": round(time.perf_counter() - t, 3)}),
+          flush=True)
+    return 2, 1
+
+
+def router_alone(torch):
+    """--router: phase 3's GPT-3 XL engine (seed-0 weights) serving phase
+    3's first request cold, the slo phase for its held rate and wire
+    figures, two versions published under a temporary root and the
+    engine on the second (publish_versions), then router_phase; the root
+    is removed at the end."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.serving import GPTDecodeModel
+    cfg = GPTConfig.gpt3_1p3b()
+    eng = serving_engine(GPTDecodeModel(cfg, params=init_gpt_params(
+        cfg, seed=0)), prefix_cache_pages=64)
+    p, n, kw = request_mix(cfg.vocab_size)[0]
+    eng.submit(p, n, **kw)
+    eng.run_until_idle()
+    rate, _res, wire = timed("slo", slo_phase, torch, eng)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        versions = timed("router_store", publish_versions, torch, eng, root)
+        return timed("router", router_phase, torch, eng, root, rate, wire,
+                     versions)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# fault C7: two threads launching the decode sub-blocks on one stream
+C7_REPS = 300
+
+
+def check_two_threads(torch):
+    """Fault C7 (ROADMAP C): two engines in one process decode on their
+    own threads, and both enqueue on the one stream. Two threads,
+    released together, each with its own inputs at decode (M = 8, f32,
+    GPT-3 XL width, the stream route; the weights are shared), launch row
+    3 (fused_ffn_ln with norm "none": two launches passing hid; with norm
+    "pre": three, passing xn too) and row 2 (fused_out_ln) C7_REPS times
+    each without synchronising. Every output must match its own thread's
+    plain version within 1e-4 + 1e-4·|ref|, and every call must have
+    taken the stream route. Prints the launches, the outputs out of
+    tolerance and the largest error; fails on any bad output."""
+    from paddle_tpu_torch.ops import launch_counts
+    from paddle_tpu_torch.ops.fused_block import (ffn_ln_reference,
+                                                  fused_ffn_ln, fused_out_ln,
+                                                  out_ln_reference)
+    D, I, M, tol = 2048, 8192, 8, 1e-4
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def rn(*shape, s=1.0):
+        return torch.randn(*shape, generator=g, device="cuda") * s
+
+    w, b, ln_s, ln_b = rn(D, D, s=0.02), rn(D, s=0.02), \
+        1.0 + rn(D, s=0.1), rn(D, s=0.1)
+    w1, b1, w2, b2 = rn(D, I, s=0.02), rn(I, s=0.02), rn(I, D, s=0.01), \
+        rn(D, s=0.02)
+    calls = []
+    for _ in range(2):
+        x, a, res = rn(M, D), rn(M, D), rn(M, D)
+        calls.append([
+            (lambda x=x, res=res: fused_ffn_ln(x, w1, b1, w2, b2, res),
+             ffn_ln_reference(x, w1, b1, w2, b2, res)),
+            (lambda x=x, res=res: fused_ffn_ln(x, w1, b1, w2, b2, res, ln_s,
+                                               ln_b, norm="pre"),
+             ffn_ln_reference(x, w1, b1, w2, b2, res, ln_s, ln_b,
+                              norm="pre")),
+            (lambda a=a, res=res: fused_out_ln(a, w, b, res, ln_s, ln_b),
+             out_ln_reference(a, w, b, res, ln_s, ln_b))])
+    torch.cuda.synchronize()
+    outs = [[], []]
+    errors = []
+    go = threading.Barrier(2)
+
+    def run(k):
+        try:
+            go.wait(60)
+            for _ in range(C7_REPS):
+                for j, (fn, _ref) in enumerate(calls[k]):
+                    outs[k].append((j, fn()))
+        except Exception as e:          # reported below, then failed
+            errors.append(f"{type(e).__name__}: {e}")
+
+    before = launch_counts()
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = launch_counts()
+    launches = {k: after[k] - before.get(k, 0) for k in after
+                if after[k] != before.get(k, 0)}
+    bad, worst = 0, 0.0
+    for k in range(2):
+        for j, got in outs[k]:
+            ref = calls[k][j][1]
+            pairs = zip(got, ref) if isinstance(got, tuple) else [(got, ref)]
+            for g_, r_ in pairs:
+                err = float((g_ - r_).abs().max())
+                worst = max(worst, err)
+                bad += not within(g_, r_, tol, tol)
+    print(json.dumps({"check": "c7_two_threads", "reps": C7_REPS,
+                      "calls": [len(o) for o in outs], "launches": launches,
+                      "bad_outputs": bad, "max_abs_err": worst, "tol": tol,
+                      "wall_s": round(wall, 3), "errors": errors[:4]}),
+          flush=True)
+    want = 2 * C7_REPS
+    if errors or any(t.is_alive() for t in threads) or bad \
+            or launches.get("fused_ffn_ln.stream") != 2 * want \
+            or launches.get("fused_out_ln.stream") != want:
+        fail(f"C7: two threads on one stream: {bad} outputs off their plain "
+             f"versions (max abs err {worst}), launches {launches}, "
+             f"errors {errors[:4]}")
+
+
+def read_parts_phase(torch):
+    """--read-parts: where one read of the GPT-3 XL checkpoint (seed-0
+    weights, 5.26 GB in 1 MiB chunks, written just before: the page
+    cache is warm) goes. The former serial read timed part by part: the
+    chunk files read one by one (files_s), each re-hashed with sha256
+    (sha256_s), each array's chunks joined and copied out of the buffer
+    (join_copy_s), and the whole of it as the store did it
+    (serial_restore_s); then CheckpointStore.restore as it reads now
+    (restore_s: every chunk read and verified on a thread pool straight
+    into its array), the cast and upload of the restored arrays
+    (GPTDecodeModel's _prepare: upload_s) and read_checkpoint end to end
+    (read_checkpoint_s). Every restore is held bit-equal to the weights
+    saved."""
+    import hashlib
+    import shutil
+    import tempfile
+    import numpy as np
+    from paddle_tpu_torch.checkpoint import CheckpointStore
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.serving import GPTDecodeModel
+    from paddle_tpu_torch.serving.model import _prepare, _tree_items
+    cfg = GPTConfig.gpt3_1p3b()
+    model = GPTDecodeModel(cfg, params=init_gpt_params(cfg, seed=0))
+    root = tempfile.mkdtemp(prefix="chip_smoke_read_")
+    try:
+        t = time.perf_counter()
+        model.save_checkpoint(root)
+        save_s = time.perf_counter() - t
+        store = CheckpointStore(root)
+        ents = store.latest_manifest()["arrays"]
+        nbytes = sum(int(e["nbytes"]) for e in ents.values())
+        row = {"phase": "checkpoint_read_parts", "bytes": nbytes,
+               "chunks": sum(len(e["chunks"]) for e in ents.values()),
+               "page_cache": "warm", "save_s": round(save_s, 3)}
+        t = time.perf_counter()
+        blobs = {name: [open(store.chunks._path(c["h"]), "rb").read()
+                        for c in ent["chunks"]]
+                 for name, ent in ents.items()}
+        row["files_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for name, ent in ents.items():
+            for c, data in zip(ent["chunks"], blobs[name]):
+                if hashlib.sha256(data).hexdigest() != c["h"]:
+                    fail(f"read parts: chunk {c['h']} corrupt")
+        row["sha256_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        for name, ent in ents.items():
+            np.frombuffer(b"".join(blobs[name]), np.dtype(ent["dtype"])) \
+                .reshape(tuple(ent["shape"])).copy()
+        row["join_copy_s"] = time.perf_counter() - t
+        del blobs
+        t = time.perf_counter()
+        serial = {}
+        for name, ent in ents.items():
+            parts = [store.chunks.get(c["h"]) for c in ent["chunks"]]
+            serial[name] = np.frombuffer(b"".join(parts), np.dtype(
+                ent["dtype"])).reshape(tuple(ent["shape"])).copy()
+        row["serial_restore_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        arrays, _ = store.restore()
+        row["restore_s"] = time.perf_counter() - t
+        if any(arrays[k].tobytes() != serial[k].tobytes() for k in ents):
+            fail("read parts: the threaded restore differs from the serial "
+                 "read")
+        del serial
+        template = []
+        for path, leaf in _tree_items(model.params):
+            if isinstance(leaf, list):
+                template.append((path, leaf[0].dtype,
+                                 (len(leaf),) + tuple(leaf[0].shape)))
+            else:
+                template.append((path, leaf.dtype, tuple(leaf.shape)))
+        t = time.perf_counter()
+        _prepare(arrays, template, root, model.device)
+        row["upload_s"] = time.perf_counter() - t
+        del arrays
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        prepared = model.read_checkpoint(root)
+        row["read_checkpoint_s"] = time.perf_counter() - t
+        same = all(torch.equal(p, q) for (_a, p), (_b, q) in zip(
+            _leaves(prepared), _leaves(model.params)))
+        if not same:
+            fail("read parts: read_checkpoint differs from the weights saved")
+        for k in [k for k in row if k.endswith("_s")]:
+            sec, row[k] = row[k], round(row[k], 3)
+            row[k[:-2] + "_gb_per_s"] = round(nbytes / sec / 1e9, 3)
+        print(json.dumps(row), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _leaves(params):
+    """(path, tensor) of a decode model's parameters, blocks layer by
+    layer."""
+    out = [((k,), params[k]) for k in sorted(params) if k != "blocks"]
+    for i, blk in enumerate(params["blocks"]):
+        out += [(("blocks", i, k), blk[k]) for k in sorted(blk)]
+    return out
+
+
 def serving_wide_heads_phase(torch):
     """Decode at a head width past the vector paged kernel, on the card:
     a 2-layer GPT with heads of 256 (hidden 512, 2 heads; the reference
@@ -3467,26 +4265,55 @@ def prefill_kind(rows):
     return f"prefill_lt_{_FFMA_MIN_ROWS}"
 
 
-def tap_sub_block_routes(model):
+_THREAD_LAUNCHES = threading.local()
+
+
+def count_launches_by_thread():
+    """Makes every kernel wrapper's launch also count in the tally of the
+    thread that launched it (``_THREAD_LAUNCHES.counts``, while a tap
+    has set one): two engines in one process decode on their own threads
+    at once, and the process-wide counts cannot tell their launches
+    apart. Patches paddle_tpu_torch.ops._build.note_launch once (every
+    wrapper calls it through the module); the process-wide counts go on
+    as before."""
+    from paddle_tpu_torch.ops import _build
+    if getattr(_build.note_launch, "by_thread", False):
+        return
+    note = _build.note_launch
+
+    def note_launch(name):
+        note(name)
+        counts = getattr(_THREAD_LAUNCHES, "counts", None)
+        if counts is not None:
+            counts[name] = counts.get(name, 0) + 1
+
+    note_launch.by_thread = True
+    _build.note_launch = note_launch
+
+
+def tap_sub_block_routes(model, prefixes=("fused_out_ln.", "fused_ffn_ln.")):
     """Wraps the model's prefill, prefill_tail and decode (instance
-    attributes over the class's) to add up the sub-blocks' launches by
-    route for each kind of call: "decode", and prefill by prefill_kind.
-    Returns that (live) dict."""
-    from paddle_tpu_torch.ops import launch_counts
+    attributes over the class's) to add up, for each kind of call
+    ("decode", and prefill by prefill_kind), the launches the calling
+    thread made in it of the counters named by `prefixes` (by default
+    the sub-blocks' routes). Returns that (live) dict."""
+    count_launches_by_thread()
     by_call = {}
 
     def tap(fn, kind):
         def run(params, cache, tokens, *rest):
-            before = launch_counts()
-            out = fn(params, cache, tokens, *rest)
-            after = launch_counts()
+            outer = getattr(_THREAD_LAUNCHES, "counts", None)
+            _THREAD_LAUNCHES.counts = mine = {}
+            try:
+                out = fn(params, cache, tokens, *rest)
+            finally:
+                _THREAD_LAUNCHES.counts = outer
             key = kind if kind == "decode" \
                 else prefill_kind(tokens.shape[0])
             ent = by_call.setdefault(key, {})
-            for k, v in after.items():
-                if k.startswith(("fused_out_ln.", "fused_ffn_ln.")) \
-                        and v != before.get(k, 0):
-                    ent[k] = ent.get(k, 0) + v - before.get(k, 0)
+            for k, v in mine.items():
+                if k.startswith(prefixes):
+                    ent[k] = ent.get(k, 0) + v
             return out
         return run
 
@@ -4543,14 +5370,20 @@ def widedeep_phase(torch, with_profile=False):
 # data parallelism (item 14(a)): two ranks on the one card over gloo
 # ---------------------------------------------------------------------------
 
-def dp_worker(case, out_dir, *args):
-    """One rank of a data-parallel phase, started by the port's
+# the thread-pool sizes a rank's libraries read when they start
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+def dp_worker(cases, out_dir):
+    """One rank of a world of ranks on the card, started by the port's
     distributed.spawn: joins the process group from the PADDLE_* env
-    (two ranks on one card: gloo with CUDA tensors), runs DP_CASES[case]
-    on the card and pickles its result to <out_dir>/rank<r>.pkl. The
-    kernels are the ones the parent built; a build here is recorded and
-    fails the phase."""
+    (ranks sharing a card: gloo with CUDA tensors), runs each (label,
+    case, args) of `cases` in order (DP_CASES[case](torch, *args), the
+    card's cache emptied between them) and pickles {label: result} to
+    <out_dir>/rank<r>.pkl. The kernels are the ones the parent built; a
+    build here is recorded and fails the phase."""
     import pickle
+    t_enter = time.time()
 
     import torch
     from paddle_tpu_torch.distributed import env
@@ -4560,7 +5393,15 @@ def dp_worker(case, out_dir, *args):
         raise RuntimeError("a data-parallel rank found no CUDA card")
     penv = env.init_parallel_env()
     disable_tf32()
-    res = DP_CASES[case](torch, *args)
+    # wall clock: the parent holds these against its spawn's start
+    timeline = {"enter": t_enter, "ready": time.time()}
+    res = {}
+    for label, case, args in cases:
+        res[label] = DP_CASES[case](torch, *args)
+        gc.collect()
+        torch.cuda.empty_cache()
+        timeline[label] = time.time()
+    res["timeline"] = timeline
     res["backend"] = penv.backend
     res["device"] = str(torch.device("cuda", torch.cuda.current_device()))
     res["built_here"] = sorted(_build.build_log())
@@ -4568,34 +5409,89 @@ def dp_worker(case, out_dir, *args):
         pickle.dump(res, f)
 
 
-def run_dp(case, *args, timeout=300, nprocs=DP_RANKS):
-    """DP_CASES[case] on `nprocs` ranks of the one card; their results,
-    rank by rank. A rank that fails or outlives `timeout` fails the run
-    (spawn terminates the others)."""
+def run_world(cases, nprocs, timeout):
+    """dp_worker's `cases` on `nprocs` ranks of the one card, in one
+    spawn; each rank's {label: result}, rank by rank. A rank that fails
+    or outlives `timeout` fails the run (spawn terminates the others).
+    One line with where the world's wall went: spawn -> each rank's
+    entry, -> its process group (torch imported, gloo joined), -> each
+    case's end; and the last rank reaped."""
     import pickle
     import shutil
     import tempfile
     from paddle_tpu_torch.distributed import spawn
+    labels = [label for label, _, _ in cases]
     out = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    # each rank's share of the host's cores for its CPU thread pools
+    # (torch's, BLAS's): with every core each, the ranks of a world
+    # oversubscribe the host nprocs times over
+    threads = str(max(1, (os.cpu_count() or 1) // nprocs))
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    os.environ.update({k: threads for k in THREAD_VARS})
     try:
+        t0 = time.time()
         try:
-            spawn(dp_worker, args=(case, out, *args), nprocs=nprocs,
+            spawn(dp_worker, args=(cases, out), nprocs=nprocs,
                   timeout=timeout)
         except RuntimeError as e:
-            fail(f"data-parallel phase {case!r}: {e}")
+            fail(f"data-parallel world {labels}: {e}")
+        t_end = time.time()
         res = []
         for r in range(nprocs):
             with open(os.path.join(out, f"rank{r}.pkl"), "rb") as f:
                 res.append(pickle.load(f))
     finally:
         shutil.rmtree(out, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    tl = [rank["timeline"] for rank in res]
+    print(json.dumps({
+        "phase": "spawn", "cases": labels, "ranks": nprocs,
+        "threads_per_rank": int(threads), "wall_s": round(t_end - t0, 2),
+        **{f"{k}_s": [round(t[k] - t0, 2) for t in tl]
+           for k in ("enter", "ready", *labels)}}), flush=True)
     for r, rank in enumerate(res):
         if rank["built_here"] or rank["backend"] != "gloo" \
                 or not rank["device"].startswith("cuda"):
-            fail(f"{case} rank {r}: backend {rank['backend']}, device "
+            fail(f"{labels} rank {r}: backend {rank['backend']}, device "
                  f"{rank['device']}, kernels built in the rank "
                  f"{rank['built_here']} (want gloo, cuda, none)")
     return res
+
+
+def world_phases(nprocs, phases):
+    """Phases that each need a world of `nprocs` ranks, run in one
+    world: a rank's start (torch, a CUDA context, gloo) and its first
+    steps' warm-up cost 20-40 s on the card, paid once. Each phase is
+    (name, prepare, args): prepare(*args) runs here first (its
+    single-rank references) and returns (cases, seconds, report): the
+    phase's dp_worker cases, their time limit, and report(ranks), which
+    checks and prints the phase's lines from each rank's {label: result}
+    and returns the phase's result. One seconds line a phase (its
+    preparation and report; the shared world's own line is "spawn").
+    Returns {name: result}."""
+    done = []
+    for name, prepare, args in phases:
+        t0 = time.perf_counter()
+        cases, seconds, report = prepare(*args)
+        done.append((name, cases, seconds, report,
+                     time.perf_counter() - t0))
+    ranks = run_world([(f"{name}/{label}", case, cargs)
+                       for name, cases, _, _, _ in done
+                       for label, case, cargs in cases], nprocs,
+                      sum(d[2] for d in done))
+    out = {}
+    for name, cases, _, report, prep_s in done:
+        t0 = time.perf_counter()
+        out[name] = report([{label: r[f"{name}/{label}"]
+                             for label, _, _ in cases} for r in ranks])
+        print(json.dumps({"phase": "seconds", "of": name, "seconds": round(
+            prep_s + time.perf_counter() - t0, 2), "world": nprocs}),
+            flush=True)
+    return out
 
 
 def _timed_sync(torch, fn, spent):
@@ -4660,7 +5556,7 @@ def dp_bert_case(torch, steps):
     return {"p0": p0, "p1": p1}
 
 
-def bert_dp_phase(torch, dp1_samples_per_s, steps=5):
+def bert_dp_prepare(torch, dp1_samples_per_s, steps=5):
     """bench_bert's configuration at dp = 2 through TrainStep(mesh=
     make_mesh({"dp": 2})): two ranks on the card over gloo, each on its
     8 of the global 16 sequences. At dropout 0 the losses must agree
@@ -4668,50 +5564,54 @@ def bert_dp_phase(torch, dp1_samples_per_s, steps=5):
     1e-3 relative; at dropout 0.1: step ms (median of 4), global
     samples/s beside phase 8's dp = 1 figure, each rank's peak memory
     and the all-reduce's share of the step; rows 2-5 and 8-9 must launch
-    on both ranks, as often on each. Returns each rank's counts of the
-    dropout-0.1 run."""
+    on both ranks, as often on each (world_phases' prepare; its report
+    returns each rank's counts of the dropout-0.1 run)."""
     import math
     one = bert_dp_steps(torch, 0.0, steps)
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = run_dp("bert", steps)
-    rel = max(abs(a - b) / abs(b) for r in ranks
-              for a, b in zip(r["p0"]["losses"], one["losses"]))
-    p1 = [r["p1"] for r in ranks]
-    step_s = statistics.median(max(t) for t in zip(*(p["times"][1:]
-                                                     for p in p1)))
-    sync_share = [statistics.median(s / t for s, t in zip(
-        p["syncs"][1:], p["times"][1:])) for p in p1]
-    dp_counts = [{k: p["counts"].get(k, 0)
-                  for k in BERT_LAUNCHES_PER_STEP} for p in p1]
-    main = {"phase": "bert_dp", "config": "bert_base O1 adamw lr=1e-4",
-            "dp": DP_RANKS, "transport": "gloo, 2 ranks on one card",
-            "batch": BERT_BATCH, "seq": BERT_SEQ,
-            "dp1_losses_p0": one["losses"],
-            "dp2_losses_p0": [r["p0"]["losses"] for r in ranks],
-            "max_rel_p0": rel, "rtol": 1e-3,
-            "dp2_losses_p01": [p["losses"] for p in p1],
-            "step_ms": [[round(t * 1e3, 3) for t in p["times"]]
-                        for p in p1],
-            "step_ms_median": round(step_s * 1e3, 3),
-            "samples_per_s": round(BERT_BATCH / step_s, 2),
-            "dp1_samples_per_s": dp1_samples_per_s,
-            "allreduce_ms": [[round(s * 1e3, 3) for s in p["syncs"]]
-                             for p in p1],
-            "allreduce_share": [round(s, 4) for s in sync_share],
-            "peak_gb": [p["peak_gb"] for p in p1],
-            "launches": dp_counts}
-    print(json.dumps(main), flush=True)
-    MEASURED["bert_dp_step_ms"] = main["step_ms_median"]
-    if not rel <= 1e-3 or not all(math.isfinite(x) for p in p1
-                                  for x in p["losses"]):
-        fail(f"bert_dp: dp = 2 losses off the dp = 1 run (max rel {rel}) "
-             f"or not finite: {main}")
-    if any(n <= 0 for c in dp_counts for n in c.values()) \
-            or dp_counts[0] != dp_counts[1]:
-        fail(f"bert_dp: rows 2-5 and 8-9 not launched alike on both "
-             f"ranks: {dp_counts}")
-    return dp_counts
+
+    def report(ranks):
+        ranks = [r["bert"] for r in ranks]
+        rel = max(abs(a - b) / abs(b) for r in ranks
+                  for a, b in zip(r["p0"]["losses"], one["losses"]))
+        p1 = [r["p1"] for r in ranks]
+        step_s = statistics.median(max(t) for t in zip(*(p["times"][1:]
+                                                         for p in p1)))
+        sync_share = [statistics.median(s / t for s, t in zip(
+            p["syncs"][1:], p["times"][1:])) for p in p1]
+        dp_counts = [{k: p["counts"].get(k, 0)
+                      for k in BERT_LAUNCHES_PER_STEP} for p in p1]
+        main = {"phase": "bert_dp", "config": "bert_base O1 adamw lr=1e-4",
+                "dp": DP_RANKS, "transport": "gloo, 2 ranks on one card",
+                "batch": BERT_BATCH, "seq": BERT_SEQ,
+                "dp1_losses_p0": one["losses"],
+                "dp2_losses_p0": [r["p0"]["losses"] for r in ranks],
+                "max_rel_p0": rel, "rtol": 1e-3,
+                "dp2_losses_p01": [p["losses"] for p in p1],
+                "step_ms": [[round(t * 1e3, 3) for t in p["times"]]
+                            for p in p1],
+                "step_ms_median": round(step_s * 1e3, 3),
+                "samples_per_s": round(BERT_BATCH / step_s, 2),
+                "dp1_samples_per_s": dp1_samples_per_s,
+                "allreduce_ms": [[round(s * 1e3, 3) for s in p["syncs"]]
+                                 for p in p1],
+                "allreduce_share": [round(s, 4) for s in sync_share],
+                "peak_gb": [p["peak_gb"] for p in p1],
+                "launches": dp_counts}
+        print(json.dumps(main), flush=True)
+        MEASURED["bert_dp_step_ms"] = main["step_ms_median"]
+        if not rel <= 1e-3 or not all(math.isfinite(x) for p in p1
+                                      for x in p["losses"]):
+            fail(f"bert_dp: dp = 2 losses off the dp = 1 run (max rel {rel}) "
+                 f"or not finite: {main}")
+        if any(n <= 0 for c in dp_counts for n in c.values()) \
+                or dp_counts[0] != dp_counts[1]:
+            fail(f"bert_dp: rows 2-5 and 8-9 not launched alike on both "
+                 f"ranks: {dp_counts}")
+        return dp_counts
+
+    return [("bert", "bert", (steps,))], 300, report
 
 
 def conv_bn_net():
@@ -4817,12 +5717,13 @@ def dp_parity_case(torch, start):
             "static_losses": regression_losses(torch, start, True)}
 
 
-def dp_parity_phase(torch):
+def dp_parity_prepare(torch):
     """dp = 2 against dp = 1 on the card, small: the conv-BN net in
     training mode, 3 momentum steps (losses, parameters and running
     statistics within 1e-4 + 1e-4 relative), and the static regression
     program through CompiledProgram.with_data_parallel, 20 SGD steps
-    from one initial scope (losses within 2e-3 relative)."""
+    from one initial scope (losses within 2e-3 relative); world_phases'
+    prepare."""
     import numpy as np
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.fluid import CUDAPlace, Executor, Scope, scope_guard
@@ -4837,25 +5738,29 @@ def dp_parity_phase(torch):
         pt.disable_static()
     one_losses, one_state = conv_bn_steps(torch)
     one_static = regression_losses(torch, start, False)
-    ranks = run_dp("parity", start)
-    conv_err = max(float(np.max(np.abs(r["conv_state"][n] - v)
-                                / (1e-4 + 1e-4 * np.abs(v))))
-                   for r in ranks for n, v in one_state.items())
-    loss_err = max(abs(a - b) / (1e-4 + 1e-4 * abs(b)) for r in ranks
-                   for a, b in zip(r["conv_losses"], one_losses))
-    static_rel = max(abs(a - b) / abs(b) for r in ranks
-                     for a, b in zip(r["static_losses"], one_static))
-    main = {"phase": "dp_parity", "dp": DP_RANKS,
-            "transport": "gloo, 2 ranks on one card",
-            "conv_bn_losses_dp1": one_losses,
-            "conv_bn_losses_dp2": [r["conv_losses"] for r in ranks],
-            "conv_bn_err_over_tol": max(conv_err, loss_err),
-            "static_losses_dp1": one_static,
-            "static_losses_dp2": [r["static_losses"] for r in ranks],
-            "static_max_rel": static_rel, "static_rtol": 2e-3}
-    print(json.dumps(main), flush=True)
-    if not max(conv_err, loss_err) <= 1.0 or not static_rel <= 2e-3:
-        fail(f"dp_parity: dp = 2 off dp = 1 on the card: {main}")
+
+    def report(ranks):
+        ranks = [r["parity"] for r in ranks]
+        conv_err = max(float(np.max(np.abs(r["conv_state"][n] - v)
+                                    / (1e-4 + 1e-4 * np.abs(v))))
+                       for r in ranks for n, v in one_state.items())
+        loss_err = max(abs(a - b) / (1e-4 + 1e-4 * abs(b)) for r in ranks
+                       for a, b in zip(r["conv_losses"], one_losses))
+        static_rel = max(abs(a - b) / abs(b) for r in ranks
+                         for a, b in zip(r["static_losses"], one_static))
+        main = {"phase": "dp_parity", "dp": DP_RANKS,
+                "transport": "gloo, 2 ranks on one card",
+                "conv_bn_losses_dp1": one_losses,
+                "conv_bn_losses_dp2": [r["conv_losses"] for r in ranks],
+                "conv_bn_err_over_tol": max(conv_err, loss_err),
+                "static_losses_dp1": one_static,
+                "static_losses_dp2": [r["static_losses"] for r in ranks],
+                "static_max_rel": static_rel, "static_rtol": 2e-3}
+        print(json.dumps(main), flush=True)
+        if not max(conv_err, loss_err) <= 1.0 or not static_rel <= 2e-3:
+            fail(f"dp_parity: dp = 2 off dp = 1 on the card: {main}")
+
+    return [("parity", "parity", (start,))], 300, report
 
 
 def dp_allreduce_case(torch, mb, warmup, steps):
@@ -4873,25 +5778,31 @@ def dp_allreduce_case(torch, mb, warmup, steps):
     return {"seconds": dt, "value": float(x[0])}
 
 
-def allreduce_phase(torch, mb=64, warmup=5, steps=30):
+def allreduce_prepare(torch, mb=64, warmup=5, steps=30):
     """bench.py's bench_allreduce over the dp group: 64 MB of f32 on the
     card, 5 warm-up and 30 timed all-reduces; algorithmic bandwidth
     2 (n - 1) / n bytes / time, as bench.py computes it. Two ranks on
-    one card over gloo: a host-path figure, not NCCL's or NVLink's."""
-    ranks = run_dp("allreduce", mb, warmup, steps)
-    n = DP_RANKS
-    want = float(n ** (warmup + steps))     # ones summed over n, repeatedly
-    dt = max(r["seconds"] for r in ranks)
-    bw = 2 * (n - 1) / n * mb * 1024 * 1024 / dt / 1e9
-    main = {"phase": "allreduce", "metric": "allreduce_algbw_gbps",
-            "value": round(bw, 3), "unit": "GB/s", "ranks": n,
-            "payload_mb": mb, "ms_per_call": round(dt * 1e3, 3),
-            "transport": "gloo, 2 ranks on one card (host path; not an "
-                         "NCCL or NVLink figure)"}
-    print(json.dumps(main), flush=True)
-    if any(r["value"] != want for r in ranks):
-        fail(f"allreduce: the sum is off: {[r['value'] for r in ranks]} "
-             f"against {want}")
+    one card over gloo: a host-path figure, not NCCL's or NVLink's;
+    world_phases' prepare."""
+
+    def report(ranks):
+        ranks = [r["allreduce"] for r in ranks]
+        n = DP_RANKS
+        # ones summed over n, repeatedly
+        want = float(n ** (warmup + steps))
+        dt = max(r["seconds"] for r in ranks)
+        bw = 2 * (n - 1) / n * mb * 1024 * 1024 / dt / 1e9
+        main = {"phase": "allreduce", "metric": "allreduce_algbw_gbps",
+                "value": round(bw, 3), "unit": "GB/s", "ranks": n,
+                "payload_mb": mb, "ms_per_call": round(dt * 1e3, 3),
+                "transport": "gloo, 2 ranks on one card (host path; not an "
+                             "NCCL or NVLink figure)"}
+        print(json.dumps(main), flush=True)
+        if any(r["value"] != want for r in ranks):
+            fail(f"allreduce: the sum is off: {[r['value'] for r in ranks]} "
+                 f"against {want}")
+
+    return [("allreduce", "allreduce", (mb, warmup, steps))], 300, report
 
 
 # ---------------------------------------------------------------------------
@@ -4987,25 +5898,36 @@ def tree_root(tree, what):
     return root
 
 
-def hybrid_gpt_phase(torch, root, L):
+def hybrid_a_prepare(torch, root, L):
     """(a) GPT-3 XL (L layers, the tree under `root`) at pp x tp under
-    both schedules and (b) 4 layers at dp x pp x tp with ZeRO-1, against
-    single-rank steps (module docstring, phase 16). Returns each rank's
-    launch counts of (a)'s 1F1B run, for the kernels line."""
+    both schedules against single-rank steps (module docstring, phase
+    16); world_phases' prepare (4 ranks). Its report returns each
+    rank's launch counts of the 1F1B run, for the kernels line."""
     cfg_a = dict(XL, num_layers=L, **HYBRID_CFG)
     ref_a = gpt_run(torch, root, cfg_a, {}, HYBRID_A_BATCH, TRAIN_TOKENS,
                     HYBRID_A_STEPS)
     runs = [(sched, cfg_a, dict(HYBRID_A, pipeline_schedule=sched),
              HYBRID_A_BATCH, TRAIN_TOKENS, HYBRID_A_STEPS)
             for sched in ("1F1B", "F-then-B")]
-    ranks_a = run_dp("gpt", root, runs, timeout=900,
-                     nprocs=math.prod(HYBRID_A.values()))
-    want = mesh_launches(L, HYBRID_A["pp"], HYBRID_MICRO, HYBRID_A_STEPS)
-    for sched in ("1F1B", "F-then-B"):
-        check(mesh_report("hybrid_gpt", f"a {sched}", sched, ranks_a, ref_a,
-                          HYBRID_A, HYBRID_A_BATCH, TRAIN_TOKENS, want,
-                          mesh_routes(want), micro=HYBRID_MICRO)[1])
 
+    def report(ranks):
+        ranks_a = [r["a"] for r in ranks]
+        want = mesh_launches(L, HYBRID_A["pp"], HYBRID_MICRO,
+                             HYBRID_A_STEPS)
+        for sched in ("1F1B", "F-then-B"):
+            check(mesh_report("hybrid_gpt", f"a {sched}", sched, ranks_a,
+                              ref_a, HYBRID_A, HYBRID_A_BATCH, TRAIN_TOKENS,
+                              want, mesh_routes(want),
+                              micro=HYBRID_MICRO)[1])
+        return [rank["1F1B"]["counts"] for rank in ranks_a]
+
+    return [("a", "gpt", (root, runs))], 600, report
+
+
+def hybrid_b_prepare(torch, root):
+    """(b) HYBRID_B_LAYERS at dp x pp x tp with ZeRO-1 against the
+    single rank, then once at dropout 0.1 (module docstring, phase 16);
+    world_phases' prepare (8 ranks)."""
     Lb = HYBRID_B_LAYERS
     cfg_b = dict(XL, num_layers=Lb, **HYBRID_CFG)
     ref_b = gpt_run(torch, root, cfg_b, {}, HYBRID_B_BATCH, TRAIN_TOKENS)
@@ -5013,26 +5935,29 @@ def hybrid_gpt_phase(torch, root, L):
     runs = [("zero", cfg_b, kw, HYBRID_B_BATCH, TRAIN_TOKENS),
             ("dropout", dict(cfg_b, dropout=0.1), kw, HYBRID_B_BATCH,
              TRAIN_TOKENS, 1)]
-    ranks_b = run_dp("gpt", root, runs, timeout=600,
-                     nprocs=math.prod(HYBRID_B.values()))
-    want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO)
-    bad = mesh_report("hybrid_gpt", "b ZeRO-1", "zero", ranks_b, ref_b,
-                      HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
-                      mesh_routes(want), micro=HYBRID_MICRO)[1]
-    want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO, steps=1)
-    bad += mesh_report("hybrid_gpt", "b dropout 0.1", "dropout", ranks_b,
-                       None, HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
-                       mesh_routes(want), micro=HYBRID_MICRO)[1]
-    dp = HYBRID_B["dp"]
-    for r, rank in enumerate(ranks_b):
-        got = rank["zero"]
-        if not got["zero"] or got["moment_bytes"] * dp != \
-                got["unsharded_moment_bytes"]:
-            bad.append(f"hybrid b rank {r}: moment bytes "
-                       f"{got['moment_bytes']} not 1/{dp} of "
-                       f"{got['unsharded_moment_bytes']}")
-    check(bad)
-    return [rank["1F1B"]["counts"] for rank in ranks_a]
+
+    def report(ranks):
+        ranks_b = [r["b"] for r in ranks]
+        want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO)
+        bad = mesh_report("hybrid_gpt", "b ZeRO-1", "zero", ranks_b, ref_b,
+                          HYBRID_B, HYBRID_B_BATCH, TRAIN_TOKENS, want,
+                          mesh_routes(want), micro=HYBRID_MICRO)[1]
+        want = mesh_launches(Lb, HYBRID_B["pp"], HYBRID_MICRO, steps=1)
+        bad += mesh_report("hybrid_gpt", "b dropout 0.1", "dropout",
+                           ranks_b, None, HYBRID_B, HYBRID_B_BATCH,
+                           TRAIN_TOKENS, want, mesh_routes(want),
+                           micro=HYBRID_MICRO)[1]
+        dp = HYBRID_B["dp"]
+        for r, rank in enumerate(ranks_b):
+            got = rank["zero"]
+            if not got["zero"] or got["moment_bytes"] * dp != \
+                    got["unsharded_moment_bytes"]:
+                bad.append(f"hybrid b rank {r}: moment bytes "
+                           f"{got['moment_bytes']} not 1/{dp} of "
+                           f"{got['unsharded_moment_bytes']}")
+        check(bad)
+
+    return [("b", "gpt", (root, runs))], 600, report
 
 
 # ---------------------------------------------------------------------------
@@ -5079,11 +6004,13 @@ def gpt_run(torch, root, cfg_kw, kw, batch, seq, steps=HYBRID_STEPS,
     0's first routing ("route0": experts, kept) beside."""
     from paddle_tpu_torch.models.gpt import GPTConfig
     cfg = GPTConfig(**cfg_kw)
+    t0 = time.perf_counter()
     with RouteTap() as tap:
         res = hybrid_run(torch, cfg, kw, load_tree(root, cfg.num_layers),
                          gpt_ids(cfg.vocab_size, batch, seq, seed), steps,
                          probe)
     res["route0"] = tap.first
+    res["wall_s"] = time.perf_counter() - t0
     return res
 
 
@@ -5132,6 +6059,10 @@ def mesh_report(phase, what, name, ranks, ref, mesh, batch, seq, want,
             "peak_gb": [got["peak_gb"] for got in per],
             "single_rank_peak_gb": ref["peak_gb"] if ref else None,
             "load_s": [round(got["load_s"], 2) for got in per],
+            # the tree read, the step built, the probe and the steps
+            "run_wall_s": [round(got["wall_s"], 2) for got in per],
+            "single_rank_wall_s": round(ref["wall_s"], 2) if ref
+            else None,
             **{f"{k}_ms": [round(med(f"{k}_s", got) * 1e3, 3)
                            for got in per]
                for k in ("sp", "ep", "tp", "dp", "pp_send", "pp_recv")},
@@ -5173,20 +6104,31 @@ def check(failures):
         fail("; ".join(failures))
 
 
-def sp_gpt_phase(torch, root, L):
-    """(a) GPT-3 XL's first L layers (the tree under `root`) at sp 2 and
-    (b) HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B, each against
-    the single rank (attn_impl "xla") on the same weights and batch, and
-    (b) once at dropout 0.1 (module docstring, phase 17). Returns each
-    rank's launch counts of (a), for the kernels line."""
+def sp_a_prepare(torch, root, L):
+    """(a) GPT-3 XL's first L layers (the tree under `root`) at sp 2
+    against the single rank (attn_impl "xla") on the same weights and
+    batch (module docstring, phase 17); world_phases' prepare (2 ranks).
+    Its report returns each rank's launch counts, for the kernels
+    line."""
     cfg_a = dict(XL, num_layers=L, **SP_CFG)
     ref_a = gpt_run(torch, root, dict(cfg_a, attn_impl="xla"), {},
                     SP_A_BATCH, SP_A_SEQ)
-    ranks_a = run_dp("gpt", root, [("a", cfg_a, SP_A, SP_A_BATCH,
-                                    SP_A_SEQ, HYBRID_STEPS)],
-                     timeout=600, nprocs=math.prod(SP_A.values()))
-    check(mesh_report("sp_gpt", "a", "a", ranks_a, ref_a, SP_A, SP_A_BATCH,
-                      SP_A_SEQ, mesh_launches(L, kind="sp"))[1])
+
+    def report(ranks):
+        ranks_a = [r["a"] for r in ranks]
+        check(mesh_report("sp_gpt", "a", "a", ranks_a, ref_a, SP_A,
+                          SP_A_BATCH, SP_A_SEQ,
+                          mesh_launches(L, kind="sp"))[1])
+        return [rank["a"]["counts"] for rank in ranks_a]
+
+    return [("a", "gpt", (root, [("a", cfg_a, SP_A, SP_A_BATCH, SP_A_SEQ,
+                                  HYBRID_STEPS)]))], 600, report
+
+
+def sp_b_prepare(torch, root):
+    """(b) HYBRID_B_LAYERS at dp 2 x pp 2 x sp 2 under 1F1B against the
+    single rank (attn_impl "xla"), then once at dropout 0.1 (module
+    docstring, phase 17); world_phases' prepare (8 ranks)."""
     Lb = HYBRID_B_LAYERS
     cfg_b = dict(XL, num_layers=Lb, **SP_CFG)
     ref_b = gpt_run(torch, root, dict(cfg_b, attn_impl="xla"), {},
@@ -5195,18 +6137,20 @@ def sp_gpt_phase(torch, root, L):
     runs = [("b", cfg_b, SP_B, SP_B_BATCH, TRAIN_TOKENS, HYBRID_STEPS),
             ("dropout", dict(cfg_b, dropout=0.1), SP_B, SP_B_BATCH,
              TRAIN_TOKENS, 1)]
-    ranks_b = run_dp("gpt", root, runs, timeout=600,
-                     nprocs=math.prod(mesh_b.values()))
-    M = SP_B["n_microbatches"]
-    check(mesh_report("sp_gpt", "b 1F1B", "b", ranks_b, ref_b, mesh_b,
-                      SP_B_BATCH, TRAIN_TOKENS,
-                      mesh_launches(Lb, mesh_b["pp"], M, kind="sp"),
-                      micro=M)[1])
-    check(mesh_report("sp_gpt", "b dropout 0.1", "dropout", ranks_b, None,
-                      mesh_b, SP_B_BATCH, TRAIN_TOKENS,
-                      mesh_launches(Lb, mesh_b["pp"], M, steps=1,
-                                    kind="sp"), micro=M)[1])
-    return [rank["a"]["counts"] for rank in ranks_a]
+
+    def report(ranks):
+        ranks_b = [r["b"] for r in ranks]
+        M = SP_B["n_microbatches"]
+        check(mesh_report("sp_gpt", "b 1F1B", "b", ranks_b, ref_b, mesh_b,
+                          SP_B_BATCH, TRAIN_TOKENS,
+                          mesh_launches(Lb, mesh_b["pp"], M, kind="sp"),
+                          micro=M)[1])
+        check(mesh_report("sp_gpt", "b dropout 0.1", "dropout", ranks_b,
+                          None, mesh_b, SP_B_BATCH, TRAIN_TOKENS,
+                          mesh_launches(Lb, mesh_b["pp"], M, steps=1,
+                                        kind="sp"), micro=M)[1])
+
+    return [("b", "gpt", (root, runs))], 600, report
 
 
 def probe_errors(got, want):
@@ -5221,100 +6165,123 @@ def probe_errors(got, want):
     return out
 
 
-def moe_gpt_phase(torch, seed=0):
+def moe_tree(seed):
+    """The MoE weight tree of `seed` and the seconds it took to draw."""
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    t0 = time.perf_counter()
+    tree = init_gpt_params(GPTConfig(**MOE_CFG), seed=seed)
+    return tree, time.perf_counter() - t0
+
+
+def moe_gpt_prepare(torch, seed=0, drawn=None):
     """GPT-2 small widths with 8 experts (MOE_CFG) at dp 2 x ep 2 x tp 2
     against the single rank on the same tree and batch (both drawn from
-    `seed`), in bf16 and again in f32 (module docstring, phase 18).
-    Returns each rank's launch counts of the bf16 run."""
+    `seed`; `drawn`: moe_tree(seed)'s result, drawn beforehand), in
+    bf16 and again in f32 (module docstring, phase 18); world_phases'
+    prepare (8 ranks). Its report returns each rank's launch counts of
+    the bf16 run."""
+    import atexit
     import shutil
     import numpy as np
-    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.models.gpt import GPTConfig
     cfg = GPTConfig(**MOE_CFG)
-    t0 = time.perf_counter()
-    tree = init_gpt_params(cfg, seed=seed)
-    init_s = time.perf_counter() - t0
+    tree, init_s = drawn if drawn is not None else moe_tree(seed)
+    del drawn
     root = tree_root(tree, "moe_tree")
+    # the report removes it; this, if a phase fails first
+    atexit.register(shutil.rmtree, root, True)
     bank = {k: tree["blocks"][k].nbytes for k in
             ("we_up", "be_up", "we_down", "be_down")}
     n_params = sum(v.size for v in tree.values() if hasattr(v, "size")) \
         + sum(v.size for v in tree["blocks"].values())
     del tree
     f32 = dict(MOE_CFG, amp_dtype=None)
-    try:
-        ref = gpt_run(torch, root, MOE_CFG, {}, MOE_BATCH, TRAIN_TOKENS,
-                      seed=seed, probe=MOE_PROBE)
-        ref32 = gpt_run(torch, root, f32, {}, MOE_BATCH, TRAIN_TOKENS,
-                        seed=seed, probe=MOE_PROBE)
-        runs = [(name, c, MOE_MESH, MOE_BATCH, TRAIN_TOKENS, HYBRID_STEPS,
-                 seed, MOE_PROBE)
-                for name, c in (("moe", MOE_CFG), ("moe_f32", f32))]
-        ranks = run_dp("gpt", root, runs, timeout=600,
-                       nprocs=math.prod(MOE_MESH.values()))
-    finally:
+    ref = gpt_run(torch, root, MOE_CFG, {}, MOE_BATCH, TRAIN_TOKENS,
+                  seed=seed, probe=MOE_PROBE)
+    ref32 = gpt_run(torch, root, f32, {}, MOE_BATCH, TRAIN_TOKENS,
+                    seed=seed, probe=MOE_PROBE)
+    runs = [(name, c, MOE_MESH, MOE_BATCH, TRAIN_TOKENS, HYBRID_STEPS,
+             seed, MOE_PROBE)
+            for name, c in (("moe", MOE_CFG), ("moe_f32", f32))]
+
+    def report(ranks):
         shutil.rmtree(root, ignore_errors=True)
-    want_launches = mesh_launches(cfg.num_layers, kind="moe")
-    line, bad = mesh_report("moe_gpt", "dp2 x ep2 x tp2", "moe", ranks, ref,
-                            MOE_MESH, MOE_BATCH, TRAIN_TOKENS, want_launches,
-                            rtol=MOE_RTOL["bf16"])
-    bad += mesh_report("moe_gpt", "dp2 x ep2 x tp2 f32", "moe_f32", ranks,
-                       ref32, MOE_MESH, MOE_BATCH, TRAIN_TOKENS,
-                       want_launches, route="simt", rtol=MOE_RTOL["f32"])[1]
-    probes = {}
-    for what, name, want in (("bf16", "moe", ref), ("f32", "moe_f32", ref32)):
-        probes[what] = probe_errors([r[name]["probe"] for r in ranks],
-                                    want["probe"])
-        tol = MOE_PROBE_RTOL[what]
-        over = {k: v for k, v in probes[what].items() if not v <= tol[k]}
-        if over:
-            bad.append(f"moe_gpt {what} first-step gradients off the "
-                       f"single rank's by {over} (relative, bound {tol})")
-    ep, tp = MOE_MESH["ep"], MOE_MESH["tp"]
-    split = ("we_up", "be_up", "we_down")
-    want = sum(bank[k] for k in split)
-    for r, rank in enumerate(ranks):
-        got = sum(rank["moe"]["leaf_bytes"][f"blocks.{k}"] for k in split)
-        if got * ep * tp != want:
-            bad.append(f"moe_gpt rank {r}: expert bytes {got} not "
-                       f"1/{ep * tp} of the bank's {want}")
-    experts, kept = ref["route0"]
-    n = experts.size // MOE_MESH["dp"]
-    other = [float(np.mean(rank["moe"]["route0"][0] != experts[
-        rank["moe"]["coords"]["dp"] * n:(rank["moe"]["coords"]["dp"] + 1)
-        * n])) for rank in ranks]
-    print(json.dumps({
-        "phase": "moe_gpt", "run": "routing and memory",
-        "config": "GPT-2 small widths, 8 experts top-1, capacity factor "
-        "1.25, bf16, flash, remat", "seed": seed, "params": int(n_params),
-        "init_s": round(init_s, 2),
-        "layer0_routed_elsewhere": other,
-        "layer0_dropped_single_rank": float(1.0 - kept.mean()),
-        "layer0_dropped": [float(1.0 - rank["moe"]["route0"][1].mean())
-                           for rank in ranks],
-        "expert_bytes_split": [sum(rank["moe"]["leaf_bytes"][
-            f"blocks.{k}"] for k in split) for rank in ranks],
-        "expert_bytes_bank": want,
-        "be_down_bytes": [rank["moe"]["leaf_bytes"]["blocks.be_down"]
-                          for rank in ranks],
-        "be_down_bank": bank["be_down"],
-        "routes": [{k: v for k, v in rank["moe"]["counts"].items()
-                    if k.startswith("flash")} for rank in ranks],
-        "step_ms": line["step_ms_median"],
-        # the first step's gradients (the same weights) against the
-        # single rank's, relative, worst rank
-        "first_step_grads_rel": probes,
-        "first_step_grads_rtol": MOE_PROBE_RTOL,
-        "single_rank_bf16_vs_f32_first_step_grads_rel": probe_errors(
-            [ref["probe"]], ref32["probe"]),
-        # bf16's own trajectory against f32's, on one rank and split
-        "single_rank_bf16_vs_f32_max_rel": max(
-            abs(a - b) / abs(b) for a, b in zip(ref["losses"],
-                                                ref32["losses"])),
-        "split_bf16_vs_f32_max_rel": max(
-            abs(a - b) / abs(b) for a, b in zip(
-                ranks[0]["moe"]["losses"], ranks[0]["moe_f32"]["losses"]))}),
-          flush=True)
-    check(bad)
-    return [rank["moe"]["counts"] for rank in ranks]
+        ranks = [r["moe"] for r in ranks]
+        want_launches = mesh_launches(cfg.num_layers, kind="moe")
+        line, bad = mesh_report("moe_gpt", "dp2 x ep2 x tp2", "moe", ranks,
+                                ref, MOE_MESH, MOE_BATCH, TRAIN_TOKENS,
+                                want_launches, rtol=MOE_RTOL["bf16"])
+        bad += mesh_report("moe_gpt", "dp2 x ep2 x tp2 f32", "moe_f32",
+                           ranks, ref32, MOE_MESH, MOE_BATCH, TRAIN_TOKENS,
+                           want_launches, route="simt",
+                           rtol=MOE_RTOL["f32"])[1]
+        probes = {}
+        for what, name, want in (("bf16", "moe", ref),
+                                 ("f32", "moe_f32", ref32)):
+            probes[what] = probe_errors([r[name]["probe"] for r in ranks],
+                                        want["probe"])
+            tol = MOE_PROBE_RTOL[what]
+            over = {k: v for k, v in probes[what].items() if not v <= tol[k]}
+            if over:
+                bad.append(f"moe_gpt {what} first-step gradients off the "
+                           f"single rank's by {over} (relative, bound {tol})")
+        ep, tp = MOE_MESH["ep"], MOE_MESH["tp"]
+        split = ("we_up", "be_up", "we_down")
+        want = sum(bank[k] for k in split)
+        for r, rank in enumerate(ranks):
+            got = sum(rank["moe"]["leaf_bytes"][f"blocks.{k}"] for k in split)
+            if got * ep * tp != want:
+                bad.append(f"moe_gpt rank {r}: expert bytes {got} not "
+                           f"1/{ep * tp} of the bank's {want}")
+        experts, kept = ref["route0"]
+        n = experts.size // MOE_MESH["dp"]
+        other = [float(np.mean(rank["moe"]["route0"][0] != experts[
+            rank["moe"]["coords"]["dp"] * n:(rank["moe"]["coords"]["dp"] + 1)
+            * n])) for rank in ranks]
+        print(json.dumps({
+            "phase": "moe_gpt", "run": "routing and memory",
+            "config": "GPT-2 small widths, 8 experts top-1, capacity factor "
+            "1.25, bf16, flash, remat", "seed": seed, "params": int(n_params),
+            "init_s": round(init_s, 2),
+            "layer0_routed_elsewhere": other,
+            "layer0_dropped_single_rank": float(1.0 - kept.mean()),
+            "layer0_dropped": [float(1.0 - rank["moe"]["route0"][1].mean())
+                               for rank in ranks],
+            "expert_bytes_split": [sum(rank["moe"]["leaf_bytes"][
+                f"blocks.{k}"] for k in split) for rank in ranks],
+            "expert_bytes_bank": want,
+            "be_down_bytes": [rank["moe"]["leaf_bytes"]["blocks.be_down"]
+                              for rank in ranks],
+            "be_down_bank": bank["be_down"],
+            "routes": [{k: v for k, v in rank["moe"]["counts"].items()
+                        if k.startswith("flash")} for rank in ranks],
+            "step_ms": line["step_ms_median"],
+            # the first step's gradients (the same weights) against the
+            # single rank's, relative, worst rank
+            "first_step_grads_rel": probes,
+            "first_step_grads_rtol": MOE_PROBE_RTOL,
+            "single_rank_bf16_vs_f32_first_step_grads_rel": probe_errors(
+                [ref["probe"]], ref32["probe"]),
+            # bf16's own trajectory against f32's, on one rank and split
+            "single_rank_bf16_vs_f32_max_rel": max(
+                abs(a - b) / abs(b) for a, b in zip(ref["losses"],
+                                                    ref32["losses"])),
+            "split_bf16_vs_f32_max_rel": max(
+                abs(a - b) / abs(b) for a, b in zip(
+                    ranks[0]["moe"]["losses"],
+                    ranks[0]["moe_f32"]["losses"]))}),
+              flush=True)
+        check(bad)
+        return [rank["moe"]["counts"] for rank in ranks]
+
+    return [("moe", "gpt", (root, runs))], 600, report
+
+
+def moe_gpt_phase(torch, seed=0, drawn=None):
+    """moe_gpt_prepare's phase in a world of its own; each rank's launch
+    counts of the bf16 run."""
+    return world_phases(math.prod(MOE_MESH.values()), [
+        ("moe_gpt", moe_gpt_prepare, (torch, seed, drawn))])["moe_gpt"]
 
 
 def widedeep_batch(cfg):
@@ -5357,59 +6324,68 @@ def widedeep_mp_case(torch, steps):
     return widedeep_steps(torch, WD_MESH, steps)
 
 
-def widedeep_mp_phase(torch):
+def widedeep_mp_prepare(torch):
     """Phase 14's headline wide&deep at dp 2 x mp 2 against the single
-    rank (module docstring, phase 19)."""
+    rank (module docstring, phase 19); world_phases' prepare."""
     ref = widedeep_steps(torch, dict(dp=1, mp=1), WD_MP_STEPS)
     gc.collect()
     torch.cuda.empty_cache()
-    ranks = run_dp("widedeep_mp", WD_MP_STEPS, timeout=300,
-                   nprocs=math.prod(WD_MESH.values()))
-    losses = ranks[0]["losses"]
-    for r, rank in enumerate(ranks):
-        if rank["losses"] != losses:
-            fail(f"widedeep_mp rank {r} losses {rank['losses']} against "
-                 f"rank 0's {losses}")
-        if rank["table_bytes"] * WD_MESH["mp"] != rank["whole_table_bytes"]:
-            fail(f"widedeep_mp rank {r}: table bytes {rank['table_bytes']} "
-                 f"not 1/{WD_MESH['mp']} of {rank['whole_table_bytes']}")
-    diff = [abs(a - b) for a, b in zip(losses, ref["losses"])]
-    timed_s = statistics.median(t for rank in ranks
-                                for t in rank["times"][1:])
-    print(json.dumps({
-        "phase": "widedeep_mp", "mesh": WD_MESH, "batch": WD_BATCH,
-        "steps": WD_MP_STEPS, "losses": losses,
-        "single_rank_losses": ref["losses"], "max_abs_diff": max(diff),
-        "atol": WD_MP_ATOL,
-        "step_ms_median": round(timed_s * 1e3, 3),
-        "examples_per_s": round(WD_BATCH / timed_s, 1),
-        "single_rank_examples_per_s": round(WD_BATCH / statistics.median(
-            ref["times"][1:]), 1),
-        "phase14_examples_per_s": MEASURED.get("widedeep_examples_per_s"),
-        "lookup_allreduce_ms": [round(statistics.median(
-            s.get("mp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
-            for rank in ranks],
-        "dp_allreduce_ms": [round(statistics.median(
-            s.get("dp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
-            for rank in ranks],
-        "table_bytes": [rank["table_bytes"] for rank in ranks],
-        "whole_table_bytes": ranks[0]["whole_table_bytes"],
-        "peak_gb": [rank["peak_gb"] for rank in ranks]}), flush=True)
-    if not max(diff) <= WD_MP_ATOL or not all(
-            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"widedeep_mp: losses {losses} against the single rank's "
-             f"{ref['losses']} (atol {WD_MP_ATOL}), or not falling")
+
+    def report(ranks):
+        ranks = [r["widedeep_mp"] for r in ranks]
+        losses = ranks[0]["losses"]
+        for r, rank in enumerate(ranks):
+            if rank["losses"] != losses:
+                fail(f"widedeep_mp rank {r} losses {rank['losses']} against "
+                     f"rank 0's {losses}")
+            if rank["table_bytes"] * WD_MESH["mp"] \
+                    != rank["whole_table_bytes"]:
+                fail(f"widedeep_mp rank {r}: table bytes "
+                     f"{rank['table_bytes']} not 1/{WD_MESH['mp']} of "
+                     f"{rank['whole_table_bytes']}")
+        diff = [abs(a - b) for a, b in zip(losses, ref["losses"])]
+        timed_s = statistics.median(t for rank in ranks
+                                    for t in rank["times"][1:])
+        print(json.dumps({
+            "phase": "widedeep_mp", "mesh": WD_MESH, "batch": WD_BATCH,
+            "steps": WD_MP_STEPS, "losses": losses,
+            "single_rank_losses": ref["losses"], "max_abs_diff": max(diff),
+            "atol": WD_MP_ATOL,
+            "step_ms_median": round(timed_s * 1e3, 3),
+            "examples_per_s": round(WD_BATCH / timed_s, 1),
+            "single_rank_examples_per_s": round(WD_BATCH / statistics.median(
+                ref["times"][1:]), 1),
+            "phase14_examples_per_s": MEASURED.get("widedeep_examples_per_s"),
+            "lookup_allreduce_ms": [round(statistics.median(
+                s.get("mp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
+                for rank in ranks],
+            "dp_allreduce_ms": [round(statistics.median(
+                s.get("dp_s", 0.0) for s in rank["stats"][1:]) * 1e3, 3)
+                for rank in ranks],
+            "table_bytes": [rank["table_bytes"] for rank in ranks],
+            "whole_table_bytes": ranks[0]["whole_table_bytes"],
+            "peak_gb": [rank["peak_gb"] for rank in ranks]}), flush=True)
+        if not max(diff) <= WD_MP_ATOL or not all(
+                math.isfinite(x) for x in losses) \
+                or not losses[-1] < losses[0]:
+            fail(f"widedeep_mp: losses {losses} against the single rank's "
+                 f"{ref['losses']} (atol {WD_MP_ATOL}), or not falling")
+
+    return [("widedeep_mp", "widedeep_mp", (WD_MP_STEPS,))], 300, report
 
 
 # ---------------------------------------------------------------------------
 # elastic training (item 16(c)): the launcher, gang restarts and the
-# cluster checkpoint, BERT-base at dp 2 on the one card
+# cluster checkpoint, BERT-base widths at dp 2 on the one card
 # ---------------------------------------------------------------------------
 
-# bench_elastic's drill at bench_bert's configuration: 8 steps a run, an
+# bench_elastic's drill at bench_bert's configuration cut to 4 layers (at
+# 12 the phase took 170 s of a script past its time limit on one H100:
+# five gang lives, each 17-20 s to its first step, 9.6 of them building
+# the model): 8 steps a run, an
 # async cluster save every 2, rank 1 killed (run b) or flapping (run c)
 # at step 5; run (c)'s world-1 losses against the world-2 curve within
-# bert_dp's bound. Run (c) saves every 4 instead: one 1.32 GB version
+# bert_dp's bound. Run (c) saves every 4 instead: one version
 # before the kill, the one its lives resume from (with a save every 2
 # the step-2 version's write held up step 4's host copy and the last
 # life ended waiting for step 6's write: time the whole script's clock
@@ -5417,6 +6393,7 @@ def widedeep_mp_phase(torch):
 # save-overhead measure as it is (a 512-wide tanh MLP, 120 steps, a save
 # every 30).
 ELASTIC_STEPS, ELASTIC_SAVE_EVERY, ELASTIC_KILL_AT = 8, 2, 5
+ELASTIC_BERT_LAYERS = 4
 ELASTIC_SHRINK_SAVE_EVERY = 4
 ELASTIC_RTOL, ELASTIC_JOB_TIMEOUT = 1e-3, 420
 ELASTIC_MLP, ELASTIC_MLP_STEPS, ELASTIC_MLP_EVERY = 512, 120, 30
@@ -5453,6 +6430,7 @@ def elastic_job(work, tag, args=(), **knobs):
                                                             "")
     drill = dict(ELASTIC_DRILL_OUT=out, ELASTIC_DRILL_MODEL="bert",
                  ELASTIC_DRILL_DEVICE="cuda", ELASTIC_DRILL_BERT_SIZE="base",
+                 ELASTIC_DRILL_BERT_LAYERS=ELASTIC_BERT_LAYERS,
                  ELASTIC_DRILL_STEPS=ELASTIC_STEPS,
                  ELASTIC_DRILL_SAVE_EVERY=ELASTIC_SAVE_EVERY,
                  ELASTIC_DRILL_STEP_SLEEP=0)
@@ -5515,8 +6493,8 @@ def elastic_lives(job):
     """The job's lives, one per (rank, pid), each its records in order,
     and the check of each: card, gloo where two ranks run, no kernel
     built in the child, and rows 2-5 and 8-9 launched
-    BERT_LAUNCHES_PER_STEP times a step of that life, all on the routes
-    of ELASTIC_ROUTES."""
+    bert_launches(ELASTIC_BERT_LAYERS) times a step of that life, all on
+    the routes of ELASTIC_ROUTES."""
     lives: dict = {}
     for r in job["records"]:
         lives.setdefault((r["rank"], r["pid"]), []).append(r)
@@ -5525,7 +6503,8 @@ def elastic_lives(job):
     for (rank, pid), recs in sorted(lives.items(), key=lambda kv: kv[0][1]):
         last, n = recs[-1], len(recs)
         counts = last["counts"]
-        want = {k: v * n for k, v in BERT_LAUNCHES_PER_STEP.items()}
+        want = {k: v * n for k, v in
+                bert_launches(ELASTIC_BERT_LAYERS).items()}
         off = {k: (counts.get(k, 0), counts.get(f"{k}.{ELASTIC_ROUTES[k]}",
                                                 0), w)
                for k, w in want.items()
@@ -5670,8 +6649,9 @@ def elastic_save_overhead(torch):
 
 
 def elastic_phase(torch):
-    """Phase 19b: BERT-base at dp 2 through the port's launcher, killed,
-    resumed bit for bit and shrunk to one rank (module docstring).
+    """Phase 19b: BERT-base's widths at dp 2 through the port's
+    launcher, killed, resumed bit for bit and shrunk to one rank
+    (module docstring).
     Returns each rank's launches of run (a)."""
     import shutil
     import tempfile
@@ -5929,11 +6909,12 @@ def widedeep_ps_run(mode: str | None):
     job = dict(PS_ENDPOINTS=",".join(eps), WORKERS=2)
     procs = []
     try:
-        t0 = time.perf_counter()
+        t0, t_wall = time.perf_counter(), time.time()
         shards = [ps_roles.spawn(ROLE="server", MY_ENDPOINT=ep)
                   for ep in eps]
         procs += shards
         ready = [ps_roles.ready(p) for p in shards]
+        shards_s = time.time() - t_wall
         workers = [ps_roles.spawn(ROLE="worker", WORKER_ID=w,
                                   STEPS=PS_STEPS, WARMUP=PS_WARMUP,
                                   BATCH=PS_BATCH, MODE=mode or "",
@@ -5959,6 +6940,11 @@ def widedeep_ps_run(mode: str | None):
                                     if mode else ""),
         "servers": 2, "workers": 2, "batch": PS_BATCH,
         "warmup": PS_WARMUP, "steps": PS_STEPS, "wall_s": round(wall, 2),
+        # where the wall goes: the shards' ready lines, then each
+        # worker's timed window (start, end), from the first spawn
+        "shards_ready_s": round(shards_s, 2),
+        "windows_s": [[round(t - t_wall, 2) for t in o["window"]]
+                      for o in outs],
         "examples_per_s": round(rate, 1),
         "windows_overlap_share": round(overlap, 4),
         "wire_mb_out_per_worker_step": round(statistics.mean(
@@ -6406,7 +7392,8 @@ def kernel_entry(row, launches):
 
 def kernels_line(results, serve_counts, wide_counts, train_counts,
                  bert_counts, layer_counts, ffn_counts, wire_counts,
-                 hybrid_counts, sp_counts, moe_counts, online_counts):
+                 hybrid_counts, sp_counts, moe_counts, online_counts,
+                 router_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache, the vector route), its scalar route from the
@@ -6425,9 +7412,10 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     under "shapes"); fused_ffn from the
     static FFN program (f32, gelu, M = 8192), its other shapes nested
     under "shapes" with launches null. Rows 1-3 also carry the wire
-    serving run's launches by route under "wire_routes", and the online
+    serving run's launches by route under "wire_routes", the online
     phase's (two streams across two weight swaps) under
-    "online_launches". Rows 2-5 and
+    "online_launches" and the router phase's (two replicas: failover,
+    respawn and a rollout) under "router_launches". Rows 2-5 and
     8-9 carry under "hybrid" their numbers at the shapes of the hybrid
     GPT path (a tp = 2 rank at GPT-3 XL width) with rank 0's launches of
     the pp = 2 x tp = 2 1F1B run, every rank's ("rank_launches") and
@@ -6460,6 +7448,8 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     paged["routes"] = route_counts(serve_counts, "paged_attention")
     paged["wire_routes"] = route_counts(wire_counts, "paged_attention")
     paged["online_launches"] = route_counts(online_counts,
+                                            "paged_attention")
+    paged["router_launches"] = route_counts(router_counts,
                                             "paged_attention")
     wide = row("paged_attention", "scalar", "q=f32 pools=f32 aligned")
     paged["wide_heads"] = kernel_entry(
@@ -6498,6 +7488,7 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
         ent["serving_routes"] = route_counts(serve_counts, name)
         ent["wire_routes"] = route_counts(wire_counts, name)
         ent["online_launches"] = route_counts(online_counts, name)
+        ent["router_launches"] = route_counts(router_counts, name)
         ent["bert"] = kernel_entry(row(name, "f32", "(BERT"),
                                    bert_counts.get(name, 0))
         ent["bert"]["routes"] = route_counts(bert_counts, name)
@@ -6557,10 +7548,13 @@ def main(argv):
     if "--help" in argv or "-h" in argv:
         print(__doc__)
         return
+    t_script = time.perf_counter()
     kernels_only = "--kernels" in argv
     ps_only = "--ps" in argv
     elastic_only = "--elastic" in argv
     online_only = "--online" in argv
+    router_only = "--router" in argv
+    read_parts_only = "--read-parts" in argv
     with_profile = "--profile" in argv
     moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
         if "--moe-seed" in argv else None
@@ -6588,11 +7582,12 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return
     weights = None
-    if not (kernels_only or elastic_only or online_only
-            or moe_seed is not None):
-        # the GPT-3 XL tree (seeded numpy on one core: most of a minute)
-        # is drawn while nvcc builds the kernels and the kernel checks
-        # run: numpy's generator and casts release the GIL
+    if not (kernels_only or elastic_only or online_only or router_only
+            or read_parts_only or moe_seed is not None):
+        # the GPT-3 XL tree (seeded numpy on one core: most of a minute),
+        # then moe_gpt's (a third of one), are drawn while nvcc builds
+        # the kernels and the kernel checks run: numpy's generator and
+        # casts release the GIL
         from concurrent.futures import ThreadPoolExecutor
 
         def draw():
@@ -6602,6 +7597,7 @@ def main(argv):
 
         drawer = ThreadPoolExecutor(1)
         weights = drawer.submit(draw)
+        moe_weights = drawer.submit(moe_tree, 0)
     t0 = time.perf_counter()
     secs = _build.build_all()
     print(json.dumps({"phase": "build", "seconds": round(
@@ -6628,8 +7624,20 @@ def main(argv):
             "count": torch.cuda.device_count()}}))
         return
 
+    if router_only or read_parts_only:
+        if router_only:
+            check_two_threads(torch)
+            router_alone(torch)
+        if read_parts_only:
+            timed("read_parts", read_parts_phase, torch)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
     if moe_seed is not None:
-        timed("moe_gpt", moe_gpt_phase, torch, moe_seed)
+        moe_gpt_phase(torch, moe_seed)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6642,6 +7650,7 @@ def main(argv):
     check_paged(torch, timer, results)
     check_paged_scalar(torch, timer, results)
     check_blocks(torch, timer, results)
+    check_two_threads(torch)
     check_blocks_bf16(torch, timer, results)
     check_flash(torch, timer, results)
     check_rows(torch, timer, results)
@@ -6665,7 +7674,6 @@ def main(argv):
 
     t0 = time.perf_counter()
     tree, init_s = weights.result()
-    drawer.shutdown()
     print(json.dumps({"phase": "weights", "config": "gpt3_1p3b", "seed": 0,
                       "init_s": round(init_s, 2),
                       "waited_s": round(time.perf_counter() - t0, 2)}),
@@ -6681,13 +7689,18 @@ def main(argv):
         wire_counts = timed("wire_serving", wire_serving_phase, torch, eng,
                             tokens, inproc)
         gc.collect()
-        slo_rate, slo_base = timed("slo", slo_phase, torch, eng)
+        slo_rate, slo_base, slo_wire = timed("slo", slo_phase, torch, eng)
         gc.collect()
         timed("chaos", chaos_phase, torch, eng, slo_rate, slo_base)
         del slo_base
         gc.collect()
         online_counts = timed("online", online_phase, torch, eng,
                               tokens[0], ckpt_root)
+        gc.collect()
+        torch.cuda.empty_cache()
+        router_counts = timed("router", router_phase, torch, eng, ckpt_root,
+                              slo_rate, slo_wire,
+                              (eng.stats()["model_version"], 1))
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
     if with_profile:
@@ -6738,30 +7751,41 @@ def main(argv):
     timed("widedeep_phase", widedeep_phase, torch, with_profile)
     gc.collect()
     torch.cuda.empty_cache()
-    dp_counts = timed("bert_dp", bert_dp_phase, torch,
-                      MEASURED.get("bert_samples_per_s"))
-    timed("dp_parity", dp_parity_phase, torch)
-    timed("allreduce", allreduce_phase, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
     L = min(MESH_A_LAYERS, tree["blocks"]["wq"].shape[0])
     root = tree_root(tree, "hybrid_tree")
     del tree
     gc.collect()
     try:
-        hybrid_counts = timed("hybrid_gpt", hybrid_gpt_phase, torch, root,
-                              L)
+        # the phases that need a world of ranks on the card, one world a
+        # size: a rank's start and first steps are paid once a world
+        got = world_phases(DP_RANKS, [
+            ("bert_dp", bert_dp_prepare,
+             (torch, MEASURED.get("bert_samples_per_s"))),
+            ("dp_parity", dp_parity_prepare, (torch,)),
+            ("allreduce", allreduce_prepare, (torch,)),
+            ("sp_gpt_a", sp_a_prepare, (torch, root, L))])
+        dp_counts, sp_counts = got["bert_dp"], got["sp_gpt_a"]
         gc.collect()
         torch.cuda.empty_cache()
-        sp_counts = timed("sp_gpt", sp_gpt_phase, torch, root, L)
+        assert math.prod(HYBRID_A.values()) == math.prod(WD_MESH.values())
+        got = world_phases(math.prod(HYBRID_A.values()), [
+            ("hybrid_gpt_a", hybrid_a_prepare, (torch, root, L)),
+            ("widedeep_mp", widedeep_mp_prepare, (torch,))])
+        hybrid_counts = got["hybrid_gpt_a"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert math.prod(HYBRID_B.values()) == math.prod(
+            v for k, v in SP_B.items() if k != "n_microbatches") \
+            == math.prod(MOE_MESH.values())
+        got = world_phases(math.prod(HYBRID_B.values()), [
+            ("hybrid_gpt_b", hybrid_b_prepare, (torch, root)),
+            ("sp_gpt_b", sp_b_prepare, (torch, root)),
+            ("moe_gpt", moe_gpt_prepare, (torch, 0, moe_weights.result()))])
+        moe_counts = got["moe_gpt"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    gc.collect()
-    torch.cuda.empty_cache()
-    moe_counts = timed("moe_gpt", moe_gpt_phase, torch)
-    gc.collect()
-    torch.cuda.empty_cache()
-    timed("widedeep_mp", widedeep_mp_phase, torch)
+    drawer.shutdown()
+    del moe_weights, got
     gc.collect()
     torch.cuda.empty_cache()
     elastic_counts = timed("elastic", elastic_phase, torch)
@@ -6769,9 +7793,12 @@ def main(argv):
     torch.cuda.empty_cache()
     ps_phases(torch)
 
+    print(json.dumps({"phase": "seconds", "of": "script", "seconds": round(
+        time.perf_counter() - t_script, 2)}), flush=True)
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
                         bert_counts, layer_counts, ffn_counts, wire_counts,
-                        hybrid_counts, sp_counts, moe_counts, online_counts)
+                        hybrid_counts, sp_counts, moe_counts, online_counts,
+                        router_counts)
     for ent in line["kernels"]:
         if ent["name"] in BERT_LAUNCHES_PER_STEP:
             # the bert_dp run's launches, rank by rank, and those of

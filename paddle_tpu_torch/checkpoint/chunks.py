@@ -84,7 +84,7 @@ class ChunkStore:
             else data
         digest = digest_of(data)
         path = self._path(digest)
-        if os.path.isfile(path):
+        if os.path.isfile(path) and self._touch(path):
             with self._lock:
                 self.dedup_hits += 1
             _DEDUP_HITS.inc()
@@ -121,6 +121,17 @@ class ChunkStore:
         _BYTES_WRITTEN.labels(tier="chunk").inc(len(data))
         return digest
 
+    @staticmethod
+    def _touch(path: str) -> bool:
+        """Stamp a re-referenced chunk with the time, as a write would
+        (``gc(before=)`` keeps what a save in flight has touched); False
+        when it was collected meanwhile and must be written again."""
+        try:
+            os.utime(path)
+        except FileNotFoundError:
+            return False
+        return True
+
     def get(self, digest: str, verify: bool = True) -> bytes:
         path = self._path(digest)
         try:
@@ -132,6 +143,35 @@ class ChunkStore:
             raise ChunkError(f"chunk {digest} corrupt on disk "
                              f"(content hash mismatch)")
         return data
+
+    def read_into(self, digest: str, buf, verify: bool = True) -> None:
+        """Read chunk `digest` into the writable buffer `buf`, which must
+        be exactly the chunk's length, and (by default) re-hash it there:
+        ``get`` without the bytes object, for readers that assemble
+        arrays in place. Both the read and the hash release the GIL, so
+        threads reading chunks overlap."""
+        path = self._path(digest)
+        mv = memoryview(buf).cast("B")
+        try:
+            f = open(path, "rb", buffering=0)
+        except FileNotFoundError:
+            raise ChunkError(f"chunk {digest} missing from {self.dir}")
+        with f:
+            size = os.fstat(f.fileno()).st_size
+            if size != len(mv):
+                raise ChunkError(f"chunk {digest} length {size} != "
+                                 f"expected {len(mv)}")
+            got = 0
+            while got < size:
+                n = f.readinto(mv[got:])
+                if not n:
+                    break
+                got += n
+        if got != size:
+            raise ChunkError(f"chunk {digest} short read: {got} of {size}")
+        if verify and digest_of(mv) != digest:
+            raise ChunkError(f"chunk {digest} corrupt on disk "
+                             f"(content hash mismatch)")
 
     def all_digests(self) -> set[str]:
         out: set[str] = set()
@@ -146,10 +186,13 @@ class ChunkStore:
                     out.add(fn)
         return out
 
-    def gc(self, live: set[str]) -> int:
+    def gc(self, live: set[str], before: float | None = None) -> int:
         """Delete chunks not referenced by any retained manifest (and
-        any stale temp files from crashed writers). Returns the number
-        of chunks deleted."""
+        any stale temp files from crashed writers). With ``before`` (a
+        wall-clock time), files written or re-referenced at or after it
+        stay: other processes sharing the store may have a save in
+        flight whose part does not reference them yet. Returns the
+        number of chunks deleted."""
         n = 0
         if not os.path.isdir(self.dir):
             return 0
@@ -159,8 +202,12 @@ class ChunkStore:
                 continue
             for fn in os.listdir(subdir):
                 if ".tmp." in fn or fn not in live:
+                    path = os.path.join(subdir, fn)
                     try:
-                        os.unlink(os.path.join(subdir, fn))
+                        if before is not None \
+                                and os.stat(path).st_mtime >= before:
+                            continue
+                        os.unlink(path)
                     except OSError:
                         continue
                     if ".tmp." not in fn:

@@ -38,6 +38,7 @@ import sys
 import threading
 import time
 import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -46,6 +47,13 @@ from . import manifest as _manifest
 from .chunks import ChunkStore
 
 __all__ = ["CheckpointStore", "ShardedArray", "DEFAULT_CHUNK_BYTES"]
+
+# chunks a save or a restore hashes, writes or reads at once: sha256 and
+# file I/O release the GIL, and sha256 runs near 1.1 GB/s on one core.
+# Half the host's cores: a save or a restore runs beside serving (a
+# publication, a warm start, a replica's respawn), and with every core
+# hashing, the decode loops beside it stalled for seconds
+_IO_THREADS = max(1, (os.cpu_count() or 2) // 2)
 
 DEFAULT_CHUNK_BYTES = 1 << 20
 
@@ -218,6 +226,27 @@ class CheckpointStore:
             self._last_step = max(self._last_step, int(step))
             return int(step)
 
+    def _put_chunks(self, pieces) -> list:
+        """The manifest's chunk list ({"h", "o", "n"}, in stream order)
+        of an array's byte stream, cut into `pieces`: each piece stored
+        by ChunkStore.put (hash, dedup, write) on _IO_THREADS threads at
+        once, at most 4 pieces a thread in flight. The first error raises
+        once the pieces in flight have ended; nothing commits without
+        every chunk."""
+        chunks, off, window = [], 0, 4 * _IO_THREADS
+        with ThreadPoolExecutor(_IO_THREADS) as pool:
+            pending = []
+            for piece in pieces:
+                pending.append((pool.submit(self.chunks.put, piece), off,
+                                len(piece)))
+                off += len(piece)
+                if len(pending) >= window:
+                    f, o, n = pending.pop(0)
+                    chunks.append({"h": f.result(), "o": o, "n": n})
+            for f, o, n in pending:
+                chunks.append({"h": f.result(), "o": o, "n": n})
+        return chunks
+
     def _write_state(self, state: dict, step: int, meta, mode: str):
         t0 = time.perf_counter()
         arrays = {}
@@ -230,11 +259,7 @@ class CheckpointStore:
                 src = ShardedArray([arr.reshape((-1,) if arr.ndim == 0
                                                 else arr.shape)])
                 dtype, shape, nbytes = arr.dtype, arr.shape, arr.nbytes
-            chunks, off = [], 0
-            for piece in src.iter_bytes(self.chunk_bytes):
-                chunks.append({"h": self.chunks.put(piece), "o": off,
-                               "n": len(piece)})
-                off += len(piece)
+            chunks = self._put_chunks(src.iter_bytes(self.chunk_bytes))
             arrays[name] = {"dtype": np.dtype(dtype).str,
                             "shape": [int(s) for s in shape],
                             "nbytes": int(nbytes), "chunks": chunks}
@@ -277,11 +302,7 @@ class CheckpointStore:
                 src = ShardedArray([arr.reshape((-1,) if arr.ndim == 0
                                                 else arr.shape)])
                 dtype, shape, nbytes = arr.dtype, arr.shape, arr.nbytes
-            chunks, off = [], 0
-            for piece in src.iter_bytes(self.chunk_bytes):
-                chunks.append({"h": self.chunks.put(piece), "o": off,
-                               "n": len(piece)})
-                off += len(piece)
+            chunks = self._put_chunks(src.iter_bytes(self.chunk_bytes))
             arrays[name] = {"dtype": np.dtype(dtype).str,
                             "shape": [int(s) for s in shape],
                             "nbytes": int(nbytes), "chunks": chunks}
@@ -301,9 +322,10 @@ class CheckpointStore:
         self.wait()  # manifests must commit in step order
         with self._async_lock:
             self._last_step = max(self._last_step, int(step))
+        written = self._parts_written(step)
         payload = _manifest.merge_parts(self.root, step, world,
                                         meta=meta)
-        self._retention_gc()
+        self._retention_gc(before=written)
         _SAVES.labels(mode="merged").inc()
         _flight.record("ckpt", "manifest_commit", step=int(step),
                        mode="merged", arrays=len(payload["arrays"]))
@@ -330,9 +352,10 @@ class CheckpointStore:
             time.sleep(0.02)
         with self._async_lock:
             self._last_step = max(self._last_step, int(step))
+        written = self._parts_written(step)
         payload = _manifest.merge_parts(self.root, step, world,
                                         meta=meta)
-        self._retention_gc()
+        self._retention_gc(before=written)
         _SAVES.labels(mode="merged").inc()
         _flight.record("ckpt", "manifest_commit", step=int(step),
                        mode="merged", arrays=len(payload["arrays"]))
@@ -476,7 +499,9 @@ class CheckpointStore:
             raise err
 
     # -- retention ------------------------------------------------------
-    def _retention_gc(self):
+    def _retention_gc(self, before: float | None = None):
+        """Drop all but the newest ``keep`` manifests and the chunks
+        only they referenced (``ChunkStore.gc``; ``before`` as there)."""
         if self.keep <= 0:
             return
         ms = _manifest.list_manifests(self.root)
@@ -496,7 +521,18 @@ class CheckpointStore:
                 os.unlink(path)
             except OSError:
                 pass
-        self.chunks.gc(live)
+        self.chunks.gc(live, before)
+
+    def _parts_written(self, step: int) -> float | None:
+        """When the earliest part of ``step`` was written: every rank
+        wrote its part of ``step`` before it started a later save, so
+        the chunks and temp files of saves still in flight are all
+        younger (the cut-off of a merge's retention GC)."""
+        try:
+            return min(os.stat(path).st_mtime for _r, path in
+                       _manifest.list_parts(self.root, step))
+        except (OSError, ValueError):
+            return None
 
     # -- restore --------------------------------------------------------
     def latest_manifest(self, step: int | None = None) -> dict:
@@ -505,43 +541,76 @@ class CheckpointStore:
     def restore(self, step: int | None = None,
                 names=None) -> tuple[dict, object]:
         """(arrays, meta) of the newest committed step (or ``step``).
-        ``names`` restricts to a subset without reading the rest."""
+        ``names`` restricts to a subset without reading the rest. Every
+        chunk of every array is read and verified on a thread pool
+        straight into its array's buffer."""
         t0 = time.perf_counter()
         payload = self.latest_manifest(step)
-        out = {}
-        for name, ent in payload["arrays"].items():
-            if names is not None and name not in names:
-                continue
-            out[name] = self._assemble(ent)
+        ents = {name: ent for name, ent in payload["arrays"].items()
+                if names is None or name in names}
+        bufs = {name: np.empty(int(ent["nbytes"]), np.uint8)
+                for name, ent in ents.items()}
+        self._fill([job for name, ent in ents.items()
+                    for job in self._jobs(ent, 0, int(ent["nbytes"]),
+                                          bufs[name])])
+        out = {name: bufs[name].view(np.dtype(ent["dtype"]))
+               .reshape(tuple(ent["shape"])) for name, ent in ents.items()}
         _RESTORE_SECONDS.observe(time.perf_counter() - t0)
         return out, payload.get("meta")
 
-    def _read_range(self, ent: dict, lo: int, hi: int) -> bytes:
-        """Bytes [lo, hi) of an array's global stream, reading only the
-        chunks that overlap."""
-        parts = []
+    def _jobs(self, ent: dict, lo: int, hi: int, buf: np.ndarray) -> list:
+        """(digest, chunk length, chunk's byte range in the array's
+        stream, where it lands in `buf`) of every chunk overlapping
+        bytes [lo, hi) of an array's stream, `buf` holding those bytes;
+        raises ChunkError unless the chunks cover the range."""
+        jobs, covered = [], 0
         for c in ent["chunks"]:
             co, cn = int(c["o"]), int(c["n"])
             if co + cn <= lo or co >= hi:
                 continue
-            data = self.chunks.get(c["h"])
-            if len(data) != cn:
-                from .chunks import ChunkError
-                raise ChunkError(
-                    f"chunk {c['h']} length {len(data)} != manifest "
-                    f"{cn}")
-            parts.append(data[max(lo - co, 0):min(hi - co, cn)])
-        blob = b"".join(parts)
-        if len(blob) != hi - lo:
+            a, b = max(lo, co), min(hi, co + cn)
+            jobs.append((c["h"], cn, (a - co, b - co), buf[a - lo:b - lo]))
+            covered += b - a
+        if covered != hi - lo:
             from .chunks import ChunkError
             raise ChunkError(
-                f"array bytes [{lo},{hi}) incomplete: got {len(blob)}")
-        return blob
+                f"array bytes [{lo},{hi}) incomplete: got {covered}")
+        return jobs
+
+    def _fill(self, jobs: list):
+        """Run `_jobs`' reads: a chunk wholly inside the range is read
+        and verified in place, one that straddles its ends through a
+        scratch buffer (the whole chunk is hashed either way). Chunks
+        are read by _IO_THREADS threads at once; the first error raises
+        once every read has ended."""
+        def one(job):
+            digest, cn, (a, b), dst = job
+            if b - a == cn:
+                self.chunks.read_into(digest, dst)
+            else:
+                tmp = np.empty(cn, np.uint8)
+                self.chunks.read_into(digest, tmp)
+                dst[:] = tmp[a:b]
+
+        if len(jobs) <= 1:
+            for job in jobs:
+                one(job)
+            return
+        with ThreadPoolExecutor(min(_IO_THREADS, len(jobs))) as pool:
+            futures = [pool.submit(one, job) for job in jobs]
+        for f in futures:
+            f.result()
+
+    def _read_range(self, ent: dict, lo: int, hi: int) -> np.ndarray:
+        """Bytes [lo, hi) of an array's global stream as a uint8 array,
+        reading only the chunks that overlap."""
+        buf = np.empty(hi - lo, np.uint8)
+        self._fill(self._jobs(ent, lo, hi, buf))
+        return buf
 
     def _assemble(self, ent: dict) -> np.ndarray:
-        blob = self._read_range(ent, 0, int(ent["nbytes"]))
-        return np.frombuffer(blob, dtype=np.dtype(ent["dtype"])) \
-            .reshape(tuple(ent["shape"])).copy()
+        return self._read_range(ent, 0, int(ent["nbytes"])) \
+            .view(np.dtype(ent["dtype"])).reshape(tuple(ent["shape"]))
 
     def restore_array(self, name: str, step: int | None = None) \
             -> np.ndarray:
@@ -571,10 +640,9 @@ class CheckpointStore:
                 f"read_rows: [{row_lo},{row_hi}) outside [0,{shape[0]}]")
         if row_lo == row_hi:
             return np.empty((0,) + shape[1:], dtype=dtype)
-        blob = self._read_range(ent, row_lo * row_bytes,
-                                row_hi * row_bytes)
-        return np.frombuffer(blob, dtype=dtype) \
-            .reshape((row_hi - row_lo,) + shape[1:]).copy()
+        return self._read_range(ent, row_lo * row_bytes,
+                                row_hi * row_bytes) \
+            .view(dtype).reshape((row_hi - row_lo,) + shape[1:])
 
     def restore_shard(self, name: str, shard: int, num_shards: int,
                       step: int | None = None) -> np.ndarray:
@@ -596,10 +664,9 @@ class CheckpointStore:
         base, rem = divmod(n, num_shards)
         r0 = shard * base + min(shard, rem)
         rows = base + (1 if shard < rem else 0)
-        blob = self._read_range(ent, r0 * row_bytes,
-                                (r0 + rows) * row_bytes)
-        return np.frombuffer(blob, dtype=dtype) \
-            .reshape((rows,) + shape[1:]).copy()
+        return self._read_range(ent, r0 * row_bytes,
+                                (r0 + rows) * row_bytes) \
+            .view(dtype).reshape((rows,) + shape[1:])
 
     def steps(self) -> list[int]:
         return [s for s, _p in _manifest.list_manifests(self.root)]

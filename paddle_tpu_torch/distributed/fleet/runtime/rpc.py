@@ -1380,6 +1380,10 @@ class RpcServerState:
         self.before_reply = before_reply
 
 
+# read ops a connection runs beside its workers when every worker is held
+_READ_SPARE = 4
+
+
 class _ServerConn:
     """One accepted connection's mux state: a writer thread serializes
     outgoing frames (replies and stream pushes from many concurrent
@@ -1402,6 +1406,11 @@ class _ServerConn:
         self._pool = ThreadPoolExecutor(
             max_workers=self.max_workers,
             thread_name_prefix="rpc-srv")
+        # read ops (a health ping) that find every worker held by a long
+        # call (a streamed generate) run on a thread of their own, up to
+        # _READ_SPARE at once: behind the workers they would wait for a
+        # stream to end, and a prober reads a busy peer as a dead one
+        self._read_sem = threading.BoundedSemaphore(_READ_SPARE)
         self._writer_thread = threading.Thread(
             target=self._writer, daemon=True, name="rpc-srv-w")
         self._writer_thread.start()
@@ -1470,7 +1479,17 @@ class _ServerConn:
                 cancel_ev = threading.Event()
                 with self._clock:
                     self._cancels[rid] = cancel_ev
-                self._sem.acquire()
+                op = req.get("op") if isinstance(req, dict) else None
+                if not self._sem.acquire(blocking=False):
+                    if op in self.state.read_ops \
+                            and self._read_sem.acquire(blocking=False):
+                        threading.Thread(
+                            target=self._handle, daemon=True,
+                            name="rpc-srv-read",
+                            args=(req, rid, cancel_ev, armed,
+                                  self._read_sem)).start()
+                        continue
+                    self._sem.acquire()
                 try:
                     self._pool.submit(self._handle, req, rid,
                                       cancel_ev, armed)
@@ -1502,7 +1521,9 @@ class _ServerConn:
             gen.close()
 
     def _handle(self, req, req_id: int, cancel_ev: threading.Event,
-                armed: bool):
+                armed: bool, slot=None):
+        """One request, on a worker (`slot` None: it holds a _sem slot)
+        or on a read op's own thread (`slot` the _read_sem it holds)."""
         state = self.state
         try:
             op = req.get("op") if isinstance(req, dict) else None
@@ -1591,7 +1612,7 @@ class _ServerConn:
         finally:
             with self._clock:
                 self._cancels.pop(req_id, None)
-            self._sem.release()
+            (self._sem if slot is None else slot).release()
 
     # -- teardown -------------------------------------------------------
     def _fatal(self):
@@ -1615,9 +1636,10 @@ class _ServerConn:
 
 def serve_connection(sock: socket.socket, dispatch, state: RpcServerState):
     """One connection's multiplexed request loop. Requests are handled
-    concurrently (bounded by PADDLE_TPU_RPC_SERVER_INFLIGHT) and their
-    replies/stream frames interleave on the wire, each tagged with its
-    request id. Application errors become error frames; body-local
+    concurrently (bounded by PADDLE_TPU_RPC_SERVER_INFLIGHT; a read op
+    that finds every worker busy runs beside them, _READ_SPARE at once)
+    and their replies/stream frames interleave on the wire, each tagged
+    with its request id. Application errors become error frames; body-local
     corruption poisons only its own request id; transport errors end
     the connection (the client's retry path owns recovery). A dispatch
     that returns a GENERATOR streams: yielded objects go out as

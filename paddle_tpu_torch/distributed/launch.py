@@ -31,8 +31,10 @@ PADDLE_TPU_PUBLISH_DIR to the PS server and serving-replica children
 ``--telemetry`` points every child's agent at a ``telemetry`` child
 running ``python -m paddle_tpu_torch.observability.collector``, which
 the watch loop respawns alone, and ``--tsdb-dir`` gives that collector
-its durable metric history. The serving router, ``top`` and
-``perfwatch`` wait for the next slice of the port.
+its durable metric history; the serving router
+(``paddle_tpu_torch.serving.router``) fronts the ``--serving_replicas``
+children, and ``python -m paddle_tpu_torch.observability.top`` reads
+the collector.
 """
 from __future__ import annotations
 

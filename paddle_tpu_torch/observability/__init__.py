@@ -14,7 +14,9 @@ discrete events streamed to a collector; armed from
 ``PADDLE_TPU_TELEMETRY_COLLECTOR`` at import), the ``collector``
 (cross-process trace assembly with tail sampling, fleet state, the
 ``tel_*`` / ``tsdb_query`` / ``alerts`` / ``usage_report`` verbs), its
-``timeseries`` store and its ``alerts`` rules.
+``timeseries`` store and its ``alerts`` rules; ``perfwatch`` (the bench
+record writer and the perf-regression sentinel over ``perf`` snapshots)
+and the ``top`` dashboard (``python -m paddle_tpu_torch.observability.top``).
 
 ``set_enabled(False)`` (or ``PADDLE_TPU_TELEMETRY=0``) turns metric
 writes, span records and flight events into cheap no-ops.
@@ -26,7 +28,7 @@ import os
 import socket
 
 from . import agent, alerts, collector, debug, flight, meter, perf, \
-    registry, timeseries, tracing, watchdog
+    perfwatch, registry, timeseries, tracing, watchdog
 from .agent import TelemetryAgent, publish_event
 from .alerts import AlertManager, AlertRule
 from .collector import TelemetryCollector, telemetry_dispatch
@@ -44,7 +46,8 @@ from .watchdog import WATCHDOG
 
 __all__ = [
     "registry", "tracing", "flight", "watchdog", "debug",
-    "agent", "collector", "perf", "timeseries", "alerts", "meter",
+    "agent", "collector", "perf", "perfwatch",
+    "timeseries", "alerts", "meter",
     "TelemetryAgent", "TelemetryCollector",
     "telemetry_dispatch", "publish_event",
     "TimeSeriesDB", "AlertManager", "AlertRule",

@@ -1,7 +1,7 @@
 """Per-tenant usage metering for the serving plane.
 
 The scheduler carries tenant/priority tags on every request; this
-module is the accounting layer: Engine/Scheduler hooks land every
+module is the accounting layer: Engine/Scheduler/Router hooks land every
 request's resource footprint in per-(tenant, tier) registry counters.
 
 What is metered per (tenant, tier):
@@ -63,6 +63,9 @@ _REQS = _obs.counter(
     "paddle_tpu_tenant_requests_total",
     "request outcomes, per tenant, tier and outcome",
     ["tenant", "tier", "outcome"])
+_ROUTER_REQS = _obs.counter(
+    "paddle_tpu_tenant_router_requests_total",
+    "router relays by tenant and outcome", ["tenant", "outcome"])
 _OVERFLOWED = _obs.counter(
     "paddle_tpu_tenant_overflow_total",
     "submissions whose tenant collapsed into the overflow bucket")
@@ -149,6 +152,11 @@ class UsageMeter:
             _FLOPS.labels(tenant=self.intern(tenant),
                           tier=_tier(priority)).inc(float(flops))
 
+    def note_routed(self, tenant, outcome):
+        """One generate answered by a router, by its final outcome."""
+        _ROUTER_REQS.labels(tenant=self.intern(tenant),
+                            outcome=normalize_outcome(outcome)).inc()
+
     # -- local report ----------------------------------------------------
     def report(self) -> dict:
         """This process's usage, per (tenant, tier), read back from the
@@ -180,7 +188,7 @@ class UsageMeter:
                 "cap": self.cap}
 
 
-# one process-wide meter: engine/scheduler hooks share it so a
+# one process-wide meter: engine/scheduler/router hooks share it so a
 # process's tenants intern once
 METER = UsageMeter()
 

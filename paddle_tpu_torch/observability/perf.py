@@ -377,6 +377,8 @@ def snapshot() -> dict:
         "costs": [{"name": n, "key": k, **c}
                   for (n, k), c in sorted(costs().items())],
         "breakdown": breakdowns(),
+        "mfu": {vals[0]: float(child.value)
+                for vals, child in _MFU._series()},
         "hbm": {k: _hbm_stat(k) for k in ("in_use", "limit", "peak")},
         "providers": prov_out,
     }

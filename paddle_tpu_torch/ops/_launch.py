@@ -5,16 +5,21 @@ turn a launch's error code into an exception."""
 from __future__ import annotations
 
 import functools
+import threading
 
 import torch
 
 __all__ = ["_route", "_check", "_dtype_code", "_raise_if", "_drop_args",
-           "_sms", "keep_threshold", "workspace"]
+           "_sms", "enqueue_lock", "keep_threshold", "workspace"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernels' scratch, by (device index, stream, name): split partials
 # ("part"), tickets ("tickets"), the stream route's hid and xn
 _WORK: dict = {}
+# one lock a (device index, stream), guarding that stream's workspace
+# (enqueue_lock)
+_ENQUEUE: dict = {}
+_ENQUEUE_GUARD = threading.Lock()
 
 
 def workspace(device, stream, name, numel, dtype=torch.float32):
@@ -23,13 +28,34 @@ def workspace(device, stream, name, numel, dtype=torch.float32):
     An int32 one is made of zeros: the kernels take tickets from it and
     the last block to take each sets it back to zero, so it is zero
     between launches. Launches on one stream never overlap, so they may
-    share a tensor; two streams never do."""
+    share a tensor; two streams never do. Callers hold the stream's
+    `enqueue_lock` from this call until their launches are enqueued."""
     key = (device.index, stream, name)
     t = _WORK.get(key)
     if t is None or t.numel() < numel:
         make = torch.zeros if dtype == torch.int32 else torch.empty
         t = _WORK[key] = make(numel, dtype=dtype, device=device)
     return t
+
+
+def enqueue_lock(device, stream) -> threading.Lock:
+    """The lock of `stream`'s workspace: a call holds it from taking a
+    buffer to the last launch that uses it. Two threads may launch on
+    one stream (two engines in one process), and the ctypes call that
+    enqueues launches releases the GIL. Without the lock their launches
+    could interleave where one launch hands a buffer to the next (the
+    stream route's hid: written by the first product, read by the
+    second), so one thread's second product would read the other's
+    hid; and a buffer replaced by a larger one could be freed before a
+    launch that took its address is enqueued. Held only while launches
+    are enqueued: the kernels still run one after another on the
+    stream."""
+    key = (device.index, stream)
+    with _ENQUEUE_GUARD:
+        lock = _ENQUEUE.get(key)
+        if lock is None:
+            lock = _ENQUEUE[key] = threading.Lock()
+    return lock
 
 
 @functools.cache

@@ -57,7 +57,7 @@ import torch
 
 from . import _build
 from ._launch import (_check, _dtype_code, _drop_args, _raise_if, _route,
-                      _sms, workspace)
+                      _sms, enqueue_lock, workspace)
 from .fused_residual import apply_keep
 
 __all__ = ["fused_out_ln", "out_ln_reference", "fused_ffn_ln",
@@ -275,7 +275,8 @@ def _stream_scratch(dev, stream, m, products):
     """Addresses of the stream kernels' f32 scratch (split partials, then
     the LN's (mean, M2) a row and 32 columns) and tickets in the
     workspace of `stream`, sized for the (k, n, splits) products of one
-    call (run one after another, so they share both)."""
+    call (run one after another, so they share both). The caller holds
+    the stream's enqueue_lock until its launches are enqueued."""
     rt = math.ceil(m / stream_rows(m))
     n_part = max((s * m * n if s > 1 else 0) + 2 * m * math.ceil(n / 32)
                  for _, n, s in products)
@@ -337,15 +338,16 @@ def _out_ln_kernel(a2, w, b, res2, ln_s, ln_b, eps, seed=0, p=0.0):
                     ptrs + [ln_s.data_ptr(), ln_b.data_ptr()]):
         splits = stream_splits(m, k, n, _sms(a2.device.index))
         stream = torch.cuda.current_stream(a2.device).cuda_stream
-        part, tickets = _stream_scratch(a2.device, stream, m,
-                                        [(k, n, splits)])
         fn = _build.function(
             "fused_block", "fused_out_ln_stream_launch", 10, 6,
             (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-        _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
-             b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(),
-             z.data_ptr(), h.data_ptr(), part, tickets, m, k, n, splits,
-             seed, on, thr, keep_div, float(eps))
+        with enqueue_lock(a2.device, stream):
+            part, tickets = _stream_scratch(a2.device, stream, m,
+                                            [(k, n, splits)])
+            _run(a2.device, "fused_out_ln", fn, a2.data_ptr(), w.data_ptr(),
+                 b.data_ptr(), res2.data_ptr(), ln_s.data_ptr(),
+                 ln_b.data_ptr(), z.data_ptr(), h.data_ptr(), part, tickets,
+                 m, k, n, splits, seed, on, thr, keep_div, float(eps))
         _build.note_launch("fused_out_ln")
         _build.note_launch("fused_out_ln.stream")
         return z, h
@@ -436,18 +438,22 @@ def _ffn_kernel(x2, w1, b1, w2, b2, res2, ln_s=None, ln_b=None,
         products = [(hd, i, stream_splits(m, hd, i, sms)),
                     (i, hd, stream_splits(m, i, hd, sms))]
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        part, tickets = _stream_scratch(x2.device, stream, m, products)
-        hid = workspace(x2.device, stream, "hid", m * i)
-        xn = workspace(x2.device, stream, "xn", m * hd).data_ptr() \
-            if norm == "pre" else None
         fn = _build.function(
             "fused_block", "fused_ffn_ln_stream_launch", 13, 9,
             (ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_void_p))
-        _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(), w1.data_ptr(),
-             b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), res2.data_ptr(),
-             *ln_ptrs, out.data_ptr(), xn, hid.data_ptr(), part, tickets,
-             m, hd, i, products[0][2], products[1][2], act_code, norm_code,
-             seed, on, thr, keep_div, float(eps))
+        # two (three with norm "pre") launches pass hid (and xn) along:
+        # no other thread's launch may land between them
+        with enqueue_lock(x2.device, stream):
+            part, tickets = _stream_scratch(x2.device, stream, m, products)
+            hid = workspace(x2.device, stream, "hid", m * i)
+            xn = workspace(x2.device, stream, "xn", m * hd).data_ptr() \
+                if norm == "pre" else None
+            _run(x2.device, "fused_ffn_ln", fn, x2.data_ptr(),
+                 w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                 res2.data_ptr(), *ln_ptrs, out.data_ptr(), xn,
+                 hid.data_ptr(), part, tickets, m, hd, i, products[0][2],
+                 products[1][2], act_code, norm_code, seed, on, thr,
+                 keep_div, float(eps))
         _build.note_launch("fused_ffn_ln")
         _build.note_launch("fused_ffn_ln.stream")
         return out

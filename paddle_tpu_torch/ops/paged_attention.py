@@ -47,7 +47,7 @@ import math
 import torch
 
 from . import _build
-from ._launch import _sms, workspace
+from ._launch import _sms, enqueue_lock, workspace
 
 __all__ = ["paged_attention_decode", "paged_attention_reference",
            "paged_attention_split_reference", "paged_splits",
@@ -207,17 +207,9 @@ def _launch(q, k_pages, v_pages, page_table, ctx_lens, scale):
     splits = math.ceil(M / pps)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    # the split workspace and tickets of this stream (ops/_launch.py),
-    # shared with the other kernels that launch on it
-    part = tickets = None
-    if splits > 1:
-        part = workspace(q.device, stream, "part",
-                         S * H * splits * (d + 2)).data_ptr()
-        tickets = workspace(q.device, stream, "tickets", S * H,
-                            torch.int32).data_ptr()
     args = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             page_table.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
-            part, tickets, S, H, d, ps, M, pps, float(scale)]
+            None, None, S, H, d, ps, M, pps, float(scale)]
     if route == "vector":
         fn = _build.function("paged_attention", "paged_attention_launch", 8,
                              6, (ctypes.c_float, ctypes.c_int,
@@ -230,7 +222,15 @@ def _launch(q, k_pages, v_pages, page_table, ctx_lens, scale):
                              + (ctypes.c_longlong,) * 8 + (ctypes.c_void_p,))
         args += [_TYPE_CODES[q.dtype], _TYPE_CODES[k_pages.dtype],
                  *k_pages.stride(), *v_pages.stride()]
-    with torch.cuda.device(q.device):
+    # the split workspace and tickets of this stream (ops/_launch.py),
+    # shared with the other kernels that launch on it: taken and used
+    # under the stream's enqueue lock
+    with enqueue_lock(q.device, stream), torch.cuda.device(q.device):
+        if splits > 1:
+            args[6] = workspace(q.device, stream, "part",
+                                S * H * splits * (d + 2)).data_ptr()
+            args[7] = workspace(q.device, stream, "tickets", S * H,
+                                torch.int32).data_ptr()
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel ({route} route) launch "

@@ -30,10 +30,18 @@ Online weight swaps: ``ServingServer(eng, publish_root=...)`` answers
 ``adopt_version``, and ``paddle_tpu_torch.publish.VersionSubscriber``
 hot-swaps an engine on every version a publisher commits.
 
-The replicated fleet's router (``paddle_tpu.serving.router``), with the
-``top`` dashboard and ``perfwatch``, waits for the next slice of the
-port (slice 23); the telemetry plane it needs is ported
-(``paddle_tpu_torch.observability``).
+Replicated fleet (serving/router.py): a Router fronts N replicas with
+least-loaded dispatch, session and prefix affinity, streaming token
+frames, exactly-once failover, draining, elastic respawn from engine
+checkpoints and staggered rollouts of published versions — the same
+ServingClient talks to it:
+
+    from paddle_tpu_torch.serving import InProcessReplica, Router
+    reps = [InProcessReplica(root, name=f"rep{i}", engine_kw=kw)
+            for i in range(2)]
+    eps = [r.start() for r in reps]
+    with Router("127.0.0.1:0", replicas=[r.spec() for r in reps]) as rt:
+        out = ServingClient(rt.endpoint).generate([1, 2, 3], 16)
 """
 from .kv_cache import PagePool, PageTable, defrag_plan, pages_needed
 from .prefix_cache import PrefixCache, PrefixMatch
@@ -45,6 +53,7 @@ from .engine import Engine
 from .frontend import ServingClient, ServingServer
 from .loadgen import (Arrival, LoadGenerator, LoadResult, TrafficConfig,
                       slo_report)
+from .router import InProcessReplica, Replica, ReplicaSpec, Router
 
 __all__ = [
     "PagePool", "PageTable", "pages_needed", "defrag_plan",
@@ -53,4 +62,5 @@ __all__ = [
     "GPTDecodeModel", "Engine", "ServingServer", "ServingClient",
     "Arrival", "LoadGenerator", "LoadResult", "TrafficConfig",
     "slo_report",
+    "Router", "ReplicaSpec", "Replica", "InProcessReplica",
 ]

@@ -67,6 +67,7 @@ In-process use (tests, co-located workers) needs none of this — call
 """
 from __future__ import annotations
 
+import socket
 import socketserver
 import threading
 import time
@@ -119,6 +120,17 @@ class ServingServer(socketserver.ThreadingTCPServer):
         super().__init__((host, int(port)), Handler)
         self.endpoint = f"{host}:{self.server_address[1]}"
         self._thread: threading.Thread | None = None
+        self._conns: set = set()     # live handler sockets (kill())
+
+    # connection tracking so kill() can sever live streams the way a
+    # process death would
+    def process_request(self, request, client_address):
+        self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        self._conns.discard(request)
+        super().shutdown_request(request)
 
     def start(self):
         self.engine.start()
@@ -132,6 +144,27 @@ class ServingServer(socketserver.ThreadingTCPServer):
         self.shutdown()
         self.server_close()
         self.engine.stop()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+
+    def kill(self):
+        """Crash, don't drain: close the listener and every live
+        connection (in-flight streamed replies die mid-frame, which is
+        what a replica process's death looks like to a router) and halt
+        the serve thread. The engine is left to the caller."""
+        self.shutdown()
+        self.server_close()
+        for s in list(self._conns):
+            try:
+                s.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                s.close()
+            except OSError:
+                pass
+        self._conns.clear()
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None

@@ -88,8 +88,11 @@ def _prepare(arrays: dict, template, root: str, device):
     """The port's parameters on `device` from tree-path-keyed host
     arrays: one leaf per (path, dtype, shape) of `template`, cast to
     its dtype. A missing key raises KeyError naming it, a leaf of
-    another shape ValueError. On a card the uploads are complete when
-    this returns, so adopting the result is a bare reference swap."""
+    another shape ValueError. On a card the uploads run on a stream of
+    their own, so the decode steps that an engine (or another engine in
+    the process) enqueues on the default stream meanwhile do not wait
+    behind the copies; they are complete when this returns, so adopting
+    the result is a bare reference swap."""
     tree: dict = {}
     for path, dtype, shape in template:
         key = _keystr(path)
@@ -105,9 +108,20 @@ def _prepare(arrays: dict, template, root: str, device):
         for name in path[:-1]:
             node = node.setdefault(name, {})
         node[path[-1]] = torch.from_numpy(arr).to(dtype)
-    params = params_from_jax(tree, device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if device.type != "cuda":
+        return params_from_jax(tree, device)
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        params = params_from_jax(tree, device)
+    side.synchronize()
+    # the default stream reads them from the flip on: their blocks are
+    # not handed out again until its work queued at their free is done
+    default = torch.cuda.default_stream(device)
+    for name, t in params.items():
+        if name != "blocks":
+            t.record_stream(default)
+    for t in params["blocks"][0].values():
+        t.record_stream(default)       # a layer's views share one base
     return params
 
 

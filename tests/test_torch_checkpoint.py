@@ -5,6 +5,8 @@ injector and the serving warm start, on the CPU.
     store (numpy and torch state), the WAL and the metric names, against
     the port, plus the writer gauges and flight transitions of
     tests/test_debug_postmortem.py;
+  * the threaded in-place restore against the serial read it replaced
+    and the JAX package's store, corrupt chunks still refused;
   * kill mid-save: a writer armed with PADDLE_PS_FAULT_KILL_AFTER_BYTES
     dies after 8 KB of chunk payload; restore returns the previous
     commit bit for bit and the recovering save dedups;
@@ -429,6 +431,69 @@ def test_ckpt_writer_gauges_and_flight_transitions(tmp_path):
     assert enq.attrs["bytes"] == 4096 and enq.attrs["step"] == step
     got, _meta = st.restore()
     np.testing.assert_array_equal(got["w"], state["w"].numpy())
+
+
+def _serial_read(st, ent, lo, hi):
+    """The store's former read of bytes [lo, hi): each overlapping chunk
+    fetched and re-hashed in turn (ChunkStore.get), joined, copied."""
+    parts = []
+    for c in ent["chunks"]:
+        co, cn = int(c["o"]), int(c["n"])
+        if co + cn <= lo or co >= hi:
+            continue
+        parts.append(st.chunks.get(c["h"])[max(lo - co, 0):
+                                            min(hi - co, cn)])
+    return np.frombuffer(b"".join(parts), np.uint8).copy()
+
+
+def test_parallel_restore_equals_the_serial_read_and_the_reference(
+        tmp_path):
+    """The threaded in-place restore gives, bit for bit, what the serial
+    join-and-copy read gave and what the JAX package's store restores,
+    for whole arrays, row ranges that cut chunks and shards; a corrupt
+    or truncated chunk still raises ChunkError."""
+    st = CheckpointStore(str(tmp_path), chunk_bytes=100)
+    big = np.random.RandomState(0).standard_normal((37, 9)) \
+        .astype(np.float32)
+    state = dict(_state(), sharded=ShardedArray(
+        np.array_split(big, 4, axis=0)))
+    st.save(state)
+    got, _ = st.restore()
+    ref, _ = jckpt.CheckpointStore(str(tmp_path)).restore()
+    for name, ent in st.latest_manifest()["arrays"].items():
+        serial = _serial_read(st, ent, 0, int(ent["nbytes"])) \
+            .view(np.dtype(ent["dtype"])).reshape(tuple(ent["shape"]))
+        assert got[name].tobytes() == serial.tobytes() \
+            == np.asarray(ref[name]).tobytes(), name
+        assert got[name].dtype == ref[name].dtype
+        assert got[name].shape == ref[name].shape
+        assert got[name].flags.writeable
+    ent = st.latest_manifest()["arrays"]["sharded"]
+    row_bytes = 9 * 4
+    for lo, hi in ((0, 37), (3, 11), (5, 6), (36, 37)):
+        want = _serial_read(st, ent, lo * row_bytes, hi * row_bytes)
+        assert st.read_rows(ent, lo, hi).tobytes() == want.tobytes()
+    for k in (1, 2, 5):
+        assert np.concatenate([st.restore_shard("sharded", i, k)
+                               for i in range(k)]).tobytes() \
+            == big.tobytes()
+    # one chunk in the middle of the sharded array corrupted, then cut
+    victim = ent["chunks"][len(ent["chunks"]) // 2]["h"]
+    path = st.chunks._path(victim)
+    raw = open(path, "rb").read()
+    with open(path, "wb") as f:
+        f.write(bytes([raw[0] ^ 1]) + raw[1:])
+    with pytest.raises(ChunkError, match="corrupt"):
+        st.restore()
+    with pytest.raises(ChunkError, match="corrupt"):
+        st.read_rows(ent, 0, 37)
+    with open(path, "wb") as f:
+        f.write(raw[:-1])
+    with pytest.raises(ChunkError, match="length"):
+        st.restore(names={"sharded"})
+    os.unlink(path)
+    with pytest.raises(ChunkError, match="missing"):
+        st.restore_array("sharded")
 
 
 # ---------------------------------------------------------------------------

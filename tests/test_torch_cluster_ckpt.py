@@ -190,12 +190,15 @@ def test_async_roundtrip_same_world(tmp_path):
 
 
 def test_seconds_cadence_via_intent_file(tmp_path):
+    # the cadence is long enough that the first maybe_save falls inside
+    # it on a loaded host (at 10 ms a 10 ms stall between the
+    # constructor and that call armed step 1's intent instead)
     root = str(tmp_path)
-    ck = ClusterCheckpoint(root, rank=0, world=1, every_seconds=0.01,
-                           async_save=False)
     st, _ = _world_state(0, 1)
+    ck = ClusterCheckpoint(root, rank=0, world=1, every_seconds=0.25,
+                           async_save=False)
     assert ck.maybe_save(0, **st) is None
-    time.sleep(0.03)
+    time.sleep(0.3)
     assert ck.maybe_save(1, **st) is None     # arms an intent for 2
     assert os.path.exists(os.path.join(root, "intent-0000000002.json"))
     assert ck.maybe_save(2, **st) == 2
@@ -306,3 +309,53 @@ def test_uncommitted_parts_invisible_across_packages(tmp_path, writer):
         np.testing.assert_array_equal(state["w"], st0["replicated"]["w"])
         np.testing.assert_array_equal(state["emb"], st0["sharded"]["emb"])
     assert manifest_mod.list_parts(root, 4) == []
+
+
+@pytest.mark.parametrize("merge", ["sync", "async"])
+def test_merge_gc_spares_a_save_in_flight(tmp_path, merge):
+    """Rank 0's retention GC after a merge leaves what another rank's
+    save still in flight has written or re-referenced: a temp file, a
+    chunk no part references yet, an old chunk it deduplicates. It
+    still collects what is older than the merged step's parts. (It used
+    to sweep them all: the other rank's rename then failed, or its part
+    referenced a chunk gone from disk.)"""
+    from paddle_tpu_torch.checkpoint.chunks import digest_of
+    root = str(tmp_path)
+    st = CheckpointStore(root, keep=1)
+
+    def arrays(step, r):
+        return {f"a{r}": np.full(4, step * 10 + r, np.float32)}
+
+    for r in range(2):
+        st.save_part(arrays(1, r), 1, r, 2)
+    st.merge_parts(1, 2)
+    for r in range(2):
+        st.save_part(arrays(2, r), 2, r, 2)
+    # the parts of step 2 were written a minute ago, step 1's chunks
+    # before them
+    t_parts = time.time() - 60
+    for _r, path in manifest_mod.list_parts(root, 2):
+        os.utime(path, (t_parts, t_parts))
+    old = {r: st.chunks._path(digest_of(arrays(1, r)["a" + str(r)]
+                                        .tobytes())) for r in range(2)}
+    for path in old.values():
+        os.utime(path, (t_parts - 30, t_parts - 30))
+    # rank 1's save of step 3, in flight: a chunk written, one deduped
+    # (step 1's a0 again), one temp file mid-write
+    fresh = st.chunks._path(st.chunks.put(b"rank 1, step 3"))
+    assert st.chunks.put(arrays(1, 0)["a0"].tobytes()) \
+        == os.path.basename(old[0])
+    tmp = fresh + ".tmp.999999.1"
+    with open(tmp, "wb") as f:
+        f.write(b"half")
+    if merge == "sync":
+        st.merge_parts(2, 2)
+    else:
+        st.merge_parts_async(2, 2)
+        st.wait()
+    assert st.steps() == [2]
+    assert os.path.exists(fresh) and os.path.exists(tmp)
+    assert os.path.exists(old[0])          # re-referenced in flight
+    assert not os.path.exists(old[1])      # step 1's alone: collected
+    restored, _ = st.restore()
+    assert restored["a0"][0] == 20 and restored["a1"][0] == 21

@@ -414,6 +414,31 @@ def test_workspace_is_kept_per_stream_and_grown():
         del _launch._WORK[key]
 
 
+def test_enqueue_lock_is_one_per_stream():
+    """Fault C7: the workspace of a (device, stream) is guarded by one
+    lock, shared by every thread that launches on that stream and by
+    no other stream; taking it from many threads at once hands out that
+    one lock."""
+    import threading
+    from paddle_tpu_torch.ops import _launch
+    dev0, dev1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    lock = _launch.enqueue_lock(dev0, 21)
+    assert _launch.enqueue_lock(dev0, 21) is lock
+    assert _launch.enqueue_lock(dev0, 22) is not lock
+    assert _launch.enqueue_lock(dev1, 21) is not lock
+    got = []
+    threads = [threading.Thread(
+        target=lambda: got.append(_launch.enqueue_lock(dev0, 23)))
+        for _ in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+    assert len(got) == 16 and all(g is got[0] for g in got)
+    for key in [k for k in _launch._ENQUEUE if k[1] in (21, 22, 23)]:
+        del _launch._ENQUEUE[key]
+
+
 @pytest.mark.parametrize("m,n,sms,want", [
     (2048, 3072, 132, (128, 64)),    # BERT FFN up: 97% of 3 waves
     (2048, 768, 132, (64, 64)),      # BERT out-projection, FFN down

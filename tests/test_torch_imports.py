@@ -51,7 +51,7 @@ def test_port_file_list_is_not_empty():
             "ps_ha.py", "tiered_store.py", "launch.py", "elastic.py",
             "cluster_ckpt.py", "exporter.py", "subscriber.py",
             "agent.py", "alerts.py", "collector.py",
-            "timeseries.py"} <= names
+            "timeseries.py", "router.py", "top.py", "perfwatch.py"} <= names
     assert ROOT / "paddle_tpu_torch" / "publish" / "registry.py" \
         in PORT_FILES
     assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \
@@ -140,6 +140,9 @@ def test_import_needs_no_nvcc_triton_or_jax():
         "import paddle_tpu_torch.observability.collector,"
         " paddle_tpu_torch.observability.alerts,"
         " paddle_tpu_torch.observability.timeseries\n"
+        "import paddle_tpu_torch.serving.router,"
+        " paddle_tpu_torch.observability.top,"
+        " paddle_tpu_torch.observability.perfwatch\n"
         "from paddle_tpu_torch.ops import launch_counts\n"
         "assert launch_counts() == {}\n"
         "print('ok')\n")
@@ -151,8 +154,10 @@ def test_import_needs_no_nvcc_triton_or_jax():
 
 
 def test_publish_and_telemetry_import_without_torch():
-    """The publish tier and the telemetry plane load on a host process
-    that never imports torch (a PS shard or a collector child): only
+    """The publish tier and the telemetry plane (with the ``top``
+    dashboard and ``perfwatch``) load on a host process that never
+    imports torch (a PS shard, a collector child, an operator's
+    terminal): only
     ``Publisher.publish_model`` and ``VersionSubscriber``'s engine swap
     need it, and they import it when called."""
     code = (
@@ -165,7 +170,7 @@ def test_publish_and_telemetry_import_without_torch():
         "import paddle_tpu_torch.publish\n"
         "import paddle_tpu_torch.observability.collector\n"
         "from paddle_tpu_torch.observability import agent, alerts, "
-        "timeseries\n"
+        "perfwatch, timeseries, top\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -7,8 +7,10 @@ subscriber watching the registry over the wire (every request done, a
 streamed generate contiguous across the flip, post-swap tokens those of
 a fresh engine on the published version), a PS shard serving the pub_*
 verbs to a subscriber, and the launcher's --publish_dir reaching the
-server.* and replica.* children only. The router's staggered rollout
-waits for the router (slice 23 of the port).
+server.* and replica.* children only; the router's staggered rollout
+over two in-process replicas with its automatic rollback of the fleet
+and the registry, and publish_watch rolling a publication out with no
+operator verb.
 
 Tiny GPT (hidden 128, 2 layers, vocab 512, initializer range 0.5); token
 comparisons are exact (one package). Every wait has its own timeout.
@@ -25,14 +27,15 @@ import pytest
 
 from paddle_tpu_torch.distributed.fleet.runtime.parameter_server_runtime \
     import PSClient, PSServer
-from paddle_tpu_torch.distributed.fleet.runtime.rpc import PSRemoteError
+from paddle_tpu_torch.distributed.fleet.runtime.rpc import (PSRemoteError,
+                                                   RpcClient)
 from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
 from paddle_tpu_torch.publish import (Publisher, RegistryServer,
-                                      VersionSubscriber)
+                                      VersionRegistry, VersionSubscriber)
 from paddle_tpu_torch.serving import (Engine, GPTDecodeModel,
-                                      LoadGenerator, ServingClient,
-                                      ServingServer, TrafficConfig,
-                                      slo_report)
+                                      InProcessReplica, LoadGenerator,
+                                      Router, ServingClient, ServingServer,
+                                      TrafficConfig, slo_report)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = dict(vocab_size=512, hidden_size=128, num_heads=2, num_layers=2,
@@ -148,6 +151,100 @@ def test_subscriber_file_poll_swaps_and_skips_bad_versions(ckpt_root,
                 == _expected_after_swap(ckpt_root, pub, 3, [4, 5], 6)
         finally:
             sub.stop()
+
+
+# ---------------------------------------------------------------------------
+# staggered fleet rollout through the router
+# ---------------------------------------------------------------------------
+
+def _fleet(ckpt_root, pub_root, n=2, **router_kw):
+    reps = []
+    for i in range(n):
+        r = InProcessReplica(ckpt_root, name=f"rep{i}",
+                             engine_kw=dict(ENGINE_KW, device="cpu"),
+                             publish_root=pub_root)
+        r.start()
+        reps.append(r)
+    # the post-swap probe shares ping_timeout with the health loop: a
+    # loaded host's ping past it would read as a failed swap and roll
+    # the fleet back, so it is generous here
+    kw = dict(ping_interval=0.1, ping_timeout=10.0, suspect_after=1,
+              dead_after=2, token_stall=5.0, respawn_cooldown=0.2,
+              publish_root=pub_root)
+    kw.update(router_kw)
+    router = Router("127.0.0.1:0", replicas=[r.spec() for r in reps],
+                    **kw)
+    return router, reps
+
+
+def test_rollout_staggers_fleet_and_bad_version_rolls_back(ckpt_root,
+                                                           tmp_path):
+    pub = str(tmp_path / "pub")
+    router, reps = _fleet(ckpt_root, pub)
+    try:
+        with router:
+            _publish_seed(pub, seed=1, step=100)
+            # the rollout driven over the router's own wire
+            rc = RpcClient(router.endpoint)
+            try:
+                rep = rc.call({"op": "rollout"}, timeout=120,
+                              deadline=120)
+                assert rep["adopted"] == 1
+                assert sorted(rep["replicas"]) == ["rep0", "rep1"]
+                for r in reps:
+                    assert r.engine.stats()["model_version"] == 1
+                # pin the good version, then publish a junk one: the
+                # rollout fails on the first replica, restores the
+                # fleet and rewinds the registry pointer
+                VersionRegistry(pub).pin(1)
+                Publisher(pub).publish_arrays(
+                    {"junk": np.zeros(3)}, step=110, kind="gpt-decode")
+                rep2 = rc.call({"op": "rollout"}, timeout=120,
+                               deadline=120)
+                assert rep2["adopted"] is None
+                assert rep2["version"] == 2
+                assert rep2["failed_on"] == "rep0"
+                assert rep2["rolled_back"] == 1   # the registry rewound
+                assert VersionRegistry(pub).latest() == 1
+                assert router.rollout_rollbacks == 1
+                for r in reps:
+                    assert r.engine.stats()["model_version"] == 1
+                # and the fleet still serves, on the good weights
+                cli = ServingClient(router.endpoint)
+                try:
+                    out = cli.generate([1, 2, 3], 8, timeout=60)
+                    assert out["status"] == "done"
+                    assert np.asarray(out["tokens"]).tolist() == \
+                        _expected_after_swap(ckpt_root, pub, 1,
+                                             [1, 2, 3], 8)
+                finally:
+                    cli.close()
+            finally:
+                rc.close()
+    finally:
+        for r in reps:
+            r.stop()
+
+
+def test_router_publish_watch_rolls_out_automatically(ckpt_root,
+                                                      tmp_path):
+    """publish_watch=True closes the loop with no operator verb: the
+    publication itself triggers the staggered fleet rollout."""
+    pub = str(tmp_path / "pub")
+    router, reps = _fleet(ckpt_root, pub, publish_watch=True)
+    try:
+        with router:
+            _publish_seed(pub, seed=1, step=100)
+            # the rollout counts itself once its last post-swap probe
+            # answered, a moment after the last engine flipped
+            assert _wait_for(
+                lambda: router.rollouts >= 1
+                and all(r.engine.stats()["model_version"] == 1
+                        for r in reps), timeout=120)
+            assert router.rollout_rollbacks == 0
+    finally:
+        for r in reps:
+            r.stop()
 
 
 # ---------------------------------------------------------------------------

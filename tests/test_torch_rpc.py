@@ -353,6 +353,52 @@ def test_stream_and_pings_interleave_on_one_channel(stub):
         cli.close()
 
 
+def test_ping_answers_while_every_worker_holds_a_stream(monkeypatch):
+    """Fault C8: with every worker of a connection held by a long stream
+    (PADDLE_TPU_RPC_SERVER_INFLIGHT of them), a read op on the same
+    channel still answers at once, where it used to wait for a stream to
+    end (a router's health ping then timed out, and it closed a busy
+    replica's channel as a dead one's). A mutating call beyond the
+    workers still waits for one."""
+    monkeypatch.setenv("PADDLE_TPU_RPC_SERVER_INFLIGHT", "2")
+    srv = _StubServer()
+    cli = rpc.RpcClient(srv.endpoint, pool_size=1)
+    try:
+        results = []
+
+        def consume():
+            results.append([f["i"] for f in cli.call_stream(
+                {"op": "gen", "n": 10, "gap": 0.2}, timeout=30,
+                stream_timeout=30)])
+
+        threads = [threading.Thread(target=consume) for _ in range(2)]
+        for th in threads:
+            th.start()
+        time.sleep(0.3)                  # both workers held by streams
+        lats = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            assert cli.call({"op": "ping"}, timeout=5) == "pong"
+            lats.append(time.monotonic() - t0)
+        t0 = time.monotonic()
+        assert cli.call({"op": "apply", "x": 1}, timeout=10) == {"n": 1}
+        waited = time.monotonic() - t0
+        for th in threads:
+            th.join(timeout=30)
+        assert not any(th.is_alive() for th in threads)
+        assert results == [list(range(10))] * 2
+        assert max(lats) < 0.5, f"ping behind the streams ({lats})"
+        assert waited > 1.0, waited      # a worker freed first
+        # every slot comes back: many more calls than workers, in turn
+        for i in range(2, 12):
+            assert cli.call({"op": "apply", "x": i}, timeout=5) \
+                == {"n": i}
+            assert cli.call({"op": "ping"}, timeout=5) == "pong"
+    finally:
+        cli.close()
+        srv.stop()
+
+
 def test_abandoned_stream_cancels_and_channel_survives(stub):
     cli = rpc.RpcClient(stub.endpoint, pool_size=1)
     try:

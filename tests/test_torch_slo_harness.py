@@ -12,10 +12,18 @@ loadgen.py) on the CPU, held to the JAX package's:
   * chaos drill 1: a stall at ``serving_decode`` under generated load is
     detected by the watchdog and the SLO recovers.
 
-The router's chaos drill waits for the router (slice 23 of the port),
-the PS-kill drill for item 16.
+  * chaos drill 2: a replica process killed behind the router with a
+    stream in flight fails over exactly once, respawns from its
+    checkpoint, and same-seed traffic attains within 0.1 of the
+    fault-free run after recovery.
+
+The PS-kill drill (test_chaos_ps_kill_under_serving_load) is left out.
 """
 import gc
+import json
+import os
+import subprocess
+import sys
 import threading
 import time
 
@@ -32,6 +40,8 @@ from paddle_tpu_torch.serving import (Engine, GPTDecodeModel, LoadGenerator,
                                       ServingServer, TrafficConfig,
                                       slo_report)
 from paddle_tpu_torch.serving import loadgen
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(autouse=True)
@@ -479,3 +489,224 @@ def test_chaos_engine_stall_detected_and_slo_recovers(monkeypatch):
     assert post_fault["offered"] > 5
     assert post_fault["attainment"] >= post_base["attainment"] - 0.1, \
         (post_fault, post_base)
+
+
+# ---------------------------------------------------------------------------
+# chaos drill 2: a replica process killed behind the router
+# ---------------------------------------------------------------------------
+
+REPLICA_HELPER = os.path.join(REPO, "tests", "torch_serving_replica.py")
+ROUTER_ENGINE_KW = dict(num_slots=4, num_pages=64, page_size=4,
+                        max_seq_len=48)
+
+
+def _spawn_replica(ep, root, extra_env=None):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update({"PADDLE_TPU_REPLICA_ENDPOINT": ep,
+                "REPLICA_CKPT": root,
+                "REPLICA_ENGINE_KW": json.dumps(ROUTER_ENGINE_KW)})
+    env.update(extra_env or {})
+    return subprocess.Popen([sys.executable, REPLICA_HELPER], env=env,
+                            stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _wait_until(pred, timeout):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.05)
+    return bool(pred())
+
+
+def test_router_chaos_kill_failover_respawn_slo(tmp_path):
+    """Same-seed generated traffic through the router fronting two
+    replica processes; one replica dies mid-run (the PADDLE_PS_FAULT
+    kill knob, armed mid-traffic through the helper's arm file) with a
+    streamed generate in flight. The router fails the in-flight work
+    over exactly once (the reference engine's tokens, a contiguous
+    stream, nothing dropped or doubled), respawns the replica from its
+    engine checkpoint, and a same-seed run after recovery attains
+    within 0.1 of the fault-free one. TTFT is read on the wire
+    throughout (streaming generate)."""
+    import socket as _socket
+    from paddle_tpu_torch.serving import ReplicaSpec, Router
+
+    root = str(tmp_path / "gpt")
+    GPTDecodeModel(GPTConfig.tiny(num_layers=1), seed=0,
+                   device="cpu").save_checkpoint(root)
+
+    def free_port():
+        s = _socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        return port
+
+    ep_a, ep_b = (f"127.0.0.1:{free_port()}" for _ in range(2))
+    arm = str(tmp_path / "arm_kill")
+    # b decodes slowly from the start (a 50 ms stall every decode step,
+    # kept out of the stash), so a 30-token stream lasts about 1.5 s and
+    # streams a frame a token. The kill knob arms through the file at the
+    # stream's first token; the next request b receives (the router's
+    # ping, within 0.2 s) ends it at recv: a death mid-decode with the
+    # pinned stream in flight
+    procs = {"a": _spawn_replica(ep_a, root),
+             "b": _spawn_replica(ep_b, root, extra_env={
+                 "REPLICA_ARM_FAULT_FILE": arm,
+                 "REPLICA_KEEP_FAULTS": "PADDLE_PS_FAULT_STALL,"
+                                        "PADDLE_PS_FAULT_STALL_POINT",
+                 "PADDLE_PS_FAULT_KILL_AFTER": "1",
+                 "PADDLE_PS_FAULT_KILL_POINT": "recv",
+                 "PADDLE_PS_FAULT_STALL": "0.05",
+                 "PADDLE_PS_FAULT_STALL_POINT": "serving_decode"})}
+    death_rc: list = []
+
+    def respawn_b():
+        p = procs["b"]
+        try:
+            # the router sees the reset a beat before the exit is
+            # reaped: wait for the real exit code
+            death_rc.append(p.wait(timeout=5))
+        except subprocess.TimeoutExpired:
+            death_rc.append(p.poll())
+        if p.poll() is None:
+            p.kill()
+            p.wait(timeout=30)
+        p2 = _spawn_replica(ep_b, root)      # clean env: no kill knob
+        json.loads(p2.stdout.readline())
+        procs["b"] = p2
+        return ep_b
+
+    def mk_gen(name):
+        return LoadGenerator(_traffic(seed=31, duration=2.0, rate=20),
+                             name=name)
+
+    router = None
+    try:
+        for p in list(procs.values()):       # both READY
+            json.loads(p.stdout.readline())
+        router = Router("127.0.0.1:0",
+                        replicas=[ReplicaSpec("a", ep_a),
+                                  ReplicaSpec("b", ep_b,
+                                              respawn=respawn_b)],
+                        ping_interval=0.2, ping_timeout=3.0,
+                        suspect_after=1, dead_after=2, token_stall=5.0,
+                        failover_retries=2, respawn_cooldown=0.5)
+        # the reference output of the pinned long generate: a local
+        # engine on the same checkpoint
+        ref_eng = Engine.from_checkpoint(root, device="cpu",
+                                         **ROUTER_ENGINE_KW)
+        with ref_eng:
+            expected_long = ref_eng.generate([7, 8], 30,
+                                             timeout=60).tolist()
+        with router:
+            assert _wait_until(
+                lambda: router.stats()["healthy_replicas"] == 2, 60)
+            cli = ServingClient(router.endpoint)
+            # -- the fault-free baseline, streaming TTFT on the wire --
+            res_base = mk_gen("rt_base").run_client(cli, timeout=60)
+            assert res_base.wait(120)
+            rep_base = slo_report(res_base)
+            assert rep_base["attainment"] == 1.0, rep_base
+            assert rep_base["ttft_ms_p50"] > 0
+            base_tokens = {a.index: [int(t) for t in h.generated]
+                           for a, h in res_base.handles
+                           if h.status == "done"}
+
+            # -- the same seed again, b killed mid-run ----------------
+            with router._lock:               # pin the long stream on b
+                router._sessions["kill-me"] = "b"
+            long_box: dict = {}
+            armed = threading.Event()
+
+            def long_gen():
+                c = ServingClient(router.endpoint)
+                frames = []
+
+                def on_tok(toks, idx):
+                    frames.append((idx, list(toks)))
+                    if not armed.is_set():
+                        # the stream is in flight on b: arm the kill
+                        armed.set()
+                        open(arm, "w").close()
+
+                long_box["rep"] = c.generate(
+                    [7, 8], 30, timeout=120, stream=True,
+                    session="kill-me", on_token=on_tok)
+                long_box["frames"] = frames
+                c.close()
+
+            res_box: list = []
+            runner = threading.Thread(
+                target=lambda: res_box.append(
+                    mk_gen("rt_fault").run_client(cli, timeout=60)),
+                daemon=True)
+            runner.start()
+            time.sleep(0.6)                  # traffic flowing
+            lg = threading.Thread(target=long_gen, daemon=True)
+            lg.start()
+            lg.join(180)
+            assert not lg.is_alive()
+            assert armed.is_set(), "the stream never produced a token"
+            runner.join(180)
+            assert res_box and res_box[0].wait(120)
+            res_fault = res_box[0]
+
+            # exactly once on the failed-over stream
+            rep_long = long_box["rep"]
+            assert rep_long["status"] == "done", rep_long
+            final = [int(t) for t in np.asarray(
+                rep_long["tokens"]).ravel()]
+            assert final == expected_long
+            streamed: list = []
+            for idx, toks in long_box["frames"]:
+                assert idx == len(streamed), "stream gap or duplicate"
+                streamed.extend(int(t) for t in toks)
+            assert streamed == final
+            fo = REGISTRY.get("paddle_tpu_router_failovers_total")
+            assert sum(s.value for lv, s in fo._series()
+                       if lv[0] == router.router_id) >= 1
+
+            # every arrival done in both runs gave the same tokens
+            fault_tokens = {a.index: [int(t) for t in h.generated]
+                            for a, h in res_fault.handles
+                            if h.status == "done"}
+            both = set(base_tokens) & set(fault_tokens)
+            assert len(both) > 10
+            for i in both:
+                assert base_tokens[i] == fault_tokens[i], i
+
+            # -- respawned from the engine checkpoint ------------------
+            assert _wait_until(lambda: router.stats()["replicas"]["b"][
+                "state"] == "healthy", 60), router.stats()
+            assert router.stats()["replicas"]["b"]["epoch"] >= 1
+            # the fault knob killed b, not the respawner
+            assert death_rc and death_rc[0] == fi.KILL_EXIT_CODE, \
+                death_rc
+
+            # -- after recovery: the same seed, the attainment band ---
+            disp = REGISTRY.get("paddle_tpu_router_dispatch_total")
+            b_disp_before = disp.labels(router=router.router_id,
+                                        replica="b").value
+            res_post = mk_gen("rt_post").run_client(cli, timeout=60)
+            assert res_post.wait(120)
+            rep_post = slo_report(res_post)
+            assert rep_post["attainment"] is not None
+            assert rep_post["attainment"] \
+                >= rep_base["attainment"] - 0.1, (rep_base, rep_post)
+            assert rep_post["ttft_ms_p50"] > 0
+            # the respawned replica takes traffic again
+            assert disp.labels(router=router.router_id,
+                               replica="b").value > b_disp_before
+            cli.close()
+    finally:
+        for p in procs.values():
+            p.kill()
+        for p in procs.values():
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass

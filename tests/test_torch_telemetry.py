@@ -6,11 +6,12 @@ queue, credential redaction and reconnect after a collector's death,
 cross-process trace assembly with clock alignment, tail sampling, the
 Chrome export, the watchdog and bundle fleet events, the PS shard
 hosting the tel_* verbs, the launcher's --telemetry / --tsdb-dir, SLO
-exemplars, the offline merge — less the two router cases and the
-four-process drill (the router waits for the next slice) and the lock
-sanitizer re-run (item 19). Added: the launcher's collector child
-streamed to by a child's agent and respawned alone after a kill, with
-its TSDB history kept; the same batches assembled alike by both
+exemplars, the offline merge, the router hosting the tel_* verbs (and
+refusing them unhosted), and the four-process drill (client, router,
+replica and PS shard in one waterfall) — less the lock sanitizer re-run
+(item 19). Added: the launcher's collector child streamed to by a
+child's agent and respawned alone after a kill, with its TSDB history
+kept; the same batches assembled alike by both
 packages' collectors; a port agent streaming to a JAX-package collector
 and the reverse, giving the same waterfall (span offsets within 1e-6 s:
 each side adds its own wall-clock anchor). Every wait has a timeout.
@@ -21,6 +22,9 @@ import socket
 import subprocess
 import sys
 import time
+
+import numpy as np
+import pytest
 
 from paddle_tpu_torch.distributed.fleet.runtime.rpc import RpcClient
 from paddle_tpu_torch.observability import agent as tel_agent
@@ -207,8 +211,12 @@ def test_collector_assembles_one_waterfall_across_processes():
     assert names == ["e2e.request", "rpc.server.generate",
                      "frontend.generate", "engine.prefill",
                      "rpc.server.pull"]
-    # the merged Chrome export carries every rank (the ``top``
-    # waterfall that renders the same trace waits for the next slice)
+    # the dashboard waterfall and the merged Chrome export both carry
+    # every rank
+    from paddle_tpu_torch.observability import top
+    text = top.render_waterfall(tr)
+    for n in names:
+        assert n in text
     doc = col.chrome_trace(tid)
     meta = [e for e in doc["traceEvents"]
             if e.get("ph") == "M" and e["name"] == "process_name"]
@@ -402,6 +410,36 @@ def test_watchdog_stall_and_bundle_publish_fleet_events(tmp_path):
 # ---------------------------------------------------------------------------
 # hosting: the router and a PS shard answer tel_* like debug_dump
 # ---------------------------------------------------------------------------
+
+def test_router_hosts_telemetry_verbs():
+    from paddle_tpu_torch.serving import Router
+    r = Router("127.0.0.1:0", replicas=(), telemetry_host=True,
+               ping_interval=3600.0)
+    r.start()
+    try:
+        cli = RpcClient(r.endpoint)
+        assert "t_collector" in cli.call({"op": "tel_ping"})
+        cli.call(_batch("h", 5, "worker", spans=[_span("ab" * 8)]))
+        fl = cli.call({"op": "tel_fleet"})["fleet"]
+        assert any(p["pid"] == 5 for p in fl["procs"])
+        cli.close()
+    finally:
+        r.stop()
+
+
+def test_router_without_hosting_rejects_telemetry_verbs():
+    from paddle_tpu_torch.serving import Router
+    r = Router("127.0.0.1:0", replicas=(), telemetry_host=False,
+               ping_interval=3600.0)
+    r.start()
+    try:
+        cli = RpcClient(r.endpoint)
+        with pytest.raises(Exception, match="not hosted"):
+            cli.call({"op": "tel_ping"})
+        cli.close()
+    finally:
+        r.stop()
+
 
 def test_ps_shard_hosts_telemetry_verbs(monkeypatch):
     monkeypatch.setenv("PADDLE_TPU_TELEMETRY_HOST", "1")
@@ -794,3 +832,152 @@ def test_inherited_collector_env_never_holds_a_process_at_exit(tmp_path):
     assert res.returncode == 0, res.stderr[-3000:]
     assert "spawned and joined" in res.stdout
     assert time.monotonic() - t0 < 60
+
+
+# ---------------------------------------------------------------------------
+# the acceptance drill: one trace across four processes
+# ---------------------------------------------------------------------------
+
+FLEET_ENGINE_KW = dict(num_slots=4, num_pages=64, page_size=4,
+                       max_seq_len=48)
+
+
+def _ready_line(proc: subprocess.Popen, what: str) -> dict:
+    line = proc.stdout.readline()
+    if not line:
+        proc.kill()
+        _, err = proc.communicate(timeout=30)
+        pytest.fail(f"{what} died before READY: {err[-2000:]}")
+    return json.loads(line)
+
+
+def test_e2e_fleet_trace_spans_four_processes_subprocess(tmp_path):
+    """Client + router + replica + PS shard, each its own process with
+    its own clock, one ambient trace id on the wire: the collector
+    assembles one waterfall retrievable by that id."""
+    from paddle_tpu_torch.distributed.fleet import ps_roles
+    from paddle_tpu_torch.distributed.fleet.runtime \
+        .parameter_server_runtime import PSClient
+    from paddle_tpu_torch.models.gpt import GPTConfig, init_gpt_params
+    from paddle_tpu_torch.observability import top
+    from paddle_tpu_torch.serving import GPTDecodeModel, ServingClient
+
+    root = str(tmp_path / "gpt")
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_heads=2,
+                    num_layers=2, max_position_embeddings=128,
+                    initializer_range=0.5)
+    GPTDecodeModel(cfg, params=init_gpt_params(cfg, seed=0),
+                   device="cpu").save_checkpoint(root)
+    # a long linger: the trace must not finalize between two agents'
+    # flush ticks while a tier's spans are still in flight
+    col = TelemetryCollector(sample=1.0, linger_s=3.0)
+    srv = CollectorServer(collector=col).start()
+    base = dict(os.environ)
+    base["PYTHONPATH"] = REPO + os.pathsep + base.get("PYTHONPATH", "")
+    base["PADDLE_TPU_TELEMETRY_COLLECTOR"] = srv.endpoint
+    base["PADDLE_TPU_TELEMETRY_FLUSH"] = "0.2"
+    base.pop("PADDLE_TPU_TELEMETRY_HOST", None)
+
+    def spawn(script, env):
+        return subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "tests", script)],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    children = []
+    scli = ps_cli = None
+    try:
+        rep = spawn("torch_serving_replica.py", dict(
+            base,
+            PADDLE_TPU_REPLICA_ENDPOINT=f"127.0.0.1:{_free_port()}",
+            REPLICA_CKPT=root,
+            REPLICA_ENGINE_KW=json.dumps(FLEET_ENGINE_KW),
+            PADDLE_TPU_TELEMETRY_ROLE="replica"))
+        children.append(rep)
+        ps = subprocess.Popen(
+            [sys.executable, "-m", ps_roles.__name__],
+            env=dict(base, ROLE="server",
+                     MY_ENDPOINT=f"127.0.0.1:{_free_port()}",
+                     PADDLE_TPU_TELEMETRY_ROLE="ps"),
+            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        children.append(ps)
+        rep_ep = _ready_line(rep, "replica")["endpoint"]
+        ps_ep = _ready_line(ps, "ps")["endpoint"]
+        rout = spawn("torch_telemetry_router.py", dict(
+            base, ROUTER_REPLICAS=json.dumps([["r0", rep_ep]]),
+            PADDLE_TPU_TELEMETRY_ROLE="router"))
+        children.append(rout)
+        router_ep = _ready_line(rout, "router")["endpoint"]
+        assert _wait(lambda: _tel_call(router_ep, {"op": "stats"})[
+            "healthy_replicas"] >= 1, timeout=90), \
+            "router never saw a healthy replica"
+
+        tel_agent.disarm()
+        ag = tel_agent.arm(srv.endpoint, role="client", flush_s=0.2)
+        scli = ServingClient(router_ep)
+        ps_cli = PSClient([ps_ep])
+        with tracing.span("e2e.request") as root_span:
+            tid = root_span.trace_id
+            reply = scli.generate([1, 2, 3], 6, timeout=60,
+                                  session="s0")
+            vals = ps_cli.pull("emb", 4, np.array([1, 2, 3]))
+        assert reply["status"] == "done"
+        # the front end's reply carries the id the client started
+        assert reply["trace_id"] == tid
+        assert vals.shape == (3, 4)
+        ag.flush_once()
+
+        # wait until spans of four distinct processes landed
+        assert _wait(lambda: len({(p[0], p[1]) for p in
+                                  (col.trace(tid) or {}).get("procs", ())})
+                     >= 4, timeout=60, every=0.2)
+        col.sweep(force=True)
+        tr = col.trace(tid)
+        assert tr is not None and tr["complete"]
+        assert tr["verdict"].startswith("kept")
+        procs = {(p[0], p[1]) for p in tr["procs"]}
+        roles = {p[2] for p in tr["procs"]}
+        assert len(procs) >= 4
+        assert {"client", "router", "replica", "ps"} <= roles
+        by_role = {}
+        for s in tr["spans"]:
+            by_role.setdefault(s["role"], set()).add(s["name"])
+        # each tier contributed its own layer of the waterfall
+        assert "e2e.request" in by_role["client"]
+        assert any(n.startswith("rpc.server") for n in by_role["router"])
+        assert "router.generate" in by_role["router"]
+        assert any(n.startswith(("frontend.", "engine.", "rpc.server"))
+                   for n in by_role["replica"])
+        assert any(n.startswith("rpc.server") for n in by_role["ps"])
+        # aligned clocks: nothing starts visibly before the client root
+        root_t0 = min(s["t0"] for s in tr["spans"]
+                      if s["name"] == "e2e.request")
+        assert all(s["t0"] >= root_t0 - 0.25 for s in tr["spans"])
+        # one merged Chrome trace, one labelled track group a process
+        doc = col.chrome_trace(tid)
+        meta = [e for e in doc["traceEvents"]
+                if e.get("ph") == "M" and e["name"] == "process_name"]
+        assert len(meta) >= 4
+        # and the whole of it over the wire by trace id
+        rep2 = _tel_call(srv.endpoint, {"op": "tel_trace",
+                                        "trace_id": tid, "chrome": True})
+        assert rep2["trace"]["trace_id"] == tid
+        assert rep2["chrome"]["traceEvents"]
+        fleet = _tel_call(srv.endpoint, {"op": "tel_fleet"})["fleet"]
+        assert {"client", "router", "replica", "ps"} <= \
+            {p["role"] for p in fleet["procs"]}
+        assert "router.generate" in top.render_waterfall(tr)
+    finally:
+        tel_agent.disarm()
+        for c in (scli, ps_cli):
+            if c is not None:
+                c.close()
+        for p in children:
+            p.kill()
+        for p in children:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                pass
+        srv.stop()

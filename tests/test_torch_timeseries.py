@@ -4,12 +4,13 @@ verbs) on the CPU: the cases of tests/test_timeseries.py on the port
 (CRC'd block files, torn-tail truncation, restart replay, downsample
 compaction, byte-budgeted retention; threshold / absence / burn-rate
 alerts with debug-bundle capture, the burn-rate chaos drill on the
-port's tiny engine; per-tenant metering and the fleet usage report),
-less the two that render ``top`` panes (``top`` waits for the next
-slice). Cross-package: a TSDB directory written by the port answers the
-JAX package's range / rate / quantile / latest queries with the same
-values, and the reverse; the block files of the same appends are the
-same bytes. Tolerance: equality (the same float arithmetic on both
+port's tiny engine; per-tenant metering and the fleet usage report;
+the two ``top`` pane cases). Cross-package: a TSDB directory written
+by the port answers the JAX package's range / rate / quantile / latest
+queries with the same values, and the reverse; the block files of the
+same appends are the same bytes; ``meter.note_routed`` counts as the reference's; every
+``top`` renderer's text is the reference's, byte for byte, for the same
+reply dicts. Tolerance: equality (the same float arithmetic on both
 sides); 1e-12 relative where a rate or quantile is computed.
 """
 import json
@@ -847,3 +848,178 @@ def test_tsdb_block_files_are_the_same_bytes_in_both_packages(tmp_path):
         with open(os.path.join(dirs["port"], fn), "rb") as a, \
                 open(os.path.join(dirs["ref"], fn), "rb") as b:
             assert a.read() == b.read(), fn
+
+
+def test_note_routed_counts_like_the_reference():
+    """UsageMeter.note_routed: one router answer a call, by tenant and
+    normalised outcome, under the reference's counter name."""
+    from paddle_tpu.observability.meter import UsageMeter as JMeter
+    from paddle_tpu.observability.registry import REGISTRY as JREG
+    name = "paddle_tpu_tenant_router_requests_total"
+    calls = [("web", "done"), ("web", "error"), ("batch", "rejected"),
+             ("web", "failed"), ("batch", "done"), ("web", "done")]
+    deltas = []
+    for meter, reg in ((UsageMeter(cap=8), _obs.REGISTRY),
+                       (JMeter(cap=8), JREG)):
+        m = reg.get(name)
+        before = {lv: s.value for lv, s in m._series()}
+        for tenant, outcome in calls:
+            meter.note_routed(tenant, outcome)
+        deltas.append({lv: s.value - before.get(lv, 0.0)
+                       for lv, s in m._series()
+                       if s.value != before.get(lv, 0.0)})
+    assert deltas[0] == deltas[1] == {
+        ("web", "completed"): 2.0, ("web", "failed"): 2.0,
+        ("batch", "rejected"): 1.0, ("batch", "completed"): 1.0}
+
+
+# ---------------------------------------------------------------------------
+# top panes: sparkline and the renderers, byte for byte the reference's
+# ---------------------------------------------------------------------------
+
+def test_sparkline_monotone_and_bounded():
+    from paddle_tpu.observability import top as jtop
+    from paddle_tpu_torch.observability import top
+    s = top.sparkline([0, 1, 2, 3, 4, 5, 6, 7], width=8)
+    assert s == "▁▂▃▄▅▆▇█"
+    assert top.sparkline([], width=8) == ""
+    assert top.sparkline([5.0] * 100, width=10) == "▁" * 10
+    assert len(top.sparkline(list(range(1000)), width=48)) == 48
+    rng = np.random.RandomState(5)
+    for n in (1, 7, 48, 49, 500):
+        vals = list(rng.standard_normal(n)) + [None]
+        assert top.sparkline(vals, width=48) \
+            == jtop.sparkline(vals, width=48)
+
+
+def test_render_history_alerts_tenants_panes():
+    from paddle_tpu_torch.observability import top
+    pts = [(T0 + i, float(i)) for i in range(20)]
+    out = top.render_history(
+        {"points": [{"key": "m{pid=\"1\"}", "labels": {"pid": "1"},
+                     "kind": "counter", "points": pts}]},
+        "m", window=300)
+    assert "m" in out and "▁" in out and "█" in out
+    out = top.render_alerts({"alerts": {
+        "active": [{"rule": "slo-burn-rate", "state": "firing",
+                    "severity": "page", "labels": {},
+                    "since": T0, "value": 20.0, "bundle": "/x"}],
+        "history": [], "rules": [{"name": "slo-burn-rate",
+                                  "kind": "burn_rate",
+                                  "severity": "page", "for_s": 15}]}})
+    assert "slo-burn-rate" in out and "firing" in out.lower()
+    out = top.render_tenants({"usage": {
+        "scope": "fleet", "window_s": 300.0,
+        "tenants": {"web/1": {"tenant": "web", "tier": "1",
+                              "tokens_in": 100, "tokens_out": 40,
+                              "queue_seconds": 1.5,
+                              "kv_page_seconds": 9.0, "flops": 1e9,
+                              "outcomes": {"completed": 7}}}}})
+    assert "web" in out and "tok in" in out.lower()
+    assert "completed=7" in out
+
+
+def _pane_replies():
+    """(renderer name, args) over reply dicts shaped as the collector's
+    verbs return them, the empty and partial states included."""
+    proc = {"role": "replica", "host": "h1", "pid": 4242, "age_s": 1.5,
+            "dropped": {"spans": 3, "flight": 1},
+            "summary": {"rps": 12.5, "ttft_p50": 0.012, "ttft_p99": 0.09,
+                        "itl_p50": 0.031, "itl_p99": 0.044,
+                        "queue_depth": 3, "page_occupancy": 0.42,
+                        "perf": {"mfu": {"engine:e0": 0.012,
+                                         "engine:e1": 0.02},
+                                 "breakdown": {"engine:e0/device": 0.002,
+                                               "engine:e0/host": 0.03,
+                                               "executor/device": 0.1},
+                                 "compiles_total": 7,
+                                 "hbm": {"in_use": 5.5 * 2 ** 30,
+                                         "limit": 80 * 2 ** 30},
+                                 "kv_cache_bytes": 3 * 2 ** 30},
+                        "tier": {"resident_rows": {"warm": 100,
+                                                   "cold": 9000},
+                                 "resident_bytes": {"warm": 2 ** 20,
+                                                    "cold": 2 ** 28},
+                                 "hits": {"warm": 50, "cold": 7},
+                                 "faults": 7, "demotions": 3,
+                                 "pull_p50": 0.001, "pull_p99": 0.02},
+                        "prefix": {"hit_ratio": 0.5, "lookups": 10,
+                                   "tokens_saved": 120,
+                                   "cached_pages": 8, "shared_pages": 2,
+                                   "cow_copies": 1, "evicted": 0,
+                                   "sampled_requests": 2,
+                                   "sampled_tokens": 40}}}
+    bare = {"role": "router-with-a-very-long-role-name", "host": "h2",
+            "pid": 7, "summary": {"latency_p50": 0.2,
+                                  "latency_p99": None}}
+    fleet = {"time": T0, "open_traces": 2, "kept_traces": 5,
+             "traces": {"assembled": 9, "kept_error": 1, "kept_slow": 2,
+                        "kept_sampled": 2, "sampled_out": 4,
+                        "evicted": 0},
+             "procs": [proc, bare],
+             "recent_events": [
+                 {"wall": T0 + i, "role": "replica", "host": "h1",
+                  "pid": 4242, "kind": "watchdog_stall",
+                  "attrs": {"name": "serving.engine.e0",
+                            "bundle": f"/dbg/b{i}"}}
+                 for i in range(10)]}
+    trace = {"trace_id": "ab" * 8, "procs": [("h1", 1, "client"),
+                                            ("h1", 2, "router")],
+             "verdict": "kept:error", "complete": False, "error": True,
+             "watchdog_flagged": True,
+             "flight": [{"tier": "serving", "kind": "router_failover"},
+                        {"tier": "rpc", "kind": "retry"}],
+             "spans": [{"span_id": "a", "parent_id": None, "name": "e2e",
+                        "t0": T0, "t1": T0 + 0.5, "role": "client",
+                        "host": "h1", "pid": 1},
+                       {"span_id": "b", "parent_id": "a",
+                        "name": "router.generate", "t0": T0 + 0.01,
+                        "t1": T0 + 0.4, "role": "router", "host": "h1",
+                        "pid": 2},
+                       {"span_id": "c", "parent_id": "b",
+                        "name": "frontend.stream", "t0": T0 + 0.02,
+                        "t1": T0 + 0.39, "role": "replica", "host": "h1",
+                        "pid": 3}]}
+    history = {"points": [
+        {"key": "m", "labels": {"pid": "1", "role": "replica"},
+         "kind": "gauge", "points": [(T0 + i, float(i % 7))
+                                     for i in range(100)]},
+        {"key": "m2", "labels": {}, "kind": "gauge", "points": []}]}
+    alerts = {"alerts": {
+        "active": [{"rule": "slo-burn-rate", "state": "firing",
+                    "severity": "page", "instance": "tenant=web",
+                    "since": T0, "value": 20.0, "bundle": "/x"},
+                   {"rule": "queue", "state": "pending",
+                    "since": None, "value": None}],
+        "history": [{"at": T0 + i, "rule": "queue", "instance": "-",
+                     "state": "firing"} for i in range(12)],
+        "rules": [{"name": "slo-burn-rate"}, {"name": "queue"}]}}
+    usage = {"usage": {"scope": "fleet", "window_s": 300.0, "tenants": {
+        "web/1": {"tenant": "web", "tier": "1", "tokens_in": 100,
+                  "tokens_out": 40, "queue_seconds": 1.5,
+                  "kv_page_seconds": 9.0, "flops": 1e9,
+                  "outcomes": {"completed": 7, "failed": 0}},
+        "~other/0": {"tenant": "~other", "tier": "0", "tokens_in": 3,
+                     "outcomes": {}}}}}
+    return [
+        ("render_fleet", (fleet,)), ("render_fleet", ({"procs": []},)),
+        ("render_perf", (fleet,)), ("render_perf", ({"procs": [bare]},)),
+        ("render_tier", (fleet,)), ("render_tier", ({},)),
+        ("render_prefix", (fleet,)), ("render_prefix", ({},)),
+        ("render_history", (history, "m", 300.0)),
+        ("render_history", ({"points": []}, "m", 60.0)),
+        ("render_history", ({"error": "no such metric"}, "m", 60.0)),
+        ("render_alerts", (alerts,)), ("render_alerts", ({},)),
+        ("render_tenants", (usage,)), ("render_tenants", ({},)),
+        ("render_waterfall", (trace,)),
+        ("render_waterfall", ({"trace_id": "x"},)),
+    ]
+
+
+def test_top_panes_byte_equal_to_the_reference():
+    from paddle_tpu.observability import top as jtop
+    from paddle_tpu_torch.observability import top
+    for name, args in _pane_replies():
+        got = getattr(top, name)(*args)
+        assert got == getattr(jtop, name)(*args), name
+        assert got.encode() == getattr(jtop, name)(*args).encode()

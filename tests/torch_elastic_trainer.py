@@ -25,6 +25,8 @@ and, of the port's trainer alone:
   ELASTIC_DRILL_BERT_SIZE   base (default: bench.py's bench_bert, BERT-base
                             16 x 128, 19 masked positions) or tiny (2
                             layers, hidden 64, 16 x 64, 8 positions)
+  ELASTIC_DRILL_BERT_LAYERS that size's encoder layers cut to this many
+                            (default: the size's own)
   ELASTIC_DRILL_DROPOUT     bert's hidden and attention dropout (0.1)
 
 The ranks join one process group (``env.init_parallel_env``: gloo on
@@ -231,6 +233,9 @@ def bert(ck, log):
         torch.use_deterministic_algorithms(True)
     p = float(os.environ.get("ELASTIC_DRILL_DROPOUT", "0.1"))
     drop = dict(hidden_dropout_prob=p, attention_probs_dropout_prob=p)
+    if os.environ.get("ELASTIC_DRILL_BERT_LAYERS"):
+        drop["num_hidden_layers"] = int(
+            os.environ["ELASTIC_DRILL_BERT_LAYERS"])
     if os.environ.get("ELASTIC_DRILL_BERT_SIZE", "base") == "tiny":
         cfg, seq, n_pred = BertConfig.tiny(**drop), 64, 8
     else:

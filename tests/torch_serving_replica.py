@@ -13,7 +13,13 @@ Env:
   REPLICA_ARM_FAULT_FILE       optional path: the PADDLE_PS_FAULT_* knobs
       of the spawn env are stashed at startup and restored (the injector
       re-armed from them) once this file appears — e.g. KILL_AFTER=1
-      dies on the next request.
+      dies on the next request. Without it the knobs are restored once
+      the engine is built, before the server listens, so they hold from
+      the first request.
+  REPLICA_KEEP_FAULTS          optional comma list of PADDLE_PS_FAULT_*
+      names exempt from the stash: live from the start (e.g. a decode
+      STALL that keeps a stream in flight while KILL waits for the arm
+      file).
 
 Prints one READY JSON line ({"endpoint", "pid"}), then serves until
 killed.
@@ -23,8 +29,10 @@ import os
 import time
 
 # stash the fault knobs BEFORE any import of the port can arm the injector
+_KEEP = {k for k in
+         (os.environ.get("REPLICA_KEEP_FAULTS") or "").split(",") if k}
 _STASHED = {k: os.environ.pop(k) for k in list(os.environ)
-            if k.startswith("PADDLE_PS_FAULT_")}
+            if k.startswith("PADDLE_PS_FAULT_") and k not in _KEEP}
 
 import torch  # noqa: E402
 
@@ -38,17 +46,19 @@ def main():
     engine_kw = json.loads(os.environ.get("REPLICA_ENGINE_KW") or "{}")
     engine = Engine.from_checkpoint(os.environ["REPLICA_CKPT"],
                                     device="cpu", **engine_kw)
+    arm_file = os.environ.get("REPLICA_ARM_FAULT_FILE")
+    armed = False
+    if arm_file is None and _STASHED:
+        # before the socket listens: a request that raced a later
+        # restore could run its whole decode without the knobs
+        os.environ.update(_STASHED)
+        fi.reset_injector(None)
+        armed = True
     server = ServingServer(engine,
                            os.environ["PADDLE_TPU_REPLICA_ENDPOINT"])
     server.start()
     print(json.dumps({"endpoint": server.endpoint, "pid": os.getpid()}),
           flush=True)
-    arm_file = os.environ.get("REPLICA_ARM_FAULT_FILE")
-    armed = False
-    if arm_file is None and _STASHED:
-        os.environ.update(_STASHED)
-        fi.reset_injector(None)
-        armed = True
     while True:
         if arm_file and not armed and os.path.exists(arm_file):
             os.environ.update(_STASHED)
