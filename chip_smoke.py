@@ -15,6 +15,7 @@
                                      # 13e alone
     python3 chip_smoke.py --read-parts  # phase 1, then where one read of
                                      # the GPT-3 XL checkpoint goes
+    python3 chip_smoke.py --ops      # phase 1, then phase 11a alone
     python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
@@ -146,6 +147,23 @@ Phases:
      program at the preset on Executor(CUDAPlace(0)): losses fall, both
      fused_ffn launches a step on the FFMA route, kernel and composed
      losses within 1e-3, peak device memory, one eager run_op;
+ 11a. static_bert (item 11, the op library): (a) every op of
+     ``fluid/ops`` on its CPU parity case's inputs (tests/
+     torch_op_cases.py) on the card against the CPU, outputs within
+     atol 1e-5 + rtol 1e-4 and its grad op's gradients within atol 1e-4
+     + rtol 1e-3 (the random ops: shape and dtype); (b) the static BERT
+     program (models/bert_static.py) at full width and 2 layers, batch
+     4 x 128, dropout 0, 3 Lamb steps on the card and on the CPU from
+     the same startup values: losses within 1e-3 relative; (c) BERT-base
+     (12 layers, bench_bert's 16 x 128 with 304 masked positions, a
+     padding mask, dropout 0.1, Lamb 1e-3) on Executor(CUDAPlace(0)),
+     10 steps on one batch: the loss falls, step ms, peak memory, and
+     rows 2-5 and 8-9 launched as static_bert_launches predicts on the
+     FFMA / SIMT / warp routes; (d) a 2-layer program whose layer 1
+     takes the activation dropout: rows 6-7 on the warp route; (e) the
+     paged_attention op at GPT-3 XL decode, equal to the row-1 wrapper's
+     direct call, one launch on the vector route. Its seconds beside the
+     prediction (STATIC_BERT_PREDICTED_S);
  12. ResNet (no kernel of the port on this path: convolutions and pools
      are PyTorch's, batch norm the reference's arithmetic in tensor
      code) — resnet_parity: resnet18 at 32 x 32, batch 8, f32, NHWC,
@@ -5067,6 +5085,343 @@ def static_ffn_phase(torch, with_profile=False):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# static_bert: the op library and the static BERT program (item 11)
+# ---------------------------------------------------------------------------
+
+# the seconds the phase is predicted to take (written before its first
+# run on the card): op sweep 10, parity 12, BERT-base 15, variant 5,
+# paged 3
+STATIC_BERT_PREDICTED_S = 45.0
+STATIC_BERT_STEPS = 10
+# card against CPU: 2 layers at full width, batch 4 x 128, 3 Lamb steps
+STATIC_BERT_PARITY = dict(layers=2, batch=4, steps=3, rtol=1e-3)
+SWEEP_OUT_TOL = dict(atol=1e-5, rtol=1e-4)
+SWEEP_GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
+
+
+def static_bert_launches(layers, act_layers=0):
+    """Launches of one step of the static BERT program on the card, by
+    kernel and route: each fused op launches once in the forward and
+    once more in its grad op, which re-runs the forward before
+    autograd's backward; the flash and layer-norm backward kernels once
+    a grad op. f32 throughout: the sub-blocks at M = 2048 on FFMA, flash
+    on SIMT, the layer norms (embeddings, MLM head) and the act-dropout
+    layers' dropout + residual + LN on the warp route."""
+    ffn = layers - act_layers
+    want = {"fused_out_ln.ffma": 2 * layers, "fused_ffn_ln.ffma": 2 * ffn,
+            "flash_fwd.simt": 2 * layers, "flash_bwd_dq.simt": layers,
+            "flash_bwd_dkv.simt": layers, "layer_norm_fwd.warp": 4,
+            "layer_norm_bwd_dx.warp": 2,
+            "dropout_add_ln_fwd.warp": 2 * act_layers,
+            "dropout_add_ln_bwd.warp": act_layers}
+    want.update({k.split(".")[0]: v for k, v in list(want.items())})
+    return {k: v for k, v in want.items() if v}
+
+
+def _op_cases():
+    """The parity suites' op cases (tests/torch_op_cases.py, numpy only)
+    by key, and the random ops' attrs and inputs."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    try:
+        import torch_op_cases as C
+    finally:
+        sys.path.pop(0)
+    cases = {**C.SWEEP, **C.MATH_OWN, **C.TENSOR_OWN, **C.NN_OWN,
+             **C.OPT_CASES}
+    return cases, C.RANDOM
+
+
+def _run_op(torch, op, inputs, attrs, device, extra=None):
+    import numpy as np
+    from paddle_tpu_torch.fluid import registry
+    from paddle_tpu_torch.fluid.executor import ExecContext
+    opdef = registry.require(op)
+    a = dict(attrs)
+    opdef.fill_default_attrs(a)
+    a.setdefault("_rng_id", 0)
+    ins = {s: [torch.as_tensor(np.array(v, copy=True), device=device)
+               for v in (vals if isinstance(vals, (list, tuple))
+                         else [vals])]
+           for s, vals in {**inputs, **(extra or {})}.items()}
+    return opdef.compute(ExecContext(0, device=device), ins, a)
+
+
+def _compare(torch, got, ref, tol):
+    """The slots of `ref` where `got` (on the card) is off tolerance."""
+    bad = []
+    for slot, vals in ref.items():
+        for i, r in enumerate(vals):
+            if not isinstance(r, torch.Tensor):
+                continue
+            g = got.get(slot, [None] * (i + 1))[i]
+            if not isinstance(g, torch.Tensor) or g.shape != r.shape:
+                bad.append(f"{slot}[{i}] shape")
+            elif r.is_floating_point():
+                gc_, rf = g.cpu().float(), r.float()
+                same = (gc_ == rf) | (gc_.isnan() & rf.isnan())
+                near = (gc_ - rf).abs() <= tol["atol"] + tol["rtol"] \
+                    * rf.abs()
+                if not bool((same | near).all()):
+                    bad.append(f"{slot}[{i}] {max_err(gc_, rf):.3g}")
+            elif not torch.equal(g.cpu(), r):
+                bad.append(f"{slot}[{i}] values")
+    return bad
+
+
+def card_op_sweep(torch):
+    """(a) Every op of fluid/ops on its CPU parity case's inputs, on
+    the card against the CPU: outputs (atol 1e-5, rtol 1e-4) and, where
+    it has one, its grad op's input gradients for fixed random
+    upstream gradients (atol 1e-4, rtol 1e-3). The random ops are held
+    to their CPU counterpart's shape and dtype (their streams differ by
+    device). Returns (ops swept, cases run)."""
+    import numpy as np
+    from paddle_tpu_torch.fluid import registry
+    cases, random_ops = _op_cases()
+    ops = sorted(k for k, d in registry._REGISTRY.items()
+                 if not k.endswith("_grad") and
+                 d.compute.__module__.startswith("paddle_tpu_torch.fluid."))
+    failed, grads, n_cases = {}, 0, 0
+    for op in ops:
+        if op in random_ops:
+            attrs, ins = random_ops[op]
+            g = _run_op(torch, op, ins, attrs, "cuda")["Out"][0]
+            r = _run_op(torch, op, ins, attrs, "cpu")["Out"][0]
+            if g.shape != r.shape or g.dtype != r.dtype or (
+                    op == "seed" and not torch.equal(g.cpu(), r)):
+                failed[op] = ["random draw shape / dtype"]
+            n_cases += 1
+            continue
+        mine = [c for c in cases.values() if c.op == op]
+        if not mine:
+            failed[op] = ["no case"]
+        for case in mine:
+            n_cases += 1
+            try:
+                got = _run_op(torch, op, case.inputs, case.attrs, "cuda")
+                ref = _run_op(torch, op, case.inputs, case.attrs, "cpu")
+            except Exception as e:  # noqa: BLE001 - reported by op name
+                failed.setdefault(op, []).append(f"{type(e).__name__}: {e}")
+                continue
+            bad = _compare(torch, got, ref, SWEEP_OUT_TOL)
+            opdef = registry.require(op)
+            if opdef.grad is not None and not case.skip_grad:
+                rng = np.random.RandomState(7)
+                og = {f"{s}@GRAD": [rng.randn(*v.shape).astype(np.float32)
+                                    for v in vals]
+                      for s, vals in ref.items()
+                      if s not in opdef.no_grad_out_slots and vals
+                      and all(isinstance(v, torch.Tensor)
+                              and v.is_floating_point() for v in vals)}
+                if og:
+                    gop = op + "_grad"
+                    gg = _run_op(torch, gop, case.inputs, case.attrs,
+                                 "cuda", og)
+                    gr = _run_op(torch, gop, case.inputs, case.attrs,
+                                 "cpu", og)
+                    bad += [f"grad {b}" for b in
+                            _compare(torch, gg, gr, SWEEP_GRAD_TOL)]
+                    grads += 1
+            if bad:
+                failed.setdefault(op, []).extend(bad)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "static_bert_op_sweep", "ops": len(ops),
+                      "cases": n_cases, "gradient_cases": grads,
+                      "tolerance": {"out": SWEEP_OUT_TOL,
+                                    "grad": SWEEP_GRAD_TOL},
+                      "failed": failed}), flush=True)
+    if failed:
+        fail(f"card op sweep: ops off tolerance on the card: "
+             f"{sorted(failed)}: {failed}")
+    return len(ops), n_cases
+
+
+def _bert_feed(torch, cfg, batch, n_mask, device, seed=0):
+    from paddle_tpu_torch.models.bert_static import bert_pretrain_batch
+    return {k: torch.as_tensor(v, device=device) for k, v in
+            bert_pretrain_batch(cfg, batch, BERT_SEQ, n_mask,
+                                seed=seed).items()}
+
+
+def _static_steps(torch, exe, main, loss, feed, steps):
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv = exe.run(main, feed=feed, fetch_list=[loss],
+                     return_numpy=False)[0]
+        losses.append(float(lv.reshape(-1)[0]))
+        if exe.device.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def static_bert_parity(torch):
+    """(b) The static BERT program at full width and 2 layers (batch 4
+    x 128, dropout 0, layer 1 the act-dropout variant at p = 0), 3 Lamb
+    steps on the card and on the CPU from the same startup values:
+    every loss within 1e-3 relative."""
+    from paddle_tpu_torch.fluid import (CPUPlace, CUDAPlace, Executor,
+                                        Scope, scope_guard)
+    from paddle_tpu_torch.models.bert_static import (
+        BertConfig, build_bert_pretrain_program)
+    P = STATIC_BERT_PARITY
+    cfg = BertConfig.base(num_hidden_layers=P["layers"])
+    n_mask = P["batch"] * BERT_PRED
+    main, startup, loss = build_bert_pretrain_program(
+        cfg, P["batch"], BERT_SEQ, n_mask, lr=1e-3, dropout=0.0,
+        act_dropout_layers=(1,), act_dropout=0.0)
+    main.random_seed = startup.random_seed = 11
+    cpu_scope = Scope()
+    with scope_guard(cpu_scope):
+        Executor(CPUPlace()).run(startup)
+    card_scope = Scope()
+    for n in cpu_scope.local_var_names():
+        card_scope.set(n, cpu_scope.find_var(n).to("cuda"))
+    out = {}
+    for what, scope, place, dev in (("card", card_scope, CUDAPlace(0),
+                                     "cuda"),
+                                    ("cpu", cpu_scope, CPUPlace(), "cpu")):
+        with scope_guard(scope):
+            exe = Executor(place)
+            out[what], _ = _static_steps(
+                torch, exe, main, loss,
+                _bert_feed(torch, cfg, P["batch"], n_mask, dev), P["steps"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["card"], out["cpu"]))
+    print(json.dumps({"phase": "static_bert_parity",
+                      "config": f"bert_base layers={P['layers']} batch="
+                      f"{P['batch']}x{BERT_SEQ} masked={n_mask} f32 Lamb "
+                      f"1e-3 dropout=0", "card_losses": out["card"],
+                      "cpu_losses": out["cpu"], "max_rel": rel}),
+          flush=True)
+    if not rel <= P["rtol"]:
+        fail(f"static BERT card and CPU losses differ: {out}")
+
+
+def static_bert_run(torch, layers, act_layers, steps, what):
+    """The static BERT program on Executor(CUDAPlace(0)) at bench_bert's
+    shape (batch 16 x 128, 19 masked positions a sequence, the padding
+    mask), dropout 0.1, Lamb 1e-3: `steps` steps on one batch. The loss
+    must fall; every kernel must launch as static_bert_launches
+    predicts, on its route. Returns the run's launch counts."""
+    from paddle_tpu_torch.fluid import CUDAPlace, Executor, Scope, scope_guard
+    from paddle_tpu_torch.models.bert_static import (
+        BertConfig, build_bert_pretrain_program)
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg = BertConfig.base(num_hidden_layers=layers)
+    n_mask = BERT_BATCH * BERT_PRED
+    act = tuple(range(layers - act_layers, layers))
+    t0 = time.perf_counter()
+    main, startup, loss = build_bert_pretrain_program(
+        cfg, BERT_BATCH, BERT_SEQ, n_mask, lr=1e-3, dropout=0.1,
+        act_dropout_layers=act, act_dropout=0.1)
+    main.random_seed = startup.random_seed = 5
+    build_s = time.perf_counter() - t0
+    feed = _bert_feed(torch, cfg, BERT_BATCH, n_mask, "cuda", seed=1)
+    with scope_guard(Scope()):
+        exe = Executor(CUDAPlace(0))
+        exe.run(startup)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        losses, times = _static_steps(torch, exe, main, loss, feed, steps)
+        counts = launch_counts()
+    want = {k: v * steps for k, v in static_bert_launches(
+        layers, act_layers).items()}
+    got = {k: counts.get(k, 0) for k in set(want) | {
+        k for k in counts if k.split(".")[0] in {w.split(".")[0]
+                                                 for w in want}}}
+    print(json.dumps({
+        "phase": what, "config": f"bert_base layers={layers} (act-dropout "
+        f"layers {list(act)}) batch={BERT_BATCH}x{BERT_SEQ} masked="
+        f"{n_mask} f32 Lamb 1e-3 dropout=0.1 padding mask",
+        "ops": len(main.global_block().ops), "build_s": round(build_s, 3),
+        "losses": losses, "step_ms": [round(t * 1e3, 3) for t in times],
+        "step_ms_median": round(statistics.median(times[1:]) * 1e3, 3),
+        "samples_per_s": round(BERT_BATCH / statistics.median(times[1:]),
+                               2),
+        "max_memory_allocated_gb": round(
+            torch.cuda.max_memory_allocated() / 1e9, 3),
+        "launches": counts, "launches_predicted": want,
+        "executor": exe.stats()}), flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"{what}: the loss did not fall: {losses}")
+    wrong = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    extra = {k: v for k, v in got.items() if k not in want and v}
+    if wrong or extra:
+        fail(f"{what}: launches (got, predicted) {wrong}, unpredicted "
+             f"{extra}")
+    return counts
+
+
+def static_paged_op(torch):
+    """(e) The paged_attention op at GPT-3 XL decode (8 slots, 16 heads
+    of 128, pages of 16, contexts up to 2048, f32 pools) through
+    common_ops.run_op, equal to the row-1 wrapper's direct call; one
+    launch, on the vector route. Returns its launch counts."""
+    from paddle_tpu_torch.common_ops import run_op
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.paged_attention import paged_attention_decode
+    S, H, d, ps, M = 8, 16, 128, 16, 128
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q = torch.randn(S, H, d, generator=g, device="cuda")
+    kp = torch.randn(S * M, ps, H, d, generator=g, device="cuda")
+    vp = torch.randn(S * M, ps, H, d, generator=g, device="cuda")
+    table = torch.randperm(S * M, generator=g, device="cuda") \
+        .reshape(S, M).int()
+    ctx = torch.randint(1, M * ps + 1, (S,), generator=g, device="cuda",
+                        dtype=torch.int32)
+    direct = paged_attention_decode(q, kp, vp, table, ctx)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    o = run_op("paged_attention", {"Q": q, "KCache": kp, "VCache": vp,
+                                   "PageTable": table, "CtxLens": ctx})
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    err = max_err(o, direct)
+    print(json.dumps({"phase": "static_bert_paged_op",
+                      "shape": f"S={S} H={H} d={d} pages={ps}x{M} f32",
+                      "launches": counts, "max_abs_err_vs_wrapper": err}),
+          flush=True)
+    if counts.get("paged_attention.vector", 0) != 1 or err != 0.0:
+        fail(f"paged_attention op: {counts}, err {err} against the "
+             f"wrapper's direct call")
+    return counts
+
+
+def static_bert_phase(torch):
+    """Phase 11a: the op library on the card (a), the static BERT
+    program card against CPU (b), BERT-base trained by Lamb on
+    Executor(CUDAPlace(0)) (c), the act-dropout layer (d) and the
+    paged_attention op (e). Returns the launch counts of (c) + (d) +
+    (e) by kernel and route."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    pt.disable_static()
+    card_op_sweep(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    static_bert_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = static_bert_run(torch, BERT_LAYERS, 0, STATIC_BERT_STEPS,
+                             "static_bert_base")
+    gc.collect()
+    torch.cuda.empty_cache()
+    variant = static_bert_run(torch, 2, 1, 2, "static_bert_act_dropout")
+    paged = static_paged_op(torch)
+    total = dict(counts)
+    for c in (variant, paged):
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    print(json.dumps({"phase": "static_bert", "predicted_s":
+                      STATIC_BERT_PREDICTED_S, "seconds": round(
+                          time.perf_counter() - t0, 2)}), flush=True)
+    return total
+
+
 def resnet_loss(m, img, label):
     from paddle_tpu_torch.nn import functional as F
     return F.cross_entropy(m(img), label)
@@ -7393,7 +7748,7 @@ def kernel_entry(row, launches):
 def kernels_line(results, serve_counts, wide_counts, train_counts,
                  bert_counts, layer_counts, ffn_counts, wire_counts,
                  hybrid_counts, sp_counts, moe_counts, online_counts,
-                 router_counts):
+                 router_counts, static_bert_counts):
     """One entry per kernel at the shape of the path it serves, with
     that path's launch count: paged attention from the serving run
     (decode, f32 cache, the vector route), its scalar route from the
@@ -7529,6 +7884,12 @@ def kernels_line(results, serve_counts, wide_counts, train_counts,
     ent["shapes"] = [kernel_entry(r, None) for r in results
                      if r["kernel"] == "fused_ffn" and r["shape"] != main]
     kernels.append(ent)
+    # rows 1-9 as the static BERT phase launched them (its BERT-base run,
+    # its act-dropout program and the paged_attention op), by route
+    for ent in kernels:
+        if ent["name"] != "fused_ffn":
+            ent["static_bert_launches"] = route_counts(static_bert_counts,
+                                                       ent["name"])
     return {"kernels": kernels}
 
 
@@ -7555,6 +7916,7 @@ def main(argv):
     online_only = "--online" in argv
     router_only = "--router" in argv
     read_parts_only = "--read-parts" in argv
+    ops_only = "--ops" in argv
     with_profile = "--profile" in argv
     moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
         if "--moe-seed" in argv else None
@@ -7583,7 +7945,7 @@ def main(argv):
         return
     weights = None
     if not (kernels_only or elastic_only or online_only or router_only
-            or read_parts_only or moe_seed is not None):
+            or read_parts_only or ops_only or moe_seed is not None):
         # the GPT-3 XL tree (seeded numpy on one core: most of a minute),
         # then moe_gpt's (a third of one), are drawn while nvcc builds
         # the kernels and the kernel checks run: numpy's generator and
@@ -7618,6 +7980,14 @@ def main(argv):
 
     if online_only:
         online_alone(torch)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
+
+    if ops_only:
+        timed("static_bert", static_bert_phase, torch)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7739,6 +8109,9 @@ def main(argv):
     ffn_counts = timed("static_ffn", static_ffn_phase, torch, with_profile)
     gc.collect()
     torch.cuda.empty_cache()
+    static_bert_counts = timed("static_bert", static_bert_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     timed("resnet_parity", resnet_parity, torch)
     gc.collect()
@@ -7798,7 +8171,7 @@ def main(argv):
     line = kernels_line(results, serve_counts, wide_counts, train_counts,
                         bert_counts, layer_counts, ffn_counts, wire_counts,
                         hybrid_counts, sp_counts, moe_counts, online_counts,
-                        router_counts)
+                        router_counts, static_bert_counts)
     for ent in line["kernels"]:
         if ent["name"] in BERT_LAUNCHES_PER_STEP:
             # the bert_dp run's launches, rank by rank, and those of

@@ -232,9 +232,33 @@ _ATTRS = {"ring_id": 0, "use_calc_stream": True, "axis_name": ""}
 register("c_allreduce_sum", _c_allreduce(ReduceOp.SUM),
          infer_shape=same_shape_as("X"), attrs=dict(_ATTRS))
 register("c_allreduce_max", _c_allreduce(ReduceOp.MAX),
-         infer_shape=same_shape_as("X"), attrs=dict(_ATTRS), grad=None)
+         infer_shape=same_shape_as("X"), attrs=dict(_ATTRS))
 register("c_allreduce_min", _c_allreduce(ReduceOp.MIN),
-         infer_shape=same_shape_as("X"), attrs=dict(_ATTRS), grad=None)
+         infer_shape=same_shape_as("X"), attrs=dict(_ATTRS))
+
+
+def _minmax_grad(ctx, ins, attrs):
+    """The max/min all-reduce's gradient: over one rank the forward is
+    the identity and so is this; over several it raises, as the
+    reference's grad op (jax.vjp of lax.pmax / pmin, which have no
+    differentiation rule) does."""
+    _, n = _op_group(ctx, attrs)
+    if n > 1:
+        raise NotImplementedError(
+            "max/min all-reduce has no gradient, as in the reference")
+    return {"X@GRAD": [x(ins, "Out@GRAD")]}
+
+
+def _minmax_grad_infer(op):
+    v = op.invar("X")
+    for name in op.output("X@GRAD"):
+        if v is not None:
+            op.block.create_var(name=name, shape=v.shape, dtype=v.dtype)
+
+
+for _op in ("c_allreduce_max_grad", "c_allreduce_min_grad"):
+    register(_op, _minmax_grad, infer_shape=_minmax_grad_infer,
+             attrs=dict(_ATTRS), grad=None)
 
 
 def _gathered(v, g):

@@ -4,8 +4,8 @@ distributed/fleet/base/fleet_base.py:125,572,937).
 
 ``init`` discovers the role and joins the process group;
 ``distributed_optimizer`` keeps the user's optimizer; ``minimize``
-applies it (``apply_meta_optimizers``: none enabled is the only case
-ported) and marks the program data-parallel (``{"mode": "dp"}``, as the
+applies it (``apply_meta_optimizers``: none enabled, or the lamb and
+lars flags) and marks the program data-parallel (``{"mode": "dp"}``, as the
 reference's ``_sharding_info``), so the executor runs it on this rank's
 slice of every batch and all-reduces the gradients;
 ``distributed_model`` is ``DataParallel``; ``hybrid_train_step`` builds

@@ -1,6 +1,6 @@
 """Parameter initializers — append init ops to the startup program
 (counterpart of ``paddle_tpu/fluid/initializer.py``; ported: Constant,
-Uniform, Normal, Xavier).
+Uniform, Normal, TruncatedNormal, Xavier).
 
 Initialisation runs as ops of the startup Program, as in the reference.
 The random ops draw from a ``torch.Generator`` seeded per op from (run
@@ -15,9 +15,9 @@ import math
 import numpy as np
 
 __all__ = [
-    "Initializer", "Constant", "Uniform", "Normal", "Xavier",
-    "ConstantInitializer", "UniformInitializer", "NormalInitializer",
-    "XavierInitializer",
+    "Initializer", "Constant", "Uniform", "Normal", "TruncatedNormal",
+    "Xavier", "ConstantInitializer", "UniformInitializer",
+    "NormalInitializer", "TruncatedNormalInitializer", "XavierInitializer",
 ]
 
 
@@ -66,6 +66,17 @@ class NormalInitializer(Initializer):
                    "std": self.scale, "seed": self.seed, "dtype": var.dtype})
 
 
+class TruncatedNormalInitializer(Initializer):
+    def __init__(self, loc=0.0, scale=1.0, seed=0):
+        self.loc, self.scale, self.seed = loc, scale, seed
+
+    def __call__(self, var, block):
+        return block.append_op(
+            type="truncated_gaussian_random", outputs={"Out": [var.name]},
+            attrs={"shape": list(var.shape), "mean": self.loc,
+                   "std": self.scale, "seed": self.seed, "dtype": var.dtype})
+
+
 class XavierInitializer(Initializer):
     """Glorot. fan_in/fan_out from the param shape (conv-aware)."""
 
@@ -88,6 +99,7 @@ class XavierInitializer(Initializer):
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
+TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 
 

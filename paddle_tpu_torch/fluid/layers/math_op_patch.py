@@ -1,9 +1,9 @@
 """Static-graph Variable operator sugar (counterpart of
 ``paddle_tpu/fluid/layers/math_op_patch.py``): arithmetic and comparison
 dunders append the corresponding elementwise/compare ops to the current
-program, so `(y - t) * (y - t)` builds a graph. Ops the port does not
-have yet (div, pow, the comparisons, scale) raise NotImplementedError
-when appended.
+program, so `h * 2 + b`, `x / y`, `x ** 2`, `-x` and `mean(x) > 0`
+build graphs (elementwise_div / _pow / _mod / _floordiv, scale and the
+comparison ops).
 """
 from __future__ import annotations
 

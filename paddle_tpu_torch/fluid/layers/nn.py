@@ -1,15 +1,22 @@
 """Static-graph layer functions (counterpart of
-``paddle_tpu/fluid/layers/nn.py``): fc, conv2d and pool2d, assembled
-from ops through LayerHelper as in the reference.
+``paddle_tpu/fluid/layers/nn.py``), assembled from ops through
+LayerHelper as in the reference: the functions of its ``__all__`` whose
+ops are ported. The sequence, RNN, CTC, CRF, NCE and hierarchical
+sigmoid layers wait for their op modules (ROADMAP.md A, item 11).
 """
 from __future__ import annotations
 
 import math
 
-from ..initializer import NormalInitializer
+from ..initializer import ConstantInitializer, NormalInitializer
 from ..layer_helper import LayerHelper
 
-__all__ = ["fc", "conv2d", "pool2d"]
+__all__ = [
+    "fc", "conv2d", "pool2d", "batch_norm", "layer_norm", "group_norm",
+    "instance_norm", "embedding", "dropout", "relu", "softmax", "one_hot",
+    "matmul", "label_smooth", "clip_by_norm", "l2_normalize", "pad", "pad2d",
+    "conv3d", "pool3d",
+]
 
 
 def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
@@ -92,3 +99,291 @@ def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
                "global_pooling": global_pooling, "ceil_mode": ceil_mode,
                "exclusive": exclusive, "data_format": data_format})
     return out
+
+
+def _unary(op_type):
+    def fn(x, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(x.dtype)
+        helper.append_op(type=op_type, inputs={"X": [x]},
+                         outputs={"Out": [out]})
+        return out
+    fn.__name__ = op_type
+    return fn
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               do_model_average_for_mean_and_var=True,
+               use_global_stats=False):
+    helper = LayerHelper("batch_norm", act=act, name=name)
+    dtype = input.dtype or "float32"
+    caxis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    c = input.shape[caxis]
+    scale = helper.create_parameter(
+        param_attr, shape=[c], dtype=dtype,
+        default_initializer=ConstantInitializer(1.0))
+    bias = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_global_variable(
+        name=moving_mean_name, shape=[c], dtype="float32", persistable=True,
+        value=0.0)
+    variance = helper.create_global_variable(
+        name=moving_variance_name, shape=[c], dtype="float32",
+        persistable=True, value=1.0)
+    y = helper.create_variable_for_type_inference(dtype)
+    saved_mean = helper.create_variable_for_type_inference("float32", True)
+    saved_var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [y], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_mean], "SavedVariance": [saved_var]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(y)
+
+
+def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
+               epsilon=1e-5, param_attr=None, bias_attr=None, act=None,
+               name=None):
+    helper = LayerHelper("layer_norm", act=act, name=name)
+    dtype = input.dtype or "float32"
+    feat = math.prod(input.shape[begin_norm_axis:])
+    inputs = {"X": [input]}
+    if scale:
+        s = helper.create_parameter(
+            param_attr, shape=[feat], dtype=dtype,
+            default_initializer=ConstantInitializer(1.0))
+        inputs["Scale"] = [s]
+    if shift:
+        b = helper.create_parameter(bias_attr, shape=[feat], dtype=dtype,
+                                    is_bias=True)
+        inputs["Bias"] = [b]
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(type="layer_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon,
+                            "begin_norm_axis": begin_norm_axis})
+    return helper.append_activation(y)
+
+
+def group_norm(input, groups, epsilon=1e-5, param_attr=None, bias_attr=None,
+               act=None, data_layout="NCHW", name=None):
+    helper = LayerHelper("group_norm", act=act, name=name)
+    dtype = input.dtype or "float32"
+    c = input.shape[1]
+    inputs = {"X": [input]}
+    s = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                is_bias=True)
+    if s is not None:
+        inputs["Scale"] = [s]
+    if b is not None:
+        inputs["Bias"] = [b]
+    y = helper.create_variable_for_type_inference(dtype)
+    mean = helper.create_variable_for_type_inference("float32", True)
+    var = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(type="group_norm", inputs=inputs,
+                     outputs={"Y": [y], "Mean": [mean], "Variance": [var]},
+                     attrs={"epsilon": epsilon, "groups": groups,
+                            "data_layout": data_layout})
+    return helper.append_activation(y)
+
+
+def instance_norm(input, epsilon=1e-5, param_attr=None, bias_attr=None,
+                  name=None):
+    helper = LayerHelper("instance_norm", name=name)
+    dtype = input.dtype or "float32"
+    c = input.shape[1]
+    s = helper.create_parameter(param_attr, shape=[c], dtype=dtype,
+                                default_initializer=ConstantInitializer(1.0))
+    b = helper.create_parameter(bias_attr, shape=[c], dtype=dtype,
+                                is_bias=True)
+    inputs = {"X": [input]}
+    if s is not None:
+        inputs["Scale"] = [s]
+    if b is not None:
+        inputs["Bias"] = [b]
+    y = helper.create_variable_for_type_inference(dtype)
+    sm = helper.create_variable_for_type_inference("float32", True)
+    sv = helper.create_variable_for_type_inference("float32", True)
+    helper.append_op(type="instance_norm", inputs=inputs,
+                     outputs={"Y": [y], "SavedMean": [sm],
+                              "SavedVariance": [sv]},
+                     attrs={"epsilon": epsilon})
+    return y
+
+
+def embedding(input, size, is_sparse=False, is_distributed=False,
+              padding_idx=None, param_attr=None, dtype="float32"):
+    helper = LayerHelper("embedding")
+    w = helper.create_parameter(param_attr, shape=list(size), dtype=dtype)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="lookup_table_v2", inputs={"Ids": [input], "W": [w]},
+        outputs={"Out": [out]},
+        attrs={"padding_idx": -1 if padding_idx is None else padding_idx,
+               "is_sparse": is_sparse, "is_distributed": is_distributed})
+    return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation="downgrade_in_infer"):
+    helper = LayerHelper("dropout", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    mask = helper.create_variable_for_type_inference("uint8", True)
+    helper.append_op(type="dropout", inputs={"X": [x]},
+                     outputs={"Out": [out], "Mask": [mask]},
+                     attrs={"dropout_prob": dropout_prob, "is_test": is_test,
+                            "fix_seed": seed is not None, "seed": seed or 0,
+                            "dropout_implementation": dropout_implementation})
+    return out
+
+
+relu = _unary("relu")
+
+
+def softmax(input, axis=-1, name=None, use_cudnn=False):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def one_hot(input, depth, allow_out_of_range=False):
+    helper = LayerHelper("one_hot")
+    out = helper.create_variable_for_type_inference("float32")
+    helper.append_op(type="one_hot_v2", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"depth": depth,
+                            "allow_out_of_range": allow_out_of_range})
+    return out
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
+    helper = LayerHelper("matmul", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="matmul", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]},
+                     attrs={"transpose_X": transpose_x,
+                            "transpose_Y": transpose_y, "alpha": alpha})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype="float32",
+                 name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper("clip_by_norm", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="clip_by_norm", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"max_norm": max_norm})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    sq = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="square", inputs={"X": [x]}, outputs={"Out": [sq]})
+    ssum = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="reduce_sum", inputs={"X": [sq]},
+                     outputs={"Out": [ssum]},
+                     attrs={"dim": [axis], "keep_dim": True,
+                            "reduce_all": False})
+    rs = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="rsqrt", inputs={"X": [ssum]},
+                     outputs={"Out": [rs]})
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="elementwise_mul", inputs={"X": [x], "Y": [rs]},
+                     outputs={"Out": [out]}, attrs={"axis": -1})
+    return out
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper("pad", name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type="pad", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"paddings": paddings, "pad_value": pad_value})
+    return out
+
+
+def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
+          data_format="NCHW", name=None):
+    helper = LayerHelper("pad2d", name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type="pad2d", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"paddings": list(paddings), "mode": mode,
+                            "pad_value": pad_value,
+                            "data_format": data_format})
+    return out
+
+
+def conv3d(input, num_filters, filter_size, stride=1, padding=0,
+           dilation=1, groups=1, param_attr=None, bias_attr=None,
+           use_cudnn=True, act=None, name=None, data_format="NCDHW"):
+    """3D convolution, NCDHW (reference layers/nn.py conv3d)."""
+    helper = LayerHelper("conv3d", act=act, name=name)
+    dtype = input.dtype or "float32"
+    to3 = lambda v: [v] * 3 if isinstance(v, int) else list(v)
+    filter_size, stride = to3(filter_size), to3(stride)
+    padding, dilation = to3(padding), to3(dilation)
+    num_channels = input.shape[1]
+    std = math.sqrt(2.0 / (filter_size[0] * filter_size[1]
+                           * filter_size[2] * num_channels))
+    w = helper.create_parameter(
+        param_attr,
+        shape=[num_filters, num_channels // groups] + filter_size,
+        dtype=dtype, default_initializer=NormalInitializer(0.0, std))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type="conv3d", inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": stride, "paddings": padding,
+               "dilations": dilation, "groups": groups,
+               "data_format": data_format})
+    b = helper.create_parameter(bias_attr, shape=[num_filters],
+                                dtype=dtype, is_bias=True)
+    if b is not None:
+        tmp = helper.create_variable_for_type_inference(dtype)
+        helper.append_op(type="elementwise_add",
+                         inputs={"X": [out], "Y": [b]},
+                         outputs={"Out": [tmp]}, attrs={"axis": 1})
+        out = tmp
+    return helper.append_activation(out)
+
+
+def pool3d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, name=None, exclusive=True,
+           data_format="NCDHW"):
+    """3D pooling, NCDHW (reference layers/nn.py pool3d)."""
+    helper = LayerHelper("pool3d", name=name)
+    to3 = lambda v: [v] * 3 if isinstance(v, int) else list(v)
+    out = helper.create_variable_for_type_inference(
+        input.dtype or "float32")
+    helper.append_op(
+        type="pool3d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": to3(pool_size),
+               "strides": to3(pool_stride), "paddings": to3(pool_padding),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive, "data_format": data_format})
+    return out
+

@@ -35,10 +35,12 @@ GRAD_SUFFIX = "@GRAD"
 EMPTY_VAR = "@EMPTY@"
 
 NOT_PORTED = (
-    "op {!r} is not ported to paddle_tpu_torch yet: the rest of the op "
-    "library (about 425 registered ops, control flow, sequence, detection "
-    "and parameter-server ops) comes in a later PR of slice 4 (ROADMAP.md "
-    "A, item 11)")
+    "op {!r} is not ported to paddle_tpu_torch yet: the math, tensor, nn, "
+    "random, metric and optimizer op modules are; the sequence, detection, "
+    "misc, parity, tail, structured-loss and parameter-server op modules "
+    "(195 op types) come in later PRs of ROADMAP.md A, item 11, and the "
+    "control-flow ops (cond, while, recurrent) with the sub-block executor "
+    "(item 12)")
 
 
 @dataclasses.dataclass

@@ -61,7 +61,7 @@ from ..distributed.collective import all_reduce, collective_axis
 from ..distributed.mesh import Mesh
 from ..distributed.parallel import all_reduce_buckets, broadcast_tensors
 from ..distributed.recompute import wrap_layer_recompute
-from ..fluid.ops.optimizer_ops import adam, adamw, momentum, sgd
+from ..fluid.ops.optimizer_ops import adam, adamw, lamb, momentum, sgd
 from ..models.gpt import disable_tf32, resolve_device
 from ..nn import functional as F
 
@@ -93,12 +93,7 @@ class TrainStep:
                  donate: bool = True, mesh=None, batch_spec=None,
                  remat: bool = False, amp_level: str | None = None,
                  device=None):
-        if optimizer not in ("adam", "adamw", "momentum", "sgd"):
-            if optimizer == "lamb":
-                raise NotImplementedError(
-                    "optimizer='lamb' comes with slice 4 of the port (the "
-                    "op library, ROADMAP.md A, item 11); adam, adamw, "
-                    "momentum and sgd are ported")
+        if optimizer not in ("adam", "adamw", "momentum", "sgd", "lamb"):
             raise ValueError(f"unknown optimizer {optimizer!r}")
         if amp_level not in (None, "O1", "O2"):
             raise ValueError(f"amp_level must be None, 'O1' or 'O2', got "
@@ -112,7 +107,9 @@ class TrainStep:
         self._bound = _LossModule(model, loss_fn)
         self._lr = lr
         self._optimizer = optimizer
-        self._update = adamw if optimizer == "adamw" else adam
+        # lamb takes its op's weight decay (0.01), as the reference's
+        # step does: weight_decay is adamw's coefficient
+        self._update = {"adamw": adamw, "lamb": lamb}.get(optimizer, adam)
         self._clip = grad_clip_norm
         self._amp_level = amp_level
         self._hyper = dict(beta1=beta1, beta2=beta2, epsilon=epsilon)

@@ -382,12 +382,12 @@ def test_entry_points_need_a_card_or_device_cpu():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mesh="dp1"), None), (dict(batch_spec="dp"), None),
-    (dict(remat=True), None), (dict(optimizer="lamb"), "slice 4")])
+    (dict(remat=True), None), (dict(optimizer="lamb"), None)])
 def test_deferred_train_step_arguments_raise(kw, match):
-    """lamb is still deferred (the op library); mesh=, batch_spec= and
-    remat= are ported (tests/test_torch_data_parallel.py,
-    tests/test_torch_recompute.py): here, on one rank, the step builds
-    and trains, and a mesh that is not the port's raises."""
+    """mesh=, batch_spec=, remat= and optimizer="lamb" are ported
+    (tests/test_torch_data_parallel.py, tests/test_torch_recompute.py,
+    tests/test_torch_fluid_optimizers.py): here, on one rank, the step
+    builds and trains, and a mesh that is not the port's raises."""
     from paddle_tpu_torch.distributed import make_mesh
     lin = pnn.Linear(4, 2)
     if match is not None:

@@ -346,6 +346,61 @@ def fleet_model(state, x):
             "names": [k for k, _ in model.named_parameters()]}
 
 
+# -- the max / min all-reduce's gradient ---------------------------------------
+
+def build_minmax_program(pkg, op):
+    """loss = mean(c_allreduce_<op>(x * w)) with the backward appended,
+    built by `pkg` (a namespace of the package's enable_static /
+    disable_static, framework, layers and backward modules)."""
+    pkg.enable_static()
+    try:
+        main, startup = pkg.framework.Program(), pkg.framework.Program()
+        with pkg.framework.program_guard(main, startup):
+            x = pkg.layers.data("x", [4, 3], "float32")
+            w = pkg.layers.create_parameter([3], "float32", name="w")
+            h = pkg.layers.elementwise_mul(x, w)
+            r = main.global_block().create_var(name="r", dtype="float32",
+                                               shape=(4, 3))
+            main.global_block().append_op(
+                type=f"c_allreduce_{op}", inputs={"X": [h]},
+                outputs={"Out": [r]})
+            loss = pkg.layers.mean(r)
+            pkg.backward.append_backward(loss)
+    finally:
+        pkg.disable_static()
+    return main, startup, loss
+
+
+def minmax_grads():
+    """Each op's program run data-parallel over the ranks: the text of
+    the error its gradient raises, or None."""
+    from types import SimpleNamespace
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.fluid import (CPUPlace, Executor, Scope, backward,
+                                        framework, layers, scope_guard)
+    from paddle_tpu_torch.fluid.compiler import CompiledProgram
+    pkg = SimpleNamespace(enable_static=pt.enable_static,
+                          disable_static=pt.disable_static,
+                          framework=framework, layers=layers,
+                          backward=backward)
+    res = {}
+    for op in ("max", "min"):
+        main, startup, loss = build_minmax_program(pkg, op)
+        prog = CompiledProgram(main).with_data_parallel(loss.name)
+        with scope_guard(Scope()):
+            exe = Executor(CPUPlace())
+            exe.run(startup)
+            try:
+                exe.run(prog, feed={"x": np.ones((4, 3), np.float32)},
+                        fetch_list=["w@GRAD"])
+                res[op] = None
+            except NotImplementedError as e:
+                res[op] = str(e)
+    return res
+
+
 CASES = {f.__name__: f for f in (
     collectives, world_of_one, fail_on_rank_one, hang, bert_steps,
-    bad_batch, dropout_masks, conv_bn_steps, static_dp, fleet_model)}
+    bad_batch, dropout_masks, conv_bn_steps, static_dp, fleet_model,
+    minmax_grads)}
