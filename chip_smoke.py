@@ -16,6 +16,8 @@
     python3 chip_smoke.py --read-parts  # phase 1, then where one read of
                                      # the GPT-3 XL checkpoint goes
     python3 chip_smoke.py --ops      # phase 1, then phase 11a alone
+    python3 chip_smoke.py --seq      # the card line, then phase 11b
+                                     # alone (no kernel lies on it)
     python3 chip_smoke.py --help     # this text
     python3 chip_smoke.py --profile  # also: device-time breakdowns of
                                      # 10 decode steps, of one GPT train
@@ -164,6 +166,26 @@ Phases:
      paged_attention op at GPT-3 XL decode, equal to the row-1 wrapper's
      direct call, one launch on the vector route. Its seconds beside the
      prediction (STATIC_BERT_PREDICTED_S);
+ 11b. static_lac (item 11, the op library's second part; no kernel of
+     the port on this path): (a) every op of the sequence,
+     structured-loss, misc and tail modules on its CPU parity case's
+     inputs on the card against the CPU, as 11a (a) (the decompositions
+     whose output is not unique held up to signs and by
+     reconstruction; nce on the card's own samples); (b) the static LAC
+     tagger (tests/torch_static_lac.py: sparse embedding 20,940 x 128,
+     two bidirectional GRU layers of 128, 57 tags, linear-chain CRF,
+     batch 300 x 64 with lengths 8-64) at full width, 3 SGD steps on the
+     card and on the CPU from the same startup values: losses within
+     1e-4 relative, at least 99.9% of the decoded tags equal; (c) LAC
+     trained 20 steps on one batch on Executor(CUDAPlace(0)): the loss
+     falls, crf_decoding under the EMA beats the batch's most frequent
+     tag's share, median step ms, ops a step, peak memory, no kernel
+     launched; (d) the sparse update: the embedding rows no id touches
+     bit-equal after a step, the looked-up ones moved; (e) warpctc at a
+     DeepSpeech2-like shape (B 16, T 400, 29 classes, labels up to 100)
+     on the card against the CPU: loss within 1e-4 relative, gradient
+     within 1e-3 of its largest entry, the card's ms. Its seconds beside
+     the prediction (STATIC_LAC_PREDICTED_S);
  12. ResNet (no kernel of the port on this path: convolutions and pools
      are PyTorch's, batch norm the reference's arithmetic in tensor
      code) — resnet_parity: resnet18 at 32 x 32, batch 8, f32, NHWC,
@@ -5128,8 +5150,9 @@ def _op_cases():
     finally:
         sys.path.pop(0)
     cases = {**C.SWEEP, **C.MATH_OWN, **C.TENSOR_OWN, **C.NN_OWN,
-             **C.OPT_CASES}
-    return cases, C.RANDOM
+             **C.OPT_CASES, **C.SEQ_OWN, **C.LOSS_OWN, **C.MISC_OWN,
+             **C.TAIL_OWN}
+    return cases, C.RANDOM, C.UNIQUE_PARTS
 
 
 def _run_op(torch, op, inputs, attrs, device, extra=None):
@@ -5169,19 +5192,29 @@ def _compare(torch, got, ref, tol):
     return bad
 
 
-def card_op_sweep(torch):
-    """(a) Every op of fluid/ops on its CPU parity case's inputs, on
-    the card against the CPU: outputs (atol 1e-5, rtol 1e-4) and, where
-    it has one, its grad op's input gradients for fixed random
-    upstream gradients (atol 1e-4, rtol 1e-3). The random ops are held
-    to their CPU counterpart's shape and dtype (their streams differ by
-    device). Returns (ops swept, cases run)."""
+# the op modules of the library's first part (11a) and of its second
+# (11b)
+OPS_FIRST = ("math_ops", "nn_ops", "tensor_ops", "random_ops", "metric_ops",
+             "optimizer_ops")
+OPS_SECOND = ("sequence_ops", "structured_loss_ops", "misc_ops", "tail_ops")
+
+
+def card_op_sweep(torch, modules=OPS_FIRST, phase="static_bert_op_sweep"):
+    """(a) Every op of `modules` (fluid/ops) on its CPU parity case's
+    inputs, on the card against the CPU: outputs (atol 1e-5, rtol 1e-4)
+    and, where it has one, its grad op's input gradients for fixed
+    random upstream gradients (atol 1e-4, rtol 1e-3). The random ops are
+    held to their CPU counterpart's shape and dtype (their streams
+    differ by device); the decompositions by what is unique of their
+    outputs (torch_op_cases.UNIQUE_PARTS, as the parity tests); nce by
+    its cost on the card's own samples. Returns (ops swept, cases
+    run)."""
     import numpy as np
     from paddle_tpu_torch.fluid import registry
-    cases, random_ops = _op_cases()
+    cases, random_ops, unique_parts = _op_cases()
     ops = sorted(k for k, d in registry._REGISTRY.items()
-                 if not k.endswith("_grad") and
-                 d.compute.__module__.startswith("paddle_tpu_torch.fluid."))
+                 if not k.endswith("_grad") and d.compute.__module__ in {
+                     f"paddle_tpu_torch.fluid.ops.{m}" for m in modules})
     failed, grads, n_cases = {}, 0, 0
     for op in ops:
         if op in random_ops:
@@ -5192,6 +5225,12 @@ def card_op_sweep(torch):
                     op == "seed" and not torch.equal(g.cpu(), r)):
                 failed[op] = ["random draw shape / dtype"]
             n_cases += 1
+            continue
+        if op == "nce":
+            n_cases += 1
+            bad = nce_on_card(torch)
+            if bad:
+                failed[op] = bad
             continue
         mine = [c for c in cases.values() if c.op == op]
         if not mine:
@@ -5204,12 +5243,18 @@ def card_op_sweep(torch):
             except Exception as e:  # noqa: BLE001 - reported by op name
                 failed.setdefault(op, []).append(f"{type(e).__name__}: {e}")
                 continue
+            if op in unique_parts:
+                got, ref = ({k: [torch.as_tensor(np.asarray(v))]
+                             for k, v in unique_parts[op](
+                                 {s: [v.cpu().numpy() for v in vals]
+                                  for s, vals in outs.items()}).items()}
+                            for outs in (got, ref))
             bad = _compare(torch, got, ref, SWEEP_OUT_TOL)
             opdef = registry.require(op)
             if opdef.grad is not None and not case.skip_grad:
                 rng = np.random.RandomState(7)
-                og = {f"{s}@GRAD": [rng.randn(*v.shape).astype(np.float32)
-                                    for v in vals]
+                og = {f"{s}@GRAD": [np.asarray(rng.randn(*v.shape),
+                                               np.float32) for v in vals]
                       for s, vals in ref.items()
                       if s not in opdef.no_grad_out_slots and vals
                       and all(isinstance(v, torch.Tensor)
@@ -5226,7 +5271,7 @@ def card_op_sweep(torch):
             if bad:
                 failed.setdefault(op, []).extend(bad)
     torch.cuda.synchronize()
-    print(json.dumps({"phase": "static_bert_op_sweep", "ops": len(ops),
+    print(json.dumps({"phase": phase, "ops": len(ops),
                       "cases": n_cases, "gradient_cases": grads,
                       "tolerance": {"out": SWEEP_OUT_TOL,
                                     "grad": SWEEP_GRAD_TOL},
@@ -5420,6 +5465,268 @@ def static_bert_phase(torch):
                       STATIC_BERT_PREDICTED_S, "seconds": round(
                           time.perf_counter() - t0, 2)}), flush=True)
     return total
+
+
+# ---------------------------------------------------------------------------
+# static_lac: the op library's second part and the LAC tagger (item 11)
+# ---------------------------------------------------------------------------
+
+# the seconds the phase is predicted to take (written before its first
+# run on the card): op sweep 10, full-width parity 15, 20 training steps
+# 8, warpctc 4, the rest 3
+STATIC_LAC_PREDICTED_S = 40.0
+LAC_STEPS = 20
+LAC_PARITY_STEPS = 3
+LAC_PARITY_RTOL = 1e-4
+LAC_TAGS_EQUAL = 0.999
+# the averages at decay 0.8: the program's 0.999 starts its averages at
+# 0 without a bias correction, as the reference's does, so after 20
+# steps they would hold 1 - 0.999^20 = 2% of the weights
+LAC_EMA_DECAY = 0.8
+CTC_SHAPE = dict(batch=16, time=400, classes=29, max_label=100)
+
+
+def _lac_cfg():
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    try:
+        from torch_static_lac import LacConfig, build_lac_program, lac_batch
+    finally:
+        sys.path.pop(0)
+    return LacConfig(ema_decay=LAC_EMA_DECAY), build_lac_program, lac_batch
+
+
+def nce_on_card(torch):
+    """nce on the card: its samples in range, and its cost equal to
+    nce_cost on those samples on the CPU (the streams differ by
+    device). Returns the failures."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    try:
+        from torch_op_cases import LOSS_NCE
+    finally:
+        sys.path.pop(0)
+    from paddle_tpu_torch.fluid.ops.structured_loss_ops import nce_cost
+    bad = []
+    for sampler in (0, 1):
+        attrs = {"num_total_classes": 9, "num_neg_samples": 6,
+                 "sampler": sampler}
+        got = _run_op(torch, "nce", LOSS_NCE, attrs, "cuda")
+        neg = got["SampleLabels"][0].cpu()
+        if neg.min() < 0 or neg.max() >= 9:
+            bad.append(f"sampler {sampler}: samples out of range")
+        cost, _ = nce_cost(*(torch.as_tensor(LOSS_NCE[k]) for k in (
+            "Input", "Label", "Weight", "Bias")), neg, 9, sampler)
+        if not within(got["Cost"][0].cpu()[:, 0], cost, **SWEEP_OUT_TOL):
+            bad.append(f"sampler {sampler}: cost "
+                       f"{max_err(got['Cost'][0].cpu()[:, 0], cost):.3g}")
+    return bad
+
+
+def _lac_run(torch, p, exe, scope, feed, steps):
+    """`steps` steps of the LAC program on `exe` in `scope`: (losses,
+    decoded paths of each step, step seconds)."""
+    from paddle_tpu_torch.fluid import scope_guard
+    losses, paths, times = [], [], []
+    with scope_guard(scope):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            lv, path = exe.run(p.main, feed=feed,
+                               fetch_list=[p.loss, p.path],
+                               return_numpy=False)
+            losses.append(float(lv.reshape(-1)[0]))
+            paths.append(path.cpu())
+            if exe.device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return losses, paths, times
+
+
+def static_lac_parity(torch):
+    """(b) LAC at full width, 3 SGD steps on the card and on the CPU
+    from the same startup values (the CPU's, copied to the card)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import (CPUPlace, CUDAPlace, Executor, Scope,
+                                        scope_guard)
+    cfg, build, batch = _lac_cfg()
+    p = build(fluid, pt, cfg)
+    feed = batch(cfg, seed=0)
+    cpu = Scope()
+    with scope_guard(cpu):
+        Executor(CPUPlace()).run(p.startup)
+    card = Scope()
+    for n in cpu.local_var_names():
+        card.set(n, cpu.find_var(n).to("cuda", copy=True))
+    runs = {}
+    for what, scope, place in (("card", card, CUDAPlace(0)),
+                               ("cpu", cpu, CPUPlace())):
+        runs[what] = _lac_run(torch, p, Executor(place), scope, feed,
+                              LAC_PARITY_STEPS)
+    (cl, cp, ct), (hl, hp, ht) = runs["card"], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(cl, hl))
+    live = torch.arange(cfg.seq)[None, :] < torch.as_tensor(
+        feed["length"])[:, None]
+    same = sum(int((a[live] == b[live]).sum()) for a, b in zip(cp, hp)) \
+        / (len(cp) * int(live.sum()))
+    print(json.dumps({
+        "phase": "static_lac_parity",
+        "config": f"LAC vocab={cfg.vocab} emb={cfg.emb} BiGRU "
+        f"{cfg.layers}x{cfg.hidden} tags={cfg.tags} batch={cfg.batch}x"
+        f"{cfg.seq} lengths {cfg.min_len}-{cfg.seq} f32 SGD {cfg.lr}",
+        "card_losses": cl, "cpu_losses": hl, "max_rel": rel,
+        "tags_equal": same, "tokens": int(live.sum()),
+        "card_step_ms": [round(t * 1e3, 2) for t in ct],
+        "cpu_step_ms": [round(t * 1e3, 2) for t in ht]}), flush=True)
+    if not rel <= LAC_PARITY_RTOL:
+        fail(f"LAC card and CPU losses differ by {rel:.3g} relative: "
+             f"{cl} vs {hl}")
+    if not same >= LAC_TAGS_EQUAL:
+        fail(f"LAC card and CPU decode {same:.5f} of the tags equally")
+
+
+def static_lac_train(torch):
+    """(c) LAC trained LAC_STEPS steps on one batch on
+    Executor(CUDAPlace(0)), and (d) the sparse update of its first
+    step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import fluid
+    from paddle_tpu_torch.fluid import CUDAPlace, Executor, Scope, scope_guard
+    from paddle_tpu_torch.ops import launch_counts, reset_launch_counts
+    cfg, build, batch = _lac_cfg()
+    t0 = time.perf_counter()
+    p = build(fluid, pt, cfg)
+    build_s = time.perf_counter() - t0
+    feed = {k: torch.as_tensor(v, device="cuda")
+            for k, v in batch(cfg, seed=0).items()}
+    live = (torch.arange(cfg.seq, device="cuda")[None, :]
+            < feed["length"][:, None])
+    tags = feed["target"][live]
+    majority = float(torch.bincount(tags).max()) / tags.numel()
+    scope = Scope()
+    with scope_guard(scope):
+        exe = Executor(CUDAPlace(0))
+        exe.run(p.startup)
+        emb0 = scope.find_var(p.emb).clone()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what was live before the steps (earlier phases' tensors included):
+    # the peak less this is the steps' own
+    held = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    losses, _, times = _lac_run(torch, p, exe, scope, feed, 1)
+    emb1 = scope.find_var(p.emb).clone()
+    more = _lac_run(torch, p, exe, scope, feed, LAC_STEPS - 1)
+    losses += more[0]
+    times += more[2]
+    launches = launch_counts()
+    with scope_guard(scope):
+        raw = exe.run(p.main, feed=feed, fetch_list=[p.path],
+                      use_prune=True, return_numpy=False)[0]
+        with p.ema.apply(exe):
+            ema = exe.run(p.main, feed=feed, fetch_list=[p.path],
+                          use_prune=True, return_numpy=False)[0]
+    acc = {k: float((v[live] == tags).float().mean())
+           for k, v in (("raw", raw), ("ema", ema))}
+    # (d): the rows no id touches keep their bits; each looked-up one
+    # (inside a sequence) moved
+    touched = torch.zeros(cfg.vocab, dtype=torch.bool, device="cuda")
+    touched[feed["word"].reshape(-1)] = True
+    words = torch.unique(feed["word"][live])
+    kept = bool(torch.equal(emb1[~touched], emb0[~touched]))
+    moved = bool((emb1[words] != emb0[words]).any(1).all())
+    print(json.dumps({
+        "phase": "static_lac_train",
+        "config": f"LAC vocab={cfg.vocab} emb={cfg.emb} BiGRU "
+        f"{cfg.layers}x{cfg.hidden} tags={cfg.tags} batch={cfg.batch}x"
+        f"{cfg.seq} f32 SGD {cfg.lr} EMA {cfg.ema_decay}, one batch",
+        "ops": len(p.main.global_block().ops), "build_s": round(build_s, 3),
+        "losses": losses, "step_ms": [round(t * 1e3, 2) for t in times],
+        "step_ms_median": round(statistics.median(times[1:]) * 1e3, 2),
+        "tokens_per_s": round(int(live.sum())
+                              / statistics.median(times[1:]), 1),
+        "max_memory_allocated_gb": round(
+            torch.cuda.max_memory_allocated() / 1e9, 3),
+        "allocated_before_steps_gb": round(held / 1e9, 3),
+        "tag_accuracy": acc, "majority_share": majority,
+        "untouched_rows_bit_equal": kept, "looked_up_rows_moved": moved,
+        "rows_looked_up": int(words.numel()), "launches": launches,
+        "executor": exe.stats()}), flush=True)
+    if not all(math.isfinite(v) for v in losses) \
+            or not losses[-1] < losses[0]:
+        fail(f"static_lac: the loss did not fall: {losses}")
+    if not acc["ema"] > majority:
+        fail(f"static_lac: decoding under the EMA ({acc['ema']:.4f}) does "
+             f"not beat the most frequent tag's share ({majority:.4f})")
+    if not (kept and moved):
+        fail(f"static_lac: sparse update: untouched rows bit-equal {kept}, "
+             f"looked-up rows moved {moved}")
+    if any(launches.values()):
+        fail(f"static_lac: a kernel launched on a path that has none: "
+             f"{launches}")
+
+
+def warpctc_phase(torch):
+    """(e) warpctc at a DeepSpeech2-like shape (CTC_SHAPE) on the card
+    against the CPU: the loss, and its grad op's gradient for ones
+    upstream."""
+    import numpy as np
+    S = CTC_SHAPE
+    r = np.random.RandomState(5)
+    B, T, C, L = S["batch"], S["time"], S["classes"], S["max_label"]
+    llen = r.randint(T // 2, T + 1, B).astype(np.int64)
+    tlen = np.minimum(r.randint(L // 2, L + 1, B), llen // 2).astype(
+        np.int64)
+    ins = {"Logits": r.randn(B, T, C).astype(np.float32),
+           "Label": r.randint(1, C, (B, L)).astype(np.int32),
+           "LogitsLength": llen, "LabelLength": tlen}
+    og = {"Loss@GRAD": [np.ones((B, 1), np.float32)]}
+    out, ms = {}, {}
+    for where, d in (("card", "cuda"), ("cpu", "cpu")):
+        for what, op, extra in (("loss", "warpctc", None),
+                                ("grad", "warpctc_grad", og)):
+            if d == "cuda":   # a warm-up call, then the timed one
+                _run_op(torch, op, ins, {}, d, extra)
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _run_op(torch, op, ins, {}, d, extra)
+            if d == "cuda":
+                torch.cuda.synchronize()
+            ms[f"{where}_{what}"] = round((time.perf_counter() - t0) * 1e3,
+                                          2)
+            out[(where, what)] = (res["Loss"][0] if what == "loss"
+                                  else res["Logits@GRAD"][0]).cpu()
+    loss_rel = float(((out["card", "loss"] - out["cpu", "loss"]).abs()
+                      / out["cpu", "loss"].abs()).max())
+    g_rel = max_err(out["card", "grad"], out["cpu", "grad"]) \
+        / float(out["cpu", "grad"].abs().max())
+    print(json.dumps({"phase": "static_lac_warpctc",
+                      "shape": f"B={B} T={T} classes={C} labels<={L}",
+                      "loss_max_rel": loss_rel, "grad_max_rel": g_rel,
+                      "ms": ms, "loss_mean": float(out["cpu", "loss"]
+                                                   .mean())}), flush=True)
+    if not (loss_rel <= 1e-4 and g_rel <= 1e-3):
+        fail(f"warpctc card against CPU: loss {loss_rel:.3g} relative, "
+             f"gradient {g_rel:.3g} of its largest entry")
+
+
+def static_lac_phase(torch):
+    """Phase 11b: the second part of the op library on the card (a),
+    the full-width LAC tagger card against CPU (b), LAC trained on
+    Executor(CUDAPlace(0)) with its sparse update (c, d), warpctc at
+    DeepSpeech2's shape (e)."""
+    import paddle_tpu_torch as pt
+    t0 = time.perf_counter()
+    pt.disable_static()
+    card_op_sweep(torch, OPS_SECOND, "static_lac_op_sweep")
+    static_lac_parity(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    static_lac_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    warpctc_phase(torch)
+    print(json.dumps({"phase": "static_lac", "predicted_s":
+                      STATIC_LAC_PREDICTED_S, "seconds": round(
+                          time.perf_counter() - t0, 2)}), flush=True)
 
 
 def resnet_loss(m, img, label):
@@ -7917,6 +8224,7 @@ def main(argv):
     router_only = "--router" in argv
     read_parts_only = "--read-parts" in argv
     ops_only = "--ops" in argv
+    seq_only = "--seq" in argv
     with_profile = "--profile" in argv
     moe_seed = int(argv[argv.index("--moe-seed") + 1]) \
         if "--moe-seed" in argv else None
@@ -7935,6 +8243,14 @@ def main(argv):
     print(json.dumps({"phase": "versions", "python": sys.version.split()[0],
                       "torch": torch.__version__,
                       "cuda": torch.version.cuda}), flush=True)
+    if seq_only:
+        # no kernel lies on the LAC path: nothing to build first
+        timed("static_lac", static_lac_phase, torch)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     if ps_only:
         # no kernel lies on the PS path: nothing to build first
         ps_phases(torch)
@@ -8110,6 +8426,9 @@ def main(argv):
     gc.collect()
     torch.cuda.empty_cache()
     static_bert_counts = timed("static_bert", static_bert_phase, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("static_lac", static_lac_phase, torch)
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -1,21 +1,21 @@
 """Meta-optimizer stack (counterpart of
 ``paddle_tpu/distributed/fleet/meta_optimizers``): with no
 meta-optimizer enabled in the strategy the user's optimizer is returned
-as it is. The ``lamb`` and ``lars`` flags replace it, as the
-reference's do, by a fluid ``LambOptimizer`` (the strategy's
-``lamb_weight_decay``) or ``LarsMomentumOptimizer`` (its
-``lars_configs``, the user optimizer's momentum) at its learning rate.
-The other flags raise, naming the ROADMAP item that brings what they
-wrap: the DGCMomentum, GradientMerge and LocalSGD optimizers (a later
-PR of item 11), the static AMP decorator (item 13) and the
-RecomputeOptimizer (item 12)."""
+as it is. As the reference's do, the ``lamb``, ``lars`` and ``dgc``
+flags replace it at its learning rate by a fluid ``LambOptimizer`` (the
+strategy's ``lamb_weight_decay``), ``LarsMomentumOptimizer`` (its
+``lars_configs``, the user optimizer's momentum) or
+``DGCMomentumOptimizer`` (its ``dgc_configs``), and ``localsgd`` wraps
+the result in a ``LocalSGDOptimizer`` (its ``localsgd_configs``). The
+other flags raise, naming the ROADMAP item that brings what they wrap:
+GradientMerge and the RecomputeOptimizer (item 12, the sub-block
+executor) and the static AMP decorator (item 13)."""
 from __future__ import annotations
 
 __all__ = ["apply_meta_optimizers"]
 
 # strategy flag -> the item of ROADMAP.md A that ports what it wraps
-_QUEUED = {"dgc": "11", "gradient_merge": "11", "localsgd": "11",
-           "amp": "13", "recompute": "12"}
+_QUEUED = {"gradient_merge": "12", "amp": "13", "recompute": "12"}
 
 
 def apply_meta_optimizers(optimizer, strategy, role_maker=None):
@@ -27,8 +27,8 @@ def apply_meta_optimizers(optimizer, strategy, role_maker=None):
         raise NotImplementedError(
             "fleet meta-optimizers " + ", ".join(
                 f"{k} (ROADMAP.md A, item {_QUEUED[k]})" for k in on)
-            + " are not ported yet; lamb and lars are, and data "
-            "parallelism needs none")
+            + " are not ported yet; lamb, lars, dgc and localsgd are, and "
+            "data parallelism needs none")
     opt = optimizer
     if strategy.lamb and hasattr(opt, "_learning_rate"):
         opt = fopt.LambOptimizer(
@@ -43,4 +43,17 @@ def apply_meta_optimizers(optimizer, strategy, role_maker=None):
             lars_weight_decay=cfg.get("lars_weight_decay", 0.0005),
             epsilon=cfg.get("epsilon", 0.0),
             parameter_list=getattr(opt, "_parameter_list", None))
+    if strategy.dgc and hasattr(opt, "_learning_rate"):
+        cfg = strategy.dgc_configs
+        opt = fopt.DGCMomentumOptimizer(
+            learning_rate=opt._learning_rate,
+            momentum=getattr(opt, "_momentum", 0.9),
+            rampup_begin_step=cfg.get("rampup_begin_step", 0),
+            rampup_step=cfg.get("rampup_step", 1),
+            sparsity=tuple(cfg.get("sparsity", (0.999,))),
+            parameter_list=getattr(opt, "_parameter_list", None))
+    if strategy.localsgd:
+        cfg = strategy.localsgd_configs
+        opt = fopt.LocalSGDOptimizer(opt, k_steps=cfg.get("k_steps", 1),
+                                     begin_step=cfg.get("begin_step", 1))
     return opt

@@ -1,8 +1,8 @@
 """paddle_tpu_torch.fluid — the static graph of the port (counterpart of
 ``paddle_tpu/fluid/``): the Program IR, the op registry with the ops of
-the ported programs, graph-level autodiff, the Adam optimizer, and an
-Executor that runs a block op by op on the card (or, when asked, the
-CPU)."""
+the ported programs, SelectedRows, graph-level autodiff, the
+optimizers, and an Executor that runs a block op by op on the card (or,
+when asked, the CPU)."""
 from . import core, framework, initializer, unique_name
 from . import ops as _ops  # registers the ported ops
 from . import layers

@@ -72,11 +72,16 @@ def torch_dtype(dtype: Any) -> torch.dtype:
 
 def batched_to_numpy(tensors):
     """Host copies of `tensors` (numpy arrays and scalars pass through);
-    bfloat16, which numpy lacks, comes back as float32. The first copy
-    synchronises the device once; the rest find their values ready."""
+    bfloat16, which numpy lacks, comes back as float32; a SelectedRows
+    comes back as one, with its rows and values on the host. The first
+    copy synchronises the device once; the rest find their values
+    ready."""
+    from .selected_rows import SelectedRows
     out = []
     for t in tensors:
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, SelectedRows):
+            out.append(t.to("cpu"))
+        elif isinstance(t, torch.Tensor):
             t = t.detach()
             if t.dtype == torch.bfloat16:
                 t = t.float()

@@ -24,7 +24,9 @@ this rank's rows of every feed whose first axis the "dp" axis divides
 (the reference's ``_val_sharding``; other feeds whole), and before the
 first update op of each optimizer (``Program._grad_syncs``) the
 gradients it reads are summed over the ranks in flat buckets and scaled
-by 1 / ranks (the reference's ``GradientScaleStrategy.CoeffNumDevice``).
+by 1 / ranks (the reference's ``GradientScaleStrategy.CoeffNumDevice``);
+a SelectedRows gradient is gathered instead, every rank's rows and
+values, scaled the same.
 The run holds ``collective_axis("dp")`` open, so the ``c_*`` ops and
 batch norm reduce over the ranks; stochastic ops fold the rank into
 their seeds; the program's loss (``_sharding_info["loss"]``), when
@@ -429,8 +431,35 @@ class _DataParallel:
         grads = self._syncs.get(id(op))
         if grads and self.n > 1:
             from ..distributed.parallel import all_reduce_buckets
-            all_reduce_buckets([env[g] for g in grads if g in env],
-                               group=self.group, scale=1.0 / self.n)
+            from .selected_rows import SelectedRows
+            dense = []
+            for g in grads:
+                if isinstance(env.get(g), SelectedRows):
+                    env[g] = self._gather_rows(env[g])
+                elif g in env:
+                    dense.append(env[g])
+            all_reduce_buckets(dense, group=self.group, scale=1.0 / self.n)
+
+    def _gather_rows(self, sr):
+        """A SelectedRows gradient's sync: every rank takes the rows and
+        values of all ranks, in rank order (the whole batch's, in its
+        order), the values scaled by 1 / ranks as the dense average is:
+        the reference's batch-sharded run's gradient, the whole batch's
+        rows."""
+        from ..distributed.collective import all_gather
+        from .selected_rows import SelectedRows
+        rows, vals = sr.rows, sr.values
+        counts = [int(c) for c in all_gather(
+            [], torch.tensor([rows.numel()], device=rows.device),
+            group=self.group)]
+        pad = max(counts) - rows.numel()
+        rows = torch.cat([rows, rows.new_zeros(pad)])
+        vals = torch.cat([vals, vals.new_zeros((pad,) + vals.shape[1:])])
+        rs = all_gather([], rows, group=self.group)
+        vs = all_gather([], vals, group=self.group)
+        return SelectedRows(torch.cat([r[:c] for r, c in zip(rs, counts)]),
+                            torch.cat([v[:c] for v, c in zip(vs, counts)])
+                            / self.n, sr.height)
 
     def read(self, scope, names, done: set) -> dict:
         """name -> whole value of the persistables `names`: tp slices

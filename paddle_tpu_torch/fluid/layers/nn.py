@@ -1,21 +1,28 @@
 """Static-graph layer functions (counterpart of
 ``paddle_tpu/fluid/layers/nn.py``), assembled from ops through
 LayerHelper as in the reference: the functions of its ``__all__`` whose
-ops are ported. The sequence, RNN, CTC, CRF, NCE and hierarchical
-sigmoid layers wait for their op modules (ROADMAP.md A, item 11).
+ops are ported, the sequence, RNN, CTC, CRF, NCE and hierarchical
+sigmoid layers among them. The reference's ``dynamic_gru`` /
+``dynamic_lstm`` (``layers/parity.py``) and ``layers/detection.py`` wait
+for the parity and detection op modules (ROADMAP.md A, item 11).
 """
 from __future__ import annotations
 
 import math
 
-from ..initializer import ConstantInitializer, NormalInitializer
+from ..initializer import (ConstantInitializer, NormalInitializer,
+                           UniformInitializer)
 from ..layer_helper import LayerHelper
+from ..ops.sequence_ops import rnn_weight_shapes
 
 __all__ = [
     "fc", "conv2d", "pool2d", "batch_norm", "layer_norm", "group_norm",
     "instance_norm", "embedding", "dropout", "relu", "softmax", "one_hot",
     "matmul", "label_smooth", "clip_by_norm", "l2_normalize", "pad", "pad2d",
-    "conv3d", "pool3d",
+    "sequence_mask", "sequence_pad", "sequence_unpad", "sequence_pool",
+    "sequence_softmax", "sequence_reverse", "sequence_expand",
+    "segment_pool", "dynamic_rnn", "warpctc", "linear_chain_crf",
+    "crf_decoding", "nce", "hsigmoid", "conv3d", "pool3d",
 ]
 
 
@@ -334,6 +341,226 @@ def pad2d(input, paddings=(0, 0, 0, 0), mode="constant", pad_value=0.0,
                             "pad_value": pad_value,
                             "data_format": data_format})
     return out
+
+
+# ---------------------------------------------------------------------------
+# sequence, RNN and structured-loss layers (the LoD-free design: dense
+# [B, T, ...] with lengths)
+# ---------------------------------------------------------------------------
+
+def _seq_op(type, inputs, attrs, dtype, n_out=1):
+    helper = LayerHelper(type)
+    outs = [helper.create_variable_for_type_inference(dtype)
+            for _ in range(n_out)]
+    outputs = {"Out": [outs[0]]}
+    if n_out > 1:
+        outputs["Length"] = [outs[1]]
+    helper.append_op(type=type, inputs=inputs, outputs=outputs, attrs=attrs)
+    return outs[0] if n_out == 1 else tuple(outs)
+
+
+def sequence_mask(x, maxlen=-1, dtype="int64", name=None):
+    """lengths [..] -> mask [.., maxlen] (maxlen -1: the longest)."""
+    helper = LayerHelper("sequence_mask", name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type="sequence_mask", inputs={"X": [x]},
+                     outputs={"Y": [out]},
+                     attrs={"maxlen": maxlen if maxlen else -1,
+                            "out_dtype": dtype})
+    return out
+
+
+def sequence_pad(x, pad_value=0.0, length=None, maxlen=-1, name=None):
+    if length is None:
+        raise ValueError(
+            "sequence_pad needs `length` (per-sequence lengths): the "
+            "flat-rows input carries no LoD")
+    return _seq_op("sequence_pad",
+                   {"X": [x], "Length": [length]},
+                   {"padded_length": maxlen, "pad_value": pad_value},
+                   x.dtype, n_out=2)
+
+
+def sequence_unpad(x, length, name=None):
+    return _seq_op("sequence_unpad", {"X": [x], "Length": [length]}, {},
+                   x.dtype)
+
+
+def sequence_pool(input, pool_type="average", length=None, pad_value=0.0,
+                  name=None):
+    ins = {"X": [input]}
+    if length is not None:
+        ins["Length"] = [length]
+    return _seq_op("sequence_pool", ins,
+                   {"pooltype": pool_type.upper(), "pad_value": pad_value},
+                   input.dtype)
+
+
+def sequence_softmax(input, length=None, name=None):
+    ins = {"X": [input]}
+    if length is not None:
+        ins["Length"] = [length]
+    return _seq_op("sequence_softmax", ins, {}, input.dtype)
+
+
+def sequence_reverse(x, length=None, name=None):
+    ins = {"X": [x]}
+    if length is not None:
+        ins["Length"] = [length]
+    return _seq_op("sequence_reverse", ins, {}, x.dtype)
+
+
+def sequence_expand(x, ref_length, name=None):
+    return _seq_op("sequence_expand",
+                   {"X": [x], "RefLength": [ref_length]}, {}, x.dtype)
+
+
+def segment_pool(data, segment_ids, pool_type="sum", num_segments=-1,
+                 name=None):
+    return _seq_op("segment_pool",
+                   {"X": [data], "SegmentIds": [segment_ids]},
+                   {"pooltype": pool_type.upper(),
+                    "num_segments": num_segments}, data.dtype)
+
+
+def dynamic_rnn(input, hidden_size, mode="LSTM", num_layers=1,
+                is_bidirec=False, sequence_length=None, param_attr=None,
+                name=None):
+    """A multi-layer (bi)directional recurrent net over dense [B, T, D],
+    the one `rnn` op, its weights uniform in +-1/sqrt(hidden_size).
+    Returns (out [B, T, hidden_size * directions], final hidden)."""
+    helper = LayerHelper("dynamic_rnn", name=name)
+    dtype = input.dtype or "float32"
+    D = input.shape[-1]
+    ndir = 2 if is_bidirec else 1
+    std = 1.0 / math.sqrt(hidden_size)
+    weights = [helper.create_parameter(
+        param_attr, shape=list(shape), dtype=dtype,
+        default_initializer=UniformInitializer(-std, std))
+        for shape in rnn_weight_shapes(mode, D, hidden_size, num_layers,
+                                       ndir)]
+    out = helper.create_variable_for_type_inference(dtype)
+    h_n = helper.create_variable_for_type_inference(dtype)
+    c_n = helper.create_variable_for_type_inference(dtype)
+    ins = {"Input": [input], "WeightList": weights}
+    if sequence_length is not None:
+        ins["SequenceLength"] = [sequence_length]
+    helper.append_op(type="rnn", inputs=ins,
+                     outputs={"Out": [out], "State": [h_n, c_n]},
+                     attrs={"mode": mode, "hidden_size": hidden_size,
+                            "num_layers": num_layers,
+                            "is_bidirec": is_bidirec, "dropout_prob": 0.0})
+    return out, h_n
+
+
+def warpctc(input, label, blank=0, norm_by_times=False,
+            input_length=None, label_length=None):
+    """CTC loss on padded-dense inputs: input [B, T, C] raw logits,
+    label [B, L], lengths [B]. Returns the [B, 1] loss."""
+    helper = LayerHelper("warpctc")
+    loss = helper.create_variable_for_type_inference("float32")
+    grad = helper.create_variable_for_type_inference("float32", True)
+    ins = {"Logits": [input], "Label": [label]}
+    if input_length is not None:
+        ins["LogitsLength"] = [input_length]
+    if label_length is not None:
+        ins["LabelLength"] = [label_length]
+    helper.append_op(type="warpctc", inputs=ins,
+                     outputs={"Loss": [loss], "WarpCTCGrad": [grad]},
+                     attrs={"blank": blank, "norm_by_times": norm_by_times})
+    return loss
+
+
+def linear_chain_crf(input, label, param_attr=None, length=None):
+    """The linear-chain CRF: creates the [num_tags+2, num_tags]
+    transition parameter; returns the log likelihood [B, 1]."""
+    helper = LayerHelper("linear_chain_crf")
+    num_tags = input.shape[-1]
+    trans = helper.create_parameter(
+        param_attr, shape=[num_tags + 2, num_tags], dtype="float32")
+    ll = helper.create_variable_for_type_inference("float32")
+    alpha = helper.create_variable_for_type_inference("float32", True)
+    ee = helper.create_variable_for_type_inference("float32", True)
+    te = helper.create_variable_for_type_inference("float32", True)
+    ins = {"Emission": [input], "Transition": [trans], "Label": [label]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op(
+        type="linear_chain_crf", inputs=ins,
+        outputs={"LogLikelihood": [ll], "Alpha": [alpha],
+                 "EmissionExps": [ee], "TransitionExps": [te]},
+        attrs={})
+    return ll
+
+
+def crf_decoding(input, param_attr=None, label=None, length=None,
+                 transition=None):
+    """The Viterbi path [B, T]. Pass `transition` to decode with the
+    training CRF's parameter."""
+    helper = LayerHelper("crf_decoding")
+    if transition is None:
+        num_tags = input.shape[-1]
+        transition = helper.create_parameter(
+            param_attr, shape=[num_tags + 2, num_tags], dtype="float32")
+    path = helper.create_variable_for_type_inference("int64")
+    ins = {"Emission": [input], "Transition": [transition]}
+    if length is not None:
+        ins["Length"] = [length]
+    helper.append_op(type="crf_decoding", inputs=ins,
+                     outputs={"ViterbiPath": [path]}, attrs={})
+    return path
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None,
+        sampler="uniform", custom_dist=None, seed=0, is_sparse=False):
+    """Noise-contrastive estimation: the [B, 1] cost."""
+    helper = LayerHelper("nce", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype="float32")
+    b = helper.create_parameter(bias_attr, shape=[num_total_classes],
+                                dtype="float32", is_bias=True)
+    cost = helper.create_variable_for_type_inference("float32")
+    slog = helper.create_variable_for_type_inference("float32", True)
+    slab = helper.create_variable_for_type_inference("int64", True)
+    ins = {"Input": [input], "Label": [label], "Weight": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op(
+        type="nce", inputs=ins,
+        outputs={"Cost": [cost], "SampleLogits": [slog],
+                 "SampleLabels": [slab]},
+        attrs={"num_total_classes": num_total_classes,
+               "num_neg_samples": num_neg_samples,
+               "sampler": {"uniform": 0, "log_uniform": 1}.get(sampler, 0),
+               "seed": seed, "is_sparse": is_sparse})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None, is_sparse=False):
+    """Hierarchical sigmoid over the default complete binary tree: the
+    [B, 1] cost."""
+    helper = LayerHelper("hierarchical_sigmoid", name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(param_attr, shape=[num_classes - 1, dim],
+                                dtype="float32")
+    b = helper.create_parameter(bias_attr, shape=[num_classes - 1],
+                                dtype="float32", is_bias=True)
+    cost = helper.create_variable_for_type_inference("float32")
+    pre = helper.create_variable_for_type_inference("float32", True)
+    wo = helper.create_variable_for_type_inference("float32", True)
+    ins = {"X": [input], "Label": [label], "W": [w]}
+    if b is not None:
+        ins["Bias"] = [b]
+    helper.append_op(type="hierarchical_sigmoid", inputs=ins,
+                     outputs={"Out": [cost], "PreOut": [pre],
+                              "W_Out": [wo]},
+                     attrs={"num_classes": num_classes,
+                            "is_sparse": is_sparse})
+    return cost
 
 
 def conv3d(input, num_filters, filter_size, stride=1, padding=0,

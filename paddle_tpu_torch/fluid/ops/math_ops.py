@@ -3,9 +3,12 @@ elementwise binaries with Paddle's axis broadcast, the matmul family,
 activations, reductions and norms, comparisons and logic, and the rest
 of the module (cumsum, bmm, addmm, dot, clip, scale), on torch tensors.
 
-The port has no SelectedRows yet (it comes with the sparse ops), so
-``merge_selected_rows`` and ``get_tensor_from_selected_rows`` meet only
-dense tensors, which they return unchanged, as the reference's do.
+``sum`` carries SelectedRows (``fluid/selected_rows.py``): the sum of
+sparse gradients only is their rows and values concatenated (consumers
+scatter-add), a mix is summed dense. ``merge_selected_rows`` folds
+duplicate rows and ``get_tensor_from_selected_rows`` scatters the rows
+into a dense table; both return a dense tensor unchanged, as the
+reference's do.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..registry import elementwise_infer, register, same_shape_as
+from ..selected_rows import SelectedRows
 from .common import bcast_to_x, out, static_reduce_shape, x
 
 
@@ -246,16 +250,32 @@ def _scale(ctx, ins, attrs):
 @register("sum", infer_shape=same_shape_as("X"))
 def _sum(ctx, ins, attrs):
     vals = [v for v in ins.get("X", []) if v is not None]
+    srs = [v for v in vals if isinstance(v, SelectedRows)]
+    if srs:
+        if len(srs) == len(vals):
+            # sparse gradients only: the concatenation is the sum
+            # (consumers scatter-add the duplicate rows)
+            return out(SelectedRows(torch.cat([s.rows for s in srs]),
+                                    torch.cat([s.values for s in srs]),
+                                    srs[0].height))
+        vals = [v.to_dense() if isinstance(v, SelectedRows) else v
+                for v in vals]
     r = vals[0]
     for v in vals[1:]:
         r = r + v
     return out(r)
 
 
-register("merge_selected_rows", lambda ctx, ins, attrs: out(x(ins)),
-         grad=None)
-register("get_tensor_from_selected_rows",
-         lambda ctx, ins, attrs: out(x(ins)), grad=None)
+@register("merge_selected_rows", grad=None)
+def _merge_selected_rows(ctx, ins, attrs):
+    sr = x(ins)
+    return out(sr.merged() if isinstance(sr, SelectedRows) else sr)
+
+
+@register("get_tensor_from_selected_rows", grad=None)
+def _get_tensor_from_selected_rows(ctx, ins, attrs):
+    sr = x(ins)
+    return out(sr.to_dense() if isinstance(sr, SelectedRows) else sr)
 
 
 # ---------------------------------------------------------------------------

@@ -48,6 +48,7 @@ from ...ops import fused_ffn as _ffn
 from ...ops import paged_attention as _pa
 from ..core import torch_dtype
 from ..registry import register, require, same_shape_as
+from ..selected_rows import SelectedRows
 from .common import out, x
 
 
@@ -541,14 +542,8 @@ def _lookup(ctx, ins, attrs, squeeze_last):
 
 
 def _lookup_grad(ctx, ins, attrs, squeeze_last):
-    """W@GRAD: the dense scatter-add of Out@GRAD's rows (the reference
-    emits SelectedRows when is_sparse; the port's sparse rows come with
-    the sparse ops)."""
-    if attrs.get("is_sparse"):
-        raise NotImplementedError(
-            "lookup_table with is_sparse=True emits a SelectedRows "
-            "gradient, which comes with the sparse ops (ROADMAP.md A, "
-            "item 11)")
+    """W@GRAD: Out@GRAD's rows as a SelectedRows when is_sparse (one row
+    an id, duplicates kept), else their dense scatter-add."""
     ids, w = _ids(x(ins, "Ids"), squeeze_last), x(ins, "W")
     og = x(ins, "Out@GRAD")
     rows = ids.reshape(-1)
@@ -557,6 +552,8 @@ def _lookup_grad(ctx, ins, attrs, squeeze_last):
     if pad is not None and pad != -1:
         vals = torch.where((rows == pad)[:, None], torch.zeros_like(vals),
                            vals)
+    if attrs.get("is_sparse"):
+        return {"W@GRAD": [SelectedRows(rows, vals, w.shape[0])]}
     dense = torch.zeros(w.shape, dtype=vals.dtype, device=w.device)
     return {"W@GRAD": [dense.index_add_(0, rows, vals).to(w.dtype)]}
 

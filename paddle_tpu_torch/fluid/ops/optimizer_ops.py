@@ -36,9 +36,16 @@ ops do the same to the scope's tensors: their ParamOut, VelocityOut,
 Moment1Out and Moment2Out are their inputs, updated. The other update
 ops return new tensors, which the executor writes back to the scope.
 
-Each op also checks that its gradient is dense: the port has no
-SelectedRows yet (they come with the sparse ops, ROADMAP.md A, item
-11).
+A SelectedRows gradient (an ``is_sparse`` lookup's,
+``fluid/selected_rows.py``) updates as the reference's does: sgd
+scatter-adds ``-lr * rows`` into the looked-up rows alone; momentum
+decays the whole velocity, scatter-adds the rows, then steps the whole
+parameter (with Nesterov, ``-lr * mu * v`` everywhere and ``-lr * g``
+on the rows); adam (and adamw after its decay) takes the dense step on
+the scattered gradient, or with ``lazy_mode`` merges the duplicate rows
+first and updates the moments and the parameter on each distinct row
+once. The other update ops raise on a SelectedRows gradient, as the
+reference's fail on one.
 
 ``localsgd_sync`` averages over the executor's data-parallel group when
 the run has one, and is the identity otherwise, as the reference's is
@@ -49,18 +56,39 @@ from __future__ import annotations
 import torch
 
 from ..registry import lookup, register, same_shape_as
+from ..selected_rows import SelectedRows
 from .common import x
 
 __all__ = ["sgd", "momentum", "adam", "adamw", "lamb"]
 
-_SPARSE = ("{} on a SelectedRows gradient comes with the sparse ops "
-           "(ROADMAP.md A, item 11)")
+_SPARSE = ("{} takes a dense gradient, not a SelectedRows one (the "
+           "reference's has no sparse rule either): sgd, momentum, adam and "
+           "adamw update from sparse rows")
 
 
 def _dense(op_type, g):
     if not isinstance(g, torch.Tensor):
         raise NotImplementedError(_SPARSE.format(op_type))
     return g
+
+
+def _adam_lazy(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr,
+               beta1, beta2, epsilon):
+    """Adam's lazy_mode on a SelectedRows gradient, in place: the
+    duplicate rows merged, then the moments and the parameter of each
+    distinct row updated once; the other rows untouched. Returns the
+    new beta powers."""
+    g = grad.merged()
+    rows, gv = g.rows, g.values.float()
+    m1n = beta1 * moment1[rows] + (1 - beta1) * gv
+    m2n = beta2 * moment2[rows] + (1 - beta2) * torch.square(gv)
+    b1p, b2p = beta1_pow * beta1, beta2_pow * beta2
+    lr_t = lr * torch.sqrt(1 - b2p.reshape(())) / (1 - b1p.reshape(()))
+    upd = (lr_t * m1n / (torch.sqrt(m2n) + epsilon)).to(param.dtype)
+    param.index_add_(0, rows, -upd)
+    moment1[rows] = m1n
+    moment2[rows] = m2n
+    return b1p, b2p
 
 
 def sgd(param, grad, lr):
@@ -132,8 +160,12 @@ def lamb(param, grad, moment1, moment2, beta1_pow, beta2_pow, lr,
 
 @register("sgd", grad=None, no_grad_slots=("Param", "Grad", "LearningRate"))
 def _sgd_op(ctx, ins, attrs):
-    p = x(ins, "Param")
-    sgd(p, _dense("sgd", x(ins, "Grad")), x(ins, "LearningRate").reshape(()))
+    p, g = x(ins, "Param"), x(ins, "Grad")
+    lr = x(ins, "LearningRate").reshape(())
+    if isinstance(g, SelectedRows):
+        p.index_add_(0, g.rows, (-lr * g.values).to(p.dtype))
+    else:
+        sgd(p, g, lr)
     return {"ParamOut": [p]}
 
 
@@ -141,11 +173,25 @@ def _sgd_op(ctx, ins, attrs):
                                         "regularization_method": "",
                                         "regularization_coeff": 0.0})
 def _momentum_op(ctx, ins, attrs):
-    p, v = x(ins, "Param"), x(ins, "Velocity")
-    momentum(p, _dense("momentum", x(ins, "Grad")), v,
-             x(ins, "LearningRate").reshape(()), attrs["mu"],
-             attrs["use_nesterov"], attrs["regularization_method"],
-             attrs["regularization_coeff"])
+    p, v, g = x(ins, "Param"), x(ins, "Velocity"), x(ins, "Grad")
+    lr, mu = x(ins, "LearningRate").reshape(()), attrs["mu"]
+    if isinstance(g, SelectedRows):
+        if attrs["regularization_method"] == "l2_decay":
+            raise NotImplementedError(
+                "l2_decay with a SelectedRows momentum gradient: densify "
+                "the gradient or decay on the dense path (the reference "
+                "raises too)")
+        # the dense rule with g zero off the rows
+        v.mul_(mu).index_add_(0, g.rows, g.values.to(v.dtype))
+        if attrs["use_nesterov"]:
+            p.sub_(lr * mu * v).index_add_(0, g.rows,
+                                            (-lr * g.values).to(p.dtype))
+        else:
+            p.sub_(lr * v)
+    else:
+        momentum(p, g, v, lr, mu, attrs["use_nesterov"],
+                 attrs["regularization_method"],
+                 attrs["regularization_coeff"])
     return {"ParamOut": [p], "VelocityOut": [v]}
 
 
@@ -153,14 +199,23 @@ def _momentum_op(ctx, ins, attrs):
           attrs={"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
                  "lazy_mode": False, "min_row_size_to_use_multithread": 1000})
 def _adam_op(ctx, ins, attrs):
-    p, g = x(ins, "Param"), _dense("adam", x(ins, "Grad"))
+    p, g = x(ins, "Param"), x(ins, "Grad")
     m1, m2 = x(ins, "Moment1"), x(ins, "Moment2")
     b1t, b2t = x(ins, "Beta1Tensor"), x(ins, "Beta2Tensor")
     b1 = attrs["beta1"] if b1t is None else float(b1t.reshape(()))
     b2 = attrs["beta2"] if b2t is None else float(b2t.reshape(()))
-    b1pn, b2pn = adam(p, g, m1, m2, x(ins, "Beta1Pow"), x(ins, "Beta2Pow"),
-                      x(ins, "LearningRate").reshape(()), b1, b2,
-                      attrs["epsilon"])
+    update = adam
+    if isinstance(g, SelectedRows):
+        # lazy_mode touches the rows alone; otherwise Adam decays every
+        # moment, so the rows are scattered into a dense gradient
+        if attrs.get("lazy_mode"):
+            update = _adam_lazy
+        else:
+            g = g.to_dense()
+    b1pn, b2pn = update(p, g, m1, m2, x(ins, "Beta1Pow"),
+                        x(ins, "Beta2Pow"),
+                        x(ins, "LearningRate").reshape(()), b1, b2,
+                        attrs["epsilon"])
     return {"ParamOut": [p], "Moment1Out": [m1], "Moment2Out": [m2],
             "Beta1PowOut": [b1pn], "Beta2PowOut": [b2pn]}
 
@@ -178,7 +233,13 @@ def _pg(op_type, ins):
                  "coeff": 0.01, "lr_ratio": 1.0, "with_decay": True,
                  "lazy_mode": False})
 def _adamw_op(ctx, ins, attrs):
-    p, g = x(ins, "Param"), _dense("adamw", x(ins, "Grad"))
+    p, g = x(ins, "Param"), x(ins, "Grad")
+    if isinstance(g, SelectedRows):
+        # the decay, then adam's sparse rules, as the reference's
+        if attrs.get("with_decay", True):
+            p.mul_(1.0 - _lr(ins) * attrs["coeff"]
+                   * attrs.get("lr_ratio", 1.0))
+        return _adam_op(ctx, ins, attrs)
     m1, m2 = x(ins, "Moment1"), x(ins, "Moment2")
     b1pn, b2pn = adamw(p, g, m1, m2, x(ins, "Beta1Pow"), x(ins, "Beta2Pow"),
                        _lr(ins), attrs["beta1"], attrs["beta2"],

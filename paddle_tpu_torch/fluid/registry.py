@@ -36,11 +36,11 @@ EMPTY_VAR = "@EMPTY@"
 
 NOT_PORTED = (
     "op {!r} is not ported to paddle_tpu_torch yet: the math, tensor, nn, "
-    "random, metric and optimizer op modules are; the sequence, detection, "
-    "misc, parity, tail, structured-loss and parameter-server op modules "
-    "(195 op types) come in later PRs of ROADMAP.md A, item 11, and the "
-    "control-flow ops (cond, while, recurrent) with the sub-block executor "
-    "(item 12)")
+    "random, metric, optimizer, sequence, structured-loss, misc and tail op "
+    "modules are; the parity (sync_batch_norm and yolov3_loss among them), "
+    "detection and parameter-server op modules (82 op types) come in the "
+    "last PR of ROADMAP.md A, item 11, and the control-flow ops (cond, "
+    "while, recurrent) with the sub-block executor (item 12)")
 
 
 @dataclasses.dataclass

@@ -6,7 +6,8 @@ weights: BERT tiny (f32 and O1, shards holding different numbers of
 masked positions), a conv-BN net in training mode (running statistics
 included, shards with different channel means), the static regression
 program of tests/test_data_parallel.py through
-CompiledProgram.with_data_parallel and through fleet.minimize, and
+CompiledProgram.with_data_parallel and through fleet.minimize, a sparse
+embedding's program through with_data_parallel, and
 fleet.distributed_model. The port's workers (tests/torch_dp_workers.py)
 import torch and the port only; every spawn is bounded by 60 s."""
 import os
@@ -171,9 +172,11 @@ def test_conv_bn_net_dp2_matches_the_reference_mesh_step(tmp_path):
 
 # -- static programs -----------------------------------------------------------
 
-def _reference_regression():
-    """The reference's initial scope and its dp = 2 run of the program
-    (the executor's mesh set to 2 devices for the run)."""
+def _reference_regression(build=W.build_regression,
+                          feeds=W.regression_feeds):
+    """The reference's initial scope and its dp = 2 run of `build`'s
+    program on `feeds` (the executor's mesh set to 2 devices for the
+    run)."""
     from paddle_tpu import fluid
     from paddle_tpu.distributed import mesh as jmesh
     from paddle_tpu.fluid import Executor
@@ -181,8 +184,11 @@ def _reference_regression():
     from paddle_tpu.fluid.scope import Scope, scope_guard
     paddle.enable_static()
     try:
-        main, startup, loss, sgd = W.build_regression(fluid)
-        with fluid.framework.program_guard(main, startup):
+        main, startup, loss, sgd = build(fluid)
+        # the optimizer's names from a fresh generator, as in the
+        # workers' new processes, whatever ran before in this one
+        with fluid.framework.program_guard(main, startup), \
+                fluid.unique_name.guard():
             sgd.minimize(loss)
         prog = CompiledProgram(main).with_data_parallel(loss.name)
         prev = jmesh.get_mesh()
@@ -196,7 +202,7 @@ def _reference_regression():
                          for n in scope.local_var_names()}
                 losses = [float(exe.run(prog, feed=f,
                                         fetch_list=[loss])[0][0])
-                          for f in W.regression_feeds()]
+                          for f in feeds()]
                 params = {p.name: np.asarray(scope.find_var(p.name))
                           for p in main.all_parameters()}
         finally:
@@ -229,6 +235,28 @@ def test_static_program_dp2_matches_the_reference(regression, how,
         if how == "fleet":
             assert (out["worker_num"], out["worker_index"],
                     out["first"]) == (2, r, r == 0)
+
+
+def test_sparse_embedding_dp2_matches_the_reference(tmp_path):
+    """An is_sparse embedding through CompiledProgram.with_data_parallel
+    at dp = 2: each rank's SelectedRows gradient is gathered over the
+    ranks (rows and values of the whole batch, scaled by 1 / ranks), so
+    20 SGD steps give the reference's dp = 2 losses and table within the
+    data-parallel tolerance (rtol 2e-3, atol 1e-4); rows no batch looked
+    up keep their start values exactly."""
+    start, jl, jp = _reference_regression(W.build_sparse_regression,
+                                          W.sparse_feeds)
+    assert jl[-1] < 0.2 * jl[0]
+    res = _spawn(tmp_path, "static_dp", start, "sparse")
+    table = next(n for n in jp if jp[n].shape == (50, 8))
+    for out in res:
+        assert out["info"]["mode"] == "dp"
+        np.testing.assert_allclose(out["losses"], jl, rtol=2e-3, atol=1e-4)
+        for n, w in jp.items():
+            np.testing.assert_allclose(out["params"][n], w, rtol=2e-3,
+                                       atol=1e-4, err_msg=n)
+        np.testing.assert_array_equal(out["params"][table][30:],
+                                      start[table][30:])
 
 
 def test_fleet_distributed_model_matches_the_reference(tmp_path):

@@ -204,11 +204,11 @@ def test_fleet_collective_mode_surface(monkeypatch):
     with pytest.raises(NotImplementedError, match=r"amp \(ROADMAP.md A, "
                                                   r"item 13\)"):
         apply_meta_optimizers(opt, st)
-    st.amp, st.dgc = False, True
-    with pytest.raises(NotImplementedError, match=r"dgc \(ROADMAP.md A, "
-                                                  r"item 11\)"):
+    st.amp, st.gradient_merge = False, True
+    with pytest.raises(NotImplementedError, match=r"gradient_merge "
+                                                  r"\(ROADMAP.md A, item 12\)"):
         apply_meta_optimizers(opt, st)
-    st.dgc = False
+    st.gradient_merge = False
     st.amp, st.recompute = False, True
     with pytest.raises(NotImplementedError, match="item 12"):
         apply_meta_optimizers(opt, st)

@@ -186,18 +186,252 @@ def test_train_step_lamb_matches_the_reference():
 
 
 def test_the_queued_optimizers_raise_naming_their_item():
-    for name in ("DGCMomentumOptimizer", "GradientMergeOptimizer",
-                 "LocalSGDOptimizer", "LookaheadOptimizer", "ModelAverage",
-                 "ExponentialMovingAverage"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            getattr(topt, name)(0.1)
+    """GradientMerge (a cond op over two sub-blocks) and Recompute wait
+    for the sub-block executor, item 12; fleet's gradient_merge and
+    recompute flags with them, amp with item 13."""
+    with pytest.raises(NotImplementedError, match="item 12"):
+        topt.GradientMergeOptimizer(topt.SGD(0.1), k_steps=2)
     with pytest.raises(NotImplementedError, match="item 12"):
         topt.RecomputeOptimizer(topt.SGD(0.1))
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
-    for flag, item in (("dgc", "11"), ("gradient_merge", "11"),
-                       ("localsgd", "11"), ("recompute", "12"),
+    for flag, item in (("gradient_merge", "12"), ("recompute", "12"),
                        ("amp", "13")):
         st = DistributedStrategy()
         setattr(st, flag, True)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             tapply(topt.SGD(0.1), st)
+
+
+# -- the wrappers and averages ------------------------------------------------
+
+class _Then:
+    """An optimizer factory's object whose minimize runs `train`'s
+    minimize, then builds `after` (an EMA's update, a ModelAverage),
+    as a user's program does."""
+
+    def __init__(self, train, after):
+        self.train, self.after, self.tool = train, after, None
+
+    def minimize(self, loss):
+        self.train().minimize(loss)
+        self.tool = self.after()
+
+
+def _ema(mod, decay):
+    ema = mod.ExponentialMovingAverage(decay)
+    ema.update()
+    return ema
+
+
+WRAPPERS = {
+    "DGCMomentum": lambda m: m.DGCMomentumOptimizer(
+        learning_rate=0.05, momentum=0.9, rampup_begin_step=3,
+        sparsity=(0.75,)),
+    "DGCMomentumRampup": lambda m: m.DGCMomentumOptimizer(
+        learning_rate=0.05, momentum=0.9, rampup_begin_step=100),
+    "LocalSGD": lambda m: m.LocalSGDOptimizer(m.SGD(learning_rate=0.1),
+                                              k_steps=2),
+    "LocalSGDMomentum": lambda m: m.LocalSGDOptimizer(
+        m.MomentumOptimizer(learning_rate=0.05, momentum=0.9), k_steps=3,
+        begin_step=2),
+    "ExponentialMovingAverage": lambda m: _Then(
+        lambda: m.SGD(learning_rate=0.1), lambda: _ema(m, 0.9)),
+    "ModelAverage": lambda m: _Then(
+        lambda: m.SGD(learning_rate=0.1), lambda: m.ModelAverage(0.15)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_wrappers_and_averages_match_the_reference(name):
+    """12 static steps: losses, parameters, accumulators, EMA variables
+    and ModelAverage sums within rtol 1e-5."""
+    ref, got = _both(lambda: WRAPPERS[name](jopt),
+                     lambda: WRAPPERS[name](topt))
+    _assert_same(ref, got)
+    extra = {"ExponentialMovingAverage": "_ema_", "ModelAverage": "_sum_1",
+             "DGCMomentum": "_v_acc", "LocalSGD": "localsgd_step"}
+    if name in extra:
+        assert any(extra[name] in n for n in ref[1]), sorted(ref[1])
+
+
+@pytest.mark.parametrize("which", ["ExponentialMovingAverage",
+                                   "ModelAverage"])
+def test_apply_swaps_in_the_averages_as_the_reference(which):
+    """After the 12 steps, `with tool.apply(exe):` holds the averages in
+    the parameters' place (the reference's values within rtol 1e-5, not
+    the trained ones) and puts the trained parameters back after."""
+    def run(mod, fw, layers, un, opt_mod, scope, guard, exe, value):
+        opt = WRAPPERS[which](opt_mod)
+        main, startup, loss = _regression(mod, fw, layers, un, lambda: opt)
+        names = [p.name for p in main.all_parameters()]
+        with guard(scope):
+            ex = exe()
+            if not scope.local_var_names():
+                ex.run(startup)
+            start = {n: value(scope.find_var(n)).copy()
+                     for n in scope.local_var_names()}
+            for f in _feeds():
+                ex.run(main, feed=f, fetch_list=[loss])
+            trained = {n: value(scope.find_var(n)).copy() for n in names}
+            with opt.tool.apply(ex):
+                applied = {n: value(scope.find_var(n)).copy()
+                           for n in names}
+            after = {n: value(scope.find_var(n)) for n in names}
+        return start, trained, applied, after
+
+    start, jtrained, japplied, _ = run(
+        paddle_tpu, jfw, jlayers, jun, jopt, JScope(), jscope_guard,
+        JExecutor, np.asarray)
+    _, ttrained, tapplied, tafter = run(
+        pt, tfw, tlayers, tun, topt, scope_from_numpy(start, CPUPlace()),
+        scope_guard, lambda: Executor(CPUPlace()),
+        lambda v: v.cpu().numpy())
+    for n, v in japplied.items():
+        np.testing.assert_allclose(tapplied[n], v, err_msg=n, **TOL)
+        assert not np.allclose(v, jtrained[n])
+        np.testing.assert_array_equal(tafter[n], ttrained[n])
+
+
+def test_lookahead_matches_the_reference_s_eager_lookahead():
+    """The reference's Lookahead runs eagerly only: its Linear(8, 1)
+    trained by Lookahead(SGD 0.1, alpha 0.5, k 3) over the 12 batches,
+    against the port's static Lookahead on the same regression from the
+    same weights: losses and weights within rtol 1e-5 (the first two
+    steps move the fast weights alone, the third syncs)."""
+    from paddle_tpu import nn as jnn
+    paddle_tpu.disable_static()
+    paddle_tpu.seed(3)
+    lin = jnn.Linear(8, 1)
+    w0 = {"w": lin.weight.numpy().copy(), "b": lin.bias.numpy().copy()}
+    la = jopt.LookaheadOptimizer(
+        jopt.SGD(learning_rate=0.1, parameter_list=list(lin.parameters())),
+        alpha=0.5, k=3)
+    jl = []
+    for f in _feeds():
+        loss = paddle_tpu.mean((lin(paddle_tpu.to_tensor(f["x"]))
+                                - paddle_tpu.to_tensor(f["y"])) ** 2)
+        loss.backward()
+        la.minimize(loss)
+        lin.clear_gradients()
+        jl.append(float(np.ravel(loss.numpy())[0]))
+    jw = {"w": lin.weight.numpy(), "b": lin.bias.numpy()}
+
+    la_t = topt.LookaheadOptimizer(topt.SGD(learning_rate=0.1), alpha=0.5,
+                                   k=3)
+    main, startup, loss = _regression(pt, tfw, tlayers, tun, lambda: la_t)
+    w, b = (p.name for p in main.all_parameters())
+    with scope_guard(pt.fluid.Scope()):
+        exe = Executor(CPUPlace())
+        exe.run(startup)
+        scope = pt.fluid.global_scope()
+        scope.set(w, torch.as_tensor(w0["w"]))
+        scope.set(b, torch.as_tensor(w0["b"]))
+        tl = [float(np.ravel(exe.run(main, feed=f, fetch_list=[loss])[0])[0])
+              for f in _feeds()]
+        tw = {"w": scope.numpy(w), "b": scope.numpy(b)}
+        slow = scope.numpy(la_t._slow[w].name)
+    np.testing.assert_allclose(tl, jl, **TOL)
+    for k in jw:
+        np.testing.assert_allclose(tw[k], jw[k], err_msg=k, **TOL)
+    # 12 steps end on a sync: the fast weights are the slow ones
+    np.testing.assert_array_equal(slow, tw["w"])
+    assert tl[-1] < tl[0]
+
+
+@pytest.mark.parametrize("flag", ["dgc", "localsgd"])
+def test_fleet_dgc_and_localsgd_flags_match_the_reference(flag):
+    """fleet's dgc flag replaces the optimizer by DGCMomentum (its
+    dgc_configs), localsgd wraps it in LocalSGD (its localsgd_configs),
+    as the reference's do: 12 steps within rtol 1e-5."""
+    def make(apply, strategy_cls, opt_mod):
+        def f():
+            st = strategy_cls()
+            setattr(st, flag, True)
+            st.dgc_configs = dict(st.dgc_configs, rampup_begin_step=2,
+                                  sparsity=[0.5])
+            st.localsgd_configs = {"k_steps": 3, "begin_step": 1}
+            inner = opt_mod.MomentumOptimizer(learning_rate=0.05,
+                                              momentum=0.8)
+            return apply(inner, st, None)
+        return f
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    tst = DistributedStrategy()
+    setattr(tst, flag, True)
+    wrapped = tapply(topt.SGDOptimizer(0.1), tst)
+    assert type(wrapped).__name__ == {
+        "dgc": "DGCMomentumOptimizer", "localsgd": "LocalSGDOptimizer"}[flag]
+    ref, got = _both(make(japply, JStrategy, jopt),
+                     make(tapply, DistributedStrategy, topt))
+    _assert_same(ref, got)
+
+
+def _reference_localsgd_dp2(how):
+    """The reference's dp = 2 run (its executor's mesh on 2 of the
+    virtual devices) of tests/torch_dp_workers.py's regression with SGD
+    wrapped in LocalSGD(k_steps=3), directly or by fleet's flag."""
+    import jax
+    from jax.sharding import Mesh
+    import torch_dp_workers as W
+    from paddle_tpu import fluid
+    from paddle_tpu.distributed import mesh as jmesh
+    from paddle_tpu.fluid.compiler import CompiledProgram
+    paddle_tpu.enable_static()
+    try:
+        main, startup, loss, sgd = W.build_regression(fluid)
+        # the optimizer's names from a fresh generator, as the workers'
+        with fluid.framework.program_guard(main, startup), jun.guard():
+            if how == "fleet_localsgd":
+                from paddle_tpu.distributed import fleet
+                fleet.init(is_collective=True)
+                st = fleet.DistributedStrategy()
+                st.localsgd = True
+                st.localsgd_configs = {"k_steps": 3, "begin_step": 1}
+                fleet.distributed_optimizer(sgd, st).minimize(loss)
+                prog = main
+            else:
+                jopt.LocalSGDOptimizer(sgd, k_steps=3).minimize(loss)
+                prog = CompiledProgram(main).with_data_parallel(loss.name)
+        prev = jmesh.get_mesh()
+        jmesh.set_mesh(Mesh(np.array(jax.devices()[:2]), ("dp",)))
+        try:
+            scope = JScope()
+            with jscope_guard(scope):
+                exe = JExecutor()
+                exe.run(startup)
+                start = {n: np.asarray(scope.find_var(n)).copy()
+                         for n in scope.local_var_names()}
+                losses = [float(exe.run(prog, feed=f,
+                                        fetch_list=[loss])[0][0])
+                          for f in W.regression_feeds()]
+                params = {p.name: np.asarray(scope.find_var(p.name))
+                          for p in main.all_parameters()}
+        finally:
+            jmesh._mesh = prev
+    finally:
+        paddle_tpu.disable_static()
+    return start, losses, params
+
+
+@pytest.mark.parametrize("how", ["localsgd", "fleet_localsgd"])
+def test_localsgd_over_two_gloo_ranks_matches_the_reference(how, tmp_path):
+    """LocalSGD (and fleet's localsgd flag) at dp = 2 over two gloo
+    processes (tests/torch_dp_workers.py static_dp): every third step
+    each parameter becomes its average over the ranks (localsgd_sync's
+    all-reduce); 20 steps against the reference's dp = 2 mesh run,
+    within the data-parallel tests' tolerance (rtol 2e-3, atol 1e-4)."""
+    import os
+    import pickle
+    import torch_dp_workers as W
+    from paddle_tpu_torch.distributed import spawn
+    start, jl, jp = _reference_localsgd_dp2(how)
+    assert jl[-1] < 0.2 * jl[0]
+    spawn(W.run, args=("static_dp", str(tmp_path), start, how), nprocs=2,
+          timeout=60)
+    for r in range(2):
+        with open(os.path.join(tmp_path, f"rank{r}.pkl"), "rb") as f:
+            out = pickle.load(f)
+        assert out["info"]["mode"] == "dp"
+        np.testing.assert_allclose(out["losses"], jl, rtol=2e-3, atol=1e-4)
+        for n, w in jp.items():
+            np.testing.assert_allclose(out["params"][n], w, rtol=2e-3,
+                                       atol=1e-4, err_msg=n)

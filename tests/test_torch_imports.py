@@ -51,7 +51,9 @@ def test_port_file_list_is_not_empty():
             "ps_ha.py", "tiered_store.py", "launch.py", "elastic.py",
             "cluster_ckpt.py", "exporter.py", "subscriber.py",
             "agent.py", "alerts.py", "collector.py",
-            "timeseries.py", "router.py", "top.py", "perfwatch.py"} <= names
+            "timeseries.py", "router.py", "top.py", "perfwatch.py",
+            "selected_rows.py", "sequence_ops.py", "structured_loss_ops.py",
+            "misc_ops.py", "tail_ops.py"} <= names
     assert ROOT / "paddle_tpu_torch" / "publish" / "registry.py" \
         in PORT_FILES
     assert ROOT / "paddle_tpu_torch" / "distributed" / "fleet" \

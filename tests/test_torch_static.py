@@ -316,16 +316,16 @@ def test_unported_parts_raise_naming_their_slice():
         main = tfw.Program()
         with tfw.program_guard(main, tfw.Program()):
             x = tlayers.data("x", [2, 3], "float32")
-            # the op modules still queued: sequence ops (item 11), the
-            # control-flow ops (item 12)
+            # the op modules still queued: the detection ops (item 11),
+            # the control-flow ops (item 12)
             with pytest.raises(NotImplementedError, match="item 11"):
                 main.global_block().append_op(
-                    type="sequence_pool", inputs={"X": [x]},
+                    type="multiclass_nms", inputs={"X": [x]},
                     outputs={"Out": [x]})
             with pytest.raises(NotImplementedError, match="slice 4"):
                 static.append_backward(tlayers.mean(x), checkpoints=[x])
-        with pytest.raises(NotImplementedError, match="item 11"):
-            topt.DGCMomentumOptimizer(learning_rate=0.1)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            topt.GradientMergeOptimizer(topt.SGD(0.1), k_steps=2)
         with pytest.raises(NotImplementedError, match="slice 4"):
             topt.Adam(learning_rate=0.1, grad_clip=object())
     finally:

@@ -365,13 +365,18 @@ def test_sgd_op_matches_jax_and_sparse_grads_raise():
         "Param": [tp], "Grad": [torch.tensor(g)],
         "LearningRate": [torch.tensor(lr)]}, {})
     np.testing.assert_allclose(tp.numpy(), _np(ref["ParamOut"][0]), **F32)
-    for op in ("sgd", "momentum"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    # sgd and momentum take SelectedRows gradients now
+    # (tests/test_torch_selected_rows.py); the update ops without a
+    # sparse rule raise on one, as the reference's fail
+    from paddle_tpu_torch.fluid.selected_rows import SelectedRows
+    sr = SelectedRows(torch.tensor([1, 1, 4]), torch.tensor(g[:3]), 6)
+    for op in ("adagrad", "rmsprop"):
+        with pytest.raises(NotImplementedError, match="dense gradient"):
             preg.require(op).compute(None, {
-                "Param": [tp], "Grad": [object()], "Velocity": [tp],
-                "LearningRate": [torch.tensor(lr)]},
-                {"mu": 0.9, "use_nesterov": False,
-                 "regularization_method": "", "regularization_coeff": 0.0})
+                "Param": [tp], "Grad": [sr], "Moment": [tp],
+                "MeanSquare": [tp], "LearningRate": [torch.tensor(lr)]},
+                {"epsilon": 1e-6, "decay": 0.9, "momentum": 0.0,
+                 "centered": False})
 
 
 # -- whole models: forward parity --------------------------------------------

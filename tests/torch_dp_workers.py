@@ -282,13 +282,48 @@ def regression_feeds(steps=20):
     return out
 
 
+def build_sparse_regression(fluid_pkg):
+    """A sparse embedding under data parallelism: ids (-1, 4) int64 ->
+    embedding [50, 8] (is_sparse: the table's gradient is SelectedRows)
+    -> summed over the 4 ids -> fc 1, mean squared error, SGD 0.05."""
+    fw, layers, opt = fluid_pkg.framework, fluid_pkg.layers, \
+        fluid_pkg.optimizer
+    main, startup = fw.Program(), fw.Program()
+    main.random_seed = startup.random_seed = 7
+    with fw.program_guard(main, startup), fluid_pkg.unique_name.guard():
+        ids = layers.data("ids", [-1, 4], "int64")
+        y = layers.data("y", [-1, 1], "float32")
+        emb = layers.embedding(ids, [50, 8], is_sparse=True)
+        pred = layers.fc(layers.reduce_sum(emb, dim=1), 1)
+        d = layers.elementwise_sub(pred, y)
+        loss = layers.mean(layers.elementwise_mul(d, d))
+        sgd = opt.SGD(learning_rate=0.05)
+    return main, startup, loss, sgd
+
+
+def sparse_feeds(steps=20):
+    """Ids from a 50-row table, repeated within and across the halves of
+    each batch of 16; targets a fixed function of the ids."""
+    rng = np.random.RandomState(4)
+    w_true = rng.randn(50).astype("float32")
+    out = []
+    for _ in range(steps):
+        ids = rng.randint(0, 30, (16, 4)).astype("int64")
+        out.append({"ids": ids, "y": w_true[ids].sum(1, keepdims=True)})
+    return out
+
+
 def static_dp(start, how):
     """The regression program from the reference's initial scope `start`,
     20 steps data-parallel: `how` "compiled" (CompiledProgram
     .with_data_parallel), "fleet" (fleet.init(is_collective=True),
-    fleet.distributed_optimizer(SGD).minimize) or "pipeline" (fleet's
+    fleet.distributed_optimizer(SGD).minimize), "pipeline" (fleet's
     minimize under strategy.pipeline: the program is marked "pp", which
-    the reference's executor does not read)."""
+    the reference's executor does not read), "localsgd" (SGD wrapped in
+    LocalSGDOptimizer(k_steps=3), then with_data_parallel),
+    "fleet_localsgd" (fleet's minimize under strategy.localsgd) or
+    "sparse" (build_sparse_regression's program through
+    with_data_parallel, on sparse_feeds)."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch import fluid
     from paddle_tpu_torch.distributed import fleet
@@ -297,23 +332,31 @@ def static_dp(start, how):
     from paddle_tpu_torch.fluid.compiler import CompiledProgram
     pt.enable_static()
     try:
-        main, startup, loss, sgd = build_regression(fluid)
-        with fluid.framework.program_guard(main, startup):
-            if how in ("fleet", "pipeline"):
+        build = build_sparse_regression if how == "sparse" \
+            else build_regression
+        main, startup, loss, sgd = build(fluid)
+        with fluid.framework.program_guard(main, startup), \
+                fluid.unique_name.guard():
+            if how in ("fleet", "pipeline", "fleet_localsgd"):
                 fleet.init(is_collective=True)
                 strategy = fleet.DistributedStrategy()
                 strategy.pipeline = how == "pipeline"
+                strategy.localsgd = how == "fleet_localsgd"
+                strategy.localsgd_configs = {"k_steps": 3, "begin_step": 1}
                 fleet.distributed_optimizer(sgd, strategy).minimize(loss)
                 prog = main
             else:
+                if how == "localsgd":
+                    sgd = fluid.optimizer.LocalSGDOptimizer(sgd, k_steps=3)
                 sgd.minimize(loss)
                 prog = CompiledProgram(main).with_data_parallel(loss.name)
         info = dict(main._sharding_info)
         scope = scope_from_numpy(start, CPUPlace())
         with scope_guard(scope):
             exe = Executor(CPUPlace())
+            feeds = sparse_feeds() if how == "sparse" else regression_feeds()
             losses = [float(exe.run(prog, feed=f, fetch_list=[loss])[0][0])
-                      for f in regression_feeds()]
+                      for f in feeds]
         params = {p.name: scope.numpy(p.name) for p in main.all_parameters()}
         return {"losses": losses, "params": params, "info": info,
                 "worker_num": fleet.worker_num(),

@@ -539,7 +539,7 @@ MATH_OWN = {
     "isnan_v2": OpCase("isnan_v2", {"X": MATH_SPECIAL}),
     "isinf_v2": OpCase("isinf_v2", {"X": MATH_SPECIAL}),
     "sum": OpCase("sum", {"X": [MATH_A, MATH_B, _math_rnd((3, 4), 5)]}),
-    # dense tensors pass through (the port has no SelectedRows yet)
+    # dense tensors pass through (SelectedRows: test_torch_selected_rows)
     "merge_selected_rows": OpCase("merge_selected_rows", {"X": MATH_A}),
     "get_tensor_from_selected_rows": OpCase(
         "get_tensor_from_selected_rows", {"X": MATH_A}),
@@ -844,4 +844,578 @@ RANDOM = {
     "sampling_id": ({}, {"X": np.array([[0.1, 0.2, 0.7]] * 2000,
                                        np.float32)}),
     "seed": ({"seed": 17}, {}),
+    "gaussian_random_batch_size_like": (
+        {"shape": [-1, 500], "mean": 1.0, "std": 2.0},
+        {"Input": np.zeros((8, 2), np.float32)}),
 }
+
+
+# -- the sequence parity suite's own cases ------------------------------------
+
+
+def _seq_rnd(shape, seed, scale=1.0):
+    return (R(seed).randn(*shape) * scale).astype(np.float32)
+
+
+def _rnn_weights(mode, d, h, layers, ndir, seed):
+    """The rnn op's WeightList (sequence_ops.rnn_weight_shapes' order:
+    w_ih, w_hh, b_ih, b_hh a layer and direction), uniform in
+    +-1/sqrt(h) as layers.dynamic_rnn initialises it."""
+    g = {"LSTM": 4, "GRU": 3}.get(mode, 1)
+    r, std, out = R(seed), 1.0 / np.sqrt(h), []
+    for layer in range(layers):
+        fan_in = d if layer == 0 else h * ndir
+        for _ in range(ndir):
+            for shape in ((g * h, fan_in), (g * h, h), (g * h,), (g * h,)):
+                out.append(r.uniform(-std, std, shape).astype(np.float32))
+    return out
+
+
+SEQ_LENS = np.array([5, 2, 4], np.int64)
+SEQ_X = _seq_rnd((3, 5, 4), 1)
+SEQ_OWN = {
+    "sequence_mask": OpCase("sequence_mask", {"X": SEQ_LENS},
+                            {"maxlen": 6}),
+    "sequence_mask_dynamic": OpCase("sequence_mask", {"X": SEQ_LENS},
+                                    {"out_dtype": "float32"}),
+    "sequence_unpad": OpCase("sequence_unpad",
+                             {"X": SEQ_X, "Length": SEQ_LENS}),
+    "sequence_expand": OpCase("sequence_expand",
+                              {"X": _seq_rnd((3, 2), 2),
+                               "RefLength": np.array([2, 0, 3])}),
+    **{f"sequence_pool_{p.lower()}": OpCase(
+        "sequence_pool", {"X": SEQ_X, "Length": np.array([5, 0, 3])},
+        {"pooltype": p, "pad_value": 0.5})
+       for p in ("SUM", "AVERAGE", "SQRT", "MAX", "MIN", "LAST", "FIRST")},
+    "sequence_softmax_len": OpCase("sequence_softmax",
+                                   {"X": _seq_rnd((3, 5), 3),
+                                    "Length": SEQ_LENS}),
+    "sequence_reverse_nolen": OpCase("sequence_reverse",
+                                     {"X": _seq_rnd((2, 3, 2), 4)}),
+    "sequence_pad_fixed": OpCase("sequence_pad",
+                                 {"X": _seq_rnd((6, 3), 5),
+                                  "Length": np.array([1, 3, 2])},
+                                 {"padded_length": 4, "pad_value": -1.0}),
+    **{f"segment_pool_{p.lower()}": OpCase(
+        "segment_pool", {"X": _seq_rnd((6, 3), 6),
+                         "SegmentIds": np.array([0, 0, 2, 2, 2, 3])},
+        {"pooltype": p, "num_segments": 4})
+       for p in ("MEAN", "MAX", "MIN")},
+    # num_segments from the ids' values: the reference's jitted static
+    # graph needs it as an attr, so the gradient is held on the cases
+    # above
+    "segment_pool_dynamic": OpCase(
+        "segment_pool", {"X": _seq_rnd((5, 2), 7),
+                         "SegmentIds": np.array([0, 1, 1, 2, 2])},
+        skip_grad=True),
+    # the recurrent net: LAC's bidirectional GRU over two layers with
+    # uneven lengths, a bidirectional LSTM from given states, one tanh
+    # layer
+    "rnn_gru_bi2": OpCase("rnn", {
+        "Input": _seq_rnd((3, 5, 4), 8), "SequenceLength": SEQ_LENS,
+        "WeightList": _rnn_weights("GRU", 4, 3, 2, 2, 9)},
+        {"mode": "GRU", "hidden_size": 3, "num_layers": 2,
+         "is_bidirec": True}),
+    "rnn_lstm_bi": OpCase("rnn", {
+        "Input": _seq_rnd((3, 5, 4), 10), "SequenceLength": SEQ_LENS,
+        "WeightList": _rnn_weights("LSTM", 4, 3, 1, 2, 11),
+        "PreState": [_seq_rnd((2, 3, 3), 12, 0.5),
+                     _seq_rnd((2, 3, 3), 13, 0.5)]},
+        {"mode": "LSTM", "hidden_size": 3, "num_layers": 1,
+         "is_bidirec": True}),
+    "rnn_tanh": OpCase("rnn", {
+        "Input": _seq_rnd((2, 4, 3), 14),
+        "WeightList": _rnn_weights("RNN_TANH", 3, 5, 1, 1, 15)},
+        {"mode": "RNN_TANH", "hidden_size": 5}),
+}
+
+
+# -- the structured-loss parity suite's own cases -----------------------------
+
+LOSS_TAGS = 4
+LOSS_EM = _seq_rnd((3, 5, LOSS_TAGS), 20)
+LOSS_TRANS = _seq_rnd((LOSS_TAGS + 2, LOSS_TAGS), 21, 0.5)
+LOSS_LAB = R(22).randint(0, LOSS_TAGS, (3, 5)).astype(np.int64)
+LOSS_CTC = {"Logits": _seq_rnd((3, 12, 6), 23),
+            "Label": R(24).randint(1, 6, (3, 4)).astype(np.int32),
+            "LogitsLength": np.array([12, 9, 7], np.int64),
+            "LabelLength": np.array([4, 3, 2], np.int64)}
+LOSS_OWN = {
+    "warpctc": OpCase("warpctc", LOSS_CTC),
+    "warpctc_norm_by_times": OpCase("warpctc", LOSS_CTC,
+                                    {"norm_by_times": True}),
+    "warpctc_repeats": OpCase("warpctc", {
+        **LOSS_CTC, "Label": np.array([[2, 2, 3, 3], [1, 1, 1, 0],
+                                       [5, 4, 0, 0]], np.int32),
+        "LabelLength": np.array([4, 3, 0], np.int64)}),
+    "linear_chain_crf": OpCase("linear_chain_crf", {
+        "Emission": LOSS_EM, "Transition": LOSS_TRANS, "Label": LOSS_LAB,
+        "Length": SEQ_LENS}),
+    "linear_chain_crf_full": OpCase("linear_chain_crf", {
+        "Emission": LOSS_EM, "Transition": LOSS_TRANS,
+        "Label": LOSS_LAB[..., None]}),
+    "crf_decoding": OpCase("crf_decoding", {
+        "Emission": LOSS_EM, "Transition": LOSS_TRANS,
+        "Length": SEQ_LENS}),
+    "hierarchical_sigmoid": OpCase("hierarchical_sigmoid", {
+        "X": _seq_rnd((4, 3), 25), "Label": np.array([0, 4, 5, 2]),
+        "W": _seq_rnd((5, 3), 26), "Bias": _seq_rnd((5,), 27)},
+        {"num_classes": 6}),
+    "hierarchical_sigmoid_nobias": OpCase("hierarchical_sigmoid", {
+        "X": _seq_rnd((3, 3), 28), "Label": np.array([0, 1, 2]),
+        "W": _seq_rnd((2, 3), 29)}, {"num_classes": 3}),
+}
+# nce draws its negatives with jax.random in the reference, which the
+# port cannot replay: its cost is held on the reference's own samples
+# (tests/test_torch_structured_loss_ops.py); these are its inputs
+LOSS_NCE = {"Input": _seq_rnd((4, 3), 30),
+            "Label": np.array([[1], [7], [0], [3]], np.int64),
+            "Weight": _seq_rnd((9, 3), 31), "Bias": _seq_rnd((9,), 32)}
+
+
+# -- the misc parity suite's own cases ----------------------------------------
+
+def _misc_rnd(shape, seed, scale=1.0):
+    return (R(seed).randn(*shape) * scale).astype(np.float32)
+
+
+def _misc_pos(shape, seed, lo=0.5, hi=1.5):
+    return R(seed).uniform(lo, hi, shape).astype(np.float32)
+
+
+MISC_IMG = _misc_rnd((2, 4, 5, 6), 1)
+MISC_ED = {"Hyps": R(2).randint(1, 5, (3, 6)).astype(np.int64),
+           "Refs": R(3).randint(1, 5, (3, 7)).astype(np.int64),
+           "HypsLength": np.array([6, 4, 2], np.int64),
+           "RefsLength": np.array([7, 3, 5], np.int64)}
+MISC_IDS = np.array([0, 3, 4, 7, 1], np.int64)
+MISC_OWN = {
+    "conv_shift": OpCase("conv_shift", {"X": _misc_rnd((2, 5), 4),
+                                        "Y": _misc_rnd((2, 3), 5)}),
+    "lrn": OpCase("lrn", {"X": _misc_pos((1, 6, 3, 3), 6)},
+                  {"n": 3, "k": 1.0, "alpha": 0.1, "beta": 0.75}),
+    "data_norm": OpCase("data_norm", {
+        "X": _misc_rnd((4, 3), 7), "BatchSize": _misc_pos((3,), 8, 5, 9),
+        "BatchSum": _misc_rnd((3,), 9), "BatchSquareSum":
+        _misc_pos((3,), 10, 2, 6)}),
+    "pixel_shuffle": OpCase("pixel_shuffle", {"X": _misc_rnd((1, 8, 2, 3),
+                                                             11)},
+                            {"upscale_factor": 2}),
+    "shuffle_channel": OpCase("shuffle_channel", {"X": MISC_IMG},
+                              {"group": 2}),
+    "temporal_shift": OpCase("temporal_shift",
+                             {"X": _misc_rnd((4, 8, 2, 2), 12)},
+                             {"seg_num": 2, "shift_ratio": 0.25}),
+    # sample points kept off the pixel grid (the bilinear weights' kinks)
+    "grid_sampler": OpCase("grid_sampler", {
+        "X": _misc_rnd((2, 3, 4, 5), 13),
+        "Grid": (R(14).uniform(-1.1, 1.1, (2, 3, 4, 2)) * 0.93 + 0.011)
+        .astype(np.float32)}),
+    "grid_sampler_half_pixel": OpCase("grid_sampler", {
+        "X": _misc_rnd((1, 2, 4, 4), 15),
+        "Grid": (R(16).uniform(-0.9, 0.9, (1, 3, 3, 2)) + 0.013)
+        .astype(np.float32)}, {"align_corners": False}),
+    "affine_grid": OpCase("affine_grid", {"Theta": _misc_rnd((2, 2, 3), 17)},
+                          {"output_shape": [2, 1, 3, 4]}),
+    # the shape as a tensor: the reference's jitted static graph cannot
+    # read it, so the gradient is held on the attr case above
+    "affine_grid_tensor_shape": OpCase(
+        "affine_grid", {"Theta": _misc_rnd((1, 2, 3), 18),
+                        "OutputShape": np.array([1, 1, 4, 2], np.int32)},
+        {"align_corners": False}, skip_grad=True),
+    "unfold": OpCase("unfold", {"X": MISC_IMG},
+                     {"kernel_sizes": [2, 3], "strides": [1, 2],
+                      "paddings": [1, 0, 1, 1], "dilations": [1, 1]}),
+    "spp": OpCase("spp", {"X": _misc_rnd((2, 3, 4, 4), 19)},
+                  {"pyramid_height": 2, "pooling_type": "max"}),
+    "spp_avg": OpCase("spp", {"X": _misc_rnd((1, 2, 4, 4), 20)},
+                      {"pyramid_height": 3, "pooling_type": "avg"}),
+    "norm": OpCase("norm", {"X": _misc_rnd((3, 4, 2), 21)}, {"axis": 1}),
+    "edit_distance": OpCase("edit_distance", MISC_ED),
+    "edit_distance_normalized": OpCase("edit_distance", MISC_ED,
+                                       {"normalized": True}),
+    "ctc_align": OpCase("ctc_align", {"Input": np.array(
+        [[1, 1, 0, 2, 2, 0, 3], [0, 0, 1, 2, 0, 0, 0]], np.int32)}),
+    "ctc_align_keep_repeats": OpCase(
+        "ctc_align", {"Input": np.array([[1, 1, 0, 2, 2, 0, 3]], np.int32)},
+        {"merge_repeated": False, "padding_value": -1}),
+    "im2sequence": OpCase("im2sequence", {"X": _misc_rnd((2, 2, 4, 4), 22)},
+                          {"kernels": [2, 2], "strides": [2, 1]}),
+    "row_conv": OpCase("row_conv", {"X": _misc_rnd((2, 5, 3), 23),
+                                    "Filter": _misc_rnd((3, 3), 24)}),
+    "gru_unit": OpCase("gru_unit", {
+        "Input": _misc_rnd((3, 12), 25), "HiddenPrev": _misc_rnd((3, 4), 26),
+        "Weight": _misc_rnd((4, 12), 27, 0.5),
+        "Bias": _misc_rnd((1, 12), 28)}),
+    "gru_unit_origin": OpCase("gru_unit", {
+        "Input": _misc_rnd((3, 12), 25), "HiddenPrev": _misc_rnd((3, 4), 26),
+        "Weight": _misc_rnd((4, 12), 27, 0.5)}, {"origin_mode": True}),
+    "lstm_unit": OpCase("lstm_unit", {"X": _misc_rnd((3, 16), 29),
+                                      "C_prev": _misc_rnd((3, 4), 30)},
+                        {"forget_bias": 1.0}),
+    "add_position_encoding": OpCase("add_position_encoding",
+                                     {"X": _misc_rnd((2, 4, 5), 31)},
+                                     {"alpha": 0.5, "beta": 2.0}),
+    "margin_rank_loss": OpCase("margin_rank_loss", {
+        "X1": _misc_rnd((5, 1), 32), "X2": _misc_rnd((5, 1), 33),
+        "Label": np.array([[1], [-1], [1], [1], [-1]], np.float32)},
+        {"margin": 0.1}),
+    "rank_loss": OpCase("rank_loss", {
+        "Left": _misc_rnd((4, 1), 34), "Right": _misc_rnd((4, 1), 35),
+        "Label": np.array([[1], [0], [1], [0]], np.float32)}),
+    "teacher_student_sigmoid_loss": OpCase(
+        "teacher_student_sigmoid_loss", {
+            "X": _misc_rnd((4, 1), 36),
+            "Label": np.array([[1], [0], [-0.3], [-0.8]], np.float32)}),
+    "proximal_gd": OpCase("proximal_gd", {
+        "Param": _misc_rnd((3, 4), 37), "Grad": _misc_rnd((3, 4), 38),
+        "LearningRate": np.array([0.1], np.float32)},
+        {"l1": 0.5, "l2": 0.1}),
+    "proximal_adagrad": OpCase("proximal_adagrad", {
+        "Param": _misc_rnd((3, 4), 39), "Grad": _misc_rnd((3, 4), 40),
+        "Moment": _misc_pos((3, 4), 41),
+        "LearningRate": np.array([0.1], np.float32)},
+        {"l1": 0.2, "l2": 0.1}),
+    "dgc_clip_by_norm": OpCase("dgc_clip_by_norm", {
+        "X": _misc_rnd((3, 4), 42), "current_step": np.array([5.0],
+                                                             np.float32)},
+        {"max_norm": 1.0, "rampup_begin_step": 2.0}),
+    "dgc_clip_by_norm_rampup": OpCase("dgc_clip_by_norm", {
+        "X": _misc_rnd((3, 4), 42), "current_step": np.array([1.0],
+                                                             np.float32)},
+        {"max_norm": 1.0, "rampup_begin_step": 2.0}),
+    "precision_recall": OpCase("precision_recall", {
+        "Indices": np.array([0, 1, 2, 2, 1, 0, 3]),
+        "Labels": np.array([0, 2, 2, 1, 1, 0, 3])}, {"class_number": 4}),
+    "positive_negative_pair": OpCase("positive_negative_pair", {
+        "Score": np.array([0.9, 0.2, 0.5, 0.5, 0.1, 0.7], np.float32),
+        "Label": np.array([2, 0, 1, 0, 1, 2], np.float32),
+        "QueryID": np.array([0, 0, 0, 1, 1, 1])}),
+    "anchor_generator": OpCase("anchor_generator", {
+        "Input": np.zeros((1, 8, 2, 3), np.float32)},
+        {"anchor_sizes": [32.0, 64.0], "aspect_ratios": [0.5, 1.0, 2.0],
+         "stride": [16.0, 16.0]}),
+    "histogram": OpCase("histogram", {"X": _misc_rnd((40,), 43)},
+                        {"bins": 7, "min": -1, "max": 2}),
+    "histogram_data_range": OpCase("histogram", {"X": _misc_rnd((30,), 44)},
+                                   {"bins": 5}),
+    "masked_select": OpCase("masked_select", {
+        "X": _misc_rnd((3, 4), 45), "Mask": R(46).rand(3, 4) < 0.5}),
+    "split_ids": OpCase("split_ids", {"Ids": MISC_IDS}, {"num_shards": 2}),
+    "merge_ids": OpCase("merge_ids", {
+        "Ids": MISC_IDS, "X": [np.array([0, 4]), np.array([3, 7, 1])],
+        "Rows": [_misc_rnd((2, 2), 47), _misc_rnd((3, 2), 48)]}),
+}
+
+
+# -- the tail parity suite's own cases ----------------------------------------
+
+def _tail_rnd(*shape, seed=0, scale=1.0):
+    return (R(seed).randn(*shape) * scale).astype(np.float32)
+
+
+def _tail_pos(*shape, seed=0, lo=0.5, hi=1.5):
+    return R(seed).uniform(lo, hi, shape).astype(np.float32)
+
+
+TAIL_SPD = (lambda a: (a @ a.T + 4 * np.eye(4)).astype(np.float32))(
+    _tail_rnd(4, 4, seed=1))
+TAIL_IMG = _tail_rnd(2, 3, 4, 5, seed=2)
+TAIL_IDS = np.array([[[2, 2], [6, 1]], [[3, 9], [5, 1]], [[0, 1], [9, 0]]],
+                    np.int64)
+TAIL_PARENTS = np.array([[[0, 0], [1, 1]], [[1, 0], [0, 0]],
+                         [[0, 0], [0, 1]]], np.int64)
+# offsets off the integer grid: bilinear sampling has kinks there
+TAIL_DCN = {"Input": _tail_rnd(1, 2, 5, 5, seed=3),
+            "Offset": (R(4).uniform(-0.9, 0.9, (1, 18, 3, 3)) + 0.013)
+            .astype(np.float32),
+            "Mask": _tail_pos(1, 9, 3, 3, seed=5, lo=0.2, hi=1.0),
+            "Filter": _tail_rnd(4, 2, 3, 3, seed=6, scale=0.5)}
+TAIL_ROIS = np.array([[0.5, 0.5, 3.2, 2.7], [1.0, 0.0, 4.0, 3.5]],
+                     np.float32)
+TAIL_PROPOSALS = {
+    "Scores": _tail_pos(1, 2, 3, 3, seed=7, lo=0.0, hi=1.0),
+    "BboxDeltas": _tail_rnd(1, 8, 3, 3, seed=8, scale=0.3),
+    "ImShape": np.array([[40.0, 48.0]], np.float32),
+    "Anchors": np.concatenate([
+        np.stack(np.meshgrid(np.arange(3) * 16.0, np.arange(3) * 16.0),
+                 -1).reshape(9, 1, 2).repeat(2, 1).reshape(18, 2),
+        np.stack(np.meshgrid(np.arange(3) * 16.0, np.arange(3) * 16.0),
+                 -1).reshape(9, 1, 2).repeat(2, 1).reshape(18, 2)
+        + np.tile([[15.0, 15.0], [23.0, 11.0]], (9, 1))],
+        -1).astype(np.float32).reshape(3, 3, 2, 4),
+    "Variances": np.ones((3, 3, 2, 4), np.float32)}
+TAIL_INTERP = _tail_rnd(1, 2, 4, 5, seed=9)
+TAIL_OWN = {
+    **{op: OpCase(op, {"X": _tail_rnd(3, 4, seed=10)}) for op in (
+        "expm1", "rad2deg", "deg2rad", "angle")},
+    "lgamma": OpCase("lgamma", {"X": _tail_pos(3, 4, seed=11, lo=0.5,
+                                               hi=4.0)}),
+    "digamma": OpCase("digamma", {"X": _tail_pos(3, 4, seed=12, lo=0.5,
+                                                 hi=4.0)}),
+    "atan2": OpCase("atan2", {"X1": _tail_rnd(3, 4, seed=13),
+                              "X2": _tail_rnd(3, 4, seed=14) + 2.0}),
+    "nan_to_num": OpCase("nan_to_num", {"X": np.array(
+        [[1.0, np.nan, np.inf, -np.inf]], np.float32)},
+        {"nan": 0.5, "posinf": 9.0, "neginf": -9.0}),
+    "logsumexp": OpCase("logsumexp", {"X": _tail_rnd(4, 6, seed=15)},
+                        {"axis": [1], "keepdim": True}),
+    "logsumexp_all": OpCase("logsumexp", {"X": _tail_rnd(2, 3, seed=16)},
+                            {"reduce_all": True}),
+    "logcumsumexp": OpCase("logcumsumexp", {"X": _tail_rnd(3, 5, seed=17)},
+                           {"axis": 1}),
+    "logcumsumexp_reverse": OpCase("logcumsumexp",
+                                   {"X": _tail_rnd(3, 5, seed=18)},
+                                   {"axis": 0, "reverse": True}),
+    "cummax": OpCase("cummax", {"X": _tail_rnd(3, 6, seed=19)}, {"axis": 1}),
+    "cummin": OpCase("cummin", {"X": _tail_rnd(4, 3, seed=20)}, {"axis": 0}),
+    "cummax_ties": OpCase("cummax", {"X": np.array(
+        [[1.0, 3.0, 3.0, 2.0, 3.0]], np.float32)}, {"axis": 1},
+        skip_grad=True),
+    "dist": OpCase("dist", {"X": _tail_rnd(3, 4, seed=21),
+                            "Y": _tail_rnd(3, 4, seed=22)}, {"p": 3.0}),
+    "dist_inf": OpCase("dist", {"X": _tail_rnd(3, 4, seed=21),
+                                "Y": _tail_rnd(3, 4, seed=22)},
+                       {"p": float("inf")}),
+    "cosine_similarity": OpCase("cosine_similarity",
+                                {"X": _tail_rnd(3, 5, seed=23),
+                                 "Y": _tail_rnd(3, 5, seed=24)}),
+    "pairwise_distance": OpCase("pairwise_distance",
+                                {"X": _tail_rnd(3, 5, seed=25),
+                                 "Y": _tail_rnd(3, 5, seed=26)},
+                                {"keepdim": True}),
+    "inverse": OpCase("inverse", {"Input": TAIL_SPD}),
+    "trace": OpCase("trace", {"X": _tail_rnd(4, 5, seed=27)},
+                    {"offset": 1}),
+    "cross": OpCase("cross", {"X": _tail_rnd(4, 3, seed=28),
+                              "Y": _tail_rnd(4, 3, seed=29)}),
+    "multi_dot": OpCase("multi_dot", {"X": [
+        _tail_rnd(2, 3, seed=30), _tail_rnd(3, 4, seed=31),
+        _tail_rnd(4, 2, seed=32)]}),
+    # not unique (signs, pivots): the tail suite holds these cases on
+    # what is unique
+    "qr": OpCase("qr", {"X": _tail_rnd(5, 3, seed=33)}),
+    "svd": OpCase("svd", {"X": _tail_rnd(4, 3, seed=34)}),
+    "eigh": OpCase("eigh", {"X": _tail_rnd(4, 4, seed=35)}),
+    "eigh_upper": OpCase("eigh", {"X": _tail_rnd(4, 4, seed=36)},
+                         {"UPLO": "U"}),
+    "lu": OpCase("lu", {"X": _tail_rnd(4, 4, seed=37)}),
+    "matrix_rank": OpCase("matrix_rank", {"X": (
+        _tail_rnd(5, 2, seed=38) @ _tail_rnd(2, 4, seed=39))}),
+    "matrix_rank_tol": OpCase("matrix_rank", {"X": np.diag(
+        [3.0, 1.0, 0.05]).astype(np.float32)},
+        {"use_default_tol": False, "tol": 0.1}),
+    "take_along_axis": OpCase("take_along_axis", {
+        "Input": _tail_rnd(3, 5, seed=40),
+        "Index": np.array([[0, 2], [1, 1], [4, 0]], np.int64)},
+        {"Axis": 1}),
+    "put_along_axis": OpCase("put_along_axis", {
+        "Input": _tail_rnd(3, 5, seed=41),
+        "Index": np.array([[0, 2], [1, 3], [4, 0]], np.int64),
+        "Value": _tail_rnd(3, 2, seed=42)}, {"Axis": 1}),
+    "put_along_axis_add": OpCase("put_along_axis", {
+        "Input": _tail_rnd(3, 5, seed=41),
+        "Index": np.array([[0, 0], [1, 3], [4, 4]], np.int64),
+        "Value": _tail_rnd(3, 2, seed=43)}, {"Axis": 1, "Reduce": "add"}),
+    # the reference's scatter-multiply has no gradient (jax implements it
+    # only for indices it is told are unique): outputs alone
+    "put_along_axis_mul": OpCase("put_along_axis", {
+        "Input": _tail_rnd(4, 3, seed=44),
+        "Index": np.array([[0, 2, 1]], np.int64),
+        "Value": _tail_rnd(1, 3, seed=45)}, {"Axis": 0,
+                                            "Reduce": "multiply"},
+        skip_grad=True),
+    "broadcast_to": OpCase("broadcast_to", {"X": _tail_rnd(1, 4, seed=46)},
+                           {"shape": [3, 4]}),
+    "searchsorted": OpCase("searchsorted", {
+        "SortedSequence": np.sort(_tail_rnd(8, seed=47)),
+        "Values": _tail_rnd(5, seed=48)}, {"right": True}),
+    "bucketize": OpCase("bucketize", {
+        "SortedSequence": np.array([0.0, 1.0, 2.0], np.float32),
+        "InputTensor": np.array([[-1.0, 0.5, 1.0], [2.0, 3.0, 1.5]],
+                                np.float32)}, {"out_int32": True}),
+    "bincount": OpCase("bincount", {"X": np.array([0, 1, 1, 3, 7])},
+                       {"minlength": 5}),
+    "bincount_weights": OpCase("bincount", {
+        "X": np.array([0, 1, 1, 3]), "Weights": _tail_rnd(4, seed=49)}),
+    "unique_consecutive": OpCase("unique_consecutive", {
+        "X": np.array([1, 1, 2, 2, 2, 3, 1, 1], np.int64)}),
+    "prelu": OpCase("prelu", {"X": _tail_rnd(2, 3, 2, 2, seed=50),
+                              "Alpha": np.array([0.25], np.float32)}),
+    "prelu_channel": OpCase("prelu", {
+        "X": _tail_rnd(2, 3, 2, 2, seed=51),
+        "Alpha": _tail_pos(3, seed=52, lo=0.1, hi=0.4)},
+        {"mode": "channel"}),
+    "prelu_element": OpCase("prelu", {
+        "X": _tail_rnd(2, 3, 2, seed=53),
+        "Alpha": _tail_pos(3, 2, seed=54, lo=0.1, hi=0.4)},
+        {"mode": "element"}),
+    "maxout": OpCase("maxout", {"X": _tail_rnd(2, 6, 2, 2, seed=55)},
+                     {"groups": 2}),
+    "pad3d": OpCase("pad3d", {"X": _tail_rnd(1, 2, 3, 4, 5, seed=56)},
+                    {"paddings": [1, 1, 0, 2, 1, 0], "value": 0.5}),
+    "pad3d_reflect": OpCase("pad3d", {"X": _tail_rnd(1, 2, 3, 4, 5,
+                                                     seed=57)},
+                            {"paddings": [1, 2, 1, 0, 2, 1],
+                             "mode": "reflect"}),
+    "pad3d_replicate_ndhwc": OpCase(
+        "pad3d", {"X": _tail_rnd(1, 3, 4, 2, 2, seed=58)},
+        {"paddings": [1, 0, 2, 1, 0, 1], "mode": "replicate",
+         "data_format": "NDHWC"}),
+    "pad3d_circular": OpCase("pad3d", {"X": _tail_rnd(1, 1, 3, 3, 4,
+                                                      seed=59)},
+                             {"paddings": [1, 1, 1, 1, 1, 1],
+                              "mode": "circular"}),
+    "gather_tree": OpCase("gather_tree", {"Ids": TAIL_IDS,
+                                          "Parents": TAIL_PARENTS}),
+    "fold": OpCase("fold", {"X": _tail_rnd(1, 18, 9, seed=60)},
+                   {"output_sizes": [4, 4], "kernel_sizes": [3, 3],
+                    "strides": [1, 1], "paddings": [1, 0, 0, 1]}),
+    "affine_channel": OpCase("affine_channel", {
+        "X": _tail_rnd(2, 3, 2, 2, seed=61), "Scale": _tail_rnd(3, seed=62),
+        "Bias": _tail_rnd(3, seed=63)}),
+    "space_to_depth": OpCase("space_to_depth",
+                             {"X": _tail_rnd(2, 3, 4, 6, seed=64)},
+                             {"blocksize": 2}),
+    "spectral_norm": OpCase("spectral_norm", {
+        "Weight": _tail_rnd(4, 3, 2, seed=65), "U": _tail_rnd(3, seed=66),
+        "V": _tail_rnd(8, seed=67)}, {"dim": 1, "power_iters": 2}),
+    "deformable_conv": OpCase("deformable_conv", TAIL_DCN,
+                              {"paddings": [1, 1], "strides": [2, 2]}),
+    "deformable_conv_nomask": OpCase(
+        "deformable_conv", {k: v for k, v in TAIL_DCN.items()
+                            if k != "Mask"},
+        {"paddings": [1, 1], "strides": [2, 2]}),
+    **{f"{m}_interp{v}": OpCase(f"{m}_interp{v}", {"X": TAIL_INTERP}, {
+        "out_h": 7, "out_w": 3, "align_corners": ac, "align_mode": am})
+       for m, v, ac, am in (("nearest", "", True, 1),
+                            ("nearest", "_v2", False, 1),
+                            ("bilinear", "", True, 1),
+                            ("bilinear", "_v2", False, 0),
+                            ("bicubic", "", True, 1),
+                            ("bicubic", "_v2", False, 1))},
+    "bilinear_interp_v2_asym": OpCase("bilinear_interp_v2",
+                                      {"X": TAIL_INTERP},
+                                      {"out_h": 6, "out_w": 9,
+                                       "align_corners": False}),
+    "nearest_interp_v2_scale": OpCase("nearest_interp_v2",
+                                      {"X": TAIL_INTERP},
+                                      {"scale": [2.0], "align_corners":
+                                       False}),
+    **{f"trilinear_interp{v}": OpCase(
+        f"trilinear_interp{v}", {"X": _tail_rnd(1, 2, 3, 4, 3, seed=68)},
+        {"out_d": 4, "out_h": 3, "out_w": 5, "align_corners": ac})
+       for v, ac in (("", True), ("_v2", False))},
+    "bilinear_interp_v2_outsize": OpCase(
+        "bilinear_interp_v2", {"X": TAIL_INTERP,
+                               "OutSize": np.array([5, 8], np.int32)},
+        {"align_corners": False}, skip_grad=True),
+    "sequence_conv": OpCase("sequence_conv", {
+        "X": _tail_rnd(2, 5, 3, seed=69), "Filter": _tail_rnd(9, 4, seed=70),
+        "SeqLen": np.array([5, 3])}, {"contextLength": 3,
+                                      "contextStart": -1}),
+    "sequence_slice": OpCase("sequence_slice", {
+        "X": _tail_rnd(3, 5, 2, seed=71), "Offset": np.array([0, 2, 1]),
+        "Length": np.array([3, 2, 4])}),
+    "sequence_erase": OpCase("sequence_erase", {"X": np.array(
+        [[1, 2, 3, 2, 5], [2, 2, 4, 0, 1]], np.int64)}, {"tokens": [2, 5]}),
+    "sequence_enumerate": OpCase("sequence_enumerate", {"X": np.array(
+        [[1, 2, 3, 4], [5, 6, 7, 8]], np.int64)},
+        {"win_size": 3, "pad_value": -1}),
+    "sequence_scatter": OpCase("sequence_scatter", {
+        "X": _tail_rnd(2, 5, seed=72),
+        "Ids": np.array([[0, 3], [4, 4]]),
+        "Updates": _tail_rnd(2, 2, seed=73)}),
+    "box_clip": OpCase("box_clip", {
+        "Input": np.array([[[-2.0, 3.0, 50.0, 20.0], [5.0, -1.0, 9.0,
+                                                       40.0]]],
+                          np.float32),
+        "ImInfo": np.array([[30.0, 45.0, 1.0]], np.float32)}),
+    "polygon_box_transform": OpCase("polygon_box_transform", {
+        "Input": _tail_rnd(1, 8, 2, 3, seed=74)}),
+    "roi_pool": OpCase("roi_pool", {"X": _tail_rnd(1, 2, 5, 6, seed=75),
+                                    "ROIs": TAIL_ROIS},
+                       {"pooled_height": 2, "pooled_width": 3}),
+    "psroi_pool": OpCase("psroi_pool", {"X": _tail_rnd(1, 8, 5, 6, seed=76),
+                                        "ROIs": TAIL_ROIS},
+                         {"output_channels": 2, "pooled_height": 2,
+                          "pooled_width": 2}),
+    "generate_proposals_v2": OpCase("generate_proposals_v2",
+                                    TAIL_PROPOSALS,
+                                    {"pre_nms_topN": 12,
+                                     "post_nms_topN": 6, "nms_thresh": 0.5,
+                                     "min_size": 2.0}),
+    "generate_proposals": OpCase("generate_proposals", {
+        **{k: v for k, v in TAIL_PROPOSALS.items() if k != "ImShape"},
+        "ImInfo": np.array([[40.0, 48.0, 1.0]], np.float32)},
+        {"pre_nms_topN": 10, "post_nms_topN": 8, "nms_thresh": 0.3,
+         "pixel_offset": False}),
+    "density_prior_box": OpCase("density_prior_box", {
+        "Input": np.zeros((1, 4, 2, 3), np.float32),
+        "Image": np.zeros((1, 3, 16, 24), np.float32)},
+        {"densities": [2, 1], "fixed_sizes": [4.0, 8.0],
+         "fixed_ratios": [1.0, 2.0], "clip": True}),
+    "fill_constant_batch_size_like": OpCase(
+        "fill_constant_batch_size_like",
+        {"Input": np.zeros((3, 2), np.float32)},
+        {"shape": [-1, 4], "value": 2.5}),
+    "frame": OpCase("frame", {"X": _tail_rnd(2, 10, seed=77)},
+                    {"frame_length": 4, "hop_length": 3}),
+    "overlap_add": OpCase("overlap_add", {"X": _tail_rnd(2, 4, 3, seed=78)},
+                          {"hop_length": 2}),
+    "complex": OpCase("complex", {"X": _tail_rnd(2, 3, seed=79),
+                                  "Y": _tail_rnd(2, 3, seed=80)}),
+    "as_complex": OpCase("as_complex", {"X": _tail_rnd(3, 2, seed=81)}),
+    "as_real": OpCase("as_real", {"X": (
+        _tail_rnd(2, 3, seed=82) + 1j * _tail_rnd(2, 3, seed=83)).astype(
+        np.complex64)}),
+    "renorm": OpCase("renorm", {"X": _tail_rnd(4, 5, seed=84)},
+                     {"p": 2.0, "axis": 0, "max_norm": 1.5}),
+}
+
+
+# -- what is unique of the decompositions' outputs ------------------------------
+#
+# QR's Q and R are unique up to the sign of each column of Q (and row of
+# R); an SVD's singular values are unique and its vectors up to sign;
+# eigh's eigenvalues are unique and its eigenvectors up to sign; LU with
+# partial pivoting can pick another of equal candidates. So the parity
+# tests and the card sweep compare these parts, each a numpy array.
+
+def lu_product(lu, piv):
+    """P L U of a packed LU factor and its 0-based row swaps: the input
+    matrix, whatever pivots were picked."""
+    n = lu.shape[0]
+    low = np.tril(lu, -1) + np.eye(n, dtype=lu.dtype)
+    perm = np.arange(n)
+    for i, p in enumerate(piv):
+        perm[[i, p]] = perm[[p, i]]
+    a = np.empty_like(lu)
+    a[perm] = low @ np.triu(lu)
+    return a
+
+
+def _qr_unique(o):
+    q, r = o["Q"][0], o["R"][0]
+    return {"QR": q @ r, "|Q|": np.abs(q), "|R|": np.abs(r)}
+
+
+def _svd_unique(o):
+    u, s, vh = o["U"][0], o["S"][0], o["VH"][0]
+    return {"S": s, "|U|": np.abs(u), "|VH|": np.abs(vh), "USVH": u * s @ vh}
+
+
+def _eigh_unique(o):
+    w, v = o["Eigenvalues"][0], o["Eigenvectors"][0]
+    return {"Eigenvalues": w, "|V|": np.abs(v), "VWVT": v * w @ v.T}
+
+
+def _lu_unique(o):
+    lu = o["Out"][0]
+    return {"PLU": lu_product(lu, o["Pivots"][0]),
+            "|det|": np.abs(np.prod(np.diag(lu)))}
+
+
+# op type -> outputs ({slot: [numpy array]}) -> {part name: numpy array}
+UNIQUE_PARTS = {"qr": _qr_unique, "svd": _svd_unique, "eigh": _eigh_unique,
+                "lu": _lu_unique}

@@ -157,7 +157,8 @@ def _grads(pkg, case, probe, grad_targets):
                             outputs=out_names, attrs=dict(case.attrs))
             parts = []
             for slot, i in _float_outs(pkg, case.op, probe):
-                r = rng.randn(*np.shape(probe[slot][i])).astype(np.float32)
+                r = np.asarray(rng.randn(*np.shape(probe[slot][i])),
+                               np.float32)
                 rn = f"r_{slot}_{i}"
                 block.create_var(name=rn, shape=r.shape, dtype="float32")
                 feed[rn] = r
